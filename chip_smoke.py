@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive horovod_tpu_torch's serving path on one NVIDIA GPU and check it.
+"""Drive horovod_tpu_torch's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -14,7 +15,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and 128, causal, S from 8 to 2048; paged-attention decode (K4) over
    f32, bf16 and int8 pools with an edge table (partial last page, a
    slot at table capacity, a ``limit = 0`` slot, a page shared by two
-   slots).
+   slots); flash-attention backward (K2 dk/dv, K3 dq) through the
+   autograd Function with a nonzero lse cotangent, bf16 and f32, head_dim
+   64 and 128, S 8, 100 and 2048, causal, full and shifted masks, MHA
+   and GQA (G = 4), against the plain backward on the same forward.
 4. Serving at full width: ``InferenceEngine`` + ``ServingServer`` on
    the d1024/L8/H16/kv4 bf16 Transformer from ``init_params`` seed 0;
    8 concurrent ``POST /generate`` requests whose prompts cover the
@@ -24,7 +28,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and cuDNN) against the per-request ``greedy_decode`` oracle.  A
    mismatch is exempt only at or after a position where the oracle's
    top-2 logit margin is below ``NEAR_TIE``; every exemption is printed.
-6. Times: each kernel at the serving shape (CUDA events, median of
+6. Model gradients: a 2-layer d1024 model's f32 loss and parameter
+   gradients through the kernels against the plain attention path (TF32
+   off).
+7. Training at full width: a size-1 NCCL process group, then 10
+   data-parallel steps (``spmd.make_train_step`` +
+   ``DistributedOptimizer(AdamW)``) of the d1024/L8/H16 MHA model with
+   f32 master parameters and bf16 compute on one fixed batch of 8 x 2048
+   tokens.  Every loss must be finite, the last below the first, and
+   K1, K2 and K3 must each launch once a layer a step; step time,
+   tokens/s, MFU and peak memory are printed, and one more step is
+   profiled.
+8. Times: each kernel at its path's shape (CUDA events, median of
    repeats) beside its bound, its plain version and a PyTorch yardstick
    the port never calls; the serving run's decode tok/s, TTFT and
    per-tick time.
@@ -58,6 +73,10 @@ NEAR_TIE = 1e-3  # f32 top-2 logit margin under which the pick is a tie
 
 FULL = dict(vocab_size=32000, d_model=1024, n_layers=8, n_heads=16,
             n_kv_heads=4, d_ff=4096, max_seq=2176, attention_impl="flash")
+# benchmarks/transformer.py's defaults: MHA, seq 2048, batch 8 a card.
+TRAIN = dict(vocab_size=32000, d_model=1024, n_layers=8, n_heads=16,
+             n_kv_heads=0, d_ff=4096, max_seq=2048, attention_impl="flash")
+TRAIN_BATCH, TRAIN_STEPS = 8, 10
 ENGINE = dict(n_slots=8, max_len=2176, max_prefills_per_tick=2,
               page_size=16, max_queue_depth=64, default_max_new_tokens=128)
 PROMPT_LENS = [5, 16, 40, 100, 300, 700, 1500, 2048]
@@ -138,7 +157,7 @@ def check_flash() -> dict:
     for i, (dt, D, S, causal) in enumerate(cases):
         B, H, Hkv = 2, 16, 4
         q, k, v = _k1_inputs(B, H, Hkv, S, D, dt, seed=i)
-        o, lse = A.flash_attention_lse(q, k, v, causal)
+        o, lse = A.flash_attention_with_lse(q, k, v, causal)
         o_r, l_r = A._reference_attention_lse(
             q, A.expand_kv(k, H), A.expand_kv(v, H), 0 if causal else None,
             1.0 / math.sqrt(D))
@@ -153,6 +172,68 @@ def check_flash() -> dict:
         if dt == torch.bfloat16 and D == 64 and S == 2048 and causal:
             worst["serving"] = err
         worst[name] = err
+    return worst
+
+
+def _rel_err(got, want) -> float:
+    """Max abs error over max(1, max |want|)."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1.0)).item()
+
+
+def check_flash_bwd() -> dict:
+    """K2 and K3 through the autograd Function against the plain backward
+    on the same forward results.  Tolerance, relative to the largest
+    gradient (floored at 1): f32 1e-4 (summation order); bf16 2e-2 (p,
+    ds and the outputs round to bf16, whose step is 2^-8 of a value; the
+    kernel and the plain version sum in other orders, so a few entries
+    round one step apart).  The shifted mask (shift = S // 3) leaves the
+    first rows fully masked (lse = NEG_INF)."""
+    from horovod_tpu_torch.ops import attention as A
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol = {f32: 1e-4, bf16: 2e-2}
+    masks = ("causal", "full", "shift")
+    cases = [(dt, D, S, m, G) for dt in (bf16, f32) for D in (64, 128)
+             for S in (8, 100) for m in masks for G in (1, 4)]
+    cases += [(dt, D, 2048, m, 4) for dt in (bf16, f32) for D in (64, 128)
+              for m in masks]
+    # The training run's attention (MHA), at B = 2: its errors go in the
+    # kernels line.
+    cases.append((bf16, 64, 2048, "causal", 1))
+    worst, failed = {}, []
+    for i, (dt, D, S, mask, G) in enumerate(cases):
+        B, H = 2, 16
+        shift = {"causal": 0, "full": None, "shift": S // 3}[mask]
+        q, k, v = _k1_inputs(B, H, H // G, S, D, dt, seed=200 + i)
+        g = torch.Generator(device="cuda").manual_seed(400 + i)
+        do = torch.randn((B, H, S, D), generator=g, device="cuda").to(dt)
+        dlse = torch.randn((B, H, S), generator=g, device="cuda")
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        scale = 1.0 / math.sqrt(D)
+        o, lse = A._FlashAttention.apply(q, k, v, shift, scale)
+        dq, dk, dv = torch.autograd.grad((o, lse), (q, k, v), (do, dlse))
+        delta = (do.float() * o.float()).sum(-1) - dlse
+        rq, rk, rv = A._flash_bwd_reference(
+            q.detach(), k.detach(), v.detach(), do, lse.detach(), delta,
+            shift, scale)
+        torch.cuda.synchronize()
+        err = max(_rel_err(a, b) for a, b in ((dq, rq), (dk, rk), (dv, rv)))
+        name = f"K2/K3 {str(dt)[6:]} D={D} S={S} {mask} G={G}"
+        log(f"{name}: rel_err={err:.3e} tol={tol[dt]:.0e}")
+        if not err <= tol[dt]:
+            failed.append(name)
+        worst[name] = err
+        if S == 2048 and G == 1:
+            worst["training"] = {
+                "dkdv": max((dk.float() - rk.float()).abs().max().item(),
+                            (dv.float() - rv.float()).abs().max().item()),
+                "dq": (dq.float() - rq.float()).abs().max().item()}
+        del q, k, v, o, lse, do, dq, dk, dv, rq, rk, rv
+    if failed:
+        raise AssertionError(f"K2/K3 disagree with the plain backward: "
+                             f"{failed}")
     return worst
 
 
@@ -227,6 +308,20 @@ def _post(url, payload, timeout=600):
         return r.status, json.loads(r.read())
 
 
+def _device_events(prof):
+    """The profile's kernels and copies on the card.  Left out, because
+    they repeat a kernel's time: CPU-side events (an operation that
+    launches a kernel itself, such as an autograd Function's ctypes
+    launch, carries that kernel's time as its own) and annotated ranges
+    on the device timeline (the optimizer's step)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.self_device_time_total > 0]
+
+
 def profile_decode(engine, n_ticks: int = 8) -> dict:
     """Where a steady decode tick's time goes: every slot busy at depth
     ``PROFILE_DEPTH``; ``n_ticks`` synchronous ticks timed by the host
@@ -258,11 +353,9 @@ def profile_decode(engine, n_ticks: int = 8) -> dict:
     while not all(f.done() for f in futs):
         engine.step()
     kernels, launches = {}, 0
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0.0)
-        if t > 0 and not e.key.startswith("aten::"):  # device kernels only
-            kernels[e.key] = t / 1e3 / n_ticks          # ms per tick
-            launches += e.count
+    for e in _device_events(prof):
+        kernels[e.key] = e.self_device_time_total / 1e3 / n_ticks  # ms a tick
+        launches += e.count
     busy = sum(kernels.values())
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
@@ -399,19 +492,174 @@ def token_identity() -> dict:
     return {"requests": len(prompts), "exemptions": exempt}
 
 
-# --- phase 6: times ----------------------------------------------------------
+# --- phases 6 and 7: training --------------------------------------------------
 
 
-def time_flash(err: float, launches: int) -> dict:
+def model_grads_f32() -> dict:
+    """f32 loss and every parameter gradient of a 2-layer model, attention
+    by K1-K3 against the plain softmax attention, TF32 off.  Tolerance:
+    1e-4 of each parameter's largest gradient (f32 summation order)."""
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.optim import named_parameters
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = dict(FULL, n_layers=2, max_seq=512)
+    grads = {}
+    for impl in ("flash", "reference"):
+        cfg = T.TransformerConfig(**dict(small, attention_impl=impl),
+                                  dtype=torch.float32)
+        params = T.init_params(cfg, seed=1, param_dtype=torch.float32)
+        named = named_parameters(params)
+        for _, t in named:
+            t.requires_grad_()
+        batch = T.synthetic_batch(1, cfg, 2, 512)
+        loss = T.loss_fn(params, batch, cfg)
+        loss.backward()
+        grads[impl] = (loss.item(), {n: t.grad for n, t in named})
+    (lf, gf), (lr, gr) = grads["flash"], grads["reference"]
+    errs = {n: ((gf[n] - gr[n]).abs().max() / gr[n].abs().max()).item()
+            for n in gr}
+    worst = max(errs, key=errs.get)
+    log(f"model f32 (L=2, d1024, H16, kv4, seq 512, batch 2): loss flash "
+        f"{lf:.7f} plain {lr:.7f}; worst gradient {worst} rel_err "
+        f"{errs[worst]:.3e} tol 1e-04")
+    if not (abs(lf - lr) <= 1e-5 * abs(lr) and errs[worst] <= 1e-4):
+        raise AssertionError("the kernels' model gradients disagree with "
+                             "the plain attention path")
+    del grads, gf, gr
+    torch.cuda.empty_cache()
+    return {"loss_flash": lf, "loss_plain": lr, "grad_rel_err": errs}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def profile_train_step(step, params, batch) -> dict:
+    """One more step under ``torch.profiler``: device time by kernel,
+    against that step's own wall time (the profiler slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step(params, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    kernels = {e.key: e.self_device_time_total / 1e3
+               for e in _device_events(prof)}
+    busy = sum(kernels.values())
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time")
+
+    def ms(tag):
+        return sum(t for k, t in kernels.items() if tag in k)
+
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "idle_share": 1 - busy / wall_ms,
+           "flash_fwd_ms": ms("flash_fwd_kernel"),
+           "flash_bwd_dkdv_ms": ms("flash_bwd_dkdv_kernel"),
+           "flash_bwd_dq_ms": ms("flash_bwd_dq_kernel"),
+           "top_kernels_ms": {k[:70]: t for k, t in sorted(
+               kernels.items(), key=lambda kv: -kv[1])[:10]}}
+    k13 = out["flash_fwd_ms"] + out["flash_bwd_dkdv_ms"] + \
+        out["flash_bwd_dq_ms"]
+    out["flash_share_of_busy"] = k13 / busy
+    log(f"train step profile: device busy {busy:.1f} ms of {wall_ms:.1f} "
+        f"ms (idle share {out['idle_share']:.3f}); K1 "
+        f"{out['flash_fwd_ms']:.1f}, K2 {out['flash_bwd_dkdv_ms']:.1f}, K3 "
+        f"{out['flash_bwd_dq_ms']:.1f} ms ({out['flash_share_of_busy']:.1%}"
+        " of busy)")
+    return out
+
+
+def train_full_width() -> dict:
+    """The main training path, through the entry points a user calls."""
+    from horovod_tpu_torch import basics, optim, spmd
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.ops import attention as A
+
+    basics.init(init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        cfg = T.TransformerConfig(**TRAIN, dtype=torch.bfloat16)
+        params = T.init_params(cfg, seed=0, param_dtype=torch.float32)
+        named = optim.named_parameters(params)
+        for _, t in named:
+            t.requires_grad_()
+        n_params = sum(t.numel() for _, t in named)
+        n_matmul = n_params - params["embed"].numel()
+        opt = optim.DistributedOptimizer(
+            torch.optim.AdamW([t for _, t in named], lr=3e-4,
+                              betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=1e-4),
+            named_parameters=named)
+        step = spmd.make_train_step(lambda p, b: T.loss_fn(p, b, cfg), opt)
+        B, S = TRAIN_BATCH, TRAIN["max_seq"]
+        batch = T.synthetic_batch(0, cfg, B, S)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # The main path's run: the launch counters read 0 here and are
+        # read again after the last step.
+        A.flash_fwd_launches = 0
+        A.flash_bwd_dkdv_launches = 0
+        A.flash_bwd_dq_launches = 0
+        losses, times = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.monotonic()
+            losses.append(float(step(params, batch)))  # waits for the card
+            times.append(time.monotonic() - t0)
+        launches = {"flash_fwd": A.flash_fwd_launches,
+                    "flash_bwd_dkdv": A.flash_bwd_dkdv_launches,
+                    "flash_bwd_dq": A.flash_bwd_dq_launches}
+        peak = torch.cuda.max_memory_allocated()
+        step_s = statistics.median(times)
+        flops = 6 * n_matmul * B * S + 6 * cfg.n_layers * B * S * S * \
+            cfg.d_model
+        out = {"params": n_params, "matmul_params": n_matmul,
+               "losses": losses, "step_s": times, "step_s_median": step_s,
+               "tokens_per_s": B * S / step_s, "step_flops": flops,
+               "mfu": flops / step_s / PEAK_FLOPS[torch.bfloat16],
+               "bound_step_ms": flops / PEAK_FLOPS[torch.bfloat16] * 1e3,
+               "peak_mem_gb": peak / 1e9, "launches": launches}
+        log(f"train losses: {[round(x, 4) for x in losses]}")
+        log(f"train: {n_params} params, median step {step_s * 1e3:.1f} ms, "
+            f"{out['tokens_per_s']:.0f} tok/s, MFU {out['mfu']:.4f} (bound "
+            f"{out['bound_step_ms']:.1f} ms a step), peak memory "
+            f"{out['peak_mem_gb']:.2f} GB, launches {launches}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"a training loss is not finite: {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"the loss did not fall: {losses}")
+        want = cfg.n_layers * TRAIN_STEPS
+        if any(n != want for n in launches.values()):
+            raise AssertionError(f"expected {want} launches of K1, K2 and "
+                                 f"K3 (one a layer a step), got {launches}")
+        out["profile"] = profile_train_step(step, params, batch)
+        del params, opt, step, batch
+    finally:
+        basics.shutdown()
+    torch.cuda.empty_cache()
+    return out
+
+
+# --- phase 8: times ----------------------------------------------------------
+
+
+def time_flash(err: float, launches: int, B: int = 2, Hkv: int = 4) -> dict:
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import attention as A
 
-    B, H, Hkv, S, D, dt = 2, 16, 4, 2048, 64, torch.bfloat16
+    H, S, D, dt = 16, 2048, 64, torch.bfloat16
     q, k, v = _k1_inputs(B, H, Hkv, S, D, dt, seed=100)
     ke, ve = A.expand_kv(k, H), A.expand_kv(v, H)
     scale = 1.0 / math.sqrt(D)
-    ms = time_ms(lambda: A.flash_attention_lse(q, k, v, True))
+    ms = time_ms(lambda: A.flash_attention_with_lse(q, k, v, True))
     plain = time_ms(lambda: A._reference_attention_lse(
         q, A.expand_kv(k, H), A.expand_kv(v, H), 0, scale), reps=5)
     try:
@@ -431,6 +679,54 @@ def time_flash(err: float, launches: int) -> dict:
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib,
             "shape": f"B={B} H={H} H_kv={Hkv} S=T={S} D={D} bf16 causal"}
+
+
+def time_flash_bwd(errs: dict, launches: dict) -> list:
+    """K2 and K3 at the training shape; the library yardstick is the
+    backward of ``scaled_dot_product_attention`` (one autograd call, dq,
+    dk and dv together), so both rows carry the pair's time."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import attention as A
+
+    B, H, S, D, dt = TRAIN_BATCH, 16, 2048, 64, torch.bfloat16
+    scale = 1.0 / math.sqrt(D)
+    q, k, v = _k1_inputs(B, H, H, S, D, dt, seed=300)
+    do = torch.randn((B, H, S, D), device="cuda").to(dt)
+    o, lse = A._flash_fwd_cuda(q, k, v, 0, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, 0, scale)
+    ms2 = time_ms(lambda: A._flash_bwd_dkdv_cuda(*args))
+    ms3 = time_ms(lambda: A._flash_bwd_dq_cuda(*args))
+    plain2 = time_ms(lambda: A._flash_bwd_dkdv_reference(*args), reps=5)
+    torch.cuda.empty_cache()
+    plain3 = time_ms(lambda: A._flash_bwd_dq_reference(*args), reps=5)
+    torch.cuda.empty_cache()
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib = time_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
+                                              retain_graph=True))
+    pairs = B * H * S * (S + 1) / 2
+    rows = 4 * B * H * S  # lse and delta, f32
+    n = q.numel()
+    shape = f"B={B} H={H} S=T={S} D={D} bf16 causal"
+    out = []
+    for name, src, line, ms, plain, flop_per_pair, outs in (
+            ("flash_bwd_dkdv", "horovod_tpu/ops/attention.py:254", "dkdv",
+             ms2, plain2, 8 * D, 2),
+            ("flash_bwd_dq", "horovod_tpu/ops/attention.py:315", "dq",
+             ms3, plain3, 6 * D, 1)):
+        b_ms, b_by = bound(flop_per_pair * pairs,
+                           2 * 4 * n + 2 * rows + 2 * outs * n, dt)
+        out.append({"name": name, "route": "cuda",
+                    "source": "horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+                    "replaces": src, "launches": launches[name],
+                    "max_abs_err": errs[line], "ms": ms, "plain_ms": plain,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                    "shape": shape})
+    del q, k, v, do, o, lse, delta, ql, kl, vl, ol
+    torch.cuda.empty_cache()
+    return out
 
 
 def time_paged(err: float, launches: int) -> dict:
@@ -490,15 +786,27 @@ def main() -> int:
     card = card_info()
     build()
     k1 = check_flash()
+    k23 = check_flash_bwd()
     k4 = check_paged()
-    REPORT["kernel_checks"] = {"flash_fwd": k1, "paged_attend": k4}
+    REPORT["kernel_checks"] = {"flash_fwd": k1, "flash_bwd": k23,
+                               "paged_attend": k4}
     serving = serve_full_width()
     REPORT["serving_bf16"] = serving
     REPORT["token_identity_f32"] = token_identity()
-    kernels = [time_flash(k1["serving"], serving["launches"]["flash_fwd"]),
+    REPORT["model_grads_f32"] = model_grads_f32()
+    train = train_full_width()
+    REPORT["train_bf16"] = train
+    # K1 runs on both main paths: its launches are the two runs' sum.
+    k1_launches = serving["launches"]["flash_fwd"] + \
+        train["launches"]["flash_fwd"]
+    kernels = [time_flash(k1["serving"], k1_launches),
+               *time_flash_bwd(k23["training"], train["launches"]),
                time_paged(k4["serving"],
                           serving["launches"]["paged_attend"])]
-    for kr in kernels:
+    k1_train = time_flash(None, train["launches"]["flash_fwd"],
+                          B=TRAIN_BATCH, Hkv=16)
+    REPORT["flash_fwd_training_shape"] = k1_train
+    for kr in kernels + [k1_train]:
         log(f"{kr['name']} [{kr['shape']}]: {kr['ms']:.4f} ms, bound "
             f"{kr['bound_ms']:.4f} ms ({kr['bound_by']}), plain "
             f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']:.4f} ms")

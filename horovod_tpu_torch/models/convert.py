@@ -17,20 +17,23 @@ __all__ = ["params_from_jax"]
 
 
 def params_from_jax(tree: Dict, cfg: TransformerConfig, *,
-                    device=None) -> Dict:
+                    device=None, param_dtype: torch.dtype = None) -> Dict:
     """The JAX package's parameter tree (``horovod_tpu.models.
     transformer.init_params`` layout, leaves as numpy arrays — or
     anything ``np.asarray`` takes) -> the port's dict of tensors, same
     names and shapes.
 
-    JAX keeps f32 parameters and casts each matrix to ``cfg.dtype`` at
-    every use; the port casts once here, which gives the same values.
-    The RMSNorm scales stay f32, as JAX uses them."""
+    Matrices are held in ``param_dtype``, by default ``cfg.dtype``: the
+    serving load casts once here, and the model's casts at use are then
+    no-ops, which gives JAX's values.  ``torch.float32`` keeps every leaf
+    f32, as JAX does: the training load.  The RMSNorm scales stay f32."""
     device = resolve_device(device)
+    param_dtype = param_dtype or cfg.dtype
 
     def load(x, cast: bool):
         t = torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
-        return t.to(device=device, dtype=cfg.dtype if cast else torch.float32)
+        return t.to(device=device,
+                    dtype=param_dtype if cast else torch.float32)
 
     expected = set(_MATRICES) | {"ln1", "ln2"}
     layers = tree["layers"]

@@ -1,15 +1,18 @@
-"""The decoder-only Transformer LM, serving path, in PyTorch.
+"""The decoder-only Transformer LM in PyTorch: training and serving.
 
-Counterpart of ``horovod_tpu/models/transformer.py`` for what serving
-runs: the dense model's parameters, prefill (flash kernel K1 when
-``attention_impl="flash"``), the contiguous-cache decode step with the
-per-request :func:`greedy_decode` oracle, and the paged decode tick
-(paged-attention kernel K4 with ``kernel=True``).
+Counterpart of ``horovod_tpu/models/transformer.py`` for the dense
+model: parameters, the training forward and loss (:func:`forward`,
+:func:`loss_fn`, :func:`synthetic_batch`; flash attention K1-K3 when
+``attention_impl="flash"``), prefill, the contiguous-cache decode step
+with the per-request :func:`greedy_decode` oracle, and the paged decode
+tick (paged-attention kernel K4 with ``kernel=True``).
 
 Parameters are a plain dict in the JAX package's layout: layers stacked
-on a leading ``L`` axis, the same names and shapes.  Matrices are held
-in ``cfg.dtype`` (the JAX package keeps f32 and casts at every use —
-the values are the same); the RMSNorm scales stay f32 as there.
+on a leading ``L`` axis, the same names and shapes.  Every matrix is
+cast to ``cfg.dtype`` at use, as in JAX, so the same code serves f32
+master parameters (training: ``param_dtype=torch.float32``) and
+matrices already held in ``cfg.dtype`` (serving's default, where the
+casts are no-ops).  The RMSNorm scales stay f32.
 
 Unlike JAX, tensors are mutable: caches and page pools are updated in
 place (the JAX engine donates them to the same effect).
@@ -24,27 +27,16 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from horovod_tpu_torch.basics import resolve_device
 from horovod_tpu_torch.ops import attention as attn
 from horovod_tpu_torch.ops import paged_attention as pa
 
 __all__ = ["TransformerConfig", "decode_step", "decode_step_paged",
-           "greedy_decode", "init_cache", "init_params", "kv_dequantize",
-           "kv_quantize", "prefill", "resolve_device"]
+           "forward", "greedy_decode", "init_cache", "init_params",
+           "kv_dequantize", "kv_quantize", "loss_fn", "prefill",
+           "resolve_device", "synthetic_batch"]
 
 _MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-
-
-def resolve_device(device=None) -> torch.device:
-    """The entry points' device rule: an explicit device is used as
-    given; with none, CUDA — and no CUDA is an error, never a quiet fall
-    back to the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: horovod_tpu_torch runs on the GPU unless the "
-            "caller passes device='cpu'")
-    return torch.device("cuda")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,13 +52,17 @@ class TransformerConfig:
     n_kv_heads: int = 0
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
-    # "reference" = O(S^2) softmax attention; "flash" = kernel K1.
+    # "reference" = O(S^2) softmax attention; "flash" = kernels K1-K3.
     attention_impl: str = "reference"
+    remat: bool = False  # rematerialisation is not ported
 
     def __post_init__(self):
         if self.n_experts > 1:
             raise NotImplementedError(
                 "mixture-of-experts (n_experts > 1) is not ported")
+        if self.remat:
+            raise NotImplementedError(
+                "rematerialisation (remat=True) is not ported")
         if self.attention_impl not in ("reference", "flash"):
             raise NotImplementedError(
                 f"attention_impl {self.attention_impl!r} is not ported; "
@@ -89,13 +85,18 @@ class TransformerConfig:
 # --- parameters --------------------------------------------------------------
 
 
-def init_params(cfg: TransformerConfig, *, seed: int = 0,
-                device=None) -> Dict:
+def init_params(cfg: TransformerConfig, *, seed: int = 0, device=None,
+                param_dtype: torch.dtype = None) -> Dict:
     """Random parameters in the JAX package's layout (``init_params``),
     drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``
     (the numbers differ from ``jax.random``'s; :func:`~horovod_tpu_torch.
-    models.convert.params_from_jax` carries the JAX package's own)."""
+    models.convert.params_from_jax` carries the JAX package's own).
+
+    Matrices are held in ``param_dtype``, by default ``cfg.dtype``
+    (serving); training passes ``torch.float32`` for f32 master
+    parameters, as the JAX package keeps."""
     device = resolve_device(device)
+    param_dtype = param_dtype or cfg.dtype
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     D, H, Dh, Fd, L, V = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
@@ -104,7 +105,7 @@ def init_params(cfg: TransformerConfig, *, seed: int = 0,
     def normal(shape, scale):
         x = torch.randn(shape, generator=g, device=device,
                         dtype=torch.float32)
-        return (x * scale).to(cfg.dtype)
+        return (x * scale).to(param_dtype)
 
     s_d, s_f = 1.0 / math.sqrt(D), 1.0 / math.sqrt(Fd)
     ones = dict(device=device, dtype=torch.float32)
@@ -128,6 +129,15 @@ def init_params(cfg: TransformerConfig, *, seed: int = 0,
 
 def _layer(params: Dict, l: int) -> Dict:
     return {k: v[l] for k, v in params["layers"].items()}
+
+
+def _layers(params: Dict):
+    """Every layer's parameter dict, from one ``unbind`` per stacked
+    parameter: its gradient is one stack, not a full-size zero tensor
+    per layer as indexing each layer would give."""
+    names = list(params["layers"])
+    per_name = [params["layers"][n].unbind(0) for n in names]
+    return [dict(zip(names, vals)) for vals in zip(*per_name)]
 
 
 # --- forward pieces ----------------------------------------------------------
@@ -170,9 +180,10 @@ def _rope(q, k, theta: float, positions=None):
 def _qkv_proj(x, p, cfg: TransformerConfig, positions=None):
     """Per-head Q/K/V with RoPE -> head-major ``(B, H, S, Dh)`` /
     ``(B, H_kv, S, Dh)``."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    dt = cfg.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
     q, k = _rope(q, k, cfg.rope_theta, positions=positions)
     return (q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
             v.transpose(1, 2).contiguous())
@@ -180,30 +191,90 @@ def _qkv_proj(x, p, cfg: TransformerConfig, positions=None):
 
 def _out_proj(oh, p, cfg: TransformerConfig):
     o = oh.transpose(1, 2).to(cfg.dtype)  # (B, S, H, Dh)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(cfg.dtype))
 
 
-def _dense_mlp(x, p):
-    g = torch.einsum("bsd,df->bsf", x, p["w_gate"])
-    u = torch.einsum("bsd,df->bsf", x, p["w_up"])
-    return torch.einsum("bsf,fd->bsd", F.silu(g) * u, p["w_down"])
+def _dense_mlp(x, p, cfg: TransformerConfig):
+    dt = cfg.dtype
+    g = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(dt))
+    u = torch.einsum("bsd,df->bsf", x, p["w_up"].to(dt))
+    return torch.einsum("bsf,fd->bsd", F.silu(g) * u, p["w_down"].to(dt))
 
 
-def _mlp_block(x, p):
+def _mlp_block(x, p, cfg: TransformerConfig):
     """Residual MLP half of a layer (the dense branch of ``_mlp_block``)."""
-    return x + _dense_mlp(_rmsnorm(x, p["ln2"]), p)
+    return x + _dense_mlp(_rmsnorm(x, p["ln2"]), p, cfg)
 
 
-def _lm_head(y, ln_f, head):
+def _lm_head(y, ln_f, head, cfg: TransformerConfig):
     """Final RMSNorm + vocabulary projection -> f32 logits."""
-    return torch.einsum("bsd,dv->bsv", _rmsnorm(y, ln_f), head).float()
+    return torch.einsum("bsd,dv->bsv", _rmsnorm(y, ln_f),
+                        head.to(cfg.dtype)).float()
 
 
-def _embed(params, tokens, active=None):
-    x = params["embed"][tokens.long()]
+def _embed(params, tokens, cfg: TransformerConfig, active=None):
+    x = params["embed"].to(cfg.dtype)[tokens.long()]
     if active is not None:
         x = torch.where(active[:, None], x, torch.zeros_like(x))
     return x
+
+
+# --- training forward and loss ----------------------------------------------
+
+
+def _attention(x, p, cfg: TransformerConfig):
+    """Full-sequence causal attention -> ``(output, K, V)``, K/V
+    unexpanded and post-RoPE (prefill fills its cache with them).
+    ``flash`` runs K1 forward and K2/K3 backward on CUDA, with GQA mapped
+    in the kernels (no expanded K/V copy); ``reference`` expands K/V and
+    differentiates the plain softmax."""
+    qh, kh, vh = _qkv_proj(x, p, cfg)
+    if cfg.attention_impl == "flash":
+        oh = attn.flash_attention(qh, kh, vh, True)
+    else:
+        oh = attn.reference_attention(
+            qh, attn.expand_kv(kh, cfg.n_heads),
+            attn.expand_kv(vh, cfg.n_heads), causal=True)
+    return _out_proj(oh, p, cfg), kh, vh
+
+
+def _layer_body(x, p, cfg: TransformerConfig):
+    x = x + _attention(_rmsnorm(x, p["ln1"]), p, cfg)[0]
+    return _mlp_block(x, p, cfg)
+
+
+def forward(params: Dict, tokens, cfg: TransformerConfig):
+    """Logits ``(B, S, V)`` f32 for next-token prediction; ``tokens``
+    ``(B, S)`` integer."""
+    x = _embed(params, tokens, cfg)
+    for p in _layers(params):
+        x = _layer_body(x, p, cfg)
+    return _lm_head(x, params["ln_f"], params["head"], cfg)
+
+
+def _xent_sum(logits, targets):
+    """Sum of next-token cross-entropy over all positions."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return (logz - gold).sum()
+
+
+def loss_fn(params: Dict, batch: Dict, cfg: TransformerConfig):
+    """Mean next-token cross-entropy; ``batch = {tokens, targets}``."""
+    logits = forward(params, batch["tokens"], cfg)
+    return _xent_sum(logits, batch["targets"]) / batch["targets"].numel()
+
+
+def synthetic_batch(seed: int, cfg: TransformerConfig, batch: int,
+                    seq: int = None, *, device=None) -> Dict:
+    """Random tokens from a ``torch.Generator`` seeded with ``seed``, and
+    their next-token targets ``roll(tokens, -1)`` (``synthetic_batch``)."""
+    device = resolve_device(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq or cfg.max_seq),
+                           generator=g, device=device)
+    return {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
 
 
 # --- prefill + the contiguous-cache oracle -----------------------------------
@@ -221,18 +292,6 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int = 0, *,
             "pos": 0}
 
 
-def _attention_prefill(x, p, cfg: TransformerConfig):
-    """Full-sequence causal attention that also returns the unexpanded,
-    post-RoPE K/V for cache filling.  ``flash`` runs kernel K1 on CUDA
-    (GQA mapped in the kernel, no expanded K/V copy)."""
-    qh, kh, vh = _qkv_proj(x, p, cfg)
-    if cfg.attention_impl == "reference":
-        oh = attn.reference_attention(
-            qh, attn.expand_kv(kh, cfg.n_heads),
-            attn.expand_kv(vh, cfg.n_heads), causal=True)
-    else:
-        oh = attn.flash_attention(qh, kh, vh, True)
-    return _out_proj(oh, p, cfg), kh, vh
 
 
 @torch.no_grad()
@@ -254,13 +313,13 @@ def prefill(params: Dict, prompt, cache: Dict, cfg: TransformerConfig, *,
         raise ValueError(
             f"prompt ({S0} tokens) exceeds cache capacity "
             f"({cache['k'].shape[3]}); init_cache with a larger max_len")
-    x = _embed(params, prompt)
+    x = _embed(params, prompt, cfg)
     for l in range(cfg.n_layers):
         p = _layer(params, l)
-        h, kh, vh = _attention_prefill(_rmsnorm(x, p["ln1"]), p, cfg)
+        h, kh, vh = _attention(_rmsnorm(x, p["ln1"]), p, cfg)
         cache["k"][l, :, :, :S0] = kh
         cache["v"][l, :, :, :S0] = vh
-        x = _mlp_block(x + h, p)
+        x = _mlp_block(x + h, p, cfg)
     if true_len is None:
         last = x[:, -1:]
         new_pos = S0
@@ -269,7 +328,7 @@ def prefill(params: Dict, prompt, cache: Dict, cfg: TransformerConfig, *,
         idx = (tl - 1).expand(B) if tl.dim() == 0 else tl - 1
         last = x[torch.arange(B, device=x.device), idx][:, None]
         new_pos = int(tl) if tl.dim() == 0 else tl.to(torch.int32)
-    logits = _lm_head(last, params["ln_f"], params["head"])
+    logits = _lm_head(last, params["ln_f"], params["head"], cfg)
     cache["pos"] = new_pos
     return logits[:, 0], cache
 
@@ -317,13 +376,13 @@ def decode_step(params: Dict, tokens_t, cache: Dict,
         raise ValueError(
             f"decode_step past cache capacity (pos {pos} >= "
             f"{cache['k'].shape[3]}); init_cache with a larger max_len")
-    x = _embed(params, tokens_t)[:, None]
+    x = _embed(params, tokens_t, cfg)[:, None]
     for l in range(cfg.n_layers):
         p = _layer(params, l)
         h = _attention_decode(_rmsnorm(x, p["ln1"]), p, cfg,
                               cache["k"][l], cache["v"][l], pos)
-        x = _mlp_block(x + h, p)
-    logits = _lm_head(x, params["ln_f"], params["head"])
+        x = _mlp_block(x + h, p, cfg)
+    logits = _lm_head(x, params["ln_f"], params["head"], cfg)
     cache["pos"] = pos + 1
     return logits[:, 0], cache
 
@@ -474,7 +533,7 @@ def decode_step_paged(params: Dict, tokens_t, pool: Dict, table,
             f"decode_step_paged past table capacity (slots "
             f"{torch.nonzero(over).flatten().tolist()} at pos >= {T_cap}); "
             "init_page_pool with more pages per slot")
-    x = _embed(params, tokens_t, active)[:, None]
+    x = _embed(params, tokens_t, cfg, active)[:, None]
     quantized = "k_scale" in pool
     for l in range(cfg.n_layers):
         p = _layer(params, l)
@@ -483,7 +542,7 @@ def decode_step_paged(params: Dict, tokens_t, pool: Dict, table,
             pool["k_scale"][l] if quantized else None,
             pool["v_scale"][l] if quantized else None,
             table, pos, active, kernel)
-        x = _mlp_block(x + h, p)
-    logits = _lm_head(x, params["ln_f"], params["head"])
+        x = _mlp_block(x + h, p, cfg)
+    logits = _lm_head(x, params["ln_f"], params["head"], cfg)
     pool["pos"] = pos + active.to(pos.dtype)
     return logits[:, 0], pool

@@ -1,8 +1,9 @@
 """Shared CUDA plumbing for the hand-written Hopper kernels.
 
 The counterpart of ``horovod_tpu/ops/_pallas_util.py``.  Every kernel in
-this package (:mod:`~horovod_tpu_torch.ops.attention`,
-:mod:`~horovod_tpu_torch.ops.paged_attention`) is CUDA C++ under
+this package (:mod:`~horovod_tpu_torch.ops.attention`: ``flash_fwd.cu``
+and ``flash_bwd.cu``; :mod:`~horovod_tpu_torch.ops.paged_attention`:
+``paged_attention.cu``) is CUDA C++ under
 ``ops/csrc/`` with a plain C entry point, built by ``nvcc`` for
 ``sm_90a`` into a shared library and called through ``ctypes`` — no
 PyTorch headers, so a build takes seconds, not minutes.

@@ -2,8 +2,10 @@
 //
 // Replaces the Pallas TPU kernel horovod_tpu/ops/attention.py
 // `_flash_fwd_kernel` (launched by `_flash_fwd`).  Same function: tiled
-// attention with an online softmax in f32, optional causal mask
-// (col <= row), K tiles wholly above the diagonal skipped, `o` in the
+// attention with an online softmax in f32, an optional shifted causal
+// mask (position (row, col) attends iff col + shift <= row; shift 0 is
+// causal, the runtime scalar of `flash_attention_shifted`), K tiles
+// wholly past the shifted diagonal skipped, `o` in the
 // input dtype and the row logsumexp in f32; a fully masked row gives
 // o = 0 and lse = NEG_INF.  Rounding points mirror the JAX kernel:
 // s = (q . k) * scale in f32 (bf16 products are exact in f32), p cast to
@@ -51,7 +53,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-    int H, int Hkv, int S, int Tn, int causal, float scale) {
+    int H, int Hkv, int S, int Tn, int masked, int shift, float scale) {
   extern __shared__ float smem[];
   float* Ks = smem;                 // [BK][D + 1]  (padded: no bank clash)
   float* Vs = Ks + BK * (D + 1);    // [BK][D]
@@ -82,8 +84,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   for (int c = 0; c < NC; ++c) acc[c] = 0.f;
   float m = NEG_INF, l = 0.f;
 
-  // Causal: tiles starting past this CTA's last row contribute nothing.
-  const int t_end = causal ? min(Tn, q0 + BQ) : Tn;
+  // Masked: tiles starting past this CTA's last row's shifted diagonal
+  // (t0 + shift > q0 + BQ - 1) contribute nothing.
+  const int t_end = masked ? min(Tn, max(0, q0 + BQ - shift)) : Tn;
   for (int t0 = 0; t0 < t_end; t0 += BK) {
     for (int i = tid; i < BK * D; i += THREADS) {
       const int j = i / D, d = i % D, t = t0 + j;
@@ -106,7 +109,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
       float dot = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-      const bool ok = row_ok && col < Tn && (!causal || col <= row);
+      const bool ok =
+          row_ok && col < Tn && (!masked || col + shift <= row);
       s[jj] = ok ? dot * scale : NEG_INF;
       mt = fmaxf(mt, s[jj]);
     }
@@ -154,7 +158,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int H, int Hkv, int S, int Tn,
-                   int causal, float scale, cudaStream_t stream) {
+                   int masked, int shift, float scale,
+                   cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (BK * (D + 1) + BK * D + BQ * (BK + 1));
   auto kern = flash_fwd_kernel<T, D>;
@@ -165,7 +170,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      H, Hkv, S, Tn, causal, scale);
+      H, Hkv, S, Tn, masked, shift, scale);
   return cudaGetLastError();
 }
 
@@ -173,8 +178,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, void* lse, int B, int H, int Hkv, int S,
-                         int T, int D, int is_bf16, int causal, float scale,
-                         void* stream) {
+                         int T, int D, int is_bf16, int masked, int shift,
+                         float scale, void* stream) {
   if (B < 1 || S < 1 || T < 1 || Hkv < 1 || H % Hkv != 0 ||
       B * H > 65535)
     return (int)cudaErrorInvalidValue;
@@ -182,16 +187,16 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   cudaError_t err;
   if (is_bf16 && D == 64)
     err = launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, H, Hkv, S, T,
-                                    causal, scale, st);
+                                    masked, shift, scale, st);
   else if (is_bf16 && D == 128)
     err = launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, H, Hkv, S, T,
-                                     causal, scale, st);
+                                     masked, shift, scale, st);
   else if (!is_bf16 && D == 64)
-    err = launch<float, 64>(q, k, v, o, lse, B, H, Hkv, S, T, causal,
-                            scale, st);
+    err = launch<float, 64>(q, k, v, o, lse, B, H, Hkv, S, T, masked,
+                            shift, scale, st);
   else if (!is_bf16 && D == 128)
-    err = launch<float, 128>(q, k, v, o, lse, B, H, Hkv, S, T, causal,
-                             scale, st);
+    err = launch<float, 128>(q, k, v, o, lse, B, H, Hkv, S, T, masked,
+                             shift, scale, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -8,7 +8,11 @@ also runs where only PyTorch is installed:
 Tolerances: f32 1e-4 (summation order); bf16 5e-2 for flash attention
 (the plain version rounds the scores to bf16, the kernel keeps them in
 f32) and 2e-2 for bf16 paged pools (weights cast to bf16 before versus
-after normalizing).
+after normalizing).  The flash backward (K2, K3) is held to its plain
+version relative to the largest gradient: 1e-4 at f32 (summation
+order), 2e-2 at bf16 (p, ds and the outputs are rounded to bf16, whose
+step is 2^-8 = 3.9e-3 of a value: a few one-step flips where the f32
+sums differ in their last bits).
 """
 
 import numpy as np
@@ -38,12 +42,50 @@ def test_flash_kernel(dev, dtype, tol, D):
     k, v = (torch.randn((2, 2, 200, D), generator=g, device=dev).to(dtype)
             for _ in range(2))
     before = A.flash_fwd_launches
-    o, lse = A.flash_attention_lse(q, k, v, True)
+    o, lse = A.flash_attention_with_lse(q, k, v, True)
     assert A.flash_fwd_launches == before + 1
     o_r, l_r = A._reference_attention_lse(
         q, A.expand_kv(k, 8), A.expand_kv(v, 8), 0, 1 / D ** 0.5)
     assert (o.float() - o_r.float()).abs().max().item() <= tol
     assert (lse - l_r).abs().max().item() <= tol
+
+
+def _rel_err(got, want):
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1.0)).item()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Hkv", [8, 2], ids=["mha", "gqa"])
+@pytest.mark.parametrize("shift", [0, None, 67], ids=["causal", "full",
+                                                      "shift67"])
+def test_flash_backward_kernels(dev, dtype, tol, D, Hkv, shift):
+    """K2 and K3 through the autograd Function, with a nonzero lse
+    cotangent, against the plain backward on the same forward results
+    (shift 67 leaves rows 0..66 fully masked)."""
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    q, k, v = r(2, 8, 200, D), r(2, Hkv, 200, D), r(2, Hkv, 200, D)
+    do, dlse = r(2, 8, 200, D), r(2, 8, 200).float()
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    scale = D ** -0.5
+    n2, n3 = A.flash_bwd_dkdv_launches, A.flash_bwd_dq_launches
+    o, lse = A._FlashAttention.apply(q, k, v, shift, scale)
+    grads = torch.autograd.grad((o, lse), (q, k, v), (do, dlse))
+    assert (A.flash_bwd_dkdv_launches, A.flash_bwd_dq_launches) == (
+        n2 + 1, n3 + 1)
+    delta = (do.float() * o.float()).sum(-1) - dlse
+    want = A._flash_bwd_reference(q.detach(), k.detach(), v.detach(), do,
+                                  lse.detach(), delta, shift, scale)
+    for got, ref in zip(grads, want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert _rel_err(got, ref) <= tol
 
 
 def _edge_case(kv, dev):
@@ -84,13 +126,36 @@ def test_paged_kernel(dev, kv):
     assert not o[~live].any() and (lse[~live] <= PA.NEG_INF / 2).all()
 
 
+def test_flash_gradient_runs_the_kernels(dev):
+    """A CUDA input that requires grad trains through K1-K3 (slice 1
+    refused it): f32 gradients of a GQA causal call equal autograd
+    through the plain attention."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn((1, 4, 130, 64), generator=g, device=dev)
+    k, v = (torch.randn((1, 2, 130, 64), generator=g, device=dev)
+            for _ in range(2))
+    w = torch.randn((1, 4, 130, 64), generator=g, device=dev)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    launches = (A.flash_fwd_launches, A.flash_bwd_dkdv_launches,
+                A.flash_bwd_dq_launches)
+    (A.flash_attention(*ins, True) * w).sum().backward()
+    assert (A.flash_fwd_launches, A.flash_bwd_dkdv_launches,
+            A.flash_bwd_dq_launches) == tuple(n + 1 for n in launches)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    (A.reference_attention(ref[0], A.expand_kv(ref[1], 4),
+                           A.expand_kv(ref[2], 4), causal=True) * w
+     ).sum().backward()
+    for a, b in zip(ins, ref):
+        assert _rel_err(a.grad, b.grad) <= 1e-4
+
+
 def test_cuda_input_never_falls_back(dev):
     q = torch.zeros((1, 2, 8, 48), device=dev)  # head_dim 48: no kernel
     with pytest.raises(ValueError, match="head_dim"):
         A.flash_attention(q, q, q, True)
     x = torch.zeros((1, 2, 8, 64), device=dev)
-    with pytest.raises(NotImplementedError):
-        A.flash_attention(x.clone().requires_grad_(), x, x, True)
+    with pytest.raises(TypeError, match="one dtype"):
+        A.flash_attention(x, x.double(), x, True)
     with pytest.raises(TypeError, match="int32"):
         PA.paged_attend(torch.zeros((1, 1, 1, 64), device=dev),
                         x[0, :1, None], x[0, :1, None], None, None,

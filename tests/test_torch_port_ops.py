@@ -47,7 +47,7 @@ class TestFlashAttention:
         o_j, lse_j = JA._flash_fwd(jnp.asarray(q), jnp.asarray(k),
                                    jnp.asarray(v), 0 if causal else None,
                                    None, 32, 32)
-        o_t, lse_t = A.flash_attention_lse(
+        o_t, lse_t = A.flash_attention_with_lse(
             torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
             causal)
         np.testing.assert_allclose(_np(o_t), _np(o_j), atol=1e-5, rtol=1e-5)

@@ -7,6 +7,7 @@ whenever a request was admitted, its greedy output equals per-request
 the HTTP front, the device rule, and import hygiene (the port never
 loads JAX or the JAX package)."""
 
+import ast
 import json
 import subprocess
 import sys
@@ -183,7 +184,21 @@ def test_http_generate_matches_jax_greedy(model):
 
 def test_import_hygiene():
     """Importing every module of the port loads neither JAX nor the JAX
-    package (a fresh interpreter, modules diffed around the import)."""
+    package (a fresh interpreter, modules diffed around the import), and
+    ``chip_smoke.py`` imports neither anywhere in its source (parsed, so
+    imports inside functions count too)."""
+    root = Path(__file__).resolve().parents[1]
+    tree = ast.parse((root / "chip_smoke.py").read_text())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            imported.add(node.module)
+    assert {"torch", "horovod_tpu_torch.ops"} <= imported
+    bad = sorted(m for m in imported
+                 if m.split(".")[0] in ("jax", "jaxlib", "horovod_tpu"))
+    assert not bad, f"chip_smoke.py imports {bad}"
     code = textwrap.dedent("""
         import pkgutil, sys
         before = set(sys.modules)
@@ -199,6 +214,5 @@ def test_import_hygiene():
         sys.exit(1 if bad or len(names) < 10 else 0)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120,
-                         cwd=Path(__file__).resolve().parents[1])
+                         text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stdout + out.stderr
