@@ -8,7 +8,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. Card: the card's name and power limit, as ``nvidia-smi`` reports them.
 2. Build: every kernel under ``horovod_tpu_torch/ops/csrc/``, one
-   ``nvcc`` per source, all started together.
+   ``nvcc`` per source, all started together, with ptxas's registers
+   and spill bytes of each kernel printed.  Then the tensor-core
+   check: ``cuobjdump -sass`` (from ``nvcc``'s toolkit) counts the
+   ``HMMA``/``HGMMA`` instructions of every kernel function in the flash
+   libraries; the bf16 K1 and K2 kernels must have some.
 3. Kernels against their plain PyTorch versions on the card, at the
    serving path's shapes, each maximum error printed beside its
    tolerance: flash attention forward (K1) in bf16 and f32, head_dim 64
@@ -19,6 +23,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    autograd Function with a nonzero lse cotangent, bf16 and f32, head_dim
    64 and 128, S 8, 100 and 2048, causal, full and shifted masks, MHA
    and GQA (G = 4), against the plain backward on the same forward.
+   Edge shapes for K1-K3 in both dtypes: ragged S (1, 17, 63, 65,
+   2047) and S = 100 against T = 300, unmasked, bottom-right causal
+   (shift = S - T) and fully masked (shift = T - S).
 4. Serving at full width: ``InferenceEngine`` + ``ServingServer`` on
    the d1024/L8/H16/kv4 bf16 Transformer from ``init_params`` seed 0;
    8 concurrent ``POST /generate`` requests whose prompts cover the
@@ -39,10 +46,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    K1, K2 and K3 must each launch once a layer a step; step time,
    tokens/s, MFU and peak memory are printed, and one more step is
    profiled.
-8. Times: each kernel at its path's shape (CUDA events, median of
-   repeats) beside its bound, its plain version and a PyTorch yardstick
-   the port never calls; the serving run's decode tok/s, TTFT and
-   per-tick time.
+8. Times: each kernel at its path's shape (CUDA events around 10
+   back-to-back calls, median of 20; also one call alone, which adds
+   the host's launch cost) beside its bound, its achieved TFLOP/s (the
+   bound's FLOP count over its time), its plain version and a PyTorch
+   yardstick the port never calls; the serving run's decode tok/s, TTFT
+   and per-tick time.
 
 A ``report:`` line carries every measurement as JSON; the line before
 last is a JSON object of the kernels; the last line is
@@ -55,12 +64,14 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -91,8 +102,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Median device time of one call, by CUDA events."""
+def time_ms(fn, reps: int = 20, warm: int = 3, batch: int = 10) -> float:
+    """Median device time of one call, by CUDA events around ``batch``
+    back-to-back calls (divided by ``batch``), so that the host's cost
+    of launching a short kernel does not show as device time.  ``batch=1``
+    times one call alone (the host's launch cost included), which is
+    enough for calls that take many milliseconds."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -101,10 +116,11 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
 
 
@@ -112,6 +128,11 @@ def bound(flops: float, nbytes: float, dtype) -> tuple:
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes"
+
+
+def tflops(flops: float, ms: float) -> float:
+    """Achieved rate: the bound's FLOP count over the measured time."""
+    return flops / (ms * 1e-3) / 1e12
 
 
 def card_info() -> str:
@@ -132,18 +153,93 @@ def build() -> None:
     dt = time.monotonic() - t0
     log(f"build: {sorted(built)} in {dt:.1f} s")
     REPORT["build_s"] = dt
+    # ptxas's report (-Xptxas -v): registers a thread and spill bytes of
+    # each kernel, which set how many CTAs an SM holds.
+    regs = {}
+    for out in built.values():
+        fn = None
+        for line in out.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = _kernel_name(m.group(1))
+                regs[fn] = {}
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and fn:
+                regs[fn]["spill_store_bytes"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                regs[fn]["registers"] = int(m.group(1))
+    for fn, r in sorted(regs.items()):
+        log(f"ptxas: {fn}: {r}")
+    REPORT["ptxas"] = regs
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_fwd_kernel_mma<bf16,64>``-style name of a mangled flash
+    kernel (other names are returned as they are)."""
+    name = re.search(r"\d+(flash_[a-z_]+?)I", mangled)
+    dim = re.search(r"Li(\d+)E", mangled)
+    if not (name and dim):
+        return mangled
+    dtype = "bf16" if "bfloat16" in mangled else "f32"
+    return f"{name.group(1)}<{dtype},{dim.group(1)}>"
+
+
+def sass_check() -> dict:
+    """Tensor-core instructions (``HMMA``, ``HGMMA``) in each kernel
+    function of the flash libraries, by ``cuobjdump -sass`` from the
+    toolkit of the ``nvcc`` that built them.  Fails unless both bf16
+    instantiations (D = 64, 128) of K1 and of K2 have some."""
+    from horovod_tpu_torch.ops import _cuda
+
+    tool = Path(_cuda._nvcc()).resolve().parent / "cuobjdump"
+    counts = {}
+    for lib in ("flash_fwd", "flash_bwd"):
+        sass = subprocess.run(
+            [str(tool), "-sass", str(_cuda.BUILD_DIR / f"lib{lib}.so")],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = _kernel_name(m.group(1))
+                counts[fn] = 0
+            elif fn is not None and re.search(r"\bHG?MMA\b", line):
+                counts[fn] += 1
+    for fn, n in sorted(counts.items()):
+        log(f"sass: {fn}: {n} HMMA/HGMMA")
+    for tag in ("flash_fwd_kernel_mma", "flash_bwd_dkdv_kernel_mma"):
+        got = [n for fn, n in counts.items() if fn.startswith(tag + "<")]
+        if len(got) != 2 or not all(got):
+            raise AssertionError(f"{tag}: expected tensor-core instructions "
+                                 f"in both instantiations, got {got}")
+    return counts
 
 
 # --- phase 3: kernels against their plain versions ---------------------------
 
 
-def _k1_inputs(B, H, Hkv, S, D, dtype, seed):
+def _k1_inputs(B, H, Hkv, S, D, dtype, seed, T=None):
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def r(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
-    return r(B, H, S, D), r(B, Hkv, S, D), r(B, Hkv, S, D)
+    T = S if T is None else T
+    return r(B, H, S, D), r(B, Hkv, T, D), r(B, Hkv, T, D)
+
+
+def _shift(mask: str, S: int, T: int):
+    """The mask names of the checks as the kernels' shift: position (row,
+    col) attends iff col + shift <= row; None is unmasked."""
+    return {"causal": 0, "full": None, "shift": S // 3,
+            "bottom_right": S - T, "none_visible": T - S}[mask]
+
+
+# Edge shapes of K1-K3: ragged S, and S != T under each mask kind.
+EDGE_S = (1, 17, 63, 65, 2047)
+EDGE_T = (100, 300)  # (S, T)
+EDGE_T_MASKS = ("full", "bottom_right", "none_visible")
 
 
 def check_flash() -> dict:
@@ -151,25 +247,32 @@ def check_flash() -> dict:
 
     worst = {}
     tol = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
-    cases = [(dt, D, S, True) for dt in (torch.bfloat16, torch.float32)
+    dts = (torch.bfloat16, torch.float32)
+    cases = [(dt, D, S, S, "causal") for dt in dts
              for D in (64, 128) for S in (8, 100, 2048)]
-    cases += [(dt, 64, 256, False) for dt in (torch.bfloat16, torch.float32)]
-    for i, (dt, D, S, causal) in enumerate(cases):
+    cases += [(dt, 64, 256, 256, "full") for dt in dts]
+    cases += [(dt, 64, S, S, "causal") for dt in dts for S in EDGE_S]
+    cases += [(dt, D, *EDGE_T, m) for dt in dts for D in (64, 128)
+              for m in EDGE_T_MASKS]
+    for i, (dt, D, S, T, mask) in enumerate(cases):
         B, H, Hkv = 2, 16, 4
-        q, k, v = _k1_inputs(B, H, Hkv, S, D, dt, seed=i)
-        o, lse = A.flash_attention_with_lse(q, k, v, causal)
+        shift = _shift(mask, S, T)
+        q, k, v = _k1_inputs(B, H, Hkv, S, D, dt, seed=i, T=T)
+        if shift is None:
+            o, lse = A.flash_attention_with_lse(q, k, v, False)
+        else:
+            o, lse = A.flash_attention_shifted(q, k, v, shift)
         o_r, l_r = A._reference_attention_lse(
-            q, A.expand_kv(k, H), A.expand_kv(v, H), 0 if causal else None,
+            q, A.expand_kv(k, H), A.expand_kv(v, H), shift,
             1.0 / math.sqrt(D))
         torch.cuda.synchronize()
         err = max((o.float() - o_r.float()).abs().max().item(),
                   (lse - l_r).abs().max().item())
-        name = (f"K1 {str(dt)[6:]} D={D} S={S} "
-                f"{'causal' if causal else 'full'}")
+        name = f"K1 {str(dt)[6:]} D={D} S={S} T={T} {mask}"
         log(f"{name}: max_abs_err={err:.3e} tol={tol[dt]:.0e}")
         if not err <= tol[dt]:
             raise AssertionError(f"{name} disagrees with its plain version")
-        if dt == torch.bfloat16 and D == 64 and S == 2048 and causal:
+        if dt == torch.bfloat16 and D == 64 and S == T == 2048:
             worst["serving"] = err
         worst[name] = err
     return worst
@@ -195,18 +298,22 @@ def check_flash_bwd() -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     tol = {f32: 1e-4, bf16: 2e-2}
     masks = ("causal", "full", "shift")
-    cases = [(dt, D, S, m, G) for dt in (bf16, f32) for D in (64, 128)
+    cases = [(dt, D, S, S, m, G) for dt in (bf16, f32) for D in (64, 128)
              for S in (8, 100) for m in masks for G in (1, 4)]
-    cases += [(dt, D, 2048, m, 4) for dt in (bf16, f32) for D in (64, 128)
-              for m in masks]
+    cases += [(dt, D, 2048, 2048, m, 4) for dt in (bf16, f32)
+              for D in (64, 128) for m in masks]
     # The training run's attention (MHA), at B = 2: its errors go in the
     # kernels line.
-    cases.append((bf16, 64, 2048, "causal", 1))
+    cases.append((bf16, 64, 2048, 2048, "causal", 1))
+    cases += [(dt, 64, S, S, "causal", G) for dt in (bf16, f32)
+              for S in EDGE_S for G in (1, 4)]
+    cases += [(dt, D, *EDGE_T, m, 4) for dt in (bf16, f32) for D in (64, 128)
+              for m in EDGE_T_MASKS]
     worst, failed = {}, []
-    for i, (dt, D, S, mask, G) in enumerate(cases):
+    for i, (dt, D, S, T, mask, G) in enumerate(cases):
         B, H = 2, 16
-        shift = {"causal": 0, "full": None, "shift": S // 3}[mask]
-        q, k, v = _k1_inputs(B, H, H // G, S, D, dt, seed=200 + i)
+        shift = _shift(mask, S, T)
+        q, k, v = _k1_inputs(B, H, H // G, S, D, dt, seed=200 + i, T=T)
         g = torch.Generator(device="cuda").manual_seed(400 + i)
         do = torch.randn((B, H, S, D), generator=g, device="cuda").to(dt)
         dlse = torch.randn((B, H, S), generator=g, device="cuda")
@@ -220,12 +327,12 @@ def check_flash_bwd() -> dict:
             shift, scale)
         torch.cuda.synchronize()
         err = max(_rel_err(a, b) for a, b in ((dq, rq), (dk, rk), (dv, rv)))
-        name = f"K2/K3 {str(dt)[6:]} D={D} S={S} {mask} G={G}"
+        name = f"K2/K3 {str(dt)[6:]} D={D} S={S} T={T} {mask} G={G}"
         log(f"{name}: rel_err={err:.3e} tol={tol[dt]:.0e}")
         if not err <= tol[dt]:
             failed.append(name)
         worst[name] = err
-        if S == 2048 and G == 1:
+        if S == T == 2048 and G == 1:
             worst["training"] = {
                 "dkdv": max((dk.float() - rk.float()).abs().max().item(),
                             (dv.float() - rv.float()).abs().max().item()),
@@ -659,9 +766,12 @@ def time_flash(err: float, launches: int, B: int = 2, Hkv: int = 4) -> dict:
     q, k, v = _k1_inputs(B, H, Hkv, S, D, dt, seed=100)
     ke, ve = A.expand_kv(k, H), A.expand_kv(v, H)
     scale = 1.0 / math.sqrt(D)
-    ms = time_ms(lambda: A.flash_attention_with_lse(q, k, v, True))
+    def kernel():
+        return A.flash_attention_with_lse(q, k, v, True)
+
+    ms, one = time_ms(kernel), time_ms(kernel, batch=1)
     plain = time_ms(lambda: A._reference_attention_lse(
-        q, A.expand_kv(k, H), A.expand_kv(v, H), 0, scale), reps=5)
+        q, A.expand_kv(k, H), A.expand_kv(v, H), 0, scale), reps=5, batch=1)
     try:
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True))
@@ -677,7 +787,8 @@ def time_flash(err: float, launches: int, B: int = 2, Hkv: int = 4) -> dict:
             "replaces": "horovod_tpu/ops/attention.py:124",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib,
+            "library_ms": lib, "tflops": tflops(4 * D * pairs, ms),
+            "one_call_ms": one,
             "shape": f"B={B} H={H} H_kv={Hkv} S=T={S} D={D} bf16 causal"}
 
 
@@ -698,9 +809,13 @@ def time_flash_bwd(errs: dict, launches: dict) -> list:
     args = (q, k, v, do, lse, delta, 0, scale)
     ms2 = time_ms(lambda: A._flash_bwd_dkdv_cuda(*args))
     ms3 = time_ms(lambda: A._flash_bwd_dq_cuda(*args))
-    plain2 = time_ms(lambda: A._flash_bwd_dkdv_reference(*args), reps=5)
+    one2 = time_ms(lambda: A._flash_bwd_dkdv_cuda(*args), batch=1)
+    one3 = time_ms(lambda: A._flash_bwd_dq_cuda(*args), batch=1)
+    plain2 = time_ms(lambda: A._flash_bwd_dkdv_reference(*args), reps=5,
+                     batch=1)
     torch.cuda.empty_cache()
-    plain3 = time_ms(lambda: A._flash_bwd_dq_reference(*args), reps=5)
+    plain3 = time_ms(lambda: A._flash_bwd_dq_reference(*args), reps=5,
+                     batch=1)
     torch.cuda.empty_cache()
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
@@ -711,18 +826,19 @@ def time_flash_bwd(errs: dict, launches: dict) -> list:
     n = q.numel()
     shape = f"B={B} H={H} S=T={S} D={D} bf16 causal"
     out = []
-    for name, src, line, ms, plain, flop_per_pair, outs in (
+    for name, src, line, ms, one, plain, flop_per_pair, outs in (
             ("flash_bwd_dkdv", "horovod_tpu/ops/attention.py:254", "dkdv",
-             ms2, plain2, 8 * D, 2),
+             ms2, one2, plain2, 8 * D, 2),
             ("flash_bwd_dq", "horovod_tpu/ops/attention.py:315", "dq",
-             ms3, plain3, 6 * D, 1)):
-        b_ms, b_by = bound(flop_per_pair * pairs,
-                           2 * 4 * n + 2 * rows + 2 * outs * n, dt)
+             ms3, one3, plain3, 6 * D, 1)):
+        flops = flop_per_pair * pairs
+        b_ms, b_by = bound(flops, 2 * 4 * n + 2 * rows + 2 * outs * n, dt)
         out.append({"name": name, "route": "cuda",
                     "source": "horovod_tpu_torch/ops/csrc/flash_bwd.cu",
                     "replaces": src, "launches": launches[name],
                     "max_abs_err": errs[line], "ms": ms, "plain_ms": plain,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                    "tflops": tflops(flops, ms), "one_call_ms": one,
                     "shape": shape})
     del q, k, v, do, o, lse, delta, ql, kl, vl, ol
     torch.cuda.empty_cache()
@@ -747,10 +863,12 @@ def time_paged(err: float, launches: int) -> dict:
     perm = torch.randperm(P - 1, generator=g, device="cuda")[:S * MP] + 1
     table = perm.reshape(S, MP).to(torch.int32).contiguous()
     limit = torch.full((S,), MP * ps, dtype=torch.int32, device="cuda")
-    ms = time_ms(lambda: PA.paged_attend(qg, kp, vp, None, None, table,
-                                         limit))
+    def kernel():
+        return PA.paged_attend(qg, kp, vp, None, None, table, limit)
+
+    ms, one = time_ms(kernel), time_ms(kernel, batch=1)
     plain = time_ms(lambda: PA.paged_attend_reference(
-        qg, kp, vp, None, None, table, limit), reps=10)
+        qg, kp, vp, None, None, table, limit), reps=10, batch=1)
     kg = T._gather_pages(kp, table)
     vg = T._gather_pages(vp, table)
     vis = (torch.arange(MP * ps, device="cuda")[None, :]
@@ -761,13 +879,15 @@ def time_paged(err: float, launches: int) -> dict:
     kv_bytes = 2 * n_pos * Hkv * Dh * kp.element_size()
     nbytes = (kv_bytes + qg.numel() * qg.element_size() + table.numel() * 4
               + S * 4 + S * Hkv * R * Dh * 4 + S * Hkv * R * 4)
-    b_ms, b_by = bound(4 * Hkv * R * Dh * n_pos, nbytes, torch.bfloat16)
+    flops = 4 * Hkv * R * Dh * n_pos
+    b_ms, b_by = bound(flops, nbytes, torch.bfloat16)
     return {"name": "paged_attend", "route": "cuda",
             "source": "horovod_tpu_torch/ops/csrc/paged_attention.cu",
             "replaces": "horovod_tpu/ops/paged_attention.py:101",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib,
+            "library_ms": lib, "tflops": tflops(flops, ms),
+            "one_call_ms": one,
             "shape": f"S={S} H_kv={Hkv} R={R} Dh={Dh} page={ps} "
                      f"pages/slot={MP} bf16, every slot at {MP * ps}"}
 
@@ -785,6 +905,7 @@ def main() -> int:
     t_start = time.monotonic()
     card = card_info()
     build()
+    REPORT["sass_hmma"] = sass_check()
     k1 = check_flash()
     k23 = check_flash_bwd()
     k4 = check_paged()
@@ -807,9 +928,11 @@ def main() -> int:
                           B=TRAIN_BATCH, Hkv=16)
     REPORT["flash_fwd_training_shape"] = k1_train
     for kr in kernels + [k1_train]:
-        log(f"{kr['name']} [{kr['shape']}]: {kr['ms']:.4f} ms, bound "
-            f"{kr['bound_ms']:.4f} ms ({kr['bound_by']}), plain "
-            f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']:.4f} ms")
+        log(f"{kr['name']} [{kr['shape']}]: {kr['ms']:.4f} ms "
+            f"({kr['tflops']:.1f} TFLOP/s; one call alone "
+            f"{kr['one_call_ms']:.4f} ms), bound {kr['bound_ms']:.4f} ms "
+            f"({kr['bound_by']}), plain {kr['plain_ms']:.4f} ms, library "
+            f"{kr['library_ms']:.4f} ms")
     REPORT["kernels"] = kernels
     REPORT["seconds"] = time.monotonic() - t_start
     log("report: " + json.dumps(REPORT, default=str))

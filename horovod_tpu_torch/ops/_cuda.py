@@ -11,8 +11,8 @@ PyTorch headers, so a build takes seconds, not minutes.
 * The build happens at FIRST USE, never at import (the CPU test suite
   imports every module on a machine with no ``nvcc``), into
   ``build/kernels/`` at the repository root; a library is rebuilt when
-  its source is newer.  :func:`build_all` starts one ``nvcc`` per
-  source at once.
+  its source, or any shared header ``csrc/*.cuh``, is newer.
+  :func:`build_all` starts one ``nvcc`` per source at once.
 * Every pointer and the stream cross as ``ctypes.c_void_p`` (a bare
   Python int would be cut to 32 bits); the stream is PyTorch's current
   one, so a kernel orders with the surrounding tensor code and never
@@ -45,8 +45,10 @@ NEG_INF = -1e30  # finite mask value: exp(NEG_INF - anything_real) == 0
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and
+# spills in the compiler output that build_all returns.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -63,8 +65,15 @@ def _nvcc() -> str:
 
 
 def _stale(name: str) -> bool:
-    src, so = CSRC / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
-    return not so.exists() or src.stat().st_mtime > so.stat().st_mtime
+    """True when ``lib<name>.so`` is missing or older than ``<name>.cu``
+    or any shared header under ``csrc/`` (a header edit must rebuild
+    every library, not leave the old one loaded)."""
+    so = BUILD_DIR / f"lib{name}.so"
+    if not so.exists():
+        return True
+    built = so.stat().st_mtime
+    return any(src.stat().st_mtime > built
+               for src in [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
 
 
 def _start(name: str):
@@ -103,7 +112,7 @@ def build_all(names: Iterable[str] = None) -> Dict[str, str]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if it is
-    missing or older than its source."""
+    missing or older than its sources."""
     lib = _libs.get(name)
     if lib is not None:
         return lib

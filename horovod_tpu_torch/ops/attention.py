@@ -174,6 +174,9 @@ def _check_inputs(q, k, v):
         raise ValueError(f"flash kernels take head_dim 64 or 128, got {D}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash kernels need contiguous q, k, v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash kernels need 16-byte aligned q, k, v "
+                         "(rows are copied 16 bytes at a time)")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
 
@@ -220,8 +223,10 @@ def _bwd_args(q, k, v, do, lse, delta, shift):
     _check_inputs(q, k, v)
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
-    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
-        raise ValueError("do must be contiguous, with q's shape and dtype")
+    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous() \
+            or do.data_ptr() % 16:
+        raise ValueError("do must be contiguous and 16-byte aligned, with "
+                         "q's shape and dtype")
     if lse.shape != (B, H, S) or delta.shape != (B, H, S) or not (
             lse.dtype == delta.dtype == torch.float32
             and lse.is_contiguous() and delta.is_contiguous()):

@@ -33,19 +33,38 @@ def dev():
     return torch.device("cuda")
 
 
+def _shift(mask, S, T):
+    """Mask names as the kernels' shift (col + shift <= row attends)."""
+    return {"causal": 0, "full": None, "shift67": 67, "bottom_right": S - T,
+            "none_visible": T - S}[mask]
+
+
+# (S, T, mask): the edge shapes of the tensor-core tiles (64 rows): ragged
+# S, and S != T unmasked, bottom-right causal and with every row masked.
+EDGE_CASES = ([(S, S, "causal") for S in (1, 17, 63, 65, 2047)]
+              + [(100, 300, m) for m in ("full", "bottom_right",
+                                         "none_visible")])
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 5e-2)])
 @pytest.mark.parametrize("D", [64, 128])
-def test_flash_kernel(dev, dtype, tol, D):
+@pytest.mark.parametrize("S,T,mask", [(200, 200, "causal")] + EDGE_CASES)
+def test_flash_kernel(dev, dtype, tol, D, S, T, mask):
+    """K1 against its plain version, GQA G = 4."""
     g = torch.Generator(device=dev).manual_seed(0)
-    q = torch.randn((2, 8, 200, D), generator=g, device=dev).to(dtype)
-    k, v = (torch.randn((2, 2, 200, D), generator=g, device=dev).to(dtype)
+    q = torch.randn((2, 8, S, D), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((2, 2, T, D), generator=g, device=dev).to(dtype)
             for _ in range(2))
+    shift = _shift(mask, S, T)
     before = A.flash_fwd_launches
-    o, lse = A.flash_attention_with_lse(q, k, v, True)
+    if shift is None:
+        o, lse = A.flash_attention_with_lse(q, k, v, False)
+    else:
+        o, lse = A.flash_attention_shifted(q, k, v, shift)
     assert A.flash_fwd_launches == before + 1
     o_r, l_r = A._reference_attention_lse(
-        q, A.expand_kv(k, 8), A.expand_kv(v, 8), 0, 1 / D ** 0.5)
+        q, A.expand_kv(k, 8), A.expand_kv(v, 8), shift, 1 / D ** 0.5)
     assert (o.float() - o_r.float()).abs().max().item() <= tol
     assert (lse - l_r).abs().max().item() <= tol
 
@@ -60,9 +79,9 @@ def _rel_err(got, want):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("Hkv", [8, 2], ids=["mha", "gqa"])
-@pytest.mark.parametrize("shift", [0, None, 67], ids=["causal", "full",
-                                                      "shift67"])
-def test_flash_backward_kernels(dev, dtype, tol, D, Hkv, shift):
+@pytest.mark.parametrize("S,T,mask", [(200, 200, m) for m in (
+    "causal", "full", "shift67")] + EDGE_CASES)
+def test_flash_backward_kernels(dev, dtype, tol, D, Hkv, S, T, mask):
     """K2 and K3 through the autograd Function, with a nonzero lse
     cotangent, against the plain backward on the same forward results
     (shift 67 leaves rows 0..66 fully masked)."""
@@ -71,9 +90,10 @@ def test_flash_backward_kernels(dev, dtype, tol, D, Hkv, shift):
     def r(*shape):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-    q, k, v = r(2, 8, 200, D), r(2, Hkv, 200, D), r(2, Hkv, 200, D)
-    do, dlse = r(2, 8, 200, D), r(2, 8, 200).float()
+    q, k, v = r(2, 8, S, D), r(2, Hkv, T, D), r(2, Hkv, T, D)
+    do, dlse = r(2, 8, S, D), r(2, 8, S).float()
     q, k, v = (t.requires_grad_() for t in (q, k, v))
+    shift = _shift(mask, S, T)
     scale = D ** -0.5
     n2, n3 = A.flash_bwd_dkdv_launches, A.flash_bwd_dq_launches
     o, lse = A._FlashAttention.apply(q, k, v, shift, scale)
@@ -86,6 +106,48 @@ def test_flash_backward_kernels(dev, dtype, tol, D, Hkv, shift):
     for got, ref in zip(grads, want):
         assert got.dtype == ref.dtype and got.shape == ref.shape
         assert _rel_err(got, ref) <= tol
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.bfloat16, "_mma"), (torch.float32, "")])
+def test_each_dtype_reaches_its_instantiation(dev, dtype, kernel):
+    """bf16 runs the tensor-core K1 and K2 (``*_kernel_mma``), f32 the
+    scalar ones: the profiler names the kernels each call launched, the
+    launch counters grow by one each, and the results match the plain
+    versions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, do = (torch.randn((1, 4, 96, 64), generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = (A.flash_fwd_launches, A.flash_bwd_dkdv_launches,
+              A.flash_bwd_dq_launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o = A.flash_attention(q, k, v, True)
+        grads = torch.autograd.grad(o, (q, k, v), do)
+        torch.cuda.synchronize()
+    assert (A.flash_fwd_launches, A.flash_bwd_dkdv_launches,
+            A.flash_bwd_dq_launches) == tuple(n + 1 for n in before)
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    for base in ("flash_fwd_kernel", "flash_bwd_dkdv_kernel"):
+        ran = [n for n in names if base in n]
+        assert ran and all(("_mma" in n) == bool(kernel) for n in ran), names
+    scale = 64 ** -0.5
+    o_r, lse_r = A._reference_attention_lse(q.detach(), k.detach(),
+                                            v.detach(), 0, scale)
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    assert (o.float() - o_r.float()).abs().max().item() <= tol
+    _, lse = A.flash_attention_with_lse(q.detach(), k.detach(), v.detach(),
+                                        True)
+    delta = (do.float() * o.detach().float()).sum(-1)
+    want = A._flash_bwd_reference(q.detach(), k.detach(), v.detach(), do,
+                                  lse, delta, 0, scale)
+    for got, ref in zip(grads, want):
+        assert _rel_err(got, ref) <= (2e-2 if dtype == torch.bfloat16
+                                      else 1e-4)
 
 
 def _edge_case(kv, dev):

@@ -12,6 +12,8 @@ f32 in both) and 2e-2 for bf16 pools (the Pallas kernel casts the
 unnormalized weights to bf16, the plain version the normalized ones).
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -74,6 +76,36 @@ class TestFlashAttention:
         np.testing.assert_array_equal(
             _np(A.expand_kv(torch.from_numpy(k), H)),
             _np(JA.expand_kv(jnp.asarray(k), H)))
+
+    @pytest.mark.parametrize("G", [1, 4])
+    @pytest.mark.parametrize("shift", [0, -64, None],
+                             ids=["causal", "bottom_right", "full"])
+    def test_bf16_plain_matches_jax_kernel(self, shift, G):
+        """The bf16 yardstick the tensor-core K1 is held to on the card:
+        the plain version against the Pallas kernel (interpret mode,
+        blocks of 32) at S=64 != T=128.  Tolerance 2e-2 of the largest
+        value: the plain version rounds the scores to bf16 and p after
+        normalising, the kernel keeps f32 scores and rounds the
+        unnormalised p, so o differs by a few bf16 steps (2^-8)."""
+        rng = np.random.RandomState(5)
+        H, S, T, D = 4, 64, 128, 32
+        q = rng.randn(2, H, S, D).astype(np.float32)
+        k, v = (rng.randn(2, H // G, T, D).astype(np.float32)
+                for _ in range(2))
+        jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+        o_j, lse_j = JA._flash_fwd(jq, JA.expand_kv(jk, H),
+                                   JA.expand_kv(jv, H), shift, None, 32, 32)
+        tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16)
+                      for x in (q, k, v))
+        if shift is None:
+            o_t, lse_t = A.flash_attention_with_lse(tq, tk, tv, False)
+        else:
+            o_t, lse_t = A.flash_attention_shifted(tq, tk, tv, shift)
+        assert o_t.dtype == torch.bfloat16 and o_t.shape == (2, H, S, D)
+        for got, want in ((o_t, o_j), (lse_t, lse_j)):
+            want = _np(want)
+            np.testing.assert_allclose(_np(got), want, rtol=0,
+                                       atol=2e-2 * np.abs(want).max())
 
     def test_fully_masked_rows_and_reference(self):
         """shift past every column: o = 0, lse = NEG_INF, as in JAX."""
@@ -152,6 +184,36 @@ class TestPagedAttend:
             *targs, torch.from_numpy(table), torch.from_numpy(limit),
             compute_dtype=torch.bfloat16)
         np.testing.assert_allclose(_np(o_t), _np(o_j), atol=2e-2, rtol=2e-2)
+
+
+class TestKernelBuild:
+    def test_header_edit_makes_every_library_stale(self, tmp_path,
+                                                   monkeypatch):
+        """A library is rebuilt when its .cu or any shared csrc/*.cuh is
+        newer; no nvcc is needed to decide."""
+        from horovod_tpu_torch.ops import _cuda
+
+        csrc, build = tmp_path / "csrc", tmp_path / "build"
+        csrc.mkdir()
+        build.mkdir()
+        monkeypatch.setattr(_cuda, "CSRC", csrc)
+        monkeypatch.setattr(_cuda, "BUILD_DIR", build)
+        for name in ("a", "b"):
+            (csrc / f"{name}.cu").write_text("// source\n")
+        header = csrc / "shared.cuh"
+        header.write_text("// header\n")
+        assert _cuda._stale("a")  # never built
+        for name in ("a", "b"):
+            (build / f"lib{name}.so").write_bytes(b"")
+        older = os.stat(build / "liba.so").st_mtime - 100
+        for f in (csrc / "a.cu", csrc / "b.cu", header):
+            os.utime(f, (older, older))
+        assert not _cuda._stale("a") and not _cuda._stale("b")
+        os.utime(header)  # touch the header only
+        assert _cuda._stale("a") and _cuda._stale("b")
+        os.utime(header, (older, older))
+        os.utime(csrc / "b.cu")
+        assert not _cuda._stale("a") and _cuda._stale("b")
 
 
 class TestQuantization:

@@ -130,6 +130,51 @@ class TestFlashGradients:
             lambda q, k, v: A.flash_attention_shifted(q, k, v, shift),
             q, k, v, w, wl)
 
+    @pytest.mark.parametrize("G", [1, 4])
+    @pytest.mark.parametrize("shift", [0, -64, None],
+                             ids=["causal", "bottom_right", "full"])
+    def test_bf16_plain_backward_matches_jax_kernels(self, shift, G):
+        """The bf16 yardstick the tensor-core K2 (and K3) are held to on
+        the card: the plain dk/dv (and dq) against the Pallas backward
+        kernels (interpret mode, blocks of 32) at S=64 != T=128, on the
+        JAX forward's o and lse, with a nonzero lse cotangent.
+        Tolerance 2e-2 of the largest gradient: p and ds round to bf16 in
+        both at the same points, but with GQA the JAX path rounds each
+        query head's dk/dv to bf16 before the group sum and the plain
+        version sums in f32 and rounds once (a few bf16 steps, 2^-8)."""
+        rng = np.random.RandomState(6)
+        H, S, T, D = 4, 64, 128, 32
+        q, do = (rng.randn(2, H, S, D).astype(np.float32) for _ in range(2))
+        k, v = (rng.randn(2, H // G, T, D).astype(np.float32)
+                for _ in range(2))
+        dlse = rng.randn(2, H, S).astype(np.float32)
+        scale = D ** -0.5
+        jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16)
+                           for x in (q, k, v, do))
+        jk, jv = JA.expand_kv(jk, H), JA.expand_kv(jv, H)
+        o, lse = JA._flash_fwd(jq, jk, jv, shift, None, 32, 32)
+        dq_j, dk_j, dv_j = JA._flash_bwd_pallas(
+            shift, scale, 32, 32, jq, jk, jv, o, lse, jdo, jnp.asarray(dlse))
+        tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                           for x in (q, k, v, do))
+        to = torch.from_numpy(np.array(o, np.float32)).to(torch.bfloat16)
+        tlse = torch.from_numpy(np.array(lse, np.float32))
+        delta = (tdo.float() * to.float()).sum(-1) - torch.from_numpy(dlse)
+        dk, dv = A._flash_bwd_dkdv_reference(tq, tk, tv, tdo, tlse, delta,
+                                             shift, scale)
+        dq = A._flash_bwd_dq_reference(tq, tk, tv, tdo, tlse, delta, shift,
+                                       scale)
+
+        def group_sum(x):  # the expanded heads' VJP: sum over each group
+            return _np(x.astype(jnp.float32)).reshape(
+                2, H // G, G, T, D).sum(2)
+
+        for got, want in ((dk, group_sum(dk_j)), (dv, group_sum(dv_j)),
+                          (dq, _np(dq_j.astype(jnp.float32)))):
+            assert got.dtype == torch.bfloat16
+            np.testing.assert_allclose(_np(got.float()), want, rtol=0,
+                                       atol=2e-2 * np.abs(want).max())
+
 
 # --- 2. the model's loss and gradients -----------------------------------------
 
