@@ -12,17 +12,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and spill bytes of each kernel printed.  Then the tensor-core
    check: ``cuobjdump -sass`` (from ``nvcc``'s toolkit) counts the
    ``HMMA``/``HGMMA`` instructions of every kernel function in the flash
-   libraries; the bf16 K1 and K2 kernels must have some.
+   libraries; the bf16 K1, K2 and K3 kernels must have some.
 3. Kernels against their plain PyTorch versions on the card, at the
    serving path's shapes, each maximum error printed beside its
    tolerance: flash attention forward (K1) in bf16 and f32, head_dim 64
    and 128, causal, S from 8 to 2048; paged-attention decode (K4) over
    f32, bf16 and int8 pools with an edge table (partial last page, a
    slot at table capacity, a ``limit = 0`` slot, a page shared by two
-   slots); flash-attention backward (K2 dk/dv, K3 dq) through the
-   autograd Function with a nonzero lse cotangent, bf16 and f32, head_dim
-   64 and 128, S 8, 100 and 2048, causal, full and shifted masks, MHA
-   and GQA (G = 4), against the plain backward on the same forward.
+   slots, limits on a split boundary and one past it, splits wholly
+   past the limit, R = 1 and 8), each case called twice and required
+   to agree bit for bit; flash-attention backward (K2 dk/dv, K3 dq)
+   through the autograd Function with a nonzero lse cotangent, bf16 and
+   f32, head_dim 64 and 128, S 8, 100 and 2048, causal, full and shifted
+   masks, MHA and GQA (G = 4), against the plain backward on the same
+   forward.
    Edge shapes for K1-K3 in both dtypes: ragged S (1, 17, 63, 65,
    2047) and S = 100 against T = 300, unmasked, bottom-right causal
    (shift = S - T) and fully masked (shift = T - S).
@@ -45,13 +48,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    tokens.  Every loss must be finite, the last below the first, and
    K1, K2 and K3 must each launch once a layer a step; step time,
    tokens/s, MFU and peak memory are printed, and one more step is
-   profiled.
+   profiled (its K3 must be the tensor-core ``flash_bwd_dq_kernel_mma``).
 8. Times: each kernel at its path's shape (CUDA events around 10
    back-to-back calls, median of 20; also one call alone, which adds
-   the host's launch cost) beside its bound, its achieved TFLOP/s (the
-   bound's FLOP count over its time), its plain version and a PyTorch
-   yardstick the port never calls; the serving run's decode tok/s, TTFT
-   and per-tick time.
+   the host's launch cost; K4 and its yardstick, whose calls are
+   shorter than their launching, by the profiler's device time) beside
+   its bound, its achieved TFLOP/s (the bound's FLOP count over its
+   time), its plain version and a PyTorch yardstick the port never
+   calls, and K4's split grid; the serving run's decode tok/s, TTFT and
+   per-tick time.
 
 A ``report:`` line carries every measurement as JSON; the line before
 last is a JSON object of the kernels; the last line is
@@ -124,6 +129,27 @@ def time_ms(fn, reps: int = 20, warm: int = 3, batch: int = 10) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, tag: str = "", reps: int = 20) -> float:
+    """Device time of one call: ``torch.profiler``'s kernel time of
+    ``reps`` calls (kernels whose name holds ``tag``), over ``reps``.
+    For calls so short that back-to-back CUDA events time the host's
+    launching instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in _device_events(prof)
+                if tag in e.key)
+    if total <= 0:
+        raise AssertionError(f"the profiler saw no kernel matching {tag!r}")
+    return total / 1e3 / reps
+
+
 def bound(flops: float, nbytes: float, dtype) -> tuple:
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
@@ -176,7 +202,17 @@ def build() -> None:
 
 def _kernel_name(mangled: str) -> str:
     """``flash_fwd_kernel_mma<bf16,64>``-style name of a mangled flash
-    kernel (other names are returned as they are)."""
+    kernel, ``paged_attend_split_kernel<int8,bf16,R4,L8>`` of a paged one
+    (other names are returned as they are)."""
+    paged = re.search(r"\d+(paged_attend_[a-z_]+?)(?:I(.*?)EEv|E)", mangled)
+    if paged:
+        kinds = {"13__nv_bfloat16": "bf16", "a": "int8", "f": "f32"}
+        toks = re.findall(r"13__nv_bfloat16|S1_|Li\d+|a|f",
+                          paged.group(2) or "")
+        ints = iter(("R", "L"))  # query rows a CTA, lanes a position
+        args = [kinds.get(t, kinds.get(toks[0])) if not t.startswith("Li")
+                else next(ints) + t[2:] for t in toks]
+        return paged.group(1) + (f"<{','.join(args)}>" if args else "")
     name = re.search(r"\d+(flash_[a-z_]+?)I", mangled)
     dim = re.search(r"Li(\d+)E", mangled)
     if not (name and dim):
@@ -189,7 +225,7 @@ def sass_check() -> dict:
     """Tensor-core instructions (``HMMA``, ``HGMMA``) in each kernel
     function of the flash libraries, by ``cuobjdump -sass`` from the
     toolkit of the ``nvcc`` that built them.  Fails unless both bf16
-    instantiations (D = 64, 128) of K1 and of K2 have some."""
+    instantiations (D = 64, 128) of K1, K2 and K3 have some."""
     from horovod_tpu_torch.ops import _cuda
 
     tool = Path(_cuda._nvcc()).resolve().parent / "cuobjdump"
@@ -208,7 +244,8 @@ def sass_check() -> dict:
                 counts[fn] += 1
     for fn, n in sorted(counts.items()):
         log(f"sass: {fn}: {n} HMMA/HGMMA")
-    for tag in ("flash_fwd_kernel_mma", "flash_bwd_dkdv_kernel_mma"):
+    for tag in ("flash_fwd_kernel_mma", "flash_bwd_dkdv_kernel_mma",
+                "flash_bwd_dq_kernel_mma"):
         got = [n for fn, n in counts.items() if fn.startswith(tag + "<")]
         if len(got) != 2 or not all(got):
             raise AssertionError(f"{tag}: expected tensor-core instructions "
@@ -344,8 +381,17 @@ def check_flash_bwd() -> dict:
     return worst
 
 
+# Slot limits of the K4 checks at the serving shape (8 slots, 136 pages
+# of 16, split_grid: 9 pages = 144 positions a split): a slot at table
+# capacity, a partial last page, limit 0, two slots sharing pages.
+K4_LIMITS = [16 * 136, 5, 0, 16 + 3, 1000, 1, 2048, 777]
+# Split edges: on a split boundary (144, 288) and one position past it,
+# one short of it, and slots whose later splits are all past the limit.
+K4_SPLIT_LIMITS = [144, 145, 0, 288, 289, 143, 16 * 136, 17]
+
+
 def _k4_case(kind, compute, Dh=64, S=8, Hkv=4, R=4, ps=16, MP=136,
-             P=1089, seed=0):
+             P=1089, seed=0, lim=K4_LIMITS):
     from horovod_tpu_torch.models import transformer as T
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -355,8 +401,7 @@ def _k4_case(kind, compute, Dh=64, S=8, Hkv=4, R=4, ps=16, MP=136,
     table = torch.randint(1, P, (S, MP), generator=g, device="cuda",
                           dtype=torch.int32)
     table[1] = table[0]                       # a page shared by two slots
-    lim = [ps * MP, 5, 0, ps + 3, 1000, 1, 2048, 777][:S]
-    limit = torch.tensor(lim, dtype=torch.int32, device="cuda")
+    limit = torch.tensor(lim[:S], dtype=torch.int32, device="cuda")
     if kind == "int8":
         kq, ks = T.kv_quantize(kf)
         vq, vs = T.kv_quantize(vf)
@@ -367,32 +412,49 @@ def _k4_case(kind, compute, Dh=64, S=8, Hkv=4, R=4, ps=16, MP=136,
 
 
 def check_paged() -> dict:
+    """K4 against its plain version; every case is called twice and the
+    two results must be equal bit for bit (no atomics, partials combined
+    in split order)."""
     from horovod_tpu_torch.ops import paged_attention as PA
 
     worst = {}
-    cases = [(torch.float32, torch.float32, 64, 1e-4),
-             (torch.bfloat16, torch.bfloat16, 64, 2e-2),
-             ("int8", torch.bfloat16, 64, 2e-2),
-             ("int8", torch.float32, 64, 1e-4),
-             (torch.bfloat16, torch.bfloat16, 128, 2e-2)]
-    for i, (kind, compute, Dh, tol) in enumerate(cases):
-        args, table, limit = _k4_case(kind, compute, Dh=Dh, seed=i)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (pool, compute dtype, Dh, R, limits, tolerance)
+    cases = [(f32, f32, 64, 4, K4_LIMITS, 1e-4),
+             (bf16, bf16, 64, 4, K4_LIMITS, 2e-2),
+             ("int8", bf16, 64, 4, K4_LIMITS, 2e-2),
+             ("int8", f32, 64, 4, K4_LIMITS, 1e-4),
+             (bf16, bf16, 128, 4, K4_LIMITS, 2e-2),
+             (f32, f32, 64, 4, K4_SPLIT_LIMITS, 1e-4),
+             (bf16, bf16, 64, 4, K4_SPLIT_LIMITS, 2e-2),
+             ("int8", bf16, 128, 4, K4_SPLIT_LIMITS, 2e-2),
+             (bf16, bf16, 64, 1, K4_SPLIT_LIMITS, 2e-2),
+             (bf16, bf16, 64, 8, K4_LIMITS, 2e-2),
+             (f32, f32, 128, 8, K4_SPLIT_LIMITS, 1e-4)]
+    for i, (kind, compute, Dh, R, lim, tol) in enumerate(cases):
+        args, table, limit = _k4_case(kind, compute, Dh=Dh, R=R, seed=i,
+                                      lim=lim)
         o, lse = PA.paged_attend(*args, table, limit, compute_dtype=compute)
+        o2, lse2 = PA.paged_attend(*args, table, limit,
+                                   compute_dtype=compute)
         o_r, l_r = PA.paged_attend_reference(*args, table, limit,
                                              compute_dtype=compute)
         torch.cuda.synchronize()
         live = limit > 0
         err = max((o - o_r).abs().max().item(),
                   (lse[live] - l_r[live]).abs().max().item())
+        edges = "split edges" if lim is K4_SPLIT_LIMITS else "edge table"
         name = f"K4 pool={str(kind).replace('torch.', '')} " \
-               f"compute={str(compute)[6:]} Dh={Dh}"
+               f"compute={str(compute)[6:]} Dh={Dh} R={R} {edges}"
         log(f"{name}: max_abs_err={err:.3e} tol={tol:.0e}")
         if not err <= tol:
             raise AssertionError(f"{name} disagrees with its plain version")
         if o[~live].abs().max().item() != 0 or \
                 not (lse[~live] <= PA.NEG_INF / 2).all():
             raise AssertionError(f"{name}: a limit=0 slot is not (0, NEG_INF)")
-        if kind == torch.bfloat16 and Dh == 64:
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"{name}: two calls differ")
+        if kind == bf16 and Dh == 64 and R == 4 and lim is K4_LIMITS:
             worst["serving"] = err
         worst[name] = err
     return worst
@@ -466,7 +528,8 @@ def profile_decode(engine, n_ticks: int = 8) -> dict:
     busy = sum(kernels.values())
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
-    k4 = sum(t for k, t in kernels.items() if "paged_attend_kernel" in k)
+    # K4 is two kernels a call: split and combine.
+    k4 = sum(t for k, t in kernels.items() if "paged_attend_" in k)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     out = {"ticks": n_ticks, "tick_wall_ms": wall_ms,
            "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
@@ -677,6 +740,9 @@ def profile_train_step(step, params, batch) -> dict:
     k13 = out["flash_fwd_ms"] + out["flash_bwd_dkdv_ms"] + \
         out["flash_bwd_dq_ms"]
     out["flash_share_of_busy"] = k13 / busy
+    if not any("flash_bwd_dq_kernel_mma" in k for k in kernels):
+        raise AssertionError("the bf16 step did not run K3 on the tensor "
+                             f"cores: {sorted(kernels)[:20]}")
     log(f"train step profile: device busy {busy:.1f} ms of {wall_ms:.1f} "
         f"ms (idle share {out['idle_share']:.3f}); K1 "
         f"{out['flash_fwd_ms']:.1f}, K2 {out['flash_bwd_dkdv_ms']:.1f}, K3 "
@@ -866,15 +932,24 @@ def time_paged(err: float, launches: int) -> dict:
     def kernel():
         return PA.paged_attend(qg, kp, vp, None, None, table, limit)
 
-    ms, one = time_ms(kernel), time_ms(kernel, batch=1)
+    # Device time (split + combine kernels): CUDA events around 10
+    # back-to-back calls time the host's launching at this size.
+    ms = device_ms(kernel, "paged_attend_")
+    call_ms, one = time_ms(kernel), time_ms(kernel, batch=1)
     plain = time_ms(lambda: PA.paged_attend_reference(
         qg, kp, vp, None, None, table, limit), reps=10, batch=1)
     kg = T._gather_pages(kp, table)
     vg = T._gather_pages(vp, table)
     vis = (torch.arange(MP * ps, device="cuda")[None, :]
            < limit[:, None])[:, None, None, :]
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qg, kg, vg, attn_mask=vis))
+
+    def library():
+        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=vis)
+
+    lib, lib_call = device_ms(library), time_ms(library)
+    pps, grid = PA.split_grid(S, Hkv, R, MP)
+    log(f"K4 grid at the serving shape: split kernel {grid} = "
+        f"{math.prod(grid)} CTAs of {pps} pages, combine {grid[0]} CTAs")
     n_pos = int(limit.sum())
     kv_bytes = 2 * n_pos * Hkv * Dh * kp.element_size()
     nbytes = (kv_bytes + qg.numel() * qg.element_size() + table.numel() * 4
@@ -887,7 +962,9 @@ def time_paged(err: float, launches: int) -> dict:
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib, "tflops": tflops(flops, ms),
-            "one_call_ms": one,
+            "one_call_ms": one, "call_ms": call_ms,
+            "library_call_ms": lib_call,
+            "grid": list(grid), "pages_per_split": pps,
             "shape": f"S={S} H_kv={Hkv} R={R} Dh={Dh} page={ps} "
                      f"pages/slot={MP} bf16, every slot at {MP * ps}"}
 
@@ -938,7 +1015,10 @@ def main() -> int:
     log("report: " + json.dumps(REPORT, default=str))
     log(f"card: {card}")
     print(json.dumps({"kernels": [
-        {k: v for k, v in kr.items() if k != "shape"} for kr in kernels]}))
+        {k: v for k, v in kr.items()
+         if k not in ("shape", "grid", "pages_per_split", "call_ms",
+                      "library_call_ms")}
+        for kr in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,9 +8,16 @@ attend, int8 pages are dequantized in the load.  On a CUDA tensor
 :func:`paged_attend` launches ``csrc/paged_attention.cu`` (counted in
 :data:`paged_attend_launches`); on a CPU tensor it runs
 :func:`paged_attend_reference`, the gather -> dequant -> masked softmax
-path the unfused decode tick runs.  There is no shape gate: the JAX
-package's ``kernel_supported`` encoded TPU tiling rules, and the CUDA
-kernel takes any page size and head dim.
+path the unfused decode tick runs.  The JAX package's
+``kernel_supported`` gate encoded TPU tiling rules and is not copied; the
+CUDA kernel takes any page size and any R, and a head dim that its
+16-byte vector loads can cut (a multiple of 8, of 16 for int8 pools, at
+most 128): other head dims raise ``ValueError`` on a CUDA tensor.
+
+The kernel is split-K flash-decoding: the slot's page-table entries are
+cut into fixed runs (:func:`split_grid`, from the shapes alone, never
+from ``limit``), one CTA a run writes a partial softmax state into
+scratch allocated here, and a second kernel combines the partials.
 """
 
 from __future__ import annotations
@@ -24,9 +31,10 @@ from horovod_tpu_torch.ops import _cuda
 from horovod_tpu_torch.ops._cuda import NEG_INF
 
 __all__ = ["DEQUANT_COMPUTE", "NEG_INF", "paged_attend",
-           "paged_attend_reference"]
+           "paged_attend_reference", "split_grid"]
 
-#: Launches of the K4 kernel in this process.
+#: Calls of K4 (its split and combine kernels, launched together) in
+#: this process.
 paged_attend_launches = 0
 
 # The pinned dequant compute dtype: int8 payloads and their scales
@@ -90,6 +98,24 @@ def paged_attend_reference(qg, k_pool, v_pool, k_scale, v_scale, table,
 
 _POOL_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
+# CTAs the split kernel aims for: ~4 a streaming multiprocessor of an
+# H100 (132), so that every SM keeps several page copies in flight.
+SPLIT_TARGET_CTAS = 512
+_R_BLOCK = 8  # query rows a CTA when R > 4 (csrc/paged_attention.cu)
+_PPS_MAX = 1024  # pages a split, at most (their ids sit in shared memory)
+
+
+def split_grid(S: int, Hkv: int, R: int, max_pages: int):
+    """``(pages_per_split, grid)`` of K4's split kernel: ``grid = (S *
+    H_kv, n_split, R blocks)``.  From the shapes alone — reading
+    ``limit`` on the host would add a device sync to every layer."""
+    r_blocks = 1 if R <= 4 else -(-R // _R_BLOCK)
+    n_split = max(1, min(max_pages,
+                         -(-SPLIT_TARGET_CTAS // (S * Hkv * r_blocks))),
+                  -(-max_pages // _PPS_MAX))
+    pps = -(-max_pages // n_split)
+    return pps, (S * Hkv, -(-max_pages // pps), r_blocks)
+
 
 def _paged_attend_cuda(qg, k_pool, v_pool, k_scale, v_scale, table, limit,
                        compute_dtype):
@@ -121,28 +147,44 @@ def _paged_attend_cuda(qg, k_pool, v_pool, k_scale, v_scale, table, limit,
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"int8 pools dequantize to f32 or bf16, not "
                             f"{compute_dtype}")
+    step = 16 if quantized else 8
+    if Dh % step or Dh > 128:
+        raise ValueError(f"the paged kernel takes a head_dim that is a "
+                         f"multiple of {step} and at most 128 (16-byte "
+                         f"vector loads of {k_pool.dtype} rows), got {Dh}")
     tensors = [qg, k_pool, v_pool, table, limit] + (
         [k_scale, v_scale] if quantized else [])
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("paged kernel needs contiguous inputs")
     if any(t.device != qg.device for t in tensors):
         raise ValueError("paged kernel inputs must be on one device")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged kernel needs 16-byte aligned pools (pages "
+                         "are copied 16 bytes at a time)")
     lib = _cuda.library("paged_attention")
     fn = lib.paged_attend
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_void_p])
-    q32 = qg.float().contiguous()
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_int])
+    # The kernel reads q in f32 or bf16 and rounds it to the compute
+    # dtype itself; other dtypes are widened here.
+    if qg.dtype not in (torch.float32, torch.bfloat16):
+        qg = qg.float()
     o = torch.empty((S, Hkv, R, Dh), dtype=torch.float32, device=qg.device)
     lse = torch.empty((S, Hkv, R), dtype=torch.float32, device=qg.device)
+    pps, grid = split_grid(S, Hkv, R, max_pages)
+    part = torch.empty(S * Hkv * grid[1] * R * (Dh + 2), dtype=torch.float32,
+                       device=qg.device)
     null = ctypes.c_void_p(0)
-    rc = fn(_cuda.ptr(q32), _cuda.ptr(k_pool), _cuda.ptr(v_pool),
+    rc = fn(_cuda.ptr(qg), _cuda.ptr(k_pool), _cuda.ptr(v_pool),
             _cuda.ptr(k_scale) if quantized else null,
             _cuda.ptr(v_scale) if quantized else null,
             _cuda.ptr(table), _cuda.ptr(limit), _cuda.ptr(o), _cuda.ptr(lse),
             S, Hkv, R, Dh, ps, max_pages, kind,
             int(compute_dtype == torch.bfloat16), math.sqrt(Dh),
-            _cuda.stream(qg.device))
+            _cuda.stream(qg.device), _cuda.ptr(part), pps,
+            int(qg.dtype == torch.bfloat16))
     _cuda.check(lib, rc, "paged_attend launch")
     paged_attend_launches += 1
     return o, lse

@@ -111,10 +111,10 @@ def test_flash_backward_kernels(dev, dtype, tol, D, Hkv, S, T, mask):
 @pytest.mark.parametrize("dtype,kernel", [
     (torch.bfloat16, "_mma"), (torch.float32, "")])
 def test_each_dtype_reaches_its_instantiation(dev, dtype, kernel):
-    """bf16 runs the tensor-core K1 and K2 (``*_kernel_mma``), f32 the
-    scalar ones: the profiler names the kernels each call launched, the
-    launch counters grow by one each, and the results match the plain
-    versions."""
+    """bf16 runs the tensor-core K1, K2 and K3 (``*_kernel_mma``), f32
+    the scalar ones: the profiler names the kernels each call launched,
+    the launch counters grow by one each, and the results match the
+    plain versions."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -132,7 +132,8 @@ def test_each_dtype_reaches_its_instantiation(dev, dtype, kernel):
             A.flash_bwd_dq_launches) == tuple(n + 1 for n in before)
     names = [e.key for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA]
-    for base in ("flash_fwd_kernel", "flash_bwd_dkdv_kernel"):
+    for base in ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+                 "flash_bwd_dq_kernel"):
         ran = [n for n in names if base in n]
         assert ran and all(("_mma" in n) == bool(kernel) for n in ran), names
     scale = 64 ** -0.5
@@ -151,16 +152,20 @@ def test_each_dtype_reaches_its_instantiation(dev, dtype, kernel):
 
 
 def _edge_case(kv, dev):
-    """Partial last page, a slot at table capacity, a limit=0 slot and
-    two slots sharing pages."""
+    """Partial last page, a slot at table capacity, a limit=0 slot, two
+    slots sharing pages, and the split edges: 8 slots x 4 kv heads x 40
+    pages run 3 pages (48 positions) a split, so limits 48 and 96 end on
+    a split boundary, 49 one position past it, 47 one short, and every
+    slot but the full ones has splits wholly past its limit."""
     rng = np.random.RandomState(3)
-    S, Hkv, G, Dh, ps, MP, Pn = 4, 2, 2, 64, 16, 3, 8
+    S, Hkv, G, Dh, ps, MP, Pn = 8, 4, 2, 64, 16, 40, 200
+    assert PA.split_grid(S, Hkv, G, MP)[0] == 3
     qg = torch.from_numpy(rng.randn(S, Hkv, G, Dh).astype(np.float32))
     kf = torch.from_numpy(rng.randn(Pn, Hkv, ps, Dh).astype(np.float32))
     vf = torch.from_numpy(rng.randn(Pn, Hkv, ps, Dh).astype(np.float32))
     table = np.asarray(rng.randint(1, Pn, (S, MP)), np.int32)
     table[1] = table[0]
-    limit = np.asarray([ps * MP, 5, 0, ps + 3], np.int32)
+    limit = np.asarray([ps * MP, 5, 0, ps + 3, 48, 49, 47, 96], np.int32)
     if kv == "int8":
         (kq, ks), (vq, vs) = T.kv_quantize(kf), T.kv_quantize(vf)
         args = (qg, kq, vq, ks, vs)
@@ -174,11 +179,16 @@ def _edge_case(kv, dev):
 
 @pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
 def test_paged_kernel(dev, kv):
+    """K4 against its plain version on the edge table; a second call
+    gives the same bits (no atomics, splits combined in order)."""
     args, table, limit = _edge_case(kv, dev)
     before = PA.paged_attend_launches
     o, lse = PA.paged_attend(*args, table, limit,
                              compute_dtype=torch.float32)
     assert PA.paged_attend_launches == before + 1
+    o2, lse2 = PA.paged_attend(*args, table, limit,
+                               compute_dtype=torch.float32)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     o_r, l_r = PA.paged_attend_reference(*args, table, limit,
                                          compute_dtype=torch.float32)
     tol = 2e-2 if kv == "bf16" else 1e-4
@@ -222,4 +232,11 @@ def test_cuda_input_never_falls_back(dev):
         PA.paged_attend(torch.zeros((1, 1, 1, 64), device=dev),
                         x[0, :1, None], x[0, :1, None], None, None,
                         torch.zeros((1, 1), dtype=torch.int64, device=dev),
+                        torch.ones(1, dtype=torch.int32, device=dev))
+    # K4's 16-byte vector loads cut a head dim only in multiples of 8.
+    p20 = torch.zeros((2, 1, 16, 20), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        PA.paged_attend(torch.zeros((1, 1, 1, 20), device=dev), p20, p20,
+                        None, None,
+                        torch.ones((1, 1), dtype=torch.int32, device=dev),
                         torch.ones(1, dtype=torch.int32, device=dev))

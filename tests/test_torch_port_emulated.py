@@ -3,10 +3,11 @@
 A CUDA kernel has no interpret mode, and the CPU test run has no
 ``nvcc`` and no card, so the plain-version tests never reach a kernel's
 indexing.
-This file compiles ``ops/csrc/flash_fwd.cu`` and ``flash_bwd.cu`` with
-g++ against a small emulation of what they use, and holds the kernels
-(bf16 tensor-core K1 and K2, the scalar f32 kernels, K3) against their
-plain versions on seeded inputs:
+This file compiles ``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu`` and
+``paged_attention.cu`` with g++ against a small emulation of what they
+use, and holds the kernels (bf16 tensor-core K1, K2 and K3, the scalar
+f32 kernels, K4's split and combine kernels) against their plain
+versions on seeded inputs:
 
 * one ``std::thread`` per CUDA thread of a block, blocks in turn;
   ``std::barrier`` for ``__syncthreads`` and for warp-synchronous steps;
@@ -26,7 +27,8 @@ under a time limit, so a kernel whose warps diverge at a barrier fails
 the test instead of hanging it.
 
 Tolerances as on the card: K1 5e-2 (bf16) and 1e-4 (f32) absolute;
-K2/K3 2e-2 (bf16) and 1e-4 (f32) of the largest gradient.
+K2/K3 2e-2 (bf16) and 1e-4 (f32) of the largest gradient; K4 1e-4 (f32
+and int8 -> f32) and 2e-2 (bf16 and int8 -> bf16) absolute.
 """
 
 import json
@@ -98,6 +100,14 @@ inline float __bfloat162float(__nv_bfloat16 b) {
   return f;
 }
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct alignas(8) uint2 { unsigned x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {__float2bfloat16(a), __float2bfloat16(b)};
 }
@@ -286,8 +296,9 @@ def _emulated_source(text: str) -> str:
 
 @pytest.fixture(scope="module")
 def emulated_libs(tmp_path_factory):
-    """``libflash_fwd.so`` and ``libflash_bwd.so`` built by g++ from the
-    repository's sources under the emulator."""
+    """``libflash_fwd.so``, ``libflash_bwd.so`` and
+    ``libpaged_attention.so`` built by g++ from the repository's sources
+    under the emulator."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ with C++20 to build the emulated kernels")
@@ -301,7 +312,7 @@ def emulated_libs(tmp_path_factory):
     (out / "mma_bf16.cuh").write_text(header[:start] + PRIMITIVES
                                       + header[end:])
     procs = []
-    for name in ("flash_fwd", "flash_bwd"):
+    for name in ("flash_fwd", "flash_bwd", "paged_attention"):
         src = out / f"{name}.cpp"
         src.write_text(_emulated_source((CSRC / f"{name}.cu").read_text()))
         procs.append(subprocess.Popen(
@@ -366,11 +377,13 @@ print(json.dumps(res))
 """
 
 # (B, H, H_kv, S, T, D, shift): tile-aligned and ragged S, GQA, both
-# head dims, S != T unmasked / bottom-right causal / fully masked, and a
-# shifted diagonal that leaves the first rows fully masked.
+# head dims, S != T unmasked / bottom-right causal / fully masked, a
+# shifted diagonal that leaves the first rows fully masked, one query
+# row, and D = 128 with GQA and a ragged S.
 CASES = [(1, 2, 2, 64, 64, 64, 0), (1, 4, 1, 130, 130, 64, 0),
          (1, 2, 2, 17, 17, 128, None), (1, 2, 2, 100, 300, 64, -200),
-         (1, 2, 2, 100, 300, 64, 200), (1, 2, 1, 150, 150, 128, 50)]
+         (1, 2, 2, 100, 300, 64, 200), (1, 2, 1, 150, 150, 128, 50),
+         (1, 2, 2, 1, 1, 64, 0), (1, 4, 2, 77, 77, 128, 0)]
 
 
 @pytest.mark.parametrize("copies", ["immediate", "at_wait"])
@@ -389,3 +402,106 @@ def test_emulated_kernels_match_plain_versions(emulated_libs, dtype, copies):
     for case, err in res.items():
         assert err["o"] <= fwd_tol and err["lse"] <= fwd_tol, (case, err)
         assert max(err["dk"], err["dv"], err["dq"]) <= bwd_tol, (case, err)
+
+
+# K4 through the same C entry point the wrapper binds, with the pages a
+# split chosen by the case, so that split edges fall where the table
+# needs them.
+PAGED_CHILD = r"""
+import ctypes, json, math, sys
+import numpy as np
+import torch
+from horovod_tpu_torch.models import transformer as T
+from horovod_tpu_torch.ops import paged_attention as PA
+
+libdir, pool = sys.argv[1], sys.argv[2]
+lib = ctypes.CDLL(f"{libdir}/libpaged_attention.so")
+fn = lib.paged_attend
+fn.restype = ctypes.c_int
+fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+               + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_int, ctypes.c_int])
+kind, compute = {"f32": (0, torch.float32), "bf16": (1, torch.bfloat16),
+                 "int8_f32": (2, torch.float32),
+                 "int8_bf16": (2, torch.bfloat16)}[pool]
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr()) if t is not None else None
+
+torch.set_num_threads(1)
+res = []
+for i, case in enumerate(json.loads(sys.argv[3])):
+    Hkv, R, Dh, ps, pps = (case[k] for k in ("Hkv", "R", "Dh", "ps", "pps"))
+    limit = np.asarray(case["limit"], np.int32)
+    S, MP, Pn = len(limit), case["MP"], case["pages"]
+    rng = np.random.RandomState(i)
+    qg = torch.from_numpy(rng.randn(S, Hkv, R, Dh).astype(np.float32))
+    if case.get("q_bf16"):
+        qg = qg.to(torch.bfloat16)
+    kf = torch.from_numpy(rng.randn(Pn, Hkv, ps, Dh).astype(np.float32))
+    vf = torch.from_numpy(rng.randn(Pn, Hkv, ps, Dh).astype(np.float32))
+    table = rng.permutation(np.arange(1, Pn))[:S * MP].reshape(S, MP)
+    for a, b in case.get("share", []):
+        table[b] = table[a]                  # two slots, the same pages
+    table = torch.from_numpy(np.ascontiguousarray(table, np.int32))
+    if kind == 2:
+        (kp, ks), (vp, vs) = T.kv_quantize(kf), T.kv_quantize(vf)
+    else:
+        kp, vp, ks, vs = kf.to(compute), vf.to(compute), None, None
+    lim = torch.from_numpy(limit)
+    n_split = -(-MP // pps)
+    o, lse = torch.empty(S, Hkv, R, Dh), torch.empty(S, Hkv, R)
+    part = torch.empty(S * Hkv * n_split * R * (Dh + 2))
+    rc = fn(ptr(qg), ptr(kp), ptr(vp), ptr(ks), ptr(vs), ptr(table),
+            ptr(lim), ptr(o), ptr(lse), S, Hkv, R, Dh, ps, MP, kind,
+            int(compute == torch.bfloat16), math.sqrt(Dh), None, ptr(part),
+            pps, int(qg.dtype == torch.bfloat16))
+    assert rc == 0, (case, rc)
+    o_r, l_r = PA.paged_attend_reference(qg, kp, vp, ks, vs, table, lim,
+                                         compute_dtype=compute)
+    live = lim > 0
+    res.append({"o": (o - o_r).abs().max().item(),
+                "lse": (lse[live] - l_r[live]).abs().max().item(),
+                "dead_o": o[~live].abs().max().item() if (~live).any() else 0,
+                "dead_lse": lse[~live].max().item() if (~live).any()
+                else PA.NEG_INF})
+print(json.dumps(res))
+"""
+
+# Each case: kv heads, query rows R, head dim, page size, pages a split
+# (pps), table width MP, pool pages, slot limits, slots sharing a table
+# row.  The first covers a limit = 0 slot, a slot at table capacity, a
+# limit exactly on a split boundary (32 = 2 pages of 16, pps 2) and one
+# position past it, a partial last page with splits wholly past the
+# limit, and two slots sharing their pages; the others R = 1 at
+# Dh = 128 with q in bf16, R = 8 on pages of 8, and R = 12 (two R
+# blocks) at Dh = 96 (idle lanes) on pages of 40 rows (ring chunks of 64
+# rows that cross a page boundary).
+PAGED_CASES = [
+    dict(Hkv=2, R=4, Dh=64, ps=16, pps=2, MP=6, pages=40,
+         limit=[0, 96, 32, 33, 5, 50], share=[[1, 5]]),
+    dict(Hkv=2, R=1, Dh=128, ps=16, pps=3, MP=4, pages=13,
+         limit=[64, 49, 0], q_bf16=True),
+    dict(Hkv=2, R=8, Dh=64, ps=8, pps=2, MP=5, pages=16, limit=[40, 17, 16]),
+    dict(Hkv=1, R=12, Dh=96, ps=40, pps=2, MP=3, pages=7, limit=[120, 70]),
+]
+
+
+@pytest.mark.parametrize("copies", ["immediate", "at_wait"])
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8_f32", "int8_bf16"])
+def test_emulated_paged_kernel_matches_plain_version(emulated_libs, pool,
+                                                     copies):
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               EMU_COPIES_AT_WAIT=str(int(copies == "at_wait")))
+    run = subprocess.run(
+        [sys.executable, "-c", PAGED_CHILD, str(emulated_libs), pool,
+         json.dumps(PAGED_CASES)], capture_output=True, text=True,
+        timeout=300, env=env)
+    assert run.returncode == 0, run.stderr[-4000:]
+    res = json.loads(run.stdout.strip().splitlines()[-1])
+    assert len(res) == len(PAGED_CASES)
+    tol = 2e-2 if pool.endswith("bf16") else 1e-4
+    for case, err in zip(PAGED_CASES, res):
+        assert err["o"] <= tol and err["lse"] <= tol, (case, err)
+        assert err["dead_o"] == 0 and err["dead_lse"] <= -1e30 / 2, (case,
+                                                                     err)
