@@ -29,15 +29,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    Edge shapes for K1-K3 in both dtypes: ragged S (1, 17, 63, 65,
    2047) and S = 100 against T = 300, unmasked, bottom-right causal
    (shift = S - T) and fully masked (shift = T - S).
-4. Serving at full width: ``InferenceEngine`` + ``ServingServer`` on
-   the d1024/L8/H16/kv4 bf16 Transformer from ``init_params`` seed 0;
-   8 concurrent ``POST /generate`` requests whose prompts cover the
-   buckets 8..2048.  Every request must return its full token count and
-   both kernels' launch counters must grow during the run.
+4. Serving at full width: the d1024/L8/H16/kv4 bf16 Transformer from
+   ``init_params`` seed 0, 8 slots.  First the decode tick at 8 slots
+   and depth 1000 (half the slots sampling), three ways, each with its
+   host wall, device busy time, idle share, kernels a tick and tok/s:
+   eager and synchronous (``decode_step_paged`` and the pick called
+   directly, the tick without a graph), the CUDA graph synchronous
+   (``overlap=False``), and the graph with the overlapped pipeline
+   (the default); the sampler's own device time.  Then the captured
+   tick against the eager one: 20 ticks of a live mix from a copy of
+   the same state must give equal tokens, max logits, pool bytes and
+   positions, with K4 launched once a layer a replay.  Then
+   ``InferenceEngine`` + ``ServingServer``: 8 concurrent ``POST
+   /generate`` requests, half greedy and half sampled with fixed seeds,
+   whose prompts cover the buckets 8..2048.  Every request must return
+   its full token count, both kernels' launch counters must grow during
+   the run, and ``decode_compilations`` must read 1 before and after.
 5. Token identity: the same configuration in f32 (TF32 off for matmuls
-   and cuDNN) against the per-request ``greedy_decode`` oracle.  A
-   mismatch is exempt only at or after a position where the oracle's
-   top-2 logit margin is below ``NEAR_TIE``; every exemption is printed.
+   and cuDNN) against the per-request oracles, ``greedy_decode`` for the
+   greedy requests and ``sample_decode`` at the request's seed for the
+   sampled ones.  A mismatch is exempt only at or after a position where
+   the oracle's top-2 margin is below ``NEAR_TIE``; every exemption is
+   printed.
 6. Model gradients: a 2-layer d1024 model's f32 loss and parameter
    gradients through the kernels against the plain attention path (TF32
    off).
@@ -99,6 +112,12 @@ PROMPT_LENS = [5, 16, 40, 100, 300, 700, 1500, 2048]
 NEW_TOKENS = [128, 64, 96, 128, 80, 112, 64, 128]
 F32_NEW_TOKENS = 32
 PROFILE_DEPTH = 1000  # every slot's prompt length in the profiled ticks
+# Each request's sampling, by its index: half greedy, half sampled with a
+# fixed seed, every option of the sampler.
+SAMPLING = [{}, dict(temperature=1.0, seed=1), {},
+            dict(temperature=0.8, top_k=40, seed=2), {},
+            dict(temperature=1.2, top_p=0.9, seed=3), {},
+            dict(temperature=0.7, top_k=100, top_p=0.95, seed=4)]
 
 REPORT: dict = {}
 
@@ -491,34 +510,81 @@ def _device_events(prof):
             and e.self_device_time_total > 0]
 
 
-def profile_decode(engine, n_ticks: int = 8) -> dict:
-    """Where a steady decode tick's time goes: every slot busy at depth
-    ``PROFILE_DEPTH``; ``n_ticks`` synchronous ticks timed by the host
-    clock, then ``n_ticks`` more under ``torch.profiler`` for the device
-    time by kernel (the profiler's own host cost stays out of the
-    wall time)."""
-    from torch.profiler import ProfilerActivity, profile
+def _grant_ahead(engine, n: int) -> None:
+    """Pages for every active slot's next ``n`` positions, and the tick's
+    table, tokens, mask and sampling columns refreshed from the host:
+    the state a tick run outside the engine (the eager twin) needs."""
+    from horovod_tpu_torch.serving import NULL_PAGE
 
-    rng = np.random.default_rng(2)
-    futs = [engine.submit(rng.integers(0, FULL["vocab_size"],
-                                       PROFILE_DEPTH).tolist(),
-                          max_new_tokens=2 * n_ticks + 8)
-            for _ in range(ENGINE["n_slots"])]
-    while engine.scheduler.depth:
+    ps = engine.slots.page_size
+    for s in range(engine.engine_cfg.n_slots):
+        if engine._states[s] is None:
+            continue
+        p0 = int(engine._page_pos[s])
+        for idx in range(p0 // ps, (p0 + n) // ps + 1):
+            if engine.slots.table[s, idx] == NULL_PAGE:
+                engine.slots.grant(s, idx)
+    tick = engine._tick
+    tick.table.copy_(torch.from_numpy(engine.slots.table))
+    tick.tokens.copy_(torch.from_numpy(engine._host_tokens()))
+    tick.active.copy_(torch.from_numpy(engine.slots.active_mask()))
+    engine._samp.device()
+
+
+def _fill_slots(engine, depth: int, new_tokens: int, seed: int):
+    """Every slot busy at ``depth``, half of them sampling; the pipeline
+    running (two ticks past the last admission)."""
+    rng = np.random.default_rng(seed)
+    futs = [engine.submit(rng.integers(0, FULL["vocab_size"], depth).tolist(),
+                          max_new_tokens=new_tokens, **SAMPLING[i % 8])
+            for i in range(ENGINE["n_slots"])]
+    while engine.scheduler.depth or engine._taken:
         engine.step()
     for _ in range(2):
         engine.step()
+    return futs
+
+
+def profile_decode(engine, mode: str, sampler_ms: float,
+                   n_ticks: int = 8) -> dict:
+    """Where a steady decode tick's time goes, 8 slots at depth
+    ``PROFILE_DEPTH`` (half sampling), in one of three modes:
+    ``eager_sync`` — ``decode_step_paged`` and the pick called directly
+    (``DecodeTick.body`` on a twin of the engine's state) and fetched
+    at once, the tick without a graph; ``graph_sync`` —
+    ``engine.step()`` of an ``overlap=False`` engine, one replay and one
+    fetch a tick;
+    ``graph_overlap`` — ``engine.step()`` of the default engine.
+    ``n_ticks`` ticks timed by the host clock, then ``n_ticks`` more
+    under ``torch.profiler`` for device time by kernel (the profiler's
+    host cost stays out of the wall time).  ``sampler_ms``: the pick's
+    device time (:func:`sampler_device_ms`; the same kernels run in every
+    mode, and inside a graph the profiler cannot tell them apart)."""
+    from horovod_tpu_torch.serving.graph import download
+    from torch.profiler import ProfilerActivity, profile
+
+    futs = _fill_slots(engine, PROFILE_DEPTH, 3 * n_ticks + 8, seed=2)
+    if mode == "eager_sync":
+        _grant_ahead(engine, 2 * n_ticks + 2)
+        twin = engine._tick.twin()
+
+        def tick():
+            download(*twin.body()).wait()
+    else:
+        tick = engine.step
     torch.cuda.synchronize()
     t0 = time.monotonic()
     for _ in range(n_ticks):
-        engine.step()
+        tick()
     torch.cuda.synchronize()
     wall_ms = (time.monotonic() - t0) * 1e3 / n_ticks
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_ticks):
-            engine.step()
+            tick()
         torch.cuda.synchronize()
+    if mode == "eager_sync":
+        del twin
     while not all(f.done() for f in futs):
         engine.step()
     kernels, launches = {}, 0
@@ -527,20 +593,97 @@ def profile_decode(engine, n_ticks: int = 8) -> dict:
         launches += e.count
     busy = sum(kernels.values())
     if busy <= 0:
-        raise AssertionError("the profiler recorded no device time")
+        raise AssertionError(f"{mode}: the profiler recorded no device time")
     # K4 is two kernels a call: split and combine.
     k4 = sum(t for k, t in kernels.items() if "paged_attend_" in k)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    out = {"ticks": n_ticks, "tick_wall_ms": wall_ms,
+    out = {"mode": mode, "ticks": n_ticks, "tick_wall_ms": wall_ms,
            "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
            "paged_attend_ms": k4, "paged_attend_share_of_busy": k4 / busy,
            "kernels_launched_per_tick": launches / n_ticks,
+           "sampler_ms": sampler_ms,
+           "sampler_share_of_busy": sampler_ms / busy,
+           "tok_per_s": ENGINE["n_slots"] / wall_ms * 1e3,
            "top_kernels_ms": {k[:70]: t for k, t in top}}
-    log(f"decode tick profile (8 slots at depth {PROFILE_DEPTH}): wall "
+    log(f"decode tick {mode} (8 slots at depth {PROFILE_DEPTH}): wall "
         f"{wall_ms:.3f} ms, device busy {busy:.3f} ms (idle share "
         f"{out['idle_share']:.3f}), paged_attend {k4:.3f} ms, "
-        f"{out['kernels_launched_per_tick']:.0f} kernels per tick")
+        f"{out['kernels_launched_per_tick']:.0f} kernels per tick, "
+        f"sampler {sampler_ms:.3f} ms ({sampler_ms / busy:.1%} of busy), "
+        f"{out['tok_per_s']:.1f} tok/s")
     return out
+
+
+def sampler_device_ms() -> dict:
+    """Device time of the tick's sampled pick alone, at the tick's shape
+    (8 slots x 32000 f32 logits, half sampling), by the profiler."""
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.serving.sampling import SlotSampling
+
+    samp = SlotSampling(ENGINE["n_slots"], "cuda")
+    for i, kw in enumerate(SAMPLING):
+        if kw:
+            samp.set(i, temperature=kw["temperature"],
+                     top_k=kw.get("top_k", 0), top_p=kw.get("top_p", 0.0),
+                     seed=kw["seed"])
+    cols = samp.device()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    logits = torch.randn((ENGINE["n_slots"], FULL["vocab_size"]),
+                         generator=g, device="cuda") * 3
+    pos = torch.full((ENGINE["n_slots"],), PROFILE_DEPTH + 1,
+                     dtype=torch.int64, device="cuda")
+    ms = device_ms(lambda: T.sample_token_rows(logits, *cols, pos,
+                                               torch.zeros_like(pos)))
+    log(f"sampler (8 x {FULL['vocab_size']} f32): {ms:.4f} ms device time")
+    return {"sampler_ms": ms}
+
+
+def graph_vs_eager(engine, n_ticks: int = 20) -> dict:
+    """The captured tick against the eager one, bit for bit: every slot
+    busy (half sampling, unequal depths), ``n_ticks`` replays against
+    ``n_ticks`` eager runs of ``DecodeTick.body`` on a copy of the same
+    state, one slot leaving halfway.  Tokens, max logits, pool bytes and
+    positions must be equal; K4 must launch once a layer a replay.
+    Leaves the engine's host mirror behind its pool: terminates it."""
+    from horovod_tpu_torch.ops import paged_attention as PA
+
+    rng = np.random.default_rng(4)
+    for i in range(ENGINE["n_slots"]):
+        engine.submit(rng.integers(0, FULL["vocab_size"],
+                                   PROMPT_LENS[i]).tolist(),
+                      max_new_tokens=64, **SAMPLING[i])
+    while engine.scheduler.depth or engine._taken:
+        engine.step()
+    _grant_ahead(engine, n_ticks)
+    tick = engine._tick
+    twin = tick.twin()
+    k4, replays = PA.paged_attend_launches, tick.replays
+    graphed = []
+    for i in range(n_ticks):
+        if i == n_ticks // 2:
+            tick.active[3] = False
+        nxt, mx = tick.run()
+        graphed.append((nxt.clone(), mx.clone()))
+    k4_per_replay = (PA.paged_attend_launches - k4) / (tick.replays - replays)
+    for i in range(n_ticks):
+        if i == n_ticks // 2:
+            twin.active[3] = False
+        nxt, mx = twin.body()
+        if not (torch.equal(nxt, graphed[i][0])
+                and torch.equal(mx, graphed[i][1])):
+            raise AssertionError(f"graph tick {i} differs from the eager "
+                                 "tick")
+    differ = [k for k, t in tick.pool.items()
+              if not torch.equal(t, twin.pool[k])]
+    if differ:
+        raise AssertionError(f"graph and eager pools differ: {differ}")
+    if k4_per_replay != FULL["n_layers"]:
+        raise AssertionError(f"K4 launched {k4_per_replay} times a replay")
+    engine.terminate("graph check done")
+    log(f"graph vs eager: {n_ticks} ticks bit-identical (tokens, max "
+        f"logits, pool, pos), K4 {k4_per_replay:.0f} launches a replay")
+    return {"ticks": n_ticks, "bit_identical": True,
+            "k4_launches_per_replay": k4_per_replay}
 
 
 def serve_full_width() -> dict:
@@ -555,9 +698,21 @@ def serve_full_width() -> dict:
     n_params = sum(t.numel() for t in [params["embed"], params["head"],
                                         params["ln_f"],
                                         *params["layers"].values()])
+    # The synchronous engine: the eager and graph-synchronous decode
+    # profiles, then the graph-against-eager check (which ends it).
+    sampler = sampler_device_ms()
+    sync = InferenceEngine(params, cfg, EngineConfig(**ENGINE, overlap=False))
+    sync.warmup((8,))
+    modes = [profile_decode(sync, "eager_sync", sampler["sampler_ms"]),
+             profile_decode(sync, "graph_sync", sampler["sampler_ms"])]
+    check = graph_vs_eager(sync)
+    del sync
     engine = InferenceEngine(params, cfg, EngineConfig(**ENGINE))
     engine.warmup((8,))
-    profile = profile_decode(engine)
+    captures0 = engine.stats()["decode_compilations"]
+    modes.append(profile_decode(engine, "graph_overlap",
+                                sampler["sampler_ms"]))
+    sampler["share_of_tick_busy"] = modes[-1]["sampler_share_of_busy"]
     ticks0 = engine.metrics.decode_ticks.value
     sums0 = {k: getattr(engine.metrics, k).snapshot()["sum"]
              for k in ("tick_dispatch", "tick_device_wait", "tick_host")}
@@ -573,7 +728,8 @@ def serve_full_width() -> dict:
 
     def client(i):
         results[i] = _post(url, {"tokens": prompts[i],
-                                 "max_new_tokens": NEW_TOKENS[i]})
+                                 "max_new_tokens": NEW_TOKENS[i],
+                                 **SAMPLING[i]})
 
     threads = [threading.Thread(target=client, args=(i,))
                for i in range(len(prompts))]
@@ -597,6 +753,10 @@ def serve_full_width() -> dict:
                                  f"({body['finish_reason']})")
     if not (launches["flash_fwd"] > 0 and launches["paged_attend"] > 0):
         raise AssertionError(f"the serving run missed a kernel: {launches}")
+    captures = (captures0, stats["decode_compilations"])
+    if captures != (1, 1):
+        raise AssertionError(f"decode_compilations before/after the burst: "
+                             f"{captures}, expected 1 and 1")
     ticks = stats["decode_ticks"] - ticks0
     tick_s = sum(stats[f"{k}_seconds"]["sum"] - sums0[k] for k in sums0)
     ttft = sorted(r[1]["ttft_ms"] for r in results)
@@ -604,27 +764,38 @@ def serve_full_width() -> dict:
     out = {
         "params": n_params, "requests": len(prompts),
         "prompt_lens": PROMPT_LENS, "new_tokens": NEW_TOKENS,
+        "sampling": SAMPLING,
         "wall_s": wall, "tokens": total, "tok_per_s": total / wall,
         "decode_ticks": ticks, "tick_ms_mean": tick_s / ticks * 1e3,
         "ttft_ms_p50": statistics.median(ttft), "ttft_ms_max": ttft[-1],
         "launches": launches,
+        "decode_compilations_before_after": list(captures),
+        "host_syncs_per_tick": stats["host_syncs_per_tick"],
         "kv_pages_high_water": stats["kv_pages_high_water"],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "decode_profile": profile,
+        "decode_modes": modes, "sampler": sampler,
+        "graph_vs_eager": check,
     }
-    log(f"serving bf16: {len(prompts)} requests, {total} tokens in "
-        f"{wall:.3f} s = {out['tok_per_s']:.1f} tok/s; {ticks} decode "
-        f"ticks at {out['tick_ms_mean']:.3f} ms; TTFT p50 "
+    log(f"serving bf16: {len(prompts)} requests (half sampled), {total} "
+        f"tokens in {wall:.3f} s = {out['tok_per_s']:.1f} tok/s; {ticks} "
+        f"decode ticks at {out['tick_ms_mean']:.3f} ms; TTFT p50 "
         f"{out['ttft_ms_p50']:.1f} ms max {out['ttft_ms_max']:.1f} ms; "
-        f"launches {launches}")
+        f"launches {launches}; decode_compilations before/after "
+        f"{captures}; sampler {sampler['share_of_tick_busy']:.1%} of the "
+        "graph tick's device busy")
     del engine, params
     torch.cuda.empty_cache()
     return out
 
 
 def token_identity() -> dict:
+    """f32 engine tokens of a half-sampled burst against the per-request
+    oracles: ``greedy_decode`` for greedy requests, ``sample_decode`` at
+    the request's seed for sampled ones.  A mismatch is exempt only at
+    or after a pick whose oracle top-2 gap is below ``NEAR_TIE``."""
     from horovod_tpu_torch.models import transformer as T
-    from horovod_tpu_torch.serving import EngineConfig, InferenceEngine
+    from horovod_tpu_torch.serving import (EngineConfig, InferenceEngine,
+                                           seed_key)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -632,14 +803,22 @@ def token_identity() -> dict:
     params = T.init_params(cfg, seed=0)
     engine = InferenceEngine(params, cfg, EngineConfig(**ENGINE))
     prompts = _prompts(seed=1)
-    futs = [engine.submit(p, max_new_tokens=F32_NEW_TOKENS) for p in prompts]
+    futs = [engine.submit(p, max_new_tokens=F32_NEW_TOKENS, **SAMPLING[i])
+            for i, p in enumerate(prompts)]
     while not all(f.done() for f in futs):
         engine.step()
     exempt = []
     for i, (p, f) in enumerate(zip(prompts, futs)):
         got = f.result(timeout=0)
-        ref, gap = T.greedy_decode(params, torch.tensor([p], device="cuda"),
-                                   F32_NEW_TOKENS, cfg, margins=True)
+        kw = dict(SAMPLING[i])
+        prompt = torch.tensor([p], device="cuda")
+        if kw:
+            ref, gap = T.sample_decode(params, prompt, F32_NEW_TOKENS, cfg,
+                                       rng=seed_key(kw.pop("seed")),
+                                       margins=True, **kw)
+        else:
+            ref, gap = T.greedy_decode(params, prompt, F32_NEW_TOKENS, cfg,
+                                       margins=True)
         ref, gap = ref[0].tolist(), gap[0].tolist()
         if got == ref:
             continue
@@ -647,16 +826,22 @@ def token_identity() -> dict:
         ties = [j for j in range(first + 1) if gap[j] < NEAR_TIE]
         if not ties:
             raise AssertionError(
-                f"f32 request {i} (prompt {len(p)}) diverges from the "
-                f"oracle at token {first} with margin {gap[first]:.3e}")
+                f"f32 request {i} (prompt {len(p)}, {SAMPLING[i] or 'greedy'}"
+                f") diverges from the oracle at token {first} with margin "
+                f"{gap[first]:.3e}")
         exempt.append({"request": i, "prompt_len": len(p),
+                       "sampled": bool(SAMPLING[i]),
                        "first_mismatch": first, "tie_at": ties[0],
                        "margin": gap[ties[0]]})
         log(f"exemption: f32 request {i} diverges at token {first} after "
             f"a near-tie at token {ties[0]} (margin {gap[ties[0]]:.3e} < "
             f"{NEAR_TIE})")
-    log(f"token identity f32: {len(prompts)} requests x {F32_NEW_TOKENS} "
-        f"tokens, {len(exempt)} near-tie exemptions (TF32 off)")
+    captures = engine.stats()["decode_compilations"]
+    if captures != 1:
+        raise AssertionError(f"f32 engine captured {captures} ticks")
+    log(f"token identity f32: {len(prompts)} requests (half sampled) x "
+        f"{F32_NEW_TOKENS} tokens, {len(exempt)} near-tie exemptions "
+        "(TF32 off)")
     del engine, params
     torch.cuda.empty_cache()
     return {"requests": len(prompts), "exemptions": exempt}

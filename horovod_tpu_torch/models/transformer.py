@@ -4,7 +4,9 @@ Counterpart of ``horovod_tpu/models/transformer.py`` for the dense
 model: parameters, the training forward and loss (:func:`forward`,
 :func:`loss_fn`, :func:`synthetic_batch`; flash attention K1-K3 when
 ``attention_impl="flash"``), prefill, the contiguous-cache decode step
-with the per-request :func:`greedy_decode` oracle, and the paged decode
+with the per-request :func:`sample_decode` / :func:`greedy_decode`
+oracles, the per-slot sampler :func:`sample_token_rows` (JAX's threefry
+draws, :mod:`~horovod_tpu_torch.ops.threefry`), and the paged decode
 tick (paged-attention kernel K4 with ``kernel=True``).
 
 Parameters are a plain dict in the JAX package's layout: layers stacked
@@ -24,17 +26,20 @@ import dataclasses
 import math
 from typing import Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from horovod_tpu_torch.basics import resolve_device
 from horovod_tpu_torch.ops import attention as attn
 from horovod_tpu_torch.ops import paged_attention as pa
+from horovod_tpu_torch.ops import threefry
 
 __all__ = ["TransformerConfig", "decode_step", "decode_step_paged",
            "forward", "greedy_decode", "init_cache", "init_params",
            "kv_dequantize", "kv_quantize", "loss_fn", "prefill",
-           "resolve_device", "synthetic_batch"]
+           "resolve_device", "sample_decode", "sample_token_rows",
+           "synthetic_batch"]
 
 _MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
@@ -387,29 +392,129 @@ def decode_step(params: Dict, tokens_t, cache: Dict,
     return logits[:, 0], cache
 
 
+def _softmax(x):
+    """``jax.nn.softmax``'s arithmetic: ``exp(x - max) / sum``."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
 @torch.no_grad()
-def greedy_decode(params: Dict, prompt, steps: int, cfg: TransformerConfig,
-                  *, margins: bool = False):
-    """Extend a ``(B, S0)`` prompt by ``steps`` greedy tokens ->
-    ``(B, steps)`` int64: one prefill, then argmax :func:`decode_step`s —
-    the per-request oracle for the serving engine.  ``margins=True``
-    also returns each pick's top-2 logit gap ``(B, steps)`` f32, which
-    tells a near-tie (where another summation order may pick the other
-    token) from a real disagreement."""
+def sample_token_rows(logits, temperature, top_k, top_p, rng, positions,
+                      rows, *, margins: bool = False):
+    """Pick one token per row with every sampling parameter as data: the
+    serving tick's per-slot sampler and the math :func:`sample_decode`
+    is defined by (``sample_token_rows`` of the JAX package).
+
+    ``logits`` ``(R, V)`` f32.  ``temperature`` ``(R,)`` f32: ``<= 0`` is
+    the greedy argmax of the raw logits.  ``top_k`` ``(R,)`` integer:
+    ``> 0`` keeps the k largest scaled logits (the k-th value from a full
+    descending sort, so k is data; ties with it stay).  ``top_p`` ``(R,)``
+    f32: nucleus sampling after top-k — keep the smallest
+    probability-sorted set whose mass reaches ``top_p``, ties at its
+    threshold included (0 or >= 1 is off).  ``rng`` ``(R, 2)`` int64
+    keys (:mod:`~horovod_tpu_torch.ops.threefry`), ``positions`` and
+    ``rows`` ``(R,)`` integer: row ``r`` draws with
+    ``fold_in(fold_in(rng[r], positions[r]), rows[r])``, so a key depends
+    on the token's absolute position and never on how generation was
+    sliced.  Returns int64 ``(R,)`` tokens; with ``margins=True`` also
+    each pick's top-2 gap ``(R,)`` f32 of the scores it took the argmax
+    of (raw logits for greedy rows, the filtered and perturbed scores
+    for sampled rows), which tells a near-tie from a disagreement.
+
+    Every operation is a tensor operation with no host sync: the tick
+    captured as a CUDA graph runs it."""
+    V = logits.shape[-1]
+    sampled_row = temperature > 0.0
+    greedy = torch.argmax(logits, dim=-1)
+    scaled = logits / torch.where(sampled_row, temperature,
+                                  torch.ones_like(temperature))[:, None]
+    srt = torch.sort(scaled, dim=-1, descending=True).values
+    kth = torch.gather(srt, 1, (top_k.long().clamp(1, V) - 1)[:, None])
+    scaled = scaled.masked_fill((top_k > 0)[:, None] & (scaled < kth),
+                                float("-inf"))
+    probs = _softmax(scaled)
+    ps = torch.sort(probs, dim=-1, descending=True).values
+    csum = torch.cumsum(ps, dim=-1)
+    # Sorted index i is in the nucleus iff the mass before it is still
+    # under top_p (index 0 always is); the smallest kept probability is
+    # the threshold, so threshold ties stay in.
+    keep = (csum - ps) < top_p[:, None]
+    thr = ps.masked_fill(~keep, float("inf")).amin(dim=-1, keepdim=True)
+    p_on = (top_p > 0.0) & (top_p < 1.0)
+    scaled = scaled.masked_fill(p_on[:, None] & (probs < thr),
+                                float("-inf"))
+    keys = threefry.fold_in(threefry.fold_in(rng, positions), rows)
+    perturbed = threefry.gumbel(keys, (V,)) + scaled
+    tok = torch.where(sampled_row, torch.argmax(perturbed, dim=-1), greedy)
+    if not margins:
+        return tok
+    top2 = torch.topk(torch.where(sampled_row[:, None], perturbed, logits),
+                      2, dim=-1).values
+    return tok, top2[:, 0] - top2[:, 1]
+
+
+def _key_rows(rng, rows: int, device):
+    """``(rows, 2)`` int64 keys from one raw key (2 uint32 words: a
+    sequence, numpy array or tensor)."""
+    if isinstance(rng, torch.Tensor):
+        key = rng.to(device=device, dtype=torch.int64)
+    else:
+        key = torch.as_tensor(np.asarray(rng).astype(np.int64),
+                              device=device)
+    return key.reshape(1, 2).expand(rows, 2)
+
+
+@torch.no_grad()
+def sample_decode(params: Dict, prompt, steps: int, cfg: TransformerConfig,
+                  *, rng, temperature: float = 1.0, top_k: int = 0,
+                  top_p: float = 0.0, margins: bool = False):
+    """Extend a ``(B, S0)`` prompt by ``steps`` sampled tokens ->
+    ``(B, steps)`` int64: one prefill, then :func:`decode_step`s, each
+    pick by :func:`sample_token_rows` with every parameter broadcast to a
+    column — the per-request oracle of the serving engine's per-slot
+    sampling.  ``temperature=0`` is greedy (:func:`greedy_decode`).
+
+    ``rng`` is a raw key (``sampling.seed_key(seed)``, or JAX's
+    ``np.asarray(jax.random.PRNGKey(seed))``).  Token ``i`` of row ``b``
+    (position ``S0 + i``) draws from ``fold_in(fold_in(rng, S0 + i),
+    b)``, so ``sample_decode(prompt + emitted, rng)`` continues exactly
+    the stream an interrupted call would have produced.
+
+    ``margins=True`` also returns each pick's top-2 gap ``(B, steps)``
+    f32 (:func:`sample_token_rows`)."""
     B, S0 = prompt.shape
-    cache = init_cache(cfg, B, S0 + steps, device=prompt.device)
+    dev = prompt.device
+    cache = init_cache(cfg, B, S0 + steps, device=dev)
     logits, cache = prefill(params, prompt, cache, cfg)
+    temp = torch.full((B,), float(temperature), dtype=torch.float32,
+                      device=dev)
+    tk = torch.full((B,), int(top_k), dtype=torch.int64, device=dev)
+    tp = torch.full((B,), float(top_p), dtype=torch.float32, device=dev)
+    keys = _key_rows(rng, B, dev)
+    rows = torch.arange(B, device=dev)
     toks, gaps = [], []
     for i in range(steps):
-        tok = torch.argmax(logits, dim=-1)
+        pos = torch.full((B,), S0 + i, dtype=torch.int64, device=dev)
+        tok, gap = sample_token_rows(logits, temp, tk, tp, keys, pos, rows,
+                                     margins=True)
         toks.append(tok)
-        if margins:
-            top2 = torch.topk(logits, 2, dim=-1).values
-            gaps.append(top2[:, 0] - top2[:, 1])
+        gaps.append(gap)
         if i + 1 < steps:
             logits, cache = decode_step(params, tok, cache, cfg)
     out = torch.stack(toks, dim=1)
     return (out, torch.stack(gaps, dim=1)) if margins else out
+
+
+def greedy_decode(params: Dict, prompt, steps: int, cfg: TransformerConfig,
+                  *, margins: bool = False):
+    """Extend a ``(B, S0)`` prompt by ``steps`` greedy tokens ->
+    ``(B, steps)`` int64: :func:`sample_decode` at temperature 0, the
+    per-request oracle for the serving engine.  ``margins=True`` also
+    returns each pick's top-2 logit gap ``(B, steps)`` f32, which tells a
+    near-tie (where another summation order may pick the other token)
+    from a real disagreement."""
+    return sample_decode(params, prompt, steps, cfg, rng=(0, 0),
+                         temperature=0.0, margins=margins)
 
 
 # --- paged KV cache ----------------------------------------------------------
@@ -516,23 +621,32 @@ def _attention_decode_paged(x, p, cfg: TransformerConfig, k_pool, v_pool,
 
 @torch.no_grad()
 def decode_step_paged(params: Dict, tokens_t, pool: Dict, table,
-                      cfg: TransformerConfig, active, *, kernel=False):
+                      cfg: TransformerConfig, active, *, kernel=False,
+                      check_capacity: bool = True):
     """One continuous-batching decode tick over a PAGED KV cache.
 
     ``pool``: ``k``/``v`` ``(L, P, H_kv, page, Dh)`` (plus
     ``k_scale``/``v_scale`` ``(L, P, H_kv, page)`` for int8 storage) and
     per-slot ``pos`` ``(S,)`` int32; ``table``: ``(S, max_pages)`` int32
     page ids; ``active``: ``(S,)`` bool.  Returns ``logits (S, V)`` f32;
-    the pool (payload, scales and ``pos``) is updated in place and also
-    returned.  Inactive rows compute on zeros and keep their position."""
+    the pool (payload, scales and ``pos``) is updated in place — ``pos``
+    keeps its storage — and also returned.  Inactive rows compute on
+    zeros and keep their position.
+
+    ``check_capacity`` raises when an active slot's position is past its
+    table; the check reads the device on the host.  The serving engine
+    passes False: its host mirror of the positions has already proved
+    capacity, and the tick must stay free of host syncs (for the
+    overlapped pipeline and for CUDA-graph capture)."""
     pos = pool["pos"]
     T_cap = table.shape[1] * pool["k"].shape[3]
-    over = active & (pos >= T_cap)
-    if bool(over.any()):
-        raise ValueError(
-            f"decode_step_paged past table capacity (slots "
-            f"{torch.nonzero(over).flatten().tolist()} at pos >= {T_cap}); "
-            "init_page_pool with more pages per slot")
+    if check_capacity:
+        over = active & (pos >= T_cap)
+        if bool(over.any()):
+            raise ValueError(
+                f"decode_step_paged past table capacity (slots "
+                f"{torch.nonzero(over).flatten().tolist()} at pos >= "
+                f"{T_cap}); init_page_pool with more pages per slot")
     x = _embed(params, tokens_t, cfg, active)[:, None]
     quantized = "k_scale" in pool
     for l in range(cfg.n_layers):
@@ -544,5 +658,5 @@ def decode_step_paged(params: Dict, tokens_t, pool: Dict, table,
             table, pos, active, kernel)
         x = _mlp_block(x + h, p, cfg)
     logits = _lm_head(x, params["ln_f"], params["head"], cfg)
-    pool["pos"] = pos + active.to(pos.dtype)
+    pos.add_(active.to(pos.dtype))
     return logits[:, 0], pool

@@ -1,4 +1,5 @@
-"""Continuous-batching serving: the paged greedy engine and its server."""
+"""Continuous-batching serving: the paged engine (per-slot sampling, the
+overlapped decode pipeline, the tick as one CUDA graph) and its server."""
 
 from horovod_tpu_torch.serving.cache import (  # noqa: F401
     NULL_PAGE,
@@ -16,6 +17,12 @@ from horovod_tpu_torch.serving.engine import (  # noqa: F401
     InferenceEngine,
 )
 from horovod_tpu_torch.serving.metrics import ServingMetrics  # noqa: F401
+from horovod_tpu_torch.serving.sampling import (  # noqa: F401
+    MAX_SEED,
+    SamplingParams,
+    SlotSampling,
+    seed_key,
+)
 from horovod_tpu_torch.serving.scheduler import (  # noqa: F401
     CacheOutOfPagesError,
     DeadlineExceededError,

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch.models import transformer as T
+from horovod_tpu_torch.serving.graph import upload
 from horovod_tpu_torch.serving.scheduler import CacheOutOfPagesError
 
 __all__ = ["NULL_PAGE", "PagedSlotCache", "init_page_pool", "paged_insert",
@@ -249,7 +250,8 @@ class PagedSlotCache:
 
     def land(self, slots: Sequence[int], prefilled: Dict, true_lens) -> None:
         """Land a prefilled K/V block into the slots' granted pages with
-        one scatter and adopt the per-row positions."""
+        one scatter and adopt the per-row positions (the indices go up
+        through pinned memory: no wait for the device)."""
         for s in slots:
             if not self._active[s]:
                 raise ValueError(f"slot {s} is not allocated")
@@ -257,9 +259,7 @@ class PagedSlotCache:
         phys, off = self._phys_off([self.table[s] for s in slots],
                                    true_lens, bucket)
         dev = self.device
-        paged_insert(self.cache,
-                     torch.tensor(np.asarray(slots), device=dev),
-                     torch.tensor(np.asarray(true_lens), device=dev),
-                     torch.tensor(phys, device=dev),
-                     torch.tensor(np.array(off), device=dev),
+        paged_insert(self.cache, upload(np.asarray(slots, np.int64), dev),
+                     upload(np.asarray(true_lens, np.int64), dev),
+                     upload(phys, dev), upload(np.array(off), dev),
                      prefilled["k"], prefilled["v"])

@@ -1,8 +1,10 @@
-"""Continuous-batching inference engine: the paged greedy path.
+"""Continuous-batching inference engine: the paged path with per-slot
+sampling, the overlapped decode pipeline and the tick as one CUDA graph.
 
-Counterpart of ``horovod_tpu/serving/engine.py``, for the path this
-slice ports.  One decode tick runs over a fixed pool of S slots; new
-requests land in freed slots between ticks.
+Counterpart of ``horovod_tpu/serving/engine.py`` in its default
+configuration (``paged=True``, ``overlap=True``, sampling as data).  One
+decode tick runs over a fixed pool of S slots; new requests land in
+freed slots between ticks.
 
 Tick (:meth:`InferenceEngine.step`):
 
@@ -11,24 +13,34 @@ Tick (:meth:`InferenceEngine.step`):
    at least ``min_prefill_bucket``), grant each the pages its prompt
    needs, run ONE batch-K prefill (flash kernel K1 on the card) and land
    its K/V in the granted pages.  The prefill's last-position logits
-   give each request its first token.
+   give each request its first token: the argmax for an all-greedy
+   group, else the sampler at key position ``len(prompt)``.
 2. **Decode**: grant every active slot the page under its next write
-   position, then ONE :func:`~horovod_tpu_torch.models.transformer.
-   decode_step_paged` over all S slots with the page table and the
-   active mask as data (paged-attention kernel K4 on the card).  Inactive
-   rows compute on zeros.  Each active slot's argmax token streams to
-   its future; EOS, ``max_new_tokens`` or a deadline retire the slot.
+   position, then ONE :class:`~horovod_tpu_torch.serving.graph.
+   DecodeTick` over all S slots — ``decode_step_paged`` (paged-attention
+   kernel K4 on the card) and the per-slot sampled pick — with the page
+   table, the active mask and the sampling columns as data.  On CUDA the
+   tick is one CUDA graph captured at :meth:`~InferenceEngine.warmup`
+   (or at the first tick) and replayed; ``decode_compilations`` counts
+   captures and stays 1 across any request mix.
 
-The tick is synchronous: dispatch, fetch and bookkeeping happen in the
-same step (the JAX engine's ``overlap=False`` path).  Decoding is greedy
-only, which makes every request's output token-identical to the
-per-request ``greedy_decode`` oracle whatever shares its batch.
+With ``EngineConfig.overlap`` (the default) decoding is a two-stage
+pipeline: the token vector lives on the device, tick N+1 is dispatched
+before tick N's results are fetched, and tick N's emission and
+retirement run while the device computes tick N+1.  A snapshot of which
+request each slot held at dispatch keeps the one-tick lag invisible: a
+slot's token is emitted only if the slot still holds that request, so no
+token follows EOS and a reused slot never receives its previous
+tenant's token (:meth:`InferenceEngine._retire_pending`).
+``overlap=False`` is the synchronous tick (the A/B baseline); both
+modes share ``_retire_pending`` and give identical tokens, equal to the
+per-request ``sample_decode`` / ``greedy_decode`` oracle.
 
 Failures: a tick that raises — non-finite logits included — resolves
 every in-flight and queued future with
 :class:`~horovod_tpu_torch.serving.scheduler.EngineFailedError`, leaves
 the engine ``failed`` and re-raises.  There are no supervised restarts
-in this slice.
+in the port yet.
 """
 
 from __future__ import annotations
@@ -36,7 +48,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,7 +57,18 @@ from horovod_tpu_torch.models import transformer as T
 from horovod_tpu_torch.ops import attention as _attn
 from horovod_tpu_torch.ops import paged_attention as _pa
 from horovod_tpu_torch.serving.cache import NULL_PAGE, PagedSlotCache
+from horovod_tpu_torch.serving.graph import (
+    DecodeTick,
+    download,
+    upload,
+    upload_into,
+)
 from horovod_tpu_torch.serving.metrics import ServingMetrics
+from horovod_tpu_torch.serving.sampling import (
+    SlotSampling,
+    seed_key,
+    validate,
+)
 from horovod_tpu_torch.serving.scheduler import (
     CacheOutOfPagesError,
     DrainingError,
@@ -66,13 +89,18 @@ FAILED = "failed"
 
 class GenerationFuture:
     """Per-request result sink: tokens accumulate as the engine emits
-    them; :meth:`result` blocks until retirement or a typed error."""
+    them; :meth:`result` blocks until retirement or a typed error.
 
-    def __init__(self):
+    ``on_token(token_id)`` fires from the engine thread for every
+    emitted token, before the future resolves (the server's SSE stream
+    hands tokens to its handler thread with it) — keep it cheap."""
+
+    def __init__(self, on_token: Optional[Callable[[int], None]] = None):
         self._tokens: List[int] = []
         self._done = threading.Event()
         self._exc: Optional[BaseException] = None
         self._cancel = False
+        self._on_token = on_token
         # Resolution is serialized: a caller-side resolution (a submit
         # racing a drain) and the engine's must not both land.
         self._resolve_lock = threading.Lock()
@@ -84,7 +112,14 @@ class GenerationFuture:
             if self._done.is_set():
                 return False
             self._tokens.append(tok)
-            return True
+        if self._on_token is not None:
+            self._on_token(tok)
+        return True
+
+    def tokens_so_far(self) -> List[int]:
+        """The tokens emitted so far (a copy), resolved or not."""
+        with self._resolve_lock:
+            return list(self._tokens)
 
     def _finish(self, reason: str) -> None:
         with self._resolve_lock:
@@ -136,7 +171,9 @@ class EngineConfig:
     selects page storage (None = the model dtype, "bf16", "f32",
     "int8"); ``max_queue_depth`` bounds the queue;
     ``default_max_new_tokens`` applies when a request names none;
-    ``min_prefill_bucket`` floors the power-of-two prompt buckets."""
+    ``min_prefill_bucket`` floors the power-of-two prompt buckets;
+    ``overlap`` runs decoding as the two-stage pipeline (module
+    docstring), ``False`` as the synchronous tick."""
 
     n_slots: int = 4
     max_len: int = 0
@@ -147,6 +184,7 @@ class EngineConfig:
     max_queue_depth: int = 64
     default_max_new_tokens: int = 64
     min_prefill_bucket: int = 8
+    overlap: bool = True
 
 
 @dataclasses.dataclass
@@ -201,12 +239,25 @@ class InferenceEngine:
         self._last_tick_done: Optional[float] = None
         # Host mirror of each slot's device write position (prompt
         # length at admission, +1 per dispatched tick): page grants
-        # happen against it before the write that needs them.  The
-        # device copy of the page table is refreshed only when
-        # table_version moves.
+        # happen against it before the write that needs them, and it
+        # proves capacity, so the tick checks none.
         self._page_pos = np.zeros(ec.n_slots, np.int64)
-        self._dev_table: Optional[torch.Tensor] = None
+        # Per-slot sampling columns and the tick (its static inputs: the
+        # token vector, the active mask and the page table, each
+        # refreshed with copy_ — the table only when table_version
+        # moves, the mask only when it changes).
+        self._samp = SlotSampling(ec.n_slots, self.device)
+        self._tick = DecodeTick(params, cfg, self.slots.cache,
+                                self._samp.device(), ec.n_slots,
+                                self.slots.max_pages, self.device)
         self._table_uploaded = -1
+        self._active_uploaded: Optional[np.ndarray] = None
+        # Overlapped pipeline: _pending is the one dispatched tick not
+        # yet fetched (its downloads in flight plus the snapshot of the
+        # request each slot computed for); _tokens_live says the
+        # device token vector holds every active slot's last token.
+        self._pending: Optional[Dict] = None
+        self._tokens_live = False
         self._prefill_calls = 0
         self.metrics.kv_pages_total.set(self.slots.n_pages)
         self.metrics.kv_bytes_per_token.set(self.slots.bytes_per_token)
@@ -238,28 +289,33 @@ class InferenceEngine:
                max_new_tokens: Optional[int] = None,
                eos_id: Optional[int] = None,
                deadline: Optional[float] = None,
-               temperature: float = 0.0) -> GenerationFuture:
-        """Queue a greedy generation request; returns its future.
+               temperature: float = 0.0, top_k: int = 0,
+               top_p: float = 0.0, seed: Optional[int] = None,
+               on_token: Optional[Callable[[int], None]] = None
+               ) -> GenerationFuture:
+        """Queue a generation request; returns its future.
+
+        ``temperature`` / ``top_k`` / ``top_p`` / ``seed`` select
+        sampling (temperature 0, the default, is greedy); the tokens equal
+        ``sample_decode`` of the same prompt with ``rng=seed_key(seed)``.
+        ``on_token`` is the future's per-token hook.
 
         Typed rejections, raised here: :class:`ServingError` (empty or
-        out-of-vocabulary prompt, ``max_new_tokens < 1``, or
-        ``temperature > 0`` — sampling is not ported yet),
-        :class:`RequestTooLongError`, :class:`CacheOutOfPagesError` (the
-        request could never fit the page pool), :class:`QueueFullError`,
-        :class:`DrainingError` and :class:`EngineFailedError`.  A
-        ``deadline`` (absolute ``time.monotonic()``) that lapses while
-        queued fails the future with ``DeadlineExceededError``; one that
-        lapses after admission retires the slot with the partial result
-        (``finish_reason == "deadline"``)."""
+        out-of-vocabulary prompt, ``max_new_tokens < 1``, a bad sampling
+        parameter), :class:`RequestTooLongError`,
+        :class:`CacheOutOfPagesError` (the request could never fit the
+        page pool), :class:`QueueFullError`, :class:`DrainingError` and
+        :class:`EngineFailedError`.  A ``deadline`` (absolute
+        ``time.monotonic()``) that lapses while queued fails the future
+        with ``DeadlineExceededError``; one that lapses after admission
+        retires the slot with the partial result (``finish_reason ==
+        "deadline"``)."""
         if self._draining:
             raise DrainingError("engine is draining; not accepting work")
         if self._health == FAILED:
             raise EngineFailedError(f"engine has failed ({self.error})")
-        if float(temperature) > 0.0:
-            raise ServingError(
-                "sampling (temperature > 0) is not yet ported to "
-                "horovod_tpu_torch; this engine decodes greedily "
-                "(temperature 0)")
+        temperature, top_k, top_p, seed = validate(temperature, top_k,
+                                                   top_p, seed)
         prompt = [int(t) for t in prompt]
         n_new = int(max_new_tokens if max_new_tokens is not None
                     else self.engine_cfg.default_max_new_tokens)
@@ -284,9 +340,11 @@ class InferenceEngine:
                 f"prompt ({len(prompt)}) + max_new_tokens ({n_new}) needs "
                 f"{self.slots.pages_for(need)} pages; the pool holds "
                 f"{self.slots.n_pages}")
-        fut = GenerationFuture()
+        fut = GenerationFuture(on_token=on_token)
         req = Request(prompt=prompt, max_new_tokens=n_new, future=fut,
-                      eos_id=eos_id, deadline=deadline)
+                      eos_id=eos_id, deadline=deadline,
+                      temperature=temperature, top_k=top_k, top_p=top_p,
+                      seed=seed)
         self.scheduler.submit(req)  # QueueFullError counts via on_reject
         # Re-check after the enqueue: a failure or drain that began
         # between the checks above and the enqueue must not strand it.
@@ -302,17 +360,21 @@ class InferenceEngine:
     # -- the tick ----------------------------------------------------------
 
     def step(self) -> bool:
-        """One tick: admit, then one decode over all slots.  Returns True
-        if any work was done.  A failure resolves every in-flight and
-        queued future with :class:`EngineFailedError`, leaves the engine
-        ``failed`` and re-raises."""
+        """One tick: admit, then one decode over all slots (pipelined
+        with ``overlap``).  Returns True if any work was done.  A failure
+        resolves every in-flight and queued future with
+        :class:`EngineFailedError`, leaves the engine ``failed`` and
+        re-raises."""
         if self._health == FAILED:
             return False
         try:
             with self._lock:
                 worked = self._reclaim_cancelled()
                 worked = self._admit_pending() or worked
-                worked = self._decode_tick() or worked
+                if self.engine_cfg.overlap:
+                    worked = self._decode_tick_overlapped() or worked
+                else:
+                    worked = self._decode_tick() or worked
                 self.metrics.queue_depth.set(self.scheduler.depth)
                 self.metrics.slot_occupancy.set(self.slots.occupancy)
                 self._update_page_gauges()
@@ -345,8 +407,10 @@ class InferenceEngine:
         self._taken = []
         self._states = [None] * self.engine_cfg.n_slots
         self.slots.release_all()
-        self._dev_table = None
+        self._samp.reset()
         self._page_pos[:] = 0
+        self._pending = None
+        self._tokens_live = False
 
     def _update_page_gauges(self) -> None:
         self.metrics.kv_pages_free.set(self.slots.free_pages)
@@ -354,6 +418,7 @@ class InferenceEngine:
     def _release(self, slot: int) -> None:
         self._states[slot] = None
         self.slots.free(slot)
+        self._samp.clear(slot)  # a zero row: greedy, for the next tenant
 
     def _reclaim_cancelled(self) -> bool:
         """Free slots whose requests were cancelled caller-side (resolved
@@ -449,29 +514,59 @@ class InferenceEngine:
             lens[i] = len(r.prompt)
         dev = self.device
         cache = T.init_cache(self.cfg, k, bucket, device=dev)
-        logits, pre = T.prefill(self.params, torch.tensor(padded, device=dev),
-                                cache, self.cfg,
-                                true_len=torch.tensor(lens, device=dev))
+        logits, pre = T.prefill(self.params, upload(padded, dev), cache,
+                                self.cfg, true_len=upload(lens, dev))
         self._prefill_calls += 1
         self.slots.land(slots, pre, lens)
-        firsts = torch.argmax(logits, dim=-1).tolist()  # one sync for K
+        firsts = self._first_tokens(live, logits)  # one sync for K
         self.metrics.host_syncs.inc()
         now = time.monotonic()
         for slot, req, first in zip(slots, live, firsts):
             req.future.ttft = now - req.submitted_at
             self.metrics.observe_ttft(req.priority, req.future.ttft)
             self.metrics.admitted.inc()
+            # The slot's columns land before the next dispatch (step()
+            # admits first); a greedy request writes the zero row.
+            self._samp.set(slot, temperature=req.temperature,
+                           top_k=req.top_k, top_p=req.top_p, seed=req.seed)
             self._states[slot] = _SlotState(request=req,
                                             last_token=int(first),
                                             n_generated=0)
             self._page_pos[slot] = len(req.prompt)
             self._taken.remove(req)  # landed: _states owns it now
             self._emit(slot, int(first))
+        if self._tokens_live:
+            # Land the first tokens in the device token vector (a slot
+            # that its first token retired is inactive: a don't-care).
+            vals = np.zeros(self.engine_cfg.n_slots, np.int64)
+            mask = np.zeros(self.engine_cfg.n_slots, bool)
+            vals[slots] = firsts
+            mask[slots] = True
+            tok = self._tick.tokens
+            tok.copy_(torch.where(upload(mask, dev), upload(vals, dev), tok))
+
+    def _first_tokens(self, reqs: List[Request], logits) -> List[int]:
+        """An admission group's first tokens from its prefill logits (the
+        prefill is the first decode step): the argmax for an all-greedy
+        group, else :func:`~horovod_tpu_torch.models.transformer.
+        sample_token_rows` with each row's own parameters at key
+        position ``len(prompt)`` (greedy rows still take the argmax)."""
+        if all(r.temperature <= 0.0 for r in reqs):
+            return torch.argmax(logits, dim=-1).tolist()
+        dev = self.device
+        cols = [np.array([r.temperature for r in reqs], np.float32),
+                np.array([r.top_k for r in reqs], np.int64),
+                np.array([r.top_p for r in reqs], np.float32),
+                np.stack([seed_key(r.seed) for r in reqs]).astype(np.int64),
+                np.array([len(r.prompt) for r in reqs], np.int64)]
+        temp, tk, tp, keys, pos = (upload(c, dev) for c in cols)
+        return T.sample_token_rows(logits, temp, tk, tp, keys, pos,
+                                   torch.zeros_like(pos)).tolist()
 
     def _prepare_paged_tick(self) -> None:
         """Tick-boundary page maintenance: every active slot gets a page
-        under its write position, then the table is re-uploaded iff it
-        changed."""
+        under its write position, then the tick's table is refreshed iff
+        it changed."""
         ps = self.slots.page_size
         for s in range(self.engine_cfg.n_slots):
             st = self._states[s]
@@ -488,10 +583,8 @@ class InferenceEngine:
                 except CacheOutOfPagesError:
                     if not self._evict_for_pages():
                         raise
-        if (self._dev_table is None
-                or self._table_uploaded != self.slots.table_version):
-            self._dev_table = torch.tensor(self.slots.table,
-                                           device=self.device)
+        if self._table_uploaded != self.slots.table_version:
+            upload_into(self._tick.table, self.slots.table)
             self._table_uploaded = self.slots.table_version
 
     def _evict_for_pages(self) -> bool:
@@ -536,45 +629,103 @@ class InferenceEngine:
             self.metrics.completed.inc()
             self._release(slot)
 
+    def _host_tokens(self) -> np.ndarray:
+        tokens = np.zeros(self.engine_cfg.n_slots, np.int64)
+        for s, st in enumerate(self._states):
+            if st is not None:
+                tokens[s] = st.last_token
+        return tokens
+
+    def _dispatch(self, active: np.ndarray, t0: float) -> Dict:
+        """Refresh the tick's mask (iff it changed) and sampling columns
+        (iff dirty), run one tick over all slots, and start fetching its
+        next tokens and per-slot max logit.  Returns the pending record
+        :meth:`_retire_pending` applies."""
+        if (self._active_uploaded is None
+                or not np.array_equal(active, self._active_uploaded)):
+            upload_into(self._tick.active, active)
+            self._active_uploaded = active
+        self._samp.device()
+        nxt, mx = self._tick.run()
+        fetch = download(nxt, mx)
+        self._page_pos += active
+        self.metrics.decode_ticks.inc()
+        self.metrics.tick_dispatch.observe(time.monotonic() - t0)
+        return {"fetch": fetch, "active": active, "dispatched_at": t0,
+                "reqs": [st.request if st is not None else None
+                         for st in self._states]}
+
     def _decode_tick(self) -> bool:
-        """Grant pages, dispatch one decode over all slots, fetch the
-        next tokens and per-slot max logit in ONE host sync, emit."""
+        """The synchronous tick (``overlap=False``, the A/B baseline):
+        upload the tokens, dispatch, fetch and emit in the same step."""
         if self.slots.active_count:
             self._prepare_paged_tick()
         active = self.slots.active_mask()
         if not active.any():
             return False
-        tokens = np.zeros(self.engine_cfg.n_slots, np.int64)
-        for s, st in enumerate(self._states):
-            if st is not None:
-                tokens[s] = st.last_token
-        dev = self.device
         t0 = time.monotonic()
-        logits, _ = T.decode_step_paged(
-            self.params, torch.tensor(tokens, device=dev), self.slots.cache,
-            self._dev_table, self.cfg, torch.tensor(active, device=dev),
-            kernel=True)
-        # Token ids < 2**24 are exact in f32, so ids and the max logit
-        # (the finiteness probe) ride one fetch.
-        out = torch.stack([torch.argmax(logits, dim=-1).float(),
-                           logits.amax(dim=-1)])
-        t1 = time.monotonic()
-        self._page_pos += active
-        self.metrics.decode_ticks.inc()
-        self.metrics.tick_dispatch.observe(t1 - t0)
-        nxt, mx = out.cpu().numpy()
+        upload_into(self._tick.tokens, self._host_tokens())
+        self._retire_pending(self._dispatch(active, t0))
+        return True
+
+    def _decode_tick_overlapped(self) -> bool:
+        """One pipelined decode step (``overlap=True``): dispatch tick
+        N+1 first — its token input is tick N's output, already on the
+        device — then fetch and apply tick N's results while the device
+        computes tick N+1."""
+        worked = False
+        if self.slots.active_count:
+            # Page grants before the mask snapshot: host bookkeeping and
+            # a non-blocking table copy, nothing waits for the device.
+            self._prepare_paged_tick()
+        active = self.slots.active_mask()
+        new_pending = None
+        if active.any():
+            t0 = time.monotonic()
+            if not self._tokens_live:
+                # Pipeline (re)start: seed the device token vector from
+                # the host; after this the tick feeds itself.
+                upload_into(self._tick.tokens, self._host_tokens())
+                self._tokens_live = True
+            new_pending = self._dispatch(active, t0)
+            worked = True
+        prev, self._pending = self._pending, new_pending
+        if prev is not None:
+            self._retire_pending(prev)
+            worked = True
+        return worked
+
+    def _retire_pending(self, p: Dict) -> None:
+        """Fetch a dispatched tick's results — the one host sync of a
+        steady-state step — check them and emit, for both modes.
+
+        A slot's token is emitted only if the slot still holds the
+        request it computed for at dispatch (the ``reqs`` snapshot).  A
+        slot retired (EOS, length, deadline), cancelled or re-admitted
+        between dispatch and fetch fails that check and its stale row is
+        dropped: no token after EOS, and no token leaks into a slot's
+        next tenant.  The stale row's K/V write is never read (write
+        before attend).  In the synchronous tick the snapshot always
+        matches."""
+        t0 = time.monotonic()
+        nxt, mx = p["fetch"].wait()
         self.metrics.host_syncs.inc()
-        t2 = time.monotonic()
-        self.metrics.tick_device_wait.observe(t2 - t1)
+        t1 = time.monotonic()
+        self.metrics.tick_device_wait.observe(t1 - t0)
+        active = p["active"]
         if not np.isfinite(mx[active]).all():
             raise EngineFailedError(
                 "non-finite logits from decode tick (bad params or device "
                 "fault)")
+        lat = t1 - p["dispatched_at"]
         for s in np.nonzero(active)[0]:
-            self.metrics.token_latency.observe(t2 - t0)
-            self._emit(int(s), int(nxt[s]))
-        self.metrics.tick_host.observe(time.monotonic() - t2)
-        return True
+            s = int(s)
+            st = self._states[s]
+            if st is None or st.request is not p["reqs"][s]:
+                continue  # retired or re-admitted since dispatch: stale
+            self.metrics.token_latency.observe(lat)
+            self._emit(s, int(nxt[s]))
+        self.metrics.tick_host.observe(time.monotonic() - t1)
 
     # -- background loop ---------------------------------------------------
 
@@ -607,10 +758,14 @@ class InferenceEngine:
         self._thread = None
 
     def warmup(self, prompt_lens: Sequence[int] = (1,)) -> None:
-        """Drive the engine synchronously through one admission per
-        (prompt bucket, batch k <= max_prefills_per_tick) and a decode
-        tick — on the card this builds both kernels and warms their
-        launch paths before real traffic."""
+        """Capture the decode tick (CUDA), then drive the engine
+        synchronously through one admission per (prompt bucket, batch
+        k <= max_prefills_per_tick) and its decode ticks — on the card
+        this builds both kernels and warms their launch paths before
+        real traffic.  Call it before :meth:`start`: no other thread
+        touches the card during the capture."""
+        with self._lock:
+            self._tick.capture()
         kmax = min(self.engine_cfg.max_prefills_per_tick,
                    self.engine_cfg.n_slots)
         for n in prompt_lens:
@@ -619,16 +774,20 @@ class InferenceEngine:
                         for _ in range(k)]
                 while not all(f.done() for f in futs):
                     self.step()
+        while self._pending is not None:  # retire the pipeline's last tick
+            self.step()
 
     def drain(self, timeout: float = 60.0, poll: float = 0.002) -> bool:
-        """Block until queue and slots are empty (True) or timeout."""
+        """Block until the queue, the slots and the pipeline are empty
+        (True) or timeout."""
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             if self._health == FAILED:
                 return True  # the failure resolved everything
             with self._lock:
                 idle = (self.scheduler.depth == 0
-                        and self.slots.active_count == 0 and not self._taken)
+                        and self.slots.active_count == 0 and not self._taken
+                        and self._pending is None)
             if idle:
                 return True
             if self._thread is None:
@@ -669,6 +828,12 @@ class InferenceEngine:
             "page_size": self.slots.page_size,
             "kv_dtype": str(self.slots._storage_dtype).replace("torch.", ""),
             "kv_pages_high_water": self.slots.pages_high_water,
+            "overlap": self.engine_cfg.overlap,
+            # Captures of the decode tick's CUDA graph (0 on the CPU,
+            # where the tick runs eagerly): 1 after warmup, whatever the
+            # request mix.  The first-token sampler runs eagerly.
+            "decode_compilations": self._tick.captures,
+            "sample_compilations": 0,
             # Process-wide kernel launch counts (CPU runs take the plain
             # versions and leave them at 0).
             "flash_fwd_launches": _attn.flash_fwd_launches,

@@ -2,8 +2,8 @@
 :class:`~horovod_tpu_torch.obs.registry.MetricsRegistry`.
 
 Counterpart of ``horovod_tpu/serving/metrics.py``, holding the
-instruments the paged greedy engine of this slice updates, under the
-same ``serving_*`` family names and the same ``/stats`` snapshot keys.
+instruments the port's engine and server update, under the same
+``serving_*`` family names and the same ``/stats`` snapshot keys.
 """
 
 from __future__ import annotations
@@ -33,7 +33,9 @@ class ServingMetrics:
       results, and host bookkeeping.
     * ``kv_pages_*`` / ``kv_bytes_per_token`` — page-pool gauges.
     * ``decode_ticks`` / ``host_syncs`` — ticks dispatched and blocking
-      fetches on the serving path.
+      fetches on the serving path (``host_syncs_per_tick`` in /stats).
+    * ``streamed_tokens`` / ``disconnects`` — SSE token events written,
+      and streaming clients that hung up (their requests cancelled).
     """
 
     def __init__(self, registry: Optional[MetricsRegistry] = None) -> None:
@@ -95,6 +97,13 @@ class ServingMetrics:
             "serving_kv_bytes_per_token",
             "KV cache bytes per stored token (k+v across layers, incl. "
             "int8 scales)")
+        self.streamed_tokens = r.counter(
+            "serving_streamed_tokens_total",
+            "Tokens delivered as SSE token events (stream=true)")
+        self.disconnects = r.counter(
+            "serving_disconnects_total",
+            "Streaming clients that vanished mid-stream (request "
+            "cancelled, slot/pages reclaimed within one tick)")
 
     def observe_ttft(self, priority: str, v: float) -> None:
         self.ttft.labels(**{"class": priority}).observe(v)
@@ -144,4 +153,6 @@ class ServingMetrics:
             "host_syncs": self.host_syncs.value,
             "host_syncs_per_tick":
                 round(self.host_syncs.value / ticks, 4) if ticks else None,
+            "streamed_tokens": self.streamed_tokens.value,
+            "disconnects": self.disconnects.value,
         }

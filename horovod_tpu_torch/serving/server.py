@@ -1,18 +1,29 @@
 """Threaded stdlib-HTTP front for the continuous-batching engine.
 
-Counterpart of ``horovod_tpu/serving/server.py`` for this slice:
+Counterpart of ``horovod_tpu/serving/server.py``:
 ``http.server.ThreadingHTTPServer``, one handler thread per connection,
 all funneling into the single engine thread through the scheduler's
 bounded queue.
 
 * ``POST /generate`` — body ``{"tokens": [...], "max_new_tokens": N?,
-  "eos_id": E?, "timeout_ms": T?, "temperature": 0?}``; replies
-  ``{"tokens": [...], "finish_reason": ..., "ttft_ms": ...}``.  Typed
+  "eos_id": E?, "timeout_ms": T?, "temperature": f?, "top_k": K?,
+  "top_p": p?, "seed": s?, "stream": bool?}``; replies ``{"tokens":
+  [...], "finish_reason": ..., "ttft_ms": ...}``.  ``temperature`` /
+  ``top_k`` / ``top_p`` / ``seed`` select sampling (temperature 0, the
+  default, is greedy); a fixed seed reproduces the tokens.  Typed
   rejections map to HTTP: queue full / out of pages -> 429, too long ->
-  413, deadline -> 504, draining / engine failed -> 503, bad request ->
-  400 (including ``temperature > 0``: sampling is not ported yet).
-  Without ``timeout_ms`` the engine deadline defaults to the server's
-  ``request_timeout``, so a vanished client never pins a slot.
+  413, deadline -> 504, draining / engine failed -> 503, bad request
+  (including a bad sampling parameter) -> 400.  Without ``timeout_ms``
+  the engine deadline defaults to the server's ``request_timeout``, so
+  a vanished client never pins a slot.
+
+  ``"stream": true`` answers with chunked ``text/event-stream``
+  (:mod:`~horovod_tpu_torch.serving.sse`): one ``token`` event per
+  token as the engine emits it, then exactly one ``done`` (the
+  non-streamed 200 payload) or ``error`` event.  A client that
+  disconnects mid-stream cancels its request: the engine frees its slot
+  and pages on the next tick (``serving_disconnects_total``).
+  Submit-time rejections are ordinary JSON error replies.
 * ``GET /healthz`` — 200 while ``healthy``, 503 when ``draining`` or
   ``failed``.
 * ``GET /stats`` — the engine's :meth:`~InferenceEngine.stats`.
@@ -21,11 +32,15 @@ bounded queue.
 from __future__ import annotations
 
 import json
+import queue
+import select
+import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from horovod_tpu_torch.serving import sse
 from horovod_tpu_torch.serving.engine import HEALTHY, InferenceEngine
 from horovod_tpu_torch.serving.scheduler import (
     CacheOutOfPagesError,
@@ -101,6 +116,11 @@ class _Handler(BaseHTTPRequestHandler):
                        headers=headers or None)
 
         fut = None
+        stream = bool(req.get("stream"))
+        t_recv = time.monotonic()
+        # Streamed tokens cross from the engine thread to this handler
+        # thread through a queue: the engine never blocks on a socket.
+        tok_q: Optional[queue.Queue] = queue.Queue() if stream else None
         try:
             timeout_ms = req.get("timeout_ms")
             deadline = time.monotonic() + (
@@ -111,7 +131,16 @@ class _Handler(BaseHTTPRequestHandler):
                 max_new_tokens=req.get("max_new_tokens"),
                 eos_id=req.get("eos_id"),
                 deadline=deadline,
-                temperature=float(req.get("temperature") or 0.0))
+                temperature=req.get("temperature", 0.0),
+                top_k=req.get("top_k", 0),
+                top_p=req.get("top_p", 0.0),
+                seed=req.get("seed"),
+                on_token=tok_q.put if stream else None)
+            if stream:
+                # The request is live: from here the reply is the SSE
+                # stream, errors included.
+                self._stream_response(engine, fut, tok_q, t_recv)
+                return
             # The engine's deadline retirement should win over this hard
             # HTTP timeout, which fires only when the engine cannot retire.
             out = fut.result(timeout=self.server.request_timeout
@@ -140,12 +169,101 @@ class _Handler(BaseHTTPRequestHandler):
                 fut.cancel()  # reclaim the slot on the next tick
             fail(504, e, "timeout")
             return
-        payload = {
-            "tokens": out,
-            "finish_reason": fut.finish_reason,
-            "ttft_ms": round(fut.ttft * 1e3, 3) if fut.ttft else None,
-        }
-        self._json(200, payload)
+        self._json(200, _done_payload(fut, out))
+
+    # -- SSE streaming (stream=true) ---------------------------------------
+
+    def _client_gone(self) -> bool:
+        """Peek the client socket between events: a readable socket whose
+        recv returns b"" is a half-closed connection — the client hung
+        up.  (A client pipelining bytes reads as data, not a hangup.)"""
+        try:
+            r, _, _ = select.select([self.connection], [], [], 0)
+            if not r:
+                return False
+            return self.connection.recv(1, socket.MSG_PEEK) == b""
+        except (OSError, ValueError):
+            return True
+
+    def _stream_response(self, engine: InferenceEngine, fut,
+                         tok_q: "queue.Queue", t_recv: float) -> None:
+        """Stream one live request as chunked SSE: token events as the
+        engine emits them, then exactly one terminal ``done`` / ``error``
+        event.  A client disconnect — a failed write, or the socket peek
+        while waiting between tokens — cancels the request.  Once the 200
+        is on the wire, failures are in-band ``error`` events."""
+        metrics = engine.metrics
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+        self.close_connection = True  # the stream owns the connection
+        budget = t_recv + self.server.request_timeout \
+            + self.server.timeout_grace
+        n_sent = 0
+
+        def emit(kind, payload) -> None:
+            data = sse.event_bytes(kind, payload)
+            self.wfile.write(b"%x\r\n" % len(data) + data + b"\r\n")
+
+        def send_tok(tok) -> None:
+            nonlocal n_sent
+            emit("token", {"i": n_sent, "token": int(tok)})
+            n_sent += 1
+            metrics.streamed_tokens.inc()
+
+        try:
+            while True:
+                try:
+                    tok = tok_q.get(timeout=0.05)
+                except queue.Empty:
+                    if fut.done():
+                        break
+                    if time.monotonic() > budget:
+                        fut.cancel()
+                        emit("error", {
+                            "type": "timeout",
+                            "error": "generation still in progress at "
+                                     "the server timeout"})
+                        self.wfile.write(b"0\r\n\r\n")
+                        return
+                    if self._client_gone():
+                        raise ConnectionAbortedError("client gone")
+                    continue
+                send_tok(tok)
+            # Resolved: tokens always reach the queue before the future
+            # resolves, so drain them, then the one terminal event.
+            while True:
+                try:
+                    send_tok(tok_q.get_nowait())
+                except queue.Empty:
+                    break
+            try:
+                out = fut.result(timeout=0)
+            except EngineFailedError as e:
+                emit("error", {"type": "engine_failed", "error": str(e)})
+            except DeadlineExceededError as e:
+                emit("error", {"type": "deadline_exceeded",
+                               "error": str(e)})
+            except CacheOutOfPagesError as e:
+                emit("error", {"type": "out_of_pages", "error": str(e)})
+            except ServingError as e:
+                emit("error", {"type": "error", "error": str(e)})
+            else:
+                emit("done", _done_payload(fut, out))
+            self.wfile.write(b"0\r\n\r\n")
+        except OSError:
+            # The client hung up: cancel, and the engine reclaims the
+            # slot and its pages on its next tick.
+            if fut.cancel():
+                metrics.disconnects.inc()
+
+
+def _done_payload(fut, tokens) -> dict:
+    """The body of a successful reply (and of the ``done`` event)."""
+    return {"tokens": tokens, "finish_reason": fut.finish_reason,
+            "ttft_ms": round(fut.ttft * 1e3, 3) if fut.ttft else None}
 
 
 class ServingServer:

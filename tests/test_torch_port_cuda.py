@@ -12,13 +12,16 @@ after normalizing).  The flash backward (K2, K3) is held to its plain
 version relative to the largest gradient: 1e-4 at f32 (summation
 order), 2e-2 at bf16 (p, ds and the outputs are rounded to bf16, whose
 step is 2^-8 = 3.9e-3 of a value: a few one-step flips where the f32
-sums differ in their last bits).
+sums differ in their last bits).  The serving engine's decode tick,
+captured as a CUDA graph, is held to the same tick run eagerly bit for
+bit: the same kernels on the same inputs.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from horovod_tpu_torch import serving
 from horovod_tpu_torch.models import transformer as T
 from horovod_tpu_torch.ops import attention as A
 from horovod_tpu_torch.ops import paged_attention as PA
@@ -240,3 +243,93 @@ def test_cuda_input_never_falls_back(dev):
                         None, None,
                         torch.ones((1, 1), dtype=torch.int32, device=dev),
                         torch.ones(1, dtype=torch.int32, device=dev))
+
+
+# The serving width (chip_smoke.py's FULL), cut to 512 positions a slot.
+SERVE = dict(vocab_size=32000, d_model=1024, n_layers=8, n_heads=16,
+             n_kv_heads=4, d_ff=4096, max_seq=512, attention_impl="flash")
+# Half greedy, half sampled, every sampling option.
+SAMPLING = [{}, dict(temperature=1.0, seed=1), {},
+            dict(temperature=0.8, top_k=40, seed=2), {},
+            dict(temperature=1.2, top_p=0.9, seed=3), {},
+            dict(temperature=0.7, top_k=100, top_p=0.95, seed=4)]
+
+
+def _serving_engine(dev, **kw):
+    cfg = T.TransformerConfig(**SERVE, dtype=torch.bfloat16)
+    params = T.init_params(cfg, seed=0, device=dev)
+    ec = serving.EngineConfig(n_slots=8, max_len=512, page_size=16, **kw)
+    return serving.InferenceEngine(params, cfg, ec, device=dev), cfg
+
+
+def _mixed_requests(engine, new_tokens):
+    rng = np.random.default_rng(5)
+    return [engine.submit(rng.integers(0, 32000, n).tolist(),
+                          max_new_tokens=new_tokens, **kw)
+            for n, kw in zip((5, 40, 100, 17, 300, 64, 9, 200), SAMPLING)]
+
+
+def test_captured_tick_bit_identical_to_eager(dev):
+    """Twenty ticks of a live mix (greedy and sampled slots at unequal
+    depths crossing page boundaries, one slot leaving halfway): the
+    replayed graph's tokens, max logits, pool bytes and positions equal
+    the eager tick's, run from a copy of the same state; K4 launches
+    once a layer a replay."""
+    engine, cfg = _serving_engine(dev, overlap=False)
+    engine.warmup((8,))
+    assert engine.stats()["decode_compilations"] == 1
+    futs = _mixed_requests(engine, 60)
+    while engine.scheduler.depth or engine.slots.active_count < 8:
+        engine.step()
+    engine.step()
+    # Pages for the next 20 positions of every slot, then the inputs.
+    ps = engine.slots.page_size
+    for s in range(8):
+        p0 = int(engine._page_pos[s])
+        for idx in range(p0 // ps, (p0 + 20) // ps + 1):
+            if engine.slots.table[s, idx] == serving.NULL_PAGE:
+                engine.slots.grant(s, idx)
+    tick = engine._tick
+    tick.table.copy_(torch.from_numpy(engine.slots.table))
+    tick.tokens.copy_(torch.from_numpy(engine._host_tokens()))
+    tick.active.fill_(True)
+    engine._samp.device()
+    eager = tick.twin()
+    k4, replays = PA.paged_attend_launches, tick.replays
+    graphed = []
+    for i in range(20):
+        if i == 10:
+            tick.active[3] = False
+        nxt, mx = tick.run()
+        graphed.append((nxt.clone(), mx.clone()))
+    assert tick.replays - replays == 20
+    assert PA.paged_attend_launches - k4 == 20 * cfg.n_layers
+    for i in range(20):
+        if i == 10:
+            eager.active[3] = False
+        nxt, mx = eager.body()
+        assert torch.equal(nxt, graphed[i][0]), i
+        assert torch.equal(mx, graphed[i][1]), i
+    for name, t in tick.pool.items():
+        assert torch.equal(t, eager.pool[name]), name
+    assert engine.stats()["decode_compilations"] == 1
+    engine.terminate()
+
+
+@pytest.mark.parametrize("overlap", [True, False], ids=["overlap", "sync"])
+def test_one_capture_across_a_mixed_burst(dev, overlap):
+    """decode_compilations is 1 after warmup and after a burst of greedy
+    and sampled requests (parameters are data); K4's launch count grows
+    by replays x layers; every request returns its full count."""
+    engine, cfg = _serving_engine(dev, overlap=overlap)
+    engine.warmup((8,))
+    assert engine.stats()["decode_compilations"] == 1
+    k4, replays = PA.paged_attend_launches, engine._tick.replays
+    futs = _mixed_requests(engine, 24)
+    while not all(f.done() for f in futs):
+        engine.step()
+    assert all(len(f.result(timeout=0)) == 24 for f in futs)
+    st = engine.stats()
+    assert st["decode_compilations"] == 1
+    n = engine._tick.replays - replays
+    assert n >= 23 and PA.paged_attend_launches - k4 == n * cfg.n_layers

@@ -1,17 +1,25 @@
 """horovod_tpu_torch's serving engine against the JAX package's
-``greedy_decode`` oracle, on the CPU at f32.
+``greedy_decode`` oracle and the port's own ``sample_decode``, on the
+CPU at f32.
 
 The gold check is token identity: whatever shares the slot pool and
 whenever a request was admitted, its greedy output equals per-request
-``greedy_decode`` of the JAX package on the same weights.  Also here:
-the HTTP front, the device rule, and import hygiene (the port never
-loads JAX or the JAX package)."""
+``greedy_decode`` of the JAX package on the same weights, and its
+sampled output equals the port's per-request ``sample_decode`` at the
+same seed (held to JAX's in ``test_torch_port_sampling.py``), with the
+overlapped pipeline on and off.  Also here: one host sync per steady
+decode tick, the HTTP front with sampling and SSE streaming, the device
+rule, and import hygiene (the port never loads JAX or the JAX
+package)."""
 
 import ast
+import http.client
 import json
+import socket
 import subprocess
 import sys
 import textwrap
+import time
 import urllib.request
 from pathlib import Path
 
@@ -25,6 +33,7 @@ from horovod_tpu.models import transformer as JT
 from horovod_tpu_torch import serving
 from horovod_tpu_torch.models import params_from_jax
 from horovod_tpu_torch.models import transformer as T
+from horovod_tpu_torch.serving import sse
 
 from conftest import http_post_json
 
@@ -66,6 +75,13 @@ def _engine(model, **kw):
     ec.update(kw)
     return serving.InferenceEngine(tparams, tcfg, serving.EngineConfig(**ec),
                                    device="cpu")
+
+
+def _port_oracle(model, prompt, steps, seed=0, temperature=0.0, **kw):
+    _, _, tparams, tcfg = model
+    return T.sample_decode(tparams, torch.tensor([prompt]), steps, tcfg,
+                           rng=serving.seed_key(seed),
+                           temperature=temperature, **kw)[0].tolist()
 
 
 def _run(engine, futs, max_ticks=300):
@@ -114,11 +130,110 @@ class TestEngineTokenIdentity:
         assert fut.finish_reason == "eos"
 
 
+# (prompt length, new tokens, sampling parameters): greedy and sampled
+# requests of every kind, more than the slots, unequal lengths.
+MIXED = [(3, 11, {}), (9, 6, dict(temperature=1.0, seed=1)),
+         (5, 9, dict(temperature=0.8, top_k=5, seed=2)), (12, 7, {}),
+         (4, 12, dict(temperature=1.3, top_p=0.9, seed=3)),
+         (17, 5, dict(temperature=0.7, top_k=8, top_p=0.8, seed=4)),
+         (2, 10, dict(temperature=2.0, seed=2 ** 31 - 1))]
+
+
+class TestSampledEngine:
+    @pytest.mark.parametrize("overlap", [True, False],
+                             ids=["overlap", "sync"])
+    def test_mixed_burst_equals_sample_decode(self, model, overlap):
+        """A staggered burst of greedy and sampled requests: each one's
+        tokens equal the port's per-request ``sample_decode`` exactly
+        (greedy ones also JAX's ``greedy_decode``)."""
+        engine = _engine(model, overlap=overlap)
+        rng = np.random.default_rng(11)
+        cases = [(rng.integers(0, 64, n).tolist(), steps, kw)
+                 for n, steps, kw in MIXED]
+        futs = []
+        for prompt, steps, kw in cases:
+            futs.append(engine.submit(prompt, max_new_tokens=steps, **kw))
+            engine.step()
+        _run(engine, futs)
+        for (prompt, steps, kw), f in zip(cases, futs):
+            assert f.result(timeout=0) == _port_oracle(model, prompt, steps,
+                                                       **kw), kw
+            if not kw:
+                assert f.result(timeout=0) == _oracle(model, prompt, steps)
+        st = engine.stats()
+        assert st["overlap"] is overlap and st["decode_compilations"] == 0
+        assert st["requests_completed"] == len(cases)
+        assert st["kv_pages_free"] == st["kv_pages_total"]
+
+    def test_overlap_and_sync_identical_with_eos_and_cancel(self, model):
+        """The same staggered workload with an EOS stop, a mid-stream
+        cancellation and a reused slot gives identical tokens and finish
+        reasons with the pipeline on and off."""
+        eos_ref = _port_oracle(model, [20, 21, 22], 12, seed=8,
+                               temperature=1.0)
+        eos = eos_ref[4]
+        cases = [([3, 4, 5, 6], 9, {}),
+                 ([20, 21, 22], 12, dict(temperature=1.0, seed=8,
+                                         eos_id=eos)),
+                 ([10, 11], 5, dict(temperature=0.9, top_k=4, seed=5)),
+                 ([7, 8, 9, 1, 2, 3, 4, 5, 6], 7, {})]
+        outs = {}
+        for overlap in (True, False):
+            engine = _engine(model, overlap=overlap, n_slots=2)
+            victim = engine.submit([9, 8, 7], max_new_tokens=30,
+                                   temperature=1.2, seed=6)
+            futs = []
+            for prompt, steps, kw in cases:
+                futs.append(engine.submit(prompt, max_new_tokens=steps,
+                                          **kw))
+                engine.step()
+                if len(victim.tokens_so_far()) >= 3 and victim.cancel():
+                    pass
+            _run(engine, futs + [victim])
+            assert victim.finish_reason == "cancelled"
+            got = victim.result(timeout=0)
+            assert got == _port_oracle(model, [9, 8, 7], len(got), seed=6,
+                                       temperature=1.2)
+            outs[overlap] = [(f.result(timeout=0), f.finish_reason)
+                             for f in futs]
+            assert engine.stats()["slots_active"] == 0
+        assert outs[True] == outs[False]
+        assert outs[True][1] == (eos_ref[:5], "eos")
+        for (prompt, steps, kw), (toks, reason) in zip(cases, outs[True]):
+            if "eos_id" not in kw:
+                assert toks == _port_oracle(model, prompt, steps, **kw)
+                assert reason == "length"
+
+    @pytest.mark.parametrize("overlap", [True, False],
+                             ids=["overlap", "sync"])
+    def test_steady_state_one_host_sync_per_tick(self, model, overlap):
+        """No admission, no retirement: exactly one host sync (the fetch)
+        per dispatched decode tick."""
+        engine = _engine(model, overlap=overlap, n_slots=2)
+        futs = [engine.submit([2, 3, 4], max_new_tokens=30),
+                engine.submit([5, 6], max_new_tokens=30, temperature=1.0,
+                              seed=3)]
+        for _ in range(4):  # admission and the pipeline fill
+            engine.step()
+        syncs0 = engine.metrics.host_syncs.value
+        ticks0 = engine.metrics.decode_ticks.value
+        for _ in range(12):
+            engine.step()
+        assert not any(f.done() for f in futs)
+        assert engine.metrics.decode_ticks.value - ticks0 == 12
+        assert engine.metrics.host_syncs.value - syncs0 == 12
+        _run(engine, futs)
+
+
 class TestEngineRules:
     def test_typed_rejections(self, model):
         engine = _engine(model)
-        with pytest.raises(serving.ServingError, match="not yet ported"):
-            engine.submit([1, 2], temperature=0.7)
+        with pytest.raises(serving.ServingError, match="temperature"):
+            engine.submit([1, 2], max_new_tokens=4, temperature=-0.7)
+        with pytest.raises(serving.ServingError, match="top_p"):
+            engine.submit([1, 2], max_new_tokens=4, top_p=1.5)
+        with pytest.raises(serving.ServingError, match="seed"):
+            engine.submit([1, 2], max_new_tokens=4, seed=-1)
         with pytest.raises(serving.ServingError, match="token ids"):
             engine.submit([1, 64])
         with pytest.raises(serving.RequestTooLongError):
@@ -169,8 +284,20 @@ def test_http_generate_matches_jax_greedy(model):
         assert body["tokens"] == _oracle(model, prompt, 7)
         assert body["finish_reason"] == "length"
         code, body = http_post_json(base + "/generate",
-                                    {"tokens": prompt, "temperature": 1.0})
-        assert code == 400 and "not yet ported" in body["error"]
+                                    {"tokens": prompt, "temperature": -1.0})
+        assert code == 400 and "temperature" in body["error"]
+        sampled = {"tokens": prompt, "max_new_tokens": 9,
+                   "temperature": 0.9, "top_k": 10, "top_p": 0.95,
+                   "seed": 1234}
+        code, body = http_post_json(base + "/generate", sampled)
+        assert code == 200
+        assert body["tokens"] == _port_oracle(
+            model, prompt, 9, seed=1234, temperature=0.9, top_k=10,
+            top_p=0.95)
+        for bad in ({"top_p": 2.0}, {"seed": -3}, {"top_k": "x"}):
+            code, body = http_post_json(base + "/generate",
+                                        {"tokens": prompt, **bad})
+            assert code == 400, bad
         with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
             assert r.status == 200
             assert json.loads(r.read())["status"] == "healthy"
@@ -180,6 +307,77 @@ def test_http_generate_matches_jax_greedy(model):
     finally:
         srv.stop(drain_timeout=10)
     assert engine.health == serving.DRAINING
+
+
+def _stream(srv, body):
+    """POST a streamed /generate; returns (connection, response)."""
+    c = http.client.HTTPConnection(*srv.address, timeout=30)
+    c.request("POST", "/generate", json.dumps({**body, "stream": True}),
+              {"Content-Type": "application/json"})
+    r = c.getresponse()
+    assert r.status == 200
+    assert r.getheader("Content-Type") == "text/event-stream"
+    return c, r
+
+
+def test_http_stream_equals_reply_and_oracle(model):
+    engine = _engine(model)
+    engine.warmup((4,))
+    srv = serving.ServingServer(engine, port=0).start()
+    try:
+        body = {"tokens": [4, 8, 15, 16], "max_new_tokens": 10,
+                "temperature": 1.1, "top_k": 20, "seed": 77}
+        c, r = _stream(srv, body)
+        events = sse.read_stream(r)
+        c.close()
+        kinds = [k for k, _ in events]
+        assert kinds == ["token"] * 10 + ["done"]
+        assert [e["i"] for _, e in events[:-1]] == list(range(10))
+        done = events[-1][1]
+        assert [e["token"] for _, e in events[:-1]] == done["tokens"]
+        code, plain = http_post_json(
+            "http://%s:%d/generate" % srv.address, body)
+        assert code == 200 and plain["tokens"] == done["tokens"]
+        assert done["tokens"] == _port_oracle(
+            model, body["tokens"], 10, seed=77, temperature=1.1, top_k=20)
+        assert done["finish_reason"] == "length"
+        st = engine.stats()
+        assert st["streamed_tokens"] == 10
+    finally:
+        srv.stop(drain_timeout=10)
+
+
+def test_http_stream_disconnect_frees_the_slot(model, monkeypatch):
+    """A client that hangs up mid-stream cancels its request: the slot
+    and its pages are free within a tick.  The tick is slowed so that
+    the request is still decoding when the client leaves."""
+    engine = _engine(model)
+    run = engine._tick.run
+
+    def slow_run():
+        time.sleep(0.06)
+        return run()
+
+    monkeypatch.setattr(engine._tick, "run", slow_run)
+    srv = serving.ServingServer(engine, port=0).start()
+    try:
+        c, r = _stream(srv, {"tokens": [1, 2, 3], "max_new_tokens": 30})
+        parser, events = sse.SSEParser(), []
+        while sum(k == "token" for k, _ in events) < 2:
+            events += parser.feed(r.read1(4096))
+        c.sock.shutdown(socket.SHUT_RDWR)
+        c.close()
+        deadline = time.monotonic() + 20
+        while time.monotonic() < deadline:
+            st = engine.stats()
+            if st["disconnects"] == 1 and st["slots_active"] == 0:
+                break
+            time.sleep(0.05)
+        assert st["disconnects"] == 1 and st["slots_active"] == 0
+        assert st["requests_cancelled"] == 1
+        assert st["kv_pages_free"] == st["kv_pages_total"]
+    finally:
+        srv.stop(drain_timeout=10)
 
 
 def test_import_hygiene():
@@ -210,8 +408,12 @@ def test_import_hygiene():
         new = set(sys.modules) - before
         bad = sorted(m for m in new if m.split(".")[0] in
                      ("jax", "jaxlib", "horovod_tpu"))
-        print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 10 else 0)
+        need = {"horovod_tpu_torch.ops.threefry",
+                "horovod_tpu_torch.serving.sampling",
+                "horovod_tpu_torch.serving.graph",
+                "horovod_tpu_torch.serving.sse"}
+        print(len(names), bad, sorted(need - set(names)))
+        sys.exit(1 if bad or need - set(names) or len(names) < 14 else 0)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=root)
