@@ -28,7 +28,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    forward.
    Edge shapes for K1-K3 in both dtypes: ragged S (1, 17, 63, 65,
    2047) and S = 100 against T = 300, unmasked, bottom-right causal
-   (shift = S - T) and fully masked (shift = T - S).
+   (shift = S - T) and fully masked (shift = T - S); K1 also at the
+   resume bucket, S = 2176 (``max_len``), B = 2.
 4. Serving at full width: the d1024/L8/H16/kv4 bf16 Transformer from
    ``init_params`` seed 0, 8 slots.  First the decode tick at 8 slots
    and depth 1000 (half the slots sampling), three ways, each with its
@@ -45,12 +46,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    whose prompts cover the buckets 8..2048.  Every request must return
    its full token count, both kernels' launch counters must grow during
    the run, and ``decode_compilations`` must read 1 before and after.
+   Then durability in bf16: the same prompts on a pool of
+   ``DURABLE_PAGES`` pages, below capacity parity, so that decode growth
+   suspends requests, and a decode tick raising midway through the
+   burst: every request returns its full count, with at least one
+   preemption and one resume, one restart, an empty journal and one
+   capture; then the graph check again on the restarted engine (its pool
+   reset in place).
 5. Token identity: the same configuration in f32 (TF32 off for matmuls
    and cuDNN) against the per-request oracles, ``greedy_decode`` for the
    greedy requests and ``sample_decode`` at the request's seed for the
    sampled ones.  A mismatch is exempt only at or after a position where
    the oracle's top-2 margin is below ``NEAR_TIE``; every exemption is
-   printed.
+   printed.  Then the same burst on the same engine through three
+   faults, one after another (``F32_FAULTS``: a decode tick raising at
+   depth 1, a fetch raising, non-finite logits): every request resumes
+   and must equal the same oracles; at the end three restarts, an empty
+   journal, ``healthy`` and one capture.  Printed with the card's name
+   and power limit: each fault's seconds to the first clean tick after
+   it, ``resume_wasted_tokens``, and each faulted burst's tok/s beside
+   its clean counterpart's.  Each faulted burst is a main path of its
+   own: K1 and K4 must launch during it.
 6. Model gradients: a 2-layer d1024 model's f32 loss and parameter
    gradients through the kernels against the plain attention path (TF32
    off).
@@ -80,6 +96,7 @@ result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -112,6 +129,16 @@ PROMPT_LENS = [5, 16, 40, 100, 300, 700, 1500, 2048]
 NEW_TOKENS = [128, 64, 96, 128, 80, 112, 64, 128]
 F32_NEW_TOKENS = 32
 PROFILE_DEPTH = 1000  # every slot's prompt length in the profiled ticks
+RESUME_S = ENGINE["max_len"]  # the prefill bucket of a resumed long prompt
+# The f32 faults, one after another, each at the next visit of its site
+# once the burst has emitted that many tokens in all: a decode tick
+# raising at depth 1, a fetch raising, non-finite logits.
+F32_FAULTS = [("decode_tick", "raise", 1), ("decode_fetch", "raise", 96),
+              ("decode_tick", "nonfinite", 176)]
+# The bf16 faulted burst's page pool, below capacity parity (8 x 136 =
+# 1088 pages) so that decode growth runs out and preempts; it still holds
+# the 8 prompts and the graph check's 20 positions beyond them.
+DURABLE_PAGES = 320
 # Each request's sampling, by its index: half greedy, half sampled with a
 # fixed seed, every option of the sampler.
 SAMPLING = [{}, dict(temperature=1.0, seed=1), {},
@@ -310,6 +337,9 @@ def check_flash() -> dict:
     cases += [(dt, 64, S, S, "causal") for dt in dts for S in EDGE_S]
     cases += [(dt, D, *EDGE_T, m) for dt in dts for D in (64, 128)
               for m in EDGE_T_MASKS]
+    # The resume bucket: a resumed 2048-token prompt plus its emitted
+    # tokens prefills at max_len, 2176, which warmup never reaches.
+    cases += [(dt, 64, RESUME_S, RESUME_S, "causal") for dt in dts]
     for i, (dt, D, S, T, mask) in enumerate(cases):
         B, H, Hkv = 2, 16, 4
         shift = _shift(mask, S, T)
@@ -783,33 +813,83 @@ def serve_full_width() -> dict:
         f"launches {launches}; decode_compilations before/after "
         f"{captures}; sampler {sampler['share_of_tick_busy']:.1%} of the "
         "graph tick's device busy")
-    del engine, params
+    del engine
+    torch.cuda.empty_cache()
+    out["durability"] = durability_bf16(params, cfg)
+    del params
     torch.cuda.empty_cache()
     return out
 
 
-def token_identity() -> dict:
-    """f32 engine tokens of a half-sampled burst against the per-request
-    oracles: ``greedy_decode`` for greedy requests, ``sample_decode`` at
-    the request's seed for sampled ones.  A mismatch is exempt only at
-    or after a pick whose oracle top-2 gap is below ``NEAR_TIE``."""
-    from horovod_tpu_torch.models import transformer as T
-    from horovod_tpu_torch.serving import (EngineConfig, InferenceEngine,
-                                           seed_key)
+def durability_bf16(params, cfg) -> dict:
+    """The serving phase's configuration and prompts on a pool of
+    ``DURABLE_PAGES`` pages, below capacity parity, so that decode growth
+    runs out of pages and suspends requests, and one decode tick raising
+    midway through the burst.  Every request must return its full token
+    count, with at least one preemption and one resume, one capture
+    throughout; then the graph check again on the restarted engine (its
+    pool and inputs reset in place): 20 replays bit-identical to the
+    eager tick, K4 once a layer a replay."""
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import paged_attention as PA
+    from horovod_tpu_torch.serving import (EngineConfig, FaultInjector,
+                                           InferenceEngine)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = T.TransformerConfig(**FULL, dtype=torch.float32)
-    params = T.init_params(cfg, seed=0)
-    engine = InferenceEngine(params, cfg, EngineConfig(**ENGINE))
-    prompts = _prompts(seed=1)
-    futs = [engine.submit(p, max_new_tokens=F32_NEW_TOKENS, **SAMPLING[i])
-            for i, p in enumerate(prompts)]
-    while not all(f.done() for f in futs):
-        engine.step()
-    exempt = []
-    for i, (p, f) in enumerate(zip(prompts, futs)):
+    inj = FaultInjector()
+    engine = InferenceEngine(params, cfg, EngineConfig(
+        **ENGINE, n_pages=DURABLE_PAGES, faults=inj))
+    engine.warmup((8,))
+    prompts = _prompts()
+    # The durability phase's main path: the launch counters read 0 here
+    # and are read again after its last request.
+    A.flash_fwd_launches = 0
+    PA.paged_attend_launches = 0
+    futs = [engine.submit(p, max_new_tokens=n, **SAMPLING[i])
+            for i, (p, n) in enumerate(zip(prompts, NEW_TOKENS))]
+    faults = [("decode_tick", "raise", sum(NEW_TOKENS) // 2)]
+    run = _burst_with_faults(engine, inj, futs, faults)
+    launches = {"flash_fwd": A.flash_fwd_launches,
+                "paged_attend": PA.paged_attend_launches}
+    for i, f in enumerate(futs):
         got = f.result(timeout=0)
+        if len(got) != NEW_TOKENS[i] or f.finish_reason != "length":
+            raise AssertionError(f"bf16 faulted request {i} returned "
+                                 f"{len(got)} tokens ({f.finish_reason})")
+    st = _durability_checks("bf16 faulted", engine, launches, 1)
+    if st["preemptions"] < 1 or st["requests_resumed"] < 1:
+        raise AssertionError(
+            f"bf16 faulted burst: preemptions {st['preemptions']}, "
+            f"requests_resumed {st['requests_resumed']}, expected >= 1 each")
+    out = {"n_pages": DURABLE_PAGES, "faults": faults, "fired": inj.fired,
+           "recovery_s": run["recovery_s"],
+           "preemptions": st["preemptions"],
+           "requests_resumed": st["requests_resumed"],
+           "resume_wasted_tokens": st["resume_wasted_tokens"],
+           "kv_pages_high_water": st["kv_pages_high_water"],
+           "launches": launches,
+           "faulted_tok_per_s": sum(NEW_TOKENS) / run["wall_s"]}
+    log(f"durability bf16 ({DURABLE_PAGES} pages): fault fired "
+        f"{inj.fired}; {st['preemptions']} preemptions, "
+        f"{st['requests_resumed']} resumes, every request its full count; "
+        f"restarts 1, journal_inflight 0, healthy, decode_compilations 1; "
+        f"launches {launches}")
+    out["graph_vs_eager"] = graph_vs_eager(engine)  # ends the engine
+    if engine.stats()["decode_compilations"] != 1:
+        raise AssertionError("the restarted engine recaptured its tick")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _f32_oracles(params, cfg, prompts) -> list:
+    """Each request's oracle tokens and top-2 margins: ``greedy_decode``
+    for greedy requests, ``sample_decode`` at the request's seed for
+    sampled ones."""
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.serving import seed_key
+
+    refs = []
+    for i, p in enumerate(prompts):
         kw = dict(SAMPLING[i])
         prompt = torch.tensor([p], device="cuda")
         if kw:
@@ -819,32 +899,162 @@ def token_identity() -> dict:
         else:
             ref, gap = T.greedy_decode(params, prompt, F32_NEW_TOKENS, cfg,
                                        margins=True)
-        ref, gap = ref[0].tolist(), gap[0].tolist()
+        refs.append((ref[0].tolist(), gap[0].tolist()))
+    return refs
+
+
+def _check_f32(label: str, prompts, futs, refs) -> list:
+    """Every future's tokens against its oracle.  A mismatch is exempt
+    only at or after a pick whose oracle top-2 gap is below
+    ``NEAR_TIE``; returns the exemptions."""
+    exempt = []
+    for i, (p, f, (ref, gap)) in enumerate(zip(prompts, futs, refs)):
+        got = f.result(timeout=0)
         if got == ref:
             continue
-        first = next(j for j in range(len(ref)) if got[j] != ref[j])
-        ties = [j for j in range(first + 1) if gap[j] < NEAR_TIE]
-        if not ties:
+        first = next((j for j in range(len(ref))
+                      if j >= len(got) or got[j] != ref[j]), len(ref))
+        ties = [j for j in range(min(first + 1, len(ref)))
+                if gap[j] < NEAR_TIE]
+        if len(got) != len(ref) or not ties:
             raise AssertionError(
-                f"f32 request {i} (prompt {len(p)}, {SAMPLING[i] or 'greedy'}"
-                f") diverges from the oracle at token {first} with margin "
-                f"{gap[first]:.3e}")
+                f"{label} request {i} (prompt {len(p)}, "
+                f"{SAMPLING[i] or 'greedy'}, {len(got)} tokens) diverges "
+                f"from the oracle at token {first}")
         exempt.append({"request": i, "prompt_len": len(p),
                        "sampled": bool(SAMPLING[i]),
                        "first_mismatch": first, "tie_at": ties[0],
                        "margin": gap[ties[0]]})
-        log(f"exemption: f32 request {i} diverges at token {first} after "
-            f"a near-tie at token {ties[0]} (margin {gap[ties[0]]:.3e} < "
-            f"{NEAR_TIE})")
+        log(f"exemption: {label} request {i} diverges at token {first} "
+            f"after a near-tie at token {ties[0]} (margin "
+            f"{gap[ties[0]]:.3e} < {NEAR_TIE})")
+    return exempt
+
+
+def _burst_with_faults(engine, inj, futs, faults) -> dict:
+    """Step ``engine`` until every future resolves, injecting each
+    ``(site, kind, at)`` of ``faults`` at the next visit of its site once
+    the burst has emitted ``at`` tokens in all.  Each fault must restart
+    the engine; its recovery time runs from the step it is armed before
+    to the end of the first clean tick after the restart (the engine
+    back to ``healthy``), synchronized."""
+    from horovod_tpu_torch.serving import FaultSpec
+
+    def emitted():
+        return sum(len(f.tokens_so_far()) for f in futs)
+
+    def step():
+        if engine.terminal or all(f.done() for f in futs):
+            raise AssertionError(f"the faulted burst ended early: "
+                                 f"{engine.stats()['error']}")
+        engine.step()
+
+    recoveries = []
+    t0 = time.monotonic()
+    for site, kind, at in faults:
+        while emitted() < at:
+            step()
+        restarts = engine.metrics.engine_restarts.value
+        inj.add(FaultSpec(site=site, kind=kind, skip=inj.visits(site)))
+        t_fault = time.monotonic()
+        while engine.metrics.engine_restarts.value == restarts:
+            step()
+        while engine.health != "healthy":
+            if engine.terminal:
+                raise AssertionError("the engine went terminal")
+            engine.step()
+        torch.cuda.synchronize()
+        recoveries.append(time.monotonic() - t_fault)
+    while not all(f.done() for f in futs):
+        engine.step()
+    torch.cuda.synchronize()
+    return {"wall_s": time.monotonic() - t0, "recovery_s": recoveries}
+
+
+def _durability_checks(label: str, engine, launches: dict, restarts: int):
+    """What every faulted burst must leave: the expected restarts, an
+    empty journal, a healthy engine, one capture, and both kernels of
+    the path launched during the burst."""
+    st = engine.stats()
+    got = (st["engine_restarts"], st["journal_inflight"], st["state"],
+           st["decode_compilations"])
+    if got != (restarts, 0, "healthy", 1):
+        raise AssertionError(
+            f"{label}: (engine_restarts, journal_inflight, state, "
+            f"decode_compilations) = {got}, expected "
+            f"({restarts}, 0, 'healthy', 1)")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"{label}: the faulted burst missed a kernel: "
+                             f"{launches}")
+    return st
+
+
+def token_identity() -> dict:
+    """f32 engine tokens of a half-sampled burst against the per-request
+    oracles: ``greedy_decode`` for greedy requests, ``sample_decode`` at
+    the request's seed for sampled ones.  A mismatch is exempt only at
+    or after a pick whose oracle top-2 gap is below ``NEAR_TIE``.  Then
+    the same burst on the same engine through the three ``F32_FAULTS``:
+    every request resumes, and its tokens must equal the same oracle."""
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import paged_attention as PA
+    from horovod_tpu_torch.serving import (EngineConfig, FaultInjector,
+                                           InferenceEngine)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = T.TransformerConfig(**FULL, dtype=torch.float32)
+    params = T.init_params(cfg, seed=0)
+    inj = FaultInjector()  # no fault until the faulted burst adds them
+    engine = InferenceEngine(params, cfg, EngineConfig(**ENGINE, faults=inj))
+    engine.warmup((8,))
+    prompts = _prompts(seed=1)
+    t0 = time.monotonic()
+    futs = [engine.submit(p, max_new_tokens=F32_NEW_TOKENS, **SAMPLING[i])
+            for i, p in enumerate(prompts)]
+    while not all(f.done() for f in futs):
+        engine.step()
+    torch.cuda.synchronize()
+    clean_s = time.monotonic() - t0
+    refs = _f32_oracles(params, cfg, prompts)
+    exempt = _check_f32("f32", prompts, futs, refs)
     captures = engine.stats()["decode_compilations"]
     if captures != 1:
         raise AssertionError(f"f32 engine captured {captures} ticks")
     log(f"token identity f32: {len(prompts)} requests (half sampled) x "
         f"{F32_NEW_TOKENS} tokens, {len(exempt)} near-tie exemptions "
         "(TF32 off)")
+    # The faulted burst: the durability phase's main path, its launch
+    # counters read 0 here and are read again after its last request.
+    A.flash_fwd_launches = 0
+    PA.paged_attend_launches = 0
+    futs = [engine.submit(p, max_new_tokens=F32_NEW_TOKENS, **SAMPLING[i])
+            for i, p in enumerate(prompts)]
+    run = _burst_with_faults(engine, inj, futs, F32_FAULTS)
+    launches = {"flash_fwd": A.flash_fwd_launches,
+                "paged_attend": PA.paged_attend_launches}
+    fault_exempt = _check_f32("f32 faulted", prompts, futs, refs)
+    st = _durability_checks("f32 faulted", engine, launches,
+                            len(F32_FAULTS))
+    tokens = len(prompts) * F32_NEW_TOKENS
+    faulted = {"faults": F32_FAULTS, "exemptions": fault_exempt,
+               "fired": inj.fired, "recovery_s": run["recovery_s"],
+               "engine_restarts": st["engine_restarts"],
+               "requests_resumed": st["requests_resumed"],
+               "resume_wasted_tokens": st["resume_wasted_tokens"],
+               "launches": launches,
+               "clean_tok_per_s": tokens / clean_s,
+               "faulted_tok_per_s": tokens / run["wall_s"]}
+    log(f"durability f32: faults {[f[:2] for f in F32_FAULTS]} fired "
+        f"{inj.fired}; {st['requests_resumed']} resumes, "
+        f"{len(fault_exempt)} near-tie exemptions; restarts "
+        f"{st['engine_restarts']}, journal_inflight 0, healthy, "
+        f"decode_compilations 1; launches {launches}")
     del engine, params
     torch.cuda.empty_cache()
-    return {"requests": len(prompts), "exemptions": exempt}
+    return {"requests": len(prompts), "exemptions": exempt,
+            "durability": faulted}
 
 
 # --- phases 6 and 7: training --------------------------------------------------
@@ -942,6 +1152,11 @@ def train_full_width() -> dict:
     from horovod_tpu_torch.models import transformer as T
     from horovod_tpu_torch.ops import attention as A
 
+    # The serving engines hold themselves in reference cycles (the
+    # scheduler's callbacks): collect them, so that the peak memory
+    # below is the training run's own.
+    gc.collect()
+    torch.cuda.empty_cache()
     basics.init(init_method=f"tcp://127.0.0.1:{_free_port()}")
     try:
         cfg = T.TransformerConfig(**TRAIN, dtype=torch.bfloat16)
@@ -1175,7 +1390,18 @@ def main() -> int:
                                "paged_attend": k4}
     serving = serve_full_width()
     REPORT["serving_bf16"] = serving
-    REPORT["token_identity_f32"] = token_identity()
+    ident = token_identity()
+    REPORT["token_identity_f32"] = ident
+    f32d, bf16d = ident["durability"], serving["durability"]
+    log(f"durability on {card}: recovery s from the fault to the first "
+        f"clean tick: f32 {[round(s, 4) for s in f32d['recovery_s']]}, "
+        f"bf16 {[round(s, 4) for s in bf16d['recovery_s']]}; "
+        f"resume_wasted_tokens f32 {f32d['resume_wasted_tokens']}, bf16 "
+        f"{bf16d['resume_wasted_tokens']}; burst tok/s f32 clean "
+        f"{f32d['clean_tok_per_s']:.1f} faulted "
+        f"{f32d['faulted_tok_per_s']:.1f} (same engine and prompts); bf16 "
+        f"serving burst {serving['tok_per_s']:.1f}, faulted and preempting "
+        f"burst {bf16d['faulted_tok_per_s']:.1f}")
     REPORT["model_grads_f32"] = model_grads_f32()
     train = train_full_width()
     REPORT["train_bf16"] = train

@@ -160,6 +160,17 @@ class PagedSlotCache:
         self._ref[NULL_PAGE] = 1
         self._free_pages = list(range(1, self.n_pages + 1))
 
+    def reset(self) -> None:
+        """A fresh cache in place (the supervised restart): the host
+        reset of :meth:`release_all`, then every pool tensor zeroed
+        where it lies.  The JAX engine builds a new cache instead; here
+        the captured decode tick reads the pool by address, so the
+        tensors must stay the ones it captured.  The zeroing is enqueued
+        on the current stream, behind any tick still in flight."""
+        self.release_all()
+        for t in self.cache.values():
+            t.zero_()
+
     @property
     def free_count(self) -> int:
         return len(self._free)

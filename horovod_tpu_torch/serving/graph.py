@@ -173,6 +173,13 @@ class DecodeTick:
         self.tokens.copy_(saved[0])
         self.active.copy_(saved[1])
 
+    def reset_inputs(self) -> None:
+        """Zero the token, mask and table inputs in place (the
+        supervised restart): the graph keeps reading the same tensors,
+        so a restart never recaptures."""
+        for t in (self.tokens, self.active, self.table):
+            t.zero_()
+
     def twin(self) -> "DecodeTick":
         """An uncaptured tick over copies of this one's pool, inputs and
         sampling columns: its :meth:`body` is the eager tick to hold the

@@ -26,8 +26,12 @@ class ServingMetrics:
     * ``queue_depth`` / ``slot_occupancy`` — gauges sampled every tick.
     * ``admitted`` / ``rejected`` / ``completed`` / ``cancelled`` —
       request counters; ``tokens_generated`` — tokens emitted.
-    * ``engine_failures`` — tick failures (each leaves the engine
-      ``failed`` in this slice).
+    * ``engine_failures`` / ``engine_restarts`` — tick failures and
+      watchdog stalls, and the supervised restarts that followed.
+    * ``resumed`` / ``resume_wasted_tokens`` — in-flight requests
+      re-admitted after a restart, and the tokens their re-prefills
+      computed a second time; ``preemptions`` — admitted requests
+      suspended under slot or page pressure.
     * ``tick_dispatch`` / ``tick_device_wait`` / ``tick_host`` — the
       decode tick's phases: enqueueing the tick's work, blocking on its
       results, and host bookkeeping.
@@ -49,6 +53,11 @@ class ServingMetrics:
             "serving_queue_wait_seconds",
             "Submit-to-admission latency, labeled by SLO priority class",
             labels=("class",))
+        self.preemptions = r.counter(
+            "serving_preemptions_total",
+            "Admitted requests suspended under slot/page pressure "
+            "(requeued with their journal frontier; output stays "
+            "byte-identical)")
         self.token_latency = r.histogram(
             "serving_token_latency_seconds",
             "Per-token decode-tick latency (dispatch to host fetch)")
@@ -69,8 +78,20 @@ class ServingMetrics:
             "Requests cancelled caller-side")
         self.tokens_generated = r.counter(
             "serving_tokens_generated_total", "Tokens emitted to futures")
+        self.resumed = r.counter(
+            "serving_requests_resumed_total",
+            "In-flight requests re-admitted after an engine restart "
+            "(journaled decode state; the original future stays live)")
+        self.resume_wasted_tokens = r.counter(
+            "serving_resume_wasted_tokens",
+            "Tokens re-prefilled by resume admissions (prompt + "
+            "previously emitted) — the bounded re-work durability costs")
         self.engine_failures = r.counter(
-            "serving_engine_failures_total", "Tick failures")
+            "serving_engine_failures_total",
+            "Tick failures and watchdog stalls")
+        self.engine_restarts = r.counter(
+            "serving_engine_restarts_total",
+            "Successful supervised restarts (slot cache reset in place)")
         self.tick_dispatch = r.histogram(
             "serving_tick_dispatch_seconds",
             "Time to enqueue one decode tick's device work",
@@ -134,6 +155,7 @@ class ServingMetrics:
             "ttft_seconds": self._merged(self.ttft),
             "ttft_seconds_by_class": self._by_class(self.ttft),
             "queue_wait_seconds_by_class": self._by_class(self.queue_wait),
+            "preemptions": self.preemptions.value,
             "token_latency_seconds": self.token_latency.snapshot(),
             "queue_depth": self.queue_depth.value,
             "slot_occupancy": self.slot_occupancy.value,
@@ -141,8 +163,11 @@ class ServingMetrics:
             "requests_rejected": self.rejected.value,
             "requests_completed": self.completed.value,
             "requests_cancelled": self.cancelled.value,
+            "requests_resumed": self.resumed.value,
+            "resume_wasted_tokens": self.resume_wasted_tokens.value,
             "tokens_generated": self.tokens_generated.value,
             "engine_failures": self.engine_failures.value,
+            "engine_restarts": self.engine_restarts.value,
             "tick_dispatch_seconds": self.tick_dispatch.snapshot(),
             "tick_device_wait_seconds": self.tick_device_wait.snapshot(),
             "tick_host_seconds": self.tick_host.snapshot(),

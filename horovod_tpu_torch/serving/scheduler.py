@@ -125,10 +125,9 @@ class Request:
     ``time.monotonic()`` instant (None = no deadline); ``future`` is the
     engine's per-request result sink (tokens stream into it, typed
     rejections land on it as exceptions); ``trace`` is the request's
-    :class:`~horovod_tpu.obs.tracing.RequestTrace` — the trace id and
-    timing stamps ride the request through every stage, so the
-    breakdown survives rejection, cancellation, stall, and restart
-    paths alike."""
+    :class:`~horovod_tpu_torch.serving.engine.RequestIds` — its trace
+    id, the key of its journal entry, rides the request through every
+    stage, restart and preemption resumes included."""
 
     prompt: Sequence[int]
     max_new_tokens: int

@@ -7,25 +7,37 @@ bounded queue.
 
 * ``POST /generate`` — body ``{"tokens": [...], "max_new_tokens": N?,
   "eos_id": E?, "timeout_ms": T?, "temperature": f?, "top_k": K?,
-  "top_p": p?, "seed": s?, "stream": bool?}``; replies ``{"tokens":
-  [...], "finish_reason": ..., "ttft_ms": ...}``.  ``temperature`` /
-  ``top_k`` / ``top_p`` / ``seed`` select sampling (temperature 0, the
-  default, is greedy); a fixed seed reproduces the tokens.  Typed
-  rejections map to HTTP: queue full / out of pages -> 429, too long ->
-  413, deadline -> 504, draining / engine failed -> 503, bad request
-  (including a bad sampling parameter) -> 400.  Without ``timeout_ms``
-  the engine deadline defaults to the server's ``request_timeout``, so
-  a vanished client never pins a slot.
+  "top_p": p?, "seed": s?, "priority": c?, "stream": bool?}``; replies
+  ``{"tokens": [...], "finish_reason": ..., "ttft_ms": ...}``.
+  ``temperature`` / ``top_k`` / ``top_p`` / ``seed`` select sampling
+  (temperature 0, the default, is greedy); a fixed seed reproduces the
+  tokens.  ``priority`` is the request's class (``"interactive"``, the
+  default, or ``"batch"``).  Typed rejections map to HTTP: queue full /
+  out of pages -> 429, too long -> 413, deadline -> 504, draining /
+  engine failed -> 503, bad request (including a bad sampling parameter
+  or an unknown class) -> 400.  A 503 ``engine_failed`` for a request
+  that was in flight carries the resume descriptor (``"resume":
+  {"emitted_tokens", "deadline_remaining_ms", "span_id"}``): the tokens
+  already emitted and what is left of the deadline, what a front tier
+  needs to continue the request elsewhere.  Without ``timeout_ms`` the
+  engine deadline defaults to the server's ``request_timeout``, so a
+  vanished client never pins a slot.
 
   ``"stream": true`` answers with chunked ``text/event-stream``
   (:mod:`~horovod_tpu_torch.serving.sse`): one ``token`` event per
   token as the engine emits it, then exactly one ``done`` (the
-  non-streamed 200 payload) or ``error`` event.  A client that
-  disconnects mid-stream cancels its request: the engine frees its slot
-  and pages on the next tick (``serving_disconnects_total``).
-  Submit-time rejections are ordinary JSON error replies.
-* ``GET /healthz`` — 200 while ``healthy``, 503 when ``draining`` or
-  ``failed``.
+  non-streamed 200 payload) or ``error`` event (an ``engine_failed``
+  one carries the same resume descriptor).  A client that disconnects
+  mid-stream cancels its request: the engine frees its slot and pages on
+  the next tick (``serving_disconnects_total``).  Submit-time rejections
+  are ordinary JSON error replies.
+  A valid ``X-Trace-Id`` request header (1-64 characters of
+  ``[A-Za-z0-9._-]``) names the request, else the server mints an id;
+  every ``/generate`` reply carries it in the same header, and the
+  engine journals the request under it (what a front tier reads back
+  from a dead replica's journal file with ``RequestJournal.read_live``).
+* ``GET /healthz`` — 200 while ``healthy`` or ``degraded`` (restarted,
+  serving), 503 when ``draining`` or ``failed``.
 * ``GET /stats`` — the engine's :meth:`~InferenceEngine.stats`.
 """
 
@@ -33,15 +45,21 @@ from __future__ import annotations
 
 import json
 import queue
+import re
 import select
 import socket
 import threading
 import time
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 from horovod_tpu_torch.serving import sse
-from horovod_tpu_torch.serving.engine import HEALTHY, InferenceEngine
+from horovod_tpu_torch.serving.engine import (
+    DEGRADED,
+    HEALTHY,
+    InferenceEngine,
+)
 from horovod_tpu_torch.serving.scheduler import (
     CacheOutOfPagesError,
     DeadlineExceededError,
@@ -52,7 +70,11 @@ from horovod_tpu_torch.serving.scheduler import (
     ServingError,
 )
 
-__all__ = ["ServingServer"]
+__all__ = ["ServingServer", "TRACE_ID_HEADER"]
+
+#: The request and reply header of the trace id.
+TRACE_ID_HEADER = "X-Trace-Id"
+_TRACE_ID = re.compile(r"^[A-Za-z0-9._\-]{1,64}$")
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -76,13 +98,14 @@ class _Handler(BaseHTTPRequestHandler):
         engine: InferenceEngine = self.server.engine
         if self.path == "/healthz":
             state = engine.health
-            code = 200 if state == HEALTHY else 503
+            code = 200 if state in (HEALTHY, DEGRADED) else 503
             age = engine.heartbeat_age
             self._json(code, {
                 "status": state,
                 "slots_free": engine.slots.free_count,
                 "queue_depth": engine.scheduler.depth,
                 "heartbeat_age_s": round(age, 3) if age is not None else -1.0,
+                "engine_restarts": engine.metrics.engine_restarts.value,
             }, headers=None if code == 200 else {"Retry-After": "1"})
         elif self.path == "/stats":
             self._json(200, engine.stats())
@@ -110,10 +133,17 @@ class _Handler(BaseHTTPRequestHandler):
         if not isinstance(req, dict) or not req.get("tokens"):
             self._json(400, {"error": "need non-empty 'tokens'"})
             return
+        hdr = self.headers.get(TRACE_ID_HEADER)
+        trace_id = hdr if isinstance(hdr, str) and _TRACE_ID.match(hdr) \
+            else uuid.uuid4().hex[:16]
 
-        def fail(code: int, e: BaseException, etype: str, **headers):
-            self._json(code, {"error": str(e), "type": etype},
-                       headers=headers or None)
+        def fail(code: int, e: BaseException, etype: str,
+                 resume: Optional[dict] = None, **headers):
+            payload = {"error": str(e), "type": etype}
+            if resume is not None:
+                payload["resume"] = resume
+            self._json(code, payload,
+                       headers={TRACE_ID_HEADER: trace_id, **headers})
 
         fut = None
         stream = bool(req.get("stream"))
@@ -135,11 +165,13 @@ class _Handler(BaseHTTPRequestHandler):
                 top_k=req.get("top_k", 0),
                 top_p=req.get("top_p", 0.0),
                 seed=req.get("seed"),
-                on_token=tok_q.put if stream else None)
+                priority=req.get("priority", "interactive"),
+                on_token=tok_q.put if stream else None,
+                trace_id=trace_id)
             if stream:
                 # The request is live: from here the reply is the SSE
                 # stream, errors included.
-                self._stream_response(engine, fut, tok_q, t_recv)
+                self._stream_response(engine, fut, tok_q, t_recv, deadline)
                 return
             # The engine's deadline retirement should win over this hard
             # HTTP timeout, which fires only when the engine cannot retire.
@@ -159,7 +191,12 @@ class _Handler(BaseHTTPRequestHandler):
             fail(503, e, "draining", **{"Retry-After": "1"})
             return
         except EngineFailedError as e:
-            fail(503, e, "engine_failed")
+            # At submit (no future: nothing ran) or for a request in
+            # flight when the engine failed for good: then the reply
+            # carries what a front tier needs to continue it elsewhere.
+            fail(503, e, "engine_failed",
+                 resume=_resume_descriptor(fut, deadline)
+                 if fut is not None else None)
             return
         except (ServingError, ValueError, TypeError) as e:
             fail(400, e, "bad_request")
@@ -169,7 +206,8 @@ class _Handler(BaseHTTPRequestHandler):
                 fut.cancel()  # reclaim the slot on the next tick
             fail(504, e, "timeout")
             return
-        self._json(200, _done_payload(fut, out))
+        self._json(200, _done_payload(fut, out),
+                   headers={TRACE_ID_HEADER: trace_id})
 
     # -- SSE streaming (stream=true) ---------------------------------------
 
@@ -186,7 +224,8 @@ class _Handler(BaseHTTPRequestHandler):
             return True
 
     def _stream_response(self, engine: InferenceEngine, fut,
-                         tok_q: "queue.Queue", t_recv: float) -> None:
+                         tok_q: "queue.Queue", t_recv: float,
+                         deadline: float) -> None:
         """Stream one live request as chunked SSE: token events as the
         engine emits them, then exactly one terminal ``done`` / ``error``
         event.  A client disconnect — a failed write, or the socket peek
@@ -196,6 +235,7 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
         self.send_header("Cache-Control", "no-cache")
+        self.send_header(TRACE_ID_HEADER, fut.trace_id)
         self.send_header("Transfer-Encoding", "chunked")
         self.end_headers()
         self.close_connection = True  # the stream owns the connection
@@ -242,7 +282,8 @@ class _Handler(BaseHTTPRequestHandler):
             try:
                 out = fut.result(timeout=0)
             except EngineFailedError as e:
-                emit("error", {"type": "engine_failed", "error": str(e)})
+                emit("error", {"type": "engine_failed", "error": str(e),
+                               "resume": _resume_descriptor(fut, deadline)})
             except DeadlineExceededError as e:
                 emit("error", {"type": "deadline_exceeded",
                                "error": str(e)})
@@ -258,6 +299,18 @@ class _Handler(BaseHTTPRequestHandler):
             # slot and its pages on its next tick.
             if fut.cancel():
                 metrics.disconnects.inc()
+
+
+def _resume_descriptor(fut, deadline: float) -> dict:
+    """The resume descriptor of a request the engine failed in flight:
+    the tokens it already emitted (append them to the prompt and decode
+    continues with the same tokens) and the deadline budget left (a
+    failover inherits it, never a fresh one).  ``span_id`` is None: the
+    port does not trace."""
+    return {"emitted_tokens": fut.tokens_so_far(),
+            "deadline_remaining_ms": max(0.0, round(
+                (deadline - time.monotonic()) * 1e3, 3)),
+            "span_id": None}
 
 
 def _done_payload(fut, tokens) -> dict:

@@ -333,3 +333,31 @@ def test_one_capture_across_a_mixed_burst(dev, overlap):
     assert st["decode_compilations"] == 1
     n = engine._tick.replays - replays
     assert n >= 23 and PA.paged_attend_launches - k4 == n * cfg.n_layers
+
+
+@pytest.mark.parametrize("overlap", [True, False], ids=["overlap", "sync"])
+def test_restart_resets_in_place_and_keeps_the_capture(dev, overlap):
+    """A decode fault mid-burst restarts the engine: the pool and the
+    tick's inputs are zeroed where they lie (the same tensors the graph
+    captured), the graph is replayed and not recaptured, and every
+    request resumes to its full count."""
+    inj = serving.FaultInjector()
+    engine, cfg = _serving_engine(dev, overlap=overlap, faults=inj)
+    engine.warmup((8,))
+    futs = _mixed_requests(engine, 24)
+    while sum(len(f.tokens_so_far()) for f in futs) < 60:
+        engine.step()
+    ptrs = {k: t.data_ptr() for k, t in engine.slots.cache.items()}
+    replays = engine._tick.replays
+    inj.add(serving.FaultSpec(site="decode_tick", kind="raise",
+                              skip=inj.visits("decode_tick")))
+    while not all(f.done() for f in futs):
+        engine.step()
+    assert all(len(f.result(timeout=0)) == 24 for f in futs)
+    st = engine.stats()
+    assert (st["engine_restarts"], st["decode_compilations"],
+            st["journal_inflight"], st["state"]) == (1, 1, 0, "healthy")
+    assert st["requests_resumed"] >= 1
+    assert engine._tick.pool is engine.slots.cache
+    assert {k: t.data_ptr() for k, t in engine.slots.cache.items()} == ptrs
+    assert engine._tick.replays > replays

@@ -243,24 +243,53 @@ class TestEngineRules:
             small.submit([1] * 20, max_new_tokens=4)
 
     def test_nonfinite_logits_fail_every_future(self, model):
-        _, _, tparams, tcfg = model
-        bad = {**tparams, "head": torch.full_like(tparams["head"],
-                                                  float("nan"))}
-        engine = serving.InferenceEngine(
-            bad, tcfg, serving.EngineConfig(n_slots=2, max_len=40,
-                                            min_prefill_bucket=4),
-            device="cpu")
-        futs = [engine.submit([1, 2, 3], max_new_tokens=4)
-                for _ in range(3)]
-        with pytest.raises(serving.EngineFailedError):
-            for _ in range(10):
-                engine.step()
-        assert engine.health == serving.FAILED
-        for f in futs:
-            with pytest.raises(serving.EngineFailedError):
-                f.result(timeout=0)
-        with pytest.raises(serving.EngineFailedError):
-            engine.submit([1])
+        """NaN weights: every logit is non-finite.  Under the default
+        supervision each failed step restarts the engine and resumes its
+        requests, until ``max_restarts + 1`` consecutive failures make it
+        terminally ``failed`` with every future resolved with
+        ``EngineFailedError``; ``step`` never raises.  The port checks
+        the prefill's logits as well as the decode tick's, so it fails at
+        every admission and no request emits a token, with the
+        overlapped pipeline (the default) and without.  The JAX engine's
+        synchronous tick goes through the same sequence, but emits the
+        argmax of NaN from each prefill first (and its overlapped
+        pipeline never spends the budget: ``ROADMAP.md``)."""
+        ref = _nan_weights_record(model, "jax", overlap=False, steps=6)
+        assert [o[:2] for o in ref.pop("outcomes")] == \
+            [("err", "EngineFailedError")] * 3
+        for overlap in (True, False):
+            rec = _nan_weights_record(model, "port", overlap=overlap,
+                                      steps=6)
+            assert rec.pop("outcomes") == \
+                [("err", "EngineFailedError", [])] * 3
+            assert rec == ref
+        assert rec["steps"] == [True] * 4 + [False] * 2  # terminal: idle
+        assert rec["health"] == serving.FAILED and rec["terminal"]
+        assert rec["trail"] == ["healthy", "degraded", "failed"]
+        assert rec["counts"] == (4, 3, 6)  # failures, restarts, resumed
+
+    def test_nonfinite_decode_logits_with_overlap_go_terminal(self, model):
+        """Non-finite logits at every decode tick, finite prefills: with
+        the overlapped pipeline the step after a restart only admits and
+        dispatches.  It fetches nothing, so it is not a clean tick and
+        refills no budget: the engine goes terminal after
+        ``max_restarts + 1`` failures, each request holding the correct
+        tokens its prefills emitted.  That is the synchronous tick's
+        record, and the JAX engine's synchronous one, in twice the steps
+        (the JAX engine's overlapped pipeline counts the dispatch-only
+        step clean and restarts forever: ``ROADMAP.md``)."""
+        ref = _nan_weights_record(model, "jax", overlap=False, steps=6,
+                                  nan_weights=False)
+        assert ref["outcomes"] == [
+            ("err", "EngineFailedError", _oracle(model, [1, 2, 3], 4))] * 2 \
+            + [("err", "EngineFailedError", [])]
+        assert ref["steps"] == [True] * 4 + [False] * 2
+        assert ref["counts"] == (4, 3, 6)
+        for overlap, steps in ((False, 6), (True, 10)):
+            rec = _nan_weights_record(model, "port", overlap=overlap,
+                                      steps=steps, nan_weights=False)
+            assert rec.pop("steps") == [True] * (steps - 2) + [False] * 2
+            assert rec == {k: v for k, v in ref.items() if k != "steps"}
 
     def test_no_device_and_no_cuda_raises(self, model, monkeypatch):
         _, _, tparams, tcfg = model
@@ -269,6 +298,45 @@ class TestEngineRules:
             serving.InferenceEngine(tparams, tcfg)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             T.init_params(tcfg)
+
+
+def _nan_weights_record(model, package, *, overlap, steps,
+                        nan_weights=True):
+    """Three requests through ``package``'s engine (two slots), ``steps``
+    steps: on NaN output weights, or with ``nan_weights=False`` on the
+    true weights with non-finite logits injected at every decode tick.
+    Returns each step's result, each future's outcome, the health,
+    terminal, the state trail and (failures, restarts, resumed)."""
+    from horovod_tpu import serving as JS
+    from torch_port_parity import outcome
+
+    jparams, jcfg, tparams, tcfg = model
+    S = JS if package == "jax" else serving
+    faults = None
+    if nan_weights:
+        nan = float("nan")
+        jparams = {**jparams, "head": jnp.full_like(jparams["head"], nan)}
+        tparams = {**tparams, "head": torch.full_like(tparams["head"], nan)}
+    else:
+        faults = S.FaultInjector([S.FaultSpec(
+            site="decode_tick", kind="nonfinite", max_fires=None)])
+    ec = S.EngineConfig(n_slots=2, max_len=40, min_prefill_bucket=4,
+                        overlap=overlap, restart_backoff=0.001,
+                        restart_backoff_max=0.002, tick_timeout=0,
+                        faults=faults)
+    engine = JS.InferenceEngine(jparams, jcfg, ec) if package == "jax" \
+        else serving.InferenceEngine(tparams, tcfg, ec, device="cpu")
+    futs = [engine.submit([1, 2, 3], max_new_tokens=8) for _ in range(3)]
+    worked = [engine.step() for _ in range(steps)]
+    st = engine.stats()
+    if engine.terminal:
+        with pytest.raises(S.EngineFailedError):
+            engine.submit([1])
+    return {"steps": worked, "outcomes": [outcome(f) for f in futs],
+            "health": engine.health, "terminal": engine.terminal,
+            "trail": st["state_transitions"],
+            "counts": (st["engine_failures"], st["engine_restarts"],
+                       st["requests_resumed"])}
 
 
 def test_http_generate_matches_jax_greedy(model):
@@ -411,9 +479,11 @@ def test_import_hygiene():
         need = {"horovod_tpu_torch.ops.threefry",
                 "horovod_tpu_torch.serving.sampling",
                 "horovod_tpu_torch.serving.graph",
-                "horovod_tpu_torch.serving.sse"}
+                "horovod_tpu_torch.serving.sse",
+                "horovod_tpu_torch.serving.faults",
+                "horovod_tpu_torch.serving.journal"}
         print(len(names), bad, sorted(need - set(names)))
-        sys.exit(1 if bad or need - set(names) or len(names) < 14 else 0)
+        sys.exit(1 if bad or need - set(names) or len(names) < 16 else 0)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=root)
