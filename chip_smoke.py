@@ -29,7 +29,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    Edge shapes for K1-K3 in both dtypes: ragged S (1, 17, 63, 65,
    2047) and S = 100 against T = 300, unmasked, bottom-right causal
    (shift = S - T) and fully masked (shift = T - S); K1 also at the
-   resume bucket, S = 2176 (``max_len``), B = 2.
+   resume bucket, S = 2176 (``max_len``), B = 2, and at the suffix
+   shapes of ``prefill_with_prefix`` (``SUFFIX_SHAPES``: S0 queries
+   over T = p0 + S0 keys, shift = -p0), B = 2, H = 16, H_kv = 4.
 4. Serving at full width: the d1024/L8/H16/kv4 bf16 Transformer from
    ``init_params`` seed 0, 8 slots.  First the decode tick at 8 slots
    and depth 1000 (half the slots sampling), three ways, each with its
@@ -53,6 +55,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    preemption and one resume, one restart, an empty journal and one
    capture; then the graph check again on the restarted engine (its pool
    reset in place).
+   Shared prefixes, on the same engine before its HTTP burst: a registered
+   ``PREFIX_LEN``-token prefix (its last page partial) and eight
+   requests, six sharers with suffixes of 16-512 tokens and a greedy
+   and a sampled one whose prompt is the prefix.  Every request returns
+   its full count; the only whole-prompt prefill is the prefix's (the
+   sharers prefill their suffixes only, the prefix prompts nothing);
+   ``kv_pages_shared`` is above 0 while they decode; after
+   ``unregister_prefix`` the pool is whole; one capture.  Then the same
+   prompts with nothing registered; both runs' tok/s, TTFT p50 and
+   prefill tokens are printed with the card.  An admission profile:
+   one group of two prompts at bucket 2048 and one at bucket 16, each
+   admitted alone: host wall, device busy and kernel count
+   (``torch.profiler``), and the time from ``_admit_batch``'s entry to
+   its first-token sync.  Then the SLO leg of ``benchmarks/serving.py``
+   (two waves of two long batch prompts and six short interactive
+   ones; 4 slots, K = 2) on fresh engines driven by their own thread:
+   ``slo`` (chunks of 32 tokens, priority classes) and ``fcfs``
+   (whole-prompt prefill, one class), each request its full count, one
+   capture; per-class TTFT p50/p99, tok/s and preemptions printed.
 5. Token identity: the same configuration in f32 (TF32 off for matmuls
    and cuDNN) against the per-request oracles, ``greedy_decode`` for the
    greedy requests and ``sample_decode`` at the request's seed for the
@@ -66,7 +87,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and power limit: each fault's seconds to the first clean tick after
    it, ``resume_wasted_tokens``, and each faulted burst's tok/s beside
    its clean counterpart's.  Each faulted burst is a main path of its
-   own: K1 and K4 must launch during it.
+   own: K1 and K4 must launch during it.  Then, on the same engine, a
+   registered prefix with three sharers and one request whose prompt is
+   the prefix, and the ``slo`` leg in f32 through one ``prefill_chunk``
+   fault at a chunk boundary (one restart, ``healthy`` at the end): the
+   tokens of both against ``greedy_decode`` / ``sample_decode`` of the
+   whole prompt, by the same near-tie rule.
 6. Model gradients: a 2-layer d1024 model's f32 loss and parameter
    gradients through the kernels against the plain attention path (TF32
    off).
@@ -85,10 +111,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    its bound, its achieved TFLOP/s (the bound's FLOP count over its
    time), its plain version and a PyTorch yardstick the port never
    calls, and K4's split grid; the serving run's decode tok/s, TTFT and
-   per-tick time.
+   per-tick time.  K1 also at the prefix phase's suffix shape, SDPA with
+   the same mask as a boolean ``attn_mask`` its yardstick.
+
+Each phase's seconds are printed as it ends.
 
 A ``report:`` line carries every measurement as JSON; the line before
-last is a JSON object of the kernels; the last line is
+last is a JSON object of the kernels (each one's launches summed over
+the main paths' runs that launch it: the HTTP burst, the prefix run,
+the two SLO legs and, for K1, training); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository beside it, the script exits non-zero and prints no
 result.
@@ -145,12 +176,46 @@ SAMPLING = [{}, dict(temperature=1.0, seed=1), {},
             dict(temperature=0.8, top_k=40, seed=2), {},
             dict(temperature=1.2, top_p=0.9, seed=3), {},
             dict(temperature=0.7, top_k=100, top_p=0.95, seed=4)]
+# The shared-prefix phase: a registered prefix of PREFIX_LEN tokens (not a
+# multiple of the page size 16, so its partial last page is copied on
+# write), six sharers with suffixes of PREFIX_SUFFIXES tokens, then a
+# greedy and a sampled request whose prompt is the prefix.
+PREFIX_LEN = 1000
+PREFIX_SUFFIXES = [16, 40, 100, 200, 300, 512]
+PREFIX_NEW_TOKENS = 64
+PREFIX_SAMPLING = SAMPLING[:6] + [{}, dict(temperature=0.9, top_k=50,
+                                           seed=5)]
+# The SLO leg of benchmarks/serving.py (_slo_mode): two waves 0.25 s
+# apart, each two long batch prompts of 240-288 tokens, then six
+# interactive prompts of 3-12 tokens 10 ms apart; 16 new tokens each;
+# 4 slots, K = 2, chunks of 32 tokens.
+SLO_LONG, SLO_CHUNK, SLO_NEW_TOKENS = 288, 32, 16
+SLO_ENGINE = dict(n_slots=4, max_len=SLO_LONG + 2 * SLO_NEW_TOKENS + 32,
+                  max_prefills_per_tick=2, page_size=16, max_queue_depth=64)
+# The f32 SLO leg's fault: the prefill_chunk visit after this many more.
+SLO_FAULT_SKIP = 5
 
-REPORT: dict = {}
+REPORT: dict = {"phase_s": {}}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class phase:
+    """Times a phase into ``REPORT["phase_s"]`` and prints its seconds."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.monotonic() - self.t0
+        REPORT["phase_s"][self.name] = dt
+        log(f"phase {self.name}: {dt:.1f} s")
 
 
 def time_ms(fn, reps: int = 20, warm: int = 3, batch: int = 10) -> float:
@@ -323,6 +388,11 @@ def _shift(mask: str, S: int, T: int):
 EDGE_S = (1, 17, 63, 65, 2047)
 EDGE_T = (100, 300)  # (S, T)
 EDGE_T_MASKS = ("full", "bottom_right", "none_visible")
+# K1 as prefill_with_prefix calls it, (p0, S0): S0 suffix queries over
+# T = p0 + S0 keys with shift = -p0 (the bottom-right causal mask) — the
+# prefix phase's shape, a prefix on no page or key-block boundary, a
+# tiny one, the chunk shape, and the last chunk of a 2048-token prompt.
+SUFFIX_SHAPES = ((1024, 512), (1000, 256), (15, 16), (32, 32), (2016, 32))
 
 
 def check_flash() -> dict:
@@ -340,6 +410,8 @@ def check_flash() -> dict:
     # The resume bucket: a resumed 2048-token prompt plus its emitted
     # tokens prefills at max_len, 2176, which warmup never reaches.
     cases += [(dt, 64, RESUME_S, RESUME_S, "causal") for dt in dts]
+    cases += [(dt, 64, S0, p0 + S0, "bottom_right") for dt in dts
+              for p0, S0 in SUFFIX_SHAPES]
     for i, (dt, D, S, T, mask) in enumerate(cases):
         B, H, Hkv = 2, 16, 4
         shift = _shift(mask, S, T)
@@ -360,6 +432,8 @@ def check_flash() -> dict:
             raise AssertionError(f"{name} disagrees with its plain version")
         if dt == torch.bfloat16 and D == 64 and S == T == 2048:
             worst["serving"] = err
+        if dt == torch.bfloat16 and (T - S, S) == SUFFIX_SHAPES[0]:
+            worst["suffix"] = err
         worst[name] = err
     return worst
 
@@ -716,7 +790,7 @@ def graph_vs_eager(engine, n_ticks: int = 20) -> dict:
             "k4_launches_per_replay": k4_per_replay}
 
 
-def serve_full_width() -> dict:
+def serve_full_width(card: str) -> dict:
     from horovod_tpu_torch.models import transformer as T
     from horovod_tpu_torch.ops import attention as A
     from horovod_tpu_torch.ops import paged_attention as PA
@@ -743,6 +817,12 @@ def serve_full_width() -> dict:
     modes.append(profile_decode(engine, "graph_overlap",
                                 sampler["sampler_ms"]))
     sampler["share_of_tick_busy"] = modes[-1]["sampler_share_of_busy"]
+    # The prefix phase and the admission profile step the engine
+    # directly, before the HTTP burst (stopping the server drains it).
+    with phase("prefix_bf16"):
+        prefix = prefix_full_width(engine, card)
+    with phase("admission_profile"):
+        admission = admission_profile(engine)
     ticks0 = engine.metrics.decode_ticks.value
     sums0 = {k: getattr(engine.metrics, k).snapshot()["sum"]
              for k in ("tick_dispatch", "tick_device_wait", "tick_host")}
@@ -813,9 +893,28 @@ def serve_full_width() -> dict:
         f"launches {launches}; decode_compilations before/after "
         f"{captures}; sampler {sampler['share_of_tick_busy']:.1%} of the "
         "graph tick's device busy")
+    out["prefix"], out["admission_profile"] = prefix, admission
     del engine
     torch.cuda.empty_cache()
-    out["durability"] = durability_bf16(params, cfg)
+    with phase("durability_bf16"):
+        out["durability"] = durability_bf16(params, cfg)
+    with phase("slo_bf16"):
+        out["slo"] = {}
+        for slo in (True, False):
+            leg = slo_leg(params, cfg, slo)
+            del leg["prompts"], leg["tokens"]
+            out["slo"][leg["leg"]] = leg
+    slo_, fcfs = out["slo"]["slo"], out["slo"]["fcfs"]
+    log(f"SLO legs on {card}: interactive TTFT p50/p99 slo "
+        f"{slo_['interactive_ttft_ms_p50']:.1f}/"
+        f"{slo_['interactive_ttft_ms_p99']:.1f} ms vs fcfs "
+        f"{fcfs['interactive_ttft_ms_p50']:.1f}/"
+        f"{fcfs['interactive_ttft_ms_p99']:.1f} ms; batch slo "
+        f"{slo_['batch_ttft_ms_p50']:.1f}/{slo_['batch_ttft_ms_p99']:.1f} "
+        f"vs fcfs {fcfs['batch_ttft_ms_p50']:.1f}/"
+        f"{fcfs['batch_ttft_ms_p99']:.1f} ms; tok/s slo "
+        f"{slo_['tok_per_s']:.1f} vs fcfs {fcfs['tok_per_s']:.1f}; "
+        f"preemptions {slo_['preemptions']} / {fcfs['preemptions']}")
     del params
     torch.cuda.empty_cache()
     return out
@@ -881,35 +980,35 @@ def durability_bf16(params, cfg) -> dict:
     return out
 
 
-def _f32_oracles(params, cfg, prompts) -> list:
+def _f32_oracles(params, cfg, prompts, sampling=SAMPLING,
+                 new_tokens=F32_NEW_TOKENS) -> list:
     """Each request's oracle tokens and top-2 margins: ``greedy_decode``
     for greedy requests, ``sample_decode`` at the request's seed for
-    sampled ones."""
+    sampled ones (``sampling[i]`` is request ``i``'s)."""
     from horovod_tpu_torch.models import transformer as T
     from horovod_tpu_torch.serving import seed_key
 
     refs = []
     for i, p in enumerate(prompts):
-        kw = dict(SAMPLING[i])
+        kw = dict(sampling[i])
         prompt = torch.tensor([p], device="cuda")
         if kw:
-            ref, gap = T.sample_decode(params, prompt, F32_NEW_TOKENS, cfg,
+            ref, gap = T.sample_decode(params, prompt, new_tokens, cfg,
                                        rng=seed_key(kw.pop("seed")),
                                        margins=True, **kw)
         else:
-            ref, gap = T.greedy_decode(params, prompt, F32_NEW_TOKENS, cfg,
+            ref, gap = T.greedy_decode(params, prompt, new_tokens, cfg,
                                        margins=True)
         refs.append((ref[0].tolist(), gap[0].tolist()))
     return refs
 
 
-def _check_f32(label: str, prompts, futs, refs) -> list:
-    """Every future's tokens against its oracle.  A mismatch is exempt
-    only at or after a pick whose oracle top-2 gap is below
+def _check_f32(label: str, prompts, outs, refs, sampling=SAMPLING) -> list:
+    """Every request's tokens (``outs``) against its oracle.  A mismatch
+    is exempt only at or after a pick whose oracle top-2 gap is below
     ``NEAR_TIE``; returns the exemptions."""
     exempt = []
-    for i, (p, f, (ref, gap)) in enumerate(zip(prompts, futs, refs)):
-        got = f.result(timeout=0)
+    for i, (p, got, (ref, gap)) in enumerate(zip(prompts, outs, refs)):
         if got == ref:
             continue
         first = next((j for j in range(len(ref))
@@ -919,10 +1018,10 @@ def _check_f32(label: str, prompts, futs, refs) -> list:
         if len(got) != len(ref) or not ties:
             raise AssertionError(
                 f"{label} request {i} (prompt {len(p)}, "
-                f"{SAMPLING[i] or 'greedy'}, {len(got)} tokens) diverges "
+                f"{sampling[i] or 'greedy'}, {len(got)} tokens) diverges "
                 f"from the oracle at token {first}")
         exempt.append({"request": i, "prompt_len": len(p),
-                       "sampled": bool(SAMPLING[i]),
+                       "sampled": bool(sampling[i]),
                        "first_mismatch": first, "tie_at": ties[0],
                        "margin": gap[ties[0]]})
         log(f"exemption: {label} request {i} diverges at token {first} "
@@ -1018,7 +1117,8 @@ def token_identity() -> dict:
     torch.cuda.synchronize()
     clean_s = time.monotonic() - t0
     refs = _f32_oracles(params, cfg, prompts)
-    exempt = _check_f32("f32", prompts, futs, refs)
+    exempt = _check_f32("f32", prompts,
+                        [f.result(timeout=0) for f in futs], refs)
     captures = engine.stats()["decode_compilations"]
     if captures != 1:
         raise AssertionError(f"f32 engine captured {captures} ticks")
@@ -1034,7 +1134,8 @@ def token_identity() -> dict:
     run = _burst_with_faults(engine, inj, futs, F32_FAULTS)
     launches = {"flash_fwd": A.flash_fwd_launches,
                 "paged_attend": PA.paged_attend_launches}
-    fault_exempt = _check_f32("f32 faulted", prompts, futs, refs)
+    fault_exempt = _check_f32("f32 faulted", prompts,
+                              [f.result(timeout=0) for f in futs], refs)
     st = _durability_checks("f32 faulted", engine, launches,
                             len(F32_FAULTS))
     tokens = len(prompts) * F32_NEW_TOKENS
@@ -1051,10 +1152,392 @@ def token_identity() -> dict:
         f"{len(fault_exempt)} near-tie exemptions; restarts "
         f"{st['engine_restarts']}, journal_inflight 0, healthy, "
         f"decode_compilations 1; launches {launches}")
-    del engine, params
+    with phase("prefix_f32"):
+        prefix = prefix_identity_f32(engine, params, cfg)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("slo_f32"):
+        slo = slo_identity_f32(params, cfg)
+    del params
     torch.cuda.empty_cache()
     return {"requests": len(prompts), "exemptions": exempt,
-            "durability": faulted}
+            "durability": faulted, "prefix": prefix, "slo": slo}
+
+
+# --- shared prefixes, chunked prefill, the admission profile -----------------
+
+
+def _prefix_prompts(seed: int):
+    """The prefix phase's prefix and its eight prompts (six sharers, then
+    the prefix itself twice)."""
+    rng = np.random.default_rng(seed)
+    V = FULL["vocab_size"]
+    prefix = rng.integers(0, V, PREFIX_LEN).tolist()
+    prompts = [prefix + rng.integers(0, V, n).tolist()
+               for n in PREFIX_SUFFIXES]
+    return prefix, prompts + [list(prefix), list(prefix)]
+
+
+class _PrefillCounter:
+    """The engine's prefills while entered: each call of the whole-prompt
+    ``prefill`` and of ``prefill_with_prefix``, with its padded tokens and
+    its real lengths (kept as device tensors and summed afterwards, so
+    that counting adds no host sync)."""
+
+    def __enter__(self):
+        from horovod_tpu_torch.models import transformer as T
+
+        self.T, self.calls = T, []
+        self.saved = (T.prefill, T.prefill_with_prefix)
+
+        def counted(name, fn):
+            def call(params, tokens, *args, true_len=None, **kw):
+                self.calls.append((name, tokens.numel(), true_len))
+                return fn(params, tokens, *args, true_len=true_len, **kw)
+            return call
+
+        T.prefill = counted("prefill", T.prefill)
+        T.prefill_with_prefix = counted("prefill_with_prefix",
+                                        T.prefill_with_prefix)
+        return self
+
+    def __exit__(self, *exc):
+        self.T.prefill, self.T.prefill_with_prefix = self.saved
+
+    def summary(self) -> dict:
+        out = {}
+        for name, padded, true_len in self.calls:
+            d = out.setdefault(name, {"calls": 0, "tokens": 0,
+                                      "padded_tokens": 0})
+            d["calls"] += 1
+            d["tokens"] += int(true_len.sum())
+            d["padded_tokens"] += padded
+        return out
+
+
+def _stepped_burst(engine, prompts, sampling, new_tokens) -> dict:
+    """Submit every prompt at once and step the engine until each has
+    returned its full count: wall, tok/s, TTFT and the most pages shared
+    at once (the ``kv_pages_shared`` gauge after each step)."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    futs = [engine.submit(p, max_new_tokens=new_tokens, **sampling[i])
+            for i, p in enumerate(prompts)]
+    shared = 0
+    while not all(f.done() for f in futs):
+        engine.step()
+        shared = max(shared, engine.metrics.kv_pages_shared.value)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    for i, f in enumerate(futs):
+        got = f.result(timeout=0)
+        if len(got) != new_tokens or f.finish_reason != "length":
+            raise AssertionError(f"request {i} returned {len(got)} tokens "
+                                 f"({f.finish_reason})")
+    ttft = sorted(f.ttft for f in futs)
+    return {"wall_s": wall, "tok_per_s": len(futs) * new_tokens / wall,
+            "ttft_ms_p50": statistics.median(ttft) * 1e3,
+            "ttft_ms_max": ttft[-1] * 1e3, "pages_shared_max": shared,
+            "tokens": [f.result(timeout=0) for f in futs]}
+
+
+def prefix_full_width(engine, card: str) -> dict:
+    """The serving engine (bf16, full width, warmed) with one registered
+    ``PREFIX_LEN``-token prefix and eight requests: six sharers, a greedy
+    and a sampled one whose prompt is the prefix.  Every request must
+    return its full count, the prefix must be prefilled exactly once
+    (one whole-prompt prefill, of the prefix; the sharers only their
+    suffixes; the prefix prompts none), pages must be shared while they
+    decode, the pool must be whole again after ``unregister_prefix``,
+    and the tick captured once.  Then the same prompts with nothing
+    registered, for comparison."""
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import paged_attention as PA
+
+    prefix, prompts = _prefix_prompts(seed=5)
+    n_pages = engine.slots.n_pages
+    # The prefix path's run: the launch counters read 0 here and are
+    # read again after its last request.
+    A.flash_fwd_launches = 0
+    PA.paged_attend_launches = 0
+    with _PrefillCounter() as counted:
+        t0 = time.monotonic()
+        engine.register_prefix(prefix)
+        torch.cuda.synchronize()
+        register_s = time.monotonic() - t0
+        shared = _stepped_burst(engine, prompts, PREFIX_SAMPLING,
+                                PREFIX_NEW_TOKENS)
+    launches = {"flash_fwd": A.flash_fwd_launches,
+                "paged_attend": PA.paged_attend_launches}
+    pinned_free = engine.slots.free_pages
+    engine.unregister_prefix(prefix)
+    engine.drain(timeout=60)
+    free_after = engine.slots.free_pages
+    prefills = counted.summary()
+    want_full = {"calls": 1, "tokens": PREFIX_LEN,
+                 "padded_tokens": engine._bucket(PREFIX_LEN)}
+    if prefills.get("prefill") != want_full:
+        raise AssertionError(f"the prefix was not prefilled exactly once: "
+                             f"{prefills}")
+    if prefills["prefill_with_prefix"]["tokens"] != sum(PREFIX_SUFFIXES):
+        raise AssertionError(f"the sharers prefilled more than their "
+                             f"suffixes: {prefills}")
+    if shared["pages_shared_max"] < 1:
+        raise AssertionError("no page was shared while the sharers decoded")
+    pin = engine.slots.pages_for(PREFIX_LEN)
+    if (pinned_free, free_after) != (n_pages - pin, n_pages):
+        raise AssertionError(f"free pages {pinned_free} pinned, {free_after} "
+                             f"after unregister; expected {n_pages - pin} "
+                             f"and {n_pages}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"the prefix run missed a kernel: {launches}")
+    with _PrefillCounter() as counted:
+        plain = _stepped_burst(engine, prompts, PREFIX_SAMPLING,
+                               PREFIX_NEW_TOKENS)
+    plain_prefills = counted.summary()
+    captures = engine.stats()["decode_compilations"]
+    if captures != 1:
+        raise AssertionError(f"decode_compilations {captures} after the "
+                             "prefix runs, expected 1")
+    same = sum(a == b for a, b in zip(shared.pop("tokens"),
+                                      plain.pop("tokens")))
+    out = {"prefix_len": PREFIX_LEN, "suffixes": PREFIX_SUFFIXES,
+           "new_tokens": PREFIX_NEW_TOKENS, "register_s": register_s,
+           "shared": shared, "plain": plain, "prefills": prefills,
+           "plain_prefills": plain_prefills, "launches": launches,
+           "pinned_pages": pin, "requests_equal_to_plain_run": same}
+    log(f"prefix bf16 on {card}: {PREFIX_LEN}-token prefix registered in "
+        f"{register_s:.3f} s; shared {shared['tok_per_s']:.1f} tok/s, TTFT "
+        f"p50 {shared['ttft_ms_p50']:.1f} ms, prefill tokens "
+        f"{sum(d['tokens'] for d in prefills.values())} "
+        f"({prefills}), pages shared up to {shared['pages_shared_max']:.0f}"
+        f"; nothing registered {plain['tok_per_s']:.1f} tok/s, TTFT p50 "
+        f"{plain['ttft_ms_p50']:.1f} ms, prefill tokens "
+        f"{sum(d['tokens'] for d in plain_prefills.values())}; "
+        f"{same}/8 requests token-equal across the runs (bf16); launches "
+        f"{launches}; decode_compilations 1")
+    return out
+
+
+def admission_profile(engine) -> dict:
+    """One admission group of k = 2 prompts at bucket 2048 and one at
+    bucket 16 on the warmed bf16 engine, each admitted alone
+    (``_admit_pending``, no decode tick): its host wall (the admission
+    and a device sync), the time from ``_admit_batch``'s entry to the
+    return of its first-token sync, and, from a second admission under
+    ``torch.profiler``, its device busy time and kernel count.  Each
+    bucket runs once unmeasured first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(8)
+    marks = {}
+    admit, first = engine._admit_batch, engine._first_tokens
+
+    def timed_admit(reqs):
+        marks["entry"] = time.monotonic()
+        return admit(reqs)
+
+    def timed_first(reqs, logits):
+        toks = first(reqs, logits)
+        marks["sync"] = time.monotonic()
+        return toks
+
+    engine._admit_batch, engine._first_tokens = timed_admit, timed_first
+    out = {}
+    try:
+        for n in (2048, 16):
+            rec = {"bucket": engine._bucket(n), "k": 2}
+            for mode in ("warm", "timed", "profiled"):
+                futs = [engine.submit(
+                    rng.integers(0, FULL["vocab_size"], n).tolist(),
+                    max_new_tokens=2) for _ in range(2)]
+                calls = engine.stats()["prefill_calls"]
+                marks.clear()
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                if mode == "profiled":
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        engine._admit_pending()
+                        torch.cuda.synchronize()
+                else:
+                    engine._admit_pending()
+                    torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                if engine.stats()["prefill_calls"] != calls + 1 or \
+                        "sync" not in marks:
+                    raise AssertionError(f"bucket {n}: the two prompts did "
+                                         "not admit as one group")
+                if mode == "timed":
+                    rec["host_wall_ms"] = wall * 1e3
+                    rec["entry_to_first_token_sync_ms"] = \
+                        (marks["sync"] - marks["entry"]) * 1e3
+                elif mode == "profiled":
+                    events = _device_events(prof)
+                    rec["device_busy_ms"] = sum(
+                        e.self_device_time_total for e in events) / 1e3
+                    rec["kernels"] = sum(e.count for e in events)
+                    rec["profiled_wall_ms"] = wall * 1e3
+                while not all(f.done() for f in futs):
+                    engine.step()
+            rec["idle_share"] = 1 - rec["device_busy_ms"] / rec["host_wall_ms"]
+            log(f"admission profile bucket {rec['bucket']} k=2: host wall "
+                f"{rec['host_wall_ms']:.3f} ms, entry to first-token sync "
+                f"{rec['entry_to_first_token_sync_ms']:.3f} ms, device busy "
+                f"{rec['device_busy_ms']:.3f} ms in {rec['kernels']} kernels "
+                f"(idle share {rec['idle_share']:.3f})")
+            out[str(rec["bucket"])] = rec
+    finally:
+        del engine._admit_batch, engine._first_tokens
+    engine.drain(timeout=60)
+    return out
+
+
+def _slo_work(seed: int = 0) -> list:
+    """``benchmarks/serving.py``'s SLO workload, drawn the same way:
+    ``(arrival s, prompt, class)`` for two waves."""
+    rng = np.random.default_rng(seed)
+    V = FULL["vocab_size"]
+    work, t = [], 0.0
+    for _ in range(2):
+        for _ in range(2):
+            n = int(rng.integers(SLO_LONG - 48, SLO_LONG + 1))
+            work.append((t, rng.integers(0, V, n).tolist(), "batch"))
+        for j in range(6):
+            n = int(rng.integers(3, 13))
+            work.append((t + 0.01 * (j + 1),
+                         rng.integers(0, V, n).tolist(), "interactive"))
+        t += 0.25
+    return work
+
+
+def slo_leg(params, cfg, slo: bool, fault: bool = False) -> dict:
+    """One leg of the SLO workload on a fresh warmed engine driven by its
+    own thread, the arrivals on their schedule: ``slo`` chunked (32
+    tokens) with the two classes, else whole-prompt prefill with one
+    class.  With ``fault``, a ``prefill_chunk`` raise at a chunk
+    boundary.  Every request must return its full count and the tick be
+    captured once (with the fault: one restart, ``healthy`` at the
+    end).  Per-class TTFT p50 / p99 as ``benchmarks/serving.py`` takes
+    them."""
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import paged_attention as PA
+    from horovod_tpu_torch.serving import (EngineConfig, FaultInjector,
+                                           FaultSpec, InferenceEngine)
+
+    inj = FaultInjector()
+    engine = InferenceEngine(params, cfg, EngineConfig(
+        **SLO_ENGINE, prefill_chunk_tokens=SLO_CHUNK if slo else 0,
+        faults=inj))
+    work = _slo_work()
+    lens = sorted({len(p) for _, p, _ in work})
+    engine.warmup([lens[0], lens[len(lens) // 2], lens[-1]])
+    if fault:
+        inj.add(FaultSpec(site="prefill_chunk", kind="raise",
+                          skip=inj.visits("prefill_chunk") + SLO_FAULT_SKIP))
+    before = engine.stats()
+    # This leg's run: the launch counters read 0 here and are read again
+    # after its last request.
+    A.flash_fwd_launches = 0
+    PA.paged_attend_launches = 0
+    engine.start()
+    try:
+        futs = []
+        t0 = time.monotonic()
+        for arrival, prompt, pri in work:
+            now = time.monotonic() - t0
+            if now < arrival:
+                time.sleep(arrival - now)
+            futs.append((pri, engine.submit(
+                prompt, max_new_tokens=SLO_NEW_TOKENS,
+                priority=pri if slo else "interactive")))
+        for _, f in futs:
+            f.result(timeout=600)
+        wall = time.monotonic() - t0
+    finally:
+        engine.stop()
+    launches = {"flash_fwd": A.flash_fwd_launches,
+                "paged_attend": PA.paged_attend_launches}
+    st = engine.stats()
+    label = ("slo" if slo else "fcfs") + (" f32 faulted" if fault else "")
+    for i, (_, f) in enumerate(futs):
+        got = f.result(timeout=0)
+        if len(got) != SLO_NEW_TOKENS or f.finish_reason != "length":
+            raise AssertionError(f"{label} request {i} returned {len(got)} "
+                                 f"tokens ({f.finish_reason})")
+    if st["decode_compilations"] != 1:
+        raise AssertionError(f"{label}: decode_compilations "
+                             f"{st['decode_compilations']}")
+    restarts = st["engine_restarts"] - before["engine_restarts"]
+    if (restarts, st["state"]) != ((1 if fault else 0), "healthy"):
+        raise AssertionError(f"{label}: {restarts} restarts, state "
+                             f"{st['state']}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"{label}: the run missed a kernel: {launches}")
+    out = {"leg": label, "requests": len(futs), "wall_s": wall,
+           "tok_per_s": len(futs) * SLO_NEW_TOKENS / wall,
+           "preemptions": st["preemptions"] - before["preemptions"],
+           "engine_restarts": restarts, "fired": inj.fired,
+           "decode_compilations": st["decode_compilations"],
+           "launches": launches, "prompts": [p for _, p, _ in work],
+           "tokens": [f.result(timeout=0) for _, f in futs]}
+    for cls in ("interactive", "batch"):
+        vals = sorted(f.ttft for pri, f in futs if pri == cls)
+        out[f"{cls}_ttft_ms_p50"] = vals[len(vals) // 2] * 1e3
+        out[f"{cls}_ttft_ms_p99"] = \
+            vals[min(len(vals) - 1, int(len(vals) * 0.99))] * 1e3
+    log(f"SLO leg {label}: {out['tok_per_s']:.1f} tok/s; TTFT p50/p99 "
+        f"interactive {out['interactive_ttft_ms_p50']:.1f}/"
+        f"{out['interactive_ttft_ms_p99']:.1f} ms, batch "
+        f"{out['batch_ttft_ms_p50']:.1f}/{out['batch_ttft_ms_p99']:.1f} "
+        f"ms; {out['preemptions']} preemptions, {restarts} restarts "
+        f"(fired {inj.fired}); launches {launches}; decode_compilations 1")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefix_identity_f32(engine, params, cfg) -> dict:
+    """On the f32 engine: the registered prefix with three sharers (one
+    sampled) and one request whose prompt is the prefix, against the
+    whole prompt's oracle (the near-tie rule of ``_check_f32``); the pool
+    whole again after ``unregister_prefix``."""
+    prefix, prompts = _prefix_prompts(seed=6)
+    pick = (0, 1, 5, 6)
+    prompts = [prompts[i] for i in pick]
+    sampling = [PREFIX_SAMPLING[i] for i in pick]
+    engine.register_prefix(prefix)
+    futs = [engine.submit(p, max_new_tokens=F32_NEW_TOKENS, **sampling[i])
+            for i, p in enumerate(prompts)]
+    while not all(f.done() for f in futs):
+        engine.step()
+    engine.unregister_prefix(prefix)
+    engine.drain(timeout=60)
+    refs = _f32_oracles(params, cfg, prompts, sampling, F32_NEW_TOKENS)
+    exempt = _check_f32("f32 prefix", prompts,
+                        [f.result(timeout=0) for f in futs], refs, sampling)
+    if engine.slots.free_pages != engine.slots.n_pages:
+        raise AssertionError("f32 prefix: pages left after unregister")
+    log(f"prefix identity f32: {len(prompts)} requests over a "
+        f"{PREFIX_LEN}-token prefix ({[len(p) for p in prompts]} tokens), "
+        f"{len(exempt)} near-tie exemptions")
+    return {"prompt_lens": [len(p) for p in prompts], "exemptions": exempt}
+
+
+def slo_identity_f32(params, cfg) -> dict:
+    """The SLO leg in f32, chunked with priorities, through one
+    ``prefill_chunk`` fault: every request's tokens against
+    ``greedy_decode`` of its prompt (the near-tie rule)."""
+    leg = slo_leg(params, cfg, slo=True, fault=True)
+    prompts, greedy = leg.pop("prompts"), [{}] * leg["requests"]
+    refs = _f32_oracles(params, cfg, prompts, greedy, SLO_NEW_TOKENS)
+    leg["exemptions"] = _check_f32("f32 SLO", prompts, leg.pop("tokens"),
+                                   refs, greedy)
+    log(f"SLO identity f32: {len(prompts)} requests through fault "
+        f"{leg['fired']}, {len(leg['exemptions'])} near-tie exemptions")
+    return leg
 
 
 # --- phases 6 and 7: training --------------------------------------------------
@@ -1258,6 +1741,50 @@ def time_flash(err: float, launches: int, B: int = 2, Hkv: int = 4) -> dict:
             "shape": f"B={B} H={H} H_kv={Hkv} S=T={S} D={D} bf16 causal"}
 
 
+def time_flash_suffix(err: float) -> dict:
+    """K1 at the prefix phase's suffix shape, ``shift = -p0`` over ``T =
+    p0 + S0`` keys; the library yardstick is SDPA with the same mask as
+    a boolean ``attn_mask``."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import attention as A
+
+    p0, S0 = SUFFIX_SHAPES[0]
+    B, H, Hkv, D, dt = 2, 16, 4, 64, torch.bfloat16
+    T = p0 + S0
+    q, k, v = _k1_inputs(B, H, Hkv, S0, D, dt, seed=101, T=T)
+    scale = 1.0 / math.sqrt(D)
+
+    def kernel():
+        return A.flash_attention_shifted(q, k, v, -p0)
+
+    ms, one = time_ms(kernel), time_ms(kernel, batch=1)
+    plain = time_ms(lambda: A._reference_attention_lse(
+        q, A.expand_kv(k, H), A.expand_kv(v, H), -p0, scale), reps=5,
+        batch=1)
+    mask = (torch.arange(T, device="cuda")[None, :]
+            <= torch.arange(S0, device="cuda")[:, None] + p0)
+    try:
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True))
+    except TypeError:  # a PyTorch without enable_gqa: expanded K/V
+        ke, ve = A.expand_kv(k, H), A.expand_kv(v, H)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q, ke, ve, attn_mask=mask))
+    pairs = B * H * (S0 * p0 + S0 * (S0 + 1) / 2)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S0
+    b_ms, b_by = bound(4 * D * pairs, nbytes, dt)
+    return {"name": "flash_fwd", "route": "cuda",
+            "source": "horovod_tpu_torch/ops/csrc/flash_fwd.cu",
+            "replaces": "horovod_tpu/ops/attention.py:124",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "tflops": tflops(4 * D * pairs, ms),
+            "one_call_ms": one,
+            "shape": f"B={B} H={H} H_kv={Hkv} S={S0} T={T} D={D} bf16 "
+                     f"shift={-p0}"}
+
+
 def time_flash_bwd(errs: dict, launches: dict) -> list:
     """K2 and K3 at the training shape; the library yardstick is the
     backward of ``scaled_dot_product_attention`` (one autograd call, dq,
@@ -1381,16 +1908,20 @@ def main() -> int:
         return 2
     t_start = time.monotonic()
     card = card_info()
-    build()
-    REPORT["sass_hmma"] = sass_check()
-    k1 = check_flash()
-    k23 = check_flash_bwd()
-    k4 = check_paged()
+    with phase("build"):
+        build()
+        REPORT["sass_hmma"] = sass_check()
+    with phase("kernel_checks"):
+        k1 = check_flash()
+        k23 = check_flash_bwd()
+        k4 = check_paged()
     REPORT["kernel_checks"] = {"flash_fwd": k1, "flash_bwd": k23,
                                "paged_attend": k4}
-    serving = serve_full_width()
+    with phase("serving"):
+        serving = serve_full_width(card)
     REPORT["serving_bf16"] = serving
-    ident = token_identity()
+    with phase("token_identity_f32"):
+        ident = token_identity()
     REPORT["token_identity_f32"] = ident
     f32d, bf16d = ident["durability"], serving["durability"]
     log(f"durability on {card}: recovery s from the fault to the first "
@@ -1402,20 +1933,30 @@ def main() -> int:
         f"{f32d['faulted_tok_per_s']:.1f} (same engine and prompts); bf16 "
         f"serving burst {serving['tok_per_s']:.1f}, faulted and preempting "
         f"burst {bf16d['faulted_tok_per_s']:.1f}")
-    REPORT["model_grads_f32"] = model_grads_f32()
-    train = train_full_width()
+    with phase("model_grads_f32"):
+        REPORT["model_grads_f32"] = model_grads_f32()
+    with phase("training"):
+        train = train_full_width()
     REPORT["train_bf16"] = train
-    # K1 runs on both main paths: its launches are the two runs' sum.
-    k1_launches = serving["launches"]["flash_fwd"] + \
+    # Each kernel's launches are the sum over the main paths' runs that
+    # launch it: serving (the HTTP burst, the prefix run, the two SLO
+    # legs) and, for K1, training.
+    served = [serving, serving["prefix"], *serving["slo"].values()]
+    k1_launches = sum(r["launches"]["flash_fwd"] for r in served) + \
         train["launches"]["flash_fwd"]
+    k4_launches = sum(r["launches"]["paged_attend"] for r in served)
+    t_times = time.monotonic()
     kernels = [time_flash(k1["serving"], k1_launches),
                *time_flash_bwd(k23["training"], train["launches"]),
-               time_paged(k4["serving"],
-                          serving["launches"]["paged_attend"])]
+               time_paged(k4["serving"], k4_launches)]
     k1_train = time_flash(None, train["launches"]["flash_fwd"],
                           B=TRAIN_BATCH, Hkv=16)
     REPORT["flash_fwd_training_shape"] = k1_train
-    for kr in kernels + [k1_train]:
+    k1_suffix = time_flash_suffix(k1["suffix"])
+    REPORT["flash_fwd_suffix_shape"] = k1_suffix
+    REPORT["phase_s"]["times"] = time.monotonic() - t_times
+    log(f"phase times: {REPORT['phase_s']['times']:.1f} s")
+    for kr in kernels + [k1_train, k1_suffix]:
         log(f"{kr['name']} [{kr['shape']}]: {kr['ms']:.4f} ms "
             f"({kr['tflops']:.1f} TFLOP/s; one call alone "
             f"{kr['one_call_ms']:.4f} ms), bound {kr['bound_ms']:.4f} ms "

@@ -3,7 +3,9 @@
 Counterpart of ``horovod_tpu/models/transformer.py`` for the dense
 model: parameters, the training forward and loss (:func:`forward`,
 :func:`loss_fn`, :func:`synthetic_batch`; flash attention K1-K3 when
-``attention_impl="flash"``), prefill, the contiguous-cache decode step
+``attention_impl="flash"``), prefill (whole prompts, and suffixes over an
+already-cached prefix: :func:`prefill_with_prefix`, K1 with a runtime
+shift), the contiguous-cache decode step
 with the per-request :func:`sample_decode` / :func:`greedy_decode`
 oracles, the per-slot sampler :func:`sample_token_rows` (JAX's threefry
 draws, :mod:`~horovod_tpu_torch.ops.threefry`), and the paged decode
@@ -38,8 +40,8 @@ from horovod_tpu_torch.ops import threefry
 __all__ = ["TransformerConfig", "decode_step", "decode_step_paged",
            "forward", "greedy_decode", "init_cache", "init_params",
            "kv_dequantize", "kv_quantize", "loss_fn", "prefill",
-           "resolve_device", "sample_decode", "sample_token_rows",
-           "synthetic_batch"]
+           "prefill_with_prefix", "resolve_device", "sample_decode",
+           "sample_token_rows", "synthetic_batch"]
 
 _MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
@@ -336,6 +338,88 @@ def prefill(params: Dict, prompt, cache: Dict, cfg: TransformerConfig, *,
     logits = _lm_head(last, params["ln_f"], params["head"], cfg)
     cache["pos"] = new_pos
     return logits[:, 0], cache
+
+
+def _prefix_attend_reference(qh, kh, vh, pk, pv, p0: int):
+    """The JAX package's grouped attention of :func:`prefill_with_prefix`:
+    ``(K, H, S0, Dh)`` queries against ``concat(prefix, suffix)`` with the
+    concatenated mask (prefix columns ``< p0`` visible, the rest never;
+    the suffix causal), products of the K/V dtype accumulated in f32,
+    masked scores ``-1e30``."""
+    K, H, S0, Dh = qh.shape
+    Hkv, P0 = pk.shape[0], pk.shape[1]
+    dev = qh.device
+    k_full = torch.cat([pk[None].expand(K, Hkv, P0, Dh), kh], dim=2)
+    v_full = torch.cat([pv[None].expand(K, Hkv, P0, Dh), vh], dim=2)
+    pre_vis = (torch.arange(P0, device=dev) < p0)[None, :].expand(S0, P0)
+    rows = torch.arange(S0, device=dev)
+    mask = torch.cat([pre_vis, rows[None, :] <= rows[:, None]], dim=1)
+    qg = qh.reshape(K, Hkv, H // Hkv, S0, Dh)
+    s = torch.einsum("bkgsd,bktd->bkgst", qg.to(k_full.dtype).float(),
+                     k_full.float()) / math.sqrt(Dh)
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    w = _softmax(s)
+    o = torch.einsum("bkgst,bktd->bkgsd", w.to(v_full.dtype).float(),
+                     v_full.float())
+    return o.reshape(K, H, S0, Dh)
+
+
+@torch.no_grad()
+def prefill_with_prefix(params: Dict, suffix, prefix_k, prefix_v,
+                        prefix_len: int, cfg: TransformerConfig, *,
+                        true_len):
+    """Prefill a ``(K, S0)`` suffix whose first ``prefix_len`` logical
+    positions already exist as cached K/V: the prefix-sharing prefill
+    (a registered prefix is prefilled once, and a request that starts
+    with it runs only its suffix), and every chunk of a chunked prompt
+    after the first (the landed chunks are its prefix).
+
+    ``prefix_k`` / ``prefix_v``: ``(L, H_kv, P0, Dh)`` with ``P0 >=
+    prefix_len``, shared by every row; positions ``>= prefix_len`` are
+    never attended.  ``true_len``: ``(K,)`` real suffix lengths (rows
+    right-padded to ``S0``).  Suffix queries take RoPE positions
+    ``prefix_len + i`` and attend the prefix and their causal span of
+    the suffix.  Returns ``(last-real-position logits (K, V), {"k": (L,
+    K, H_kv, S0, Dh), "v": ..., "pos": prefix_len + true_len})``, the
+    contract of ``prefill_with_prefix`` in the JAX package.
+
+    ``attention_impl="flash"`` attends through K1 with ``shift =
+    -prefix_len`` over ``concat(prefix[:prefix_len], suffix)``: row ``i``
+    sees column ``j`` iff ``j - prefix_len <= i``, which is the mask
+    above (on CPU tensors K1's plain version).  The prefix is cut to
+    exactly ``prefix_len`` positions, so a page's tail never reaches the
+    kernel, and is only broadcast to the ``K`` rows: K1 maps the kv
+    heads itself.  ``reference`` runs the JAX package's grouped einsum.
+    The prefix is cast to the suffix K/V's dtype (an int8 pool arrives
+    dequantized to f32)."""
+    K, S0 = suffix.shape
+    p0 = int(prefix_len)
+    dev = suffix.device
+    tl = torch.as_tensor(true_len, dtype=torch.long, device=dev).reshape(-1)
+    positions = p0 + torch.arange(S0, device=dev)
+    x = _embed(params, suffix, cfg)
+    ks, vs = [], []
+    for l in range(cfg.n_layers):
+        p = _layer(params, l)
+        qh, kh, vh = _qkv_proj(_rmsnorm(x, p["ln1"]), p, cfg,
+                               positions=positions)
+        pk, pv = prefix_k[l].to(kh.dtype), prefix_v[l].to(vh.dtype)
+        if cfg.attention_impl == "flash":
+            Hkv, Dh = pk.shape[0], pk.shape[2]
+            k_full = torch.cat([pk[None, :, :p0].expand(K, Hkv, p0, Dh), kh],
+                               dim=2).contiguous()
+            v_full = torch.cat([pv[None, :, :p0].expand(K, Hkv, p0, Dh), vh],
+                               dim=2).contiguous()
+            oh, _ = attn.flash_attention_shifted(qh, k_full, v_full, -p0)
+        else:
+            oh = _prefix_attend_reference(qh, kh, vh, pk, pv, p0)
+        ks.append(kh)
+        vs.append(vh)
+        x = _mlp_block(x + _out_proj(oh, p, cfg), p, cfg)
+    last = x[torch.arange(K, device=dev), tl - 1][:, None]
+    logits = _lm_head(last, params["ln_f"], params["head"], cfg)
+    return logits[:, 0], {"k": torch.stack(ks), "v": torch.stack(vs),
+                          "pos": p0 + tl}
 
 
 def _cache_attend(qh, k_cache, v_cache, mask):

@@ -1,7 +1,7 @@
 """Continuous-batching serving: the paged engine (per-slot sampling, the
 overlapped decode pipeline, the tick as one CUDA graph; supervised
 restarts with journaled resume, the watchdog, preemption and priority
-classes) and its server."""
+classes; shared prefixes and chunked prefill) and its server."""
 
 from horovod_tpu_torch.serving.cache import (  # noqa: F401
     NULL_PAGE,

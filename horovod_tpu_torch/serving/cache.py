@@ -7,12 +7,19 @@ resolves on the device, so the live set and the allocation pattern are
 data.  Physical page 0 is the reserved NULL page: never granted, the
 target of inactive rows' writes and of bucket-padding positions.
 
+Pages are refcounted for prefix sharing: a registered prefix's pages are
+pinned by the engine (:meth:`PagedSlotCache.grant_raw`) and attached to
+every slot whose prompt starts with it (:meth:`PagedSlotCache.attach`);
+a slot about to write into a shared page first copies it
+(:meth:`PagedSlotCache.cow`).
+
 Freed pages are not scrubbed: a page's next owner writes every position
 before first attending it (prefill landing covers the prompt; decode
 writes position ``p`` in the tick that first attends it).
 
 The pool is updated in place (the JAX package returns a new pool and
-donates the old one).
+donates the old one): the captured decode tick reads it by address, so
+no operation here rebinds a pool tensor, the copy-on-write included.
 """
 
 from __future__ import annotations
@@ -27,8 +34,8 @@ from horovod_tpu_torch.models import transformer as T
 from horovod_tpu_torch.serving.graph import upload
 from horovod_tpu_torch.serving.scheduler import CacheOutOfPagesError
 
-__all__ = ["NULL_PAGE", "PagedSlotCache", "init_page_pool", "paged_insert",
-           "resolve_kv_dtype"]
+__all__ = ["NULL_PAGE", "PagedSlotCache", "copy_page", "gather_prefix_pages",
+           "init_page_pool", "paged_insert", "resolve_kv_dtype"]
 
 NULL_PAGE = 0
 
@@ -77,7 +84,8 @@ def paged_insert(pool: Dict, slots, new_pos, phys, off, prefilled_k,
     place: position ``t`` of row ``i`` goes to ``(page phys[i, t],
     offset off[i, t])``; bucket padding points at the NULL page, where
     duplicate targets are harmless because nothing attends it.  ``slots``
-    adopt ``new_pos``.  int8 pools quantize per vector on the way in."""
+    adopt ``new_pos`` (``slots`` None for a slotless landing, prefix
+    registration).  int8 pools quantize per vector on the way in."""
     k, v = prefilled_k, prefilled_v
     if "k_scale" in pool:
         qk, sk = T.kv_quantize(k)
@@ -90,16 +98,46 @@ def paged_insert(pool: Dict, slots, new_pos, phys, off, prefilled_k,
         dt = pool["k"].dtype
         pool["k"][:, phys, :, off] = k.to(dt).permute(1, 3, 0, 2, 4)
         pool["v"][:, phys, :, off] = v.to(dt).permute(1, 3, 0, 2, 4)
-    pool["pos"][slots] = new_pos.to(torch.int32)
+    if slots is not None:
+        pool["pos"][slots] = new_pos.to(torch.int32)
     return pool
+
+
+def copy_page(pool: Dict, src: int, dst: int) -> None:
+    """Copy one physical page (every layer, payload and scales) inside
+    the pool tensors: the copy-on-write primitive, enqueued on the
+    current stream like the tick that reads the result."""
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if name in pool:
+            pool[name][:, dst].copy_(pool[name][:, src])
+
+
+def gather_prefix_pages(pool: Dict, pages):
+    """``pages`` (an ``(n,)`` index tensor) as contiguous ``(k, v)`` of
+    shape ``(L, H_kv, n * page, Dh)``: the shared-prefix K/V handed to
+    :func:`~horovod_tpu_torch.models.transformer.prefill_with_prefix`.
+    int8 pools dequantize here, to f32."""
+    k = pool["k"][:, pages]                   # (L, n, H_kv, ps, Dh)
+    v = pool["v"][:, pages]
+    L, n, Hkv, ps, Dh = k.shape
+    k = k.movedim(1, 2).reshape(L, Hkv, n * ps, Dh)
+    v = v.movedim(1, 2).reshape(L, Hkv, n * ps, Dh)
+    if "k_scale" in pool:
+        ks = pool["k_scale"][:, pages].movedim(1, 2).reshape(L, Hkv, n * ps)
+        vs = pool["v_scale"][:, pages].movedim(1, 2).reshape(L, Hkv, n * ps)
+        k = T.kv_dequantize(k, ks, torch.float32)
+        v = T.kv_dequantize(v, vs, torch.float32)
+    return k, v
 
 
 class PagedSlotCache:
     """Host-side page allocator + slot bookkeeping over one device page
     pool: per-slot page tables (:attr:`table`, uploaded as tick data;
     :attr:`table_version` bumps on every change so the engine uploads
-    only then), a heap of free pages, and refcounts (a page returns to
-    the heap when its count reaches 0)."""
+    only then), a heap of free pages, refcounts (a page returns to the
+    heap when its count reaches 0) for prefix sharing (:meth:`attach`,
+    :meth:`grant_raw`), and copy-on-write (:meth:`cow`), so that a
+    shared page is copied only when a slot must write into it."""
 
     def __init__(self, cfg: T.TransformerConfig, n_slots: int,
                  max_len: int = 0, *, page_size: int = 16,
@@ -151,7 +189,9 @@ class PagedSlotCache:
         self.table_version += 1
 
     def release_all(self) -> None:
-        """Host-side reset of slots and pages (the failure path)."""
+        """Host-side reset of slots and pages (the failure path).  The
+        prefix registry's pins die with it: the engine invalidates its
+        registry whenever it resets the cache."""
         self._active[:] = False
         self._free = list(range(self.n_slots))
         self.table[:, :] = NULL_PAGE
@@ -192,6 +232,11 @@ class PagedSlotCache:
     @property
     def free_pages(self) -> int:
         return len(self._free_pages)
+
+    @property
+    def pages_shared(self) -> int:
+        """Pages referenced more than once (prefix sharing in effect)."""
+        return int((self._ref[1:] > 1).sum())
 
     @property
     def pages_high_water(self) -> int:
@@ -242,35 +287,119 @@ class PagedSlotCache:
         self.table_version += 1
         return pg
 
+    def grant_raw(self, n: int) -> List[int]:
+        """``n`` pages owned by the caller (the prefix registry's pin),
+        refcount 1 each, bound to no slot.  All or nothing."""
+        if len(self._free_pages) < n:
+            raise CacheOutOfPagesError(
+                f"need {n} pages for prefix registration, "
+                f"{len(self._free_pages)} free of {self.n_pages}")
+        pages = []
+        for _ in range(n):
+            pg = self._pop_page()
+            self._ref[pg] = 1
+            pages.append(pg)
+        return pages
+
+    def release_raw(self, pages: Sequence[int]) -> None:
+        """Drop a :meth:`grant_raw` pin (prefix unregistration)."""
+        for pg in pages:
+            self._decref(int(pg))
+
+    def attach(self, slot: int, pages: Sequence[int]) -> None:
+        """Reference shared pages from table indices ``0..len-1``:
+        prefix sharing, a refcount each, no copy."""
+        for i, pg in enumerate(pages):
+            if self.table[slot, i] != NULL_PAGE:
+                raise ValueError(f"slot {slot} index {i} already mapped")
+            self.table[slot, i] = pg
+            self._ref[pg] += 1
+        self.table_version += 1
+
+    def cow(self, slot: int, idx: int) -> int:
+        """Copy-on-write: make the page at table index ``idx`` private to
+        ``slot``.  A no-op if it already is; otherwise a fresh page is
+        granted, the shared page copied into it inside the pool tensors
+        (:func:`copy_page`: no tensor is rebound, so the captured tick
+        keeps its addresses), the table repointed and the shared page
+        dereferenced.  Called before any write can target a shared page:
+        a suffix landing in a prefix's partial last page, or decode
+        growing into it."""
+        src = int(self.table[slot, idx])
+        if src == NULL_PAGE:
+            raise ValueError(f"slot {slot} has no page at index {idx}")
+        if self._ref[src] <= 1:
+            return src
+        dst = self._pop_page()
+        self._ref[dst] = 1
+        copy_page(self.cache, src, dst)
+        self.table[slot, idx] = dst
+        self._decref(src)
+        self.table_version += 1
+        return dst
+
     # -- device ops ---------------------------------------------------------
 
-    def _phys_off(self, rows: Sequence[Sequence[int]], true_lens,
-                  bucket: int):
-        """Host-built landing indices: position ``t`` of row ``i`` maps
-        through its page table unless past ``true_lens[i]`` (bucket
-        padding), which routes to the NULL page."""
+    def _phys_off(self, rows: Sequence[Sequence[int]], start: int,
+                  true_lens, bucket: int):
+        """Host-built landing indices: row ``i``'s position ``start + t``
+        maps through its page table unless past ``start + true_lens[i]``
+        (bucket padding), which routes to the NULL page."""
         ps = self.page_size
-        logical = np.arange(bucket)
+        logical = start + np.arange(bucket)
         idxs = np.clip(logical // ps, 0, self.max_pages - 1)
         phys = np.zeros((len(rows), bucket), np.int64)
         for i, row in enumerate(rows):
             p = np.asarray(row, np.int64)[idxs]
-            phys[i] = np.where(logical < int(true_lens[i]), p, NULL_PAGE)
+            phys[i] = np.where(logical < start + int(true_lens[i]), p,
+                               NULL_PAGE)
         off = np.broadcast_to(logical % ps, phys.shape)
         return phys, off
 
-    def land(self, slots: Sequence[int], prefilled: Dict, true_lens) -> None:
-        """Land a prefilled K/V block into the slots' granted pages with
-        one scatter and adopt the per-row positions (the indices go up
-        through pinned memory: no wait for the device)."""
+    def _insert(self, slots, new_pos, phys, off, prefilled: Dict) -> None:
+        dev = self.device
+        if slots is not None:
+            slots = upload(np.asarray(slots, np.int64), dev)
+            new_pos = upload(np.asarray(new_pos, np.int64), dev)
+        paged_insert(self.cache, slots, new_pos, upload(phys, dev),
+                     upload(np.array(off), dev), prefilled["k"],
+                     prefilled["v"])
+
+    def land(self, slots: Sequence[int], prefilled: Dict, true_lens,
+             start: int = 0) -> None:
+        """Land a prefilled (or suffix-prefilled) K/V block into the
+        slots' granted pages with one scatter, and set each slot's
+        position to ``start + true_lens[i]``.  ``start`` is the logical
+        position of bucket column 0: 0 for whole prompts, the landed
+        length for a suffix or a chunk.  The indices go up through
+        pinned memory: no wait for the device."""
         for s in slots:
             if not self._active[s]:
                 raise ValueError(f"slot {s} is not allocated")
         bucket = prefilled["k"].shape[3]
-        phys, off = self._phys_off([self.table[s] for s in slots],
+        phys, off = self._phys_off([self.table[s] for s in slots], start,
                                    true_lens, bucket)
+        self._insert(slots, start + np.asarray(true_lens, np.int64), phys,
+                     off, prefilled)
+
+    def land_raw(self, pages: Sequence[int], prefilled: Dict,
+                 true_len: int) -> None:
+        """Slotless landing into raw pages (prefix registration): the
+        block fills ``pages`` in order; no slot's position changes."""
+        bucket = prefilled["k"].shape[3]
+        row = list(pages) + [NULL_PAGE] * max(0, self.max_pages - len(pages))
+        phys, off = self._phys_off([row], 0, [true_len], bucket)
+        self._insert(None, None, phys, off, prefilled)
+
+    def set_pos(self, slots: Sequence[int], vals: Sequence[int]) -> None:
+        """Set positions without landing anything (attach-only admission:
+        the whole prompt already lies in shared pages)."""
         dev = self.device
-        paged_insert(self.cache, upload(np.asarray(slots, np.int64), dev),
-                     upload(np.asarray(true_lens, np.int64), dev),
-                     upload(phys, dev), upload(np.array(off), dev),
-                     prefilled["k"], prefilled["v"])
+        self.cache["pos"][upload(np.asarray(slots, np.int64), dev)] = \
+            upload(np.asarray(vals, np.int32), dev)
+
+    def gather_prefix(self, pages: Sequence[int]):
+        """Contiguous ``(k, v)`` of ``pages`` (:func:`gather_prefix_pages`:
+        ``(L, H_kv, len(pages) * page, Dh)``, f32 for an int8 pool)."""
+        return gather_prefix_pages(
+            self.cache, upload(np.asarray(pages, np.int64), self.device))

@@ -11,16 +11,17 @@ slots between ticks.
 Tick (:meth:`InferenceEngine.step`):
 
 1. **Admit**: take up to K = ``max_prefills_per_tick`` queued requests
-   that share one prompt bucket (prompts right-padded to a power of two,
-   at least ``min_prefill_bucket``), grant each the pages its prompt
-   needs, run ONE batch-K prefill (flash kernel K1 on the card) and land
-   its K/V in the granted pages.  The prefill's last-position logits
-   give each request its first token: the argmax for an all-greedy
-   group, else the sampler at key position ``len(prompt)``.  Admission
-   order is the scheduler's: priority class (``interactive`` before
-   ``batch``), then earliest deadline, then submission.
-2. **Decode**: grant every active slot the page under its next write
-   position, then ONE :class:`~horovod_tpu_torch.serving.graph.
+   that share one admission group (:meth:`InferenceEngine._group_key`:
+   the prompt bucket — prompts right-padded to a power of two, at least
+   ``min_prefill_bucket`` — and the matched shared prefix), map each
+   its pages, run ONE batch-K prefill (flash kernel K1 on the card) and
+   land its K/V in the pages.  The prefill's last-position logits give
+   each request its first token: the argmax for an all-greedy group,
+   else the sampler at key position ``len(prompt)``.  Admission order is
+   the scheduler's: priority class (``interactive`` before ``batch``),
+   then earliest deadline, then submission.
+2. **Decode**: give every decoding slot a private page under its next
+   write position (granted, or copied from a shared one), then ONE :class:`~horovod_tpu_torch.serving.graph.
    DecodeTick` over all S slots — ``decode_step_paged`` (paged-attention
    kernel K4 on the card) and the per-slot sampled pick — with the page
    table, the active mask and the sampling columns as data.  On CUDA the
@@ -28,6 +29,26 @@ Tick (:meth:`InferenceEngine.step`):
    (or at the first tick) and replayed; ``decode_compilations`` counts
    captures and stays 1 across any request mix and any number of
    restarts.
+
+Shared prefixes (:meth:`InferenceEngine.register_prefix`): a registered
+prefix (a system prompt) is prefilled once into pinned pages; a request
+whose prompt starts with it attaches those pages (a refcount, no copy)
+and prefills only its suffix
+(:func:`~horovod_tpu_torch.models.transformer.prefill_with_prefix`, K1
+with ``shift = -len(prefix)``); one whose prompt is the prefix admits
+with no prefill at all.  A slot about to write into a shared page copies
+it first (:meth:`~horovod_tpu_torch.serving.cache.PagedSlotCache.cow`,
+in place inside the pool tensors the captured tick reads).  A restart
+resets the pool, and with it the pins: entries re-prefill, once, at
+their next use.
+
+Chunked prefill (``EngineConfig.prefill_chunk_tokens``): a prompt whose
+unshared part exceeds the chunk is ingested chunk by chunk, one chunk
+riding each tick; every chunk after the first runs ``prefill_with_prefix``
+over the slot's landed pages (K1 with ``shift = -landed``).  The slot is
+left out of the tick's active mask until its last chunk yields the
+first token, so the other slots keep decoding; the tokens equal a
+whole-prompt prefill's.
 
 With ``EngineConfig.overlap`` (the default) decoding is a two-stage
 pipeline: the token vector lives on the device, tick N+1 is dispatched
@@ -82,8 +103,9 @@ Durability, as in the JAX engine:
 Faults for tests come from
 :class:`~horovod_tpu_torch.serving.faults.FaultInjector`
 (``EngineConfig.faults``), probed at the JAX engine's sites: ``watchdog``
-(top of a step), ``prefill`` (admission), ``decode_tick`` (before a tick
-runs; ``nonfinite`` poisons that tick's fetched max logits on the host),
+(top of a step), ``prefill`` (admission), ``prefill_chunk`` (before each
+chunk of a chunked prompt), ``decode_tick`` (before a tick runs;
+``nonfinite`` poisons that tick's fetched max logits on the host),
 ``decode_fetch`` (before a tick's results are fetched) and
 ``restart_resume`` (in the restart path).
 """
@@ -147,11 +169,14 @@ class RequestIds:
     """A request's trace identity (``Request.trace``): the key of its
     journal entry in :meth:`RequestJournal.read_live`, by which a front
     tier finds a dead replica's live requests.  Tracing is not ported,
-    so there is no span and no timing past the submission instant."""
+    so there is no span; ``admitted_at`` is the first admission's
+    instant (a resumed or preempted request keeps its first life's,
+    and its queue wait is observed once)."""
 
     trace_id: str
     span_id: Optional[str] = None
     submitted_at: Optional[float] = None
+    admitted_at: Optional[float] = None
 
 
 class GenerationFuture:
@@ -260,7 +285,11 @@ class EngineConfig:
     ``default_max_new_tokens`` applies when a request names none;
     ``min_prefill_bucket`` floors the power-of-two prompt buckets;
     ``overlap`` runs decoding as the two-stage pipeline (module
-    docstring), ``False`` as the synchronous tick.
+    docstring), ``False`` as the synchronous tick;
+    ``prefill_chunk_tokens`` caps the prompt tokens one tick spends on
+    ingestion: a prompt whose unshared part is longer is ingested chunk
+    by chunk, one chunk a tick, while the other slots decode (0, the
+    default, prefills whole prompts).
 
     Fault tolerance, the JAX engine's knobs and defaults:
     ``max_restarts`` bounds consecutive supervised restarts before the
@@ -289,6 +318,7 @@ class EngineConfig:
     default_max_new_tokens: int = 64
     min_prefill_bucket: int = 8
     overlap: bool = True
+    prefill_chunk_tokens: int = 0
     max_restarts: int = 3
     restart_backoff: float = 0.05
     restart_backoff_max: float = 2.0
@@ -305,6 +335,37 @@ class _SlotState:
     request: Request
     last_token: int
     n_generated: int
+
+
+@dataclasses.dataclass
+class _IngestState:
+    """A slot whose prompt is landing chunk by chunk: the request, how
+    many prompt tokens its pages hold (``landed``, an attached prefix
+    included: the next chunk starts there) and where ingestion began
+    (``started``, the attached prefix's length), so ``landed - started``
+    is the prefill a suspension throws away.  The slot holds pages and
+    occupancy but is out of the decode mask until its last chunk
+    yields the first token."""
+
+    request: Request
+    landed: int
+    started: int = 0
+
+
+@dataclasses.dataclass
+class _PrefixEntry:
+    """A registered shared prefix: its tokens, the pages its K/V lives
+    in (pinned by the registry), its first greedy token and its
+    last-position logits on the device (a prompt that is the prefix
+    admits with no prefill: greedy from the token, sampled by drawing
+    from the logits), and the cache epoch the pages belong to (a restart
+    resets the pool; a stale entry re-prefills at its next use)."""
+
+    tokens: tuple
+    pages: Optional[List[int]] = None
+    first_token: int = 0
+    logits: Optional[torch.Tensor] = None
+    epoch: int = -1
 
 
 class InferenceEngine:
@@ -328,6 +389,10 @@ class InferenceEngine:
         self.cfg = cfg
         self.engine_cfg = engine_cfg
         ec = engine_cfg
+        if ec.prefill_chunk_tokens < 0:
+            raise ValueError(
+                f"prefill_chunk_tokens must be >= 1 (or 0 to disable), got "
+                f"{ec.prefill_chunk_tokens}")
         self.slots = PagedSlotCache(cfg, ec.n_slots, ec.max_len,
                                     page_size=ec.page_size,
                                     n_pages=ec.n_pages, kv_dtype=ec.kv_dtype,
@@ -343,6 +408,20 @@ class InferenceEngine:
             # tokens: a completion, not shed load.
             on_expire=lambda req: self.metrics.completed.inc())
         self._states: List[Optional[_SlotState]] = [None] * ec.n_slots
+        # Slots whose prompt is still landing chunk by chunk; they hold
+        # pages and occupancy but are out of the decode mask.  The
+        # per-tick ledger of prompt tokens prefilled (the admission's
+        # budget and _advance_ingest share it) and the slots that landed
+        # a chunk this tick.
+        self._ingest: Dict[int, _IngestState] = {}
+        self._tick_prefill_spent = 0
+        self._tick_ingested: set = set()
+        # Registered shared prefixes (token tuple -> entry).  The
+        # version keys each request's cached match; the epoch says which
+        # lifetime of the pool an entry's pinned pages belong to.
+        self._prefixes: Dict[tuple, _PrefixEntry] = {}
+        self._prefix_version = 0
+        self._cache_epoch = 0
         # Requests taken from the queue but not yet in a slot: a tick
         # failing mid-admission must resolve or resume these too.
         self._taken: List[Request] = []
@@ -622,15 +701,18 @@ class InferenceEngine:
 
     def _update_page_gauges(self) -> None:
         self.metrics.kv_pages_free.set(self.slots.free_pages)
+        self.metrics.kv_pages_shared.set(self.slots.pages_shared)
 
     def _release(self, slot: int) -> None:
         self._states[slot] = None
+        self._ingest.pop(slot, None)
         self.slots.free(slot)
         self._samp.clear(slot)  # a zero row: greedy, for the next tenant
 
     def _reclaim_cancelled(self) -> bool:
         """Free slots whose requests were cancelled caller-side (resolved
-        with the tokens so far) or resolved elsewhere."""
+        with the tokens so far) or resolved elsewhere, ingesting slots
+        included."""
         worked = False
         for s, st in enumerate(self._states):
             if st is None:
@@ -642,7 +724,25 @@ class InferenceEngine:
             if fut.done():
                 self._release(s)
                 worked = True
+        for s in list(self._ingest):
+            worked = self._reap_ingest(s) or worked
         return worked
+
+    def _reap_ingest(self, slot: int) -> bool:
+        """Release an ingesting slot whose request can no longer run (its
+        future resolved elsewhere, or a cancel pending); True if it was
+        reaped."""
+        ing = self._ingest.get(slot)
+        if ing is None:
+            return False
+        fut = ing.request.future
+        if not (fut.done() or fut.cancel_requested):
+            return False
+        if not fut.done():
+            fut._finish("cancelled")
+            self.metrics.cancelled.inc()
+        self._release(slot)
+        return True
 
     def _bucket(self, n: int) -> int:
         b = max(self.engine_cfg.min_prefill_bucket, 1)
@@ -650,37 +750,233 @@ class InferenceEngine:
             b *= 2
         return min(b, self.slots.max_len)
 
-    def _n_prompt_pages(self, req: Request) -> int:
-        return (len(req.prompt) - 1) // self.slots.page_size + 1
-
     def _resumable(self) -> bool:
         return self.engine_cfg.resume and self.journal is not None
+
+    # -- shared prefixes ---------------------------------------------------
+
+    def register_prefix(self, tokens: Sequence[int]) -> None:
+        """Register a shared prefix (a system prompt): its K/V is
+        prefilled once into pinned pages, and every later request whose
+        prompt starts with it attaches those pages and prefills only its
+        suffix; a request whose prompt is the prefix admits with no
+        prefill.  The pages stay pinned across slot churn until
+        :meth:`unregister_prefix`; a restart invalidates the entry, which
+        re-prefills at its next use.  Raises :class:`ServingError` (empty
+        or out-of-vocabulary), :class:`RequestTooLongError`, or
+        :class:`CacheOutOfPagesError` when the pool cannot pin it; a
+        failed registration leaves nothing behind."""
+        tokens = tuple(int(t) for t in tokens)
+        if not tokens:
+            raise ServingError("empty prefix")
+        V = self.cfg.vocab_size
+        if min(tokens) < 0 or max(tokens) >= V:
+            raise ServingError(f"token ids must lie in [0, {V})")
+        if len(tokens) > self.slots.max_len:
+            raise RequestTooLongError(
+                f"prefix ({len(tokens)}) exceeds slot capacity "
+                f"({self.slots.max_len})")
+        with self._lock:
+            fresh = tokens not in self._prefixes
+            entry = self._prefixes.setdefault(tokens,
+                                              _PrefixEntry(tokens=tokens))
+            try:
+                self._ensure_prefix(entry)
+            except BaseException:
+                if fresh:
+                    # A failed registration leaves no entry that could
+                    # pin pages later for a prefix the caller was told
+                    # never registered.
+                    self._prefixes.pop(tokens, None)
+                raise
+            if fresh:
+                self._prefix_version += 1
+
+    def unregister_prefix(self, tokens: Sequence[int]) -> None:
+        """Drop a registered prefix's pin; its pages return to the free
+        heap once the last slot attached to them retires."""
+        with self._lock:
+            entry = self._prefixes.pop(tuple(int(t) for t in tokens), None)
+            if entry is not None:
+                self._prefix_version += 1
+            if (entry is not None and entry.pages
+                    and entry.epoch == self._cache_epoch):
+                self.slots.release_raw(entry.pages)
+
+    def _matched_prefix(self, req: Request) -> Optional[_PrefixEntry]:
+        """:meth:`_match_prefix` once per request: cached on the request
+        and keyed by the registration set's version."""
+        cached = getattr(req, "_prefix_match", None)
+        if cached is not None and cached[0] == self._prefix_version:
+            return cached[1]
+        entry = self._match_prefix(req.prompt)
+        req._prefix_match = (self._prefix_version, entry)
+        return entry
+
+    def _match_prefix(self, prompt) -> Optional[_PrefixEntry]:
+        """The longest registered prefix the prompt starts with."""
+        best = None
+        for entry in self._prefixes.values():
+            n = len(entry.tokens)
+            if n <= len(prompt) and tuple(prompt[:n]) == entry.tokens:
+                if best is None or n > len(best.tokens):
+                    best = entry
+        return best
+
+    def _prefill_rows(self, padded: np.ndarray, lens: np.ndarray):
+        """One batch prefill of right-padded prompts from position 0 ->
+        ``(last-real-position logits (K, V), K/V (L, K, H_kv, bucket,
+        Dh))``."""
+        dev = self.device
+        cache = T.init_cache(self.cfg, padded.shape[0], padded.shape[1],
+                             device=dev)
+        logits, pre = T.prefill(self.params, upload(padded, dev), cache,
+                                self.cfg, true_len=upload(lens, dev))
+        self._prefill_calls += 1
+        return logits, pre
+
+    def _ensure_prefix(self, entry: _PrefixEntry) -> None:
+        """(Re-)prefill a prefix entry into pinned pages: the one prefix
+        forward pass its sharers amortize, its first greedy token and
+        its logits' finiteness fetched in one sync.  Raises
+        :class:`CacheOutOfPagesError` when the pool cannot pin it; any
+        failure unpins the pages."""
+        if entry.pages is not None and entry.epoch == self._cache_epoch:
+            return
+        p0 = len(entry.tokens)
+        pages = self.slots.grant_raw(self.slots.pages_for(p0))
+        try:
+            bucket = self._bucket(p0)
+            padded = np.zeros((1, bucket), np.int64)
+            padded[0, :p0] = entry.tokens
+            logits, pre = self._prefill_rows(padded,
+                                             np.array([p0], np.int64))
+            self.slots.land_raw(pages, pre, p0)
+            out = torch.stack([torch.argmax(logits[0]),
+                               torch.isfinite(logits[0].amax()).long()])
+            first, finite = out.tolist()
+            self.metrics.host_syncs.inc()
+            if not finite:
+                raise EngineFailedError(
+                    "non-finite logits from the prefix prefill (bad params "
+                    "or device fault)")
+            entry.first_token = first
+            entry.logits = logits[0]
+        except BaseException:
+            # Unpinned on any failure, or every retry would drain the
+            # pool a little further.
+            self.slots.release_raw(pages)
+            raise
+        entry.pages = pages
+        entry.epoch = self._cache_epoch
+
+    def _prefix_landed(self, req: Request) -> int:
+        """Prompt tokens a matched prefix of the current epoch already
+        holds for this request (0 without one)."""
+        entry = self._matched_prefix(req)
+        if (entry is not None and entry.pages is not None
+                and entry.epoch == self._cache_epoch):
+            return len(entry.tokens)
+        return 0
+
+    def _chunked(self, req: Request) -> bool:
+        """True when chunking is on and the prompt tokens that need a
+        prefill (past a matched prefix) exceed one chunk."""
+        chunk = self.engine_cfg.prefill_chunk_tokens
+        return bool(chunk) and (len(req.prompt)
+                                - self._prefix_landed(req)) > chunk
+
+    def _prefill_cost(self, req: Request) -> int:
+        """Prompt tokens admitting ``req`` costs this tick: its unshared
+        part, at most one chunk when chunking is on."""
+        suf = len(req.prompt) - self._prefix_landed(req)
+        chunk = self.engine_cfg.prefill_chunk_tokens
+        return min(suf, chunk) if chunk else suf
+
+    def _plan_pages(self, req: Request) -> int:
+        """Pages an admission would take (private grants plus one page
+        of margin for a copy-on-write or decode growth): the take's
+        back-pressure budget.  Attached prefix pages cost nothing; a
+        chunked admission plans its first chunk only (later chunks
+        claim their pages at their tick, preempting like decode growth
+        does)."""
+        ps = self.slots.page_size
+        p0 = self._prefix_landed(req)
+        upto = len(req.prompt)
+        if self._chunked(req):
+            upto = p0 + self.engine_cfg.prefill_chunk_tokens
+        n_idx = (upto - 1) // ps + 1
+        if p0 > 0:
+            if len(req.prompt) == p0:
+                return 1  # attach-only: the margin covers the first COW
+            return n_idx - p0 // ps + 1
+        return n_idx + 1
+
+    def _group_key(self, req: Request):
+        """The take's admission-group key: one prefill serves the group,
+        so the key is the prompt bucket (``full``), or the matched prefix
+        and the suffix's bucket (``suffix``: one gather of the prefix and
+        one suffix prefill), or the prefix alone (``attach``: no
+        prefill).  A chunked request is taken alone (``chunk``)."""
+        if self._chunked(req):
+            return ("chunk", req.id)
+        entry = self._matched_prefix(req)
+        if entry is None:
+            return ("full", self._bucket(len(req.prompt)))
+        suf = len(req.prompt) - len(entry.tokens)
+        if suf == 0:
+            return ("attach", entry.tokens)
+        return ("suffix", entry.tokens, self._bucket(suf))
+
+    # -- admission ---------------------------------------------------------
 
     def _admit_pending(self) -> bool:
         # Tick-boundary sweep: every dead queued request (lapsed
         # deadline, cancel, raced drain) resolves wherever it sits.
         swept = self.scheduler.sweep()
+        self._tick_prefill_spent = 0
+        self._tick_ingested = set()
         # Slot pressure before the take: a strictly better-class arrival
         # claims a slot from the worst occupant (suspended, not lost).
         preempted = self._preempt_for_slots()
         # Page back-pressure: the take stops (requests wait, order kept)
-        # when the next admission's pages — its prompt plus one growth
-        # page, capped at the pool — would overdraw the free heap.
+        # when the next admission's planned pages would overdraw the
+        # free heap.  The plan is clamped to the deepest the heap can
+        # get (the pool less the registry's pins), or a request that fit
+        # at submit would wait at the head forever.
         budget = self.slots.free_pages
+        pinned = sum(len(e.pages) for e in self._prefixes.values()
+                     if e.pages is not None
+                     and e.epoch == self._cache_epoch)
+        attainable = max(self.slots.n_pages - pinned, 1)
         reserved = 0
+        # The per-tick prefill token budget (chunked prefill): admissions
+        # after the first stop once the tick's budget is spent.  The
+        # first is always let in: a chunked one costs at most a chunk,
+        # and a short prompt over the budget must not wait forever.
+        tok_budget = self.engine_cfg.prefill_chunk_tokens
+        n_admit = 0
 
         def admit_fn(req):
-            nonlocal reserved
-            need = min(self._n_prompt_pages(req) + 1, self.slots.n_pages)
+            nonlocal reserved, n_admit
+            need = min(self._plan_pages(req), attainable)
             if reserved + need > budget:
                 return False
+            if tok_budget:
+                cost = self._prefill_cost(req)
+                if n_admit and self._tick_prefill_spent + cost > tok_budget:
+                    return False
+                if not self._chunked(req):
+                    # A chunked admission's chunk is counted where it
+                    # lands (_ingest_step).
+                    self._tick_prefill_spent += cost
             reserved += need
+            n_admit += 1
             return True
 
-        reqs = self.scheduler.take(
-            self.slots.free_count,
-            bucket_fn=lambda r: self._bucket(len(r.prompt)),
-            admit_fn=admit_fn)
+        reqs = self.scheduler.take(self.slots.free_count,
+                                   bucket_fn=self._group_key,
+                                   admit_fn=admit_fn)
         if not reqs and self.scheduler.depth and self._resumable():
             # Page pressure: an empty take with a non-empty queue means
             # the head waits for pages.  If it outranks the worst
@@ -706,32 +1002,96 @@ class InferenceEngine:
         if live:
             self._admit_batch(live)
         self._taken = []
-        return bool(reqs) or bool(swept) or preempted
+        advanced = self._advance_ingest()
+        return bool(reqs) or advanced or bool(swept) or preempted
+
+    def _observe_admission(self, req: Request, now: float) -> None:
+        """Queue wait ends at a request's first admission; a resumed or
+        preempted re-admission keeps its first life's."""
+        if req.trace.admitted_at is None:
+            req.trace.admitted_at = now
+            self.metrics.observe_queue_wait(req.priority,
+                                            now - req.submitted_at)
 
     def _admit_batch(self, reqs: List[Request]) -> None:
-        """Grant the prompt pages, run ONE batch-K prefill (one bucket),
-        land its K/V with one scatter, and emit each first token.  A
-        resumed request's prompt is its original prompt plus the tokens
-        it emitted before, so the same prefill continues its stream."""
+        """Admit one group (:meth:`_group_key`): map its pages, run its
+        one prefill (whole prompts, or suffixes over a shared prefix, or
+        none when the prompt is the prefix), land the K/V and emit each
+        first token.  A chunked request is taken alone and ingested
+        chunk by chunk instead (:meth:`_admit_chunked`).  A resumed
+        request's prompt is its original prompt plus the tokens it
+        emitted before, so the same prefill continues its stream."""
+        if len(reqs) == 1 and self._chunked(reqs[0]):
+            self._admit_chunked(reqs[0])
+            return
         faults = self.engine_cfg.faults
         if faults is not None:
             faults.probe("prefill")
         t_adm = time.monotonic()
+        for req in reqs:
+            self._observe_admission(req, t_adm)
+        slots, live, firsts, synced = self._admit_paged(reqs)
+        if not live:
+            return
+        if synced:
+            # Attach-only greedy groups fetch nothing.
+            self.metrics.host_syncs.inc()
+        now = time.monotonic()
+        for slot, req, first in zip(slots, live, firsts):
+            self.metrics.admitted.inc()
+            self._taken.remove(req)  # landed: _states owns it now
+            self._start_decoding(slot, req, int(first), now)
+        self._land_first_tokens(slots, firsts)
+
+    def _map_pages(self, slot: int, req: Request,
+                   entry: Optional[_PrefixEntry]) -> None:
+        """A slot's page table for admission: attach the shared prefix's
+        pages, copy-on-write its partial last page if the suffix lands
+        in it, grant fresh pages for the rest of the prompt."""
+        ps = self.slots.page_size
+        n_idx = (len(req.prompt) - 1) // ps + 1
+        if entry is None:
+            for idx in range(n_idx):
+                self.slots.grant(slot, idx)
+            return
+        p0 = len(entry.tokens)
+        self.slots.attach(slot, entry.pages)
+        if len(req.prompt) == p0:
+            return  # attach-only; decode growth claims its write page
+        first_new = p0 // ps
+        if p0 % ps:
+            self.slots.cow(slot, first_new)
+            first_new += 1
+        for idx in range(first_new, n_idx):
+            self.slots.grant(slot, idx)
+
+    def _admit_paged(self, reqs: List[Request]):
+        """The group's pages and its one prefill -> ``(slots, requests,
+        first tokens, synced)``.  The group shares one matched prefix
+        (or none) and one bucket: the prompt is the prefix (attach, no
+        prefill: greedy rows take the prefix's first token with no
+        sync, sampled rows draw from its logits at key position
+        ``len(prompt)``), or one suffix prefill attends the prefix's
+        gathered pages, or one whole-prompt prefill.  A request whose
+        pages overdraw the pool (the budget is a plan, not a
+        reservation) fails with :class:`CacheOutOfPagesError` and the
+        rest of the group proceeds."""
+        entry = self._matched_prefix(reqs[0])
+        if entry is not None:
+            try:
+                self._ensure_prefix(entry)
+            except CacheOutOfPagesError:
+                entry = None  # no sharing: a whole-prompt prefill
+        p0 = len(entry.tokens) if entry is not None else 0
         slots: List[int] = []
         live: List[Request] = []
         for req in reqs:
-            if req.future.ttft is None:
-                # Queue wait ends at the first admission; a resumed
-                # re-admission keeps its first life's figures.
-                self.metrics.observe_queue_wait(req.priority,
-                                                t_adm - req.submitted_at)
             slot = self.slots.alloc()
             assert slot is not None  # take() is bounded by free_count
             try:
-                for idx in range(self._n_prompt_pages(req)):
-                    self.slots.grant(slot, idx)
+                self._map_pages(slot, req, entry)
             except CacheOutOfPagesError as e:
-                self.slots.free(slot)  # returns whatever got granted
+                self._release(slot)  # returns whatever got mapped
                 req.future.set_exception(e)
                 self.metrics.rejected.inc()
                 self._taken.remove(req)
@@ -739,49 +1099,72 @@ class InferenceEngine:
             slots.append(slot)
             live.append(req)
         if not live:
-            return
+            return [], [], [], False
         k = len(live)
-        bucket = max(self._bucket(len(r.prompt)) for r in live)
-        padded = np.zeros((k, bucket), np.int64)
-        lens = np.zeros((k,), np.int64)
-        for i, r in enumerate(live):
-            padded[i, :len(r.prompt)] = r.prompt
-            lens[i] = len(r.prompt)
+        synced = True
         dev = self.device
-        cache = T.init_cache(self.cfg, k, bucket, device=dev)
-        logits, pre = T.prefill(self.params, upload(padded, dev), cache,
-                                self.cfg, true_len=upload(lens, dev))
-        self._prefill_calls += 1
-        self.slots.land(slots, pre, lens)
-        firsts = self._first_tokens(live, logits)  # one sync for K
-        self.metrics.host_syncs.inc()
-        now = time.monotonic()
-        for slot, req, first in zip(slots, live, firsts):
-            if req.future.ttft is None:
-                # A resumed request served its first token in an
-                # earlier life; that TTFT stands.
-                req.future.ttft = now - req.submitted_at
-                self.metrics.observe_ttft(req.priority, req.future.ttft)
-            self.metrics.admitted.inc()
-            # The slot's columns land before the next dispatch (step()
-            # admits first); a greedy request writes the zero row.
-            self._samp.set(slot, temperature=req.temperature,
-                           top_k=req.top_k, top_p=req.top_p, seed=req.seed)
-            self._states[slot] = _SlotState(request=req,
-                                            last_token=int(first),
-                                            n_generated=0)
-            self._page_pos[slot] = len(req.prompt)
-            self._taken.remove(req)  # landed: _states owns it now
-            self._emit(slot, int(first))
-        if self._tokens_live:
-            # Land the first tokens in the device token vector (a slot
-            # that its first token retired is inactive: a don't-care).
-            vals = np.zeros(self.engine_cfg.n_slots, np.int64)
-            mask = np.zeros(self.engine_cfg.n_slots, bool)
-            vals[slots] = firsts
-            mask[slots] = True
-            tok = self._tick.tokens
-            tok.copy_(torch.where(upload(mask, dev), upload(vals, dev), tok))
+        if entry is not None and all(len(r.prompt) == p0 for r in live):
+            self.slots.set_pos(slots, [p0] * k)
+            if any(r.temperature > 0.0 for r in live):
+                firsts = self._first_tokens(
+                    live, entry.logits[None].expand(k, -1))
+            else:
+                firsts = [entry.first_token] * k
+                synced = False
+        elif entry is not None:
+            suf_lens = np.array([len(r.prompt) - p0 for r in live],
+                                np.int64)
+            padded = np.zeros((k, self._bucket(int(suf_lens.max()))),
+                              np.int64)
+            for i, r in enumerate(live):
+                padded[i, :suf_lens[i]] = r.prompt[p0:]
+            pk, pv = self.slots.gather_prefix(entry.pages)
+            logits, suf = T.prefill_with_prefix(
+                self.params, upload(padded, dev), pk, pv, p0, self.cfg,
+                true_len=upload(suf_lens, dev))
+            self._prefill_calls += 1
+            self.slots.land(slots, suf, suf_lens, start=p0)
+            firsts = self._first_tokens(live, logits)
+        else:
+            lens = np.array([len(r.prompt) for r in live], np.int64)
+            padded = np.zeros((k, max(self._bucket(n) for n in lens)),
+                              np.int64)
+            for i, r in enumerate(live):
+                padded[i, :lens[i]] = r.prompt
+            logits, pre = self._prefill_rows(padded, lens)
+            self.slots.land(slots, pre, lens)
+            firsts = self._first_tokens(live, logits)  # one sync for K
+        return slots, live, firsts, synced
+
+    def _start_decoding(self, slot: int, req: Request, first: int,
+                        now: float) -> None:
+        """A landed prompt's first token: TTFT (a resumed request served
+        its first token in an earlier life; that TTFT stands), the
+        slot's sampling columns (they land before the next dispatch; a
+        greedy request writes the zero row), the slot's state and write
+        position, then the token itself."""
+        if req.future.ttft is None:
+            req.future.ttft = now - req.submitted_at
+            self.metrics.observe_ttft(req.priority, req.future.ttft)
+        self._samp.set(slot, temperature=req.temperature, top_k=req.top_k,
+                       top_p=req.top_p, seed=req.seed)
+        self._states[slot] = _SlotState(request=req, last_token=first,
+                                        n_generated=0)
+        self._page_pos[slot] = len(req.prompt)
+        self._emit(slot, first)
+
+    def _land_first_tokens(self, slots: List[int], firsts) -> None:
+        """First tokens into the device token vector of a live pipeline
+        (a slot that its first token retired is inactive: a don't-care)."""
+        if not self._tokens_live:
+            return
+        dev = self.device
+        vals = np.zeros(self.engine_cfg.n_slots, np.int64)
+        mask = np.zeros(self.engine_cfg.n_slots, bool)
+        vals[slots] = firsts
+        mask[slots] = True
+        tok = self._tick.tokens
+        tok.copy_(torch.where(upload(mask, dev), upload(vals, dev), tok))
 
     def _first_tokens(self, reqs: List[Request], logits) -> List[int]:
         """An admission group's first tokens from its prefill logits (the
@@ -816,15 +1199,162 @@ class InferenceEngine:
                 "fault)")
         return out[:len(reqs)]
 
+    # -- chunked prefill ---------------------------------------------------
+
+    def _decode_mask(self) -> np.ndarray:
+        """The tick's active mask: allocated slots less those still
+        ingesting (they hold pages but have no token to decode yet)."""
+        active = self.slots.active_mask()
+        for s in self._ingest:
+            active[s] = False
+        return active
+
+    def _admit_chunked(self, req: Request) -> None:
+        """Admit one long prompt for chunked ingestion: attach a matched
+        prefix (a refcount, no compute), open its ingest state and land
+        the first chunk on this tick's budget.  The slot decodes nothing
+        until its last chunk yields the first token
+        (:meth:`_finish_ingest`)."""
+        self._observe_admission(req, time.monotonic())
+        entry = self._matched_prefix(req)
+        if entry is not None:
+            try:
+                self._ensure_prefix(entry)
+            except CacheOutOfPagesError:
+                entry = None  # no sharing: chunk the whole prompt
+        slot = self.slots.alloc()
+        assert slot is not None  # take() is bounded by free_count
+        p0 = 0
+        if entry is not None:
+            self.slots.attach(slot, entry.pages)
+            p0 = len(entry.tokens)
+        self._ingest[slot] = _IngestState(request=req, landed=p0,
+                                          started=p0)
+        self._page_pos[slot] = p0
+        self.metrics.admitted.inc()
+        self._taken.remove(req)  # the ingest state owns it now
+        self._ingest_step(slot)
+
+    def _ensure_ingest_pages(self, slot: int, lo: int, hi: int) -> bool:
+        """Private pages under positions ``[lo, hi]`` for a chunk
+        (:meth:`_claim_page`: a copy-on-write of an attached prefix's
+        partial last page, grants for the rest); False if ``slot``
+        itself was preempted paying for them."""
+        ps = self.slots.page_size
+        for idx in range(lo // ps, hi // ps + 1):
+            if not self._claim_page(slot, idx,
+                                    lambda: slot in self._ingest):
+                return False
+        return True
+
+    def _gather_landed(self, slot: int, lo: int):
+        """The slot's first ``lo`` landed positions as the prefix of its
+        next chunk: exactly ``lo`` positions, gathered through its page
+        table.  (The JAX engine pads the page count to a power of two to
+        bound its compile set; an eager prefill has no compile set.)"""
+        pages = self.slots.table[slot, :self.slots.pages_for(lo)]
+        pk, pv = self.slots.gather_prefix(pages)
+        return pk[:, :, :lo], pv[:, :, :lo]
+
+    def _ingest_step(self, slot: int) -> bool:
+        """Land one chunk of ``slot``'s prompt: claim its pages, run it
+        through ``prefill_with_prefix`` over the landed positions (the
+        first chunk, with nothing landed, through the plain prefill),
+        and scatter its K/V into the slot's pages.  Only the last chunk
+        fetches logits: :meth:`_finish_ingest` turns them into the first
+        token.  True if any work was done."""
+        ing = self._ingest.get(slot)
+        if ing is None:
+            return False
+        if self._reap_ingest(slot):
+            return True
+        req = ing.request
+        if req.deadline is not None and time.monotonic() > req.deadline:
+            # The caller is gone: retire with whatever an earlier life
+            # emitted rather than finish an ingestion nobody reads.
+            req.future._finish("deadline")
+            self.metrics.completed.inc()
+            self._release(slot)
+            return True
+        faults = self.engine_cfg.faults
+        if faults is not None:
+            faults.probe("prefill_chunk")
+        chunk = self.engine_cfg.prefill_chunk_tokens
+        lo = ing.landed
+        n = min(len(req.prompt) - lo, chunk)
+        if not self._ensure_ingest_pages(slot, lo, lo + n - 1):
+            return True  # preempted paying for its own chunk
+        # One bucket for every chunk: the tail chunk is right-padded.
+        padded = np.zeros((1, self._bucket(chunk)), np.int64)
+        padded[0, :n] = req.prompt[lo:lo + n]
+        lens = np.array([n], np.int64)
+        if lo == 0:
+            logits, kv = self._prefill_rows(padded, lens)
+        else:
+            pk, pv = self._gather_landed(slot, lo)
+            logits, kv = T.prefill_with_prefix(
+                self.params, upload(padded, self.device), pk, pv, lo,
+                self.cfg, true_len=upload(lens, self.device))
+            self._prefill_calls += 1
+        self.slots.land([slot], kv, lens, start=lo)
+        self._tick_prefill_spent += n
+        self._tick_ingested.add(slot)
+        ing.landed = lo + n
+        self._page_pos[slot] = ing.landed
+        if ing.landed >= len(req.prompt):
+            self._finish_ingest(slot, ing, logits)
+        return True
+
+    def _finish_ingest(self, slot: int, ing: _IngestState,
+                       logits) -> None:
+        """The last chunk landed: its logits are the whole prompt's
+        last-position logits, so the first token (the argmax, or the
+        draw at key position ``len(prompt)``) is a whole-prompt
+        admission's, and the slot joins the decode mask."""
+        req = ing.request
+        del self._ingest[slot]
+        first = int(self._first_tokens([req], logits)[0])
+        self.metrics.host_syncs.inc()
+        self._start_decoding(slot, req, first, time.monotonic())
+        self._land_first_tokens([slot], [first])
+
+    def _advance_ingest(self) -> bool:
+        """Advance ingestions with this tick's remaining prefill budget,
+        oldest request first, a chunk each.  The oldest advances even
+        when admissions spent the budget (so equal or worse classes
+        cannot starve it), unless a strictly better class waits for the
+        next tick's budget; a tick's prefill stays within twice the
+        budget."""
+        chunk = self.engine_cfg.prefill_chunk_tokens
+        worked = False
+        oldest = True
+        for slot in sorted(self._ingest,
+                           key=lambda s: self._ingest[s].request.id):
+            ing = self._ingest.get(slot)
+            if ing is None:
+                continue  # preempted by an earlier chunk's page claim
+            if self._tick_prefill_spent >= chunk:
+                if not oldest or slot in self._tick_ingested:
+                    break
+                best = self.scheduler.peek_best_rank()
+                if best is not None and best < ing.request.priority_rank:
+                    break
+            worked = self._ingest_step(slot) or worked
+            oldest = False
+        return worked
+
     # -- preemption --------------------------------------------------------
 
     def _occupants(self) -> List:
-        """Every occupied slot as ``(priority rank, request id, slot,
-        request)``: ``max()`` of the list is the preemption victim, the
-        worst class and the youngest request within it."""
-        return [(st.request.priority_rank, st.request.id, s, st.request)
-                for s, st in enumerate(self._states) if st is not None]
-
+        """Every occupied slot, decoding or ingesting, as ``(priority
+        rank, request id, slot, request)``: ``max()`` of the list is the
+        preemption victim, the worst class and the youngest request
+        within it."""
+        occ = [(st.request.priority_rank, st.request.id, s, st.request)
+               for s, st in enumerate(self._states) if st is not None]
+        occ += [(ing.request.priority_rank, ing.request.id, s, ing.request)
+                for s, ing in self._ingest.items()]
+        return occ
     def _build_resume(self, req: Request) -> Optional[Request]:
         """A resume request for ``req`` from its journal frontier —
         prompt + emitted tokens as the new prompt, the remaining decode
@@ -858,10 +1388,10 @@ class InferenceEngine:
         still live, so its tokens stay those of an uninterrupted run.
         Without a frontier (``resume=False``) the future fails with
         :class:`CacheOutOfPagesError`.  True if the slot was vacated."""
-        st = self._states[slot]
-        if st is None:
+        st, ing = self._states[slot], self._ingest.get(slot)
+        if st is None and ing is None:
             return False
-        req = st.request
+        req = st.request if st is not None else ing.request
         fut = req.future
         self._release(slot)
         if fut.done():
@@ -877,6 +1407,11 @@ class InferenceEngine:
                 "backoff"))
             self.metrics.rejected.inc()
             return True
+        if ing is not None:
+            # A victim mid-ingestion emitted nothing, but its landed
+            # chunks were prefill that the re-ingestion repeats.
+            new._resume_wasted = max(new._resume_wasted,
+                                     ing.landed - ing.started)
         self.metrics.preemptions.inc()
         if new._resume_wasted:
             self.metrics.resume_wasted_tokens.inc(new._resume_wasted)
@@ -915,9 +1450,10 @@ class InferenceEngine:
         return self._preempt(worst[2], "slot_pressure")
 
     def _prepare_paged_tick(self) -> None:
-        """Tick-boundary page maintenance: every active slot gets a page
-        under its write position (preempting on exhaustion), then the
-        tick's table is refreshed iff it changed."""
+        """Tick-boundary page maintenance: every decoding slot gets a
+        private page under its write position (granted, or copied from
+        a shared one; preempting on exhaustion), then the tick's table
+        is refreshed iff it changed."""
         ps = self.slots.page_size
         for s in range(self.engine_cfg.n_slots):
             st = self._states[s]
@@ -927,23 +1463,30 @@ class InferenceEngine:
             last_real = len(st.request.prompt) + st.request.max_new_tokens - 2
             if wp > min(last_real, self.slots.max_len - 1):
                 continue
-            self._claim_page(s, wp // ps)
+            self._claim_page(s, wp // ps,
+                             lambda: self._states[s] is not None)
         if self._table_uploaded != self.slots.table_version:
             upload_into(self._tick.table, self.slots.table)
             self._table_uploaded = self.slots.table_version
 
-    def _claim_page(self, slot: int, idx: int) -> bool:
-        """Grant ``slot`` a page at table index ``idx``, preempting
-        victims while the pool is exhausted.  False when ``slot`` itself
-        was the victim."""
-        while self.slots.table[slot, idx] == NULL_PAGE:
+    def _claim_page(self, slot: int, idx: int, still_mine) -> bool:
+        """The one grant / copy-on-write / evict protocol (decode growth
+        and chunk ingestion both use it): make ``slot`` own a private
+        page at table index ``idx`` — granted when unmapped, copied when
+        shared, left alone when already private — preempting victims
+        while the pool is exhausted.  ``still_mine()`` is the caller's
+        occupancy check; False when ``slot`` itself was the victim."""
+        while True:
             try:
-                self.slots.grant(slot, idx)
+                if self.slots.table[slot, idx] == NULL_PAGE:
+                    self.slots.grant(slot, idx)
+                else:
+                    self.slots.cow(slot, idx)
+                return True
             except CacheOutOfPagesError:
                 self._evict_for_pages()
-                if self._states[slot] is None:
+                if not still_mine():
                     return False
-        return True
 
     def _emit(self, slot: int, tok: int) -> None:
         """Stream one token to the slot's future and journal it; retire
@@ -985,10 +1528,11 @@ class InferenceEngine:
         return tokens
 
     def _dispatch(self, active: np.ndarray, t0: float) -> Dict:
-        """Refresh the tick's mask (iff it changed) and sampling columns
-        (iff dirty), run one tick over all slots, and start fetching its
-        next tokens and per-slot max logit.  Returns the pending record
-        :meth:`_retire_pending` applies."""
+        """Refresh the tick's mask (iff it changed; ``active`` is
+        :meth:`_decode_mask`, so ingesting slots stay out) and sampling
+        columns (iff dirty), run one tick over all slots, and start
+        fetching its next tokens and per-slot max logit.  Returns the
+        pending record :meth:`_retire_pending` applies."""
         if (self._active_uploaded is None
                 or not np.array_equal(active, self._active_uploaded)):
             upload_into(self._tick.active, active)
@@ -1011,7 +1555,7 @@ class InferenceEngine:
         upload the tokens, dispatch, fetch and emit in the same step."""
         if self.slots.active_count:
             self._prepare_paged_tick()
-        active = self.slots.active_mask()
+        active = self._decode_mask()
         if not active.any():
             return False
         t0 = time.monotonic()
@@ -1029,7 +1573,7 @@ class InferenceEngine:
             # Page grants (and preemptions) before the mask snapshot:
             # host bookkeeping and a non-blocking table copy.
             self._prepare_paged_tick()
-        active = self.slots.active_mask()
+        active = self._decode_mask()
         new_pending = None
         if active.any():
             t0 = time.monotonic()
@@ -1098,6 +1642,8 @@ class InferenceEngine:
                 st.request.future.set_exception(exc)
         for req in self._taken:
             req.future.set_exception(exc)
+        for ing in self._ingest.values():
+            ing.request.future.set_exception(exc)
         self._clear_inflight_state()
 
     def _suspend_inflight(self, exc: BaseException) -> List[Request]:
@@ -1107,8 +1653,19 @@ class InferenceEngine:
         resume are resolved in place.  Returned in submission order."""
         pending = [st.request for st in self._states if st is not None]
         pending += list(self._taken)
-        resumed = [r for r in (self._resume_or_fail(req, exc)
-                               for req in pending) if r is not None]
+        # Mid-ingestion requests emitted nothing: they re-ingest from
+        # their prompt, and their landed chunks count as wasted prefill.
+        pending += [ing.request for ing in self._ingest.values()]
+        ingest_wasted = {ing.request.id: ing.landed - ing.started
+                         for ing in self._ingest.values()}
+        resumed = []
+        for req in pending:
+            r = self._resume_or_fail(req, exc)
+            if r is not None:
+                if r.id in ingest_wasted:
+                    r._resume_wasted = max(r._resume_wasted,
+                                           ingest_wasted[r.id])
+                resumed.append(r)
         self._clear_inflight_state()
         resumed.sort(key=lambda r: r.id)
         self._resuming = len(resumed)
@@ -1144,7 +1701,12 @@ class InferenceEngine:
         (host only: a terminal engine reports no phantom occupancy)."""
         self._taken = []
         self._states = [None] * self.engine_cfg.n_slots
+        self._ingest = {}
         self.slots.release_all()
+        # release_all dropped the prefix registry's pins too: a new
+        # epoch, so that stale entries neither attach freed pages nor
+        # unpin twice, and re-prefill at their next use.
+        self._cache_epoch += 1
         self._reset_pipeline()
 
     def _reset_pipeline(self) -> None:
@@ -1272,7 +1834,11 @@ class InferenceEngine:
         self.slots.reset()
         self._tick.reset_inputs()
         self._states = [None] * self.engine_cfg.n_slots
+        self._ingest = {}
         self._reset_pipeline()
+        # The pool is fresh: the registered prefixes' pages died with
+        # it; their entries re-prefill, once, at their next use.
+        self._cache_epoch += 1
         self._update_page_gauges()
         with self._hb_lock:
             self._epoch += 1
@@ -1324,6 +1890,8 @@ class InferenceEngine:
                 st.request.future.set_exception(exc)
         for req in list(self._taken):
             req.future.set_exception(exc)
+        for ing in list(self._ingest.values()):
+            ing.request.future.set_exception(exc)
         self._fail_queue(exc)
 
     def _declare_stalled(self, epoch: int, started: float) -> None:
@@ -1394,19 +1962,26 @@ class InferenceEngine:
         synchronously through one admission per (prompt bucket, batch
         k <= max_prefills_per_tick) and its decode ticks — on the card
         this builds both kernels and warms their launch paths before
-        real traffic.  Call it before :meth:`start`: no other thread
+        real traffic.  Registered prefixes warm their suffix prefills,
+        ``prompt_lens`` as the suffix lengths.  Call it before :meth:`start`: no other thread
         touches the card during the capture.  The sweep's synthetic
         requests are kept out of the journal."""
         with self._lock:
             self._tick.capture()
         kmax = min(self.engine_cfg.max_prefills_per_tick,
                    self.engine_cfg.n_slots)
+        prompts = [[0] * max(int(n), 1) for n in prompt_lens]
+        # Registered prefixes: their suffix prefills too, with
+        # prompt_lens as the suffix lengths.
+        prompts += [list(e.tokens) + [0] * max(int(n), 1)
+                    for e in list(self._prefixes.values())
+                    for n in prompt_lens
+                    if len(e.tokens) + int(n) + 2 <= self.slots.max_len]
         journal, self.journal = self.journal, None
         try:
-            for n in prompt_lens:
+            for prompt in prompts:
                 for k in range(1, kmax + 1):
-                    futs = [self.submit([0] * max(int(n), 1),
-                                        max_new_tokens=2)
+                    futs = [self.submit(prompt, max_new_tokens=2)
                             for _ in range(k)]
                     while not all(f.done() for f in futs):
                         self.step()
@@ -1480,6 +2055,9 @@ class InferenceEngine:
             "slots_active": self.slots.active_count,
             "max_len": self.slots.max_len,
             "prefill_calls": self._prefill_calls,
+            "prefill_chunk_tokens": self.engine_cfg.prefill_chunk_tokens,
+            "slots_ingesting": len(self._ingest),
+            "prefixes_registered": len(self._prefixes),
             "page_size": self.slots.page_size,
             "kv_dtype": str(self.slots._storage_dtype).replace("torch.", ""),
             "kv_pages_high_water": self.slots.pages_high_water,

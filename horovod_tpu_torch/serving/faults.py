@@ -4,11 +4,10 @@ A verbatim copy of ``horovod_tpu/serving/faults.py`` (standard library
 only): the port keeps its own copy because importing anything from
 ``horovod_tpu`` loads JAX.  The site list is kept whole so that one
 :class:`FaultSpec` fires on the same visit in both engines; the port's
-engine probes ``prefill``, ``decode_tick``, ``decode_fetch``,
-``watchdog`` and ``restart_resume`` (chunked prefill, and with it
-``prefill_chunk``, is not ported; the rollout sites belong to the JAX
-package's fleet controller).  The references to the JAX package's docs
-and modules below describe the original.
+engine probes ``prefill``, ``prefill_chunk``, ``decode_tick``,
+``decode_fetch``, ``watchdog`` and ``restart_resume`` (the rollout
+sites belong to the JAX package's fleet controller).  The references
+to the JAX package's docs and modules below describe the original.
 
 The chaos suite (``tests/test_chaos.py``) needs to prove one invariant:
 *no submitted request ever hangs* — under device exceptions, hung

@@ -114,6 +114,10 @@ class ServingMetrics:
         self.kv_pages_free = r.gauge(
             "serving_kv_pages_free",
             "KV pages on the free heap (admission headroom)")
+        self.kv_pages_shared = r.gauge(
+            "serving_kv_pages_shared",
+            "KV pages referenced by more than one owner "
+            "(prefix sharing in effect)")
         self.kv_bytes_per_token = r.gauge(
             "serving_kv_bytes_per_token",
             "KV cache bytes per stored token (k+v across layers, incl. "
@@ -174,6 +178,7 @@ class ServingMetrics:
             "decode_ticks": ticks,
             "kv_pages_total": self.kv_pages_total.value,
             "kv_pages_free": self.kv_pages_free.value,
+            "kv_pages_shared": self.kv_pages_shared.value,
             "kv_bytes_per_token": self.kv_bytes_per_token.value,
             "host_syncs": self.host_syncs.value,
             "host_syncs_per_tick":

@@ -14,7 +14,8 @@ order), 2e-2 at bf16 (p, ds and the outputs are rounded to bf16, whose
 step is 2^-8 = 3.9e-3 of a value: a few one-step flips where the f32
 sums differ in their last bits).  The serving engine's decode tick,
 captured as a CUDA graph, is held to the same tick run eagerly bit for
-bit: the same kernels on the same inputs.
+bit: the same kernels on the same inputs, also after a copy-on-write of
+a shared prefix page.
 """
 
 import numpy as np
@@ -25,6 +26,7 @@ from horovod_tpu_torch import serving
 from horovod_tpu_torch.models import transformer as T
 from horovod_tpu_torch.ops import attention as A
 from horovod_tpu_torch.ops import paged_attention as PA
+from horovod_tpu_torch.serving.cache import copy_page
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +70,28 @@ def test_flash_kernel(dev, dtype, tol, D, S, T, mask):
     assert A.flash_fwd_launches == before + 1
     o_r, l_r = A._reference_attention_lse(
         q, A.expand_kv(k, 8), A.expand_kv(v, 8), shift, 1 / D ** 0.5)
+    assert (o.float() - o_r.float()).abs().max().item() <= tol
+    assert (lse - l_r).abs().max().item() <= tol
+
+
+# (p0, S0): K1 as prefill_with_prefix calls it, shift = -p0 over T = p0 +
+# S0 keys — prefixes on and off a page or key block, chunk shapes.
+SUFFIX_CASES = [(15, 16), (32, 32), (1000, 256), (2016, 32), (1024, 512)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("p0,S0", SUFFIX_CASES)
+def test_flash_kernel_suffix_shift(dev, dtype, tol, p0, S0):
+    """K1 at a suffix's shapes (negative shift, T != S, GQA G = 4)
+    against its plain version."""
+    g = torch.Generator(device=dev).manual_seed(p0)
+    q = torch.randn((2, 8, S0, 64), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((2, 2, p0 + S0, 64), generator=g,
+                        device=dev).to(dtype) for _ in range(2))
+    o, lse = A.flash_attention_shifted(q, k, v, -p0)
+    o_r, l_r = A._reference_attention_lse(
+        q, A.expand_kv(k, 8), A.expand_kv(v, 8), -p0, 1 / 64 ** 0.5)
     assert (o.float() - o_r.float()).abs().max().item() <= tol
     assert (lse - l_r).abs().max().item() <= tol
 
@@ -361,3 +385,74 @@ def test_restart_resets_in_place_and_keeps_the_capture(dev, overlap):
     assert engine._tick.pool is engine.slots.cache
     assert {k: t.data_ptr() for k, t in engine.slots.cache.items()} == ptrs
     assert engine._tick.replays > replays
+
+
+def test_cow_keeps_the_capture_and_equals_the_eager_tick(dev):
+    """Slots attached to a registered prefix whose last page is partial:
+    their first decode write copies that page (in place, inside the pool
+    tensors the graph captured).  Twenty replays after the copy equal
+    twenty eager ticks run from a copy of the same state, bit for bit;
+    the pool keeps its addresses and the graph is not recaptured.  Then
+    a burst of sharers through ``step()`` returns every token."""
+    engine, cfg = _serving_engine(dev, overlap=False)
+    engine.warmup((8,))
+    ptrs = {k: t.data_ptr() for k, t in engine.slots.cache.items()}
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(0, 32000, 75).tolist()  # 4 pages and 11 tokens
+    engine.register_prefix(prefix)
+    entry = engine._prefixes[tuple(prefix)]
+    futs = [engine.submit(list(prefix) if i % 2 else
+                          prefix + rng.integers(0, 32000, 9 + i).tolist(),
+                          max_new_tokens=40, **kw)
+            for i, kw in enumerate(SAMPLING)]
+    while engine.scheduler.depth or engine.slots.active_count < 8:
+        engine._admit_pending()  # land, no decode: nothing copied yet
+    shared = entry.pages[-1]
+    assert engine.slots._ref[shared] > 2
+    tick = engine._tick
+    tick.table.copy_(torch.from_numpy(engine.slots.table))
+    tick.tokens.copy_(torch.from_numpy(engine._host_tokens()))
+    tick.active.fill_(True)
+    engine._samp.device()
+    eager = tick.twin()
+    # The copies: every attach-only slot's write page is the shared one.
+    ps = engine.slots.page_size
+    before = engine.slots.table.copy()
+    for s in range(8):
+        for idx in range(int(engine._page_pos[s]) // ps,
+                         (int(engine._page_pos[s]) + 20) // ps + 1):
+            engine._claim_page(s, idx, lambda: True)
+    moved = [(int(before[s, i]), int(engine.slots.table[s, i]))
+             for s, i in zip(*np.nonzero(before != engine.slots.table))
+             if before[s, i] != serving.NULL_PAGE]
+    assert len(moved) == 4 and all(src == shared for src, _ in moved)
+    for src, dst in moved:
+        copy_page(eager.pool, src, dst)
+    tick.table.copy_(torch.from_numpy(engine.slots.table))
+    eager.table.copy_(tick.table)
+    graphed = [tuple(t.clone() for t in tick.run()) for _ in range(20)]
+    for i in range(20):
+        nxt, mx = eager.body()
+        assert torch.equal(nxt, graphed[i][0]), i
+        assert torch.equal(mx, graphed[i][1]), i
+    for name, t in tick.pool.items():
+        assert torch.equal(t, eager.pool[name]), name
+    assert {k: t.data_ptr() for k, t in engine.slots.cache.items()} == ptrs
+    assert engine.stats()["decode_compilations"] == 1
+    engine.terminate()
+    # The same mix through the engine, copies and all.
+    engine, cfg = _serving_engine(dev)
+    engine.warmup((8,))
+    ptrs = {k: t.data_ptr() for k, t in engine.slots.cache.items()}
+    engine.register_prefix(prefix)
+    futs = [engine.submit(list(prefix) if i % 2 else prefix + [i + 1] * 5,
+                          max_new_tokens=24, **kw)
+            for i, kw in enumerate(SAMPLING)]
+    shared_seen = 0
+    while not all(f.done() for f in futs):
+        engine.step()
+        shared_seen = max(shared_seen, engine.slots.pages_shared)
+    assert all(len(f.result(timeout=0)) == 24 for f in futs)
+    assert shared_seen >= 4
+    assert engine.stats()["decode_compilations"] == 1
+    assert {k: t.data_ptr() for k, t in engine.slots.cache.items()} == ptrs
