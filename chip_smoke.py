@@ -31,7 +31,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (shift = S - T) and fully masked (shift = T - S); K1 also at the
    resume bucket, S = 2176 (``max_len``), B = 2, and at the suffix
    shapes of ``prefill_with_prefix`` (``SUFFIX_SHAPES``: S0 queries
-   over T = p0 + S0 keys, shift = -p0), B = 2, H = 16, H_kv = 4.
+   over T = p0 + S0 keys, shift = -p0), B = 2, H = 16, H_kv = 4; at the
+   suffix shapes also with the shift read from device memory (the
+   captured suffix prefills' mode), against the plain version and bit
+   for bit against the by-value shift.
 4. Serving at full width: the d1024/L8/H16/kv4 bf16 Transformer from
    ``init_params`` seed 0, 8 slots.  First the decode tick at 8 slots
    and depth 1000 (half the slots sampling), three ways, each with its
@@ -43,11 +46,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    tick against the eager one: 20 ticks of a live mix from a copy of
    the same state must give equal tokens, max logits, pool bytes and
    positions, with K4 launched once a layer a replay.  Then
-   ``InferenceEngine`` + ``ServingServer``: 8 concurrent ``POST
-   /generate`` requests, half greedy and half sampled with fixed seeds,
-   whose prompts cover the buckets 8..2048.  Every request must return
+   ``InferenceEngine`` + ``ServingServer``, warmed over every prompt
+   bucket (``ENGINE_WARM_LENS``: each admission graph ``("full", bucket,
+   k)`` and ``("sample", k)`` captured, the captures' count, seconds
+   and the device memory reserved around the sweep printed): 8
+   concurrent ``POST /generate`` requests, half greedy and half
+   sampled with fixed seeds, whose prompts cover the buckets 8..2048.
+   Every request must return
    its full token count, both kernels' launch counters must grow during
-   the run, and ``decode_compilations`` must read 1 before and after.
+   the run, ``decode_compilations`` must read 1 before and after, and
+   ``prefill_compilations`` and ``sample_compilations`` must not grow
+   past the warmups over the prefix runs and the burst.
    Then durability in bf16: the same prompts on a pool of
    ``DURABLE_PAGES`` pages, below capacity parity, so that decode growth
    suspends requests, and a decode tick raising midway through the
@@ -58,8 +67,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    Shared prefixes, on the same engine before its HTTP burst: a registered
    ``PREFIX_LEN``-token prefix (its last page partial) and eight
    requests, six sharers with suffixes of 16-512 tokens and a greedy
-   and a sampled one whose prompt is the prefix.  Every request returns
-   its full count; the only whole-prompt prefill is the prefix's (the
+   and a sampled one whose prompt is the prefix, after a warmup of the
+   prefix's suffix graphs (``PREFIX_SUFFIXES`` as the suffix lengths).
+   Every request returns its full count; the only whole-prompt
+   prefill is the prefix's (the
    sharers prefill their suffixes only, the prefix prompts nothing);
    ``kv_pages_shared`` is above 0 while they decode; after
    ``unregister_prefix`` the pool is whole; one capture.  Then the same
@@ -68,12 +79,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    one group of two prompts at bucket 2048 and one at bucket 16, each
    admitted alone: host wall, device busy and kernel count
    (``torch.profiler``), and the time from ``_admit_batch``'s entry to
-   its first-token sync.  Then the SLO leg of ``benchmarks/serving.py``
-   (two waves of two long batch prompts and six short interactive
+   the replay and to its first-token sync: the captured path, one
+   prefill replay.  Then the SLO leg of ``benchmarks/serving.py`` (two
+   waves of two long batch prompts and six short interactive
    ones; 4 slots, K = 2) on fresh engines driven by their own thread:
    ``slo`` (chunks of 32 tokens, priority classes) and ``fcfs``
-   (whole-prompt prefill, one class), each request its full count, one
-   capture; per-class TTFT p50/p99, tok/s and preemptions printed.
+   (whole-prompt prefill, one class), each warmed over the buckets its
+   prompts and their resumes reach, each request its full count, one
+   capture of the tick and none of admission past the warmup; per-class
+   TTFT p50/p99, tok/s and preemptions printed.
 5. Token identity: the same configuration in f32 (TF32 off for matmuls
    and cuDNN) against the per-request oracles, ``greedy_decode`` for the
    greedy requests and ``sample_decode`` at the request's seed for the
@@ -111,8 +125,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    its bound, its achieved TFLOP/s (the bound's FLOP count over its
    time), its plain version and a PyTorch yardstick the port never
    calls, and K4's split grid; the serving run's decode tok/s, TTFT and
-   per-tick time.  K1 also at the prefix phase's suffix shape, SDPA with
-   the same mask as a boolean ``attn_mask`` its yardstick.
+   per-tick time.  K1 also at the prefix phase's suffix shape, by value
+   and with the shift read from device memory, SDPA with the same mask
+   as a boolean ``attn_mask`` its yardstick.
 
 Each phase's seconds are printed as it ends.
 
@@ -157,6 +172,10 @@ TRAIN_BATCH, TRAIN_STEPS = 8, 10
 ENGINE = dict(n_slots=8, max_len=2176, max_prefills_per_tick=2,
               page_size=16, max_queue_depth=64, default_max_new_tokens=128)
 PROMPT_LENS = [5, 16, 40, 100, 300, 700, 1500, 2048]
+# One prompt length in each prefill bucket of ENGINE, 8 to 2048 and 2176
+# (max_len, which a resumed long prompt reaches): the serving, durability
+# and f32 engines' warmup captures the whole-prompt graphs of all of them.
+ENGINE_WARM_LENS = [8, 16, 32, 64, 128, 256, 512, 1024, 2048, 2170]
 NEW_TOKENS = [128, 64, 96, 128, 80, 112, 64, 128]
 F32_NEW_TOKENS = 32
 PROFILE_DEPTH = 1000  # every slot's prompt length in the profiled ticks
@@ -434,6 +453,32 @@ def check_flash() -> dict:
             worst["serving"] = err
         if dt == torch.bfloat16 and (T - S, S) == SUFFIX_SHAPES[0]:
             worst["suffix"] = err
+        worst[name] = err
+    # The device shift at the suffix shapes: the key buffer padded past
+    # p0 + S0 with junk, as the captured suffix prefill's is.
+    for i, (dt, (p0, S0)) in enumerate((dt, sh) for dt in dts
+                                       for sh in SUFFIX_SHAPES):
+        B, H, Hkv, D = 2, 16, 4, 64
+        T = p0 + S0 + 64
+        q, k, v = _k1_inputs(B, H, Hkv, S0, D, dt, seed=500 + i, T=T)
+        shift = torch.tensor(-p0, dtype=torch.int32, device="cuda")
+        o, lse = A.flash_attention_shifted(q, k, v, shift)
+        o_v, lse_v = A.flash_attention_shifted(q, k, v, -p0)
+        o_r, l_r = A._reference_attention_lse(
+            q, A.expand_kv(k, H), A.expand_kv(v, H), -p0, 1.0 / math.sqrt(D))
+        torch.cuda.synchronize()
+        err = max((o.float() - o_r.float()).abs().max().item(),
+                  (lse - l_r).abs().max().item())
+        same = torch.equal(o, o_v) and torch.equal(lse, lse_v)
+        name = (f"K1 device shift {str(dt)[6:]} D={D} S={S0} T={T} "
+                f"shift={-p0}")
+        log(f"{name}: max_abs_err={err:.3e} tol={tol[dt]:.0e}, "
+            f"bit-identical to the by-value shift: {same}")
+        if not (err <= tol[dt] and same):
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 "or with the by-value shift")
+        if dt == torch.bfloat16 and (p0, S0) == SUFFIX_SHAPES[0]:
+            worst["suffix_device_shift"] = err
         worst[name] = err
     return worst
 
@@ -812,7 +857,18 @@ def serve_full_width(card: str) -> dict:
     check = graph_vs_eager(sync)
     del sync
     engine = InferenceEngine(params, cfg, EngineConfig(**ENGINE))
-    engine.warmup((8,))
+    t0 = time.monotonic()
+    engine.warmup(ENGINE_WARM_LENS)
+    warm_s = time.monotonic() - t0
+    warm_graphs = _admission_graphs(engine)
+    reserved = warm_graphs["warmup_reserved_bytes"]
+    log(f"admission graphs on {card}: warmup over buckets 8-2176 in "
+        f"{warm_s:.3f} s; {warm_graphs['prefill_compilations']} prefill "
+        f"and {warm_graphs['sample_compilations']} sampler captures in "
+        f"{warm_graphs['prefill_capture_s']:.3f} s; reserved "
+        f"{reserved[0]} -> {reserved[1]} bytes across the sweep "
+        f"(+{(reserved[1] - reserved[0]) / 2**20:.1f} MiB, the tick's "
+        f"capture included); buckets {engine.stats()['prefill_buckets']}")
     captures0 = engine.stats()["decode_compilations"]
     modes.append(profile_decode(engine, "graph_overlap",
                                 sampler["sampler_ms"]))
@@ -823,6 +879,7 @@ def serve_full_width(card: str) -> dict:
         prefix = prefix_full_width(engine, card)
     with phase("admission_profile"):
         admission = admission_profile(engine)
+    graphs0 = _admission_graphs(engine)
     ticks0 = engine.metrics.decode_ticks.value
     sums0 = {k: getattr(engine.metrics, k).snapshot()["sum"]
              for k in ("tick_dispatch", "tick_device_wait", "tick_host")}
@@ -867,6 +924,10 @@ def serve_full_width(card: str) -> dict:
     if captures != (1, 1):
         raise AssertionError(f"decode_compilations before/after the burst: "
                              f"{captures}, expected 1 and 1")
+    graphs1 = _admission_graphs(engine)
+    if graphs1 != graphs0:
+        raise AssertionError(f"the burst captured admission graphs: "
+                             f"{graphs0} before, {graphs1} after")
     ticks = stats["decode_ticks"] - ticks0
     tick_s = sum(stats[f"{k}_seconds"]["sum"] - sums0[k] for k in sums0)
     ttft = sorted(r[1]["ttft_ms"] for r in results)
@@ -884,14 +945,18 @@ def serve_full_width(card: str) -> dict:
         "kv_pages_high_water": stats["kv_pages_high_water"],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "decode_modes": modes, "sampler": sampler,
-        "graph_vs_eager": check,
+        "graph_vs_eager": check, "warmup_s": warm_s,
+        "admission_graphs_after_warmup": warm_graphs,
+        "admission_graphs_after_burst": graphs1,
+        "prefill_buckets": stats["prefill_buckets"],
     }
     log(f"serving bf16: {len(prompts)} requests (half sampled), {total} "
         f"tokens in {wall:.3f} s = {out['tok_per_s']:.1f} tok/s; {ticks} "
         f"decode ticks at {out['tick_ms_mean']:.3f} ms; TTFT p50 "
         f"{out['ttft_ms_p50']:.1f} ms max {out['ttft_ms_max']:.1f} ms; "
         f"launches {launches}; decode_compilations before/after "
-        f"{captures}; sampler {sampler['share_of_tick_busy']:.1%} of the "
+        f"{captures}; admission graphs {graphs1} (none captured during the "
+        f"burst); sampler {sampler['share_of_tick_busy']:.1%} of the "
         "graph tick's device busy")
     out["prefix"], out["admission_profile"] = prefix, admission
     del engine
@@ -937,7 +1002,7 @@ def durability_bf16(params, cfg) -> dict:
     inj = FaultInjector()
     engine = InferenceEngine(params, cfg, EngineConfig(
         **ENGINE, n_pages=DURABLE_PAGES, faults=inj))
-    engine.warmup((8,))
+    engine.warmup(ENGINE_WARM_LENS)
     prompts = _prompts()
     # The durability phase's main path: the launch counters read 0 here
     # and are read again after its last request.
@@ -1107,7 +1172,7 @@ def token_identity() -> dict:
     params = T.init_params(cfg, seed=0)
     inj = FaultInjector()  # no fault until the faulted burst adds them
     engine = InferenceEngine(params, cfg, EngineConfig(**ENGINE, faults=inj))
-    engine.warmup((8,))
+    engine.warmup(ENGINE_WARM_LENS)
     prompts = _prompts(seed=1)
     t0 = time.monotonic()
     futs = [engine.submit(p, max_new_tokens=F32_NEW_TOKENS, **SAMPLING[i])
@@ -1180,40 +1245,64 @@ def _prefix_prompts(seed: int):
 
 
 class _PrefillCounter:
-    """The engine's prefills while entered: each call of the whole-prompt
-    ``prefill`` and of ``prefill_with_prefix``, with its padded tokens and
-    its real lengths (kept as device tensors and summed afterwards, so
-    that counting adds no host sync)."""
+    """The engine's prefills while entered: each replay of a whole-prompt
+    graph (``prefill``) and of a suffix graph (``prefill_with_prefix``),
+    with its padded and real token counts, read from the host arrays the
+    engine uploads (no host sync)."""
+
+    def __init__(self, engine):
+        self.engine = engine
 
     def __enter__(self):
-        from horovod_tpu_torch.models import transformer as T
+        self.calls = []
+        replay = self.engine._replay
 
-        self.T, self.calls = T, []
-        self.saved = (T.prefill, T.prefill_with_prefix)
+        def call(key, fields):
+            name = "prefill" if key[0] == "full" else "prefill_with_prefix"
+            self.calls.append((name, int(np.size(fields["tokens"])),
+                               int(np.sum(fields["lens"]))))
+            return replay(key, fields)
 
-        def counted(name, fn):
-            def call(params, tokens, *args, true_len=None, **kw):
-                self.calls.append((name, tokens.numel(), true_len))
-                return fn(params, tokens, *args, true_len=true_len, **kw)
-            return call
-
-        T.prefill = counted("prefill", T.prefill)
-        T.prefill_with_prefix = counted("prefill_with_prefix",
-                                        T.prefill_with_prefix)
+        self.engine._replay = call
         return self
 
     def __exit__(self, *exc):
-        self.T.prefill, self.T.prefill_with_prefix = self.saved
+        del self.engine._replay
 
-    def summary(self) -> dict:
-        out = {}
-        for name, padded, true_len in self.calls:
+    def summary(self, into: dict = None) -> dict:
+        out = {} if into is None else into
+        for name, padded, tokens in self.calls:
             d = out.setdefault(name, {"calls": 0, "tokens": 0,
                                       "padded_tokens": 0})
             d["calls"] += 1
-            d["tokens"] += int(true_len.sum())
+            d["tokens"] += tokens
             d["padded_tokens"] += padded
         return out
+
+
+def _admission_graphs(engine) -> dict:
+    """The engine's admission-graph counts: captures of prefills and of
+    the first-token sampler, their seconds, the device memory reserved
+    before and after the last warmup, and the prefill shapes used."""
+    st = engine.stats()
+    out = {k: st[k] for k in ("prefill_compilations", "sample_compilations",
+                              "prefill_capture_s", "warmup_reserved_bytes",
+                              "decode_compilations")}
+    out["prefill_shapes_used"] = (len(st["prefill_buckets"])
+                                  + len(st["prefill_suffix_shapes"]))
+    return out
+
+
+def _warm_lens(engine, lens) -> list:
+    """One length for each prefill bucket that prompts of ``lens`` and
+    their resumes (up to ``SLO_NEW_TOKENS`` tokens longer) reach: the
+    longest in each."""
+    longest = {}
+    for n in lens:
+        for m in range(n, n + SLO_NEW_TOKENS + 1):
+            b = engine._bucket(m)
+            longest[b] = max(longest.get(b, 0), m)
+    return sorted(longest.values())
 
 
 def _stepped_burst(engine, prompts, sampling, new_tokens) -> dict:
@@ -1251,21 +1340,30 @@ def prefix_full_width(engine, card: str) -> dict:
     suffixes; the prefix prompts none), pages must be shared while they
     decode, the pool must be whole again after ``unregister_prefix``,
     and the tick captured once.  Then the same prompts with nothing
-    registered, for comparison."""
+    registered, for comparison.  The prefix's suffix graphs are warmed
+    between its registration and the first run, and neither run may
+    capture an admission graph."""
     from horovod_tpu_torch.ops import attention as A
     from horovod_tpu_torch.ops import paged_attention as PA
 
     prefix, prompts = _prefix_prompts(seed=5)
     n_pages = engine.slots.n_pages
-    # The prefix path's run: the launch counters read 0 here and are
-    # read again after its last request.
-    A.flash_fwd_launches = 0
-    PA.paged_attend_launches = 0
-    with _PrefillCounter() as counted:
+    with _PrefillCounter(engine) as counted:
         t0 = time.monotonic()
         engine.register_prefix(prefix)
         torch.cuda.synchronize()
         register_s = time.monotonic() - t0
+    # The prefix's suffix graphs, captured before the timed run (the JAX
+    # warmup compiles a registered prefix's suffix prefills).
+    t0 = time.monotonic()
+    engine.warmup(PREFIX_SUFFIXES)
+    warm_s = time.monotonic() - t0
+    graphs = _admission_graphs(engine)
+    # The prefix path's run: the launch counters read 0 here and are
+    # read again after its last request.
+    A.flash_fwd_launches = 0
+    PA.paged_attend_launches = 0
+    with _PrefillCounter(engine) as run_counted:
         shared = _stepped_burst(engine, prompts, PREFIX_SAMPLING,
                                 PREFIX_NEW_TOKENS)
     launches = {"flash_fwd": A.flash_fwd_launches,
@@ -1274,7 +1372,7 @@ def prefix_full_width(engine, card: str) -> dict:
     engine.unregister_prefix(prefix)
     engine.drain(timeout=60)
     free_after = engine.slots.free_pages
-    prefills = counted.summary()
+    prefills = run_counted.summary(counted.summary())
     want_full = {"calls": 1, "tokens": PREFIX_LEN,
                  "padded_tokens": engine._bucket(PREFIX_LEN)}
     if prefills.get("prefill") != want_full:
@@ -1292,21 +1390,23 @@ def prefix_full_width(engine, card: str) -> dict:
                              f"and {n_pages}")
     if not all(n > 0 for n in launches.values()):
         raise AssertionError(f"the prefix run missed a kernel: {launches}")
-    with _PrefillCounter() as counted:
+    with _PrefillCounter(engine) as counted:
         plain = _stepped_burst(engine, prompts, PREFIX_SAMPLING,
                                PREFIX_NEW_TOKENS)
     plain_prefills = counted.summary()
-    captures = engine.stats()["decode_compilations"]
-    if captures != 1:
-        raise AssertionError(f"decode_compilations {captures} after the "
-                             "prefix runs, expected 1")
+    after = _admission_graphs(engine)
+    if after != graphs:
+        raise AssertionError(f"the prefix runs captured past the warmup: "
+                             f"{graphs} before, {after} after")
     same = sum(a == b for a, b in zip(shared.pop("tokens"),
                                       plain.pop("tokens")))
     out = {"prefix_len": PREFIX_LEN, "suffixes": PREFIX_SUFFIXES,
            "new_tokens": PREFIX_NEW_TOKENS, "register_s": register_s,
            "shared": shared, "plain": plain, "prefills": prefills,
            "plain_prefills": plain_prefills, "launches": launches,
-           "pinned_pages": pin, "requests_equal_to_plain_run": same}
+           "pinned_pages": pin, "requests_equal_to_plain_run": same,
+           "suffix_warmup_s": warm_s, "admission_graphs": graphs,
+           "suffix_shapes": engine.stats()["prefill_suffix_shapes"]}
     log(f"prefix bf16 on {card}: {PREFIX_LEN}-token prefix registered in "
         f"{register_s:.3f} s; shared {shared['tok_per_s']:.1f} tok/s, TTFT "
         f"p50 {shared['ttft_ms_p50']:.1f} ms, prefill tokens "
@@ -1316,16 +1416,19 @@ def prefix_full_width(engine, card: str) -> dict:
         f"{plain['ttft_ms_p50']:.1f} ms, prefill tokens "
         f"{sum(d['tokens'] for d in plain_prefills.values())}; "
         f"{same}/8 requests token-equal across the runs (bf16); launches "
-        f"{launches}; decode_compilations 1")
+        f"{launches}; suffix graphs warmed in {warm_s:.3f} s, admission "
+        f"graphs {graphs} before and after both runs")
     return out
 
 
 def admission_profile(engine) -> dict:
     """One admission group of k = 2 prompts at bucket 2048 and one at
-    bucket 16 on the warmed bf16 engine, each admitted alone
+    bucket 16 on the warmed bf16 engine (one replay of its captured
+    ``("full", bucket, 2)`` graph each), each admitted alone
     (``_admit_pending``, no decode tick): its host wall (the admission
     and a device sync), the time from ``_admit_batch``'s entry to the
-    return of its first-token sync, and, from a second admission under
+    replay and to the return of its first-token sync, and, from a second
+    admission under
     ``torch.profiler``, its device busy time and kernel count.  Each
     bucket runs once unmeasured first."""
     from torch.profiler import ProfilerActivity, profile
@@ -1333,17 +1436,23 @@ def admission_profile(engine) -> dict:
     rng = np.random.default_rng(8)
     marks = {}
     admit, first = engine._admit_batch, engine._first_tokens
+    replay = engine._replay
 
     def timed_admit(reqs):
         marks["entry"] = time.monotonic()
         return admit(reqs)
 
-    def timed_first(reqs, logits):
-        toks = first(reqs, logits)
+    def timed_replay(key, fields):
+        marks["replay"] = time.monotonic()
+        return replay(key, fields)
+
+    def timed_first(*args):
+        toks = first(*args)
         marks["sync"] = time.monotonic()
         return toks
 
     engine._admit_batch, engine._first_tokens = timed_admit, timed_first
+    engine._replay = timed_replay
     out = {}
     try:
         for n in (2048, 16):
@@ -1373,6 +1482,10 @@ def admission_profile(engine) -> dict:
                     rec["host_wall_ms"] = wall * 1e3
                     rec["entry_to_first_token_sync_ms"] = \
                         (marks["sync"] - marks["entry"]) * 1e3
+                    # The host's part before the replay (pages, landing
+                    # indices, the inputs' upload), the device idle.
+                    rec["entry_to_replay_ms"] = \
+                        (marks["replay"] - marks["entry"]) * 1e3
                 elif mode == "profiled":
                     events = _device_events(prof)
                     rec["device_busy_ms"] = sum(
@@ -1384,12 +1497,14 @@ def admission_profile(engine) -> dict:
             rec["idle_share"] = 1 - rec["device_busy_ms"] / rec["host_wall_ms"]
             log(f"admission profile bucket {rec['bucket']} k=2: host wall "
                 f"{rec['host_wall_ms']:.3f} ms, entry to first-token sync "
-                f"{rec['entry_to_first_token_sync_ms']:.3f} ms, device busy "
+                f"{rec['entry_to_first_token_sync_ms']:.3f} ms (of it "
+                f"{rec['entry_to_replay_ms']:.3f} ms before the replay), "
+                f"device busy "
                 f"{rec['device_busy_ms']:.3f} ms in {rec['kernels']} kernels "
                 f"(idle share {rec['idle_share']:.3f})")
             out[str(rec["bucket"])] = rec
     finally:
-        del engine._admit_batch, engine._first_tokens
+        del engine._admit_batch, engine._first_tokens, engine._replay
     engine.drain(timeout=60)
     return out
 
@@ -1431,8 +1546,10 @@ def slo_leg(params, cfg, slo: bool, fault: bool = False) -> dict:
         **SLO_ENGINE, prefill_chunk_tokens=SLO_CHUNK if slo else 0,
         faults=inj))
     work = _slo_work()
-    lens = sorted({len(p) for _, p, _ in work})
-    engine.warmup([lens[0], lens[len(lens) // 2], lens[-1]])
+    t0 = time.monotonic()
+    engine.warmup(_warm_lens(engine, {len(p) for _, p, _ in work}))
+    warm_s = time.monotonic() - t0
+    graphs = _admission_graphs(engine)
     if fault:
         inj.add(FaultSpec(site="prefill_chunk", kind="raise",
                           skip=inj.visits("prefill_chunk") + SLO_FAULT_SKIP))
@@ -1469,6 +1586,9 @@ def slo_leg(params, cfg, slo: bool, fault: bool = False) -> dict:
     if st["decode_compilations"] != 1:
         raise AssertionError(f"{label}: decode_compilations "
                              f"{st['decode_compilations']}")
+    if _admission_graphs(engine) != graphs:
+        raise AssertionError(f"{label}: the leg captured past its warmup: "
+                             f"{graphs} before, {_admission_graphs(engine)}")
     restarts = st["engine_restarts"] - before["engine_restarts"]
     if (restarts, st["state"]) != ((1 if fault else 0), "healthy"):
         raise AssertionError(f"{label}: {restarts} restarts, state "
@@ -1480,6 +1600,7 @@ def slo_leg(params, cfg, slo: bool, fault: bool = False) -> dict:
            "preemptions": st["preemptions"] - before["preemptions"],
            "engine_restarts": restarts, "fired": inj.fired,
            "decode_compilations": st["decode_compilations"],
+           "warmup_s": warm_s, "admission_graphs": graphs,
            "launches": launches, "prompts": [p for _, p, _ in work],
            "tokens": [f.result(timeout=0) for _, f in futs]}
     for cls in ("interactive", "batch"):
@@ -1492,7 +1613,8 @@ def slo_leg(params, cfg, slo: bool, fault: bool = False) -> dict:
         f"{out['interactive_ttft_ms_p99']:.1f} ms, batch "
         f"{out['batch_ttft_ms_p50']:.1f}/{out['batch_ttft_ms_p99']:.1f} "
         f"ms; {out['preemptions']} preemptions, {restarts} restarts "
-        f"(fired {inj.fired}); launches {launches}; decode_compilations 1")
+        f"(fired {inj.fired}); launches {launches}; warmup {warm_s:.3f} s, "
+        f"admission graphs {graphs} before and after")
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -1758,19 +1880,39 @@ def time_flash_suffix(err: float) -> dict:
     def kernel():
         return A.flash_attention_shifted(q, k, v, -p0)
 
+    shift = torch.tensor(-p0, dtype=torch.int32, device="cuda")
+
+    def kernel_dev():
+        return A.flash_attention_shifted(q, k, v, shift)
+
     ms, one = time_ms(kernel), time_ms(kernel, batch=1)
+    # The two shift modes by CUDA events (the host's launching shows at
+    # this size) and, in turns with the yardstick, by the profiler's
+    # device time of every kernel of one call.
+    dev_ms = time_ms(kernel_dev)
+    kern = {"by_value": device_ms(kernel), "device": device_ms(kernel_dev)}
     plain = time_ms(lambda: A._reference_attention_lse(
         q, A.expand_kv(k, H), A.expand_kv(v, H), -p0, scale), reps=5,
         batch=1)
     mask = (torch.arange(T, device="cuda")[None, :]
             <= torch.arange(S0, device="cuda")[:, None] + p0)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+
     try:
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True))
+        lib = time_ms(library)
     except TypeError:  # a PyTorch without enable_gqa: expanded K/V
         ke, ve = A.expand_kv(k, H), A.expand_kv(v, H)
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q, ke, ve, attn_mask=mask))
+
+        def library():
+            return F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
+
+        lib = time_ms(library)
+    kern["library"] = device_ms(library)
+    kern["by_value_again"] = device_ms(kernel)
+    kern["device_again"] = device_ms(kernel_dev)
     pairs = B * H * (S0 * p0 + S0 * (S0 + 1) / 2)
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S0
     b_ms, b_by = bound(4 * D * pairs, nbytes, dt)
@@ -1780,7 +1922,8 @@ def time_flash_suffix(err: float) -> dict:
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib, "tflops": tflops(4 * D * pairs, ms),
-            "one_call_ms": one,
+            "one_call_ms": one, "device_shift_ms": dev_ms,
+            "kernel_device_ms": kern,
             "shape": f"B={B} H={H} H_kv={Hkv} S={S0} T={T} D={D} bf16 "
                      f"shift={-p0}"}
 
@@ -1956,6 +2099,11 @@ def main() -> int:
     REPORT["flash_fwd_suffix_shape"] = k1_suffix
     REPORT["phase_s"]["times"] = time.monotonic() - t_times
     log(f"phase times: {REPORT['phase_s']['times']:.1f} s")
+    log(f"flash_fwd device shift [{k1_suffix['shape']}]: "
+        f"{k1_suffix['device_shift_ms']:.4f} ms against "
+        f"{k1_suffix['ms']:.4f} ms by value (CUDA events, 10 calls); "
+        f"kernel device time (profiler, in turns) "
+        f"{k1_suffix['kernel_device_ms']}")
     for kr in kernels + [k1_train, k1_suffix]:
         log(f"{kr['name']} [{kr['shape']}]: {kr['ms']:.4f} ms "
             f"({kr['tflops']:.1f} TFLOP/s; one call alone "

@@ -340,7 +340,7 @@ def prefill(params: Dict, prompt, cache: Dict, cfg: TransformerConfig, *,
     return logits[:, 0], cache
 
 
-def _prefix_attend_reference(qh, kh, vh, pk, pv, p0: int):
+def _prefix_attend_reference(qh, kh, vh, pk, pv, p0):
     """The JAX package's grouped attention of :func:`prefill_with_prefix`:
     ``(K, H, S0, Dh)`` queries against ``concat(prefix, suffix)`` with the
     concatenated mask (prefix columns ``< p0`` visible, the rest never;
@@ -366,8 +366,7 @@ def _prefix_attend_reference(qh, kh, vh, pk, pv, p0: int):
 
 @torch.no_grad()
 def prefill_with_prefix(params: Dict, suffix, prefix_k, prefix_v,
-                        prefix_len: int, cfg: TransformerConfig, *,
-                        true_len):
+                        prefix_len, cfg: TransformerConfig, *, true_len):
     """Prefill a ``(K, S0)`` suffix whose first ``prefix_len`` logical
     positions already exist as cached K/V: the prefix-sharing prefill
     (a registered prefix is prefilled once, and a request that starts
@@ -376,27 +375,34 @@ def prefill_with_prefix(params: Dict, suffix, prefix_k, prefix_v,
 
     ``prefix_k`` / ``prefix_v``: ``(L, H_kv, P0, Dh)`` with ``P0 >=
     prefix_len``, shared by every row; positions ``>= prefix_len`` are
-    never attended.  ``true_len``: ``(K,)`` real suffix lengths (rows
-    right-padded to ``S0``).  Suffix queries take RoPE positions
-    ``prefix_len + i`` and attend the prefix and their causal span of
-    the suffix.  Returns ``(last-real-position logits (K, V), {"k": (L,
-    K, H_kv, S0, Dh), "v": ..., "pos": prefix_len + true_len})``, the
-    contract of ``prefill_with_prefix`` in the JAX package.
+    junk (page tails, NULL padding pages) and are never attended.
+    ``prefix_len``: an int or a 0-dim integer tensor on the suffix's
+    device, never read back to the host, so a CUDA graph captured once
+    serves every prefix length that fits ``P0``.  ``true_len``: ``(K,)``
+    real suffix lengths (rows right-padded to ``S0``).  Suffix queries
+    take RoPE positions ``prefix_len + i`` and attend the prefix and
+    their causal span of the suffix.  Returns ``(last-real-position
+    logits (K, V), {"k": (L, K, H_kv, S0, Dh), "v": ..., "pos":
+    prefix_len + true_len})``, the contract of ``prefill_with_prefix`` in
+    the JAX package.
 
-    ``attention_impl="flash"`` attends through K1 with ``shift =
-    -prefix_len`` over ``concat(prefix[:prefix_len], suffix)``: row ``i``
-    sees column ``j`` iff ``j - prefix_len <= i``, which is the mask
-    above (on CPU tensors K1's plain version).  The prefix is cut to
-    exactly ``prefix_len`` positions, so a page's tail never reaches the
-    kernel, and is only broadcast to the ``K`` rows: K1 maps the kv
-    heads itself.  ``reference`` runs the JAX package's grouped einsum.
-    The prefix is cast to the suffix K/V's dtype (an int8 pool arrives
-    dequantized to f32)."""
+    ``attention_impl="flash"`` attends through K1 over one ``(K, H_kv,
+    P0 + S0, Dh)`` buffer a layer: the padded prefix, with the suffix
+    K/V copied in at ``prefix_len + arange(S0)`` (``index_copy_``), and
+    ``shift = -prefix_len`` as a device scalar.  Row ``i`` sees column
+    ``j`` iff ``j <= prefix_len + i``: the prefix and the causal
+    suffix.  The suffix overwrites the junk at ``[prefix_len, P0)``, and
+    the junk past ``prefix_len + S0`` lies beyond every row's diagonal;
+    K1 maps the kv heads itself (on CPU tensors its plain version).
+    ``reference`` runs the JAX package's grouped einsum.  The prefix is
+    cast to the suffix K/V's dtype (an int8 pool arrives dequantized to
+    f32)."""
     K, S0 = suffix.shape
-    p0 = int(prefix_len)
     dev = suffix.device
+    p0 = torch.as_tensor(prefix_len, dtype=torch.long, device=dev)
     tl = torch.as_tensor(true_len, dtype=torch.long, device=dev).reshape(-1)
     positions = p0 + torch.arange(S0, device=dev)
+    shift = (-p0).to(torch.int32)
     x = _embed(params, suffix, cfg)
     ks, vs = [], []
     for l in range(cfg.n_layers):
@@ -405,12 +411,12 @@ def prefill_with_prefix(params: Dict, suffix, prefix_k, prefix_v,
                                positions=positions)
         pk, pv = prefix_k[l].to(kh.dtype), prefix_v[l].to(vh.dtype)
         if cfg.attention_impl == "flash":
-            Hkv, Dh = pk.shape[0], pk.shape[2]
-            k_full = torch.cat([pk[None, :, :p0].expand(K, Hkv, p0, Dh), kh],
-                               dim=2).contiguous()
-            v_full = torch.cat([pv[None, :, :p0].expand(K, Hkv, p0, Dh), vh],
-                               dim=2).contiguous()
-            oh, _ = attn.flash_attention_shifted(qh, k_full, v_full, -p0)
+            Hkv, P0, Dh = pk.shape
+            k_full = torch.cat([pk[None].expand(K, Hkv, P0, Dh), kh], dim=2)
+            v_full = torch.cat([pv[None].expand(K, Hkv, P0, Dh), vh], dim=2)
+            k_full.index_copy_(2, positions, kh)
+            v_full.index_copy_(2, positions, vh)
+            oh, _ = attn.flash_attention_shifted(qh, k_full, v_full, shift)
         else:
             oh = _prefix_attend_reference(qh, kh, vh, pk, pv, p0)
         ks.append(kh)

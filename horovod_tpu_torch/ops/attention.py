@@ -18,7 +18,10 @@ sum, as ``jnp.repeat``'s is).
   :func:`_flash_bwd_reference`).  A CUDA tensor the kernels do not take
   raises; nothing falls back.
 * The mask is a shift: position (row, col) attends iff
-  ``col + shift <= row`` (``None`` for no mask, 0 for causal).
+  ``col + shift <= row`` (``None`` for no mask, 0 for causal).  The
+  forward also takes the shift as a 0-dim int32 tensor on q's device,
+  which K1 reads from device memory (a CUDA graph bakes an int into the
+  launch; a tensor it reads by address).
 * Each launch adds one to its counter (:data:`flash_fwd_launches`,
   :data:`flash_bwd_dkdv_launches`, :data:`flash_bwd_dq_launches`), so a
   run can show that its main path went through the kernels.
@@ -76,7 +79,8 @@ def _allowed(S, T, shift, device):
 def _reference_attention_lse(q, k, v, shift, scale):
     """One O(S^2) score computation -> (output, logsumexp).
 
-    ``shift``: None for unmasked, else an int — position (row, col) is
+    ``shift``: None for unmasked, else an int or a 0-dim integer tensor
+    on q's device (never read back to the host) — position (row, col) is
     attended iff ``col + shift <= row`` (0 is standard causal)."""
     scores = torch.einsum("bhsd,bhtd->bhst", q, k).float() * scale
     if shift is not None:
@@ -183,7 +187,8 @@ def _check_inputs(q, k, v):
 
 def _mask_args(shift, S, T):
     """``(masked, shift)`` for the C entry points; the shift is clamped
-    to ``[-T, S]``, which keeps the mask and fits an int."""
+    to ``[-T, S]``, which keeps the mask and fits an int.  (A tensor
+    shift is read back here: the backward pair takes it by value.)"""
     if shift is None:
         return 0, 0
     return 1, max(-T, min(S, int(shift)))
@@ -199,19 +204,41 @@ def _bind(lib, name, n_ptr):
     return fn
 
 
+def _bind_fwd(lib):
+    """K1's entry point ``flash_fwd``: :func:`_bind`'s arguments, then
+    the device shift's pointer (None: the by-value shift)."""
+    fn = _bind(lib, "flash_fwd", 5)
+    fn.argtypes = fn.argtypes + [ctypes.c_void_p]
+    return fn
+
+
+def _device_shift(shift, q):
+    """The pointer K1 reads a tensor shift from, or None for an int (or
+    no) shift.  A tensor must be a 0-dim int32 on q's device."""
+    if not isinstance(shift, torch.Tensor):
+        return None
+    if shift.dim() != 0 or shift.dtype != torch.int32 \
+            or shift.device != q.device:
+        raise ValueError(f"a tensor shift must be a 0-dim int32 on "
+                         f"{q.device}, got {tuple(shift.shape)} "
+                         f"{shift.dtype} on {shift.device}")
+    return _cuda.ptr(shift)
+
+
 def _flash_fwd_cuda(q, k, v, shift, scale):
     global flash_fwd_launches
     _check_inputs(q, k, v)
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
+    shift_dev = _device_shift(shift, q)
+    mask = (1, 0) if shift_dev is not None else _mask_args(shift, S, T)
     lib = _cuda.library("flash_fwd")
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    rc = _bind(lib, "flash_fwd", 5)(
+    rc = _bind_fwd(lib)(
         _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(o),
-            _cuda.ptr(lse), B, H, Hkv, S, T, D,
-            int(q.dtype == torch.bfloat16), *_mask_args(shift, S, T), scale,
-            _cuda.stream(q.device))
+        _cuda.ptr(lse), B, H, Hkv, S, T, D, int(q.dtype == torch.bfloat16),
+        *mask, scale, _cuda.stream(q.device), shift_dev)
     _cuda.check(lib, rc, "flash_fwd launch")
     flash_fwd_launches += 1
     return o, lse
@@ -322,5 +349,10 @@ def flash_attention_shifted(q, k, v, shift, sm_scale: Optional[float] = None):
     """Flash attention with a runtime shifted-causal mask -> ``(o, lse)``:
     position (row, col) attends iff ``col + shift <= row``.  ``shift``
     0 is causal, ``<= -T`` attends everything, ``>= S`` masks everything
-    (o = 0, lse = NEG_INF)."""
-    return _FlashAttention.apply(q, k, v, int(shift), _sm_scale(q, sm_scale))
+    (o = 0, lse = NEG_INF).  ``shift`` is an int, or a 0-dim int32 tensor
+    on q's device: K1 then reads it from device memory (a CUDA graph
+    replays with whatever it holds), and the plain version uses it as a
+    tensor; neither reads it back to the host."""
+    if not isinstance(shift, torch.Tensor):
+        shift = int(shift)
+    return _FlashAttention.apply(q, k, v, shift, _sm_scale(q, sm_scale))

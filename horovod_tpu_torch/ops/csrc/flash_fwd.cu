@@ -11,6 +11,13 @@
 // s = (q . k) * scale in f32 (bf16 products are exact in f32), p cast to
 // V's dtype before p . v, f32 accumulation, o cast to the input dtype.
 //
+// The shift is a kernel argument, or, with `shift_dev` non-null, an int
+// every CTA reads from device memory before it bounds its key loop:
+// a CUDA graph bakes arguments passed by value, so the serving engine's
+// captured suffix and chunk prefills (one graph for every prefix length
+// of a page-count bucket) hand the shift over as a device scalar.  Both
+// modes clamp the shift to [-T, S], which keeps the mask.
+//
 // GQA: K/V keep their H_kv heads and query head h reads kv head
 // h / (H / H_kv), the grouping of `jnp.repeat` in `expand_kv`, so no
 // expanded copy of K/V is ever materialised.
@@ -65,7 +72,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
     float* __restrict__ lse, int H, int Hkv, int S, int Tn, int masked,
-    int shift, float scale) {
+    int shift, const int* __restrict__ shift_dev, float scale) {
   extern __shared__ float smem[];
   float* Ks = smem;                 // [BK][D + 1]  (padded: no bank clash)
   float* Vs = Ks + BK * (D + 1);    // [BK][D]
@@ -96,6 +103,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
   for (int c = 0; c < NC; ++c) acc[c] = 0.f;
   float m = NEG_INF, l = 0.f;
 
+  if (shift_dev) shift = max(-Tn, min(S, *shift_dev));
   // Masked: tiles starting past this CTA's last row's shifted diagonal
   // (t0 + shift > q0 + BQ - 1) contribute nothing.
   const int t_end = masked ? min(Tn, max(0, q0 + BQ - shift)) : Tn;
@@ -168,7 +176,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int H, int Hkv, int S, int Tn,
-                   int masked, int shift, float scale,
+                   int masked, int shift, const int* shift_dev, float scale,
                    cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (BK * (D + 1) + BK * D + BQ * (BK + 1));
@@ -180,7 +188,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), H, Hkv, S, Tn, masked, shift, scale);
+      static_cast<float*>(lse), H, Hkv, S, Tn, masked, shift, shift_dev,
+      scale);
   return cudaGetLastError();
 }
 
@@ -197,7 +206,7 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_kernel_mma(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ o,
     float* __restrict__ lse, int H, int Hkv, int S, int Tn, int masked,
-    int shift, float scale) {
+    int shift, const int* __restrict__ shift_dev, float scale) {
   using namespace hvd_mma;
   constexpr int LD = D + 8;   // padded row stride of every tile
   constexpr int KS = D / 16;  // k-steps of Q K^T
@@ -219,6 +228,7 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_kernel_mma(
   const bf16* kb = k + kv_off;
   const bf16* vb = v + kv_off;
 
+  if (shift_dev) shift = max(-Tn, min(S, *shift_dev));
   // Masked: tiles starting past this CTA's last row's shifted diagonal
   // (t0 + shift > q0 + BQ - 1) contribute nothing.
   const int t_end = masked ? min(Tn, max(0, q0 + BQ - shift)) : Tn;
@@ -375,8 +385,8 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_kernel_mma(
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int Hkv, int S, int Tn,
-                       int masked, int shift, float scale,
-                       cudaStream_t stream) {
+                       int masked, int shift, const int* shift_dev,
+                       float scale, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (BQ + 4 * BK) * (D + 8);
   auto kern = flash_fwd_kernel_mma<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -386,7 +396,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), H, Hkv, S, Tn, masked, shift, scale);
+      static_cast<float*>(lse), H, Hkv, S, Tn, masked, shift, shift_dev,
+      scale);
   return cudaGetLastError();
 }
 
@@ -394,27 +405,30 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
 
 // bf16 runs the tensor-core kernel, f32 the scalar one (see the note at
 // the top).  Pointers must be 16-byte aligned (the wrapper checks).
+// `shift_dev`: null for the by-value `shift`, else a device int32 that
+// replaces it (with `masked` set).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, void* lse, int B, int H, int Hkv, int S,
                          int T, int D, int is_bf16, int masked, int shift,
-                         float scale, void* stream) {
+                         float scale, void* stream, const void* shift_dev) {
   if (B < 1 || S < 1 || T < 1 || Hkv < 1 || H % Hkv != 0 ||
       B * H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* sd = static_cast<const int*>(shift_dev);
   cudaError_t err;
   if (is_bf16 && D == 64)
-    err = launch_mma<64>(q, k, v, o, lse, B, H, Hkv, S, T, masked, shift,
+    err = launch_mma<64>(q, k, v, o, lse, B, H, Hkv, S, T, masked, shift, sd,
                          scale, st);
   else if (is_bf16 && D == 128)
     err = launch_mma<128>(q, k, v, o, lse, B, H, Hkv, S, T, masked, shift,
-                          scale, st);
+                          sd, scale, st);
   else if (!is_bf16 && D == 64)
-    err = launch<64>(q, k, v, o, lse, B, H, Hkv, S, T, masked, shift, scale,
-                     st);
+    err = launch<64>(q, k, v, o, lse, B, H, Hkv, S, T, masked, shift, sd,
+                     scale, st);
   else if (!is_bf16 && D == 128)
-    err = launch<128>(q, k, v, o, lse, B, H, Hkv, S, T, masked, shift, scale,
-                      st);
+    err = launch<128>(q, k, v, o, lse, B, H, Hkv, S, T, masked, shift, sd,
+                      scale, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

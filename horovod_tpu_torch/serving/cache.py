@@ -18,8 +18,12 @@ before first attending it (prefill landing covers the prompt; decode
 writes position ``p`` in the tick that first attends it).
 
 The pool is updated in place (the JAX package returns a new pool and
-donates the old one): the captured decode tick reads it by address, so
-no operation here rebinds a pool tensor, the copy-on-write included.
+donates the old one): the captured decode tick and the captured
+admission graphs read it by address, so no operation here rebinds a pool
+tensor, the copy-on-write included.  Landing is split for the graphs:
+:meth:`PagedSlotCache.landing` builds the indices on the host, and
+:func:`paged_insert` (inside a graph, or :meth:`PagedSlotCache.land`
+eagerly) scatters the block.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from horovod_tpu_torch.serving.graph import upload
 from horovod_tpu_torch.serving.scheduler import CacheOutOfPagesError
 
 __all__ = ["NULL_PAGE", "PagedSlotCache", "copy_page", "gather_prefix_pages",
-           "init_page_pool", "paged_insert", "resolve_kv_dtype"]
+           "init_page_pool", "pad_pages", "paged_insert", "resolve_kv_dtype"]
 
 NULL_PAGE = 0
 
@@ -110,6 +114,18 @@ def copy_page(pool: Dict, src: int, dst: int) -> None:
     for name in ("k", "v", "k_scale", "v_scale"):
         if name in pool:
             pool[name][:, dst].copy_(pool[name][:, src])
+
+
+def pad_pages(pages: Sequence[int]) -> List[int]:
+    """A prefix's page ids NULL-padded to a power-of-two count (the JAX
+    engine's ``_gather_landed``): the gather and the suffix prefill then
+    meet a bounded set of page counts, one CUDA graph per count serving
+    every prefix length that fits it.  The padding's positions lie past
+    the prefix length and are never attended."""
+    n = 1
+    while n < len(pages):
+        n *= 2
+    return [int(p) for p in pages] + [NULL_PAGE] * (n - len(pages))
 
 
 def gather_prefix_pages(pool: Dict, pages):
@@ -356,6 +372,30 @@ class PagedSlotCache:
         off = np.broadcast_to(logical % ps, phys.shape)
         return phys, off
 
+    def landing(self, slots: Sequence[int], true_lens, start: int = 0, *,
+                bucket: int):
+        """Landing indices, built on the host, of a ``bucket``-wide block
+        prefilled for ``slots`` -> ``(new_pos (K,), phys (K, bucket), off
+        (K, bucket))`` int64: row ``i``'s column ``t`` is logical position
+        ``start + t`` of its slot, through its page table, and the slot's
+        position becomes ``start + true_lens[i]``.  ``start`` is 0 for
+        whole prompts, the landed length for a suffix or a chunk.  The
+        engine uploads them as a graph's static inputs; :meth:`land`
+        scatters eagerly."""
+        for s in slots:
+            if not self._active[s]:
+                raise ValueError(f"slot {s} is not allocated")
+        phys, off = self._phys_off([self.table[s] for s in slots], start,
+                                   true_lens, bucket)
+        return start + np.asarray(true_lens, np.int64), phys, off
+
+    def landing_raw(self, pages: Sequence[int], true_len: int, *,
+                    bucket: int):
+        """Slotless landing indices (prefix registration): the block
+        fills ``pages`` in order -> ``(phys, off)``."""
+        row = list(pages) + [NULL_PAGE] * max(0, self.max_pages - len(pages))
+        return self._phys_off([row], 0, [true_len], bucket)
+
     def _insert(self, slots, new_pos, phys, off, prefilled: Dict) -> None:
         dev = self.device
         if slots is not None:
@@ -367,28 +407,20 @@ class PagedSlotCache:
 
     def land(self, slots: Sequence[int], prefilled: Dict, true_lens,
              start: int = 0) -> None:
-        """Land a prefilled (or suffix-prefilled) K/V block into the
-        slots' granted pages with one scatter, and set each slot's
-        position to ``start + true_lens[i]``.  ``start`` is the logical
-        position of bucket column 0: 0 for whole prompts, the landed
-        length for a suffix or a chunk.  The indices go up through
-        pinned memory: no wait for the device."""
-        for s in slots:
-            if not self._active[s]:
-                raise ValueError(f"slot {s} is not allocated")
-        bucket = prefilled["k"].shape[3]
-        phys, off = self._phys_off([self.table[s] for s in slots], start,
-                                   true_lens, bucket)
-        self._insert(slots, start + np.asarray(true_lens, np.int64), phys,
-                     off, prefilled)
+        """Land a prefilled (or suffix-prefilled) K/V block eagerly into
+        the slots' granted pages with one scatter, and set each slot's
+        position (:meth:`landing`).  The indices go up through pinned
+        memory: no wait for the device."""
+        new_pos, phys, off = self.landing(slots, true_lens, start,
+                                          bucket=prefilled["k"].shape[3])
+        self._insert(slots, new_pos, phys, off, prefilled)
 
     def land_raw(self, pages: Sequence[int], prefilled: Dict,
                  true_len: int) -> None:
-        """Slotless landing into raw pages (prefix registration): the
-        block fills ``pages`` in order; no slot's position changes."""
-        bucket = prefilled["k"].shape[3]
-        row = list(pages) + [NULL_PAGE] * max(0, self.max_pages - len(pages))
-        phys, off = self._phys_off([row], 0, [true_len], bucket)
+        """Slotless eager landing into raw pages (:meth:`landing_raw`);
+        no slot's position changes."""
+        phys, off = self.landing_raw(pages, true_len,
+                                     bucket=prefilled["k"].shape[3])
         self._insert(None, None, phys, off, prefilled)
 
     def set_pos(self, slots: Sequence[int], vals: Sequence[int]) -> None:

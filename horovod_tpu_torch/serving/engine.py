@@ -17,7 +17,13 @@ Tick (:meth:`InferenceEngine.step`):
    its pages, run ONE batch-K prefill (flash kernel K1 on the card) and
    land its K/V in the pages.  The prefill's last-position logits give
    each request its first token: the argmax for an all-greedy group,
-   else the sampler at key position ``len(prompt)``.  Admission order is
+   else the sampler at key position ``len(prompt)``.  On CUDA the
+   prefill, its landing and the argmax are one replay of a
+   :class:`~horovod_tpu_torch.serving.graph.PrefillGraphs` graph per
+   ``("full", bucket, k)`` (the JAX engine's compiled prefill per
+   bucket), the sampler one more per ``("sample", k)``; a key is
+   captured at :meth:`~InferenceEngine.warmup` or at its first use, as
+   the JAX engine jits at first use.  Admission order is
    the scheduler's: priority class (``interactive`` before ``batch``),
    then earliest deadline, then submission.
 2. **Decode**: give every decoding slot a private page under its next
@@ -35,7 +41,10 @@ prefix (a system prompt) is prefilled once into pinned pages; a request
 whose prompt starts with it attaches those pages (a refcount, no copy)
 and prefills only its suffix
 (:func:`~horovod_tpu_torch.models.transformer.prefill_with_prefix`, K1
-with ``shift = -len(prefix)``); one whose prompt is the prefix admits
+with ``shift = -len(prefix)`` read from the device, one graph per
+``("suffix", prefix pages, bucket, k)``: the prefix's page ids are
+NULL-padded to a power-of-two count, so every prefix length of a
+page-count bucket shares a graph); one whose prompt is the prefix admits
 with no prefill at all.  A slot about to write into a shared page copies
 it first (:meth:`~horovod_tpu_torch.serving.cache.PagedSlotCache.cow`,
 in place inside the pool tensors the captured tick reads).  A restart
@@ -45,7 +54,9 @@ their next use.
 Chunked prefill (``EngineConfig.prefill_chunk_tokens``): a prompt whose
 unshared part exceeds the chunk is ingested chunk by chunk, one chunk
 riding each tick; every chunk after the first runs ``prefill_with_prefix``
-over the slot's landed pages (K1 with ``shift = -landed``).  The slot is
+over the slot's landed pages (K1 with ``shift = -landed``), through the
+suffix graph of the landed pages' power-of-two count, so chunk
+boundaries stay data.  The slot is
 left out of the tick's active mask until its last chunk yields the
 first token, so the other slots keep decoding; the tokens equal a
 whole-prompt prefill's.
@@ -124,10 +135,12 @@ import torch
 from horovod_tpu_torch.models import transformer as T
 from horovod_tpu_torch.ops import attention as _attn
 from horovod_tpu_torch.ops import paged_attention as _pa
-from horovod_tpu_torch.serving.cache import NULL_PAGE, PagedSlotCache
+from horovod_tpu_torch.serving.cache import NULL_PAGE, PagedSlotCache, \
+    pad_pages
 from horovod_tpu_torch.serving.faults import FaultInjector
 from horovod_tpu_torch.serving.graph import (
     DecodeTick,
+    PrefillGraphs,
     download,
     upload,
     upload_into,
@@ -356,9 +369,10 @@ class _IngestState:
 class _PrefixEntry:
     """A registered shared prefix: its tokens, the pages its K/V lives
     in (pinned by the registry), its first greedy token and its
-    last-position logits on the device (a prompt that is the prefix
-    admits with no prefill: greedy from the token, sampled by drawing
-    from the logits), and the cache epoch the pages belong to (a restart
+    last-position logits on the device (a copy: the graph's output is
+    rewritten by the next replay; a prompt that is the prefix admits
+    with no prefill: greedy from the token, sampled by drawing from the
+    logits), and the cache epoch the pages belong to (a restart
     resets the pool; a stale entry re-prefills at its next use)."""
 
     tokens: tuple
@@ -473,6 +487,12 @@ class InferenceEngine:
                                 self.slots.max_pages, self.device)
         self._table_uploaded = -1
         self._active_uploaded: Optional[np.ndarray] = None
+        # The admission path's graphs (whole prompts, suffixes and chunks,
+        # the first-token sampler), over the same parameters and pool.
+        self._graphs = PrefillGraphs(params, cfg, self.slots.cache,
+                                     self.device)
+        # Reserved device memory before and after the last warm sweep.
+        self._warm_reserved = (0, 0)
         # Overlapped pipeline: _pending is the one dispatched tick not
         # yet fetched (its downloads in flight plus the snapshot of the
         # request each slot computed for); _tokens_live says the
@@ -823,17 +843,46 @@ class InferenceEngine:
                     best = entry
         return best
 
-    def _prefill_rows(self, padded: np.ndarray, lens: np.ndarray):
-        """One batch prefill of right-padded prompts from position 0 ->
-        ``(last-real-position logits (K, V), K/V (L, K, H_kv, bucket,
-        Dh))``."""
-        dev = self.device
-        cache = T.init_cache(self.cfg, padded.shape[0], padded.shape[1],
-                             device=dev)
-        logits, pre = T.prefill(self.params, upload(padded, dev), cache,
-                                self.cfg, true_len=upload(lens, dev))
+    def _landing(self, slots: List[int], lens: np.ndarray, start: int,
+                 bucket: int) -> Dict:
+        """A prefill graph's landing fields for ``slots`` (positions
+        ``start + t``; each slot's position becomes ``start + lens``)."""
+        new_pos, phys, off = self.slots.landing(slots, lens, start,
+                                                bucket=bucket)
+        return dict(slots=slots, new_pos=new_pos, valid=1, phys=phys,
+                    off=off)
+
+    def _replay(self, key: tuple, fields: Dict):
+        """One prefill through its graph (:class:`~horovod_tpu_torch.
+        serving.graph.PrefillGraphs`: a replay on CUDA, the eager body
+        on the CPU) -> ``(logits (k, V), argmax (k,), max logit (k,))``,
+        its K/V landed.  The outputs hold until the next replay."""
+        g = self._graphs.get(key)
+        g.set(**fields)
+        out = self._graphs.run(g)
         self._prefill_calls += 1
-        return logits, pre
+        return out
+
+    def _prefill_rows(self, padded: np.ndarray, lens: np.ndarray,
+                      landing: Dict):
+        """One batch prefill of right-padded prompts from position 0, its
+        ``("full", bucket, k)`` graph (:meth:`_replay`)."""
+        k, bucket = padded.shape
+        return self._replay(("full", bucket, k),
+                            dict(tokens=padded, lens=lens, **landing))
+
+    def _prefill_suffix(self, padded: np.ndarray, lens: np.ndarray, p0: int,
+                        pages: List[int], landing: Dict):
+        """One batch prefill of right-padded suffixes over the first
+        ``p0`` positions held in ``pages``, its ``("suffix", prefix
+        pages, bucket, k)`` graph (:meth:`_replay`): the pages go in
+        NULL-padded to a power-of-two count (:func:`~horovod_tpu_torch.
+        serving.cache.pad_pages`), ``p0`` as data."""
+        k, bucket = padded.shape
+        pages = pad_pages(pages)
+        return self._replay(("suffix", len(pages), bucket, k),
+                            dict(tokens=padded, lens=lens, p0=p0,
+                                 pages=pages, **landing))
 
     def _ensure_prefix(self, entry: _PrefixEntry) -> None:
         """(Re-)prefill a prefix entry into pinned pages: the one prefix
@@ -849,19 +898,19 @@ class InferenceEngine:
             bucket = self._bucket(p0)
             padded = np.zeros((1, bucket), np.int64)
             padded[0, :p0] = entry.tokens
-            logits, pre = self._prefill_rows(padded,
-                                             np.array([p0], np.int64))
-            self.slots.land_raw(pages, pre, p0)
-            out = torch.stack([torch.argmax(logits[0]),
-                               torch.isfinite(logits[0].amax()).long()])
-            first, finite = out.tolist()
+            phys, off = self.slots.landing_raw(pages, p0, bucket=bucket)
+            logits, first, mx = self._prefill_rows(
+                padded, np.array([p0], np.int64),
+                dict(slots=0, new_pos=0, valid=0, phys=phys, off=off))
+            kept = logits[0].clone()  # before any other replay
+            first, mx = download(first, mx).wait()
             self.metrics.host_syncs.inc()
-            if not finite:
+            if not np.isfinite(mx).all():
                 raise EngineFailedError(
                     "non-finite logits from the prefix prefill (bad params "
                     "or device fault)")
-            entry.first_token = first
-            entry.logits = logits[0]
+            entry.first_token = int(first[0])
+            entry.logits = kept
         except BaseException:
             # Unpinned on any failure, or every retry would drain the
             # pool a little further.
@@ -1102,7 +1151,6 @@ class InferenceEngine:
             return [], [], [], False
         k = len(live)
         synced = True
-        dev = self.device
         if entry is not None and all(len(r.prompt) == p0 for r in live):
             self.slots.set_pos(slots, [p0] * k)
             if any(r.temperature > 0.0 for r in live):
@@ -1118,22 +1166,19 @@ class InferenceEngine:
                               np.int64)
             for i, r in enumerate(live):
                 padded[i, :suf_lens[i]] = r.prompt[p0:]
-            pk, pv = self.slots.gather_prefix(entry.pages)
-            logits, suf = T.prefill_with_prefix(
-                self.params, upload(padded, dev), pk, pv, p0, self.cfg,
-                true_len=upload(suf_lens, dev))
-            self._prefill_calls += 1
-            self.slots.land(slots, suf, suf_lens, start=p0)
-            firsts = self._first_tokens(live, logits)
+            out = self._prefill_suffix(
+                padded, suf_lens, p0, entry.pages,
+                self._landing(slots, suf_lens, p0, padded.shape[1]))
+            firsts = self._first_tokens(live, *out)
         else:
             lens = np.array([len(r.prompt) for r in live], np.int64)
             padded = np.zeros((k, max(self._bucket(n) for n in lens)),
                               np.int64)
             for i, r in enumerate(live):
                 padded[i, :lens[i]] = r.prompt
-            logits, pre = self._prefill_rows(padded, lens)
-            self.slots.land(slots, pre, lens)
-            firsts = self._first_tokens(live, logits)  # one sync for K
+            out = self._prefill_rows(
+                padded, lens, self._landing(slots, lens, 0, padded.shape[1]))
+            firsts = self._first_tokens(live, *out)  # one sync for K
         return slots, live, firsts, synced
 
     def _start_decoding(self, slot: int, req: Request, first: int,
@@ -1166,38 +1211,41 @@ class InferenceEngine:
         tok = self._tick.tokens
         tok.copy_(torch.where(upload(mask, dev), upload(vals, dev), tok))
 
-    def _first_tokens(self, reqs: List[Request], logits) -> List[int]:
-        """An admission group's first tokens from its prefill logits (the
-        prefill is the first decode step): the argmax for an all-greedy
-        group, else :func:`~horovod_tpu_torch.models.transformer.
-        sample_token_rows` with each row's own parameters at key
-        position ``len(prompt)`` (greedy rows still take the argmax).
+    def _first_tokens(self, reqs: List[Request], logits, picks=None,
+                      max_logit=None) -> List[int]:
+        """An admission group's first tokens from its prefill (the
+        prefill is the first decode step): for an all-greedy group the
+        prefill graph's argmax ``picks``, else the ``("sample", k)``
+        graph over ``logits`` (:func:`~horovod_tpu_torch.models.
+        transformer.sample_token_rows`, each row's own parameters at key
+        position ``len(prompt)``; greedy rows still take the argmax).
 
         The logits get the decode tick's finiteness check (each row's
         max logit), fetched in the same host sync as the tokens: a
         non-finite row raises :class:`EngineFailedError` before any of
         the group's tokens is emitted.  (The JAX engine does not check
         prefill logits and emits the argmax of NaN.)"""
-        if all(r.temperature <= 0.0 for r in reqs):
-            toks = torch.argmax(logits, dim=-1)
-        else:
-            dev = self.device
-            cols = [np.array([r.temperature for r in reqs], np.float32),
-                    np.array([r.top_k for r in reqs], np.int64),
-                    np.array([r.top_p for r in reqs], np.float32),
-                    np.stack([seed_key(r.seed) for r in reqs]).astype(
-                        np.int64),
-                    np.array([len(r.prompt) for r in reqs], np.int64)]
-            temp, tk, tp, keys, pos = (upload(c, dev) for c in cols)
-            toks = T.sample_token_rows(logits, temp, tk, tp, keys, pos,
-                                       torch.zeros_like(pos))
-        finite = torch.isfinite(logits.amax(dim=-1))
-        out = torch.cat([toks.long(), finite.long()]).tolist()
-        if not all(out[len(reqs):]):
+        if picks is None or any(r.temperature > 0.0 for r in reqs):
+            picks, max_logit = self._sample_first(reqs, logits)
+        toks, mx = download(picks, max_logit).wait()
+        if not np.isfinite(mx).all():
             raise EngineFailedError(
                 "non-finite logits from prefill (bad params or device "
                 "fault)")
-        return out[:len(reqs)]
+        return toks.tolist()
+
+    def _sample_first(self, reqs: List[Request], logits):
+        """The first-token sampler's graph for the group: ``logits``
+        copied into its input, each row's sampling columns uploaded ->
+        ``(tokens, max logit)``."""
+        g = self._graphs.get(("sample", len(reqs)))
+        g.logits.copy_(logits)
+        g.set(temp=[r.temperature for r in reqs],
+              top_k=[r.top_k for r in reqs],
+              top_p=[r.top_p for r in reqs],
+              keys=np.stack([seed_key(r.seed) for r in reqs]),
+              pos=[len(r.prompt) for r in reqs])
+        return self._graphs.run(g)
 
     # -- chunked prefill ---------------------------------------------------
 
@@ -1247,22 +1295,19 @@ class InferenceEngine:
                 return False
         return True
 
-    def _gather_landed(self, slot: int, lo: int):
-        """The slot's first ``lo`` landed positions as the prefix of its
-        next chunk: exactly ``lo`` positions, gathered through its page
-        table.  (The JAX engine pads the page count to a power of two to
-        bound its compile set; an eager prefill has no compile set.)"""
-        pages = self.slots.table[slot, :self.slots.pages_for(lo)]
-        pk, pv = self.slots.gather_prefix(pages)
-        return pk[:, :, :lo], pv[:, :, :lo]
+    def _landed_pages(self, slot: int, lo: int) -> List[int]:
+        """The pages holding the slot's first ``lo`` landed positions:
+        the prefix of its next chunk (:meth:`_prefill_suffix` pads their
+        count to a power of two, as the JAX ``_gather_landed`` does)."""
+        return self.slots.table[slot, :self.slots.pages_for(lo)].tolist()
 
     def _ingest_step(self, slot: int) -> bool:
         """Land one chunk of ``slot``'s prompt: claim its pages, run it
         through ``prefill_with_prefix`` over the landed positions (the
         first chunk, with nothing landed, through the plain prefill),
-        and scatter its K/V into the slot's pages.  Only the last chunk
-        fetches logits: :meth:`_finish_ingest` turns them into the first
-        token.  True if any work was done."""
+        landing its K/V in the slot's pages in the same graph.  Only the
+        last chunk fetches anything: :meth:`_finish_ingest` turns its
+        outputs into the first token.  True if any work was done."""
         ing = self._ingest.get(slot)
         if ing is None:
             return False
@@ -1288,32 +1333,29 @@ class InferenceEngine:
         padded = np.zeros((1, self._bucket(chunk)), np.int64)
         padded[0, :n] = req.prompt[lo:lo + n]
         lens = np.array([n], np.int64)
+        landing = self._landing([slot], lens, lo, padded.shape[1])
         if lo == 0:
-            logits, kv = self._prefill_rows(padded, lens)
+            out = self._prefill_rows(padded, lens, landing)
         else:
-            pk, pv = self._gather_landed(slot, lo)
-            logits, kv = T.prefill_with_prefix(
-                self.params, upload(padded, self.device), pk, pv, lo,
-                self.cfg, true_len=upload(lens, self.device))
-            self._prefill_calls += 1
-        self.slots.land([slot], kv, lens, start=lo)
+            out = self._prefill_suffix(padded, lens, lo,
+                                       self._landed_pages(slot, lo), landing)
         self._tick_prefill_spent += n
         self._tick_ingested.add(slot)
         ing.landed = lo + n
         self._page_pos[slot] = ing.landed
         if ing.landed >= len(req.prompt):
-            self._finish_ingest(slot, ing, logits)
+            self._finish_ingest(slot, ing, out)
         return True
 
-    def _finish_ingest(self, slot: int, ing: _IngestState,
-                       logits) -> None:
-        """The last chunk landed: its logits are the whole prompt's
-        last-position logits, so the first token (the argmax, or the
-        draw at key position ``len(prompt)``) is a whole-prompt
-        admission's, and the slot joins the decode mask."""
+    def _finish_ingest(self, slot: int, ing: _IngestState, out) -> None:
+        """The last chunk landed: its graph's outputs (logits, argmax,
+        max logit) are the whole prompt's last position's, so the first
+        token (the argmax, or the draw at key position ``len(prompt)``)
+        is a whole-prompt admission's, and the slot joins the decode
+        mask."""
         req = ing.request
         del self._ingest[slot]
-        first = int(self._first_tokens([req], logits)[0])
+        first = int(self._first_tokens([req], *out)[0])
         self.metrics.host_syncs.inc()
         self._start_decoding(slot, req, first, time.monotonic())
         self._land_first_tokens([slot], [first])
@@ -1960,12 +2002,21 @@ class InferenceEngine:
     def warmup(self, prompt_lens: Sequence[int] = (1,)) -> None:
         """Capture the decode tick (CUDA), then drive the engine
         synchronously through one admission per (prompt bucket, batch
-        k <= max_prefills_per_tick) and its decode ticks — on the card
-        this builds both kernels and warms their launch paths before
-        real traffic.  Registered prefixes warm their suffix prefills,
-        ``prompt_lens`` as the suffix lengths.  Call it before :meth:`start`: no other thread
-        touches the card during the capture.  The sweep's synthetic
-        requests are kept out of the journal."""
+        k <= max_prefills_per_tick) and its decode ticks, and one sampled
+        group per k — on the card this captures every admission graph
+        those shapes reach (``prefill_compilations``,
+        ``sample_compilations``) before real traffic, as the JAX
+        ``warmup`` compiles them.  Registered prefixes warm their suffix
+        graphs, ``prompt_lens`` as the suffix lengths; a prompt longer
+        than ``prefill_chunk_tokens`` warms its chunks' graphs.  A shape
+        no warmup reached is captured at its first use.  The device
+        memory reserved before and after the sweep is kept
+        (``warmup_reserved_bytes`` in :meth:`stats`).  Call it before
+        :meth:`start`: no other thread touches the card during the
+        captures.  The sweep's synthetic requests are kept out of the
+        journal."""
+        cuda = self.device.type == "cuda"
+        before = torch.cuda.memory_reserved(self.device) if cuda else 0
         with self._lock:
             self._tick.capture()
         kmax = min(self.engine_cfg.max_prefills_per_tick,
@@ -1977,18 +2028,26 @@ class InferenceEngine:
                     for e in list(self._prefixes.values())
                     for n in prompt_lens
                     if len(e.tokens) + int(n) + 2 <= self.slots.max_len]
+        # Sampled groups, one per k: the first-token sampler's graphs.
+        groups = [[(prompt, {})] * k for prompt in prompts
+                  for k in range(1, kmax + 1)]
+        groups += [[(prompts[0], dict(temperature=1.0, seed=i))
+                    for i in range(k)]
+                   for k in range(1, kmax + 1) if prompts]
         journal, self.journal = self.journal, None
         try:
-            for prompt in prompts:
-                for k in range(1, kmax + 1):
-                    futs = [self.submit(prompt, max_new_tokens=2)
-                            for _ in range(k)]
-                    while not all(f.done() for f in futs):
-                        self.step()
+            for group in groups:
+                futs = [self.submit(prompt, max_new_tokens=2, **kw)
+                        for prompt, kw in group]
+                while not all(f.done() for f in futs):
+                    self.step()
             while self._pending is not None:  # the pipeline's last tick
                 self.step()
         finally:
             self.journal = journal
+        if cuda:
+            self._warm_reserved = (
+                before, torch.cuda.memory_reserved(self.device))
 
     def drain(self, timeout: float = 60.0, poll: float = 0.002) -> bool:
         """Block until the queue, the slots and the pipeline are empty
@@ -2067,10 +2126,22 @@ class InferenceEngine:
                 len(self.journal) if self.journal is not None else 0,
             # Captures of the decode tick's CUDA graph (0 on the CPU,
             # where the tick runs eagerly): 1 after warmup, whatever the
-            # request mix and however many restarts.  The first-token
-            # sampler runs eagerly.
+            # request mix and however many restarts.
             "decode_compilations": self._tick.captures,
-            "sample_compilations": 0,
+            # Captures of the admission graphs (0 on the CPU): prefills
+            # per ("full", bucket, k) and ("suffix", prefix pages, bucket,
+            # k), the first-token sampler per k; their seconds, and the
+            # device memory reserved around the last warmup.
+            "prefill_compilations": (self._graphs.captures["full"]
+                                     + self._graphs.captures["suffix"]),
+            "sample_compilations": self._graphs.captures["sample"],
+            "prefill_capture_s": round(self._graphs.capture_s, 4),
+            "warmup_reserved_bytes": list(self._warm_reserved),
+            # The (bucket, k) whole-prompt prefill shapes used, as the
+            # JAX engine lists its compiled ones; the suffix shapes
+            # (prefix pages, bucket, k).
+            "prefill_buckets": self._graphs.keys("full"),
+            "prefill_suffix_shapes": self._graphs.keys("suffix"),
             # Process-wide kernel launch counts (CPU runs take the plain
             # versions and leave them at 0).
             "flash_fwd_launches": _attn.flash_fwd_launches,

@@ -1,4 +1,5 @@
-"""The serving engine's decode tick, captured once as a CUDA graph.
+"""The serving engine's CUDA graphs: the decode tick, captured once, and
+the admission path, captured per shape.
 
 Counterpart of the JAX engine's jitted ``_tick``
 (``horovod_tpu/serving/engine.py``): there the tick is one compiled
@@ -16,9 +17,20 @@ capacity), the sampled pick at key position ``pos + 1``, the max logit
 (the engine's finiteness probe), and the picked tokens written back into
 the token input, where the overlapped pipeline's next tick reads them.
 
-On the CPU there is no graph: :meth:`DecodeTick.run` runs the same body
-eagerly.  On CUDA a capture or replay that fails raises; there is no
-eager fallback.
+Admission (:class:`PrefillGraphs`) is captured per shape, keyed like
+the JAX engine's compile sets: a whole-prompt prefill per ``("full",
+bucket, k)`` (the JAX ``_prefill_fn``), a suffix or chunk prefill over a
+gathered prefix per ``("suffix", prefix pages, bucket, k)`` (the JAX
+``_suffix_prefill``, whose prefix length is a traced scalar: here a
+device scalar that K1 reads), and the first-token sampler per
+``("sample", k)`` (the JAX ``_first_sample``).  Each prefill graph
+prefills, lands its K/V in the pages and takes each row's argmax and
+max logit (the engine's finiteness probe), so an admission is one
+replay and one host sync.
+
+On the CPU there is no graph: :meth:`DecodeTick.run` and
+:meth:`PrefillGraphs.run` run the same bodies eagerly.  On CUDA a
+capture or replay that fails raises; there is no eager fallback.
 
 Transfers never wait for the device: :func:`upload_into` stages host
 data through pinned memory and copies without blocking, and
@@ -30,19 +42,23 @@ it has completed, so a staging buffer is never rewritten in flight.
 
 from __future__ import annotations
 
-from typing import List, Optional
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from horovod_tpu_torch.models import transformer as T
+from horovod_tpu_torch.ops import attention as attn
 from horovod_tpu_torch.ops import paged_attention as pa
 
-__all__ = ["DecodeTick", "Download", "download", "upload", "upload_into"]
+__all__ = ["DecodeTick", "Download", "PrefillGraphs", "download", "upload",
+           "upload_into"]
 
-#: Eager runs of the tick, with every slot inactive, on a side stream
-#: before the capture: they build the kernels and warm the libraries'
-#: handles, which must not happen during capture.
+#: Eager runs of a graph's body on a side stream before its capture
+#: (the tick with every slot inactive, a prefill landing only in the
+#: NULL page): they build the kernels and warm the libraries' handles,
+#: which must not happen during capture.
 CAPTURE_WARMUP_RUNS = 2
 
 
@@ -205,3 +221,214 @@ class DecodeTick:
         self.replays += 1
         pa.paged_attend_launches += self.k4_launches_per_replay
         return self._out
+
+
+class _Packed:
+    """Static inputs of one dtype packed into one device tensor, with a
+    host mirror: each field is a view of both, and :meth:`upload`
+    refreshes the device tensor with one copy (``upload_into``)."""
+
+    def __init__(self, fields: Sequence[Tuple[str, tuple]], dtype,
+                 device: torch.device):
+        n = sum(int(np.prod(shape)) for _, shape in fields)
+        self.host = np.zeros(n, dtype)
+        self.dev = torch.zeros(n, dtype=torch.from_numpy(self.host).dtype,
+                               device=device)
+        self.h: Dict[str, np.ndarray] = {}
+        self.d: Dict[str, torch.Tensor] = {}
+        at = 0
+        for name, shape in fields:
+            size = int(np.prod(shape))
+            self.h[name] = self.host[at:at + size].reshape(shape)
+            self.d[name] = self.dev[at:at + size].view(shape)
+            at += size
+
+    def upload(self) -> None:
+        upload_into(self.dev, self.host)
+
+
+class PrefillGraph:
+    """One admission shape: its key, its static inputs (filled with
+    :meth:`set`), and on CUDA its graph and the outputs every replay
+    rewrites.
+
+    Keys and fields (all int64 unless said):
+
+    * ``("full", bucket, k)`` and ``("suffix", n_pages, bucket, k)``:
+      ``tokens`` (k, bucket) right-padded, ``lens`` (k,) real lengths;
+      the landing — ``slots`` (k,), ``new_pos`` (k,), ``valid`` (k,)
+      (0: leave the slot's position; a prefix registration lands in
+      pages of no slot), ``phys`` and ``off`` (k, bucket); for
+      ``suffix`` also ``p0`` () the prefix length and ``pages``
+      (n_pages,) the prefix's page ids, NULL-padded.
+    * ``("sample", k)``: ``keys`` (k, 2), ``top_k`` (k,), ``pos`` (k,);
+      f32 ``temp`` (k,), ``top_p`` (k,); and :attr:`logits` (k, V) f32,
+      filled by a device copy."""
+
+    def __init__(self, key: tuple, vocab: int, device: torch.device):
+        self.key = key
+        kind = key[0]
+        floats: List = []
+        if kind == "sample":
+            k = key[1]
+            ints = [("keys", (k, 2)), ("top_k", (k,)), ("pos", (k,))]
+            floats = [("temp", (k,)), ("top_p", (k,))]
+        elif kind in ("full", "suffix"):
+            bucket, k = key[-2:]
+            ints = [("tokens", (k, bucket)), ("lens", (k,)),
+                    ("slots", (k,)), ("new_pos", (k,)), ("valid", (k,)),
+                    ("phys", (k, bucket)), ("off", (k, bucket))]
+            if kind == "suffix":
+                ints += [("p0", ()), ("pages", (key[1],))]
+        else:
+            raise ValueError(f"unknown admission graph kind {kind!r}")
+        self.ints = _Packed(ints, np.int64, device)
+        self.floats = _Packed(floats, np.float32, device) if floats else None
+        self.logits = (torch.zeros((key[1], vocab), dtype=torch.float32,
+                                   device=device)
+                       if kind == "sample" else None)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out = None
+        self.k1_launches_per_replay = 0
+
+    def set(self, **fields) -> None:
+        """Write host values into the named fields (the next run
+        uploads them)."""
+        for name, val in fields.items():
+            packed = self.ints if name in self.ints.h else self.floats
+            packed.h[name][...] = val
+
+    def upload(self) -> None:
+        self.ints.upload()
+        if self.floats is not None:
+            self.floats.upload()
+
+
+class PrefillGraphs:
+    """The admission path's graphs over one model and one page pool,
+    keyed as :class:`PrefillGraph` says, created at first use.
+
+    ``pool`` (the page pool, written by every prefill graph's landing)
+    and the parameters are read by address, as :class:`DecodeTick` reads
+    them, so a restart (the pool zeroed in place) or a copy-on-write
+    never recaptures.  On CUDA :meth:`run` captures a key's graph at its
+    first run (warm eager runs on a side stream first, landing only in
+    the NULL page) and replays it from then on; every graph shares one
+    memory pool, so a graph's outputs hold until the next replay of any
+    of them: a caller that keeps one past that clones it.  K1's wrapper
+    runs once a layer during capture, where it launches nothing: the
+    count it adds there is taken back, and each replay adds that many
+    launches, so ``attention.flash_fwd_launches`` still counts launches.
+    :attr:`captures` counts captures by kind, :attr:`capture_s` their
+    seconds (warm runs included), :meth:`keys` the keys run so far."""
+
+    def __init__(self, params, cfg: T.TransformerConfig, pool: Dict,
+                 device: torch.device):
+        # Imported here: cache.py imports this module's upload helpers.
+        from horovod_tpu_torch.serving import cache
+
+        self._cache = cache
+        self.params = params
+        self.cfg = cfg
+        self.pool = pool
+        self.device = torch.device(device)
+        self._graphs: Dict[tuple, PrefillGraph] = {}
+        self._used: set = set()
+        self._mempool = None
+        self.captures = {"full": 0, "suffix": 0, "sample": 0}
+        self.capture_s = 0.0
+        self.replays = 0
+
+    @property
+    def graphed(self) -> bool:
+        return self.device.type == "cuda"
+
+    def get(self, key: tuple) -> PrefillGraph:
+        """The key's graph (static inputs made at first use)."""
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = PrefillGraph(key, self.cfg.vocab_size,
+                                                 self.device)
+        return g
+
+    def keys(self, kind: str) -> List[tuple]:
+        """The keys of ``kind`` run so far, sorted, without the kind."""
+        return sorted(k[1:] for k in self._used if k[0] == kind)
+
+    def body(self, g: PrefillGraph):
+        """The key's operations on its static inputs.  A prefill returns
+        ``(last-position logits (k, V) f32, argmax (k,) int64, max logit
+        (k,) f32)`` and has landed its K/V; the sampler returns ``(tokens
+        (k,) int64, max logit (k,) f32)``: rows with temperature 0 take
+        the argmax, the others draw at key position ``pos``."""
+        f = g.ints.d
+        kind = g.key[0]
+        if kind == "sample":
+            fl = g.floats.d
+            toks = T.sample_token_rows(g.logits, fl["temp"], f["top_k"],
+                                       fl["top_p"], f["keys"], f["pos"],
+                                       torch.zeros_like(f["pos"]))
+            return toks, g.logits.amax(dim=-1)
+        if kind == "full":
+            k, bucket = f["tokens"].shape
+            cache = T.init_cache(self.cfg, k, bucket, device=self.device)
+            logits, kv = T.prefill(self.params, f["tokens"], cache, self.cfg,
+                                   true_len=f["lens"])
+        else:
+            pk, pv = self._cache.gather_prefix_pages(self.pool, f["pages"])
+            logits, kv = T.prefill_with_prefix(
+                self.params, f["tokens"], pk, pv, f["p0"], self.cfg,
+                true_len=f["lens"])
+        pos = torch.where(f["valid"] > 0, f["new_pos"],
+                          self.pool["pos"][f["slots"]].long())
+        self._cache.paged_insert(self.pool, f["slots"], pos, f["phys"],
+                                 f["off"], kv["k"], kv["v"])
+        return logits, torch.argmax(logits, dim=-1), logits.amax(dim=-1)
+
+    def capture(self, g: PrefillGraph) -> None:
+        """Capture ``g`` (CUDA only; once): warm runs of its body on a
+        side stream, landing only in the NULL page and writing no slot's
+        position, then the capture into the shared memory pool.  Its
+        static inputs hold what they held before."""
+        if not self.graphed or g.graph is not None:
+            return
+        t0 = time.monotonic()
+        saved = g.ints.dev.clone()
+        if g.key[0] != "sample":
+            g.ints.d["phys"].zero_()
+            g.ints.d["valid"].zero_()
+        stream = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            for _ in range(CAPTURE_WARMUP_RUNS):
+                self.body(g)
+        stream.wait_stream(side)
+        g.ints.dev.copy_(saved)
+        if self._mempool is None:
+            self._mempool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        k1 = attn.flash_fwd_launches
+        with torch.cuda.graph(graph, pool=self._mempool,
+                              capture_error_mode="thread_local"):
+            out = self.body(g)
+        g.k1_launches_per_replay = attn.flash_fwd_launches - k1
+        attn.flash_fwd_launches = k1
+        g.graph, g.out = graph, out
+        self.captures[g.key[0]] += 1
+        self.capture_s += time.monotonic() - t0
+
+    def run(self, g: PrefillGraph):
+        """Upload ``g``'s static inputs and run it: a replay on CUDA
+        (capturing first if needed), the eager body on the CPU.  Returns
+        :meth:`body`'s tensors; on CUDA the same tensors every replay."""
+        g.upload()
+        self._used.add(g.key)
+        if not self.graphed:
+            return self.body(g)
+        if g.graph is None:
+            self.capture(g)
+        g.graph.replay()
+        self.replays += 1
+        attn.flash_fwd_launches += g.k1_launches_per_replay
+        return g.out

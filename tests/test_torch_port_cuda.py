@@ -15,7 +15,10 @@ step is 2^-8 = 3.9e-3 of a value: a few one-step flips where the f32
 sums differ in their last bits).  The serving engine's decode tick,
 captured as a CUDA graph, is held to the same tick run eagerly bit for
 bit: the same kernels on the same inputs, also after a copy-on-write of
-a shared prefix page.
+a shared prefix page; so is each admission graph (a whole-prompt
+prefill, a suffix prefill replayed at two prefix lengths, a chunk, the
+first-token sampler) against its body run eagerly, and K1 reading its
+shift from the device against K1 given it by value.
 """
 
 import numpy as np
@@ -26,7 +29,8 @@ from horovod_tpu_torch import serving
 from horovod_tpu_torch.models import transformer as T
 from horovod_tpu_torch.ops import attention as A
 from horovod_tpu_torch.ops import paged_attention as PA
-from horovod_tpu_torch.serving.cache import copy_page
+from horovod_tpu_torch.serving.cache import copy_page, pad_pages
+from horovod_tpu_torch.serving.graph import PrefillGraphs
 
 pytestmark = pytest.mark.cuda
 
@@ -94,6 +98,25 @@ def test_flash_kernel_suffix_shift(dev, dtype, tol, p0, S0):
         q, A.expand_kv(k, 8), A.expand_kv(v, 8), -p0, 1 / 64 ** 0.5)
     assert (o.float() - o_r.float()).abs().max().item() <= tol
     assert (lse - l_r).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p0,S0", SUFFIX_CASES)
+def test_flash_kernel_device_shift(dev, dtype, p0, S0):
+    """K1 reading ``shift = -p0`` from device memory (the captured
+    suffix prefills' mode) equals K1 given it by value, bit for bit,
+    over a key buffer with junk past ``p0 + S0``."""
+    g = torch.Generator(device=dev).manual_seed(p0 + 1)
+    q = torch.randn((2, 8, S0, 64), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((2, 2, p0 + S0 + 48, 64), generator=g,
+                        device=dev).to(dtype) for _ in range(2))
+    before = A.flash_fwd_launches
+    by_value = A.flash_attention_shifted(q, k, v, -p0)
+    shift = torch.tensor(-p0, dtype=torch.int32, device=dev)
+    from_device = A.flash_attention_shifted(q, k, v, shift)
+    assert A.flash_fwd_launches == before + 2
+    for a, b in zip(by_value, from_device):
+        assert torch.equal(a, b)
 
 
 def _rel_err(got, want):
@@ -456,3 +479,163 @@ def test_cow_keeps_the_capture_and_equals_the_eager_tick(dev):
     assert shared_seen >= 4
     assert engine.stats()["decode_compilations"] == 1
     assert {k: t.data_ptr() for k, t in engine.slots.cache.items()} == ptrs
+
+
+# --- the admission graphs ----------------------------------------------------
+
+
+def _graph_equals_body(graphs, key, fields, logits=None):
+    """Replay ``key`` with ``fields`` on ``graphs``; run its body eagerly
+    on a copy of the pool taken before the replay; outputs, pool bytes
+    and positions must be equal.  The NULL page is left out: bucket
+    padding lands there, several positions on one offset, and which of
+    those writes lands last is not defined (nothing reads the page).
+    Returns the replay's outputs."""
+    pool0 = {k: t.clone() for k, t in graphs.pool.items()}
+    g = graphs.get(key)
+    g.set(**fields)
+    if logits is not None:
+        g.logits.copy_(logits)
+    out = [t.clone() for t in graphs.run(g)]
+    twin = PrefillGraphs(graphs.params, graphs.cfg, pool0, graphs.device)
+    e = twin.get(key)
+    e.set(**fields)
+    if logits is not None:
+        e.logits.copy_(logits)
+    e.upload()
+    for a, b in zip(out, twin.body(e)):
+        assert torch.equal(a, b), key
+    for name, t in graphs.pool.items():
+        real = t if name == "pos" else t[:, serving.NULL_PAGE + 1:]
+        want = pool0[name] if name == "pos" else \
+            pool0[name][:, serving.NULL_PAGE + 1:]
+        assert torch.equal(real, want), (key, name)
+    return out
+
+
+def test_admission_graphs_bit_identical_to_eager(dev):
+    """Each kind of admission graph against its body run eagerly on a
+    copy of the same pool: a whole-prompt prefill of two prompts
+    (``("full", 64, 2)``), one suffix graph (``("suffix", 8, 32, 2)``)
+    captured once and replayed at prefix lengths 75 and 120 (K1's shift
+    read from the device), a chunk (``("suffix", 2, 32, 1)``) and the
+    first-token sampler (``("sample", 2)``).  K1 launches once a layer
+    a prefill replay, and each key is captured once."""
+    engine, cfg = _serving_engine(dev, overlap=False)
+    graphs, slots = engine._graphs, engine.slots
+    rng = np.random.default_rng(3)
+    a, b = slots.alloc(), slots.alloc()
+    for s in (a, b):
+        for idx in range(10):
+            slots.grant(s, idx)
+    lens = np.array([50, 33])
+    new_pos, phys, off = slots.landing([a, b], lens, bucket=64)
+    full = dict(tokens=rng.integers(0, 32000, (2, 64)), lens=lens,
+                slots=[a, b], new_pos=new_pos, valid=1, phys=phys, off=off)
+    logits, _, _ = _graph_equals_body(graphs, ("full", 64, 2), full)
+    g = graphs.get(("full", 64, 2))
+    assert g.k1_launches_per_replay == cfg.n_layers
+    k1 = A.flash_fwd_launches
+    graphs.run(g)  # a replay: K1 once a layer, nothing else counted
+    assert A.flash_fwd_launches - k1 == cfg.n_layers
+    # One suffix graph, two prefix lengths: slot a's first 75 and 120
+    # positions (its pages NULL-padded from 5 and 8 to 8) before
+    # suffixes of 20 and 7 tokens.
+    for p0 in (75, 120):
+        lens = np.array([20, 7])
+        new_pos, phys, off = slots.landing([a, b], lens, p0, bucket=32)
+        _graph_equals_body(graphs, ("suffix", 8, 32, 2), dict(
+            tokens=rng.integers(0, 32000, (2, 32)), lens=lens, p0=p0,
+            pages=pad_pages(slots.table[a, :slots.pages_for(p0)].tolist()),
+            slots=[a, b], new_pos=new_pos, valid=1, phys=phys, off=off))
+    new_pos, phys, off = slots.landing([b], [32], 32, bucket=32)
+    _graph_equals_body(graphs, ("suffix", 2, 32, 1), dict(
+        tokens=rng.integers(0, 32000, (1, 32)), lens=[32], p0=32,
+        pages=slots.table[b, :2].tolist(), slots=[b], new_pos=new_pos,
+        valid=1, phys=phys, off=off))
+    _graph_equals_body(graphs, ("sample", 2), dict(
+        temp=[0.0, 0.9], top_k=[0, 40], top_p=[0.0, 0.95], pos=[51, 34],
+        keys=np.stack([serving.seed_key(s) for s in (1, 2)])), logits=logits)
+    assert graphs.captures == {"full": 1, "suffix": 2, "sample": 1}
+    engine.terminate()
+
+
+def test_one_capture_per_admission_shape(dev):
+    """After ``warmup`` over the burst's prompt lengths, a mixed burst
+    (greedy and sampled, eight buckets, K = 2) and a registered prefix's
+    sharers (warmed too) capture nothing more: each key used was
+    captured once, ``prefill_compilations`` counts them, and
+    ``decode_compilations`` stays 1."""
+    engine, cfg = _serving_engine(dev)
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(0, 32000, 75).tolist()
+    engine.register_prefix(prefix)
+    engine.warmup((5, 40, 100, 17, 300, 64, 9, 200))
+    st = engine.stats()
+    warm = (st["prefill_compilations"], st["sample_compilations"])
+    assert warm[0] == len(st["prefill_buckets"]) + len(
+        st["prefill_suffix_shapes"])
+    assert warm[1] == 2  # k = 1, 2
+    futs = _mixed_requests(engine, 16)
+    futs += [engine.submit(prefix + rng.integers(0, 32000, n).tolist(),
+                           max_new_tokens=16, **kw)
+             for n, kw in zip((9, 40, 100), SAMPLING)]
+    while not all(f.done() for f in futs):
+        engine.step()
+    assert all(len(f.result(timeout=0)) == 16 for f in futs)
+    st = engine.stats()
+    assert (st["prefill_compilations"], st["sample_compilations"]) == warm
+    assert st["decode_compilations"] == 1
+    engine.unregister_prefix(prefix)
+
+
+def test_restart_and_cow_keep_the_admission_captures(dev):
+    """Sharers of a prefix whose last page is partial (each copies it on
+    write) through a decode fault: the restart zeroes the pool in place
+    and re-prefills the prefix through its captured graph; every request
+    resumes to its full count; no graph is recaptured and every pool
+    tensor keeps its address."""
+    inj = serving.FaultInjector()
+    engine, cfg = _serving_engine(dev, faults=inj)
+    rng = np.random.default_rng(9)
+    prefix = rng.integers(0, 32000, 75).tolist()
+    engine.register_prefix(prefix)
+    # Suffix buckets 8-128: the sharers' and their resumes' (suffix plus
+    # the tokens emitted before the fault).
+    engine.warmup((5, 16, 30, 64, 100))
+    ptrs = {k: t.data_ptr() for k, t in engine.slots.cache.items()}
+    st = engine.stats()
+    caps = (st["prefill_compilations"], st["sample_compilations"],
+            st["decode_compilations"])
+    futs = [engine.submit(prefix + rng.integers(0, 32000, n).tolist(),
+                          max_new_tokens=24, **kw)
+            for n, kw in zip((5, 30, 8, 40), SAMPLING)]
+    while sum(len(f.tokens_so_far()) for f in futs) < 20:
+        engine.step()
+    inj.add(serving.FaultSpec(site="decode_tick", kind="raise",
+                              skip=inj.visits("decode_tick")))
+    while not all(f.done() for f in futs):
+        engine.step()
+    assert all(len(f.result(timeout=0)) == 24 for f in futs)
+    st = engine.stats()
+    assert st["engine_restarts"] == 1 and st["requests_resumed"] >= 1
+    assert (st["prefill_compilations"], st["sample_compilations"],
+            st["decode_compilations"]) == caps
+    assert engine._graphs.pool is engine.slots.cache
+    assert {k: t.data_ptr() for k, t in engine.slots.cache.items()} == ptrs
+    engine.unregister_prefix(prefix)
+
+
+def test_flash_launches_count_replays(dev):
+    """K1's counter grows by the layers of each prefill replay (and the
+    capture's own launches are not counted): three admissions of one
+    warmed shape add three replays' worth."""
+    engine, cfg = _serving_engine(dev, overlap=False)
+    engine.warmup((40,))
+    replays, k1 = engine._graphs.replays, A.flash_fwd_launches
+    for i in range(3):
+        fut = engine.submit([i + 1] * 40, max_new_tokens=2)
+        while not fut.done():
+            engine.step()
+    assert engine._graphs.replays - replays == 3
+    assert A.flash_fwd_launches - k1 == 3 * cfg.n_layers

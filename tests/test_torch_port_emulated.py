@@ -7,7 +7,7 @@ This file compiles ``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu`` and
 ``paged_attention.cu`` with g++ against a small emulation of what they
 use, and holds the kernels (bf16 tensor-core K1, K2 and K3, the scalar
 f32 kernels, K4's split and combine kernels) against their plain
-versions on seeded inputs:
+versions on seeded inputs (K1 also with its shift read from memory):
 
 * one ``std::thread`` per CUDA thread of a block, blocks in turn;
   ``std::barrier`` for ``__syncthreads`` and for warp-synchronous steps;
@@ -334,6 +334,9 @@ import torch
 from horovod_tpu_torch.ops import attention as A
 
 libdir, dtype = sys.argv[1], {"bf16": torch.bfloat16, "f32": torch.float32}[sys.argv[2]]
+# "value": K1's shift by value, then K2 and K3; "device": K1 alone, its
+# shift read from memory (the by-value argument a decoy).
+device_shift = sys.argv[4] == "device"
 fwd = ctypes.CDLL(f"{libdir}/libflash_fwd.so")
 bwd = ctypes.CDLL(f"{libdir}/libflash_bwd.so")
 
@@ -354,9 +357,21 @@ for i, (B, H, Hkv, S, T, D, shift) in enumerate(json.loads(sys.argv[3])):
     dims = (B, H, Hkv, S, T, D, int(dtype == torch.bfloat16),
             *A._mask_args(shift, S, T), scale)
     o, lse = torch.empty_like(q), torch.empty((B, H, S))
-    call(fwd, "flash_fwd", 5, (q, k, v, o, lse), *dims)
+    shift_dev = None
+    if device_shift:
+        held = torch.tensor(shift, dtype=torch.int32)
+        shift_dev = ptr(held)
+        dims = dims[:7] + (1, 12345) + dims[9:]
+    rc = A._bind_fwd(fwd)(*map(ptr, (q, k, v, o, lse)), *dims, None,
+                          shift_dev)
+    assert rc == 0, ("flash_fwd", rc)
     o_r, lse_r = A._reference_attention_lse(
         q, A.expand_kv(k, H), A.expand_kv(v, H), shift, scale)
+    if device_shift:
+        res[str([B, H, Hkv, S, T, D, shift])] = {
+            "o": (o.float() - o_r.float()).abs().max().item(),
+            "lse": (lse - lse_r).abs().max().item()}
+        continue
     delta = (do.float() * o_r.float()).sum(-1) - 0.25
     dk, dv, dq = torch.empty_like(k), torch.empty_like(v), torch.empty_like(q)
     call(bwd, "flash_bwd_dkdv", 8, (q, k, v, do, lse_r, delta, dk, dv), *dims)
@@ -393,8 +408,8 @@ def test_emulated_kernels_match_plain_versions(emulated_libs, dtype, copies):
                EMU_COPIES_AT_WAIT=str(int(copies == "at_wait")))
     run = subprocess.run(
         [sys.executable, "-c", CHILD, str(emulated_libs), dtype,
-         json.dumps(CASES)], capture_output=True, text=True, timeout=300,
-        env=env)
+         json.dumps(CASES), "value"], capture_output=True, text=True,
+        timeout=300, env=env)
     assert run.returncode == 0, run.stderr[-4000:]
     res = json.loads(run.stdout.strip().splitlines()[-1])
     assert len(res) == len(CASES)
@@ -402,6 +417,26 @@ def test_emulated_kernels_match_plain_versions(emulated_libs, dtype, copies):
     for case, err in res.items():
         assert err["o"] <= fwd_tol and err["lse"] <= fwd_tol, (case, err)
         assert max(err["dk"], err["dv"], err["dq"]) <= bwd_tol, (case, err)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_emulated_k1_reads_its_shift_from_memory(emulated_libs, dtype):
+    """K1 with ``shift_dev`` set (the captured suffix and chunk
+    prefills' mode): every masked case's shift read from memory, a
+    wrong by-value shift beside it, against the plain version at the
+    true shift."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), EMU_COPIES_AT_WAIT="1")
+    masked = [c for c in CASES if c[-1] is not None]
+    run = subprocess.run(
+        [sys.executable, "-c", CHILD, str(emulated_libs), dtype,
+         json.dumps(masked), "device"], capture_output=True, text=True,
+        timeout=300, env=env)
+    assert run.returncode == 0, run.stderr[-4000:]
+    res = json.loads(run.stdout.strip().splitlines()[-1])
+    assert len(res) == len(masked)
+    tol = 5e-2 if dtype == "bf16" else 1e-4
+    for case, err in res.items():
+        assert err["o"] <= tol and err["lse"] <= tol, (case, err)
 
 
 # K4 through the same C entry point the wrapper binds, with the pages a

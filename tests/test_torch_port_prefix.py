@@ -114,14 +114,18 @@ class TestPrefillWithPrefix:
             np.testing.assert_allclose(t, j, **TOL)
 
     def test_flash_route_launches_k1_shifted(self, model, monkeypatch):
-        """The ``flash`` route attends through K1's wrapper with
-        ``shift = -p0`` over exactly ``p0 + S0`` keys, once a layer: the
-        page tail never reaches it."""
+        """The ``flash`` route attends through K1's wrapper once a layer
+        over the page-padded prefix and the suffix, ``P0 + S0`` keys,
+        with ``shift = -p0`` as a 0-dim int32 tensor (the device shift a
+        captured graph replays with): the page tail lies past every
+        row's diagonal, so it never counts."""
         seen = []
         real = T.attn.flash_attention_shifted
 
         def spy(q, k, v, shift, sm_scale=None):
-            seen.append((tuple(q.shape), tuple(k.shape), shift))
+            assert isinstance(shift, torch.Tensor) and shift.dim() == 0 \
+                and shift.dtype == torch.int32
+            seen.append((tuple(q.shape), tuple(k.shape), int(shift)))
             return real(q, k, v, shift, sm_scale)
 
         monkeypatch.setattr(T.attn, "flash_attention_shifted", spy)
@@ -132,7 +136,7 @@ class TestPrefillWithPrefix:
                               model.tcfg, true_len=torch.tensor([8, 2]))
         cfg = model.tcfg
         assert seen == [((2, cfg.n_heads, 8, cfg.head_dim),
-                         (2, cfg.kv_heads, 19, cfg.head_dim), -11)] \
+                         (2, cfg.kv_heads, 16 + 8, cfg.head_dim), -11)] \
             * cfg.n_layers
 
     def test_bf16_model(self, model):
