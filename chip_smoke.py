@@ -20,7 +20,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    f32, bf16 and int8 pools with an edge table (partial last page, a
    slot at table capacity, a ``limit = 0`` slot, a page shared by two
    slots, limits on a split boundary and one past it, splits wholly
-   past the limit, R = 1 and 8), each case called twice and required
+   past the limit, R = 1 and 8, and the speculative verify's R = 20 in
+   f32, bf16 and int8 -> bf16), each case called twice and required
    to agree bit for bit; flash-attention backward (K2 dk/dv, K3 dq)
    through the autograd Function with a nonzero lse cotangent, bf16 and
    f32, head_dim 64 and 128, S 8, 100 and 2048, causal, full and shifted
@@ -107,10 +108,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    fault at a chunk boundary (one restart, ``healthy`` at the end): the
    tokens of both against ``greedy_decode`` / ``sample_decode`` of the
    whole prompt, by the same near-tie rule.
-6. Model gradients: a 2-layer d1024 model's f32 loss and parameter
+   Speculative decoding in f32, on the same prompts: an engine with
+   ``speculative=True`` for each draft source (``SPEC_DRAFTS``: n-gram
+   prompt lookup, the target as its own draft, and a half-depth draft
+   made of the target's first four layers, its embedding, final norm
+   and head): its tokens must equal the plain engine's and the oracles'
+   by the same near-tie rule, the self-draft's acceptance must reach
+   0.9 with more than one token a tick, and one decode fault mid-burst
+   must leave the tokens equal to the oracles (one restart, two
+   captures, an empty journal).
+6. Speculative decoding at full width in bf16 (``spec_legs``): for each
+   draft source a speculative engine against the plain one on the same
+   8 prompts, interleaved repetitions, tok/s over full-occupancy steps
+   (``benchmarks/serving.py``'s ``_ab_spec``), acceptance, tokens a
+   tick, each graph's replays, the step's wall and device time
+   (profiler); the n-gram leg on the random-init target is the losing
+   case, where the adaptive control must disable the slots and fall back
+   to the plain graph.  Then an HTTP burst through ``ServingServer``
+   (half sampled, one opted out): full counts, ``decode_compilations``
+   2 before and after, no admission capture past the warmup.
+7. Model gradients: a 2-layer d1024 model's f32 loss and parameter
    gradients through the kernels against the plain attention path (TF32
    off).
-7. Training at full width: a size-1 NCCL process group, then 10
+8. Training at full width: a size-1 NCCL process group, then 10
    data-parallel steps (``spmd.make_train_step`` +
    ``DistributedOptimizer(AdamW)``) of the d1024/L8/H16 MHA model with
    f32 master parameters and bf16 compute on one fixed batch of 8 x 2048
@@ -118,7 +138,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    K1, K2 and K3 must each launch once a layer a step; step time,
    tokens/s, MFU and peak memory are printed, and one more step is
    profiled (its K3 must be the tensor-core ``flash_bwd_dq_kernel_mma``).
-8. Times: each kernel at its path's shape (CUDA events around 10
+9. Times: each kernel at its path's shape (CUDA events around 10
    back-to-back calls, median of 20; also one call alone, which adds
    the host's launch cost; K4 and its yardstick, whose calls are
    shorter than their launching, by the profiler's device time) beside
@@ -127,14 +147,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    calls, and K4's split grid; the serving run's decode tok/s, TTFT and
    per-tick time.  K1 also at the prefix phase's suffix shape, by value
    and with the shift read from device memory, SDPA with the same mask
-   as a boolean ``attn_mask`` its yardstick.
+   as a boolean ``attn_mask`` its yardstick.  K4 also at the verify's
+   R = 20 (8 slots x 2176 positions; K4 at R = 4 timed beside it, SDPA
+   over the gathered K/V at R = 20 its yardstick), its own entry in the
+   kernels line with the verify launches of the speculative legs.
 
 Each phase's seconds are printed as it ends.
 
 A ``report:`` line carries every measurement as JSON; the line before
 last is a JSON object of the kernels (each one's launches summed over
 the main paths' runs that launch it: the HTTP burst, the prefix run,
-the two SLO legs and, for K1, training); the last line is
+the two SLO legs, the speculative legs and, for K1, training; K4's
+verify calls at R = 20 in an entry of their own); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository beside it, the script exits non-zero and prints no
 result.
@@ -213,6 +237,17 @@ SLO_ENGINE = dict(n_slots=4, max_len=SLO_LONG + 2 * SLO_NEW_TOKENS + 32,
                   max_prefills_per_tick=2, page_size=16, max_queue_depth=64)
 # The f32 SLO leg's fault: the prefill_chunk visit after this many more.
 SLO_FAULT_SKIP = 5
+# The speculative phase (EngineConfig's default spec_k = 4: W = 5, the
+# verify's K4 at R = G * W = 20).  The bf16 legs, after benchmarks/
+# serving.py's _ab_spec: 8 prompts of SPEC_PROMPT_LEN tokens, each leg's
+# speculative engine against the plain one on them, SPEC_NEW_TOKENS
+# tokens a request, SPEC_REPS measured repetitions after a warm one;
+# tok/s over full-occupancy steps.  The f32 legs' decode fault fires once
+# the burst has emitted SPEC_FAULT_AT tokens.
+SPEC_K = 4
+SPEC_PROMPT_LEN, SPEC_NEW_TOKENS, SPEC_REPS = 64, 128, 2
+SPEC_FAULT_AT = 64
+SPEC_DRAFTS = ("ngram", "self", "half")
 
 REPORT: dict = {"phase_s": {}}
 
@@ -598,7 +633,11 @@ def check_paged() -> dict:
              ("int8", bf16, 128, 4, K4_SPLIT_LIMITS, 2e-2),
              (bf16, bf16, 64, 1, K4_SPLIT_LIMITS, 2e-2),
              (bf16, bf16, 64, 8, K4_LIMITS, 2e-2),
-             (f32, f32, 128, 8, K4_SPLIT_LIMITS, 1e-4)]
+             (f32, f32, 128, 8, K4_SPLIT_LIMITS, 1e-4),
+             # The speculative verify: R = G * W = 4 * 5.
+             (f32, f32, 64, 20, K4_LIMITS, 1e-4),
+             (bf16, bf16, 64, 20, K4_LIMITS, 2e-2),
+             ("int8", bf16, 64, 20, K4_LIMITS, 2e-2)]
     for i, (kind, compute, Dh, R, lim, tol) in enumerate(cases):
         args, table, limit = _k4_case(kind, compute, Dh=Dh, R=R, seed=i,
                                       lim=lim)
@@ -624,6 +663,8 @@ def check_paged() -> dict:
             raise AssertionError(f"{name}: two calls differ")
         if kind == bf16 and Dh == 64 and R == 4 and lim is K4_LIMITS:
             worst["serving"] = err
+        if kind == bf16 and Dh == 64 and R == 20:
+            worst["verify"] = err
         worst[name] = err
     return worst
 
@@ -1135,18 +1176,20 @@ def _burst_with_faults(engine, inj, futs, faults) -> dict:
     return {"wall_s": time.monotonic() - t0, "recovery_s": recoveries}
 
 
-def _durability_checks(label: str, engine, launches: dict, restarts: int):
+def _durability_checks(label: str, engine, launches: dict, restarts: int,
+                       captures: int = 1):
     """What every faulted burst must leave: the expected restarts, an
-    empty journal, a healthy engine, one capture, and both kernels of
-    the path launched during the burst."""
+    empty journal, a healthy engine, its decode captures (one, two for a
+    speculative engine), and both kernels of the path launched during
+    the burst."""
     st = engine.stats()
     got = (st["engine_restarts"], st["journal_inflight"], st["state"],
            st["decode_compilations"])
-    if got != (restarts, 0, "healthy", 1):
+    if got != (restarts, 0, "healthy", captures):
         raise AssertionError(
             f"{label}: (engine_restarts, journal_inflight, state, "
             f"decode_compilations) = {got}, expected "
-            f"({restarts}, 0, 'healthy', 1)")
+            f"({restarts}, 0, 'healthy', {captures})")
     if not all(n > 0 for n in launches.values()):
         raise AssertionError(f"{label}: the faulted burst missed a kernel: "
                              f"{launches}")
@@ -1182,8 +1225,8 @@ def token_identity() -> dict:
     torch.cuda.synchronize()
     clean_s = time.monotonic() - t0
     refs = _f32_oracles(params, cfg, prompts)
-    exempt = _check_f32("f32", prompts,
-                        [f.result(timeout=0) for f in futs], refs)
+    plain_outs = [f.result(timeout=0) for f in futs]
+    exempt = _check_f32("f32", prompts, plain_outs, refs)
     captures = engine.stats()["decode_compilations"]
     if captures != 1:
         raise AssertionError(f"f32 engine captured {captures} ticks")
@@ -1224,10 +1267,13 @@ def token_identity() -> dict:
     torch.cuda.empty_cache()
     with phase("slo_f32"):
         slo = slo_identity_f32(params, cfg)
+    with phase("spec_f32"):
+        spec = spec_identity_f32(params, cfg, prompts, refs, plain_outs)
     del params
     torch.cuda.empty_cache()
     return {"requests": len(prompts), "exemptions": exempt,
-            "durability": faulted, "prefix": prefix, "slo": slo}
+            "durability": faulted, "prefix": prefix, "slo": slo,
+            "speculative": spec}
 
 
 # --- shared prefixes, chunked prefill, the admission profile -----------------
@@ -1665,6 +1711,277 @@ def slo_identity_f32(params, cfg) -> dict:
 # --- phases 6 and 7: training --------------------------------------------------
 
 
+# --- speculative decoding ----------------------------------------------------
+
+
+def _draft_model(name: str, params, cfg):
+    """``(draft_params, draft_cfg)`` of a draft source: None for the
+    n-gram draft, the target itself, or a half-depth model made of the
+    target's first layers, its embedding, final norm and head."""
+    import dataclasses
+
+    if name == "ngram":
+        return None, None
+    if name == "self":
+        return params, cfg
+    n = cfg.n_layers // 2
+    dcfg = dataclasses.replace(cfg, n_layers=n)
+    return ({**params, "layers": {k: v[:n].contiguous()
+                                  for k, v in params["layers"].items()}},
+            dcfg)
+
+
+def _spec_engine(name: str, params, cfg, **kw):
+    from horovod_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    dp, dc = _draft_model(name, params, cfg)
+    return InferenceEngine(
+        params, cfg, EngineConfig(**ENGINE, speculative=True, spec_k=SPEC_K,
+                                  **kw), draft_params=dp, draft_cfg=dc)
+
+
+def spec_identity_f32(params, cfg, prompts, refs, plain_outs) -> dict:
+    """The f32 burst through a speculative engine of each draft source:
+    its tokens against the oracles and against the plain engine's
+    (``plain_outs``), by the near-tie rule; the self-draft's acceptance
+    at least 0.9 and more than one token a tick; then the same burst on
+    the same engine through one decode fault once ``SPEC_FAULT_AT``
+    tokens are out: the oracles' tokens again, one restart, two
+    captures."""
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import paged_attention as PA
+    from horovod_tpu_torch.serving import FaultInjector
+
+    out = {}
+    for name in SPEC_DRAFTS:
+        inj = FaultInjector()
+        engine = _spec_engine(name, params, cfg, faults=inj)
+        engine.warmup((8,))
+        futs = [engine.submit(p, max_new_tokens=F32_NEW_TOKENS,
+                              **SAMPLING[i]) for i, p in enumerate(prompts)]
+        while not all(f.done() for f in futs):
+            engine.step()
+        outs = [f.result(timeout=0) for f in futs]
+        exempt = _check_f32(f"f32 spec {name}", prompts, outs, refs)
+        vs_plain = _check_f32(f"f32 spec {name} vs plain", prompts, outs,
+                              [(o, r[1]) for o, r in zip(plain_outs, refs)])
+        st = engine.stats()
+        acc, tpt = st["spec_acceptance_ratio"], st["tokens_per_tick"]["mean"]
+        if name == "self" and not (acc is not None and acc >= 0.9
+                                   and tpt > 1):
+            raise AssertionError(f"f32 self-draft: acceptance {acc}, "
+                                 f"{tpt} tokens a tick")
+        A.flash_fwd_launches = 0
+        PA.paged_attend_launches = 0
+        futs = [engine.submit(p, max_new_tokens=F32_NEW_TOKENS,
+                              **SAMPLING[i]) for i, p in enumerate(prompts)]
+        run = _burst_with_faults(engine, inj, futs,
+                                 [("decode_tick", "raise", SPEC_FAULT_AT)])
+        launches = {"flash_fwd": A.flash_fwd_launches,
+                    "paged_attend": PA.paged_attend_launches}
+        fault_exempt = _check_f32(f"f32 spec {name} faulted", prompts,
+                                  [f.result(timeout=0) for f in futs], refs)
+        st = _durability_checks(f"f32 spec {name} faulted", engine,
+                                launches, 1, captures=2)
+        out[name] = {"exemptions": exempt, "exemptions_vs_plain": vs_plain,
+                     "acceptance": acc, "tokens_per_tick_mean": tpt,
+                     "faulted_exemptions": fault_exempt,
+                     "recovery_s": run["recovery_s"],
+                     "requests_resumed": st["requests_resumed"],
+                     "launches": launches}
+        log(f"speculative f32 {name}: {len(prompts)} requests (half "
+            f"sampled) equal the oracles and the plain engine ({len(exempt)}"
+            f" / {len(vs_plain)} near-tie exemptions); acceptance {acc}, "
+            f"{tpt:.3f} tokens a tick; through a decode fault "
+            f"{len(fault_exempt)} exemptions, {st['requests_resumed']} "
+            f"resumes, decode_compilations 2")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _measure_spec(engines: dict, prompts, steps: int, reps: int) -> dict:
+    """``_ab_spec``'s measurement: each engine decodes the same prompts,
+    interleaved repetitions (the first warm, unmeasured), and tok/s over
+    the steps at full occupancy (tokens and wall summed a step, as a
+    speculative step emits a varying count).  Returns each engine's
+    tok/s, its tokens (every repetition) and its full-occupancy steps."""
+    stats = {n: [0, 0.0, [], 0] for n in engines}
+    for rep in range(reps + 1):
+        for name, eng in engines.items():
+            futs = [eng.submit(p, max_new_tokens=steps) for p in prompts]
+            while not all(f.done() for f in futs):
+                full = eng.slots.active_count == ENGINE["n_slots"]
+                before = eng.metrics.tokens_generated.value
+                t0 = time.perf_counter()
+                eng.step()
+                dt = time.perf_counter() - t0
+                if full and rep:
+                    stats[name][0] += (eng.metrics.tokens_generated.value
+                                       - before)
+                    stats[name][1] += dt
+                    stats[name][3] += 1
+            stats[name][2].append([f.result(timeout=0) for f in futs])
+    return {n: {"tok_per_s": v[0] / v[1] if v[1] else 0.0,
+                "tokens": v[2], "steps": v[3]}
+            for n, v in stats.items()}
+
+
+def _profile_steps(engine, prompts, n_steps: int = 8) -> dict:
+    """Host wall a step at full occupancy over ``n_steps`` steps, then
+    device busy a step by ``torch.profiler`` over ``n_steps`` more (the
+    profiler's host cost stays out of the wall), and which graph the
+    profiled steps ran (the speculative tick or the plain one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    futs = [engine.submit(p, max_new_tokens=SPEC_NEW_TOKENS)
+            for p in prompts]
+    while engine.scheduler.depth or engine._taken:
+        engine.step()
+    for _ in range(2):
+        engine.step()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(n_steps):
+        engine.step()
+    torch.cuda.synchronize()
+    wall = (time.monotonic() - t0) * 1e3 / n_steps
+    spec0, plain0 = engine._spec_tick.runs, engine._tick.runs
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            engine.step()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in _device_events(prof)) \
+        / 1e3 / n_steps
+    out = {"steps": n_steps, "step_wall_ms": wall, "device_busy_ms": busy,
+           "idle_share": 1 - busy / wall,
+           "spec_replays": engine._spec_tick.runs - spec0,
+           "plain_replays": engine._tick.runs - plain0}
+    while not all(f.done() for f in futs):
+        engine.step()
+    return out
+
+
+def spec_leg_bf16(name: str, params, cfg, plain, prompts, card) -> dict:
+    """One draft source's bf16 leg against the plain engine ``plain``:
+    the measured repetitions (the main path's run: the launch counters
+    read 0 before and are read after), acceptance, tokens a tick, each
+    graph's replays, the step's profile, then the HTTP burst."""
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import paged_attention as PA
+    from horovod_tpu_torch.serving import ServingServer
+
+    engine = _spec_engine(name, params, cfg)
+    t0 = time.monotonic()
+    engine.warmup([SPEC_PROMPT_LEN])
+    warm_s = time.monotonic() - t0
+    graphs0 = _admission_graphs(engine)
+    if graphs0["decode_compilations"] != 2:
+        raise AssertionError(f"spec {name}: decode_compilations "
+                             f"{graphs0['decode_compilations']} after warmup")
+    spec0, plain0 = engine._spec_tick.runs, engine._tick.runs
+    A.flash_fwd_launches = 0
+    PA.paged_attend_launches = 0
+    PA.paged_attend_launches_by_rows.clear()
+    m = _measure_spec({"spec": engine, "plain": plain}, prompts,
+                      SPEC_NEW_TOKENS, SPEC_REPS)
+    launches = {"flash_fwd": A.flash_fwd_launches,
+                "paged_attend": PA.paged_attend_launches,
+                "paged_attend_by_rows": dict(PA.paged_attend_launches_by_rows)}
+    spec_replays = engine._spec_tick.runs - spec0
+    plain_replays = engine._tick.runs - plain0
+    st = engine.stats()
+    verify_rows = FULL["n_heads"] // FULL["n_kv_heads"] * (SPEC_K + 1)
+    if not (launches["flash_fwd"] > 0 and launches["paged_attend"] > 0
+            and launches["paged_attend_by_rows"].get(verify_rows, 0) > 0):
+        raise AssertionError(f"spec {name}: the leg missed a kernel: "
+                             f"{launches}")
+    if name == "ngram" and plain_replays == 0:
+        raise AssertionError("spec ngram: the adaptive control never fell "
+                             "back to the plain graph")
+    ratio = m["spec"]["tok_per_s"] / m["plain"]["tok_per_s"]
+    prof = _profile_steps(engine, prompts)
+    # The HTTP burst: half sampled, one request opted out.
+    srv = ServingServer(engine, port=0, request_timeout=600).start()
+    url = "http://%s:%d/generate" % srv.address
+    results = [None] * len(prompts)
+
+    def client(i):
+        results[i] = _post(url, {"tokens": prompts[i],
+                                 "max_new_tokens": SPEC_NEW_TOKENS // 2,
+                                 "speculative": i != 2, **SAMPLING[i]})
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    srv.stop()
+    for i, res in enumerate(results):
+        if res is None or res[0] != 200 or \
+                len(res[1]["tokens"]) != SPEC_NEW_TOKENS // 2:
+            raise AssertionError(f"spec {name}: HTTP request {i} failed: "
+                                 f"{res and res[0]}")
+    graphs1 = _admission_graphs(engine)
+    if graphs1 != graphs0:
+        raise AssertionError(f"spec {name}: captured past the warmup: "
+                             f"{graphs0} before, {graphs1} after")
+    out = {"draft": name, "warmup_s": warm_s,
+           "spec_tok_per_s": m["spec"]["tok_per_s"],
+           "plain_tok_per_s": m["plain"]["tok_per_s"],
+           "spec_over_plain": ratio,
+           "full_steps": {n: v["steps"] for n, v in m.items()},
+           "equal_tokens_to_plain": m["spec"]["tokens"] == m["plain"]["tokens"],
+           "acceptance": st["spec_acceptance_ratio"],
+           "tokens_per_tick_mean": st["tokens_per_tick"]["mean"],
+           "spec_slots_live": st["spec_slots_live"],
+           "spec_replays": spec_replays, "plain_replays": plain_replays,
+           "launches": launches, "profile": prof,
+           "decode_compilations": graphs1["decode_compilations"],
+           "admission_graphs": graphs1}
+    log(f"speculative bf16 {name} on {card}: {out['spec_tok_per_s']:.1f} "
+        f"tok/s against plain {out['plain_tok_per_s']:.1f} "
+        f"({ratio:.3f}x, full-occupancy steps); acceptance "
+        f"{out['acceptance']}, {out['tokens_per_tick_mean']:.3f} tokens a "
+        f"tick; replays spec {spec_replays} plain {plain_replays}; step "
+        f"{prof['step_wall_ms']:.3f} ms wall, {prof['device_busy_ms']:.3f} "
+        f"ms device (idle {prof['idle_share']:.3f}; {prof['spec_replays']} "
+        f"spec / {prof['plain_replays']} plain replays); tokens equal to "
+        f"plain: {out['equal_tokens_to_plain']}; launches {launches}; "
+        "HTTP burst full, decode_compilations 2, no capture past warmup")
+    engine.terminate("speculative leg done")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_full_width(card: str) -> dict:
+    """The bf16 legs of every draft source (``SPEC_DRAFTS``) against one
+    plain engine, on the serving phase's configuration."""
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    cfg = T.TransformerConfig(**FULL, dtype=torch.bfloat16)
+    params = T.init_params(cfg, seed=0)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, FULL["vocab_size"], SPEC_PROMPT_LEN).tolist()
+               for _ in range(ENGINE["n_slots"])]
+    plain = InferenceEngine(params, cfg, EngineConfig(**ENGINE))
+    plain.warmup([SPEC_PROMPT_LEN])
+    out = {"prompt_len": SPEC_PROMPT_LEN, "new_tokens": SPEC_NEW_TOKENS,
+           "reps": SPEC_REPS, "spec_k": SPEC_K, "legs": {}}
+    for name in SPEC_DRAFTS:
+        out["legs"][name] = spec_leg_bf16(name, params, cfg, plain, prompts,
+                                          card)
+    del plain, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def model_grads_f32() -> dict:
     """f32 loss and every parameter gradient of a 2-layer model, attention
     by K1-K3 against the plain softmax attention, TF32 off.  Tolerance:
@@ -1981,13 +2298,16 @@ def time_flash_bwd(errs: dict, launches: dict) -> list:
     return out
 
 
-def time_paged(err: float, launches: int) -> dict:
+def time_paged(err: float, launches: int, R: int = 4) -> dict:
+    """K4 at the serving shape, 8 slots x 2176 positions, with ``R``
+    query rows a kv head: the decode tick's G = 4, or the speculative
+    verify's G * W = 20 (its own kernels-line entry)."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.models import transformer as T
     from horovod_tpu_torch.ops import paged_attention as PA
 
-    S, Hkv, R, Dh, ps, MP = 8, 4, 4, 64, 16, 136
+    S, Hkv, Dh, ps, MP = 8, 4, 64, 16, 136
     P = S * MP + 1
     g = torch.Generator(device="cuda").manual_seed(7)
     qg = torch.randn((S, Hkv, R, Dh), generator=g, device="cuda").to(
@@ -2026,7 +2346,8 @@ def time_paged(err: float, launches: int) -> dict:
               + S * 4 + S * Hkv * R * Dh * 4 + S * Hkv * R * 4)
     flops = 4 * Hkv * R * Dh * n_pos
     b_ms, b_by = bound(flops, nbytes, torch.bfloat16)
-    return {"name": "paged_attend", "route": "cuda",
+    return {"name": "paged_attend" if R == 4 else "paged_attend_verify",
+            "route": "cuda",
             "source": "horovod_tpu_torch/ops/csrc/paged_attention.cu",
             "replaces": "horovod_tpu/ops/paged_attention.py:101",
             "launches": launches, "max_abs_err": err, "ms": ms,
@@ -2076,6 +2397,9 @@ def main() -> int:
         f"{f32d['faulted_tok_per_s']:.1f} (same engine and prompts); bf16 "
         f"serving burst {serving['tok_per_s']:.1f}, faulted and preempting "
         f"burst {bf16d['faulted_tok_per_s']:.1f}")
+    with phase("speculative"):
+        spec = spec_full_width(card)
+    REPORT["speculative_bf16"] = spec
     with phase("model_grads_f32"):
         REPORT["model_grads_f32"] = model_grads_f32()
     with phase("training"):
@@ -2084,14 +2408,20 @@ def main() -> int:
     # Each kernel's launches are the sum over the main paths' runs that
     # launch it: serving (the HTTP burst, the prefix run, the two SLO
     # legs) and, for K1, training.
-    served = [serving, serving["prefix"], *serving["slo"].values()]
+    served = [serving, serving["prefix"], *serving["slo"].values(),
+              *spec["legs"].values()]
     k1_launches = sum(r["launches"]["flash_fwd"] for r in served) + \
         train["launches"]["flash_fwd"]
-    k4_launches = sum(r["launches"]["paged_attend"] for r in served)
+    verify_rows = FULL["n_heads"] // FULL["n_kv_heads"] * (SPEC_K + 1)
+    k4_verify = sum(leg["launches"]["paged_attend_by_rows"].get(
+        verify_rows, 0) for leg in spec["legs"].values())
+    k4_launches = sum(r["launches"]["paged_attend"] for r in served) \
+        - k4_verify
     t_times = time.monotonic()
     kernels = [time_flash(k1["serving"], k1_launches),
                *time_flash_bwd(k23["training"], train["launches"]),
-               time_paged(k4["serving"], k4_launches)]
+               time_paged(k4["serving"], k4_launches),
+               time_paged(k4["verify"], k4_verify, R=verify_rows)]
     k1_train = time_flash(None, train["launches"]["flash_fwd"],
                           B=TRAIN_BATCH, Hkv=16)
     REPORT["flash_fwd_training_shape"] = k1_train
@@ -2104,6 +2434,13 @@ def main() -> int:
         f"{k1_suffix['ms']:.4f} ms by value (CUDA events, 10 calls); "
         f"kernel device time (profiler, in turns) "
         f"{k1_suffix['kernel_device_ms']}")
+    k4r4, k4r20 = kernels[-2], kernels[-1]
+    log(f"K4 at the verify's R = {verify_rows} on {card}: "
+        f"{k4r20['ms']:.4f} ms device time beside {k4r4['ms']:.4f} ms at "
+        f"R = 4; byte bound {k4r20['bound_ms']:.4f} ms ({k4r20['bound_by']}"
+        f"); SDPA over gathered K/V at R = {verify_rows} "
+        f"{k4r20['library_ms']:.4f} ms; {k4_verify} verify launches in the "
+        "speculative legs")
     for kr in kernels + [k1_train, k1_suffix]:
         log(f"{kr['name']} [{kr['shape']}]: {kr['ms']:.4f} ms "
             f"({kr['tflops']:.1f} TFLOP/s; one call alone "

@@ -9,7 +9,12 @@ shift), the contiguous-cache decode step
 with the per-request :func:`sample_decode` / :func:`greedy_decode`
 oracles, the per-slot sampler :func:`sample_token_rows` (JAX's threefry
 draws, :mod:`~horovod_tpu_torch.ops.threefry`), and the paged decode
-tick (paged-attention kernel K4 with ``kernel=True``).
+tick (paged-attention kernel K4 with ``kernel=True``), and speculative
+decoding's pieces: the proposers :func:`ngram_propose` (prompt lookup)
+and :func:`draft_propose_paged` (a shallower draft model's greedy steps)
+and the W-wide :func:`decode_verify_paged` (K4 at ``R = G * W`` over the
+committed pages, merged by log-sum-exp with the window's own causal
+attention).
 
 Parameters are a plain dict in the JAX package's layout: layers stacked
 on a leading ``L`` axis, the same names and shapes.  Every matrix is
@@ -38,8 +43,9 @@ from horovod_tpu_torch.ops import paged_attention as pa
 from horovod_tpu_torch.ops import threefry
 
 __all__ = ["TransformerConfig", "decode_step", "decode_step_paged",
-           "forward", "greedy_decode", "init_cache", "init_params",
-           "kv_dequantize", "kv_quantize", "loss_fn", "prefill",
+           "decode_verify_paged", "draft_propose_paged", "forward",
+           "greedy_decode", "init_cache", "init_params", "kv_dequantize",
+           "kv_quantize", "loss_fn", "ngram_propose", "prefill",
            "prefill_with_prefix", "resolve_device", "sample_decode",
            "sample_token_rows", "synthetic_batch"]
 
@@ -750,3 +756,236 @@ def decode_step_paged(params: Dict, tokens_t, pool: Dict, table,
     logits = _lm_head(x, params["ln_f"], params["head"], cfg)
     pos.add_(active.to(pos.dtype))
     return logits[:, 0], pool
+
+
+# --- speculative decoding: draft and verify ---------------------------------
+#
+# Leviathan et al., "Fast Inference from Transformers via Speculative
+# Decoding": draft k cheap tokens, verify them in one batched target
+# forward, accept the agreeing prefix plus the target's own next token.
+# Under greedy decoding the emitted tokens are always the target's argmax
+# continuations, so the draft moves only how many tokens a tick emits.
+
+
+@torch.no_grad()
+def draft_propose_paged(params: Dict, tokens_t, pool: Dict, table,
+                        cfg: TransformerConfig, active, k: int, *,
+                        kernel=False):
+    """``k`` greedy draft tokens a slot from a (shallow) draft model:
+    ``k + 1`` :func:`decode_step_paged` calls, each fed the previous
+    one's argmax, so the draft writes its own K/V for every token it
+    proposes (the last call lands the last draft's K/V; its logits are
+    dropped).  The draft pool's ``pos`` advances by ``k + 1`` in place;
+    the caller sets it back to the verified position, and the rejected
+    tail's K/V is overwritten before it is ever attended.  No capacity
+    check (the tick must not sync): a position past the table writes the
+    last table entry's page, the draft's own, which only moves
+    acceptance.  Returns ``(drafts (S, k) int64, pool)``."""
+    tok, drafts = tokens_t, []
+    for _ in range(k + 1):
+        logits, pool = decode_step_paged(params, tok, pool, table, cfg,
+                                         active, kernel=kernel,
+                                         check_capacity=False)
+        tok = torch.argmax(logits, dim=-1)
+        drafts.append(tok)
+    return torch.stack(drafts[:k], dim=1), pool
+
+
+@torch.no_grad()
+def ngram_propose(hist, pos, k: int):
+    """``k`` draft tokens a slot by prompt lookup (n-gram
+    self-speculation, no second model): the tokens that followed the most
+    recent earlier occurrence of the slot's last bigram in its committed
+    history.
+
+    ``hist`` ``(S, T)``, position ``pos[s]`` holding slot ``s``'s last
+    committed token.  The copy is gated to committed positions (``<=
+    pos``); past them, and for a slot with no earlier match (or fewer
+    than two committed tokens), the last token is repeated.  Tensor
+    operations only, no data-dependent shape."""
+    S, T = hist.shape
+    dev = hist.device
+    rows = torch.arange(S, device=dev)
+    p = pos.long()
+    last = hist[rows, p.clamp(0, T - 1)]
+    prev = hist[rows, (p - 1).clamp(0, T - 1)]
+    iota = torch.arange(T, device=dev)[None, :]
+    nxt = torch.cat([hist[:, 1:], torch.zeros_like(hist[:, :1])], dim=1)
+    match = ((hist == prev[:, None]) & (nxt == last[:, None])
+             & (iota + 1 < p[:, None]))
+    idx = torch.where(match, iota, torch.full_like(iota, -1)).amax(dim=1)
+    gidx = (idx + 2)[:, None] + torch.arange(k, device=dev)[None, :]
+    drafts = torch.gather(hist, 1, gidx.clamp(0, T - 1))
+    ok = (idx >= 0)[:, None] & (gidx <= p[:, None])
+    return torch.where(ok, drafts, last[:, None])
+
+
+@torch.no_grad()
+def decode_verify_paged(params: Dict, window, pool: Dict, table,
+                        cfg: TransformerConfig, active, spec_on=None,
+                        sample=None, *, kernel=False):
+    """One W-position verify forward over a paged cache: the target half
+    of a speculative tick.
+
+    ``window`` ``(S, W)``: column 0 is each slot's last committed token,
+    columns 1..W-1 its drafts.  Query offset ``j`` (logical position
+    ``pos[s] + j``) attends the slot's committed positions ``< pos[s]``
+    through its page table and window offsets ``<= j``.  The window's
+    K/V is rounded through the pool's storage first (a cast, or int8
+    quantize then dequantize), so each position sees what the one-token
+    tick would read back from the pool.
+
+    ``t = argmax`` per position is the target's greedy continuation;
+    ``acc[s]`` is the length of the agreeing draft prefix (``window[s,
+    1 + i] == t[s, i]``), a ``cumprod`` sum with no host sync, so a slot
+    emits ``t[s, 0..acc[s]]``.  ``spec_on`` ``(S,)`` bool forces ``acc``
+    to 0 where False (the per-request opt-out).  ``sample`` —
+    ``(temperature, top_k, top_p, keys)`` columns
+    (:func:`sample_token_rows`) — replaces offset 0 of rows with
+    ``temperature > 0`` by the sampled pick at key position ``pos + 1``
+    and forces their ``acc`` to 0, so a mixed batch shares the tick and
+    sampled streams stay those of :func:`sample_decode`.  Inactive rows
+    get ``acc`` 0 and keep their position.
+
+    The pool is updated in place (payload, scales and ``pos``, which
+    keeps its storage): window offset ``j`` lands at ``pos + j`` only if
+    the row is active, ``j <= acc`` and ``pos + j`` lies within the
+    table; every other write goes to physical page 0, the NULL page
+    (``index_put_`` leaves an arbitrary winner among duplicate targets,
+    harmless because nothing attends page 0).  ``pos`` advances by
+    ``acc + 1`` for active rows.  Returns ``(t (S, W) int64, max logit
+    (S, W) f32, acc (S,) int64, pool)``.
+
+    ``kernel=True`` attends the committed pages through
+    :func:`~horovod_tpu_torch.ops.paged_attention.paged_attend` (K4 on
+    CUDA) with the ``G * W`` query rows of each kv head in (G, W) order
+    and ``limit = pos`` (0 for inactive rows), adds a dense causal pass
+    over the window, and merges the two by log-sum-exp; ``False``
+    gathers the pages and applies one mask."""
+    pos = pool["pos"]
+    S, W = window.shape
+    dev = window.device
+    max_pages = table.shape[1]
+    ps = pool["k"].shape[3]
+    T_cap = max_pages * ps
+    quantized = "k_scale" in pool
+    storage = pool["k"].dtype
+    H, Hkv, Dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    G = H // Hkv
+    p0 = pos.long()
+    x = params["embed"].to(cfg.dtype)[window.long()]       # (S, W, D)
+    x = torch.where(active[:, None, None], x, torch.zeros_like(x))
+    jw = torch.arange(W, device=dev)
+    positions = p0[:, None] + jw[None, :]
+    win_vis = jw[None, :] <= jw[:, None]                   # (W, W): col <= row
+    if kernel:
+        climit = torch.where(active, pos, torch.zeros_like(pos)).to(
+            torch.int32)
+    else:
+        cache_vis = (torch.arange(T_cap, device=dev)[None, :]
+                     < p0[:, None])                        # (S, T)
+        mask = torch.cat([cache_vis[:, None, :].expand(S, W, T_cap),
+                          win_vis[None].expand(S, W, W)], dim=2)
+        mask = mask[:, None, None]                         # (S,1,1,W,T+W)
+    ys = []
+    for l in range(cfg.n_layers):
+        p = _layer(params, l)
+        k_c, v_c = pool["k"][l], pool["v"][l]
+        ks_c = pool["k_scale"][l] if quantized else None
+        vs_c = pool["v_scale"][l] if quantized else None
+        qh, kh, vh = _qkv_proj(_rmsnorm(x, p["ln1"]), p, cfg,
+                               positions=positions)
+        if quantized:
+            qk, sk = kv_quantize(kh)
+            qv, sv = kv_quantize(vh)
+            kh_a = kv_dequantize(qk, sk, cfg.dtype)
+            vh_a = kv_dequantize(qv, sv, cfg.dtype)
+            ys.append((qk, sk, qv, sv))
+        else:
+            kh_a, vh_a = kh.to(storage), vh.to(storage)
+            ys.append((kh_a, vh_a))
+        qg = qh.reshape(S, Hkv, G, W, Dh)
+        if kernel:
+            o_c, lse_c = pa.paged_attend(
+                qg.reshape(S, Hkv, G * W, Dh), k_c, v_c, ks_c, vs_c, table,
+                climit, compute_dtype=cfg.dtype)
+            o_c = o_c.reshape(S, Hkv, G, W, Dh)
+            lse_c = lse_c.reshape(S, Hkv, G, W)
+            # The window's own causal attention, unnormalized beside its
+            # log-sum-exp (the diagonal is always visible: lw >= 1).
+            sw = torch.einsum("bkgsd,bktd->bkgst",
+                              qg.to(kh_a.dtype).float(),
+                              kh_a.float()) / math.sqrt(Dh)
+            sw = torch.where(win_vis, sw, torch.full_like(sw, -1e30))
+            mw = sw.amax(dim=-1)
+            pw = torch.exp(sw - mw[..., None])
+            lw = pw.sum(dim=-1)
+            o_w = torch.einsum("bkgst,bktd->bkgsd", pw.to(vh_a.dtype).float(),
+                               vh_a.float()) / lw[..., None]
+            lse_w = mw + torch.log(lw)
+            # Cross-source merge; a_c is exactly 0 for a row with no
+            # committed context (lse_c = NEG_INF).
+            m = torch.maximum(lse_c, lse_w)
+            a_c = torch.exp(lse_c - m)
+            a_w = torch.exp(lse_w - m)
+            o = ((a_c[..., None] * o_c + a_w[..., None] * o_w)
+                 / (a_c + a_w)[..., None])
+        else:
+            if quantized:
+                kg = kv_dequantize(_gather_pages(k_c, table),
+                                   _gather_scales(ks_c, table), cfg.dtype)
+                vg = kv_dequantize(_gather_pages(v_c, table),
+                                   _gather_scales(vs_c, table), cfg.dtype)
+            else:
+                kg, vg = _gather_pages(k_c, table), _gather_pages(v_c, table)
+            k_full = torch.cat([kg, kh_a], dim=2)          # (S,Hkv,T+W,Dh)
+            v_full = torch.cat([vg, vh_a], dim=2)
+            sc = torch.einsum("bkgsd,bktd->bkgst",
+                              qg.to(k_full.dtype).float(),
+                              k_full.float()) / math.sqrt(Dh)
+            sc = torch.where(mask, sc, torch.full_like(sc, -1e30))
+            w = _softmax(sc)
+            o = torch.einsum("bkgst,bktd->bkgsd", w.to(v_full.dtype).float(),
+                             v_full.float())
+        out = _out_proj(o.reshape(S, H, W, Dh).to(cfg.dtype), p, cfg)
+        x = _mlp_block(x + out, p, cfg)
+    logits = _lm_head(x, params["ln_f"], params["head"], cfg)  # (S, W, V)
+    t = torch.argmax(logits, dim=-1)
+    mx = logits.amax(dim=-1)
+    match = (window[:, 1:].long() == t[:, :-1]).long()
+    acc = torch.cumprod(match, dim=1).sum(dim=1)
+    if spec_on is not None:
+        acc = torch.where(spec_on, acc, torch.zeros_like(acc))
+    if sample is not None:
+        temp, s_tk, s_tp, s_key = sample
+        s0 = sample_token_rows(logits[:, 0], temp, s_tk, s_tp, s_key, p0 + 1,
+                               torch.zeros_like(p0))
+        sampled = temp > 0.0
+        t = torch.cat([torch.where(sampled, s0, t[:, 0])[:, None], t[:, 1:]],
+                      dim=1)
+        acc = torch.where(sampled, torch.zeros_like(acc), acc)
+    acc = torch.where(active, acc, torch.zeros_like(acc))
+
+    # Accepted-only scatter: offset j lands at pos + j through the table
+    # iff the row is active, j <= acc and pos + j < T_cap; the rest (the
+    # rejected tail, inactive rows, positions past the table) goes to
+    # the NULL page.
+    wpos = positions
+    ok = (active[:, None] & (jw[None, :] <= acc[:, None]) & (wpos < T_cap))
+    idxp = (wpos // ps).clamp(0, max_pages - 1)
+    phys = torch.where(ok, torch.gather(table.long(), 1, idxp),
+                       torch.zeros_like(idxp))
+    off = wpos % ps
+    # Per layer (S, H_kv, W, ...) stacked to (L, ...), laid out (S, W, L,
+    # H_kv, ...) as the indexed result of pool[:, phys, :, off].
+    if quantized:
+        for name, i in (("k", 0), ("k_scale", 1), ("v", 2), ("v_scale", 3)):
+            vals = torch.stack([y[i] for y in ys])
+            perm = (1, 3, 0, 2, 4) if vals.dim() == 5 else (1, 3, 0, 2)
+            pool[name][:, phys, :, off] = vals.permute(*perm)
+    else:
+        for name, i in (("k", 0), ("v", 1)):
+            vals = torch.stack([y[i] for y in ys])
+            pool[name][:, phys, :, off] = vals.permute(1, 3, 0, 2, 4)
+    pos.add_(torch.where(active, acc + 1, torch.zeros_like(acc)).to(pos.dtype))
+    return t, mx, acc, pool

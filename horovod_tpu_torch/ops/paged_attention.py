@@ -36,6 +36,9 @@ __all__ = ["DEQUANT_COMPUTE", "NEG_INF", "paged_attend",
 #: Calls of K4 (its split and combine kernels, launched together) in
 #: this process.
 paged_attend_launches = 0
+#: The same calls by their query rows a kv head, R (the decode tick's G,
+#: the speculative verify's G * W).
+paged_attend_launches_by_rows: dict = {}
 
 # The pinned dequant compute dtype: int8 payloads and their scales
 # multiply in f32 — even when the compute dtype is bf16 — and only THEN
@@ -187,6 +190,8 @@ def _paged_attend_cuda(qg, k_pool, v_pool, k_scale, v_scale, table, limit,
             int(qg.dtype == torch.bfloat16))
     _cuda.check(lib, rc, "paged_attend launch")
     paged_attend_launches += 1
+    paged_attend_launches_by_rows[R] = paged_attend_launches_by_rows.get(
+        R, 0) + 1
     return o, lse
 
 

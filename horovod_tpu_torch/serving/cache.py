@@ -192,6 +192,17 @@ class PagedSlotCache:
         self._active[slot] = True
         return slot
 
+    def acquire(self, slot: int) -> None:
+        """Mark a given slot active: a draft model's pool mirrors the
+        target pool slot for slot (same ids, same retirement), so its
+        allocator follows the target's choice instead of making its own.
+        :meth:`free` releases it as usual."""
+        if self._active[slot]:
+            raise ValueError(f"slot {slot} is already active")
+        self._free.remove(slot)
+        heapq.heapify(self._free)
+        self._active[slot] = True
+
     def free(self, slot: int) -> None:
         """Retire a slot: every page its table references is
         dereferenced."""

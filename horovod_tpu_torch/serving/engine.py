@@ -111,6 +111,26 @@ Durability, as in the JAX engine:
   The watchdog never takes the engine lock and never touches the device
   (a hung device wait cannot be interrupted).
 
+Speculative decoding (``EngineConfig.speculative``, as in the JAX
+engine): each tick drafts ``spec_k`` tokens a slot — by prompt lookup
+over a device-resident token history (``spec_draft="ngram"``), or with a
+shallower draft model over its own slot-aligned paged pool
+(``"model"``: ``InferenceEngine(draft_params=, draft_cfg=)``) — and
+verifies them in one W-wide forward (``W = spec_k + 1``; the committed
+pages through K4 at ``R = G * W``).  A slot emits its accepted drafts
+plus the target's own next token, 1 to ``W`` tokens a tick, always the
+target's greedy continuation, so the tokens equal the plain engine's.
+The speculative tick is one more CUDA graph
+(:class:`~horovod_tpu_torch.serving.graph.SpecTick`) beside the plain
+tick, which a tick where no slot speculates replays instead (every
+request opted out with ``submit(speculative=False)``, sampled, or its
+slot disabled by the adaptive control: a slot whose acceptance over
+``spec_window`` ticks falls under ``spec_min_acceptance`` stops
+speculating, and is probed again every ``spec_probe_period`` ticks).
+The host learns a slot's accepted length one tick late, so with a
+speculative tick in flight the page grants cover ``2W - 1`` positions
+ahead and the host mirror of the positions advances at fetch.
+
 Faults for tests come from
 :class:`~horovod_tpu_torch.serving.faults.FaultInjector`
 (``EngineConfig.faults``), probed at the JAX engine's sites: ``watchdog``
@@ -141,6 +161,7 @@ from horovod_tpu_torch.serving.faults import FaultInjector
 from horovod_tpu_torch.serving.graph import (
     DecodeTick,
     PrefillGraphs,
+    SpecTick,
     download,
     upload,
     upload_into,
@@ -319,7 +340,20 @@ class EngineConfig:
     tick may still return and have its requests resumed (None = one
     more ``tick_timeout``); ``faults`` threads a
     :class:`~horovod_tpu_torch.serving.faults.FaultInjector` through
-    the engine's fault sites (tests only)."""
+    the engine's fault sites (tests only).
+
+    Speculative decoding, the JAX engine's knobs and defaults:
+    ``speculative`` turns it on; ``spec_k`` drafts a slot a tick;
+    ``spec_draft`` picks the draft source, ``"model"`` (needs
+    ``InferenceEngine(draft_params=, draft_cfg=)``, a config of the same
+    vocabulary), ``"ngram"`` (prompt lookup) or ``"auto"`` (the model
+    when draft parameters are given); ``draft_n_pages`` sizes the draft
+    model's page pool (0 = capacity parity); ``spec_adaptive`` disables
+    a slot's speculation when its acceptance over ``spec_window`` ticks
+    falls under ``spec_min_acceptance``, and re-enables it for a probe
+    window every ``spec_probe_period`` ticks.  The JAX check that
+    speculation needs ``paged=True`` has no counterpart: the port is
+    paged only."""
 
     n_slots: int = 4
     max_len: int = 0
@@ -341,6 +375,14 @@ class EngineConfig:
     journal_path: Optional[str] = None
     stall_grace: Optional[float] = None
     faults: Optional[FaultInjector] = None
+    speculative: bool = False
+    spec_k: int = 4
+    spec_draft: str = "auto"
+    draft_n_pages: int = 0
+    spec_adaptive: bool = True
+    spec_min_acceptance: float = 0.25
+    spec_window: int = 2
+    spec_probe_period: int = 256
 
 
 @dataclasses.dataclass
@@ -390,19 +432,52 @@ class InferenceEngine:
     the watchdog).  The engine runs on CUDA unless ``device="cpu"`` is
     passed; ``params`` must already live on that device
     (:func:`~horovod_tpu_torch.models.transformer.init_params`,
-    :func:`~horovod_tpu_torch.models.convert.params_from_jax`)."""
+    :func:`~horovod_tpu_torch.models.convert.params_from_jax`); so must
+    ``draft_params``, a speculative engine's draft model (``draft_cfg``
+    its configuration, of the target's vocabulary)."""
 
     def __init__(self, params: Dict, cfg: T.TransformerConfig,
-                 engine_cfg: EngineConfig = EngineConfig(), *, device=None):
+                 engine_cfg: EngineConfig = EngineConfig(), *, device=None,
+                 draft_params: Optional[Dict] = None,
+                 draft_cfg: Optional[T.TransformerConfig] = None):
         self.device = T.resolve_device(device)
-        if params["embed"].device.type != self.device.type:
-            raise ValueError(
-                f"params live on {params['embed'].device}, the engine on "
-                f"{self.device}")
+        for name, tree in (("params", params), ("draft_params",
+                                                draft_params)):
+            if tree is not None and \
+                    tree["embed"].device.type != self.device.type:
+                raise ValueError(
+                    f"{name} live on {tree['embed'].device}, the engine on "
+                    f"{self.device}")
         self.params = params
         self.cfg = cfg
         self.engine_cfg = engine_cfg
         ec = engine_cfg
+        # Speculative decoding: the draft source is resolved up front.
+        self._spec = ec.speculative
+        self._spec_model = False
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        if self._spec:
+            if ec.spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {ec.spec_k}")
+            mode = ec.spec_draft
+            if mode == "auto":
+                mode = "model" if draft_params is not None else "ngram"
+            if mode not in ("model", "ngram"):
+                raise ValueError(
+                    f"unknown spec_draft {ec.spec_draft!r}; expected "
+                    "'model', 'ngram', or 'auto'")
+            if mode == "model":
+                if draft_params is None or draft_cfg is None:
+                    raise ValueError(
+                        "spec_draft='model' needs draft_params and "
+                        "draft_cfg (a shallower TransformerConfig sharing "
+                        "the tokenizer)")
+                if draft_cfg.vocab_size != cfg.vocab_size:
+                    raise ValueError(
+                        f"draft model must share the tokenizer: vocab "
+                        f"{draft_cfg.vocab_size} != {cfg.vocab_size}")
+            self._spec_model = mode == "model"
         if ec.prefill_chunk_tokens < 0:
             raise ValueError(
                 f"prefill_chunk_tokens must be >= 1 (or 0 to disable), got "
@@ -491,6 +566,42 @@ class InferenceEngine:
         # the first-token sampler), over the same parameters and pool.
         self._graphs = PrefillGraphs(params, cfg, self.slots.cache,
                                      self.device)
+        # Speculative state.  _spec_host is the per-slot opt-out mask
+        # (submit(speculative=False), sampled requests, a draft pool too
+        # small for the prompt); _spec_live the adaptive mask (False:
+        # acceptance fell under the floor), _spec_win the (drafted,
+        # accepted) window, _spec_idle the ticks since a disable (a
+        # probe re-enables at spec_probe_period), _spec_stale the slots
+        # whose draft state missed plain ticks and must be rebuilt
+        # before they speculate again.
+        self._spec_host = np.ones(ec.n_slots, bool)
+        self._spec_live = np.ones(ec.n_slots, bool)
+        self._spec_win = np.zeros((ec.n_slots, 2), np.int64)
+        self._spec_idle = np.zeros(ec.n_slots, np.int64)
+        self._spec_stale = np.zeros(ec.n_slots, bool)
+        # The dispatch-time speculation mask last uploaded into the
+        # speculative tick, and the draft table's uploaded version.
+        self._spec_mask: Optional[np.ndarray] = None
+        self._dtable_uploaded = -1
+        # The model draft's pool (slot-aligned with the target's, model
+        # dtype) and its admission prefills, one graph per (bucket, k);
+        # the n-gram draft's history lives in the speculative tick.
+        self.draft_slots: Optional[PagedSlotCache] = None
+        self._draft_graphs: Optional[PrefillGraphs] = None
+        self._spec_tick: Optional[SpecTick] = None
+        if self._spec:
+            draft = None
+            if self._spec_model:
+                self.draft_slots = PagedSlotCache(
+                    draft_cfg, ec.n_slots, self.slots.max_len,
+                    page_size=ec.page_size, n_pages=ec.draft_n_pages,
+                    device=self.device)
+                self._draft_graphs = PrefillGraphs(
+                    draft_params, draft_cfg, self.draft_slots.cache,
+                    self.device)
+                draft = (draft_params, draft_cfg, self.draft_slots.cache)
+            self._spec_tick = SpecTick(self._tick, ec.spec_k,
+                                       self.slots.max_len, draft)
         # Reserved device memory before and after the last warm sweep.
         self._warm_reserved = (0, 0)
         # Overlapped pipeline: _pending is the one dispatched tick not
@@ -560,7 +671,8 @@ class InferenceEngine:
                top_p: float = 0.0, seed: Optional[int] = None,
                priority: str = "interactive",
                on_token: Optional[Callable[[int], None]] = None,
-               trace_id: Optional[str] = None) -> GenerationFuture:
+               trace_id: Optional[str] = None,
+               speculative: Optional[bool] = None) -> GenerationFuture:
         """Queue a generation request; returns its future.
 
         ``temperature`` / ``top_k`` / ``top_p`` / ``seed`` select
@@ -575,7 +687,11 @@ class InferenceEngine:
         ``on_token`` is the future's per-token hook.  ``trace_id`` (the
         server passes the ``X-Trace-Id`` header) keys the request's
         journal entry; a fresh 16-hex-digit id is minted when absent, and
-        the future carries it as ``trace_id``.
+        the future carries it as ``trace_id``.  ``speculative`` is the
+        per-request opt-out on a speculative engine (None = the engine's
+        default): ``False`` decodes the request one token a tick, its
+        acceptance held at 0 as data — the same tokens, steadier pacing.
+        A sampled request never speculates.  Ignored on a plain engine.
 
         Typed rejections, raised here: :class:`ServingError` (empty or
         out-of-vocabulary prompt, ``max_new_tokens < 1``, a bad sampling
@@ -628,7 +744,7 @@ class InferenceEngine:
                       eos_id=eos_id, deadline=deadline,
                       trace=RequestIds(fut.trace_id),
                       temperature=temperature, top_k=top_k, top_p=top_p,
-                      seed=seed, priority=priority)
+                      seed=seed, priority=priority, speculative=speculative)
         if self.journal is not None:
             # Journal before the enqueue, the purge wired first: every
             # resolution funnels through the future, so an entry never
@@ -724,10 +840,20 @@ class InferenceEngine:
         self.metrics.kv_pages_shared.set(self.slots.pages_shared)
 
     def _release(self, slot: int) -> None:
+        """Free a slot and its speculative companions: the draft pool's
+        paired slot and the opt-out mask (the engine's default for the
+        next tenant).  The adaptive live/idle state survives the
+        tenancy, as the JAX engine keeps it: acceptance is a property of
+        the workload, and probes still re-enable the slot."""
         self._states[slot] = None
         self._ingest.pop(slot, None)
         self.slots.free(slot)
         self._samp.clear(slot)  # a zero row: greedy, for the next tenant
+        self._spec_host[slot] = True
+        self._spec_win[slot] = 0
+        if (self.draft_slots is not None
+                and self.draft_slots._active[slot]):
+            self.draft_slots.free(slot)
 
     def _reclaim_cancelled(self) -> bool:
         """Free slots whose requests were cancelled caller-side (resolved
@@ -852,14 +978,16 @@ class InferenceEngine:
         return dict(slots=slots, new_pos=new_pos, valid=1, phys=phys,
                     off=off)
 
-    def _replay(self, key: tuple, fields: Dict):
+    def _replay(self, key: tuple, fields: Dict, graphs=None):
         """One prefill through its graph (:class:`~horovod_tpu_torch.
         serving.graph.PrefillGraphs`: a replay on CUDA, the eager body
         on the CPU) -> ``(logits (k, V), argmax (k,), max logit (k,))``,
-        its K/V landed.  The outputs hold until the next replay."""
-        g = self._graphs.get(key)
+        its K/V landed.  The outputs hold until the next replay.
+        ``graphs``: the target's (None) or the draft model's."""
+        graphs = graphs or self._graphs
+        g = graphs.get(key)
         g.set(**fields)
-        out = self._graphs.run(g)
+        out = graphs.run(g)
         self._prefill_calls += 1
         return out
 
@@ -1179,6 +1307,10 @@ class InferenceEngine:
             out = self._prefill_rows(
                 padded, lens, self._landing(slots, lens, 0, padded.shape[1]))
             firsts = self._first_tokens(live, *out)  # one sync for K
+        # Before the first tokens are emitted: one may retire its request
+        # and free the slot, and a draft slot acquired after that would
+        # have no owner.
+        self._spec_admit(slots, live)
         return slots, live, firsts, synced
 
     def _start_decoding(self, slot: int, req: Request, first: int,
@@ -1357,6 +1489,13 @@ class InferenceEngine:
         del self._ingest[slot]
         first = int(self._first_tokens([req], *out)[0])
         self.metrics.host_syncs.inc()
+        if self._spec_model:
+            # A model draft would prefill the whole long prompt in one
+            # tick, the stall chunking removes: the slot decodes plain
+            # (the same tokens).  The n-gram draft lands its history.
+            self._spec_host[slot] = False
+        else:
+            self._spec_admit([slot], [req])
         self._start_decoding(slot, req, first, time.monotonic())
         self._land_first_tokens([slot], [first])
 
@@ -1414,7 +1553,7 @@ class InferenceEngine:
                       eos_id=entry.eos_id, deadline=req.deadline,
                       trace=req.trace, temperature=entry.temperature,
                       top_k=entry.top_k, top_p=entry.top_p, seed=entry.seed,
-                      priority=req.priority)
+                      priority=req.priority, speculative=req.speculative)
         # The original id is the journal key and keeps the request's age
         # in the scheduling order (victims are picked by id).
         new.id = req.id
@@ -1491,26 +1630,6 @@ class InferenceEngine:
             return False  # nothing strictly better is waiting
         return self._preempt(worst[2], "slot_pressure")
 
-    def _prepare_paged_tick(self) -> None:
-        """Tick-boundary page maintenance: every decoding slot gets a
-        private page under its write position (granted, or copied from
-        a shared one; preempting on exhaustion), then the tick's table
-        is refreshed iff it changed."""
-        ps = self.slots.page_size
-        for s in range(self.engine_cfg.n_slots):
-            st = self._states[s]
-            if st is None:
-                continue
-            wp = int(self._page_pos[s])
-            last_real = len(st.request.prompt) + st.request.max_new_tokens - 2
-            if wp > min(last_real, self.slots.max_len - 1):
-                continue
-            self._claim_page(s, wp // ps,
-                             lambda: self._states[s] is not None)
-        if self._table_uploaded != self.slots.table_version:
-            upload_into(self._tick.table, self.slots.table)
-            self._table_uploaded = self.slots.table_version
-
     def _claim_page(self, slot: int, idx: int, still_mine) -> bool:
         """The one grant / copy-on-write / evict protocol (decode growth
         and chunk ingestion both use it): make ``slot`` own a private
@@ -1529,6 +1648,249 @@ class InferenceEngine:
                 self._evict_for_pages()
                 if not still_mine():
                     return False
+
+    # -- speculative decoding ----------------------------------------------
+
+    def _ensure_write_range(self, s: int, lo: int, hi: int) -> bool:
+        """Private pages under every write position in ``[lo, hi]`` (one
+        position for the plain tick, a window for the speculative one),
+        through :meth:`_claim_page`.  Positions past the request's last real
+        write or the table are left unmapped: the verify routes those
+        writes to the NULL page.  False if slot ``s`` itself was
+        preempted paying for them."""
+        st = self._states[s]
+        if st is None:
+            return False
+        last_real = len(st.request.prompt) + st.request.max_new_tokens - 2
+        hi = min(hi, last_real, self.slots.max_len - 1)
+        if hi < lo:
+            return True
+        ps = self.slots.page_size
+        for idx in range(max(lo, 0) // ps, hi // ps + 1):
+            if not self._claim_page(s, idx,
+                                    lambda: self._states[s] is not None):
+                return False
+        return True
+
+    def _ensure_draft_range(self, s: int, lo: int, hi: int) -> None:
+        """The draft pool's pages under ``[lo, hi]``.  Draft pages never
+        preempt anyone: on exhaustion the slot stops speculating (its
+        acceptance held at 0 as data) and its draft pages return to the
+        heap; the tokens never depend on the draft."""
+        draft = self.draft_slots
+        st = self._states[s]
+        if (st is None or not self._spec_host[s] or not self._spec_live[s]
+                or not draft._active[s]):
+            return
+        last_real = len(st.request.prompt) + st.request.max_new_tokens - 2
+        hi = min(hi, last_real, draft.max_len - 1)
+        ps = draft.page_size
+        try:
+            for idx in range(max(lo, 0) // ps, hi // ps + 1):
+                if draft.table[s, idx] == NULL_PAGE:
+                    draft.grant(s, idx)
+        except CacheOutOfPagesError:
+            draft.free(s)
+            self._spec_host[s] = False
+
+    def _prepare_tick(self) -> None:
+        """Tick-boundary page maintenance: every decoding slot gets
+        private pages under the positions the next tick writes (granted,
+        or copied from a shared one; preempting on exhaustion), then the
+        tick's tables and the speculation mask are refreshed iff they
+        changed.
+
+        The plain tick writes one position, ``_page_pos`` (the
+        dispatch-time mirror).  The speculative tick writes a window,
+        ``[pos, pos + spec_k]``, and with the overlapped pipeline the
+        tick in flight may already have advanced the device position by
+        up to ``spec_k + 1`` (the host learns the accepted length one
+        tick late, so ``_page_pos`` is the fetch-time mirror there): its
+        grants cover that worst case, ``2W - 1`` positions, in the draft
+        pool too.  Over-granted pages are used within a few ticks or
+        freed at retirement."""
+        W = self.engine_cfg.spec_k + 1
+        pend = self._pending
+        for s in range(self.engine_cfg.n_slots):
+            st = self._states[s]
+            if st is None:
+                continue
+            base = hi = int(self._page_pos[s])
+            if self._spec:
+                inflight = (pend is not None and bool(pend["active"][s])
+                            and pend["reqs"][s] is st.request)
+                hi = base + (2 if inflight else 1) * W - 1
+            if self._ensure_write_range(s, base, hi) and self._spec_model:
+                self._ensure_draft_range(s, base, hi)
+        if self._table_uploaded != self.slots.table_version:
+            upload_into(self._tick.table, self.slots.table)
+            self._table_uploaded = self.slots.table_version
+        if not self._spec:
+            return
+        if (self._spec_model
+                and self._dtable_uploaded != self.draft_slots.table_version):
+            upload_into(self._spec_tick.dtable, self.draft_slots.table)
+            self._dtable_uploaded = self.draft_slots.table_version
+        spec = self._spec_host & self._spec_live & self._decode_mask()
+        if self._spec_mask is None or not np.array_equal(spec,
+                                                         self._spec_mask):
+            upload_into(self._spec_tick.spec_on, spec)
+            self._spec_mask = spec
+
+    def _land_history(self, slots: List[int], rows: np.ndarray) -> None:
+        """Full-width rows (``max_len + 1``, the trash column 0) into the
+        n-gram draft's history: a previous tenant's tokens past the
+        prompt must not survive into this request's drafts."""
+        dev = self.device
+        self._spec_tick.hist.index_copy_(
+            0, upload(np.asarray(slots, np.int64), dev), upload(rows, dev))
+
+    def _draft_prefill(self, slots: List[int], padded: np.ndarray,
+                       lens: np.ndarray) -> None:
+        """Prefill the draft model's pool for ``slots`` with right-padded
+        prompts, one replay of its ``("full", bucket, k)`` graph; its
+        logits are never fetched (no host sync)."""
+        new_pos, phys, off = self.draft_slots.landing(
+            slots, lens, 0, bucket=padded.shape[1])
+        self._replay(("full", padded.shape[1], len(slots)),
+                     dict(tokens=padded, lens=lens, slots=slots,
+                          new_pos=new_pos, valid=1, phys=phys, off=off),
+                     graphs=self._draft_graphs)
+
+    def _spec_admit(self, slots: List[int], reqs: List[Request]) -> None:
+        """An admission's speculative bookkeeping: the per-request
+        opt-out into the slot mask (a sampled request never speculates:
+        drafts are verified by argmax agreement); the n-gram draft lands
+        the prompts in its history; the model draft prefills its own
+        pool with the whole prompts (it has no prefix registry), one
+        prefill for the group.  A draft pool that cannot hold a prompt
+        disables speculation for the slot, never the request."""
+        if not self._spec:
+            return
+        for slot, req in zip(slots, reqs):
+            self._spec_host[slot] = (req.speculative is not False
+                                     and req.temperature <= 0.0)
+        if not self._spec_model:
+            rows = np.zeros((len(slots), self.slots.max_len + 1), np.int64)
+            for i, r in enumerate(reqs):
+                rows[i, :len(r.prompt)] = r.prompt
+            self._land_history(slots, rows)
+            self._spec_stale[slots] = False
+            return
+        draft = self.draft_slots
+        for slot, req in zip(slots, reqs):
+            if not self._spec_host[slot]:
+                continue
+            if not self._spec_live[slot]:
+                # Adaptively disabled: a probe rebuilds the draft state
+                # from prompt + emitted if it re-enables the slot.
+                self._spec_stale[slot] = True
+                continue
+            draft.acquire(slot)
+            try:
+                for idx in range(draft.pages_for(len(req.prompt))):
+                    draft.grant(slot, idx)
+            except CacheOutOfPagesError:
+                draft.free(slot)
+                self._spec_host[slot] = False
+        live = [(s, r) for s, r in zip(slots, reqs)
+                if self._spec_host[s] and draft._active[s]]
+        if not live:
+            return
+        bucket = self._bucket(max(len(r.prompt) for _, r in live))
+        padded = np.zeros((len(live), bucket), np.int64)
+        lens = np.zeros(len(live), np.int64)
+        for i, (_, r) in enumerate(live):
+            padded[i, :len(r.prompt)] = r.prompt
+            lens[i] = len(r.prompt)
+        self._draft_prefill([s for s, _ in live], padded, lens)
+        for s, _ in live:
+            self._spec_stale[s] = False
+
+    def _reset_spec_state(self) -> None:
+        """Every slot's speculative state back to the default (opt-out
+        mask, adaptive live / idle / window, staleness): the restart,
+        terminal and post-warmup paths."""
+        self._spec_host[:] = True
+        self._spec_live[:] = True
+        self._spec_win[:] = 0
+        self._spec_idle[:] = 0
+        self._spec_stale[:] = False
+
+    def _spec_adapt(self, s: int, accepted: int) -> None:
+        """Window the slot's acceptance; disable its speculation when the
+        rate falls under ``spec_min_acceptance`` (``spec_adaptive``).
+        Pure data: the tokens are the same either way, the slot just
+        stops paying for drafts the target rejects."""
+        ec = self.engine_cfg
+        if not ec.spec_adaptive:
+            return
+        self._spec_win[s, 0] += ec.spec_k
+        self._spec_win[s, 1] += accepted
+        if self._spec_win[s, 0] >= ec.spec_window * ec.spec_k:
+            rate = self._spec_win[s, 1] / self._spec_win[s, 0]
+            if rate < ec.spec_min_acceptance:
+                self._spec_live[s] = False
+                self._spec_idle[s] = 0
+                if self._spec_model:
+                    # A disabled slot's draft pool decays even through
+                    # speculative ticks (no pages are granted for it), so
+                    # the probe must rebuild it; the n-gram history stays
+                    # current through them.
+                    self._spec_stale[s] = True
+            self._spec_win[s] = 0
+
+    def _spec_probe_clock(self, s: int) -> None:
+        """A disabled slot's probe clock: at ``spec_probe_period`` ticks
+        re-enable speculation for one evaluation window (its draft state
+        rebuilt first if plain ticks staled it), so a stream that becomes
+        predictable gets speculation back."""
+        if not self._spec_live[s] and self._spec_host[s]:
+            self._spec_idle[s] += 1
+            if self._spec_idle[s] >= self.engine_cfg.spec_probe_period:
+                if self._spec_stale[s] and not self._respec_slot(s):
+                    self._spec_idle[s] = 0  # rebuild failed: later
+                    return
+                self._spec_stale[s] = False
+                self._spec_live[s] = True
+                self._spec_idle[s] = 0
+                self._spec_win[s] = 0
+
+    def _respec_slot(self, s: int) -> bool:
+        """Rebuild slot ``s``'s draft state from its committed stream,
+        ``prompt + tokens emitted this tenancy``: re-land its n-gram
+        history row, or re-prefill its draft pool, as admission does.
+        Full-width shapes only (a ``(1, max_len)`` draft prefill, warmed
+        by :meth:`warmup`), so a probe never meets a shape no warmup
+        captured.  The speculative tick's entry copy of the target's
+        position covers a tick in flight."""
+        st = self._states[s]
+        if st is None:
+            return False
+        toks = st.request.future.tokens_so_far()
+        gen = toks[len(toks) - st.n_generated:] if st.n_generated else []
+        committed = list(st.request.prompt) + [int(t) for t in gen]
+        if not self._spec_model:
+            rows = np.zeros((1, self.slots.max_len + 1), np.int64)
+            rows[0, :len(committed)] = committed
+            self._land_history([s], rows)
+            return True
+        draft = self.draft_slots
+        if not committed:
+            return False
+        if not draft._active[s]:
+            draft.acquire(s)
+        try:
+            for idx in range(draft.pages_for(len(committed))):
+                if draft.table[s, idx] == NULL_PAGE:
+                    draft.grant(s, idx)
+        except CacheOutOfPagesError:
+            draft.free(s)
+            return False
+        padded = np.zeros((1, self.slots.max_len), np.int64)
+        padded[0, :len(committed)] = committed
+        self._draft_prefill([s], padded, np.array([len(committed)], np.int64))
+        return True
 
     def _emit(self, slot: int, tok: int) -> None:
         """Stream one token to the slot's future and journal it; retire
@@ -1573,8 +1935,11 @@ class InferenceEngine:
         """Refresh the tick's mask (iff it changed; ``active`` is
         :meth:`_decode_mask`, so ingesting slots stay out) and sampling
         columns (iff dirty), run one tick over all slots, and start
-        fetching its next tokens and per-slot max logit.  Returns the
-        pending record :meth:`_retire_pending` applies."""
+        fetching its results: the plain tick's next tokens and per-slot
+        max logit, or the speculative tick's window ``t`` (S, W), max
+        logits (S, W) and accepted lengths (S,).  A speculative engine
+        runs the plain tick when no slot speculates.  Returns the pending
+        record :meth:`_retire_pending` applies."""
         if (self._active_uploaded is None
                 or not np.array_equal(active, self._active_uploaded)):
             upload_into(self._tick.active, active)
@@ -1582,21 +1947,34 @@ class InferenceEngine:
         self._samp.device()
         faults = self.engine_cfg.faults
         kind = faults.probe("decode_tick") if faults is not None else None
-        nxt, mx = self._tick.run()
-        fetch = download(nxt, mx)
-        self._page_pos += active
+        extra = {}
+        if self._spec and self._spec_mask.any():
+            fetch = download(*self._spec_tick.run())
+            extra["spec"] = self._spec_mask.copy()
+        else:
+            if self._spec:
+                # Nobody speculates: the plain tick gives the same tokens
+                # at plain cost.  The draft state of the slots it runs goes
+                # stale, to be rebuilt at a probe.
+                self._spec_stale |= self.slots.active_mask()
+            fetch = download(*self._tick.run())
+            if not self._spec:
+                # A speculative engine's mirror advances at fetch, where
+                # the host learns how far each slot went.
+                self._page_pos += active
         self.metrics.decode_ticks.inc()
         self.metrics.tick_dispatch.observe(time.monotonic() - t0)
         return {"fetch": fetch, "active": active, "dispatched_at": t0,
-                "kind": kind,
+                "kind": kind, **extra,
                 "reqs": [st.request if st is not None else None
                          for st in self._states]}
+
 
     def _decode_tick(self) -> bool:
         """The synchronous tick (``overlap=False``, the A/B baseline):
         upload the tokens, dispatch, fetch and emit in the same step."""
         if self.slots.active_count:
-            self._prepare_paged_tick()
+            self._prepare_tick()
         active = self._decode_mask()
         if not active.any():
             return False
@@ -1614,7 +1992,7 @@ class InferenceEngine:
         if self.slots.active_count:
             # Page grants (and preemptions) before the mask snapshot:
             # host bookkeeping and a non-blocking table copy.
-            self._prepare_paged_tick()
+            self._prepare_tick()
         active = self._decode_mask()
         new_pending = None
         if active.any():
@@ -1644,12 +2022,20 @@ class InferenceEngine:
         stale row is dropped: no token after EOS, and no token leaks into
         a slot's next tenant.  The stale row's K/V write is never read
         (write before attend).  In the synchronous tick the snapshot
-        always matches."""
+        always matches.
+
+        A speculative tick emits ``acc + 1`` tokens a slot, ``t[s,
+        0..acc]``, and the host mirror of the slot's position advances by
+        as many (the device committed them whatever the host emits); an
+        EOS, the length or a deadline inside the accepted run retires the
+        slot and drops the rest, as the one-token oracle would never
+        emit it.  Acceptance feeds the adaptive control."""
         faults = self.engine_cfg.faults
         if faults is not None:
             faults.probe("decode_fetch")
         t0 = time.monotonic()
-        nxt, mx = p["fetch"].wait()
+        nxt, mx, *rest = p["fetch"].wait()
+        acc = rest[0] if rest else None
         self.metrics.host_syncs.inc()
         t1 = time.monotonic()
         self.metrics.tick_device_wait.observe(t1 - t0)
@@ -1657,19 +2043,49 @@ class InferenceEngine:
         if p["kind"] == "nonfinite":
             # Injected: NaN logits, applied to the fetched host copy
             # (never inside the captured graph).
-            mx = np.where(active, np.nan, mx)
+            mx = np.where(active if mx.ndim == 1 else active[:, None],
+                          np.nan, mx)
         if not np.isfinite(mx[active]).all():
             raise EngineFailedError(
                 "non-finite logits from decode tick (bad params or device "
                 "fault)")
         lat = t1 - p["dispatched_at"]
+        spec_k = self.engine_cfg.spec_k
         for s in np.nonzero(active)[0]:
             s = int(s)
             st = self._states[s]
             if st is None or st.request is not p["reqs"][s]:
                 continue  # retired or re-admitted since dispatch: stale
             self.metrics.token_latency.observe(lat)
-            self._emit(s, int(nxt[s]))
+            if acc is None:
+                self.metrics.tokens_per_tick.observe(1)
+                if self._spec:
+                    # A plain tick of a speculative engine: one position,
+                    # and the disabled slot's probe clock runs.
+                    self._page_pos[s] += 1
+                    self._spec_probe_clock(s)
+                self._emit(s, int(nxt[s]))
+                continue
+            n = int(acc[s]) + 1
+            self._page_pos[s] += n
+            if p["spec"][s]:
+                self.metrics.spec_drafted.inc(spec_k)
+                self.metrics.spec_accepted.inc(int(acc[s]))
+                self.metrics.spec_wasted.inc(spec_k - int(acc[s]))
+                self.metrics.spec_acceptance.observe(int(acc[s]) / spec_k)
+                self._spec_adapt(s, int(acc[s]))
+            elif self._spec_host[s] and not self._spec_live[s]:
+                # Disabled while others speculate: the n-gram history
+                # stays current, the model draft was marked stale at the
+                # disable; only the probe clock moves.
+                self._spec_probe_clock(s)
+            emitted = 0
+            for j in range(n):
+                if self._states[s] is not st:
+                    break  # retired inside the accepted run
+                self._emit(s, int(nxt[s, j]))
+                emitted += 1
+            self.metrics.tokens_per_tick.observe(emitted)
         self.metrics.tick_host.observe(time.monotonic() - t1)
 
     # -- failure recovery --------------------------------------------------
@@ -1745,6 +2161,9 @@ class InferenceEngine:
         self._states = [None] * self.engine_cfg.n_slots
         self._ingest = {}
         self.slots.release_all()
+        if self.draft_slots is not None:
+            self.draft_slots.release_all()
+        self._reset_spec_state()
         # release_all dropped the prefix registry's pins too: a new
         # epoch, so that stale entries neither attach freed pages nor
         # unpin twice, and re-prefill at their next use.
@@ -1766,6 +2185,8 @@ class InferenceEngine:
         self._unchecked_dispatch = False
         self._table_uploaded = -1
         self._active_uploaded = None
+        self._spec_mask = None
+        self._dtable_uploaded = -1
         self._page_pos[:] = 0
         # Zero host rows; re-admissions, resumes included, set theirs
         # before the next dispatch uploads them.
@@ -1875,6 +2296,13 @@ class InferenceEngine:
         else ``degraded``."""
         self.slots.reset()
         self._tick.reset_inputs()
+        if self._spec:
+            # The draft pool and the history reset in place too: the
+            # speculative tick reads them by address.
+            self._spec_tick.reset_inputs()
+            if self.draft_slots is not None:
+                self.draft_slots.reset()
+            self._reset_spec_state()
         self._states = [None] * self.engine_cfg.n_slots
         self._ingest = {}
         self._reset_pipeline()
@@ -2014,11 +2442,22 @@ class InferenceEngine:
         (``warmup_reserved_bytes`` in :meth:`stats`).  Call it before
         :meth:`start`: no other thread touches the card during the
         captures.  The sweep's synthetic requests are kept out of the
-        journal."""
+        journal.
+
+        A speculative engine owns two decode graphs, both captured here
+        (``decode_compilations`` 2, as the JAX engine's two executables),
+        and its sweep also runs one opted-out request (the plain tick
+        in use) and, for a model draft, the draft pool's ``(max_len, 1)``
+        prefill that a probe's rebuild replays (its ``(bucket, k)``
+        prefills ride the sweep's admissions).  The sweep's acceptance
+        says nothing of real traffic: the speculative state is reset
+        after it."""
         cuda = self.device.type == "cuda"
         before = torch.cuda.memory_reserved(self.device) if cuda else 0
         with self._lock:
             self._tick.capture()
+            if self._spec:
+                self._spec_tick.capture()
         kmax = min(self.engine_cfg.max_prefills_per_tick,
                    self.engine_cfg.n_slots)
         prompts = [[0] * max(int(n), 1) for n in prompt_lens]
@@ -2034,6 +2473,8 @@ class InferenceEngine:
         groups += [[(prompts[0], dict(temperature=1.0, seed=i))
                     for i in range(k)]
                    for k in range(1, kmax + 1) if prompts]
+        if self._spec and prompts:
+            groups.append([(prompts[0], dict(speculative=False))])
         journal, self.journal = self.journal, None
         try:
             for group in groups:
@@ -2043,11 +2484,27 @@ class InferenceEngine:
                     self.step()
             while self._pending is not None:  # the pipeline's last tick
                 self.step()
+            if self._spec_model:
+                with self._lock:
+                    self._warm_draft_probe()
         finally:
             self.journal = journal
+        if self._spec:
+            self._reset_spec_state()
         if cuda:
             self._warm_reserved = (
                 before, torch.cuda.memory_reserved(self.device))
+
+    def _warm_draft_probe(self) -> None:
+        """Capture the draft pool's ``(max_len, 1)`` prefill that a
+        probe's rebuild replays (:meth:`_respec_slot`), landing only in
+        the NULL page and writing no slot's position."""
+        width = self.slots.max_len
+        phys, off = self.draft_slots.landing_raw([], 1, bucket=width)
+        g = self._draft_graphs.get(("full", width, 1))
+        g.set(tokens=np.zeros((1, width), np.int64), lens=[1], slots=0,
+              new_pos=0, valid=0, phys=phys, off=off)
+        self._draft_graphs.run(g)
 
     def drain(self, timeout: float = 60.0, poll: float = 0.002) -> bool:
         """Block until the queue, the slots and the pipeline are empty
@@ -2127,13 +2584,16 @@ class InferenceEngine:
             # Captures of the decode tick's CUDA graph (0 on the CPU,
             # where the tick runs eagerly): 1 after warmup, whatever the
             # request mix and however many restarts.
-            "decode_compilations": self._tick.captures,
+            "decode_compilations": self._tick.captures + (
+                self._spec_tick.captures if self._spec else 0),
             # Captures of the admission graphs (0 on the CPU): prefills
             # per ("full", bucket, k) and ("suffix", prefix pages, bucket,
             # k), the first-token sampler per k; their seconds, and the
             # device memory reserved around the last warmup.
-            "prefill_compilations": (self._graphs.captures["full"]
-                                     + self._graphs.captures["suffix"]),
+            "prefill_compilations": (
+                self._graphs.captures["full"] + self._graphs.captures["suffix"]
+                + (self._draft_graphs.captures["full"]
+                   if self._draft_graphs is not None else 0)),
             "sample_compilations": self._graphs.captures["sample"],
             "prefill_capture_s": round(self._graphs.capture_s, 4),
             "warmup_reserved_bytes": list(self._warm_reserved),
@@ -2146,4 +2606,13 @@ class InferenceEngine:
             # versions and leave them at 0).
             "flash_fwd_launches": _attn.flash_fwd_launches,
             "paged_attend_launches": _pa.paged_attend_launches,
+            "speculative": self._spec,
+            **({
+                "spec_k": self.engine_cfg.spec_k,
+                "spec_draft": "model" if self._spec_model else "ngram",
+                "spec_slots_live": int(self._spec_live.sum()),
+                "draft_pages_free":
+                    self.draft_slots.free_pages
+                    if self.draft_slots is not None else None,
+            } if self._spec else {}),
         }

@@ -17,6 +17,16 @@ capacity), the sampled pick at key position ``pos + 1``, the max logit
 (the engine's finiteness probe), and the picked tokens written back into
 the token input, where the overlapped pipeline's next tick reads them.
 
+A speculative engine also owns a :class:`SpecTick`, captured as one more
+graph over the same token, mask and table inputs (the JAX engine's
+speculative ``_tick`` beside its plain ``_ptick``): the draft (a
+shallower model's ``k + 1`` greedy steps over its own paged pool, or
+prompt lookup over a device-resident token history), one W-wide
+:func:`~horovod_tpu_torch.models.transformer.decode_verify_paged` (K4 at
+``R = G * W`` over the committed pages) and the select of each slot's
+next input token ``t[s, acc[s]]``, written back into the token input as
+the plain tick writes its pick.
+
 Admission (:class:`PrefillGraphs`) is captured per shape, keyed like
 the JAX engine's compile sets: a whole-prompt prefill per ``("full",
 bucket, k)`` (the JAX ``_prefill_fn``), a suffix or chunk prefill over a
@@ -52,8 +62,8 @@ from horovod_tpu_torch.models import transformer as T
 from horovod_tpu_torch.ops import attention as attn
 from horovod_tpu_torch.ops import paged_attention as pa
 
-__all__ = ["DecodeTick", "Download", "PrefillGraphs", "download", "upload",
-           "upload_into"]
+__all__ = ["DecodeTick", "Download", "PrefillGraphs", "SpecTick", "download",
+           "upload", "upload_into"]
 
 #: Eager runs of a graph's body on a side stream before its capture
 #: (the tick with every slot inactive, a prefill landing only in the
@@ -141,7 +151,9 @@ class DecodeTick:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.captures = 0
         self.replays = 0
+        self.runs = 0  # runs of either kind, eager or replayed
         self.k4_launches_per_replay = 0
+        self.k4_rows_per_replay: Dict[int, int] = {}
         self._out = None
 
     @property
@@ -167,27 +179,7 @@ class DecodeTick:
         runs go with every slot inactive: inactive rows write only to the
         NULL page and keep their positions, so nothing a slot reads
         changes; the token and mask inputs are restored after."""
-        if not self.graphed or self.graph is not None:
-            return
-        saved = (self.tokens.clone(), self.active.clone())
-        self.active.zero_()
-        stream = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            for _ in range(CAPTURE_WARMUP_RUNS):
-                self.body()
-        stream.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        k4 = pa.paged_attend_launches
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            out = self.body()
-        self.k4_launches_per_replay = pa.paged_attend_launches - k4
-        pa.paged_attend_launches = k4
-        self.graph, self._out = graph, out
-        self.captures += 1
-        self.tokens.copy_(saved[0])
-        self.active.copy_(saved[1])
+        _capture_tick(self, (self.tokens, self.active))
 
     def reset_inputs(self) -> None:
         """Zero the token, mask and table inputs in place (the
@@ -213,13 +205,199 @@ class DecodeTick:
         """One tick: a replay on CUDA (capturing first if needed), the
         eager body on the CPU.  Returns ``(next tokens, max logit)``
         device tensors; on CUDA the same tensors every replay."""
+        self.runs += 1
         if not self.graphed:
             return self.body()
         if self.graph is None:
             self.capture()
         self.graph.replay()
         self.replays += 1
-        pa.paged_attend_launches += self.k4_launches_per_replay
+        _count_k4(self)
+        return self._out
+
+
+def _count_k4(tick) -> None:
+    """Add a replay's K4 launches to the wrapper's counters (in all and
+    by query rows), as if the body's wrapper calls had launched."""
+    pa.paged_attend_launches += tick.k4_launches_per_replay
+    for r, n in tick.k4_rows_per_replay.items():
+        pa.paged_attend_launches_by_rows[r] = (
+            pa.paged_attend_launches_by_rows.get(r, 0) + n)
+
+
+def _capture_tick(tick, inputs) -> None:
+    """Capture ``tick.body`` (CUDA only; once): warm runs on a side
+    stream with every slot inactive — inactive rows write only to the
+    NULL page, keep their positions and commit nothing — then the
+    capture.  K4's capture-time count is taken back into
+    ``tick.k4_launches_per_replay``; ``inputs`` (tensors the body
+    rewrites: the token vector, the mask) hold what they held before."""
+    if not tick.graphed or tick.graph is not None:
+        return
+    saved = [t.clone() for t in inputs]
+    tick.active.zero_()
+    stream = torch.cuda.current_stream(tick.device)
+    side = torch.cuda.Stream(tick.device)
+    side.wait_stream(stream)
+    with torch.cuda.stream(side):
+        for _ in range(CAPTURE_WARMUP_RUNS):
+            tick.body()
+    stream.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    k4, rows = pa.paged_attend_launches, dict(pa.paged_attend_launches_by_rows)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = tick.body()
+    tick.k4_launches_per_replay = pa.paged_attend_launches - k4
+    tick.k4_rows_per_replay = {
+        r: n - rows.get(r, 0)
+        for r, n in pa.paged_attend_launches_by_rows.items()
+        if n != rows.get(r, 0)}
+    pa.paged_attend_launches = k4
+    pa.paged_attend_launches_by_rows.clear()
+    pa.paged_attend_launches_by_rows.update(rows)
+    tick.graph, tick._out = graph, out
+    tick.captures += 1
+    for t, v in zip(inputs, saved):
+        t.copy_(v)
+
+
+class SpecTick:
+    """The speculative tick over all slots, beside the plain
+    :class:`DecodeTick` ``plain``, whose token, mask and table inputs,
+    sampling columns, parameters and pool it reads by address, so the
+    engine switches between the two ticks with no host round trip.
+
+    Its own inputs: ``spec_on`` (S,) bool, the slots whose drafts may be
+    accepted (the per-request opt-out, adaptive disabling); for a model
+    draft (``draft = (params, cfg, pool)``) the draft pool's page table
+    ``dtable``; for the n-gram draft the committed-token history
+    ``hist`` ``(S, max_len + 1)``, whose last column is a trash column:
+    a write that must land nowhere (an inactive row, a rejected draft, a
+    position past the history) lands there, where no proposal reads.
+
+    The body: the n-gram history takes each active slot's input token
+    at its position, or the draft pool's ``pos`` follows the target's;
+    ``k`` drafts (:func:`~horovod_tpu_torch.models.transformer.
+    ngram_propose` or :func:`~horovod_tpu_torch.models.transformer.
+    draft_propose_paged`, K4 once a draft layer a step); one
+    :func:`~horovod_tpu_torch.models.transformer.decode_verify_paged`
+    over the window (K4 at ``R = G * (k + 1)``, sampled rows drawn at
+    offset 0); the accepted drafts committed to the history, or the
+    draft pool's ``pos`` set back to the target's; each slot's next
+    input ``t[s, acc[s]]`` (0 for inactive rows) written into the token
+    input.  It returns ``(t (S, W), max logit (S, W), acc (S,))``.  On
+    CUDA it is captured once and replayed, as :class:`DecodeTick` is;
+    K4's launches a replay are ``(k + 1) * L_draft + L`` for a model
+    draft, ``L`` for the n-gram one."""
+
+    def __init__(self, plain: DecodeTick, k: int, max_len: int,
+                 draft: Optional[Tuple] = None):
+        self.plain = plain
+        self.k = k
+        self.draft = draft
+        self.device = plain.device
+        S = plain.tokens.shape[0]
+        self.spec_on = torch.zeros(S, dtype=torch.bool, device=self.device)
+        self.dtable = (torch.zeros_like(plain.table) if draft is not None
+                       else None)
+        self.hist = (torch.zeros((S, max_len + 1), dtype=torch.int64,
+                                 device=self.device)
+                     if draft is None else None)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.captures = 0
+        self.replays = 0
+        self.runs = 0
+        self.k4_launches_per_replay = 0
+        self.k4_rows_per_replay: Dict[int, int] = {}
+        self._out = None
+
+    @property
+    def graphed(self) -> bool:
+        return self.device.type == "cuda"
+
+    @property
+    def active(self) -> torch.Tensor:
+        return self.plain.active
+
+    def body(self):
+        pl = self.plain
+        pool, tokens, active = pl.pool, pl.tokens, pl.active
+        pos0 = pool["pos"].long()  # entry positions (a copy)
+        rows = torch.arange(tokens.shape[0], device=self.device)
+        if self.draft is None:
+            th = self.hist.shape[1] - 1  # the trash column
+            trash = torch.full_like(pos0, th)
+            hidx = torch.where(active & (pos0 < th), pos0, trash)
+            self.hist[rows, hidx] = tokens
+            drafts = T.ngram_propose(self.hist[:, :th], pos0, self.k)
+        else:
+            dparams, dcfg, dpool = self.draft
+            # The draft's position follows the target's at entry too: a
+            # rebuilt draft state may lag the device by a tick in flight.
+            dpool["pos"].copy_(pool["pos"])
+            drafts, _ = T.draft_propose_paged(dparams, tokens, dpool,
+                                              self.dtable, dcfg, active,
+                                              self.k, kernel=True)
+        window = torch.cat([tokens[:, None], drafts], dim=1)
+        t, mx, acc, _ = T.decode_verify_paged(
+            pl.params, window, pool, pl.table, pl.cfg, active, self.spec_on,
+            sample=pl.samp, kernel=True)
+        if self.draft is None:
+            # Accepted drafts are committed history too.
+            j = torch.arange(1, self.k + 1, device=self.device)[None, :]
+            wp = pos0[:, None] + j
+            ok = active[:, None] & (j <= acc[:, None]) & (wp < th)
+            self.hist[rows[:, None],
+                      torch.where(ok, wp, torch.full_like(wp, th))] = drafts
+        else:
+            # Rollback of the rejected tail: the committed depth; its
+            # stale K/V is overwritten before it is ever attended.
+            dpool["pos"].copy_(pool["pos"])
+        nxt = t[rows, acc]
+        self.plain.tokens.copy_(torch.where(active, nxt,
+                                            torch.zeros_like(nxt)))
+        return t, mx, acc
+
+    def capture(self) -> None:
+        """Capture the tick as a CUDA graph (CUDA only; once), as
+        :class:`DecodeTick` captures."""
+        _capture_tick(self, (self.plain.tokens, self.plain.active))
+
+    def reset_inputs(self) -> None:
+        """Zero the tick's own inputs in place (the supervised restart;
+        the plain tick resets the shared ones)."""
+        for t in (self.spec_on, self.dtable, self.hist):
+            if t is not None:
+                t.zero_()
+
+    def twin(self) -> "SpecTick":
+        """An uncaptured speculative tick over copies of this one's state
+        (a :meth:`DecodeTick.twin` of the plain tick, the draft pool, the
+        history): its :meth:`body` is the eager tick to hold the captured
+        one against."""
+        draft = None
+        if self.draft is not None:
+            dparams, dcfg, dpool = self.draft
+            draft = (dparams, dcfg, {k: v.clone() for k, v in dpool.items()})
+        max_len = self.hist.shape[1] - 1 if self.hist is not None else 0
+        t = SpecTick(self.plain.twin(), self.k, max_len, draft)
+        for name in ("spec_on", "dtable", "hist"):
+            if getattr(self, name) is not None:
+                getattr(t, name).copy_(getattr(self, name))
+        return t
+
+    def run(self):
+        """One speculative tick: a replay on CUDA (capturing first if
+        needed), the eager body on the CPU -> ``(t, max logit, acc)``
+        device tensors; on CUDA the same tensors every replay."""
+        self.runs += 1
+        if not self.graphed:
+            return self.body()
+        if self.graph is None:
+            self.capture()
+        self.graph.replay()
+        self.replays += 1
+        _count_k4(self)
         return self._out
 
 

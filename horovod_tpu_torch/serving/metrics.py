@@ -38,6 +38,11 @@ class ServingMetrics:
     * ``kv_pages_*`` / ``kv_bytes_per_token`` — page-pool gauges.
     * ``decode_ticks`` / ``host_syncs`` — ticks dispatched and blocking
       fetches on the serving path (``host_syncs_per_tick`` in /stats).
+    * ``tokens_per_tick`` — tokens one tick emitted for a slot (1
+      without speculation, 1..k+1 with it); ``spec_drafted`` /
+      ``spec_accepted`` / ``spec_wasted`` — draft tokens proposed,
+      accepted by the verify, and rejected; ``spec_acceptance`` — the
+      accepted share per slot per speculative tick.
     * ``streamed_tokens`` / ``disconnects`` — SSE token events written,
       and streaming clients that hung up (their requests cancelled).
     """
@@ -122,6 +127,29 @@ class ServingMetrics:
             "serving_kv_bytes_per_token",
             "KV cache bytes per stored token (k+v across layers, incl. "
             "int8 scales)")
+        # Speculative decoding: every active slot observes how many
+        # tokens one tick emitted for it, so the speculative engine and
+        # the plain one report on the same axis; wasted = drafted -
+        # accepted is the draft work that disagreement burned.
+        self.tokens_per_tick = r.histogram(
+            "serving_tokens_per_tick",
+            "Tokens emitted per slot per decode tick (1 without "
+            "speculation; 1..K+1 with it)",
+            buckets=tuple(float(b) for b in range(1, 18)))
+        self.spec_drafted = r.counter(
+            "serving_spec_drafted_tokens_total",
+            "Draft tokens proposed to the verify kernel")
+        self.spec_accepted = r.counter(
+            "serving_spec_accepted_tokens_total",
+            "Draft tokens the target's greedy verify accepted")
+        self.spec_wasted = r.counter(
+            "serving_spec_wasted_tokens_total",
+            "Draft tokens rejected by the verify (drafted - accepted)")
+        self.spec_acceptance = r.histogram(
+            "serving_spec_acceptance_ratio",
+            "Accepted/drafted ratio per slot per speculative tick",
+            buckets=(0.0, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875,
+                     1.0))
         self.streamed_tokens = r.counter(
             "serving_streamed_tokens_total",
             "Tokens delivered as SSE token events (stream=true)")
@@ -183,6 +211,13 @@ class ServingMetrics:
             "host_syncs": self.host_syncs.value,
             "host_syncs_per_tick":
                 round(self.host_syncs.value / ticks, 4) if ticks else None,
+            "tokens_per_tick": self.tokens_per_tick.snapshot(),
+            "spec_drafted_tokens": self.spec_drafted.value,
+            "spec_accepted_tokens": self.spec_accepted.value,
+            "spec_wasted_tokens": self.spec_wasted.value,
+            "spec_acceptance_ratio":
+                round(self.spec_accepted.value / self.spec_drafted.value,
+                      4) if self.spec_drafted.value else None,
             "streamed_tokens": self.streamed_tokens.value,
             "disconnects": self.disconnects.value,
         }

@@ -6,9 +6,11 @@ all funneling into the single engine thread through the scheduler's
 bounded queue.
 
 * ``POST /generate`` — body ``{"tokens": [...], "max_new_tokens": N?,
-  "eos_id": E?, "timeout_ms": T?, "temperature": f?, "top_k": K?,
-  "top_p": p?, "seed": s?, "priority": c?, "stream": bool?}``; replies
-  ``{"tokens": [...], "finish_reason": ..., "ttft_ms": ...}``.
+  "eos_id": E?, "timeout_ms": T?, "speculative": bool?, "temperature":
+  f?, "top_k": K?, "top_p": p?, "seed": s?, "priority": c?, "stream":
+  bool?}``; replies ``{"tokens": [...], "finish_reason": ...,
+  "ttft_ms": ...}``.  ``"speculative": false`` is the per-request
+  opt-out on a speculative engine: one token a tick, the same tokens.
   ``temperature`` / ``top_k`` / ``top_p`` / ``seed`` select sampling
   (temperature 0, the default, is greedy); a fixed seed reproduces the
   tokens.  ``priority`` is the request's class (``"interactive"``, the
@@ -38,7 +40,9 @@ bounded queue.
   from a dead replica's journal file with ``RequestJournal.read_live``).
 * ``GET /healthz`` — 200 while ``healthy`` or ``degraded`` (restarted,
   serving), 503 when ``draining`` or ``failed``.
-* ``GET /stats`` — the engine's :meth:`~InferenceEngine.stats`.
+* ``GET /stats`` — the engine's :meth:`~InferenceEngine.stats` (on a
+  speculative engine with ``spec_k``, ``spec_draft``, ``spec_slots_live``
+  and the ``spec_*_tokens`` / ``tokens_per_tick`` counters).
 """
 
 from __future__ import annotations
@@ -161,6 +165,7 @@ class _Handler(BaseHTTPRequestHandler):
                 max_new_tokens=req.get("max_new_tokens"),
                 eos_id=req.get("eos_id"),
                 deadline=deadline,
+                speculative=req.get("speculative"),
                 temperature=req.get("temperature", 0.0),
                 top_k=req.get("top_k", 0),
                 top_p=req.get("top_p", 0.0),

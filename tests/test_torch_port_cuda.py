@@ -639,3 +639,162 @@ def test_flash_launches_count_replays(dev):
             engine.step()
     assert engine._graphs.replays - replays == 3
     assert A.flash_fwd_launches - k1 == 3 * cfg.n_layers
+
+
+# --- speculative decoding ------------------------------------------------------
+
+
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("W", [4, 5])
+def test_paged_kernel_at_verify_rows(dev, kv, W):
+    """K4 at the speculative verify's R = G * W (G = 4: 16 and 20 rows,
+    two and three row blocks) on the edge table, against its plain
+    version; a second call gives the same bits."""
+    args, table, limit = _edge_case(kv, dev)
+    g = torch.Generator(device=dev).manual_seed(W)
+    qg = torch.randn((8, 4, 4 * W, 64), generator=g, device=dev)
+    args = [qg] + list(args[1:])
+    o, lse = PA.paged_attend(*args, table, limit,
+                             compute_dtype=torch.float32)
+    o2, lse2 = PA.paged_attend(*args, table, limit,
+                               compute_dtype=torch.float32)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o_r, l_r = PA.paged_attend_reference(*args, table, limit,
+                                         compute_dtype=torch.float32)
+    tol = 2e-2 if kv == "bf16" else 1e-4
+    live = limit > 0
+    assert (o - o_r).abs().max().item() <= tol
+    assert (lse[live] - l_r[live]).abs().max().item() <= tol
+    assert not o[~live].any() and (lse[~live] <= PA.NEG_INF / 2).all()
+
+
+def _spec_engine(dev, draft, **kw):
+    """A speculative serving engine at the serving width (max_len 512):
+    ``draft`` "ngram", "self" (the target as its own draft) or "half"
+    (the target's first four layers)."""
+    cfg = T.TransformerConfig(**SERVE, dtype=torch.bfloat16)
+    params = T.init_params(cfg, seed=0, device=dev)
+    dp = dc = None
+    if draft == "self":
+        dp, dc = params, cfg
+    elif draft == "half":
+        dc = T.TransformerConfig(**{**SERVE, "n_layers": 4},
+                                 dtype=torch.bfloat16)
+        dp = {**params, "layers": {k: v[:4].contiguous()
+                                   for k, v in params["layers"].items()}}
+    ec = serving.EngineConfig(n_slots=8, max_len=512, page_size=16,
+                              speculative=True, **kw)
+    return (serving.InferenceEngine(params, cfg, ec, device=dev,
+                                    draft_params=dp, draft_cfg=dc),
+            cfg, dc)
+
+
+@pytest.mark.parametrize("draft", ["ngram", "self", "half"])
+def test_spec_tick_bit_identical_to_eager(dev, draft):
+    """Twenty replays of the captured speculative tick over a live mix
+    (greedy slots speculating, sampled ones at acceptance 0, one slot
+    leaving halfway; the adaptive control off, so the n-gram slots keep
+    speculating) against its eager body run from a copy of the same
+    state: equal accepted lengths, emitted windows ``t[s, :acc + 1]`` and
+    their max logits, pool bytes (the NULL page aside: rejected drafts
+    race to it, and no slot attends it), positions and draft state; K4
+    launches L (+ (k + 1) L_draft) a replay, L of them at R = G * (k +
+    1)."""
+    engine, cfg, dcfg = _spec_engine(dev, draft, overlap=False,
+                                     spec_adaptive=False)
+    engine.warmup((8,))
+    assert engine.stats()["decode_compilations"] == 2
+    _mixed_requests(engine, 120)
+    while engine.scheduler.depth or engine.slots.active_count < 8:
+        engine.step()
+    engine.step()
+    k = engine.engine_cfg.spec_k
+    ps = engine.slots.page_size
+    for s in range(8):
+        p0 = int(engine._page_pos[s])
+        for idx in range(p0 // ps, (p0 + 20 * (k + 1) + k) // ps + 1):
+            if engine.slots.table[s, idx] == serving.NULL_PAGE:
+                engine.slots.grant(s, idx)
+            d = engine.draft_slots
+            if d is not None and d._active[s] and \
+                    d.table[s, idx] == serving.NULL_PAGE:
+                d.grant(s, idx)
+    engine._prepare_tick()
+    tick = engine._spec_tick
+    assert tick.spec_on.any()
+    tick.plain.tokens.copy_(torch.from_numpy(engine._host_tokens()))
+    tick.active.fill_(True)
+    engine._samp.device()
+    eager = tick.twin()
+    k4, rows = PA.paged_attend_launches, dict(PA.paged_attend_launches_by_rows)
+    replays = tick.replays
+    graphed = []
+    for i in range(20):
+        if i == 10:
+            tick.active[3] = False
+        graphed.append([x.clone() for x in tick.run()])
+    assert tick.replays - replays == 20
+    per = cfg.n_layers + (0 if dcfg is None else (k + 1) * dcfg.n_layers)
+    assert PA.paged_attend_launches - k4 == 20 * per
+    R = 4 * (k + 1)
+    assert PA.paged_attend_launches_by_rows[R] - rows.get(R, 0) == \
+        20 * cfg.n_layers
+    for i in range(20):
+        if i == 10:
+            eager.active[3] = False
+        t, mx, acc = eager.body()
+        assert torch.equal(acc, graphed[i][2]), i
+        # Offsets past a row's accepted run read drafts that rows with no
+        # draft pages (sampled ones) build from the NULL page: only the
+        # emitted part t[s, :acc + 1] is defined.
+        keep = torch.arange(t.shape[1], device=dev)[None, :] <= acc[:, None]
+        assert torch.equal(t[keep], graphed[i][0][keep]), i
+        assert torch.equal(mx[keep], graphed[i][1][keep]), i
+        assert torch.equal(t[:, 0], graphed[i][0][:, 0]), i
+    for name, t in tick.plain.pool.items():
+        want = eager.plain.pool[name]
+        if name == "pos":
+            assert torch.equal(t, want)
+        else:
+            assert torch.equal(t[:, 1:], want[:, 1:]), name
+    if dcfg is None:
+        assert torch.equal(tick.hist[:, :-1], eager.hist[:, :-1])
+    else:
+        for name, t in tick.draft[2].items():
+            want = eager.draft[2][name]
+            assert torch.equal(t if name == "pos" else t[:, 1:],
+                               want if name == "pos" else want[:, 1:]), name
+    assert engine.stats()["decode_compilations"] == 2
+    engine.terminate()
+
+
+@pytest.mark.parametrize("draft", ["ngram", "half"])
+def test_spec_two_captures_across_a_mixed_burst(dev, draft):
+    """decode_compilations is 2 (the speculative tick and the plain one)
+    after warmup and after a burst of greedy, sampled and opted-out
+    requests; no admission graph is captured past the warmup, the draft
+    model's included; every request returns its full count; K4's count
+    grows by each graph's replays times its launches a replay."""
+    engine, cfg, dcfg = _spec_engine(dev, draft)
+    engine.warmup((8, 16, 32, 64, 128, 256, 500))
+    st = engine.stats()
+    assert st["decode_compilations"] == 2
+    pre = st["prefill_compilations"]
+    k4 = PA.paged_attend_launches
+    r_spec, r_plain = engine._spec_tick.replays, engine._tick.replays
+    futs = _mixed_requests(engine, 24)
+    futs.append(engine.submit([7] * 30, max_new_tokens=24,
+                              speculative=False))
+    while not all(f.done() for f in futs):
+        engine.step()
+    assert all(len(f.result(timeout=0)) == 24 for f in futs)
+    st = engine.stats()
+    assert st["decode_compilations"] == 2
+    assert st["prefill_compilations"] == pre
+    n_spec = engine._spec_tick.replays - r_spec
+    n_plain = engine._tick.replays - r_plain
+    assert n_spec > 0
+    assert PA.paged_attend_launches - k4 == (
+        n_spec * engine._spec_tick.k4_launches_per_replay
+        + n_plain * cfg.n_layers)
+    assert st["spec_drafted_tokens"] > 0

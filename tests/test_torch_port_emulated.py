@@ -511,7 +511,9 @@ print(json.dumps(res))
 # limit, and two slots sharing their pages; the others R = 1 at
 # Dh = 128 with q in bf16, R = 8 on pages of 8, and R = 12 (two R
 # blocks) at Dh = 96 (idle lanes) on pages of 40 rows (ring chunks of 64
-# rows that cross a page boundary).
+# rows that cross a page boundary); then the speculative verify's rows,
+# R = G * W at G = 4: 16 (W = 4, two R blocks) and 20 (W = 5, three, the
+# last one half full) with a limit on a split boundary.
 PAGED_CASES = [
     dict(Hkv=2, R=4, Dh=64, ps=16, pps=2, MP=6, pages=40,
          limit=[0, 96, 32, 33, 5, 50], share=[[1, 5]]),
@@ -519,6 +521,9 @@ PAGED_CASES = [
          limit=[64, 49, 0], q_bf16=True),
     dict(Hkv=2, R=8, Dh=64, ps=8, pps=2, MP=5, pages=16, limit=[40, 17, 16]),
     dict(Hkv=1, R=12, Dh=96, ps=40, pps=2, MP=3, pages=7, limit=[120, 70]),
+    dict(Hkv=1, R=16, Dh=64, ps=16, pps=2, MP=4, pages=13,
+         limit=[64, 30, 0]),
+    dict(Hkv=2, R=20, Dh=64, ps=8, pps=2, MP=5, pages=12, limit=[40, 16]),
 ]
 
 

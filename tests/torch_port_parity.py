@@ -46,13 +46,14 @@ BASE = dict(n_slots=3, max_len=40, min_prefill_bucket=4, page_size=8,
             restart_backoff=0.001, restart_backoff_max=0.002, tick_timeout=0)
 
 
-def make_model(seed: int = 0) -> Model:
+def make_model(seed: int = 0, n_layers: int = 2) -> Model:
     """The tiny model in both packages, its weights drawn with numpy
     from ``seed`` at ``JT.init_params``'s shapes and scales (norms at
     one, matrices normal over the square root of their input width, the
-    embedding unit normal)."""
-    kw = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
-              max_seq=48, n_kv_heads=2)
+    embedding unit normal).  ``n_layers=1`` gives the speculative tests'
+    shallow draft model (same vocabulary and widths)."""
+    kw = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=n_layers,
+              d_ff=64, max_seq=48, n_kv_heads=2)
     jcfg = JT.TransformerConfig(**kw, dtype=jnp.float32,
                                 attention_impl="reference")
     tcfg = T.TransformerConfig(**kw, dtype=torch.float32,
@@ -74,16 +75,20 @@ def make_model(seed: int = 0) -> Model:
                  params_from_jax(weights, tcfg, device="cpu"), tcfg)
 
 
-def make_engine(model: Model, package: str, **kw):
+def make_engine(model: Model, package: str, draft: Model = None, **kw):
     """A fresh engine of ``package``; ``faults`` defaults to an empty
-    injector of the package's own."""
+    injector of the package's own.  ``draft``: a speculative engine's
+    draft model."""
     S = JS if package == "jax" else TS
     kw.setdefault("faults", S.FaultInjector())
     if package == "jax":
-        return JS.InferenceEngine(model.jparams, model.jcfg,
-                                  JS.EngineConfig(**kw))
-    return TS.InferenceEngine(model.tparams, model.tcfg,
-                              TS.EngineConfig(**kw), device="cpu")
+        return JS.InferenceEngine(
+            model.jparams, model.jcfg, JS.EngineConfig(**kw),
+            draft_params=draft and draft.jparams,
+            draft_cfg=draft and draft.jcfg)
+    return TS.InferenceEngine(
+        model.tparams, model.tcfg, TS.EngineConfig(**kw), device="cpu",
+        draft_params=draft and draft.tparams, draft_cfg=draft and draft.tcfg)
 
 
 _LENT: dict = {}
@@ -94,7 +99,8 @@ def lease(model: Model, package: str, **kw):
     scenario of this process that asks for the same keywords.  One left
     busy or unhealthy by a scenario, or whose state trail nears the
     engine's 50-entry cap, is replaced."""
-    key = (package, id(model), tuple(sorted(kw.items())))
+    key = (package, id(model), id(kw.get("draft")),
+           tuple(sorted((k, v) for k, v in kw.items() if k != "draft")))
     engine = _LENT.get(key)
     if engine is None or not _idle(engine):
         engine = _LENT[key] = make_engine(model, package, **kw)
