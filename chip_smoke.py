@@ -127,18 +127,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    to the plain graph.  Then an HTTP burst through ``ServingServer``
    (half sampled, one opted out): full counts, ``decode_compilations``
    2 before and after, no admission capture past the warmup.
-7. Model gradients: a 2-layer d1024 model's f32 loss and parameter
-   gradients through the kernels against the plain attention path (TF32
-   off).
-8. Training at full width: a size-1 NCCL process group, then 10
-   data-parallel steps (``spmd.make_train_step`` +
+7. Collectives: a size-1 NCCL group, every collective of the port
+   (each allreduce op with and without pre/postscale, compression,
+   grouped Average and Adasum, allgather, broadcast, alltoall even and
+   with splits, reducescatter, hierarchical allreduce and allgather,
+   every ``*_async`` with ``poll`` and one ``synchronize``, sparse
+   against dense, the object collectives, ``join``, ``masked_average``
+   at active 0 and 1) on CUDA tensors in f32 and bf16: each result must
+   equal its size-1 value exactly.
+8. Model gradients: a 2-layer d1024 model's f32 loss and parameter
+   gradients through the kernels against the plain attention path, and
+   with remat ``full`` and ``dots`` against no remat (TF32 off).
+9. Training at full width: a size-1 NCCL process group, then four legs
+   of 10 data-parallel steps (``spmd.make_train_step`` +
    ``DistributedOptimizer(AdamW)``) of the d1024/L8/H16 MHA model with
    f32 master parameters and bf16 compute on one fixed batch of 8 x 2048
-   tokens.  Every loss must be finite, the last below the first, and
-   K1, K2 and K3 must each launch once a layer a step; step time,
-   tokens/s, MFU and peak memory are printed, and one more step is
-   profiled (its K3 must be the tensor-core ``flash_bwd_dq_kernel_mma``).
-9. Times: each kernel at its path's shape (CUDA events around 10
+   tokens, from the same parameters: eager (the step's eager body),
+   remat ``full``, remat ``dots`` and captured (two eager warm-up
+   steps, one CUDA graph capture, replays).  Every loss must be finite,
+   the last below the first; K1 must launch once a layer a step (twice
+   under remat), K2 and K3 once, also under the graph; the remat and
+   captured legs' losses must equal the eager leg's within 1e-3
+   relative a step, and each remat leg's peak memory must be below the
+   eager leg's.  Each leg prints its step time, tokens/s, MFU on useful
+   FLOP, peak memory and launches, and one more step is profiled
+   (device busy, idle share; its K3 must be the tensor-core
+   ``flash_bwd_dq_kernel_mma``).
+10. Times: each kernel at its path's shape (CUDA events around 10
    back-to-back calls, median of 20; also one call alone, which adds
    the host's launch cost; K4 and its yardstick, whose calls are
    shorter than their launching, by the profiler's device time) beside
@@ -157,8 +172,8 @@ Each phase's seconds are printed as it ends.
 A ``report:`` line carries every measurement as JSON; the line before
 last is a JSON object of the kernels (each one's launches summed over
 the main paths' runs that launch it: the HTTP burst, the prefix run,
-the two SLO legs, the speculative legs and, for K1, training; K4's
-verify calls at R = 20 in an entry of their own); the last line is
+the two SLO legs, the speculative legs and the four training legs;
+K4's verify calls at R = 20 in an entry of their own); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository beside it, the script exits non-zero and prints no
 result.
@@ -304,15 +319,34 @@ def device_ms(fn, tag: str = "", reps: int = 20) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in _device_events(prof)
-                if tag in e.key)
-    if total <= 0:
-        raise AssertionError(f"the profiler saw no kernel matching {tag!r}")
-    return total / 1e3 / reps
+    # A profiler session on an H100 has come back with no device event
+    # at all (once, for the SDPA yardstick beside K4, which other runs
+    # profile fine): such a session is logged with what it did record
+    # (the CPU-side runtime calls, such as cudaLaunchKernel, show
+    # whether the launches were seen while their kernels' records were
+    # not) and profiled again, twice at most.
+    from torch.autograd import DeviceType
+
+    name = getattr(fn, "__qualname__", repr(fn))
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        total = sum(e.self_device_time_total for e in events if tag in e.key)
+        if total > 0:
+            return total / 1e3 / reps
+        if events:
+            break
+        host = [e for e in prof.key_averages()
+                if e.device_type != DeviceType.CUDA]
+        log(f"device_ms: profiler session {attempt + 1} of 3 for {name} "
+            f"(tag {tag!r}) recorded no device event and "
+            f"{sum(e.count for e in host)} CPU-side events "
+            f"{sorted({e.key for e in host})[:8]}; profiling again")
+    raise AssertionError(f"the profiler saw no kernel matching {tag!r} "
+                         f"for {name}")
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple:
@@ -1983,9 +2017,12 @@ def spec_full_width(card: str) -> dict:
 
 
 def model_grads_f32() -> dict:
-    """f32 loss and every parameter gradient of a 2-layer model, attention
-    by K1-K3 against the plain softmax attention, TF32 off.  Tolerance:
-    1e-4 of each parameter's largest gradient (f32 summation order)."""
+    """f32 loss and every parameter gradient of a 2-layer model, TF32 off:
+    attention by K1-K3 against the plain softmax attention (tolerance
+    1e-4 of each parameter's largest gradient: f32 summation order), and
+    remat ``full`` and ``dots`` against no remat, both through K1-K3
+    (tolerance 1e-5: the recompute runs the same kernels on the same
+    inputs)."""
     from horovod_tpu_torch.models import transformer as T
     from horovod_tpu_torch.optim import named_parameters
 
@@ -1993,9 +2030,14 @@ def model_grads_f32() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     small = dict(FULL, n_layers=2, max_seq=512)
     grads = {}
-    for impl in ("flash", "reference"):
+    for name, impl, remat in (("flash", "flash", None),
+                              ("reference", "reference", None),
+                              ("remat_full", "flash", "full"),
+                              ("remat_dots", "flash", "dots")):
         cfg = T.TransformerConfig(**dict(small, attention_impl=impl),
-                                  dtype=torch.float32)
+                                  dtype=torch.float32,
+                                  remat=remat is not None,
+                                  remat_policy=remat or "full")
         params = T.init_params(cfg, seed=1, param_dtype=torch.float32)
         named = named_parameters(params)
         for _, t in named:
@@ -2003,20 +2045,26 @@ def model_grads_f32() -> dict:
         batch = T.synthetic_batch(1, cfg, 2, 512)
         loss = T.loss_fn(params, batch, cfg)
         loss.backward()
-        grads[impl] = (loss.item(), {n: t.grad for n, t in named})
-    (lf, gf), (lr, gr) = grads["flash"], grads["reference"]
-    errs = {n: ((gf[n] - gr[n]).abs().max() / gr[n].abs().max()).item()
-            for n in gr}
-    worst = max(errs, key=errs.get)
-    log(f"model f32 (L=2, d1024, H16, kv4, seq 512, batch 2): loss flash "
-        f"{lf:.7f} plain {lr:.7f}; worst gradient {worst} rel_err "
-        f"{errs[worst]:.3e} tol 1e-04")
-    if not (abs(lf - lr) <= 1e-5 * abs(lr) and errs[worst] <= 1e-4):
-        raise AssertionError("the kernels' model gradients disagree with "
-                             "the plain attention path")
-    del grads, gf, gr
+        grads[name] = (loss.item(), {n: t.grad for n, t in named})
+    lf, gf = grads["flash"]
+    out = {"loss_flash": lf}
+    for other, tol in (("reference", 1e-4), ("remat_full", 1e-5),
+                       ("remat_dots", 1e-5)):
+        lo, go = grads[other]
+        errs = {n: ((go[n] - gf[n]).abs().max() / gf[n].abs().max()).item()
+                for n in gf}
+        worst = max(errs, key=errs.get)
+        log(f"model f32 (L=2, d1024, H16, kv4, seq 512, batch 2): loss "
+            f"flash {lf:.7f} {other} {lo:.7f}; worst gradient {worst} "
+            f"rel_err {errs[worst]:.3e} tol {tol:.0e}")
+        if not (abs(lo - lf) <= 1e-5 * abs(lf) and errs[worst] <= tol):
+            raise AssertionError(f"the {other} model gradients disagree "
+                                 "with the flash path's")
+        out[f"loss_{other}"] = lo
+        out[f"grad_rel_err_{other}"] = errs
+    del grads, gf
     torch.cuda.empty_cache()
-    return {"loss_flash": lf, "loss_plain": lr, "grad_rel_err": errs}
+    return out
 
 
 def _free_port() -> int:
@@ -2068,11 +2116,99 @@ def profile_train_step(step, params, batch) -> dict:
     return out
 
 
-def train_full_width() -> dict:
-    """The main training path, through the entry points a user calls."""
-    from horovod_tpu_torch import basics, optim, spmd
+TRAIN_LEGS = ("eager", "remat_full", "remat_dots", "captured")
+
+
+def _train_leg(name: str) -> dict:
+    """One training leg at full width: 10 steps from ``init_params`` seed
+    0 on one fixed batch.  ``eager`` and the remat legs call the step's
+    eager body (``TrainStep.body``); ``captured`` calls the step itself,
+    which warms up eagerly, captures one CUDA graph and replays it.
+    The K1-K3 counters read 0 just before the steps and are read just
+    after them."""
+    from horovod_tpu_torch import optim, spmd
     from horovod_tpu_torch.models import transformer as T
     from horovod_tpu_torch.ops import attention as A
+
+    remat = name.startswith("remat")
+    cfg = T.TransformerConfig(**TRAIN, dtype=torch.bfloat16, remat=remat,
+                              remat_policy=name[6:] if remat else "full")
+    params = T.init_params(cfg, seed=0, param_dtype=torch.float32)
+    named = optim.named_parameters(params)
+    for _, t in named:
+        t.requires_grad_()
+    n_params = sum(t.numel() for _, t in named)
+    n_matmul = n_params - params["embed"].numel()
+    opt = optim.DistributedOptimizer(
+        torch.optim.AdamW([t for _, t in named], lr=3e-4,
+                          betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4),
+        named_parameters=named)
+    step = spmd.make_train_step(lambda p, b: T.loss_fn(p, b, cfg), opt)
+    if not step.graphed:
+        raise AssertionError("make_train_step did not capture on CUDA")
+    run = step if name == "captured" else step.body
+    B, S = TRAIN_BATCH, TRAIN["max_seq"]
+    batch = T.synthetic_batch(0, cfg, B, S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.flash_fwd_launches = 0
+    A.flash_bwd_dkdv_launches = 0
+    A.flash_bwd_dq_launches = 0
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.monotonic()
+        losses.append(float(run(params, batch)))  # waits for the card
+        times.append(time.monotonic() - t0)
+    launches = {"flash_fwd": A.flash_fwd_launches,
+                "flash_bwd_dkdv": A.flash_bwd_dkdv_launches,
+                "flash_bwd_dq": A.flash_bwd_dq_launches}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times)
+    # Useful work only: a remat leg's recompute is not counted.
+    flops = 6 * n_matmul * B * S + 6 * cfg.n_layers * B * S * S * \
+        cfg.d_model
+    out = {"params": n_params, "matmul_params": n_matmul,
+           "losses": losses, "step_s": times, "step_s_median": step_s,
+           "tokens_per_s": B * S / step_s, "step_flops": flops,
+           "mfu": flops / step_s / PEAK_FLOPS[torch.bfloat16],
+           "bound_step_ms": flops / PEAK_FLOPS[torch.bfloat16] * 1e3,
+           "peak_mem_gb": peak / 1e9, "launches": launches,
+           "captures": step.captures, "replays": step.replays}
+    log(f"train [{name}] losses: {[round(x, 4) for x in losses]}")
+    log(f"train [{name}]: {n_params} params, median step "
+        f"{step_s * 1e3:.1f} ms, {out['tokens_per_s']:.0f} tok/s, MFU "
+        f"{out['mfu']:.4f} (useful FLOP only; bound "
+        f"{out['bound_step_ms']:.1f} ms a step), peak memory "
+        f"{out['peak_mem_gb']:.2f} GB, launches {launches}, captures "
+        f"{step.captures}, replays {step.replays}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a training loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    L = cfg.n_layers * TRAIN_STEPS
+    want = {"flash_fwd": 2 * L if remat else L, "flash_bwd_dkdv": L,
+            "flash_bwd_dq": L}
+    if launches != want:
+        raise AssertionError(f"[{name}] expected K1-K3 launches {want}, got "
+                             f"{launches}")
+    if name == "captured" and (step.captures != 1 or step.replays
+                               != TRAIN_STEPS - spmd.WARMUP_STEPS):
+        raise AssertionError(f"captured leg: {step.captures} captures, "
+                             f"{step.replays} replays")
+    out["profile"] = profile_train_step(run, params, batch)
+    del params, opt, step, run, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_full_width() -> dict:
+    """The main training path, through the entry points a user calls, in
+    four legs (``TRAIN_LEGS``) on a size-1 NCCL group: each remat leg's
+    and the captured leg's losses equal the eager leg's within 1e-3
+    relative a step, and each remat leg's peak memory is below the eager
+    leg's."""
+    from horovod_tpu_torch import basics
 
     # The serving engines hold themselves in reference cycles (the
     # scheduler's callbacks): collect them, so that the peak memory
@@ -2081,65 +2217,139 @@ def train_full_width() -> dict:
     torch.cuda.empty_cache()
     basics.init(init_method=f"tcp://127.0.0.1:{_free_port()}")
     try:
-        cfg = T.TransformerConfig(**TRAIN, dtype=torch.bfloat16)
-        params = T.init_params(cfg, seed=0, param_dtype=torch.float32)
-        named = optim.named_parameters(params)
-        for _, t in named:
-            t.requires_grad_()
-        n_params = sum(t.numel() for _, t in named)
-        n_matmul = n_params - params["embed"].numel()
-        opt = optim.DistributedOptimizer(
-            torch.optim.AdamW([t for _, t in named], lr=3e-4,
-                              betas=(0.9, 0.999), eps=1e-8,
-                              weight_decay=1e-4),
-            named_parameters=named)
-        step = spmd.make_train_step(lambda p, b: T.loss_fn(p, b, cfg), opt)
-        B, S = TRAIN_BATCH, TRAIN["max_seq"]
-        batch = T.synthetic_batch(0, cfg, B, S)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        # The main path's run: the launch counters read 0 here and are
-        # read again after the last step.
-        A.flash_fwd_launches = 0
-        A.flash_bwd_dkdv_launches = 0
-        A.flash_bwd_dq_launches = 0
-        losses, times = [], []
-        for _ in range(TRAIN_STEPS):
-            t0 = time.monotonic()
-            losses.append(float(step(params, batch)))  # waits for the card
-            times.append(time.monotonic() - t0)
-        launches = {"flash_fwd": A.flash_fwd_launches,
-                    "flash_bwd_dkdv": A.flash_bwd_dkdv_launches,
-                    "flash_bwd_dq": A.flash_bwd_dq_launches}
-        peak = torch.cuda.max_memory_allocated()
-        step_s = statistics.median(times)
-        flops = 6 * n_matmul * B * S + 6 * cfg.n_layers * B * S * S * \
-            cfg.d_model
-        out = {"params": n_params, "matmul_params": n_matmul,
-               "losses": losses, "step_s": times, "step_s_median": step_s,
-               "tokens_per_s": B * S / step_s, "step_flops": flops,
-               "mfu": flops / step_s / PEAK_FLOPS[torch.bfloat16],
-               "bound_step_ms": flops / PEAK_FLOPS[torch.bfloat16] * 1e3,
-               "peak_mem_gb": peak / 1e9, "launches": launches}
-        log(f"train losses: {[round(x, 4) for x in losses]}")
-        log(f"train: {n_params} params, median step {step_s * 1e3:.1f} ms, "
-            f"{out['tokens_per_s']:.0f} tok/s, MFU {out['mfu']:.4f} (bound "
-            f"{out['bound_step_ms']:.1f} ms a step), peak memory "
-            f"{out['peak_mem_gb']:.2f} GB, launches {launches}")
-        if not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"a training loss is not finite: {losses}")
-        if not losses[-1] < losses[0]:
-            raise AssertionError(f"the loss did not fall: {losses}")
-        want = cfg.n_layers * TRAIN_STEPS
-        if any(n != want for n in launches.values()):
-            raise AssertionError(f"expected {want} launches of K1, K2 and "
-                                 f"K3 (one a layer a step), got {launches}")
-        out["profile"] = profile_train_step(step, params, batch)
-        del params, opt, step, batch
+        legs = {name: _train_leg(name) for name in TRAIN_LEGS}
     finally:
         basics.shutdown()
-    torch.cuda.empty_cache()
-    return out
+    eager = legs["eager"]
+    for name in TRAIN_LEGS[1:]:
+        gap = max(abs(a - b) / abs(b) for a, b in
+                  zip(legs[name]["losses"], eager["losses"]))
+        legs[name]["loss_gap_vs_eager"] = gap
+        log(f"train [{name}] largest loss gap against eager: {gap:.3e} "
+            "(limit 1e-3 relative)")
+        if gap > 1e-3:
+            raise AssertionError(f"[{name}] losses differ from eager's by "
+                                 f"{gap:.3e}")
+        if name.startswith("remat") and not (
+                legs[name]["peak_mem_gb"] < eager["peak_mem_gb"]):
+            raise AssertionError(f"[{name}] peak memory "
+                                 f"{legs[name]['peak_mem_gb']:.2f} GB is not "
+                                 f"below eager's {eager['peak_mem_gb']:.2f}")
+    launches = {k: sum(leg["launches"][k] for leg in legs.values())
+                for k in eager["launches"]}
+    return {"legs": legs, "launches": launches}
+
+
+# --- the collectives at size 1 ------------------------------------------------
+
+
+def check_collectives(device) -> list:
+    """Every collective of the port on ``device`` tensors in f32 and
+    bf16, in a job of size 1 (``basics.init`` already called): each
+    result must equal its size-1 value exactly.  At size 1 this proves
+    the backend's paths on the device's tensors and dtypes, not the
+    arithmetic across ranks (the CPU tests hold that against JAX)."""
+    from horovod_tpu_torch import join, state
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import sparse as SP
+    from horovod_tpu_torch.ops.compression import Compression
+
+    checked = []
+
+    def same(label, got, want):
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"collective {label}: {got} != {want}")
+        checked.append(label)
+
+    g = torch.Generator(device=device).manual_seed(5)
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt)[6:]
+        x = torch.randn((96, 33), generator=g, device=device).to(dt)
+        for op in ("Sum", "Average", "Min", "Max", "Product", "Adasum"):
+            same(f"allreduce.{op}.{tag}", C.allreduce(x, op), x)
+            same(f"allreduce.{op}.scaled.{tag}",
+                 C.allreduce(x, op, prescale_factor=0.5,
+                             postscale_factor=3.0),
+                 x.clone().mul_(0.5).mul_(3.0))
+            h = C.allreduce_async(x, op)
+            C.poll(h)
+            same(f"allreduce_async.{op}.{tag}", C.synchronize(h), x)
+        with C._hierarchical(True):
+            same(f"hierarchical.allreduce.{tag}", C.allreduce(x, "Sum"), x)
+            same(f"hierarchical.allgather.{tag}", C.allgather(x), x)
+        same(f"allreduce.compression.{tag}",
+             C.allreduce(x.float(), "Sum", compression=Compression.bf16),
+             x.float().to(torch.bfloat16).float())
+        same(f"process_sum.{tag}", C.process_sum(x), x)
+        for op in ("Average", "Adasum"):
+            for i, t in enumerate(C.grouped_allreduce([x, x[:7, :5]], op)):
+                same(f"grouped.{op}.{i}.{tag}", t, [x, x[:7, :5]][i])
+        same(f"allgather.{tag}", C.allgather(x), x)
+        same(f"broadcast.{tag}", C.broadcast(x, 0), x)
+        same(f"alltoall.{tag}", C.alltoall(x), x)
+        same(f"alltoall.splits.{tag}", C.alltoall(x, [x.shape[0]]), x)
+        for op in ("Sum", "Average"):
+            same(f"reducescatter.{op}.{tag}", C.reducescatter(x, op), x)
+        for label, h in (("allgather_async", C.allgather_async(x)),
+                         ("broadcast_async", C.broadcast_async(x, 0)),
+                         ("reducescatter_async",
+                          C.reducescatter_async(x, "Sum")),
+                         ("alltoall_async", C.alltoall_async(x)),
+                         ("alltoall_async.splits",
+                          C.alltoall_async(x, [x.shape[0]]))):
+            C.poll(h)
+            same(f"{label}.{tag}", C.synchronize(h), x)
+            if not C.poll(h):
+                raise AssertionError(f"{label}: a spent handle polls busy")
+            try:
+                C.synchronize(h)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"{label}: a handle synchronized twice")
+        sp = torch.zeros((64, 8), device=device, dtype=dt)
+        sp[[3, 17, 40]] = torch.randn((3, 8), generator=g,
+                                      device=device).to(dt)
+        for op in ("Sum", "Average"):
+            got, stats = SP.sparse_allreduce(sp, op, return_stats=True)
+            same(f"sparse_allreduce.{op}.{tag}", got, sp)
+            same(f"sparse_vs_dense.{op}.{tag}", got, C.allreduce(sp, op))
+            if stats["rows"] != 3:
+                raise AssertionError(f"sparse rows {stats}")
+        for active in (0, 1):
+            got = join.masked_average([x], active)[0]
+            same(f"masked_average.active{active}.{tag}", got,
+                 x if active else torch.zeros_like(x))
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError("masked_average is not finite")
+    obj = {"step": 7, "name": "card", "t": [1.5, 2]}
+    if state.broadcast_object(obj, 0) != obj:
+        raise AssertionError("broadcast_object")
+    if state.allgather_object(obj) != [obj]:
+        raise AssertionError("allgather_object")
+    checked += ["broadcast_object", "allgather_object"]
+    if join.join() != 0:
+        raise AssertionError("join() at size 1 must return 0")
+    checked.append("join")
+    C.barrier()
+    checked.append("barrier")
+    return checked
+
+
+def collectives_size_one() -> dict:
+    """The collectives phase: a size-1 NCCL group on the card."""
+    from horovod_tpu_torch import basics
+
+    basics.init(init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        checked = check_collectives(basics.device())
+    finally:
+        basics.shutdown()
+    log(f"collectives at size 1 over NCCL, f32 and bf16, each equal to its "
+        f"size-1 value: {len(checked)} checks: "
+        + ", ".join(sorted({c.rsplit(".", 1)[0] if c.endswith(("float32",
+                    "bfloat16")) else c for c in checked})))
+    return {"checked": checked}
 
 
 # --- phase 8: times ----------------------------------------------------------
@@ -2400,14 +2610,25 @@ def main() -> int:
     with phase("speculative"):
         spec = spec_full_width(card)
     REPORT["speculative_bf16"] = spec
+    with phase("collectives"):
+        REPORT["collectives"] = collectives_size_one()
     with phase("model_grads_f32"):
         REPORT["model_grads_f32"] = model_grads_f32()
     with phase("training"):
         train = train_full_width()
     REPORT["train_bf16"] = train
+    legs = train["legs"]
+    log(f"training legs on {card} (median step ms / tok/s / MFU on useful "
+        "FLOP / peak GB / device busy ms / idle share): " + "; ".join(
+            f"{n} {lg['step_s_median'] * 1e3:.1f} / "
+            f"{lg['tokens_per_s']:.0f} / {lg['mfu']:.4f} / "
+            f"{lg['peak_mem_gb']:.2f} / "
+            f"{lg['profile']['device_busy_ms']:.1f} / "
+            f"{lg['profile']['idle_share']:.3f}" for n, lg in legs.items()))
     # Each kernel's launches are the sum over the main paths' runs that
     # launch it: serving (the HTTP burst, the prefix run, the two SLO
-    # legs) and, for K1, training.
+    # legs, the speculative legs) and, for K1-K3, the four training legs
+    # (K1 twice a layer a step in the remat legs).
     served = [serving, serving["prefix"], *serving["slo"].values(),
               *spec["legs"].values()]
     k1_launches = sum(r["launches"]["flash_fwd"] for r in served) + \

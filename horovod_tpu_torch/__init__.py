@@ -6,11 +6,16 @@ and trains the flagship Transformer LM: ``models`` (parameters, the
 training forward and loss, prefill, paged decode), ``ops`` (the
 hand-written Hopper kernels — flash attention forward and backward,
 paged-attention decode — each beside its plain PyTorch version, and the
-collectives, fusion and compression of the gradient reduction),
-``basics`` (process group, rank and size over ``torch.distributed``),
-``optim`` (``DistributedOptimizer``), ``spmd`` (the data-parallel train
-step), ``serving`` (the paged greedy continuous-batching engine and its
-HTTP server) and ``obs`` (the metrics registry).
+collectives, Adasum, sparse reduction, fusion and compression of the
+gradient reduction),
+``basics`` (process group, rank and size, the local and cross groups
+over ``torch.distributed``), ``optim`` (``DistributedOptimizer``,
+``DistributedAdasumOptimizer``, ``DistributedGradientTape``), ``state``
+(parameter, optimizer-state and object broadcast), ``join`` (masked
+averaging for ranks out of data), ``spmd`` (the data-parallel train
+step, captured as a CUDA graph on the card), ``serving`` (the paged
+continuous-batching engine and its HTTP server) and ``obs`` (the
+metrics registry).
 
 It imports ``torch`` and never ``jax`` or ``horovod_tpu``.  Entry points
 run on CUDA unless the caller passes ``device="cpu"``.

@@ -11,6 +11,16 @@ process; PyTorch's idiom is a process per GPU).
   ``HOROVOD_COORDINATOR_ADDR`` (``host`` or ``host:port``; without a
   port, ``HOROVOD_COORDINATOR_PORT`` + 2, the JAX package's rule, else
   9373).  With none set, the job is one process of size 1.
+* Hosts: ``HOROVOD_CROSS_RANK`` / ``HOROVOD_CROSS_SIZE`` (default: rank
+  // local size and size // local size).  :func:`init` gathers every
+  rank's (cross rank, local rank, local size) and builds the local
+  group (the ranks of this host) and the cross group (the ranks of this
+  local rank on every host) with ``dist.new_group``, every group on
+  every rank in one order; the JAX package's ``hierarchical_mesh``
+  ``(cross, local)`` in process groups.  :func:`is_homogeneous` is
+  true when every host has the same local size and ranks run host by
+  host (``rank == cross_rank * local_size + local_rank``): the layout
+  the hierarchical collectives need.
 * The backend follows the device: NCCL for CUDA (``cuda:local_rank``),
   gloo for ``device="cpu"``.  With no device and no CUDA, :func:`init`
   raises, as every entry point of the port does.
@@ -20,14 +30,15 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["NotInitializedError", "device", "init", "is_initialized",
-           "local_rank", "local_size", "rank", "resolve_device", "shutdown",
-           "size"]
+__all__ = ["NotInitializedError", "cross_group", "cross_rank", "cross_size",
+           "device", "init", "is_homogeneous", "is_initialized",
+           "local_group", "local_rank", "local_size", "rank",
+           "resolve_device", "shutdown", "size"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -56,6 +67,14 @@ class _Context:
     local_rank: int
     local_size: int
     device: torch.device
+    cross_rank: int
+    cross_size: int
+    homogeneous: bool
+    # The process groups of this rank's host and of its local rank
+    # across hosts (with the cross group's global ranks, in order).
+    local_group: object
+    cross_group: object
+    cross_ranks: Tuple[int, ...]
 
 
 _context: Optional[_Context] = None
@@ -113,11 +132,48 @@ def init(*, device=None, init_method: Optional[str] = None) -> None:
         dist.init_process_group(backend, init_method=init_method
                                 or _coordinator(), rank=rank,
                                 world_size=size)
-    _context = _Context(rank, size, lrank, lsize, dev)
+    crank = _env_int("HOROVOD_CROSS_RANK")
+    csize = _env_int("HOROVOD_CROSS_SIZE")
+    crank = rank // lsize if crank is None else crank
+    csize = max(size // lsize, 1) if csize is None else csize
+    layout = _gather_layout(rank, size, crank, lrank, lsize, dev)
+    homogeneous = (len({ls for _, _, ls in layout}) == 1
+                   and csize * lsize == size
+                   and all(r == c * lsize + l
+                           for r, (c, l, _) in enumerate(layout)))
+    local, _ = _groups(layout, 0, crank)
+    cross, cranks = _groups(layout, 1, lrank)
+    _context = _Context(rank, size, lrank, lsize, dev, crank, csize,
+                        homogeneous, local, cross, cranks)
+
+
+def _gather_layout(rank, size, crank, lrank, lsize, dev) -> List[tuple]:
+    """Every rank's ``(cross rank, local rank, local size)``, by rank."""
+    if size == 1:
+        return [(crank, lrank, lsize)]
+    mine = torch.tensor([crank, lrank, lsize], dtype=torch.int64, device=dev)
+    parts = [torch.empty_like(mine) for _ in range(size)]
+    dist.all_gather(parts, mine)
+    return [tuple(int(v) for v in p.tolist()) for p in parts]
+
+
+def _groups(layout, field: int, mine: int):
+    """One ``dist.new_group`` per distinct value of ``layout[r][field]``
+    (its ranks in rank order), made in ascending order on every rank ->
+    (the group holding value ``mine``, its ranks)."""
+    ours = None
+    for value in sorted({entry[field] for entry in layout}):
+        ranks = tuple(r for r, entry in enumerate(layout)
+                      if entry[field] == value)
+        group = dist.new_group(list(ranks))
+        if value == mine:
+            ours = (group, ranks)
+    return ours
 
 
 def shutdown() -> None:
-    """Leave the process group (a later :func:`init` may join again)."""
+    """Leave the process group and its local and cross groups (a later
+    :func:`init` may join again)."""
     global _context
     if _context is None:
         return
@@ -154,3 +210,30 @@ def local_size() -> int:
 def device() -> torch.device:
     """The device this process drives."""
     return _ctx().device
+
+
+def cross_rank() -> int:
+    """This rank's host index (``horovod_cross_rank``)."""
+    return _ctx().cross_rank
+
+
+def cross_size() -> int:
+    """The number of hosts (``horovod_cross_size``)."""
+    return _ctx().cross_size
+
+
+def is_homogeneous() -> bool:
+    """True if every host runs the same number of ranks, host by host
+    (``horovod_is_homogeneous``)."""
+    return _ctx().homogeneous
+
+
+def local_group():
+    """The process group of this host's ranks (the JAX ``local`` axis)."""
+    return _ctx().local_group
+
+
+def cross_group():
+    """The process group of this local rank on every host (the JAX
+    ``cross`` axis)."""
+    return _ctx().cross_group

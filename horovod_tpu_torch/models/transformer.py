@@ -3,7 +3,8 @@
 Counterpart of ``horovod_tpu/models/transformer.py`` for the dense
 model: parameters, the training forward and loss (:func:`forward`,
 :func:`loss_fn`, :func:`synthetic_batch`; flash attention K1-K3 when
-``attention_impl="flash"``), prefill (whole prompts, and suffixes over an
+``attention_impl="flash"``; each layer rematerialised with
+``remat=True``, policy ``full`` or ``dots``), prefill (whole prompts, and suffixes over an
 already-cached prefix: :func:`prefill_with_prefix`, K1 with a runtime
 shift), the contiguous-cache decode step
 with the per-request :func:`sample_decode` / :func:`greedy_decode`
@@ -30,12 +31,15 @@ place (the JAX engine donates them to the same effect).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from horovod_tpu_torch.basics import resolve_device
 from horovod_tpu_torch.ops import attention as attn
@@ -67,15 +71,19 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     # "reference" = O(S^2) softmax attention; "flash" = kernels K1-K3.
     attention_impl: str = "reference"
-    remat: bool = False  # rematerialisation is not ported
+    # Rematerialisation: recompute each layer's activations in the
+    # backward (the JAX ``_remat``); "full" saves only the layer input,
+    # "dots" also the projections' matmul outputs.
+    remat: bool = False
+    remat_policy: str = "full"
 
     def __post_init__(self):
         if self.n_experts > 1:
             raise NotImplementedError(
                 "mixture-of-experts (n_experts > 1) is not ported")
-        if self.remat:
-            raise NotImplementedError(
-                "rematerialisation (remat=True) is not ported")
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}; "
+                             "expected 'full' or 'dots'")
         if self.attention_impl not in ("reference", "flash"):
             raise NotImplementedError(
                 f"attention_impl {self.attention_impl!r} is not ported; "
@@ -256,12 +264,43 @@ def _layer_body(x, p, cfg: TransformerConfig):
     return _mlp_block(x, p, cfg)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots`` remat: save the outputs of matrix products with no batch
+    dimension — ``aten.mm`` / ``aten.addmm``, and ``aten.bmm`` over a
+    batch of one, which is how ``einsum`` runs the projections
+    (``bsd,dhk->bshk``) — and recompute everything else: the attention
+    scores' batched ``bmm`` and the flash ``autograd.Function`` (a JAX
+    ``pallas_call`` is no saveable dot either).  The counterpart of
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_layer(x, p, cfg: TransformerConfig):
+    """One layer under ``torch.utils.checkpoint`` (the JAX ``_remat``):
+    its backward reruns the forward (K1 launches again, into a fresh
+    buffer), saving what the policy says.  The layer draws no random
+    numbers, so no RNG state is stashed (a CUDA graph capture could not
+    read it)."""
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(_layer_body, x, p, cfg, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
 def forward(params: Dict, tokens, cfg: TransformerConfig):
     """Logits ``(B, S, V)`` f32 for next-token prediction; ``tokens``
-    ``(B, S)`` integer."""
+    ``(B, S)`` integer.  With ``cfg.remat`` each layer is
+    rematerialised (:func:`_remat_layer`)."""
     x = _embed(params, tokens, cfg)
+    layer = _remat_layer if cfg.remat else _layer_body
     for p in _layers(params):
-        x = _layer_body(x, p, cfg)
+        x = layer(x, p, cfg)
     return _lm_head(x, params["ln_f"], params["head"], cfg)
 
 

@@ -6,8 +6,9 @@
 * :mod:`.paged_attention` — paged-attention decode (kernel K4,
   ``csrc/paged_attention.cu``) and ``paged_attend_reference``.
 * :mod:`._cuda` — the ``nvcc`` build and ``ctypes`` binding they share.
-* :mod:`.collectives`, :mod:`.fusion`, :mod:`.compression` — the
-  gradient reduction of the data-parallel step over ``torch.distributed``.
+* :mod:`.collectives`, :mod:`.adasum`, :mod:`.sparse`, :mod:`.fusion`,
+  :mod:`.compression` — the gradient reduction of the data-parallel step
+  over ``torch.distributed``.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
 it launches its kernel or raises.

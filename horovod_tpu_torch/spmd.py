@@ -1,37 +1,256 @@
 """The data-parallel train step.
 
-Counterpart of ``horovod_tpu/spmd.py`` ``make_train_step``.  Where the
-JAX package compiles forward, backward, gradient allreduce and update
-into one SPMD program, PyTorch runs them eagerly in one process per
-device: every rank calls ``step`` with its own shard of the batch, and
-the optimizer (a :func:`~horovod_tpu_torch.optim.DistributedOptimizer`)
-reduces the gradients before its update.
+Counterpart of ``horovod_tpu/spmd.py`` ``make_train_step``.  Every rank
+calls ``step`` with its own shard of the batch; the optimizer (a
+:func:`~horovod_tpu_torch.optim.DistributedOptimizer`) reduces the
+gradients before its update, and the loss is averaged over the ranks.
+
+Where the JAX package compiles forward, backward, gradient allreduce and
+update into one program, the port captures them on the card as one CUDA
+graph (:class:`TrainStep`): the first calls run the step's eager body
+and count as steps (the warm-up, on a side stream, which also creates the
+optimizer's state and the collectives' communicators), the next call
+captures the body and replays it, and every later call copies its batch
+into the graph's static inputs and replays.  As the JAX step retraces
+for a new shape, a batch of a shape or dtype not seen yet is captured
+at its first call, into the same memory pool.  The optimizer's settings
+are baked into the graphs, except a device-tensor ``lr`` (Adam and
+AdamW, see :mod:`horovod_tpu_torch.optim`), which every replay reads:
+a change to any other setting of ``param_groups`` drops the graphs and
+the call captures anew.  With ``backward_passes_per_step = k > 1``
+there are two graphs a shape, as the JAX step's ``lax.cond`` compiles
+both branches: an accumulate pass (forward and backward into the
+gradients) and a boundary pass (the same, then the reduction, the
+update and the gradients zeroed in place).  On the CPU, and for an
+optimizer whose reduction cannot be captured (Adasum's point-to-point
+rounds, the sparse route's host read of its row count: ``graph_safe``
+false), every call runs the eager body; which one runs is decided by
+the device and the optimizer's type, never by a caught error.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
+from horovod_tpu_torch.ops import attention as attn
 from horovod_tpu_torch.ops import collectives as C
 
-__all__ = ["make_train_step"]
+__all__ = ["TrainStep", "make_train_step"]
+
+#: Eager steps before the capture (rounded up to whole accumulation
+#: windows).
+WARMUP_STEPS = 2
+
+_COUNTERS = ("flash_fwd_launches", "flash_bwd_dkdv_launches",
+             "flash_bwd_dq_launches")
 
 
-def make_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer
-                    ) -> Callable:
-    """``loss_fn(params, batch) -> scalar loss`` and an optimizer over
-    the tensors of ``params`` -> ``step(params, batch) -> loss``: zero
-    the gradients, forward, backward, the optimizer's step (parameters
-    are updated in place), and return the loss averaged over the
-    ranks."""
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree) if torch.is_tensor(tree) else tree
 
-    def step(params: Dict, batch: Dict) -> torch.Tensor:
-        optimizer.zero_grad()
-        loss = loss_fn(params, batch)
+
+class _Graph:
+    """One captured pass, its outputs and the K1-K3 launches it makes a
+    replay (the wrappers count at capture, where nothing launches: the
+    count is taken back and added each replay)."""
+
+    def __init__(self, graph, out, launches):
+        self.graph, self.out, self.launches = graph, out, launches
+
+    def replay(self):
+        self.graph.replay()
+        for name, n in zip(_COUNTERS, self.launches):
+            setattr(attn, name, getattr(attn, name) + n)
+        return self.out
+
+
+class TrainStep:
+    """``step(params, batch)`` -> the loss averaged over the ranks (and
+    the rank's ``aux`` with ``has_aux``); see :func:`make_train_step`.
+
+    ``graphed`` says whether calls past the warm-up replay CUDA graphs;
+    ``captures`` and ``replays`` count them."""
+
+    def __init__(self, loss_fn, optimizer, has_aux, hierarchical):
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.has_aux = has_aux
+        self.hierarchical = hierarchical
+        self.k = getattr(optimizer, "backward_passes_per_step", 1)
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        self.graphed = bool(params and params[0].is_cuda
+                            and getattr(optimizer, "graph_safe", True))
+        self.calls = 0
+        self.captures = 0
+        self.replays = 0
+        # By the batch's (name, shape, dtype)s: the graphs of that shape
+        # and their static inputs.
+        self._graphs: Dict[tuple, Dict[str, _Graph]] = {}
+        self._static: Dict[tuple, Dict] = {}
+        self._pool = None
+        self._settings = None
+        self._params = None
+
+    # -- the step's bodies ---------------------------------------------------
+
+    def _forward_backward(self, params, batch):
+        out = self.loss_fn(params, batch)
+        loss, aux = out if self.has_aux else (out, None)
         loss.backward()
-        optimizer.step()
-        return C.allreduce(loss.detach(), C.Average)
+        return loss, aux
 
-    return step
+    def _result(self, loss, aux):
+        avg = C.allreduce(loss.detach(), C.Average)
+        if not self.has_aux:
+            return avg
+        return avg, _tree_map(lambda t: t.detach(), aux)
+
+    def body(self, params, batch):
+        """The eager step: zero the gradients, forward, backward, the
+        optimizer's step (parameters updated in place), the loss
+        averaged over the ranks."""
+        with C._hierarchical(self.hierarchical):
+            self.optimizer.zero_grad()
+            loss, aux = self._forward_backward(params, batch)
+            self.optimizer.step()
+            return self._result(loss, aux)
+
+    def _captured_body(self, params, batch, boundary: bool):
+        """What a graph holds.  k = 1: the eager body, whose gradients the
+        capture allocates from the graph's pool (they are None at the
+        capture).  k > 1: the backward accumulates into gradients that
+        exist; the boundary pass then reduces, updates and zeroes them."""
+        if self.k == 1:
+            return self.body(params, batch)
+        with C._hierarchical(self.hierarchical):
+            loss, aux = self._forward_backward(params, batch)
+            if boundary:
+                self.optimizer._update()
+                for p in self._grad_params():
+                    p.grad.zero_()
+            return self._result(loss, aux)
+
+    def _grad_params(self):
+        return [p for g in self.optimizer.param_groups for p in g["params"]
+                if p.requires_grad]
+
+    # -- capture and replay --------------------------------------------------
+
+    def _current_settings(self) -> list:
+        """Every group's settings but its parameters and its device-tensor
+        ``lr``: what a capture bakes in."""
+        return [{k: v for k, v in g.items()
+                 if k != "params" and not (k == "lr" and torch.is_tensor(v)
+                                           and v.is_cuda)}
+                for g in self.optimizer.param_groups]
+
+    def _capture(self, key, params, batch) -> None:
+        """The graphs of ``batch``'s shape.  k = 1: gradients None, so
+        the capture allocates them.  k > 1: gradients that every graph
+        shares, zero at an accumulation window's start."""
+        self._static[key] = {k: v.clone() for k, v in batch.items()}
+        self._params = params
+        if self.k == 1:
+            self.optimizer.zero_grad(set_to_none=True)
+        else:
+            for p in self._grad_params():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                elif self.optimizer._passes == 0:
+                    p.grad.zero_()
+        kinds = ("step",) if self.k == 1 else ("accumulate", "boundary")
+        graphs = {}
+        for kind in kinds:
+            before = [getattr(attn, n) for n in _COUNTERS]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
+                out = self._captured_body(params, self._static[key],
+                                          kind != "accumulate")
+            launches = [getattr(attn, n) - b
+                        for n, b in zip(_COUNTERS, before)]
+            for n, b in zip(_COUNTERS, before):
+                setattr(attn, n, b)
+            # Every graph shares one pool and they replay one at a time;
+            # each replay's outputs are cloned before the next replay.
+            self._pool = graph.pool()
+            graphs[kind] = _Graph(graph, out, launches)
+            self.captures += 1
+        self._graphs[key] = graphs
+
+    def _replay(self, params, batch):
+        if self._params is not None and params is not self._params:
+            raise ValueError("a captured train step runs on the parameters "
+                             "it was captured with")
+        bind_lr = getattr(self.optimizer, "bind_lr", None)
+        if bind_lr is not None:
+            bind_lr()
+        settings = self._current_settings()
+        if settings != self._settings:
+            self._graphs.clear()
+            self._static.clear()
+            self._pool = None
+            self._settings = settings
+        key = tuple((k, tuple(v.shape), v.dtype)
+                    for k, v in sorted(batch.items()))
+        if key not in self._graphs:
+            self._capture(key, params, batch)
+        for k, v in batch.items():
+            self._static[key][k].copy_(v)
+        if self.k == 1:
+            kind = "step"
+        else:
+            opt = self.optimizer
+            boundary = opt._passes + 1 >= self.k
+            kind = "boundary" if boundary else "accumulate"
+            opt._passes = 0 if boundary else opt._passes + 1
+        out = self._graphs[key][kind].replay()
+        self.replays += 1
+        return _tree_map(lambda t: t.clone(), out)
+
+    def __call__(self, params, batch):
+        self.calls += 1
+        if not self.graphed:
+            return self.body(params, batch)
+        warmup = self.k * -(-WARMUP_STEPS // self.k)
+        if self.calls <= warmup:
+            stream = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):
+                out = self.body(params, batch)
+            stream.wait_stream(side)
+            return out
+        return self._replay(params, batch)
+
+
+def make_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer, *,
+                    has_aux: bool = False,
+                    hierarchical: Optional[bool] = None) -> TrainStep:
+    """``loss_fn(params, batch) -> scalar loss`` (``(loss, aux)`` with
+    ``has_aux``) and an optimizer over the tensors of ``params`` ->
+    ``step(params, batch) -> loss`` (``(loss, aux)``): zero the
+    gradients, forward, backward, the optimizer's step (parameters are
+    updated in place), and the loss averaged over the ranks; ``aux`` is
+    this rank's.  On CUDA the step is captured as CUDA graphs after its
+    warm-up (:class:`TrainStep`).
+
+    ``hierarchical`` (default: ``HOROVOD_HIERARCHICAL_ALLREDUCE`` or
+    ``HOROVOD_HIERARCHICAL_ALLGATHER`` set) makes the step's collectives
+    two-level, as the JAX step built over the ``(cross, local)`` mesh.
+
+    On CUDA a new batch shape or dtype captures once more (a short last
+    batch, another sequence length), and a change to the optimizer's
+    settings other than Adam's and AdamW's device-tensor ``lr`` captures
+    anew: a scheduler that sets, say, SGD's float ``lr`` every step
+    captures every step."""
+    if hierarchical is None:
+        hierarchical = (C._env_flag("HOROVOD_HIERARCHICAL_ALLREDUCE")
+                        or C._env_flag("HOROVOD_HIERARCHICAL_ALLGATHER"))
+    return TrainStep(loss_fn, optimizer, has_aux, hierarchical)

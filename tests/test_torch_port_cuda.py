@@ -18,7 +18,10 @@ bit: the same kernels on the same inputs, also after a copy-on-write of
 a shared prefix page; so is each admission graph (a whole-prompt
 prefill, a suffix prefill replayed at two prefix lengths, a chunk, the
 first-token sampler) against its body run eagerly, and K1 reading its
-shift from the device against K1 given it by value.
+shift from the device against K1 given it by value.  The captured train
+step (one graph; two at ``backward_passes_per_step=2``) is held to its
+eager body bit for bit at f32, and every collective runs on CUDA tensors
+in a size-1 NCCL group.
 """
 
 import numpy as np
@@ -798,3 +801,169 @@ def test_spec_two_captures_across_a_mixed_burst(dev, draft):
         n_spec * engine._spec_tick.k4_launches_per_replay
         + n_plain * cfg.n_layers)
     assert st["spec_drafted_tokens"] > 0
+
+
+# --- the captured train step and the collectives (size-1 NCCL) -----------------
+
+
+@pytest.fixture()
+def nccl(dev):
+    import socket
+
+    from horovod_tpu_torch import basics
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    basics.init(init_method=f"tcp://127.0.0.1:{port}")
+    yield dev
+    basics.shutdown()
+
+
+TRAIN_CFG = dict(vocab_size=256, d_model=256, n_heads=4, n_layers=2,
+                 d_ff=512, max_seq=128, attention_impl="flash")
+
+
+def _train_pair(dev, k):
+    """Two copies of one f32 model and optimizer (TF32 off): a captured
+    ``TrainStep`` and the eager body of another."""
+    from horovod_tpu_torch import optim, spmd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = T.TransformerConfig(**TRAIN_CFG, dtype=torch.float32)
+    steps = []
+    for _ in range(2):
+        p = T.init_params(cfg, seed=3, device=dev, param_dtype=torch.float32)
+        named = optim.named_parameters(p)
+        for _, t in named:
+            t.requires_grad_()
+        opt = optim.DistributedOptimizer(
+            torch.optim.AdamW([t for _, t in named], lr=1e-3,
+                              weight_decay=1e-4),
+            named_parameters=named, backward_passes_per_step=k)
+        steps.append((p, spmd.make_train_step(
+            lambda p, b: T.loss_fn(p, b, cfg), opt)))
+    batches = [T.synthetic_batch(s, cfg, 2, 128, device=dev)
+               for s in range(6)]
+    return steps, batches
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_captured_step_bit_identical_to_eager(nccl, k):
+    """The captured step (warm-up, one capture, replays; two graphs at
+    k = 2, the accumulate pass and the boundary pass) against its own
+    eager body, call for call: losses and every parameter bit for bit
+    (the same kernels on the same inputs, at f32 with TF32 off)."""
+    from horovod_tpu_torch.optim import named_parameters
+
+    ((pg, graphed), (pe, eager)), batches = _train_pair(nccl, k)
+    assert graphed.graphed
+    for b in batches:
+        lg, le = graphed(pg, b), eager.body(pe, b)
+        assert torch.equal(lg, le)
+        for (n, a), (_, e) in zip(named_parameters(pg),
+                                  named_parameters(pe)):
+            assert torch.equal(a, e), n
+    assert graphed.captures == (1 if k == 1 else 2)
+    assert graphed.replays == len(batches) - 2
+
+
+def _same_state(graphed_out, eager_out, pg, pe):
+    from horovod_tpu_torch.optim import named_parameters
+
+    assert torch.equal(graphed_out, eager_out)
+    for (n, a), (_, e) in zip(named_parameters(pg), named_parameters(pe)):
+        assert torch.equal(a, e), n
+
+
+def test_captured_step_follows_the_lr_schedule(nccl):
+    """An LR scheduler stepped after every call, then a float ``lr`` set
+    by hand: the replays read AdamW's device-tensor ``lr`` and equal the
+    eager body call for call, with no capture past the first."""
+    ((pg, graphed), (pe, eager)), batches = _train_pair(nccl, 1)
+    scheds = [torch.optim.lr_scheduler.LambdaLR(
+        s.optimizer, lambda i: 1.0 / (1 + i)) for s in (graphed, eager)]
+    for i, b in enumerate(batches):
+        if i == 4:
+            for s in (graphed, eager):
+                for g in s.optimizer.param_groups:
+                    g["lr"] = 2e-3
+        _same_state(graphed(pg, b), eager.body(pe, b), pg, pe)
+        if i < 4:
+            for sc in scheds:
+                sc.step()
+    assert graphed.optimizer.param_groups[0]["lr"].is_cuda
+    assert graphed.captures == 1
+    assert graphed.replays == len(batches) - 2
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_captured_step_captures_each_shape_and_setting(nccl, k):
+    """A short batch and another sequence length are captured at their
+    first call (the JAX step retraces), a shape seen before replays its
+    graphs, and a changed ``weight_decay`` drops the graphs and captures
+    anew: every call equals the eager body bit for bit."""
+    from horovod_tpu_torch.models import transformer as TT
+
+    ((pg, graphed), (pe, eager)), batches = _train_pair(nccl, k)
+    cfg = TT.TransformerConfig(**TRAIN_CFG, dtype=torch.float32)
+    short = TT.synthetic_batch(7, cfg, 1, 128, device=nccl)
+    seq64 = TT.synthetic_batch(8, cfg, 2, 64, device=nccl)
+    calls = batches[:3] + [short, batches[3], seq64, short, batches[4]]
+    for i, b in enumerate(calls):
+        if i == 6:
+            for s in (graphed, eager):
+                for g in s.optimizer.param_groups:
+                    g["weight_decay"] = 1e-2
+        _same_state(graphed(pg, b), eager.body(pe, b), pg, pe)
+    per_shape = 1 if k == 1 else 2
+    # full, short, seq64; then short and full again after the change.
+    assert graphed.captures == 5 * per_shape
+    assert graphed.replays == len(calls) - 2
+
+
+def test_captured_step_counts_launches_per_replay(nccl):
+    """K1, K2 and K3 each count once a layer a call under the graph, the
+    warm-up's eager calls and every replay alike, none at the capture."""
+    ((pg, graphed), _), batches = _train_pair(nccl, 1)
+    before = (A.flash_fwd_launches, A.flash_bwd_dkdv_launches,
+              A.flash_bwd_dq_launches)
+    for b in batches:
+        graphed(pg, b)
+    after = (A.flash_fwd_launches, A.flash_bwd_dkdv_launches,
+             A.flash_bwd_dq_launches)
+    L = TRAIN_CFG["n_layers"]
+    assert [a - b for a, b in zip(after, before)] == [L * len(batches)] * 3
+
+
+def test_remat_launches_k1_twice_a_layer(dev):
+    """Under both remat policies the backward reruns K1 once a layer;
+    K2 and K3 run once a layer."""
+    cfg0 = T.TransformerConfig(**TRAIN_CFG, dtype=torch.bfloat16)
+    p = T.init_params(cfg0, seed=1, device=dev, param_dtype=torch.float32)
+    for t in p["layers"].values():
+        t.requires_grad_()
+    b = T.synthetic_batch(0, cfg0, 2, 128, device=dev)
+    for policy in ("full", "dots"):
+        cfg = T.TransformerConfig(**TRAIN_CFG, dtype=torch.bfloat16,
+                                  remat=True, remat_policy=policy)
+        k1, k2, k3 = (A.flash_fwd_launches, A.flash_bwd_dkdv_launches,
+                      A.flash_bwd_dq_launches)
+        T.loss_fn(p, b, cfg).backward()
+        L = cfg.n_layers
+        assert (A.flash_fwd_launches - k1, A.flash_bwd_dkdv_launches - k2,
+                A.flash_bwd_dq_launches - k3) == (2 * L, L, L), policy
+
+
+def test_every_collective_on_cuda_at_size_one(nccl):
+    """``chip_smoke.check_collectives``: every op on CUDA tensors, f32 and
+    bf16, each equal to its size-1 value (43 checks a dtype, then the
+    object collectives, ``join`` and the barrier)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    assert len(chip_smoke.check_collectives(nccl)) == 2 * 43 + 4
