@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive horovod_tpu_torch's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive horovod_tpu_torch's serving, training and vision paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -153,7 +153,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    FLOP, peak memory and launches, and one more step is profiled
    (device busy, idle share; its K3 must be the tensor-core
    ``flash_bwd_dq_kernel_mma``).
-10. Times: each kernel at its path's shape (CUDA events around 10
+10. Vision (``vision_full_width``), no kernel of the port: full ResNet-50
+   in f32 (batch 4, 224², TF32 off) on CUDA against the same model and
+   weights on the CPU (logits, loss, every gradient, the batch
+   statistics; the ``s2d`` stem one forward), each error beside its
+   tolerance; then on a size-1 NCCL group the bf16 channels_last legs
+   in ``horovod_tpu_torch.bench``'s protocol (10 warm-up batches, 10 ×
+   10 timed, ``cudnn.benchmark`` on): batch 384 eager and captured (with
+   the loader-fed A/B and a profiled step each), batch 64 eager,
+   captured and captured with bf16 gradient reduction, each from
+   ``init_variables`` seed 0 on one batch, with img/s, MFU from
+   ``obs.xprof``'s FLOP count and peak memory; before them the first 10
+   losses at batch 64 of the eager and captured step under
+   ``cudnn.deterministic`` within 1e-3 relative; InceptionV3 (299², batch
+   64, captured, 3 × 10 timed) and the MLP (20 loader-fed captured
+   steps).  Every loss finite and the last below the first, one capture
+   a captured leg with every later call a replay, MFU in (0, 1).
+11. Times: each kernel at its path's shape (CUDA events around 10
    back-to-back calls, median of 20; also one call alone, which adds
    the host's launch cost; K4 and its yardstick, whose calls are
    shorter than their launching, by the profiler's device time) beside
@@ -196,9 +212,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores,
-# f32 outside the tensor cores, HBM3 bandwidth.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM published peaks (NVIDIA data sheet, dense): f32 outside the
+# tensor cores and HBM3 bandwidth; the bf16 tensor-core peak is read from
+# horovod_tpu_torch.obs.xprof's table in main().
+PEAK_FLOPS = {torch.float32: 67e12}
+H100 = "NVIDIA H100 80GB HBM3"
 PEAK_BYTES = 3.35e12
 NEAR_TIE = 1e-3  # f32 top-2 logit margin under which the pick is a tie
 
@@ -2075,9 +2093,11 @@ def _free_port() -> int:
         return sk.getsockname()[1]
 
 
-def profile_train_step(step, params, batch) -> dict:
+def profile_train_step(step, params, batch, flash: bool = True) -> dict:
     """One more step under ``torch.profiler``: device time by kernel,
-    against that step's own wall time (the profiler slows the host)."""
+    against that step's own wall time (the profiler slows the host).
+    ``flash``: the step runs K1-K3 (the LM's), whose share is reported
+    and whose bf16 K3 must be the tensor-core kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -2097,11 +2117,15 @@ def profile_train_step(step, params, batch) -> dict:
 
     out = {"wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": 1 - busy / wall_ms,
-           "flash_fwd_ms": ms("flash_fwd_kernel"),
-           "flash_bwd_dkdv_ms": ms("flash_bwd_dkdv_kernel"),
-           "flash_bwd_dq_ms": ms("flash_bwd_dq_kernel"),
            "top_kernels_ms": {k[:70]: t for k, t in sorted(
                kernels.items(), key=lambda kv: -kv[1])[:10]}}
+    if not flash:
+        log(f"step profile: device busy {busy:.1f} ms of {wall_ms:.1f} ms "
+            f"(idle share {out['idle_share']:.3f})")
+        return out
+    out.update({"flash_fwd_ms": ms("flash_fwd_kernel"),
+                "flash_bwd_dkdv_ms": ms("flash_bwd_dkdv_kernel"),
+                "flash_bwd_dq_ms": ms("flash_bwd_dq_kernel")})
     k13 = out["flash_fwd_ms"] + out["flash_bwd_dkdv_ms"] + \
         out["flash_bwd_dq_ms"]
     out["flash_share_of_busy"] = k13 / busy
@@ -2238,6 +2262,320 @@ def train_full_width() -> dict:
     launches = {k: sum(leg["launches"][k] for leg in legs.values())
                 for k in eager["launches"]}
     return {"legs": legs, "launches": launches}
+
+
+# --- the vision phase: ResNet-50 in bench.py's protocol ------------------------
+
+# bench.py's protocol: 10 warm-up batches, 10 iterations of 10 batches.
+# Each leg: (batch, run the captured step or its eager body, bf16 gradient
+# reduction).  The batch-384 legs are the JAX bench's default, batch 64 the
+# reference's batch a GPU (BASELINE.md).
+VISION_LEGS = {"b384_eager": (384, False, False),
+               "b384_captured": (384, True, False),
+               "b64_eager": (64, False, False),
+               "b64_captured": (64, True, False),
+               "b64_captured_fp16_allreduce": (64, True, True)}
+VISION_SIZE = 224
+VISION_GAP_STEPS, VISION_GAP = 10, 1e-3
+# The f32 check: CUDA against the CPU, each error relative to the largest
+# magnitude of the tensor compared (cuDNN's and the CPU's algorithms sum in
+# other orders; a gradient also moves where a pre-activation within that
+# rounding of zero falls on the other side of a relu).
+VISION_F32_BATCH = 4
+VISION_F32_TOL = {"logits": 1e-3, "loss": 1e-4, "grad": 1e-2,
+                  "batch_stats": 1e-3, "s2d_logits": 1e-3}
+INCEPTION_SIZE, INCEPTION_BATCH = 299, 64
+MLP_BATCH, MLP_STEPS = 128, 20
+
+
+def _rel(got, want) -> float:
+    return ((got.float().cpu() - want.float().cpu()).abs().max()
+            / want.float().cpu().abs().max().clamp_min(1e-30)).item()
+
+
+def vision_f32_check() -> dict:
+    """Full ResNet-50 (1000 classes) in f32 from ``init_variables`` seed 0,
+    batch 4 at 224 × 224, ``conv7`` stem, train mode: the port on CUDA
+    against the same model and weights on the CPU (the tier-1 tests hold
+    the CPU against flax): logits, loss, every gradient and the batch
+    statistics the forward moved; then one forward of the ``s2d`` stem.
+    TF32 is off for the check and restored after it."""
+    import copy
+
+    from horovod_tpu_torch.models import resnet
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        errs = {}
+        g = torch.Generator().manual_seed(4)
+        x = torch.rand((VISION_F32_BATCH, 3, VISION_SIZE, VISION_SIZE),
+                       generator=g)
+        y = torch.randint(0, 1000, (VISION_F32_BATCH,), generator=g)
+        for stem in ("conv7", "s2d"):
+            gpu = resnet.create("ResNet50", 1000, torch.float32, stem,
+                                seed=0, device="cuda").train()
+            cpu = copy.deepcopy(gpu).to("cpu")
+            outs = {}
+            for name, m in (("cuda", gpu), ("cpu", cpu)):
+                dev = next(m.parameters()).device
+                xb = x.to(dev).contiguous(memory_format=torch.channels_last)
+                logits = m(xb)
+                if stem == "conv7":
+                    loss = torch.nn.functional.cross_entropy(logits,
+                                                             y.to(dev))
+                    loss.backward()
+                    outs[name] = (logits, loss)
+                else:
+                    outs[name] = (logits.detach(), None)
+            if stem == "s2d":
+                errs["s2d_logits"] = _rel(outs["cuda"][0], outs["cpu"][0])
+                continue
+            errs["logits"] = _rel(outs["cuda"][0], outs["cpu"][0])
+            errs["loss"] = _rel(outs["cuda"][1], outs["cpu"][1])
+            pc = dict(cpu.named_parameters())
+            grads = {n: _rel(p.grad, pc[n].grad)
+                     for n, p in gpu.named_parameters()}
+            worst = max(grads, key=grads.get)
+            errs["grad"] = grads[worst]
+            bc = dict(cpu.named_buffers())
+            stats = {n: _rel(b, bc[n]) for n, b in gpu.named_buffers()}
+            errs["batch_stats"] = max(stats.values())
+            log(f"vision f32 (ResNet-50, batch {VISION_F32_BATCH}, "
+                f"{VISION_SIZE}², TF32 off), CUDA against the CPU: worst "
+                f"gradient {worst}")
+            del gpu, cpu, outs
+        for k, e in errs.items():
+            log(f"vision f32 {k}: max relative error {e:.3e} (tolerance "
+                f"{VISION_F32_TOL[k]:.0e})")
+        bad = {k: e for k, e in errs.items() if not e <= VISION_F32_TOL[k]}
+        if bad:
+            raise AssertionError(f"vision f32: CUDA and the CPU disagree: "
+                                 f"{bad}")
+        return errs
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+        _collect()
+
+
+def _resnet_step(batch: int, fp16_allreduce: bool = False):
+    """A fresh ResNet-50 (``init_variables`` seed 0), its bench step and
+    the fixed synthetic batch (seed 0)."""
+    from horovod_tpu_torch import bench
+
+    model = bench.create_model("ResNet50", seed=0, device="cuda")
+    step = bench.make_step(model, fp16_allreduce=fp16_allreduce)
+    return model, step, bench.synthetic_batch(batch, VISION_SIZE,
+                                              device="cuda")
+
+
+def _collect() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def vision_gap() -> dict:
+    """Batch 64 under ``cudnn.deterministic`` (benchmark off): the first
+    ``VISION_GAP_STEPS`` losses of the eager body and of the captured step,
+    each from a fresh model of the same seed on the same batch, within
+    ``VISION_GAP`` relative."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        losses = {}
+        for mode in ("eager", "captured"):
+            model, step, batch = _resnet_step(64)
+            run = step if mode == "captured" else step.body
+            losses[mode] = [float(run(model, batch))
+                            for _ in range(VISION_GAP_STEPS)]
+            del model, step, batch, run
+            _collect()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    gap = max(abs(a - b) / abs(b) for a, b in
+              zip(losses["captured"], losses["eager"]))
+    log(f"vision batch 64, cudnn.deterministic: eager losses "
+        f"{[round(v, 5) for v in losses['eager']]}; largest gap of the "
+        f"captured step {gap:.3e} (limit {VISION_GAP:.0e} relative)")
+    if not gap <= VISION_GAP:
+        raise AssertionError(f"vision: captured and eager losses differ by "
+                             f"{gap:.3e}")
+    return {"losses": losses, "gap": gap}
+
+
+def _check_losses(label: str, losses: list) -> None:
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss did not fall: {losses}")
+
+
+def _check_capture(label: str, step) -> None:
+    """One capture, made after ``WARMUP_STEPS`` eager steps of the same
+    shapes (which ran cuDNN's autotuning: a benchmark inside a capture
+    would fail it), and every later call a replay."""
+    from horovod_tpu_torch import spmd
+
+    if step.captures != 1 or step.replays != step.calls - spmd.WARMUP_STEPS:
+        raise AssertionError(f"{label}: {step.captures} captures, "
+                             f"{step.replays} replays of {step.calls} calls")
+
+
+def _vision_summary(label, res, batch, step, captured, peak) -> dict:
+    from horovod_tpu_torch import bench
+
+    out = dict(bench.summarize(res, batch_size=batch, peak=peak),
+               losses=res["losses"], peak_mem_bytes=res["peak_mem_bytes"],
+               captures=step.captures, replays=step.replays,
+               img_per_sec=res["img_per_sec"])
+    _check_losses(label, res["losses"])
+    if captured:
+        _check_capture(label, step)
+    if out["mfu"] is None or not 0 < out["mfu"] < 1:
+        raise AssertionError(f"{label}: MFU {out['mfu']} (a reading of 1 "
+                             "or more is a fault in the FLOP count)")
+    return out
+
+
+def vision_leg(name: str, card: str, host=None) -> dict:
+    """One ResNet-50 leg of ``VISION_LEGS`` in bench.py's protocol, with
+    ``cudnn.benchmark`` on; the batch-384 legs also profile one more step,
+    and with ``host`` the captured leg runs the loader-fed A/B."""
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.data import DataLoader
+    from horovod_tpu_torch.obs import xprof
+
+    t0 = time.monotonic()
+    batch, captured, fp16 = VISION_LEGS[name]
+    model, step, data = _resnet_step(batch, fp16)
+    run = step if captured else step.body
+    loader = None
+    if host is not None:
+        loader = DataLoader(host, batch, shuffle=False, shard=False,
+                            prefetch=2, device="cuda")
+    res = bench.measure(run, model, data, warmup=10, per_iter=10, iters=10,
+                        loader=loader)
+    out = _vision_summary(f"vision [{name}]", res, batch, step, captured,
+                          xprof.chip_peak_flops())
+    if loader is not None:
+        if not all(math.isfinite(v) for v in res["fed_losses"]):
+            raise AssertionError(f"vision [{name}]: a loader-fed loss is "
+                                 f"not finite: {res['fed_losses']}")
+        fed = statistics.median(res["fed_img_per_sec"])
+        link = bench.link_bound(host, batch, torch.device("cuda"))
+        out.update(fed_img_per_sec=fed,
+                   overhead_pct=100 * (1 - fed / out["value"]),
+                   host_to_device_bound_img_per_sec=link,
+                   efficiency_vs_ceiling_pct=100 * fed / min(out["value"],
+                                                             link))
+    if batch == 384:
+        out["profile"] = profile_train_step(run, model, data, flash=False)
+    out["seconds"] = time.monotonic() - t0
+    log(f"vision [{name}] on {card} ({out['seconds']:.1f} s): "
+        f"{out['value']:.1f} img/s "
+        f"(±{out['stddev95']:.1f}), MFU {out['mfu']:.4f} "
+        f"({out['flops_per_img'] / 1e9:.2f} GFLOP an image counted), peak "
+        f"{out['peak_mem_bytes'] / 1e9:.2f} GB, captures {step.captures}, "
+        f"replays {step.replays}, losses "
+        f"{[round(v, 4) for v in res['losses'][:3]]} … "
+        f"{round(res['losses'][-1], 4)}"
+        + (f"; loader-fed {out['fed_img_per_sec']:.1f} img/s (overhead "
+           f"{out['overhead_pct']:.2f} %, host→device bound "
+           f"{out['host_to_device_bound_img_per_sec']:.0f} img/s, "
+           f"efficiency {out['efficiency_vs_ceiling_pct']:.2f} %)"
+           if loader is not None else ""))
+    return out
+
+
+def inception_leg(card: str) -> dict:
+    """InceptionV3 at 299, batch 64, captured, in a shortened protocol
+    (10 warm-up batches, 3 iterations of 10)."""
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.obs import xprof
+
+    t0 = time.monotonic()
+    model = bench.create_model("InceptionV3", seed=0, device="cuda")
+    step = bench.make_step(model)
+    data = bench.synthetic_batch(INCEPTION_BATCH, INCEPTION_SIZE,
+                                 device="cuda")
+    res = bench.measure(step, model, data, warmup=10, per_iter=10, iters=3)
+    out = _vision_summary("vision [inception]", res, INCEPTION_BATCH, step,
+                          True, xprof.chip_peak_flops())
+    out["seconds"] = time.monotonic() - t0
+    log(f"vision [InceptionV3 {INCEPTION_SIZE}², batch {INCEPTION_BATCH}, "
+        f"captured] on {card} ({out['seconds']:.1f} s): "
+        f"{out['value']:.1f} img/s (±{out['stddev95']:.1f}), MFU "
+        f"{out['mfu']:.4f} ({out['flops_per_img'] / 1e9:.2f} GFLOP an "
+        f"image), peak {out['peak_mem_bytes'] / 1e9:.2f} GB")
+    return out
+
+
+def mlp_leg() -> dict:
+    """The MLP (784-256-128-10) for ``MLP_STEPS`` captured Adam steps fed
+    by the DataLoader from host rows whose labels a fixed linear map
+    decides: the loss must fall."""
+    from horovod_tpu_torch import optim, spmd
+    from horovod_tpu_torch.data import DataLoader
+    from horovod_tpu_torch.models import mlp
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((MLP_BATCH * MLP_STEPS, 784), dtype=np.float32)
+    y = (x @ rng.standard_normal((784, 10), dtype=np.float32)).argmax(1)
+    loader = DataLoader({"x": x, "y": y}, MLP_BATCH, seed=0, device="cuda")
+    params = mlp.init_params(seed=0, device="cuda")
+    for t in params.values():
+        t.requires_grad_()
+    step = spmd.make_train_step(
+        lambda p, b: mlp.loss_fn(p, (b["x"], b["y"])),
+        optim.DistributedOptimizer(torch.optim.Adam(params.values(),
+                                                    lr=1e-3)))
+    losses = [float(step(params, b)) for b in loader]
+    log(f"vision [mlp]: {len(losses)} loader-fed steps, losses "
+        f"{[round(v, 4) for v in losses]}")
+    if len(losses) != MLP_STEPS:
+        raise AssertionError(f"mlp: {len(losses)} batches")
+    _check_losses("vision [mlp]", losses)
+    _check_capture("vision [mlp]", step)
+    return {"losses": losses, "captures": step.captures,
+            "replays": step.replays}
+
+
+def vision_full_width(card: str) -> dict:
+    """The vision phase on a size-1 NCCL group: the f32 check, the
+    deterministic eager-against-captured gap, the ResNet-50 legs (the
+    batch-384 captured leg with the loader-fed A/B), InceptionV3 and the
+    MLP."""
+    from horovod_tpu_torch import basics, bench
+
+    _collect()
+    t0 = time.monotonic()
+    out = {"f32": vision_f32_check()}
+    log(f"vision f32 check: {time.monotonic() - t0:.1f} s")
+    saved = torch.backends.cudnn.benchmark
+    basics.init(init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        out["gap"] = vision_gap()
+        torch.backends.cudnn.benchmark = True
+        host = bench.host_epoch(384 * 10, VISION_SIZE)
+        out["legs"] = {}
+        for name in VISION_LEGS:
+            out["legs"][name] = vision_leg(
+                name, card, host if name == "b384_captured" else None)
+            _collect()
+        del host
+        out["inception"] = inception_leg(card)
+        _collect()
+        out["mlp"] = mlp_leg()
+    finally:
+        torch.backends.cudnn.benchmark = saved
+        basics.shutdown()
+    return out
 
 
 # --- the collectives at size 1 ------------------------------------------------
@@ -2580,6 +2918,9 @@ def main() -> int:
         print(f"chip_smoke: horovod_tpu_torch is not importable ({e}); run "
               "from the repository root", file=sys.stderr)
         return 2
+    from horovod_tpu_torch.obs import xprof
+
+    PEAK_FLOPS[torch.bfloat16] = xprof.PEAK_FLOPS_BY_KIND[H100]
     t_start = time.monotonic()
     card = card_info()
     with phase("build"):
@@ -2625,6 +2966,20 @@ def main() -> int:
             f"{lg['peak_mem_gb']:.2f} / "
             f"{lg['profile']['device_busy_ms']:.1f} / "
             f"{lg['profile']['idle_share']:.3f}" for n, lg in legs.items()))
+    with phase("vision"):
+        vision = vision_full_width(card)
+    REPORT["vision"] = vision
+    log(f"vision ResNet-50 legs (bf16, channels_last, 224², bench.py's "
+        f"protocol; median img/s ±1.96σ / MFU / peak GB / captures / "
+        f"replays) on {card}: " + "; ".join(
+            f"{n} {lg['value']:.1f} ±{lg['stddev95']:.1f} / "
+            f"{lg['mfu']:.4f} / {lg['peak_mem_bytes'] / 1e9:.2f} / "
+            f"{lg['captures']} / {lg['replays']}"
+            + (f" / device busy {lg['profile']['device_busy_ms']:.1f} ms of "
+               f"{lg['profile']['wall_ms']:.1f}, idle share "
+               f"{lg['profile']['idle_share']:.3f}" if "profile" in lg
+               else "")
+            for n, lg in vision["legs"].items()))
     # Each kernel's launches are the sum over the main paths' runs that
     # launch it: serving (the HTTP burst, the prefix run, the two SLO
     # legs, the speculative legs) and, for K1-K3, the four training legs

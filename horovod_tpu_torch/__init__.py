@@ -14,8 +14,12 @@ over ``torch.distributed``), ``optim`` (``DistributedOptimizer``,
 (parameter, optimizer-state and object broadcast), ``join`` (masked
 averaging for ranks out of data), ``spmd`` (the data-parallel train
 step, captured as a CUDA graph on the card), ``serving`` (the paged
-continuous-batching engine and its HTTP server) and ``obs`` (the
-metrics registry).
+continuous-batching engine and its HTTP server), ``obs`` (the metrics
+registry, ``xprof``'s FLOP count and live MFU, ``training_step``),
+``data`` (the rank-sharded, device-prefetching ``DataLoader``) and
+``bench`` (the synthetic ResNet-50 img/s benchmark); ``models`` also
+holds the vision models (ResNet, InceptionV3, the MLP) and their loader
+for flax variables.
 
 It imports ``torch`` and never ``jax`` or ``horovod_tpu``.  Entry points
 run on CUDA unless the caller passes ``device="cpu"``.

@@ -58,6 +58,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from horovod_tpu_torch._capture import capture
 from horovod_tpu_torch.models import transformer as T
 from horovod_tpu_torch.ops import attention as attn
 from horovod_tpu_torch.ops import paged_attention as pa
@@ -245,7 +246,7 @@ def _capture_tick(tick, inputs) -> None:
     stream.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     k4, rows = pa.paged_attend_launches, dict(pa.paged_attend_launches_by_rows)
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+    with capture(graph):
         out = tick.body()
     tick.k4_launches_per_replay = pa.paged_attend_launches - k4
     tick.k4_rows_per_replay = {
@@ -587,8 +588,7 @@ class PrefillGraphs:
             self._mempool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         k1 = attn.flash_fwd_launches
-        with torch.cuda.graph(graph, pool=self._mempool,
-                              capture_error_mode="thread_local"):
+        with capture(graph, self._mempool):
             out = self.body(g)
         g.k1_launches_per_replay = attn.flash_fwd_launches - k1
         attn.flash_fwd_launches = k1

@@ -34,6 +34,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from horovod_tpu_torch._capture import capture
 from horovod_tpu_torch.ops import attention as attn
 from horovod_tpu_torch.ops import collectives as C
 
@@ -169,8 +170,7 @@ class TrainStep:
         for kind in kinds:
             before = [getattr(attn, n) for n in _COUNTERS]
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  capture_error_mode="thread_local"):
+            with capture(graph, self._pool):
                 out = self._captured_body(params, self._static[key],
                                           kind != "accumulate")
             launches = [getattr(attn, n) - b

@@ -21,7 +21,11 @@ first-token sampler) against its body run eagerly, and K1 reading its
 shift from the device against K1 given it by value.  The captured train
 step (one graph; two at ``backward_passes_per_step=2``) is held to its
 eager body bit for bit at f32, and every collective runs on CUDA tensors
-in a size-1 NCCL group.
+in a size-1 NCCL group.  The vision path: the bench's captured ResNet
+step against its eager body bit for bit under ``cudnn.deterministic``,
+the loader's prefetched batches against the host rows (``record_stream``
+held to its purpose), and ``xprof``'s ResNet-50 FLOP count within 10 %
+of the analytic one.
 """
 
 import numpy as np
@@ -967,3 +971,125 @@ def test_every_collective_on_cuda_at_size_one(nccl):
     import chip_smoke
 
     assert len(chip_smoke.check_collectives(nccl)) == 2 * 43 + 4
+
+
+# --- the vision path: the captured ResNet step, the loader, the FLOP count -----
+
+
+@pytest.fixture()
+def deterministic_cudnn():
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    yield
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = saved
+
+
+def test_captured_resnet_step_equals_eager_body(nccl, deterministic_cudnn):
+    """The bench's ResNet step (bf16, channels_last, SGD with momentum)
+    captured against its eager body on a second copy of the model, call
+    for call under ``cudnn.deterministic``: the loss, every parameter and
+    every batch statistic bit for bit."""
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.models import resnet
+
+    pairs = []
+    for _ in range(2):
+        model = resnet.create("ResNet18", 10, num_filters=16, seed=3,
+                              device=nccl).train()
+        pairs.append((model, bench.make_step(model)))
+    (mg, graphed), (me, eager) = pairs
+    g = torch.Generator(device=nccl).manual_seed(0)
+    batches = [{"images": torch.rand((8, 3, 64, 64), generator=g,
+                                     device=nccl).to(torch.bfloat16)
+                .contiguous(memory_format=torch.channels_last),
+                "labels": torch.randint(0, 10, (8,), generator=g,
+                                        device=nccl)} for _ in range(5)]
+    for b in batches:
+        assert torch.equal(graphed(mg, b), eager.body(me, b))
+        for (n, a), (_, e) in zip(mg.state_dict().items(),
+                                  me.state_dict().items()):
+            assert torch.equal(a, e), n
+    assert graphed.captures == 1
+    assert graphed.replays == len(batches) - 2
+
+
+def test_loader_prefetch_on_the_card(dev):
+    """Prefetched batches equal the host rows and arrive in channels_last
+    on the card; a batch dropped by the host while the consuming stream
+    still has to read it stays intact while the next copies land (the
+    stream is held back by a spin before each read, and each batch's
+    reference is dropped at once: without ``record_stream`` the allocator
+    hands its memory to the next copy)."""
+    from horovod_tpu_torch.data import DataLoader
+
+    nhwc = torch.randn((48, 32, 32, 3)).to(torch.bfloat16)
+    images = nhwc.permute(0, 3, 1, 2)
+    labels = np.arange(48)
+    for shuffle in (False, True):
+        dl = DataLoader({"images": images, "labels": labels}, 8,
+                        shuffle=shuffle, prefetch=2, device=dev)
+        kept = []
+        for b in dl:
+            assert b["images"].is_cuda
+            assert b["images"].is_contiguous(
+                memory_format=torch.channels_last)
+            torch.cuda._sleep(20_000_000)
+            kept.append((b["images"].clone(), b["labels"].clone()))
+            del b
+        torch.cuda.synchronize()
+        assert len(kept) == len(dl) == 6
+        for got, rows in kept:
+            assert torch.equal(got.cpu(), images[rows.cpu()])
+
+
+def test_introspect_counts_resnet50_flops(dev):
+    """``xprof.introspect`` over one bf16 ResNet-50 step at 224 × 224
+    counts within 10 % of the analytic 3 × 8.2 GFLOP an image (a forward
+    of 4.1 G multiply-adds, and a backward twice that), and reads a peak
+    memory."""
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.obs import xprof
+
+    model = resnet.create("ResNet50", device=dev).train()
+    x = torch.rand((4, 3, 224, 224), device=dev).to(torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+    y = torch.randint(0, 1000, (4,), device=dev)
+
+    def step(m, x, y):
+        loss = torch.nn.functional.cross_entropy(m(x), y)
+        loss.backward()
+        return loss
+
+    loss, report = xprof.introspect(step, model, x, y)
+    per_img = report.flops / 4
+    assert abs(per_img - 3 * 8.2e9) <= 0.1 * 3 * 8.2e9, per_img
+    assert report.peak_mem_bytes and report.peak_mem_bytes > 0
+    assert torch.isfinite(loss)
+
+
+def test_capture_holds_off_the_garbage_collector(dev):
+    """Every capture of the port runs with Python's automatic garbage
+    collection off (a collection midway can free an object whose
+    destructor calls CUDA and invalidate the capture) and restores it."""
+    import gc
+
+    from horovod_tpu_torch._capture import capture
+
+    x = torch.ones(4, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        x.add_(1)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    assert gc.isenabled()
+    with capture(graph):
+        seen = gc.isenabled()
+        x.add_(1)
+    assert not seen and gc.isenabled()
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    assert torch.equal(x.cpu(), torch.full((4,), 3.0))
