@@ -89,6 +89,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    prompts and their resumes reach, each request its full count, one
    capture of the tick and none of admission past the warmup; per-class
    TTFT p50/p99, tok/s and preemptions printed.
+   Then tracing (``tracing_full_width``), on one engine of the same
+   configuration warmed over ``ENGINE_WARM_LENS`` with
+   ``model_flops_per_token`` from ``obs.xprof``: the eight prompts,
+   greedy, stepped with a request tracer and a span recorder on and one
+   decode tick raising once each has a token (its live journal entries
+   name the requests' span ids; each interrupted request's span gets
+   ``engine_restart`` then ``resume``); ``Timeline.profile`` over
+   ``TRACE_PROFILE_TICKS`` captured ticks at 8 slots, whose Chrome trace
+   must name K4's split and combine kernels a launch each a layer a
+   tick, merged by ``obs.merge`` with the host timeline into one file
+   holding both; then four HTTP bursts of the eight greedy prompts
+   (``TRACE_LEGS``: untraced, traced, traced, untraced; each queued in a
+   fixed order with the engine held, so that every leg schedules alike),
+   requests 0 and 1 carrying ``X-Trace-Id`` with ``X-Parent-Span`` and
+   with ``X-Trace-Sampled``: tokens, ticks and host syncs a tick equal
+   across the legs, no capture in any, K1 and K4 launched in each; in
+   each traced leg one start and one finish record a request, a trace
+   tree rooted at each request's span (request 0's under the given
+   parent), request 1's tick detail kept and the others' dropped, each
+   breakdown summing to its total within 1 ms; a ``/metrics`` scrape
+   read by a strict parser, ``serving_achieved_flops_per_sec`` above 0
+   and ``xla_compiles_total{fn="serving_decode"}`` up by the engine's
+   decode captures; then ``TRACE_TRAIN_STEPS`` captured LM training
+   steps inside ``obs.training_step`` with a timeline started: one
+   ``train_step`` span a step, ``training_steps_total`` up by as many.
+   Printed with the card: each leg's tok/s, median decode step, host
+   syncs a tick, span lines and JSONL bytes a request.
 5. Token identity: the same configuration in f32 (TF32 off for matmuls
    and cuDNN) against the per-request oracles, ``greedy_decode`` for the
    greedy requests and ``sample_decode`` at the request's seed for the
@@ -188,7 +215,8 @@ Each phase's seconds are printed as it ends.
 A ``report:`` line carries every measurement as JSON; the line before
 last is a JSON object of the kernels (each one's launches summed over
 the main paths' runs that launch it: the HTTP burst, the prefix run,
-the two SLO legs, the speculative legs and the four training legs;
+the two SLO legs, the speculative legs, the tracing phase's four
+bursts, the four training legs and the traced training steps;
 K4's verify calls at R = 20 in an entry of their own); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository beside it, the script exits non-zero and prints no
@@ -204,6 +232,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -2264,6 +2293,538 @@ def train_full_width() -> dict:
     return {"legs": legs, "launches": launches}
 
 
+# --- the tracing phase: spans, timeline, profile and /metrics ---------------
+
+TRACE_LEGS = ("untraced", "traced", "traced", "untraced") * 2
+TRACE_PROFILE_TICKS = 20
+TRACE_TRAIN_STEPS = 5
+# Tail sampling of the traced legs: no latency verdict, so that only the
+# forced request (and any that errs or carries a typed event) keeps its
+# per-tick detail.
+TRACE_SAMPLING = dict(latency_threshold_s=30.0, max_tick_spans=512)
+# The trace headers of the burst: request 0 names its trace and its
+# parent span, request 1 its trace and forces full span detail.
+TRACE_HEADERS = {0: {"X-Trace-Id": "smoke-parented",
+                     "X-Parent-Span": "feedfacecafebeef"},
+                 1: {"X-Trace-Id": "smoke-sampled", "X-Trace-Sampled": "1"}}
+
+
+def _prom_parse(text: str) -> dict:
+    """A strict reading of Prometheus text (0.0.4): every line a ``# HELP
+    name text``, a ``# TYPE name kind`` or a sample ``name{labels}
+    value``; every sample's family announced by HELP and TYPE before it
+    (a histogram's ``_bucket``/``_sum``/``_count`` samples belong to it).
+    Returns ``{family: {"type", "help", "samples": [(name, labels,
+    value)]}}``."""
+    name = r"[a-zA-Z_:][a-zA-Z0-9_:]*"
+    sample = re.compile(rf"^({name})(?:\{{((?:[a-zA-Z_][a-zA-Z0-9_]*="
+                        r'"(?:[^"\\]|\\.)*",?)*)\})? '
+                        r"(-?[0-9.]+(?:[eE][+-]?[0-9]+)?|[+-]?Inf|NaN)$")
+    label = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    fams: dict = {}
+    for line in text.splitlines():
+        if line.startswith("# HELP "):
+            fam = line[7:].split(" ", 1)[0]
+            fams.setdefault(fam, {"type": None, "help": None,
+                                  "samples": []})["help"] = line
+            continue
+        if line.startswith("# TYPE "):
+            fam, kind = line[7:].split(" ")
+            if fam not in fams or kind not in ("counter", "gauge",
+                                               "histogram"):
+                raise AssertionError(f"/metrics: TYPE before HELP or an "
+                                     f"unknown type: {line!r}")
+            fams[fam]["type"] = kind
+            continue
+        m = sample.match(line)
+        if not m:
+            raise AssertionError(f"/metrics: not a sample line: {line!r}")
+        sname = m.group(1)
+        fam = sname
+        if fam not in fams:
+            for suffix in ("_bucket", "_sum", "_count"):
+                if sname.endswith(suffix) and \
+                        sname[:-len(suffix)] in fams:
+                    fam = sname[:-len(suffix)]
+        if fam not in fams or fams[fam]["type"] is None:
+            raise AssertionError(f"/metrics: sample before its family's "
+                                 f"HELP and TYPE: {line!r}")
+        fams[fam]["samples"].append(
+            (sname, dict(label.findall(m.group(2) or "")),
+             float(m.group(3))))
+    bare = sorted(f for f, v in fams.items() if v["type"] is None)
+    if bare:
+        raise AssertionError(f"/metrics: families without a TYPE: {bare}")
+    return fams
+
+
+def _lines(path) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _http_burst(engine, base: str, prompts, timed: list) -> dict:
+    """The eight greedy requests through the server, queued in a fixed
+    order with the engine held (its lock), then released at once: every
+    leg schedules the same way, so its tokens, ticks and host syncs are
+    the same.  Returns the replies, the wall and the counters' moves."""
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import paged_attention as PA
+
+    results = [None] * len(prompts)
+
+    def quiesce():
+        # The pipeline's last tick is fetched by the step after its
+        # requests resolve (``_pending`` is cleared before that fetch,
+        # inside the step): read between steps, under the engine's lock,
+        # so that the fetch counts inside the leg, never across legs.
+        deadline = time.monotonic() + 60
+        while True:
+            with engine._lock:
+                if engine._pending is None and not engine.slots.active_count:
+                    return
+            if time.monotonic() > deadline:
+                raise AssertionError("the engine did not go idle")
+            time.sleep(0.001)
+
+    def client(i):
+        req = urllib.request.Request(
+            base + "/generate", data=json.dumps({
+                "tokens": prompts[i],
+                "max_new_tokens": NEW_TOKENS[i]}).encode(),
+            headers={"Content-Type": "application/json",
+                     **TRACE_HEADERS.get(i, {})}, method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            results[i] = (r.status, json.loads(r.read()))
+
+    m = engine.metrics
+    # (generation, seconds) of each garbage collection during the leg
+    pauses, started = [], [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started[0] = time.perf_counter()
+        else:
+            pauses.append((info["generation"],
+                           time.perf_counter() - started[0]))
+
+    quiesce()
+    graphs0 = _admission_graphs(engine)
+    syncs0, ticks0 = m.host_syncs.value, m.decode_ticks.value
+    threads = []
+    with engine._lock:
+        for i in range(len(prompts)):
+            depth = engine.scheduler.depth
+            t = threading.Thread(target=client, args=(i,))
+            t.start()
+            threads.append(t)
+            deadline = time.monotonic() + 30
+            while engine.scheduler.depth == depth:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"request {i} was not queued")
+                time.sleep(0.001)
+        del timed[:]
+        A.flash_fwd_launches = 0
+        PA.paged_attend_launches = 0
+        gc.callbacks.append(on_gc)
+        t0 = time.monotonic()
+    try:
+        for t in threads:
+            t.join(600)
+        wall = time.monotonic() - t0
+    finally:
+        gc.callbacks.remove(on_gc)
+    gcs = [sum(1 for g, _ in pauses if g == n) for n in range(3)]
+    quiesce()
+    launches = {"flash_fwd": A.flash_fwd_launches,
+                "paged_attend": PA.paged_attend_launches}
+    for i, res in enumerate(results):
+        if res is None or res[0] != 200 or \
+                len(res[1]["tokens"]) != NEW_TOKENS[i]:
+            raise AssertionError(f"traced burst: request {i} returned {res}")
+    ticks = m.decode_ticks.value - ticks0
+    ttft = sorted(r[1]["ttft_ms"] for r in results)
+    return {"replies": [r[1] for r in results], "wall_s": wall,
+            "tok_per_s": sum(NEW_TOKENS) / wall,
+            "tick_wall_ms_median": statistics.median(timed) * 1e3,
+            # Steady decode rate at full occupancy: a tick emits a token
+            # for every slot.
+            "decode_tok_per_s": ENGINE["n_slots"] / statistics.median(timed),
+            "tick_wall_ms_max": max(timed) * 1e3,
+            "tick_wall_ms_sum": sum(timed) * 1e3,
+            "ttft_ms_p50": statistics.median(ttft), "ttft_ms_max": ttft[-1],
+            "gc_collections": gcs,
+            "gc_ms_total": sum(d for _, d in pauses) * 1e3,
+            "gc_ms_max": max((d for _, d in pauses), default=0.0) * 1e3,
+            "decode_steps": len(timed), "decode_ticks": ticks,
+            "host_syncs_per_tick": (m.host_syncs.value - syncs0) / ticks,
+            "launches": launches, "graphs": (graphs0,
+                                             _admission_graphs(engine))}
+
+
+def _check_spans(leg: dict, span_path, replies) -> dict:
+    """One traced leg's span stream: every request one start and one
+    finish record; request 0's span under the given parent, request 1's
+    detail kept (one tick span a decode tick), the clean requests'
+    dropped; each breakdown's phases summing to its total."""
+    from horovod_tpu_torch.obs.trace_store import TraceStore
+
+    recs = _lines(span_path)
+    store = TraceStore([str(span_path)])
+    out = {"span_lines_per_request": (len(recs) - 1) / len(replies)}
+    for i, body in enumerate(replies):
+        b = body["breakdown"]
+        sid, tid = b["span_id"], body["trace_id"]
+        mine = [r for r in recs if sid in (r.get("id"), r.get("span"),
+                                           r.get("parent"))]
+        kinds = [r["k"] for r in mine]
+        if kinds.count("s") != 1 or kinds.count("f") != 1:
+            raise AssertionError(f"request {i}: span records {kinds}")
+        roots = store.tree(tid)
+        if [n.id for n in roots] != [sid]:
+            raise AssertionError(f"request {i}: trace tree roots "
+                                 f"{[n.id for n in roots]}, want [{sid}]")
+        parts = b["queue_wait_s"] + b["prefill_s"] + b["decode_s"]
+        if abs(parts - b["total_s"]) > 1e-3:
+            raise AssertionError(f"request {i}: breakdown {b} does not sum")
+        fin = [r for r in mine if r["k"] == "f"][0]["a"]
+        ticks = sum(1 for r in mine if r["k"] == "d" and r["name"] == "tick")
+        if i == 0 and roots[0].parent != TRACE_HEADERS[0]["X-Parent-Span"]:
+            raise AssertionError(f"request 0's span has parent "
+                                 f"{roots[0].parent}")
+        if i == 1 and (fin.get("retained") != "forced"
+                       or ticks != min(b["decode_ticks"],
+                                       TRACE_SAMPLING["max_tick_spans"])
+                       or ticks == 0):
+            raise AssertionError(f"request 1: retained "
+                                 f"{fin.get('retained')}, {ticks} tick "
+                                 f"spans for {b['decode_ticks']} ticks")
+        if i >= 2 and (fin.get("retained") is not None or ticks):
+            raise AssertionError(f"request {i} kept detail: "
+                                 f"{fin.get('retained')}, {ticks} ticks")
+    return out
+
+
+def _traced_fault(engine, prompts, span_dir, journal) -> dict:
+    """The burst stepped synchronously with the tracer and spans on, one
+    decode tick raising once every request has a token: each request
+    the restart interrupts gets ``engine_restart`` then ``resume`` on its
+    own span, and its live journal entry (``read_live``) names that
+    span."""
+    from horovod_tpu_torch.obs import tracing as TR
+    from horovod_tpu_torch.serving import FaultSpec, RequestJournal
+
+    rec = TR.start_spans(str(span_dir / "fault.jsonl"), proc="engine",
+                         sampling=TR.SpanSampling(**TRACE_SAMPLING))
+    try:
+        futs = [engine.submit(p, max_new_tokens=n, trace_id=f"fault-{i}")
+                for i, (p, n) in enumerate(zip(prompts, NEW_TOKENS))]
+        while not all(f.tokens_so_far() for f in futs):
+            engine.step()
+        live = RequestJournal.read_live(journal)
+        want = {f.trace_id: f.trace.span_id for f in futs if not f.done()}
+        got = {k: v["span_id"] for k, v in live.items()}
+        if got != want:
+            raise AssertionError(f"journal span ids {got}, want {want}")
+        inj = engine.engine_cfg.faults
+        restarts = engine.metrics.engine_restarts.value
+        inj.add(FaultSpec(site="decode_tick", kind="raise",
+                          skip=inj.visits("decode_tick")))
+        interrupted = [f for f in futs if not f.done()]
+        while not all(f.done() for f in futs):
+            engine.step()
+        torch.cuda.synchronize()
+    finally:
+        TR.stop_spans()
+    if engine.metrics.engine_restarts.value != restarts + 1:
+        raise AssertionError("the traced fault did not restart the engine")
+    for i, f in enumerate(futs):
+        if len(f.result(timeout=0)) != NEW_TOKENS[i]:
+            raise AssertionError(f"traced fault: request {i} short")
+    recs = _lines(rec.path)
+    for f in interrupted:
+        ev = [r["type"] for r in recs
+              if r["k"] == "e" and r.get("span") == f.trace.span_id]
+        if ev != ["engine_restart", "resume"]:
+            raise AssertionError(f"{f.trace_id}: span events {ev}")
+        if [k for k, _, _ in f.trace.events] != ev:
+            raise AssertionError(f"{f.trace_id}: trace events "
+                                 f"{f.trace.events}")
+    return {"interrupted": len(interrupted),
+            "journal_span_ids": len(got)}
+
+
+def _profile_ticks(engine, tl, prof_dir) -> dict:
+    """``Timeline.profile`` over ``TRACE_PROFILE_TICKS`` steady captured
+    ticks at 8 slots: the exported Chrome trace must name K4's split and
+    combine kernels, a launch each a layer a tick (the tick in flight
+    when the window opens may add its own)."""
+    futs = _fill_slots(engine, PROFILE_DEPTH, 3 * TRACE_PROFILE_TICKS + 8,
+                       seed=7)
+    replays = engine._tick.replays
+    with tl.profile(str(prof_dir)):
+        for _ in range(TRACE_PROFILE_TICKS):
+            engine.step()
+    if engine._tick.replays - replays != TRACE_PROFILE_TICKS:
+        raise AssertionError("the profiled steps were not captured ticks")
+    while not all(f.done() for f in futs):
+        engine.step()
+    with open(tl.profile_path) as f:
+        events = json.load(f)["traceEvents"]
+    n = FULL["n_layers"] * TRACE_PROFILE_TICKS
+    counts = {}
+    for k in ("paged_attend_split_kernel", "paged_attend_combine_kernel"):
+        counts[k] = sum(1 for e in events if k in str(e.get("name", ""))
+                        and e.get("ph") == "X")
+        if not n <= counts[k] <= n + FULL["n_layers"]:
+            raise AssertionError(f"profile of {TRACE_PROFILE_TICKS} ticks "
+                                 f"holds {counts[k]} {k}, want {n}")
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if not kernels:
+        raise AssertionError("the profile recorded no device kernel")
+    return {"profile_path": tl.profile_path, "k4_kernels": counts,
+            "device_kernels": kernels,
+            "profile_bytes": Path(tl.profile_path).stat().st_size}
+
+
+def _traced_train(tl_path) -> dict:
+    """The captured LM step (``TRACE_TRAIN_STEPS`` steps: the eager
+    warm-up, the capture, replays) inside ``obs.training_step`` with a
+    timeline started: one ``train_step`` B/E pair a step on it,
+    ``training_steps_total`` up by the step count, K1-K3 launched."""
+    from horovod_tpu_torch import basics, obs, optim, spmd
+    from horovod_tpu_torch import timeline as TL
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.ops import attention as A
+
+    basics.init(init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        cfg = T.TransformerConfig(**TRAIN, dtype=torch.bfloat16)
+        params = T.init_params(cfg, seed=0, param_dtype=torch.float32)
+        named = optim.named_parameters(params)
+        for _, t in named:
+            t.requires_grad_()
+        opt = optim.DistributedOptimizer(
+            torch.optim.AdamW([t for _, t in named], lr=3e-4,
+                              weight_decay=1e-4), named_parameters=named)
+        step = spmd.make_train_step(lambda p, b: T.loss_fn(p, b, cfg), opt)
+        batch = T.synthetic_batch(0, cfg, TRAIN_BATCH, TRAIN["max_seq"])
+        steps = obs.training_metrics().steps
+        n0 = steps.value
+        A.flash_fwd_launches = 0
+        A.flash_bwd_dkdv_launches = 0
+        A.flash_bwd_dq_launches = 0
+        TL.start_timeline(str(tl_path))
+        losses = []
+        try:
+            for _ in range(TRACE_TRAIN_STEPS):
+                with obs.training_step():
+                    losses.append(float(step(params, batch)))
+        finally:
+            TL.stop_timeline()
+        launches = {"flash_fwd": A.flash_fwd_launches,
+                    "flash_bwd_dkdv": A.flash_bwd_dkdv_launches,
+                    "flash_bwd_dq": A.flash_bwd_dq_launches}
+        captures, replays = step.captures, step.replays
+        del params, opt, step, batch
+    finally:
+        basics.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(tl_path) as f:
+        pairs = [e["ph"] for e in json.load(f) if e["name"] == "train_step"]
+    if pairs != ["B", "E"] * TRACE_TRAIN_STEPS:
+        raise AssertionError(f"train_step span events {pairs}")
+    if steps.value - n0 != TRACE_TRAIN_STEPS:
+        raise AssertionError("training_steps_total did not rise by the "
+                             "step count")
+    if captures != 1 or not all(math.isfinite(x) for x in losses) or \
+            not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"traced training: captures {captures}, "
+                             f"losses {losses}, launches {launches}")
+    return {"steps": TRACE_TRAIN_STEPS, "train_step_pairs": len(pairs) // 2,
+            "losses": losses, "captures": captures, "replays": replays,
+            "launches": launches}
+
+
+def tracing_full_width(card: str, tmp: Path) -> dict:
+    """The serving phase's configuration (bf16, 8 slots, max_len 2176)
+    traced: a fault with spans on, ``Timeline.profile`` over captured
+    ticks and its merge with the host timeline, then four HTTP bursts of
+    the eight greedy prompts on one engine, untraced and traced in turns
+    (tokens, host syncs a tick and captures equal; K1 and K4 launched in
+    each), the spans of the traced ones, a strict ``/metrics`` scrape,
+    and the captured LM step inside ``obs.training_step``."""
+    from horovod_tpu_torch import timeline as TL
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.obs import merge as M
+    from horovod_tpu_torch.obs import tracing as TR
+    from horovod_tpu_torch.obs import xprof
+    from horovod_tpu_torch.obs.registry import training_metrics
+    from horovod_tpu_torch.serving import (EngineConfig, FaultInjector,
+                                           InferenceEngine, ServingServer)
+
+    cfg = T.TransformerConfig(**FULL, dtype=torch.bfloat16)
+    params = T.init_params(cfg, seed=0)
+    fpt = xprof.transformer_flops_per_token(params)
+    compiles = training_metrics().compiles.labels(fn="serving_decode")
+    decode0 = compiles.value
+    journal = tmp / "journal.jsonl"
+    engine = InferenceEngine(params, cfg, EngineConfig(
+        **ENGINE, model_flops_per_token=fpt, faults=FaultInjector(),
+        journal_path=str(journal)))
+    engine.warmup(ENGINE_WARM_LENS)
+    prompts = _prompts()
+    out = {"model_flops_per_token": fpt}
+    # A fault with spans on, and the profile, stepped synchronously.
+    span_dir = tmp / "spans"
+    TR.start(str(tmp / "host.rank0.json"),
+             jsonl_path=str(tmp / "fault.events.jsonl"))
+    try:
+        out["fault"] = _traced_fault(engine, prompts, span_dir, journal)
+        out["profile"] = _profile_ticks(engine, TL.get(), tmp / "prof")
+    finally:
+        TR.stop()
+    merged = tmp / "merged.json"
+    if M.main([str(merged), str(tmp / "host.rank0.json"),
+               out["profile"]["profile_path"]]) != 0:
+        raise AssertionError("obs.merge failed")
+    with open(merged) as f:
+        events = json.load(f)
+    blocks = {e["pid"] // M.PID_STRIDE for e in events}
+    if blocks != {1, 2}:
+        raise AssertionError(f"the merged trace's pid blocks: {blocks}")
+    out["merged_events"] = len(events)
+    del events
+    # The HTTP legs, untraced and traced in turns.
+    timed: list = []
+    inner = engine.step
+
+    def step():
+        n = engine.metrics.decode_ticks.value
+        t0 = time.monotonic()
+        worked = inner()
+        if engine.metrics.decode_ticks.value != n:
+            timed.append(time.monotonic() - t0)
+        return worked
+
+    engine.step = step
+    srv = ServingServer(engine, port=0, request_timeout=600).start()
+    base = "http://%s:%d" % srv.address
+    legs = []
+    try:
+        for i, name in enumerate(TRACE_LEGS):
+            if name == "traced":
+                d = tmp / f"leg{i}"
+                d.mkdir()
+                TR.start(str(d / "trace.json"),
+                         jsonl_path=str(d / "events.jsonl"))
+                rec = TR.start_spans(
+                    str(d / "spans.jsonl"), proc="replica",
+                    sampling=TR.SpanSampling(**TRACE_SAMPLING))
+            try:
+                leg = _http_burst(engine, base, prompts, timed)
+                # A reply leaves when its future resolves, just before
+                # the engine thread writes the span's finish record.
+                deadline = time.monotonic() + 30
+                while name == "traced" and rec.n_finished < len(prompts):
+                    if time.monotonic() > deadline:
+                        raise AssertionError("span finish records missing")
+                    time.sleep(0.001)
+            finally:
+                if name == "traced":
+                    TR.stop_spans()
+                    TR.stop()
+            leg["name"] = name
+            if name == "traced":
+                leg.update(_check_spans(leg, d / "spans.jsonl",
+                                        leg["replies"]))
+                leg["jsonl_bytes_per_request"] = \
+                    (d / "events.jsonl").stat().st_size / len(prompts)
+                leg["span_bytes_per_request"] = \
+                    (d / "spans.jsonl").stat().st_size / len(prompts)
+            legs.append(leg)
+            log(f"tracing leg {i} ({name}) on {card}: burst "
+                f"{leg['tok_per_s']:.1f} tok/s, decode "
+                f"{leg['decode_tok_per_s']:.1f} tok/s at "
+                f"{ENGINE['n_slots']} slots, median decode step "
+                f"{leg['tick_wall_ms_median']:.4f} "
+                f"ms (max {leg['tick_wall_ms_max']:.3f}, sum "
+                f"{leg['tick_wall_ms_sum']:.1f}) over {leg['decode_steps']} "
+                f"steps, TTFT p50/max {leg['ttft_ms_p50']:.1f}/"
+                f"{leg['ttft_ms_max']:.1f} ms, gc collections by "
+                f"generation {leg['gc_collections']} taking "
+                f"{leg['gc_ms_total']:.1f} ms (longest "
+                f"{leg['gc_ms_max']:.1f}), "
+                f"{leg['decode_ticks']} ticks, host syncs a tick "
+                f"{leg['host_syncs_per_tick']:.4f}, launches "
+                f"{leg['launches']}" + (
+                    f", {leg['span_lines_per_request']:.2f} span lines and "
+                    f"{leg['jsonl_bytes_per_request']:.0f} JSONL bytes a "
+                    f"request" if name == "traced" else ""))
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            text = r.read().decode()
+    finally:
+        srv.stop()
+        del engine.step
+    ref = legs[0]
+    ref_tokens = [b["tokens"] for b in ref["replies"]]
+    for leg in legs:
+        if [b["tokens"] for b in leg["replies"]] != ref_tokens:
+            raise AssertionError(f"leg {leg['name']}: tokens differ from "
+                                 "the untraced leg's")
+        if (leg["host_syncs_per_tick"], leg["decode_ticks"]) != \
+                (ref["host_syncs_per_tick"], ref["decode_ticks"]):
+            raise AssertionError(f"leg {leg['name']}: host syncs a tick "
+                                 f"{leg['host_syncs_per_tick']} over "
+                                 f"{leg['decode_ticks']} ticks, untraced "
+                                 f"{ref['host_syncs_per_tick']} over "
+                                 f"{ref['decode_ticks']}")
+        g0, g1 = leg.pop("graphs")
+        if g0 != g1 or g1["decode_compilations"] != 1:
+            raise AssertionError(f"leg {leg['name']} captured: {g0} -> {g1}")
+        if not all(n > 0 for n in leg["launches"].values()):
+            raise AssertionError(f"leg {leg['name']} missed a kernel: "
+                                 f"{leg['launches']}")
+        del leg["replies"]
+    fams = _prom_parse(text)
+    achieved = fams["serving_achieved_flops_per_sec"]["samples"][0][2]
+    decode = {s[1].get("fn"): s[2] for s in
+              fams["xla_compiles_total"]["samples"]}.get("serving_decode")
+    if not achieved > 0:
+        raise AssertionError(f"serving_achieved_flops_per_sec {achieved}")
+    if decode - decode0 != engine.stats()["decode_compilations"]:
+        raise AssertionError(f"xla_compiles_total{{fn=serving_decode}} grew "
+                             f"by {decode - decode0}, the engine captured "
+                             f"{engine.stats()['decode_compilations']}")
+    out["metrics"] = {"families": len(fams),
+                      "achieved_flops_per_sec": achieved,
+                      "serving_decode_compiles": decode - decode0}
+    out["legs"] = legs
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = _traced_train(tmp / "train.json")
+    un = [lg for lg in legs if lg["name"] == "untraced"]
+    tr = [lg for lg in legs if lg["name"] == "traced"]
+    log(f"tracing on {card}: burst tok/s untraced "
+        f"{[round(lg['tok_per_s'], 1) for lg in un]} traced "
+        f"{[round(lg['tok_per_s'], 1) for lg in tr]}; decode tok/s at "
+        f"{ENGINE['n_slots']} slots untraced "
+        f"{[round(lg['decode_tok_per_s'], 1) for lg in un]} traced "
+        f"{[round(lg['decode_tok_per_s'], 1) for lg in tr]}; median "
+        f"decode step ms untraced "
+        f"{[round(lg['tick_wall_ms_median'], 4) for lg in un]} "
+        f"traced {[round(lg['tick_wall_ms_median'], 4) for lg in tr]}; "
+        f"tokens, host syncs a tick ({ref['host_syncs_per_tick']:.4f}) and "
+        f"captures equal; fault: {out['fault']['interrupted']} spans with "
+        f"engine_restart + resume; profile: {out['profile']['k4_kernels']} "
+        f"in {out['profile']['device_kernels']} device kernels; /metrics "
+        f"{len(fams)} families, achieved {achieved:.4e} FLOP/s; "
+        f"{out['train']['train_step_pairs']} train_step spans")
+    return out
+
+
 # --- the vision phase: ResNet-50 in bench.py's protocol ------------------------
 
 # bench.py's protocol: 10 warm-up batches, 10 iterations of 10 batches.
@@ -2935,6 +3496,10 @@ def main() -> int:
     with phase("serving"):
         serving = serve_full_width(card)
     REPORT["serving_bf16"] = serving
+    with phase("tracing"), tempfile.TemporaryDirectory(
+            prefix="chip_smoke_tracing_") as tmp:
+        traced = tracing_full_width(card, Path(tmp))
+    REPORT["tracing"] = traced
     with phase("token_identity_f32"):
         ident = token_identity()
     REPORT["token_identity_f32"] = ident
@@ -2982,12 +3547,15 @@ def main() -> int:
             for n, lg in vision["legs"].items()))
     # Each kernel's launches are the sum over the main paths' runs that
     # launch it: serving (the HTTP burst, the prefix run, the two SLO
-    # legs, the speculative legs) and, for K1-K3, the four training legs
-    # (K1 twice a layer a step in the remat legs).
+    # legs, the speculative legs, the tracing phase's four bursts) and,
+    # for K1-K3, the four training legs (K1 twice a layer a step in the
+    # remat legs) and the tracing phase's traced training steps.
     served = [serving, serving["prefix"], *serving["slo"].values(),
-              *spec["legs"].values()]
+              *spec["legs"].values(), *traced["legs"]]
+    trained = {k: train["launches"][k] + traced["train"]["launches"][k]
+               for k in train["launches"]}
     k1_launches = sum(r["launches"]["flash_fwd"] for r in served) + \
-        train["launches"]["flash_fwd"]
+        trained["flash_fwd"]
     verify_rows = FULL["n_heads"] // FULL["n_kv_heads"] * (SPEC_K + 1)
     k4_verify = sum(leg["launches"]["paged_attend_by_rows"].get(
         verify_rows, 0) for leg in spec["legs"].values())
@@ -2995,7 +3563,7 @@ def main() -> int:
         - k4_verify
     t_times = time.monotonic()
     kernels = [time_flash(k1["serving"], k1_launches),
-               *time_flash_bwd(k23["training"], train["launches"]),
+               *time_flash_bwd(k23["training"], trained),
                time_paged(k4["serving"], k4_launches),
                time_paged(k4["verify"], k4_verify, R=verify_rows)]
     k1_train = time_flash(None, train["launches"]["flash_fwd"],

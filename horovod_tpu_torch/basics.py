@@ -21,6 +21,9 @@ process; PyTorch's idiom is a process per GPU).
   true when every host has the same local size and ranks run host by
   host (``rank == cross_rank * local_size + local_rank``): the layout
   the hierarchical collectives need.
+* ``HOROVOD_TIMELINE`` opens a :class:`~horovod_tpu_torch.timeline.
+  Timeline` at init, held on the context (:func:`_open_timeline` has
+  the JAX package's per-rank rules) and closed by :func:`shutdown`.
 * The backend follows the device: NCCL for CUDA (``cuda:local_rank``),
   gloo for ``device="cpu"``.  With no device and no CUDA, :func:`init`
   raises, as every entry point of the port does.
@@ -34,6 +37,8 @@ from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from horovod_tpu_torch import timeline
 
 __all__ = ["NotInitializedError", "cross_group", "cross_rank", "cross_size",
            "device", "init", "is_homogeneous", "is_initialized",
@@ -75,6 +80,9 @@ class _Context:
     local_group: object
     cross_group: object
     cross_ranks: Tuple[int, ...]
+    # The ``HOROVOD_TIMELINE`` timeline (horovod_tpu_torch.timeline
+    # .Timeline), or None; ``timeline.get()`` reads it.
+    timeline: Optional[object] = None
 
 
 _context: Optional[_Context] = None
@@ -144,7 +152,33 @@ def init(*, device=None, init_method: Optional[str] = None) -> None:
     local, _ = _groups(layout, 0, crank)
     cross, cranks = _groups(layout, 1, lrank)
     _context = _Context(rank, size, lrank, lsize, dev, crank, csize,
-                        homogeneous, local, cross, cranks)
+                        homogeneous, local, cross, cranks,
+                        _open_timeline(rank, size))
+    # Seeded so a /metrics scrape exposes the family before any
+    # timeline exists.
+    timeline._dropped_events_counter()
+
+
+def _open_timeline(rank: int, size: int):
+    """The ``HOROVOD_TIMELINE`` timeline of this rank, the JAX package's
+    rules: a path with ``%r`` gives every rank its own file (merge them
+    with ``python -m horovod_tpu_torch.obs.merge``); an elastic job of
+    more than one process suffixes the path with the rank (respawning
+    ranks writing one path would clobber each other's traces);
+    otherwise rank 0 alone writes it."""
+    path = os.environ.get("HOROVOD_TIMELINE")
+    if not path:
+        return None
+    elastic = os.environ.get("HOROVOD_ELASTIC", "0") not in ("", "0",
+                                                            "false")
+    if "%r" in path:
+        return timeline.Timeline(timeline.expand_rank_path(path, rank))
+    if elastic and size > 1:
+        root, ext = os.path.splitext(path)
+        return timeline.Timeline(f"{root}.rank{rank}{ext or '.json'}")
+    if rank == 0:
+        return timeline.Timeline(path)
+    return None
 
 
 def _gather_layout(rank, size, crank, lrank, lsize, dev) -> List[tuple]:
@@ -172,11 +206,14 @@ def _groups(layout, field: int, mine: int):
 
 
 def shutdown() -> None:
-    """Leave the process group and its local and cross groups (a later
-    :func:`init` may join again)."""
+    """Close the ``HOROVOD_TIMELINE`` timeline and leave the process
+    group and its local and cross groups (a later :func:`init` may join
+    again)."""
     global _context
     if _context is None:
         return
+    if _context.timeline is not None:
+        _context.timeline.close()
     dist.destroy_process_group()
     _context = None
 

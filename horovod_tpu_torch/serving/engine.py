@@ -139,6 +139,26 @@ chunk of a chunked prompt), ``decode_tick`` (before a tick runs;
 ``nonfinite`` poisons that tick's fetched max logits on the host),
 ``decode_fetch`` (before a tick's results are fetched) and
 ``restart_resume`` (in the restart path).
+
+Tracing, as in the JAX engine (:mod:`horovod_tpu_torch.obs.tracing`):
+every request carries a :class:`~horovod_tpu_torch.obs.tracing.
+RequestTrace` (trace and span ids, the stage stamps, the ticks that
+emitted to it), and its future's :meth:`~GenerationFuture.breakdown`
+(queue wait, prefill, decode, host-sync lag) is final at resolution.
+The tracer and the span recorder active at submit ride the future: the
+request's span opens at submit, its typed events (``eviction``,
+``spec_fallback``, ``engine_restart``, ``resume``) go through that
+recorder, and resolution writes the finish record and the
+tail-sampling verdict from whichever thread resolves.  Tick phases
+(``tick_dispatch``, ``tick_device_wait``, ``tick_host``) and lifecycle
+instants (``engine_failed``, ``engine_restart``, ``requests_resumed``,
+``watchdog_stall``, ``stall_hard_fail``) go to the active tracer.  With
+neither active, a tick pays the module-global reads and one attribute
+read per slot.  Each capture counts ``xla_compiles_total{fn=}`` under
+the JAX function names (:mod:`~horovod_tpu_torch.serving.graph`).
+``EngineConfig.model_flops_per_token`` turns the token rate into
+``serving_achieved_flops_per_sec``, refreshed by :meth:`~InferenceEngine.
+stats` and by a ``/metrics`` scrape.
 """
 
 from __future__ import annotations
@@ -146,13 +166,13 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-import uuid
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from horovod_tpu_torch.models import transformer as T
+from horovod_tpu_torch.obs import tracing as obs_tracing
 from horovod_tpu_torch.ops import attention as _attn
 from horovod_tpu_torch.ops import paged_attention as _pa
 from horovod_tpu_torch.serving.cache import NULL_PAGE, PagedSlotCache, \
@@ -187,7 +207,7 @@ from horovod_tpu_torch.serving.scheduler import (
 )
 
 __all__ = ["EngineConfig", "GenerationFuture", "InferenceEngine",
-           "RequestIds", "HEALTHY", "DEGRADED", "DRAINING", "FAILED"]
+           "HEALTHY", "DEGRADED", "DRAINING", "FAILED"]
 
 # Lifecycle states (the /healthz vocabulary): healthy and degraded (just
 # restarted, not yet proven by a clean tick) serve traffic; draining and
@@ -196,21 +216,6 @@ HEALTHY = "healthy"
 DEGRADED = "degraded"
 DRAINING = "draining"
 FAILED = "failed"
-
-
-@dataclasses.dataclass
-class RequestIds:
-    """A request's trace identity (``Request.trace``): the key of its
-    journal entry in :meth:`RequestJournal.read_live`, by which a front
-    tier finds a dead replica's live requests.  Tracing is not ported,
-    so there is no span; ``admitted_at`` is the first admission's
-    instant (a resumed or preempted request keeps its first life's,
-    and its queue wait is observed once)."""
-
-    trace_id: str
-    span_id: Optional[str] = None
-    submitted_at: Optional[float] = None
-    admitted_at: Optional[float] = None
 
 
 class GenerationFuture:
@@ -233,7 +238,13 @@ class GenerationFuture:
         self._resolve_lock = threading.Lock()
         self.finish_reason: Optional[str] = None
         self.ttft: Optional[float] = None
-        self.trace_id: Optional[str] = None  # set at submit
+        # The request's trace record (stamped as it moves through the
+        # engine) and the tracer and span recorder active at submit:
+        # resolution emits the request span, the JSONL line and the
+        # span finish through them, from whichever thread resolves.
+        self.trace: Optional[obs_tracing.RequestTrace] = None
+        self._tracer: Optional[obs_tracing.Tracer] = None
+        self._spans: Optional[obs_tracing.SpanRecorder] = None
         # Resolution hook (the engine purges the request's journal entry
         # here): fires once, from whichever thread resolves the future,
         # after the resolution is visible.
@@ -260,7 +271,12 @@ class GenerationFuture:
             if self._done.is_set():
                 return
             self.finish_reason = reason
+            if self.trace is not None:
+                self.trace.finished_at = time.monotonic()
+                self.trace.finish = reason
+                self.trace.tokens = len(self._tokens)
             self._done.set()
+        self._emit_trace()
         self._fire_resolve()
 
     def set_exception(self, exc: BaseException) -> None:
@@ -268,7 +284,12 @@ class GenerationFuture:
             if self._done.is_set():
                 return
             self._exc = exc
+            if self.trace is not None:
+                self.trace.finished_at = time.monotonic()
+                self.trace.error = type(exc).__name__
+                self.trace.tokens = len(self._tokens)
             self._done.set()
+        self._emit_trace()
         self._fire_resolve()
 
     def _fire_resolve(self) -> None:
@@ -280,6 +301,34 @@ class GenerationFuture:
                 cb()
             except Exception:  # pragma: no cover - cleanup must not fail work
                 pass
+
+    def _emit_trace(self) -> None:
+        # Outside _resolve_lock (file and queue IO must not serialize
+        # resolution); only the resolving thread gets here, once.
+        tp, tr = self._tracer, self.trace
+        if tp is not None and tr is not None:
+            try:
+                tp.request_done(tr)
+            except Exception:  # pragma: no cover - tracing must not fail work
+                pass
+        sp = self._spans
+        if sp is not None and tr is not None:
+            # The finish record and the tail-sampling verdict on the
+            # buffered detail spans.
+            try:
+                sp.request_done(tr)
+            except Exception:  # pragma: no cover - spans must not fail work
+                pass
+
+    @property
+    def trace_id(self) -> Optional[str]:
+        return self.trace.trace_id if self.trace is not None else None
+
+    def breakdown(self) -> Optional[Dict]:
+        """The request's timing breakdown (queue wait, prefill, decode,
+        host-sync lag): final once the future resolves, measured up to
+        now while it runs."""
+        return self.trace.breakdown() if self.trace is not None else None
 
     def done(self) -> bool:
         return self._done.is_set()
@@ -353,7 +402,12 @@ class EngineConfig:
     falls under ``spec_min_acceptance``, and re-enables it for a probe
     window every ``spec_probe_period`` ticks.  The JAX check that
     speculation needs ``paged=True`` has no counterpart: the port is
-    paged only."""
+    paged only.
+
+    ``model_flops_per_token`` (e.g. ``obs.xprof.
+    transformer_flops_per_token(params)``) turns the token rate into
+    ``serving_achieved_flops_per_sec`` (None disables), as in the JAX
+    engine."""
 
     n_slots: int = 4
     max_len: int = 0
@@ -383,6 +437,7 @@ class EngineConfig:
     spec_min_acceptance: float = 0.25
     spec_window: int = 2
     spec_probe_period: int = 256
+    model_flops_per_token: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -598,7 +653,7 @@ class InferenceEngine:
                     device=self.device)
                 self._draft_graphs = PrefillGraphs(
                     draft_params, draft_cfg, self.draft_slots.cache,
-                    self.device)
+                    self.device, draft=True)
                 draft = (draft_params, draft_cfg, self.draft_slots.cache)
             self._spec_tick = SpecTick(self._tick, ec.spec_k,
                                        self.slots.max_len, draft)
@@ -614,6 +669,14 @@ class InferenceEngine:
         # step (see step()).
         self._unchecked_dispatch = False
         self._prefill_calls = 0
+        # Token-rate window for achieved FLOP/s: (monotonic, tokens)
+        # samples taken by stats() and /metrics scrapes, pruned to ~60 s,
+        # under a lock of its own (HTTP handler threads read it).
+        self._rate_samples: List = []
+        self._rate_lock = threading.Lock()
+        self._rate_metrics = self.metrics
+        if ec.model_flops_per_token:
+            self.metrics.model_flops_per_token.set(ec.model_flops_per_token)
         self.metrics.kv_pages_total.set(self.slots.n_pages)
         self.metrics.kv_bytes_per_token.set(self.slots.bytes_per_token)
         self._update_page_gauges()
@@ -672,6 +735,8 @@ class InferenceEngine:
                priority: str = "interactive",
                on_token: Optional[Callable[[int], None]] = None,
                trace_id: Optional[str] = None,
+               parent_span: Optional[str] = None,
+               sampled: bool = False,
                speculative: Optional[bool] = None) -> GenerationFuture:
         """Queue a generation request; returns its future.
 
@@ -685,9 +750,17 @@ class InferenceEngine:
         pressure a request of a strictly worse class may be suspended
         (and later resumed, its tokens unchanged) for a better one.
         ``on_token`` is the future's per-token hook.  ``trace_id`` (the
-        server passes the ``X-Trace-Id`` header) keys the request's
+        server passes the ``X-Trace-Id`` header) names the request's
+        :class:`~horovod_tpu_torch.obs.tracing.RequestTrace` and keys its
         journal entry; a fresh 16-hex-digit id is minted when absent, and
-        the future carries it as ``trace_id``.  ``speculative`` is the
+        the future carries it as ``trace_id`` beside its
+        :meth:`~GenerationFuture.breakdown`.  ``parent_span`` nests the
+        request's span under an upstream caller's (``X-Parent-Span``)
+        and ``sampled`` forces full-detail span retention
+        (``X-Trace-Sampled``); both matter only while a
+        :func:`~horovod_tpu_torch.obs.tracing.spans` recorder is active,
+        which writes the span's start record once the request is
+        queued.  ``speculative`` is the
         per-request opt-out on a speculative engine (None = the engine's
         default): ``False`` decodes the request one token a tick, its
         acceptance held at 0 as data — the same tokens, steadier pacing.
@@ -739,10 +812,13 @@ class InferenceEngine:
                 f"{self.slots.pages_for(need)} pages; the pool holds "
                 f"{self.slots.n_pages}")
         fut = GenerationFuture(on_token=on_token)
-        fut.trace_id = trace_id or uuid.uuid4().hex[:16]
+        fut.trace = obs_tracing.RequestTrace(trace_id,
+                                             parent_span_id=parent_span)
+        fut.trace.sampled = bool(sampled)
+        fut._tracer = obs_tracing.get()
+        fut._spans = obs_tracing.spans()
         req = Request(prompt=prompt, max_new_tokens=n_new, future=fut,
-                      eos_id=eos_id, deadline=deadline,
-                      trace=RequestIds(fut.trace_id),
+                      eos_id=eos_id, deadline=deadline, trace=fut.trace,
                       temperature=temperature, top_k=top_k, top_p=top_p,
                       seed=seed, priority=priority, speculative=speculative)
         if self.journal is not None:
@@ -758,6 +834,17 @@ class InferenceEngine:
             if self.journal is not None:
                 self.journal.end(req.id)  # never enqueued: nothing to resume
             raise
+        if fut._spans is not None:
+            # The span's start record is written (and flushed) the moment
+            # the request is live: a process killed after this leaves
+            # the start and every typed event in the stream.
+            try:
+                fut._spans.request_begin(fut.trace, attrs={
+                    "prompt_tokens": len(prompt),
+                    "max_new_tokens": n_new,
+                    "request_id": req.id})
+            except Exception:  # pragma: no cover - spans must not fail work
+                pass
         # Re-check after the enqueue: a failure or drain that began
         # between the checks above and the enqueue must not strand it.
         # Only this request is resolved: the queue may hold requests
@@ -1323,6 +1410,11 @@ class InferenceEngine:
         if req.future.ttft is None:
             req.future.ttft = now - req.submitted_at
             self.metrics.observe_ttft(req.priority, req.future.ttft)
+        if req.trace is not None:
+            req.trace.slot = slot
+            if req.trace.first_token_at is None:
+                # A resumed request keeps its first life's stamp.
+                req.trace.first_token_at = now
         self._samp.set(slot, temperature=req.temperature, top_k=req.top_k,
                        top_p=req.top_p, seed=req.seed)
         self._states[slot] = _SlotState(request=req, last_token=first,
@@ -1574,6 +1666,15 @@ class InferenceEngine:
             return False
         req = st.request if st is not None else ing.request
         fut = req.future
+        # The submit-time recorder (not the global): the span's start
+        # and finish go through it, so its events must too.
+        srec = fut._spans
+        if srec is not None and req.trace is not None:
+            try:
+                srec.request_event(req.trace, "eviction",
+                                   {"slot": slot, "reason": reason})
+            except Exception:  # pragma: no cover - spans must not fail work
+                pass
         self._release(slot)
         if fut.done():
             return True
@@ -1832,6 +1933,15 @@ class InferenceEngine:
             if rate < ec.spec_min_acceptance:
                 self._spec_live[s] = False
                 self._spec_idle[s] = 0
+                st = self._states[s]
+                srec = st.request.future._spans if st is not None else None
+                if srec is not None and st.request.trace is not None:
+                    try:
+                        srec.request_event(
+                            st.request.trace, "spec_fallback",
+                            {"slot": s, "acceptance": round(rate, 4)})
+                    except Exception:  # pragma: no cover
+                        pass
                 if self._spec_model:
                     # A disabled slot's draft pool decays even through
                     # speculative ticks (no pages are granted for it), so
@@ -1963,7 +2073,11 @@ class InferenceEngine:
                 # the host learns how far each slot went.
                 self._page_pos += active
         self.metrics.decode_ticks.inc()
-        self.metrics.tick_dispatch.observe(time.monotonic() - t0)
+        dt = time.monotonic() - t0
+        self.metrics.tick_dispatch.observe(dt)
+        tp = obs_tracing.get()
+        if tp is not None:
+            tp.tick_phase("tick_dispatch", t0, dt)
         return {"fetch": fetch, "active": active, "dispatched_at": t0,
                 "kind": kind, **extra,
                 "reqs": [st.request if st is not None else None
@@ -2057,8 +2171,23 @@ class InferenceEngine:
             if st is None or st.request is not p["reqs"][s]:
                 continue  # retired or re-admitted since dispatch: stale
             self.metrics.token_latency.observe(lat)
+            tr = st.request.trace
+            # Tick detail is buffered only while the request's submit-time
+            # recorder is live (one attribute read a slot); whether it
+            # leaves the process is the tail-sampling verdict.
+            srec = st.request.future._spans if tr is not None else None
+            if tr is not None:
+                tr.decode_ticks += 1
+                # Dispatch to fetch of the tick that produced this token:
+                # the overlapped pipeline's one-tick lag, in the breakdown.
+                tr.host_sync_lag = lat
             if acc is None:
                 self.metrics.tokens_per_tick.observe(1)
+                if srec is not None:
+                    if len(tr.ticks) < tr.MAX_TICKS:
+                        tr.ticks.append((p["dispatched_at"], t1, 1))
+                    else:
+                        tr.ticks_overflow += 1
                 if self._spec:
                     # A plain tick of a speculative engine: one position,
                     # and the disabled slot's probe clock runs.
@@ -2079,14 +2208,32 @@ class InferenceEngine:
                 # stays current, the model draft was marked stale at the
                 # disable; only the probe clock moves.
                 self._spec_probe_clock(s)
+            # The detail entry goes in before the emit loop (the last
+            # emission may resolve the request, which writes the ticks
+            # out) and counts the tokens emitted, not the acc + 1 the
+            # device committed: the detail sums to the reply.
+            tick_entry = None
+            if srec is not None:
+                if len(tr.ticks) < tr.MAX_TICKS:
+                    tick_entry = [p["dispatched_at"], t1, 0]
+                    tr.ticks.append(tick_entry)
+                else:
+                    tr.ticks_overflow += 1
             emitted = 0
             for j in range(n):
                 if self._states[s] is not st:
                     break  # retired inside the accepted run
+                if tick_entry is not None:
+                    tick_entry[2] += 1
                 self._emit(s, int(nxt[s, j]))
                 emitted += 1
             self.metrics.tokens_per_tick.observe(emitted)
-        self.metrics.tick_host.observe(time.monotonic() - t1)
+        t2 = time.monotonic()
+        self.metrics.tick_host.observe(t2 - t1)
+        tp = obs_tracing.get()
+        if tp is not None:
+            tp.tick_phase("tick_device_wait", t0, t1 - t0)
+            tp.tick_phase("tick_host", t1, t2 - t1)
 
     # -- failure recovery --------------------------------------------------
 
@@ -2118,6 +2265,16 @@ class InferenceEngine:
                          for ing in self._ingest.values()}
         resumed = []
         for req in pending:
+            # The restart's typed edge on every interrupted request's
+            # span, before its resumption or failure is decided (a
+            # terminate or drain resolution is not a restart).
+            srec = req.future._spans
+            if srec is not None and req.trace is not None:
+                try:
+                    srec.request_event(req.trace, "engine_restart",
+                                       {"epoch": self._epoch})
+                except Exception:  # pragma: no cover
+                    pass
             r = self._resume_or_fail(req, exc)
             if r is not None:
                 if r.id in ingest_wasted:
@@ -2230,6 +2387,9 @@ class InferenceEngine:
             if (self._terminal
                     or attempt > self.engine_cfg.max_restarts):
                 self._go_terminal(exc)
+                obs_tracing.instant("engine_failed", {
+                    "consecutive_failures": attempt,
+                    "max_restarts": self.engine_cfg.max_restarts})
                 return
             resume_ok = True
             faults = self.engine_cfg.faults
@@ -2285,6 +2445,20 @@ class InferenceEngine:
                         self.metrics.resume_wasted_tokens.inc(
                             req._resume_wasted)
                     self.journal.note_resume(req.id)
+                    srec = req.future._spans
+                    if srec is not None and req.trace is not None:
+                        # The resume edge on the request's own span: which
+                        # requests the restart interrupted and what their
+                        # re-prefill costs.
+                        try:
+                            srec.request_event(
+                                req.trace, "resume",
+                                {"epoch": self._epoch,
+                                 "wasted_tokens": req._resume_wasted})
+                        except Exception:  # pragma: no cover
+                            pass
+                obs_tracing.instant("requests_resumed", {
+                    "count": len(resumed), "epoch": self._epoch})
                 self.metrics.queue_depth.set(self.scheduler.depth)
 
     def _restart(self) -> None:
@@ -2315,6 +2489,9 @@ class InferenceEngine:
             self._stalled = False
             self._stall_hard_failed = False
         self.metrics.engine_restarts.inc()
+        obs_tracing.instant("engine_restart", {
+            "epoch": self._epoch,
+            "restarts": self.metrics.engine_restarts.value})
         self._set_health(DRAINING if self._draining else DEGRADED)
 
     # -- watchdog ----------------------------------------------------------
@@ -2376,6 +2553,10 @@ class InferenceEngine:
                 return  # the tick finished or recovery already ran
             self._stalled = True
         self.metrics.engine_failures.inc()
+        obs_tracing.instant("watchdog_stall", {
+            "epoch": epoch,
+            "budget_s": self.engine_cfg.tick_timeout,
+            "tick_age_s": round(time.monotonic() - started, 3)})
         self._set_health(FAILED)
         if self.engine_cfg.resume:
             return  # held for resume; hard fail at budget + grace
@@ -2391,6 +2572,8 @@ class InferenceEngine:
                     or self._tick_started != started):
                 return
             self._stall_hard_failed = True
+        obs_tracing.instant("stall_hard_fail", {
+            "epoch": epoch, "grace_s": self._stall_grace_s()})
         self._resolve_frozen(self._stall_exc(True))
 
     # -- background loop ---------------------------------------------------
@@ -2555,8 +2738,42 @@ class InferenceEngine:
 
     # -- observability -----------------------------------------------------
 
+    def _update_achieved_flops(self) -> None:
+        """Refresh ``serving_achieved_flops_per_sec`` from the token rate
+        between samples (stats() calls and /metrics scrapes), over a
+        window capped at ~60 s so it tracks the current load."""
+        fpt = self.engine_cfg.model_flops_per_token
+        if not fpt:
+            return
+        # Re-asserted on the current metrics object: a caller may swap in
+        # a fresh ServingMetrics after warmup.
+        metrics = self.metrics
+        metrics.model_flops_per_token.set(fpt)
+        now = time.monotonic()
+        with self._rate_lock:
+            if metrics is not self._rate_metrics:
+                # A fresh ServingMetrics restarts the token counter at 0:
+                # a base from the old one would make the rate negative.
+                self._rate_samples.clear()
+                self._rate_metrics = metrics
+            self._rate_samples.append((now, metrics.tokens_generated.value))
+            while (len(self._rate_samples) > 2
+                   and now - self._rate_samples[0][0] > 60.0):
+                self._rate_samples.pop(0)
+            t0, n0 = self._rate_samples[0]
+            n1 = self._rate_samples[-1][1]
+        if now <= t0:
+            return
+        metrics.achieved_flops.set((n1 - n0) / (now - t0) * fpt)
+
+    def refresh_windowed_gauges(self) -> None:
+        """Refresh the rate-windowed gauges (achieved FLOP/s) without
+        building a /stats snapshot: a /metrics scrape's hook."""
+        self._update_achieved_flops()
+
     def stats(self) -> Dict:
         age = self.heartbeat_age
+        self._update_achieved_flops()
         return {
             **self.metrics.snapshot(),
             "state": self._health,

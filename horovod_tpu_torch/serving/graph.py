@@ -38,6 +38,14 @@ prefills, lands its K/V in the pages and takes each row's argmax and
 max logit (the engine's finiteness probe), so an admission is one
 replay and one host sync.
 
+Each capture counts ``xla_compiles_total{fn=}`` in the default registry
+(:func:`~horovod_tpu_torch.obs.tracing.record_compile`) under the JAX
+engine's function names: ``serving_decode`` for the tick and the
+speculative tick, ``serving_prefill`` and ``serving_sample`` for
+admission, ``serving_draft_prefill`` for the draft model's prefills.  It
+runs inside the capture, where it only bumps a counter and enqueues a
+timeline instant: no tensor, no CUDA call.
+
 On the CPU there is no graph: :meth:`DecodeTick.run` and
 :meth:`PrefillGraphs.run` run the same bodies eagerly.  On CUDA a
 capture or replay that fails raises; there is no eager fallback.
@@ -60,6 +68,7 @@ import torch
 
 from horovod_tpu_torch._capture import capture
 from horovod_tpu_torch.models import transformer as T
+from horovod_tpu_torch.obs import tracing as obs_tracing
 from horovod_tpu_torch.ops import attention as attn
 from horovod_tpu_torch.ops import paged_attention as pa
 
@@ -248,6 +257,7 @@ def _capture_tick(tick, inputs) -> None:
     k4, rows = pa.paged_attend_launches, dict(pa.paged_attend_launches_by_rows)
     with capture(graph):
         out = tick.body()
+        obs_tracing.record_compile("serving_decode")
     tick.k4_launches_per_replay = pa.paged_attend_launches - k4
     tick.k4_rows_per_replay = {
         r: n - rows.get(r, 0)
@@ -499,10 +509,12 @@ class PrefillGraphs:
     count it adds there is taken back, and each replay adds that many
     launches, so ``attention.flash_fwd_launches`` still counts launches.
     :attr:`captures` counts captures by kind, :attr:`capture_s` their
-    seconds (warm runs included), :meth:`keys` the keys run so far."""
+    seconds (warm runs included), :meth:`keys` the keys run so far.
+    ``draft``: the graphs of a speculative engine's draft model (their
+    captures count as ``serving_draft_prefill``)."""
 
     def __init__(self, params, cfg: T.TransformerConfig, pool: Dict,
-                 device: torch.device):
+                 device: torch.device, draft: bool = False):
         # Imported here: cache.py imports this module's upload helpers.
         from horovod_tpu_torch.serving import cache
 
@@ -515,6 +527,10 @@ class PrefillGraphs:
         self._used: set = set()
         self._mempool = None
         self.captures = {"full": 0, "suffix": 0, "sample": 0}
+        # xla_compiles_total's fn label a capture counts under, by kind.
+        prefill = "serving_draft_prefill" if draft else "serving_prefill"
+        self._compile_fn = {"full": prefill, "suffix": prefill,
+                            "sample": "serving_sample"}
         self.capture_s = 0.0
         self.replays = 0
 
@@ -590,6 +606,7 @@ class PrefillGraphs:
         k1 = attn.flash_fwd_launches
         with capture(graph, self._mempool):
             out = self.body(g)
+            obs_tracing.record_compile(self._compile_fn[g.key[0]])
         g.k1_launches_per_replay = attn.flash_fwd_launches - k1
         attn.flash_fwd_launches = k1
         g.graph, g.out = graph, out

@@ -6,11 +6,11 @@ library only): the port keeps its own copy because importing anything
 from ``horovod_tpu`` loads JAX.  The file format is the JAX package's
 byte for byte: the JAX package's :meth:`RequestJournal.read_live`
 parses a journal the port's engine wrote exactly as this copy does.
-Tracing is not ported: the port's requests carry only a trace id
-(``Request.trace`` is an ``engine.RequestIds``: the caller's
-``X-Trace-Id`` or a minted one), so their begin records hold
-``"span": null``, and :meth:`read_live` keys them by that trace id as
-it does the JAX engine's.  The references to the JAX package's docs and
+The port's requests carry an ``obs.tracing.RequestTrace``
+(``Request.trace``: the caller's ``X-Trace-Id`` or a minted one, and
+the request's span id), so their begin records hold the span id, and
+:meth:`read_live` keys them by the trace id and returns the span id
+with each, as it does the JAX engine's.  The references to the JAX package's docs and
 modules below describe the original.
 
 The paper's fault story (elastic re-rendezvous + ``Join``) keeps the

@@ -44,7 +44,14 @@ class ServingMetrics:
       accepted by the verify, and rejected; ``spec_acceptance`` — the
       accepted share per slot per speculative tick.
     * ``streamed_tokens`` / ``disconnects`` — SSE token events written,
-      and streaming clients that hung up (their requests cancelled).
+      and streaming clients that hung up (their requests cancelled);
+      ``streamed_ttfb`` — request arrival to the first streamed token
+      event on the wire.
+    * ``model_flops_per_token`` / ``achieved_flops`` — the configured
+      model FLOPs a generated token
+      (``EngineConfig.model_flops_per_token``) and the achieved model
+      FLOP/s over the recent token-rate window (both 0, and ``None`` in
+      the snapshot, until configured).
     """
 
     def __init__(self, registry: Optional[MetricsRegistry] = None) -> None:
@@ -157,6 +164,19 @@ class ServingMetrics:
             "serving_disconnects_total",
             "Streaming clients that vanished mid-stream (request "
             "cancelled, slot/pages reclaimed within one tick)")
+        self.streamed_ttfb = r.histogram(
+            "serving_streamed_ttfb_seconds",
+            "Request arrival to first streamed token event on the "
+            "wire (the honest user-facing TTFT for stream=true)")
+        self.model_flops_per_token = r.gauge(
+            "serving_model_flops_per_token",
+            "Configured model FLOPs per generated token "
+            "(EngineConfig.model_flops_per_token; 0 = not configured)")
+        self.achieved_flops = r.gauge(
+            "serving_achieved_flops_per_sec",
+            "Achieved model FLOP/s over the recent token-rate window "
+            "(tokens/sec x model_flops_per_token; 0 until configured "
+            "and two samples apart)")
 
     def observe_ttft(self, priority: str, v: float) -> None:
         self.ttft.labels(**{"class": priority}).observe(v)
@@ -220,4 +240,8 @@ class ServingMetrics:
                       4) if self.spec_drafted.value else None,
             "streamed_tokens": self.streamed_tokens.value,
             "disconnects": self.disconnects.value,
+            "streamed_ttfb_seconds": self.streamed_ttfb.snapshot(),
+            "model_flops_per_token":
+                self.model_flops_per_token.value or None,
+            "achieved_flops_per_sec": self.achieved_flops.value or None,
         }

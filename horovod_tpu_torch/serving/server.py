@@ -9,8 +9,11 @@ bounded queue.
   "eos_id": E?, "timeout_ms": T?, "speculative": bool?, "temperature":
   f?, "top_k": K?, "top_p": p?, "seed": s?, "priority": c?, "stream":
   bool?}``; replies ``{"tokens": [...], "finish_reason": ...,
-  "ttft_ms": ...}``.  ``"speculative": false`` is the per-request
-  opt-out on a speculative engine: one token a tick, the same tokens.
+  "ttft_ms": ..., "breakdown": {...}, "trace_id": ...}`` (the
+  breakdown: queue wait, prefill, decode, host-sync lag, total, the
+  request's span id and typed events).  ``"speculative": false`` is
+  the per-request opt-out on a speculative engine: one token a tick,
+  the same tokens.
   ``temperature`` / ``top_k`` / ``top_p`` / ``seed`` select sampling
   (temperature 0, the default, is greedy); a fixed seed reproduces the
   tokens.  ``priority`` is the request's class (``"interactive"``, the
@@ -20,8 +23,9 @@ bounded queue.
   or an unknown class) -> 400.  A 503 ``engine_failed`` for a request
   that was in flight carries the resume descriptor (``"resume":
   {"emitted_tokens", "deadline_remaining_ms", "span_id"}``): the tokens
-  already emitted and what is left of the deadline, what a front tier
-  needs to continue the request elsewhere.  Without ``timeout_ms`` the
+  already emitted, what is left of the deadline and the failed
+  attempt's span id, what a front tier needs to continue the request
+  elsewhere and link it back.  Without ``timeout_ms`` the
   engine deadline defaults to the server's ``request_timeout``, so a
   vanished client never pins a slot.
 
@@ -33,31 +37,40 @@ bounded queue.
   mid-stream cancels its request: the engine frees its slot and pages on
   the next tick (``serving_disconnects_total``).  Submit-time rejections
   are ordinary JSON error replies.
-  A valid ``X-Trace-Id`` request header (1-64 characters of
-  ``[A-Za-z0-9._-]``) names the request, else the server mints an id;
-  every ``/generate`` reply carries it in the same header, and the
-  engine journals the request under it (what a front tier reads back
-  from a dead replica's journal file with ``RequestJournal.read_live``).
+  Ingress follows :func:`~horovod_tpu_torch.obs.tracing.
+  propagation_from_headers`: a valid ``X-Trace-Id`` request header (1-64
+  characters of ``[A-Za-z0-9._-]``) names the request, else the server
+  mints an id; ``X-Parent-Span`` (the caller's span) and
+  ``X-Trace-Sampled: 1`` (keep full span detail) are honored only
+  beside a valid trace id.  Every ``/generate`` reply carries the id in
+  the same header and in its body, and the engine journals the request
+  under it (what a front tier reads back from a dead replica's journal
+  file with ``RequestJournal.read_live``).
 * ``GET /healthz`` — 200 while ``healthy`` or ``degraded`` (restarted,
   serving), 503 when ``draining`` or ``failed``.
 * ``GET /stats`` — the engine's :meth:`~InferenceEngine.stats` (on a
   speculative engine with ``spec_k``, ``spec_draft``, ``spec_slots_live``
   and the ``spec_*_tokens`` / ``tokens_per_tick`` counters).
+* ``GET /metrics`` — Prometheus text (0.0.4) of the engine's registry
+  and the process-wide default registry (training, timeline, trace and
+  ``xla_compiles_total`` families); the achieved-FLOP/s gauge refreshes
+  on every scrape.
 """
 
 from __future__ import annotations
 
 import json
 import queue
-import re
 import select
 import socket
 import threading
 import time
-import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from horovod_tpu_torch.obs import tracing as obs_tracing
+from horovod_tpu_torch.obs.registry import default_registry
+from horovod_tpu_torch.obs.tracing import TRACE_ID_HEADER
 from horovod_tpu_torch.serving import sse
 from horovod_tpu_torch.serving.engine import (
     DEGRADED,
@@ -75,10 +88,6 @@ from horovod_tpu_torch.serving.scheduler import (
 )
 
 __all__ = ["ServingServer", "TRACE_ID_HEADER"]
-
-#: The request and reply header of the trace id.
-TRACE_ID_HEADER = "X-Trace-Id"
-_TRACE_ID = re.compile(r"^[A-Za-z0-9._\-]{1,64}$")
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -113,10 +122,26 @@ class _Handler(BaseHTTPRequestHandler):
             }, headers=None if code == 200 else {"Retry-After": "1"})
         elif self.path == "/stats":
             self._json(200, engine.stats())
+        elif self.path == "/metrics":
+            # One scrape covers the engine's serving_* registry and the
+            # process-wide one; the windowed gauges refresh per scrape.
+            engine.refresh_windowed_gauges()
+            body = (engine.metrics.registry.to_prometheus()
+                    + default_registry().to_prometheus()).encode()
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
         else:
             self._json(404, {"error": f"unknown path {self.path}"})
 
     def do_POST(self):
+        # The one ingress trust rule: X-Parent-Span and X-Trace-Sampled
+        # count only beside a valid X-Trace-Id.
+        trace_id, parent_span, sampled = \
+            obs_tracing.propagation_from_headers(self.headers)
         # Read the body even on error paths: with keep-alive, unread
         # bytes would be parsed as the next request line.
         try:
@@ -137,13 +162,13 @@ class _Handler(BaseHTTPRequestHandler):
         if not isinstance(req, dict) or not req.get("tokens"):
             self._json(400, {"error": "need non-empty 'tokens'"})
             return
-        hdr = self.headers.get(TRACE_ID_HEADER)
-        trace_id = hdr if isinstance(hdr, str) and _TRACE_ID.match(hdr) \
-            else uuid.uuid4().hex[:16]
 
         def fail(code: int, e: BaseException, etype: str,
                  resume: Optional[dict] = None, **headers):
-            payload = {"error": str(e), "type": etype}
+            payload = {"error": str(e), "type": etype, "trace_id": trace_id}
+            b = fut.breakdown() if fut is not None else None
+            if b is not None:
+                payload["breakdown"] = b
             if resume is not None:
                 payload["resume"] = resume
             self._json(code, payload,
@@ -172,7 +197,8 @@ class _Handler(BaseHTTPRequestHandler):
                 seed=req.get("seed"),
                 priority=req.get("priority", "interactive"),
                 on_token=tok_q.put if stream else None,
-                trace_id=trace_id)
+                trace_id=trace_id, parent_span=parent_span,
+                sampled=sampled)
             if stream:
                 # The request is live: from here the reply is the SSE
                 # stream, errors included.
@@ -255,6 +281,8 @@ class _Handler(BaseHTTPRequestHandler):
         def send_tok(tok) -> None:
             nonlocal n_sent
             emit("token", {"i": n_sent, "token": int(tok)})
+            if n_sent == 0:
+                metrics.streamed_ttfb.observe(time.monotonic() - t_recv)
             n_sent += 1
             metrics.streamed_tokens.inc()
 
@@ -270,7 +298,8 @@ class _Handler(BaseHTTPRequestHandler):
                         emit("error", {
                             "type": "timeout",
                             "error": "generation still in progress at "
-                                     "the server timeout"})
+                                     "the server timeout",
+                            "trace_id": fut.trace_id})
                         self.wfile.write(b"0\r\n\r\n")
                         return
                     if self._client_gone():
@@ -288,14 +317,17 @@ class _Handler(BaseHTTPRequestHandler):
                 out = fut.result(timeout=0)
             except EngineFailedError as e:
                 emit("error", {"type": "engine_failed", "error": str(e),
+                               "trace_id": fut.trace_id,
                                "resume": _resume_descriptor(fut, deadline)})
             except DeadlineExceededError as e:
                 emit("error", {"type": "deadline_exceeded",
-                               "error": str(e)})
+                               "error": str(e), "trace_id": fut.trace_id})
             except CacheOutOfPagesError as e:
-                emit("error", {"type": "out_of_pages", "error": str(e)})
+                emit("error", {"type": "out_of_pages", "error": str(e),
+                               "trace_id": fut.trace_id})
             except ServingError as e:
-                emit("error", {"type": "error", "error": str(e)})
+                emit("error", {"type": "error", "error": str(e),
+                               "trace_id": fut.trace_id})
             else:
                 emit("done", _done_payload(fut, out))
             self.wfile.write(b"0\r\n\r\n")
@@ -309,19 +341,21 @@ class _Handler(BaseHTTPRequestHandler):
 def _resume_descriptor(fut, deadline: float) -> dict:
     """The resume descriptor of a request the engine failed in flight:
     the tokens it already emitted (append them to the prompt and decode
-    continues with the same tokens) and the deadline budget left (a
-    failover inherits it, never a fresh one).  ``span_id`` is None: the
-    port does not trace."""
+    continues with the same tokens), the deadline budget left (a
+    failover inherits it, never a fresh one) and the failed attempt's
+    span id (a resumed re-dispatch links back to it in the trace
+    tree)."""
     return {"emitted_tokens": fut.tokens_so_far(),
             "deadline_remaining_ms": max(0.0, round(
                 (deadline - time.monotonic()) * 1e3, 3)),
-            "span_id": None}
+            "span_id": fut.trace.span_id if fut.trace is not None else None}
 
 
 def _done_payload(fut, tokens) -> dict:
     """The body of a successful reply (and of the ``done`` event)."""
     return {"tokens": tokens, "finish_reason": fut.finish_reason,
-            "ttft_ms": round(fut.ttft * 1e3, 3) if fut.ttft else None}
+            "ttft_ms": round(fut.ttft * 1e3, 3) if fut.ttft else None,
+            "breakdown": fut.breakdown(), "trace_id": fut.trace_id}
 
 
 class ServingServer:

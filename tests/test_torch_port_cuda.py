@@ -1093,3 +1093,118 @@ def test_capture_holds_off_the_garbage_collector(dev):
     graph.replay()
     torch.cuda.synchronize(dev)
     assert torch.equal(x.cpu(), torch.full((4,), 3.0))
+
+
+# -- tracing around the captured paths ---------------------------------------
+
+
+@pytest.fixture()
+def traced(tmp_path):
+    """A request tracer (timeline + JSONL) and a span recorder, active
+    for the test and stopped after it."""
+    from horovod_tpu_torch.obs import tracing as TR
+
+    TR.start(str(tmp_path / "trace.json"),
+             jsonl_path=str(tmp_path / "events.jsonl"))
+    TR.start_spans(str(tmp_path / "spans" / "engine.jsonl"))
+    yield tmp_path
+    TR.stop_spans()
+    TR.stop()
+
+
+def test_graphs_captured_under_a_tracer_equal_eager(dev, traced):
+    """With a tracer and a span recorder active, each capture (the tick,
+    every admission graph kind) puts its instant on the timeline's queue
+    from inside the capture and nothing else: the graphs still equal
+    their eager bodies bit for bit, and each capture left one
+    ``xla_compile`` instant."""
+    import json
+
+    from horovod_tpu_torch.obs import tracing as TR
+    from horovod_tpu_torch.obs.registry import training_metrics
+
+    names = ("serving_decode", "serving_prefill", "serving_sample")
+    fam = training_metrics().compiles
+    before = {n: fam.labels(fn=n).value for n in names}
+    test_captured_tick_bit_identical_to_eager(dev)
+    test_admission_graphs_bit_identical_to_eager(dev)
+    TR.stop()  # closes the timeline file
+    events = json.loads((traced / "trace.json").read_text())
+    fns = [e["args"]["fn"] for e in events if e["name"] == "xla_compile"]
+    got = {n: fam.labels(fn=n).value - before[n] for n in names}
+    assert {n: fns.count(n) for n in names} == got
+    # One tick; the admission graphs of both tests (warmed and at first
+    # use), at least one of each kind.
+    assert got["serving_decode"] == 1
+    assert got["serving_prefill"] >= 3 and got["serving_sample"] >= 1
+
+
+@pytest.mark.parametrize("draft", ["plain", "half"])
+def test_record_compile_counts_equal_the_captures(dev, draft):
+    """``xla_compiles_total{fn=}`` grows by the engine's captures, under
+    the JAX engine's function names: ``serving_decode`` (the tick, and
+    the speculative tick), ``serving_prefill`` (whole-prompt and suffix
+    prefills), ``serving_sample`` and, for a model draft,
+    ``serving_draft_prefill``."""
+    from horovod_tpu_torch.obs.registry import training_metrics
+
+    fam = training_metrics().compiles
+    names = ("serving_decode", "serving_prefill", "serving_sample",
+             "serving_draft_prefill")
+    before = {n: fam.labels(fn=n).value for n in names}
+    if draft == "plain":
+        engine, cfg = _serving_engine(dev)
+    else:
+        engine, cfg, _ = _spec_engine(dev, draft)
+    engine.warmup((8, 40))
+    futs = _mixed_requests(engine, 8)
+    while not all(f.done() for f in futs):
+        engine.step()
+    got = {n: fam.labels(fn=n).value - before[n] for n in names}
+    g = engine._graphs.captures
+    dg = engine._draft_graphs.captures if engine._draft_graphs else \
+        {"full": 0, "suffix": 0}
+    want = {"serving_decode": engine.stats()["decode_compilations"],
+            "serving_prefill": g["full"] + g["suffix"],
+            "serving_sample": g["sample"],
+            "serving_draft_prefill": dg["full"] + dg["suffix"]}
+    assert got == want
+    assert want["serving_decode"] == (1 if draft == "plain" else 2)
+    assert (want["serving_draft_prefill"] > 0) == (draft == "half")
+    engine.terminate()
+
+
+def test_profile_records_k4_in_a_captured_tick(dev, tmp_path):
+    """``Timeline.profile`` around replays of the captured tick: the
+    exported Chrome trace names K4's split and combine kernels (kernels
+    replayed from a CUDA graph included), and ``obs.merge`` merges it
+    with the host timeline into one file holding both."""
+    import json
+
+    from horovod_tpu_torch import timeline as TL
+    from horovod_tpu_torch.obs import merge as M
+
+    engine, cfg = _serving_engine(dev)
+    engine.warmup((8,))
+    futs = _mixed_requests(engine, 40)
+    while engine.scheduler.depth or engine._taken:
+        engine.step()
+    host = tmp_path / "host.rank0.json"
+    tl = TL.Timeline(str(host))
+    replays = engine._tick.replays
+    with tl.profile(str(tmp_path / "prof"), device=dev):
+        for _ in range(5):
+            engine.step()
+    tl.instant("profiled")
+    tl.close()
+    assert engine._tick.replays - replays == 5
+    trace = json.loads(open(tl.profile_path).read())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    for k in ("paged_attend_split_kernel", "paged_attend_combine_kernel"):
+        assert any(k in n for n in names), k
+    out = tmp_path / "merged.json"
+    assert M.main([str(out), str(host), tl.profile_path]) == 0
+    merged = json.loads(out.read_text())
+    assert {e["pid"] // M.PID_STRIDE for e in merged} == {1, 2}
+    while not all(f.done() for f in futs):
+        engine.step()

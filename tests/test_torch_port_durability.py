@@ -175,8 +175,9 @@ class TestJournal:
         gives what the port's gives — each live request under its trace
         id (the caller's, else the one the engine minted, which its
         future carries), with its emitted tokens (equal to its
-        future's), prompt, budget, sampling and class — and nothing once
-        every request has resolved."""
+        future's), prompt, budget, sampling, class and span id (the
+        request's own, its future's ``trace.span_id``) — and nothing
+        once every request has resolved."""
         path = str(tmp_path / "journal.jsonl")
         engine = make_engine(model, "port", **BASE, journal_path=path)
         inj = engine.engine_cfg.faults
@@ -204,7 +205,7 @@ class TestJournal:
             assert port[key]["prompt"] == prompt
             assert port[key]["emitted_tokens"] == fut.tokens_so_far()
             assert port[key]["max_new_tokens"] == 10
-            assert port[key]["span_id"] is None
+            assert port[key]["span_id"] == fut.trace.span_id
         assert (port[first]["priority"], port[first]["temperature"]) == \
             ("interactive", 0.0)
         assert (port[second]["priority"], port[second]["temperature"],
@@ -285,7 +286,8 @@ class TestHttp:
     def test_engine_failed_reply_carries_the_resume_descriptor(self, model):
         """A request in flight when the engine fails for good: 503
         ``engine_failed`` with the tokens already emitted (the oracle's
-        first ones) and the deadline budget left; ``/healthz`` then
+        first ones), the deadline budget left and the failed attempt's
+        span id (the one its breakdown names); ``/healthz`` then
         answers 503 ``failed``."""
         engine = _failing_engine(model)
         with TS.ServingServer(engine, port=0, request_timeout=30.0) as srv:
@@ -299,7 +301,8 @@ class TestHttp:
             assert n >= 1
             assert res["emitted_tokens"] == oracle(model, [1, 2], 30)[:n]
             assert 0 < res["deadline_remaining_ms"] <= 25000
-            assert res["span_id"] is None
+            assert res["span_id"] == out["breakdown"]["span_id"]
+            assert len(res["span_id"]) == 16
             code, body = _get(base + "/healthz")
             assert (code, body["status"]) == (503, "failed")
             code, out = http_post_json(base + "/generate", {"tokens": [1]})

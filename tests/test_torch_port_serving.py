@@ -484,7 +484,14 @@ def test_import_hygiene():
                 "horovod_tpu_torch.serving.journal",
                 "horovod_tpu_torch.state", "horovod_tpu_torch.join",
                 "horovod_tpu_torch.ops.adasum",
-                "horovod_tpu_torch.ops.sparse"}
+                "horovod_tpu_torch.ops.sparse",
+                "horovod_tpu_torch.timeline",
+                "horovod_tpu_torch.obs.tracing",
+                "horovod_tpu_torch.obs.trace_store",
+                "horovod_tpu_torch.obs.trace",
+                "horovod_tpu_torch.obs.merge",
+                "horovod_tpu_torch.obs.aggregate",
+                "horovod_tpu_torch.obs.fleet"}
         print(len(names), bad, sorted(need - set(names)))
         sys.exit(1 if bad or need - set(names) or len(names) < 16 else 0)
     """)
