@@ -116,6 +116,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``train_step`` span a step, ``training_steps_total`` up by as many.
    Printed with the card: each leg's tok/s, median decode step, host
    syncs a tick, span lines and JSONL bytes a request.
+   Then the serving fleet (``fleet_full_width``): the serving
+   configuration's weights (``init_params`` seed 0) written by
+   ``replica_main.dump_model``, ``FLEET_REPLICAS`` replica processes on
+   the one card (each its own CUDA context, warmed over
+   ``FLEET_WARM_LENS``, the buckets the prompts and their resumes reach)
+   under ``ReplicaSupervisor`` (journals, span streams, logs) behind
+   ``RouterServer`` with ``resume_lookup``; the replicas' seconds from
+   spawn to routable, their ``warmup_reserved_bytes`` beside
+   ``nvidia-smi``'s memory used.  Three legs, in bf16: the eight serving
+   prompts concurrently (every reply 200 with its full count, both
+   replicas answering; in each replica K1's and K4's counters grow, one
+   tick capture, no admission capture after warmup; router tok/s and
+   TTFT beside the serving phase's single-engine burst); the same burst
+   with one replica SIGKILLed once every request has tokens (full
+   counts, a ``resumed`` reply, ``router_resume_failovers_total`` >= 1,
+   the slot respawned and back in rotation, ``GET /trace/<id>`` of a
+   resumed request one tree with the killed attempt's unfinished span
+   and the journal's resume edge; kill to last reply, kill to rejoin and
+   the re-prefilled tokens printed); ``POST /rollout`` of
+   ``FLEET_CANDIDATE`` under back-to-back bursts (the rollout ``done``,
+   every replica at ``config_generation`` 1, no request dropped; its
+   duration and steps printed).  A failed gate prints every replica
+   log's tail.
 5. Token identity: the same configuration in f32 (TF32 off for matmuls
    and cuDNN) against the per-request oracles, ``greedy_decode`` for the
    greedy requests and ``sample_decode`` at the request's seed for the
@@ -144,6 +167,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    0.9 with more than one token a tick, and one decode fault mid-burst
    must leave the tokens equal to the oracles (one restart, two
    captures, an empty journal).
+   The f32 fleet (``fleet_identity_f32``, TF32 off in the replicas,
+   PyTorch's default): two replicas serve the same prompts, half
+   sampled, one SIGKILLed once every request has tokens; every reply,
+   resumed ones included, equals the oracles by the same near-tie rule.
+   Then an f32 engine in this process with ``autotune=True`` and
+   ``FLEET_TUNER_WINDOW``-tick scoring windows serves bursts of them
+   until its tuner has applied ``FLEET_TUNER_APPLIES`` settings: the
+   tokens equal the oracles, and no graph is captured after warmup.
 6. Speculative decoding at full width in bf16 (``spec_legs``): for each
    draft source a speculative engine against the plain one on the same
    8 prompts, interleaved repetitions, tok/s over full-occupancy steps
@@ -216,7 +247,9 @@ A ``report:`` line carries every measurement as JSON; the line before
 last is a JSON object of the kernels (each one's launches summed over
 the main paths' runs that launch it: the HTTP burst, the prefix run,
 the two SLO legs, the speculative legs, the tracing phase's four
-bursts, the four training legs and the traced training steps;
+bursts, the fleet's clean burst in both replicas and its SIGKILL burst
+in the survivor (read from each replica's ``/stats``), the four
+training legs and the traced training steps;
 K4's verify calls at R = 20 in an entry of their own); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository beside it, the script exits non-zero and prints no
@@ -1277,6 +1310,11 @@ def _durability_checks(label: str, engine, launches: dict, restarts: int,
     return st
 
 
+#: token_identity's prompts, oracles, f32 parameters and config, kept
+#: for the f32 fleet leg and dropped after it.
+F32_ORACLE: dict = {}
+
+
 def token_identity() -> dict:
     """f32 engine tokens of a half-sampled burst against the per-request
     oracles: ``greedy_decode`` for greedy requests, ``sample_decode`` at
@@ -1341,6 +1379,9 @@ def token_identity() -> dict:
         f"{len(fault_exempt)} near-tie exemptions; restarts "
         f"{st['engine_restarts']}, journal_inflight 0, healthy, "
         f"decode_compilations 1; launches {launches}")
+    # The f32 fleet leg (beside this phase) serves the same prompts
+    # against the same oracles.
+    F32_ORACLE.update(prompts=prompts, refs=refs, params=params, cfg=cfg)
     with phase("prefix_f32"):
         prefix = prefix_identity_f32(engine, params, cfg)
     del engine
@@ -2825,6 +2866,531 @@ def tracing_full_width(card: str, tmp: Path) -> dict:
     return out
 
 
+# --- the serving fleet: replica processes behind the router ------------------
+
+# The fleet phase: FLEET_REPLICAS replica processes of the serving
+# configuration on the one card, each with its own CUDA context (no NCCL
+# between them), warmed over the buckets the serving prompts and their
+# resumes reach (prompt + emitted: the 2048-token prompt resumes at 2176);
+# the rollout's candidate and the canary's one scoring window, whose TTFT
+# SLO (5 s) only a stalled canary breaks; the f32 tuner leg's windows
+# (worked ticks) and the applies it must reach.
+FLEET_REPLICAS = 2
+FLEET_DEVICE = "cuda"
+FLEET_WARM_LENS = [8, 16, 64, 128, 256, 512, 1024, 2048, 2170]
+FLEET_CANDIDATE = {"max_prefills_per_tick": 1}
+FLEET_WINDOW_S = 2.0
+FLEET_TTFT_SLO_S = 5.0
+FLEET_TUNER_WINDOW = 4
+FLEET_TUNER_APPLIES = 3
+# A victim for the SIGKILL holds a request with at least this many tokens
+# still to come, so that its resume carries a partial decode.
+FLEET_KILL_REMAINING = 16
+
+
+def _post_headers(url, payload, timeout=600):
+    """POST JSON -> (status, body, headers), an HTTP error read like a
+    reply."""
+    import urllib.error
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"},
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), dict(e.headers)
+
+
+def _get_json(url, timeout=60):
+    import urllib.error
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _memory_used() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip()
+
+
+class _Fleet:
+    """``FLEET_REPLICAS`` replicas of one ``dump_model`` pickle under a
+    ``ReplicaSupervisor`` (journals, span streams and logs under
+    ``root``), behind a ``RouterServer`` with ``resume_lookup`` and the
+    span store, and a ``RolloutController`` when ``rollout``."""
+
+    def __init__(self, root: Path, pkl: str, rollout: bool = False):
+        from horovod_tpu_torch.serving.router import (ReplicaRegistry,
+                                                      ReplicaSpec,
+                                                      ReplicaSupervisor,
+                                                      RolloutController,
+                                                      RouterServer)
+        from horovod_tpu_torch.tuning import Objective
+
+        self.root = root
+        spec = ReplicaSpec(
+            params_path=pkl, slots=ENGINE["n_slots"],
+            max_prefills_per_tick=ENGINE["max_prefills_per_tick"],
+            max_queue_depth=ENGINE["max_queue_depth"], tick_timeout=120.0,
+            request_timeout=600.0, drain_timeout=60.0,
+            warm=tuple(FLEET_WARM_LENS), device=FLEET_DEVICE,
+            # Latency alone keeps no tick detail: only the resume path.
+            extra_args=("--span-latency-threshold", "600"))
+        self.reg = ReplicaRegistry(poll_interval=0.1, poll_timeout=5.0,
+                                   heartbeat_stale=60.0)
+        self.sup = ReplicaSupervisor(
+            spec, FLEET_REPLICAS, registry=self.reg, startup_timeout=600.0,
+            unhealthy_grace=30.0, shutdown_grace=60.0, backoff_initial=0.1,
+            journal_dir=str(root / "journal"), span_dir=str(root / "spans"),
+            log_dir=str(root / "logs"))
+        self.ctl = None
+        if rollout:
+            self.ctl = RolloutController(
+                self.sup, window_s=FLEET_WINDOW_S, canary_windows=1,
+                ready_timeout=600.0, drain_margin=30.0,
+                objective=Objective(
+                    ttft_slo={"interactive": FLEET_TTFT_SLO_S}))
+        self.rt = RouterServer(self.reg, port=0, max_attempts=4,
+                               retry_backoff=0.05, proxy_timeout=600.0,
+                               resume_lookup=self.sup.resume_lookup,
+                               span_dir=str(root / "spans"),
+                               rollout=self.ctl)
+        self.ready_s: dict = {}
+
+    def start(self) -> "_Fleet":
+        self.sup.start()
+        self.rt.start()
+        self.base = "http://%s:%d" % self.rt.address
+        self.wait_ready()
+        return self
+
+    def wait_ready(self, timeout: float = 600.0) -> dict:
+        """Block until every live replica is in rotation; each one's
+        seconds from spawn to routable (its imports, the pickle, the
+        warmup's captures) are kept by replica id."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            handles = self.sup.replicas()
+            for h in handles:
+                if h.rid not in self.ready_s and self.reg.is_routable(h.rid):
+                    self.ready_s[h.rid] = time.monotonic() - h.spawned_at
+            if len(handles) == FLEET_REPLICAS and all(
+                    h.rid in self.ready_s for h in handles):
+                return self.ready_s
+            time.sleep(0.05)
+        raise AssertionError(f"fleet replicas never ready\n{self.tails()}")
+
+    def stats(self) -> dict:
+        """Every routable replica's /stats, by replica id."""
+        out = {}
+        for st in self.reg.in_rotation():
+            code, body = _get_json(st.endpoint.base_url + "/stats")
+            if code == 200:
+                out[st.endpoint.rid] = body
+        return out
+
+    def tails(self, n: int = 3000) -> str:
+        logs = sorted((self.root / "logs").glob("*.log"))
+        return "\n".join(f"--- {p.name} (last {n} bytes)\n"
+                         + p.read_text(errors="replace")[-n:] for p in logs)
+
+    def check(self, ok: bool, msg: str) -> None:
+        """A failed gate raises with every replica log's tail."""
+        if not ok:
+            raise AssertionError(f"{msg}\n{self.tails()}")
+
+    def stop(self) -> None:
+        self.rt.stop()
+        self.sup.stop(drain=False)
+
+
+def _fleet_burst(fleet: _Fleet, prompts, new_tokens, sampling,
+                 during=None) -> dict:
+    """The prompts concurrently through the router, ``during(done)``
+    called from this thread once they are sent (``done`` the indices
+    answered so far).  Every request must return 200 with its full
+    count."""
+    url = fleet.base + "/generate"
+    results: list = [None] * len(prompts)
+    t0 = time.monotonic()
+
+    def client(i):
+        res = _post_headers(url, {"tokens": prompts[i],
+                                  "max_new_tokens": new_tokens[i],
+                                  **sampling[i]})
+        results[i] = (*res, time.monotonic())
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    extra = during(lambda: [i for i, r in enumerate(results) if r]) \
+        if during else None
+    for t in threads:
+        t.join(900)
+    wall = time.monotonic() - t0
+    for i, r in enumerate(results):
+        fleet.check(r is not None and r[0] == 200
+                    and len(r[1].get("tokens", ())) == new_tokens[i],
+                    f"fleet request {i}: {r and r[:2]}")
+    ttft = sorted(r[1]["ttft_ms"] for r in results)
+    served = {}
+    for r in results:
+        rid = r[2].get("X-Router-Replica")
+        served[rid] = served.get(rid, 0) + 1
+    return {"wall_s": wall, "tokens": sum(new_tokens),
+            "tok_per_s": sum(new_tokens) / wall,
+            "ttft_ms_p50": statistics.median(ttft), "ttft_ms_max": ttft[-1],
+            "served_by": served, "results": results, "during": extra}
+
+
+def _fleet_deltas(fleet: _Fleet, before: dict, after: dict) -> dict:
+    """Per replica alive at both reads: K1's and K4's launches in its
+    process between them; the leg's gates: both grew, one tick capture,
+    no admission or sampler capture."""
+    out = {}
+    for rid in sorted(set(before) & set(after)):
+        b, a = before[rid], after[rid]
+        d = {k: a[k] - b[k] for k in ("flash_fwd_launches",
+                                      "paged_attend_launches")}
+        fleet.check(all(v > 0 for v in d.values()),
+                    f"replica {rid} missed a kernel: {d}")
+        fleet.check(a["decode_compilations"] == 1,
+                    f"replica {rid}: {a['decode_compilations']} tick "
+                    "captures")
+        for k in ("prefill_compilations", "sample_compilations"):
+            fleet.check(a[k] == b[k], f"replica {rid} captured after "
+                        f"warmup: {k} {b[k]} -> {a[k]}")
+        out[rid] = d
+    return out
+
+
+def _kill_mid_burst(fleet: _Fleet, n: int):
+    """The ``during`` hook of the SIGKILL leg: once every request has
+    tokens (a live journal entry with one, or a reply), SIGKILL the
+    replica holding the most requests with ``FLEET_KILL_REMAINING``
+    tokens still to come.  Returns (victim handle, kill time)."""
+    import os
+    import signal
+
+    from horovod_tpu_torch.serving import RequestJournal
+
+    def hook(done):
+        seen = set()
+        deadline = time.monotonic() + 120.0
+        while time.monotonic() < deadline:
+            busy = []
+            for h in fleet.sup.replicas():
+                try:
+                    live = RequestJournal.read_live(
+                        fleet.sup._journal_paths[h.rid])
+                except Exception:
+                    continue
+                n_mid = 0
+                for tid, d in live.items():
+                    got = len(d["emitted_tokens"])
+                    if got:
+                        seen.add(tid)
+                    if got and d["max_new_tokens"] - got >= \
+                            FLEET_KILL_REMAINING:
+                        n_mid += 1
+                busy.append((n_mid, h))
+            if len(seen) + len(done()) >= n and any(b for b, _ in busy):
+                _, victim = max(busy, key=lambda x: x[0])
+                t_kill = time.monotonic()
+                os.kill(victim.pid, signal.SIGKILL)
+                return victim, t_kill
+            time.sleep(0.002)
+        raise AssertionError(f"no replica held a request mid-decode\n"
+                             f"{fleet.tails()}")
+
+    return hook
+
+
+def _autopsy(fleet: _Fleet, tid: str) -> dict:
+    """``GET /trace/<tid>`` of a resumed request: one tree holding the
+    killed attempt's unfinished ``generate`` span and the survivor's,
+    the resume edge from the journal linked to the dead span."""
+    def walk(node):
+        yield node
+        for c in node["children"]:
+            yield from walk(c)
+
+    code, a = _get_json(f"{fleet.base}/trace/{tid}")
+    fleet.check(code == 200, f"/trace/{tid}: {code} {a}")
+    spans = [s for root in a["tree"] for s in walk(root)]
+    gen = [s for s in spans if s["name"] == "generate"]
+    dead = [s for s in gen if s["unfinished"]]
+    resume = [e for e in a["events"] if e["type"] == "resume"
+              and e["attrs"].get("source") == "journal"]
+    fleet.check(a["resumed"] is True and a["failovers"] >= 1
+                and a["carried_tokens"] >= 1 and len(a["tree"]) == 1
+                and len(gen) >= 2 and dead and resume
+                and resume[0]["attrs"]["resumed_from_span"]
+                in {s["span_id"] for s in dead},
+                f"the autopsy of {tid}: {json.dumps(a)[:3000]}")
+    return {"processes": a["processes"], "failovers": a["failovers"],
+            "carried_tokens": a["carried_tokens"],
+            "generate_spans": len(gen), "unfinished": len(dead)}
+
+
+def fleet_full_width(card: str, tmp: Path, single: dict) -> dict:
+    """The bf16 fleet's three legs: clean, SIGKILL, rollout under load
+    (see the module docstring).  ``single``: the serving phase's burst,
+    printed beside the router's."""
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.obs import tracing as TR
+    from horovod_tpu_torch.serving.router.replica_main import dump_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = T.TransformerConfig(**FULL, dtype=torch.bfloat16)
+    pkl = str(tmp / "bf16.pkl")
+    params = T.init_params(cfg, seed=0)
+    dump_model(pkl, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    prompts = _prompts()
+    fleet = _Fleet(tmp / "bf16", pkl, rollout=True)
+    TR.start_spans(str(tmp / "bf16" / "spans" / "router.spans.jsonl"),
+                   proc="router", role="router",
+                   sampling=TR.SpanSampling(latency_threshold_s=600.0))
+    out = {"replicas": FLEET_REPLICAS, "warm_lens": FLEET_WARM_LENS}
+    try:
+        fleet.start()
+        st = fleet.stats()
+        out["ready_s"] = dict(fleet.ready_s)
+        out["warmup_reserved_bytes"] = {
+            rid: s["warmup_reserved_bytes"] for rid, s in st.items()}
+        out["memory_used"] = _memory_used()
+        log(f"fleet on {card}: {FLEET_REPLICAS} replicas ready, seconds "
+            f"from spawn {out['ready_s']}; warmup_reserved_bytes "
+            f"{out['warmup_reserved_bytes']}; nvidia-smi memory.used "
+            f"{out['memory_used']} (the smoke process included)")
+        # Leg 1: the clean burst.
+        before = fleet.stats()
+        clean = _fleet_burst(fleet, prompts, NEW_TOKENS, SAMPLING)
+        after = fleet.stats()
+        fleet.check(len(clean["served_by"]) == FLEET_REPLICAS,
+                    f"one replica served every request: "
+                    f"{clean['served_by']}")
+        clean["launches"] = _fleet_deltas(fleet, before, after)
+        del clean["results"]
+        out["clean"] = clean
+        log(f"fleet clean (bf16) on {card}: {clean['tok_per_s']:.1f} "
+            f"tok/s, TTFT p50 {clean['ttft_ms_p50']:.1f} ms max "
+            f"{clean['ttft_ms_max']:.1f} ms, served by "
+            f"{clean['served_by']}; one engine (the serving phase's "
+            f"burst): {single['tok_per_s']:.1f} tok/s, TTFT p50 "
+            f"{single['ttft_ms_p50']:.1f} ms max "
+            f"{single['ttft_ms_max']:.1f} ms; launches {clean['launches']}")
+        # Leg 2: SIGKILL a replica once every request has tokens.
+        before = fleet.stats()
+        kill = _fleet_burst(fleet, prompts, NEW_TOKENS, SAMPLING,
+                            during=_kill_mid_burst(fleet, len(prompts)))
+        victim, t_kill = kill["during"]
+        last = max(r[3] for r in kill["results"])
+        resumed = [(i, r[1]) for i, r in enumerate(kill["results"])
+                   if r[1].get("resumed")]
+        fleet.check(bool(resumed), "no reply resumed after the SIGKILL")
+        failovers = fleet.reg.metrics.resume_failovers.value
+        fleet.check(failovers >= 1, "router_resume_failovers_total is 0")
+        wasted = sum(len(prompts[i]) + body["resume_carried_tokens"]
+                     for i, body in resumed)
+        deadline = time.monotonic() + 600.0
+        while True:
+            h = fleet.sup.handle(victim.slot)
+            if h is not None and h.gen > victim.gen \
+                    and fleet.reg.is_routable(h.rid):
+                break
+            fleet.check(time.monotonic() < deadline,
+                        f"slot {victim.slot} never rejoined")
+            time.sleep(0.05)
+        rejoin = time.monotonic() - t_kill
+        fleet.wait_ready()
+        autopsy = _autopsy(fleet, resumed[0][1]["trace_id"])
+        after = fleet.stats()
+        kill_out = {
+            "victim": victim.rid, "respawned_as": h.rid,
+            "tok_per_s": kill["tok_per_s"], "wall_s": kill["wall_s"],
+            "kill_to_last_reply_s": last - t_kill,
+            "kill_to_rejoin_s": rejoin, "resumed_replies": len(resumed),
+            "resume_failovers": failovers,
+            "resume_wasted_tokens": wasted,
+            "served_by": kill["served_by"], "autopsy": autopsy,
+            "launches": {rid: {k: after[rid][k] - before[rid][k]
+                               for k in ("flash_fwd_launches",
+                                         "paged_attend_launches")}
+                         for rid in set(before) & set(after)}}
+        out["sigkill"] = kill_out
+        log(f"fleet SIGKILL (bf16) on {card}: killed {victim.rid} once "
+            f"every request had tokens; {len(prompts)} of {len(prompts)} "
+            f"full counts, {len(resumed)} resumed, "
+            f"router_resume_failovers_total {failovers}; kill to last reply "
+            f"{kill_out['kill_to_last_reply_s']:.3f} s, kill to rejoin "
+            f"({h.rid}) {rejoin:.3f} s; resume_wasted_tokens {wasted} "
+            f"(prompt + carried, re-prefilled); /trace: "
+            f"{autopsy['generate_spans']} generate spans, "
+            f"{autopsy['unfinished']} unfinished, processes "
+            f"{autopsy['processes']}")
+        # Leg 3: the rollout under load.
+        out["rollout"] = _rollout_leg(fleet, prompts, card)
+    finally:
+        fleet.stop()
+        TR.stop_spans()
+    return out
+
+
+def _rollout_leg(fleet: _Fleet, prompts, card: str) -> dict:
+    """``POST /rollout`` of ``FLEET_CANDIDATE`` while bursts run back to
+    back: the rollout ends ``done``, every replica reads
+    ``config_generation`` 1, every request of every burst returns its
+    full count."""
+    stop = threading.Event()
+    bursts: list = []
+    errors: list = []
+
+    def load():
+        while not stop.is_set():
+            try:
+                bursts.append(_fleet_burst(fleet, prompts, NEW_TOKENS,
+                                           SAMPLING))
+            except AssertionError as e:
+                errors.append(str(e))
+                return
+
+    t = threading.Thread(target=load)
+    t.start()
+    time.sleep(1.0)
+    t0 = time.monotonic()
+    code, body, _ = _post_headers(fleet.base + "/rollout",
+                                  {"candidate": FLEET_CANDIDATE})
+    fleet.check(code == 202, f"POST /rollout: {code} {body}")
+    fleet.ctl.wait(900.0)
+    duration = time.monotonic() - t0
+    stop.set()
+    t.join(900)
+    fleet.check(not errors, f"a request failed during the rollout: "
+                f"{errors[:1]}")
+    _, status = _get_json(fleet.base + "/rollout")
+    fleet.check(status["state"] == "done", f"rollout ended {status}")
+    fleet.wait_ready()
+    gens = {rid: s["config_generation"] for rid, s in fleet.stats().items()}
+    fleet.check(len(gens) == FLEET_REPLICAS
+                and set(gens.values()) == {1},
+                f"config generations after the rollout: {gens}")
+    n = sum(len(b["results"]) for b in bursts)
+    out = {"candidate": FLEET_CANDIDATE, "duration_s": duration,
+           "state": status["state"], "step_durations_s":
+           status["step_durations_s"], "config_generations": gens,
+           "bursts": len(bursts), "requests": n, "dropped": 0,
+           "canary_score": status["canary_score"],
+           "incumbent_score": status["incumbent_score"]}
+    log(f"fleet rollout (bf16) on {card}: {FLEET_CANDIDATE} "
+        f"{status['state']} in {duration:.3f} s (steps "
+        f"{status['step_durations_s']}); config_generation {gens}; "
+        f"{n} requests in {len(bursts)} bursts during it, none dropped")
+    return out
+
+
+def fleet_identity_f32(card: str, tmp: Path, oracle: dict) -> dict:
+    """Leg 4, beside ``token_identity_f32`` (TF32 off in the replicas,
+    PyTorch's default): a 2-replica f32 fleet serves that phase's prompts,
+    half sampled, with a SIGKILL once every request has tokens; every
+    reply, resumed ones included, equals ``_f32_oracles`` by the same
+    near-tie rule.  Then in this process an f32 engine with
+    ``autotune=True`` and ``FLEET_TUNER_WINDOW``-tick windows serves
+    bursts of the same prompts until its tuner has applied
+    ``FLEET_TUNER_APPLIES`` settings: every burst's tokens equal the
+    oracles, no capture after warmup."""
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.serving import EngineConfig, InferenceEngine
+    from horovod_tpu_torch.serving.router.replica_main import dump_model
+    from horovod_tpu_torch.tuning import tuner as tuner_mod
+
+    prompts, refs, params, cfg = (oracle["prompts"], oracle["refs"],
+                                  oracle["params"], oracle["cfg"])
+    new = [F32_NEW_TOKENS] * len(prompts)
+    pkl = str(tmp / "f32.pkl")
+    dump_model(pkl, params, cfg)
+    fleet = _Fleet(tmp / "f32", pkl)
+    try:
+        fleet.start()
+        kill = _fleet_burst(fleet, prompts, new, SAMPLING,
+                            during=_kill_mid_burst(fleet, len(prompts)))
+        outs = [r[1]["tokens"] for r in kill["results"]]
+        resumed = sum(bool(r[1].get("resumed")) for r in kill["results"])
+        fleet.check(resumed >= 1, "no f32 reply resumed")
+        exempt = _check_f32("f32 fleet", prompts, outs, refs)
+    finally:
+        fleet.stop()
+    fleet_out = {"ready_s": dict(fleet.ready_s), "resumed": resumed,
+                 "exemptions": exempt, "tok_per_s": kill["tok_per_s"],
+                 "victim": kill["during"][0].rid}
+    log(f"fleet f32 on {card}: SIGKILL of {fleet_out['victim']} mid-burst, "
+        f"{resumed} resumed; {len(prompts)} replies equal the oracles "
+        f"({len(exempt)} near-tie exemptions)")
+    # The online tuner in this process, small windows.
+    engine = InferenceEngine(params, cfg, EngineConfig(**ENGINE,
+                                                       autotune=True))
+    engine.warmup(FLEET_WARM_LENS)
+    # Installed by warmup() at the default 32-tick windows; the leg's
+    # bursts are short, so it is reinstalled over the same space.
+    engine._tuner = None
+    tuner = tuner_mod.OnlineTuner.install(
+        engine, window_ticks=FLEET_TUNER_WINDOW, warmup_windows=0,
+        bo_samples=4)
+    applied: list = []
+    orig = tuner_mod.apply_settings
+
+    def counting(eng, settings):
+        applied.append(dict(settings))
+        return orig(eng, settings)
+
+    keys = ("decode_compilations", "prefill_compilations",
+            "sample_compilations")
+    warm = {k: engine.stats()[k] for k in keys}
+    tuner_mod.apply_settings = counting
+    exempt, bursts = [], 0
+    try:
+        while len(applied) < FLEET_TUNER_APPLIES and bursts < 6:
+            futs = [engine.submit(p, max_new_tokens=F32_NEW_TOKENS,
+                                  **SAMPLING[i])
+                    for i, p in enumerate(prompts)]
+            while not all(f.done() for f in futs):
+                engine.step()
+            bursts += 1
+            exempt += _check_f32(f"f32 tuned burst {bursts}", prompts,
+                                 [f.result(timeout=0) for f in futs], refs)
+    finally:
+        tuner_mod.apply_settings = orig
+    now = {k: engine.stats()[k] for k in keys}
+    if len(applied) < FLEET_TUNER_APPLIES:
+        raise AssertionError(f"the tuner applied {applied} in {bursts} "
+                             "bursts")
+    if now != warm or warm["decode_compilations"] != 1:
+        raise AssertionError(f"captures under the tuner: {warm} -> {now}")
+    snap = tuner.snapshot()
+    del engine
+    torch.cuda.empty_cache()
+    out = {"fleet": fleet_out, "tuner": {
+        "bursts": bursts, "applied": applied, "phase": snap["phase"],
+        "samples": snap["samples"], "exemptions": exempt,
+        "captures": now}}
+    log(f"online tuner f32 on {card}: {len(applied)} applies {applied} in "
+        f"{bursts} bursts (phase {snap['phase']}, {snap['samples']} "
+        f"samples); tokens equal the oracles ({len(exempt)} near-tie "
+        f"exemptions); captures {now}, as after warmup")
+    return out
+
+
 # --- the vision phase: ResNet-50 in bench.py's protocol ------------------------
 
 # bench.py's protocol: 10 warm-up batches, 10 iterations of 10 batches.
@@ -3500,9 +4066,19 @@ def main() -> int:
             prefix="chip_smoke_tracing_") as tmp:
         traced = tracing_full_width(card, Path(tmp))
     REPORT["tracing"] = traced
+    with phase("fleet"), tempfile.TemporaryDirectory(
+            prefix="chip_smoke_fleet_") as tmp:
+        fleet = fleet_full_width(card, Path(tmp), serving)
+    REPORT["fleet"] = fleet
     with phase("token_identity_f32"):
         ident = token_identity()
     REPORT["token_identity_f32"] = ident
+    with phase("fleet_f32"), tempfile.TemporaryDirectory(
+            prefix="chip_smoke_fleet_f32_") as tmp:
+        REPORT["fleet_f32"] = fleet_identity_f32(card, Path(tmp), F32_ORACLE)
+    F32_ORACLE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     f32d, bf16d = ident["durability"], serving["durability"]
     log(f"durability on {card}: recovery s from the fault to the first "
         f"clean tick: f32 {[round(s, 4) for s in f32d['recovery_s']]}, "
@@ -3554,13 +4130,18 @@ def main() -> int:
               *spec["legs"].values(), *traced["legs"]]
     trained = {k: train["launches"][k] + traced["train"]["launches"][k]
                for k in train["launches"]}
+    # The fleet's bursts, per replica process (its /stats counters): the
+    # clean leg's two replicas and the SIGKILL leg's survivor.
+    fleet_launches = {k: sum(d[f"{k}_launches"] for leg in ("clean", "sigkill")
+                             for d in fleet[leg]["launches"].values())
+                      for k in ("flash_fwd", "paged_attend")}
     k1_launches = sum(r["launches"]["flash_fwd"] for r in served) + \
-        trained["flash_fwd"]
+        trained["flash_fwd"] + fleet_launches["flash_fwd"]
     verify_rows = FULL["n_heads"] // FULL["n_kv_heads"] * (SPEC_K + 1)
     k4_verify = sum(leg["launches"]["paged_attend_by_rows"].get(
         verify_rows, 0) for leg in spec["legs"].values())
     k4_launches = sum(r["launches"]["paged_attend"] for r in served) \
-        - k4_verify
+        - k4_verify + fleet_launches["paged_attend"]
     t_times = time.monotonic()
     kernels = [time_flash(k1["serving"], k1_launches),
                *time_flash_bwd(k23["training"], trained),

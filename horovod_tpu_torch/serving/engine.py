@@ -407,6 +407,16 @@ class EngineConfig:
     ``model_flops_per_token`` (e.g. ``obs.xprof.
     transformer_flops_per_token(params)``) turns the token rate into
     ``serving_achieved_flops_per_sec`` (None disables), as in the JAX
+    engine.
+
+    Self-tuning and rollouts, the JAX engine's knobs and defaults:
+    ``page_grant_ahead`` grants that many pages past the plain tick's
+    write position at each tick boundary (page-table data only; capped
+    at the request's last real write); ``autotune`` installs the online
+    :class:`~horovod_tpu_torch.tuning.tuner.OnlineTuner` at the end of
+    :meth:`InferenceEngine.warmup`, over the knob values whose graphs
+    the warmup captured; ``config_generation`` is the fleet rollout's
+    label, echoed by :meth:`InferenceEngine.stats` and never read by the
     engine."""
 
     n_slots: int = 4
@@ -438,6 +448,9 @@ class EngineConfig:
     spec_window: int = 2
     spec_probe_period: int = 256
     model_flops_per_token: Optional[float] = None
+    page_grant_ahead: int = 0
+    autotune: bool = False
+    config_generation: int = 0
 
 
 @dataclasses.dataclass
@@ -630,6 +643,10 @@ class InferenceEngine:
         # whose draft state missed plain ticks and must be rebuilt
         # before they speculate again.
         self._spec_host = np.ones(ec.n_slots, bool)
+        # The online tuner's speculation gate (tuning/params.py
+        # "spec_enabled"): False routes new admissions to the plain tick
+        # through the opt-out mask, data for both captured ticks.
+        self._spec_runtime_enabled = True
         self._spec_live = np.ones(ec.n_slots, bool)
         self._spec_win = np.zeros((ec.n_slots, 2), np.int64)
         self._spec_idle = np.zeros(ec.n_slots, np.int64)
@@ -659,6 +676,9 @@ class InferenceEngine:
                                        self.slots.max_len, draft)
         # Reserved device memory before and after the last warm sweep.
         self._warm_reserved = (0, 0)
+        # The online autotuner (EngineConfig.autotune), installed at the
+        # end of warmup(): its knob space is read from the warmed graphs.
+        self._tuner = None
         # Overlapped pipeline: _pending is the one dispatched tick not
         # yet fetched (its downloads in flight plus the snapshot of the
         # request each slot computed for); _tokens_live says the
@@ -920,6 +940,14 @@ class InferenceEngine:
             self._consec_failures = 0
             if self._health == DEGRADED:
                 self._set_health(HEALTHY)
+        # The autotuner, after a clean step and outside the step lock:
+        # an apply takes the lock, so it lands between two steps, never
+        # inside one step's dispatch-to-fetch sequence.
+        if self._tuner is not None:
+            try:
+                self._tuner.on_tick(self, worked)
+            except Exception:  # tuning never takes serving down
+                self._tuner = None
         return worked
 
     def _update_page_gauges(self) -> None:
@@ -1821,6 +1849,11 @@ class InferenceEngine:
                 inflight = (pend is not None and bool(pend["active"][s])
                             and pend["reqs"][s] is st.request)
                 hi = base + (2 if inflight else 1) * W - 1
+            else:
+                # page_grant_ahead widens the plain tick's one position
+                # by that many pages (capped at the last real write).
+                hi = base + self.engine_cfg.page_grant_ahead \
+                    * self.slots.page_size
             if self._ensure_write_range(s, base, hi) and self._spec_model:
                 self._ensure_draft_range(s, base, hi)
         if self._table_uploaded != self.slots.table_version:
@@ -1870,7 +1903,8 @@ class InferenceEngine:
             return
         for slot, req in zip(slots, reqs):
             self._spec_host[slot] = (req.speculative is not False
-                                     and req.temperature <= 0.0)
+                                     and req.temperature <= 0.0
+                                     and self._spec_runtime_enabled)
         if not self._spec_model:
             rows = np.zeros((len(slots), self.slots.max_len + 1), np.int64)
             for i, r in enumerate(reqs):
@@ -2434,6 +2468,14 @@ class InferenceEngine:
                 self._go_terminal(err)
                 return
             self._resuming = 0
+            # The tuner's scoring window must not straddle the restart:
+            # its baseline predates the crash.  The next worked tick
+            # opens a fresh window.
+            if self._tuner is not None:
+                try:
+                    self._tuner.reset_window()
+                except Exception:  # pragma: no cover - never gates recovery
+                    pass
             if resumed:
                 # Back to the head of the queue in submission order: the
                 # next tick re-prefills prompt + emitted through the
@@ -2677,6 +2719,13 @@ class InferenceEngine:
         if cuda:
             self._warm_reserved = (
                 before, torch.cuda.memory_reserved(self.device))
+        if self.engine_cfg.autotune and self._tuner is None:
+            # Installed after the sweep: the knob space is read from the
+            # graphs the sweep captured, and a tuner live during it could
+            # shrink the admission batch and leave shapes uncaptured.
+            from horovod_tpu_torch.tuning.tuner import OnlineTuner
+
+            OnlineTuner.install(self)
 
     def _warm_draft_probe(self) -> None:
         """Capture the draft pool's ``(max_len, 1)`` prefill that a
@@ -2771,6 +2820,13 @@ class InferenceEngine:
         building a /stats snapshot: a /metrics scrape's hook."""
         self._update_achieved_flops()
 
+    @property
+    def decode_compilations(self) -> int:
+        """Captures of the decode ticks' CUDA graphs (0 on the CPU): 1
+        after warmup (2 on a speculative engine), and it stays there."""
+        return self._tick.captures + (
+            self._spec_tick.captures if self._spec else 0)
+
     def stats(self) -> Dict:
         age = self.heartbeat_age
         self._update_achieved_flops()
@@ -2781,6 +2837,11 @@ class InferenceEngine:
             "occupancy": float(self.slots.occupancy),
             "engine_state": str(self._health),
             "heartbeat_age_s": round(age, 3) if age is not None else -1.0,
+            # The front tier's contract: one device a replica (tensor
+            # parallelism is not ported), and the rollout's label.
+            "tp": 1,
+            "mesh": "",
+            "config_generation": int(self.engine_cfg.config_generation),
             "state_transitions": self.state_transitions,
             "error": self.error,
             "device": str(self.device),
@@ -2801,8 +2862,7 @@ class InferenceEngine:
             # Captures of the decode tick's CUDA graph (0 on the CPU,
             # where the tick runs eagerly): 1 after warmup, whatever the
             # request mix and however many restarts.
-            "decode_compilations": self._tick.captures + (
-                self._spec_tick.captures if self._spec else 0),
+            "decode_compilations": self.decode_compilations,
             # Captures of the admission graphs (0 on the CPU): prefills
             # per ("full", bucket, k) and ("suffix", prefix pages, bucket,
             # k), the first-token sampler per k; their seconds, and the
@@ -2824,6 +2884,9 @@ class InferenceEngine:
             "flash_fwd_launches": _attn.flash_fwd_launches,
             "paged_attend_launches": _pa.paged_attend_launches,
             "speculative": self._spec,
+            "autotune": self._tuner is not None,
+            **({"tuning": self._tuner.snapshot()}
+               if self._tuner is not None else {}),
             **({
                 "spec_k": self.engine_cfg.spec_k,
                 "spec_draft": "model" if self._spec_model else "ngram",

@@ -52,6 +52,8 @@ class ServingMetrics:
       (``EngineConfig.model_flops_per_token``) and the achieved model
       FLOP/s over the recent token-rate window (both 0, and ``None`` in
       the snapshot, until configured).
+    * ``tuning_*`` — the online autotuner's samples, rollbacks, last and
+      best objective (``EngineConfig.autotune``).
     """
 
     def __init__(self, registry: Optional[MetricsRegistry] = None) -> None:
@@ -177,6 +179,23 @@ class ServingMetrics:
             "Achieved model FLOP/s over the recent token-rate window "
             "(tokens/sec x model_flops_per_token; 0 until configured "
             "and two samples apart)")
+        # The online autotuner (tuning/tuner.py): one sample is one knob
+        # setting scored over one window of worked ticks.  Registered
+        # whether or not a tuner runs, as in the JAX engine.
+        self.tuning_samples = r.counter(
+            "tuning_samples_total",
+            "Knob settings scored by the online autotuner "
+            "(one per scoring window, warmup/settling discarded)")
+        self.tuning_rollbacks = r.counter(
+            "tuning_rollbacks_total",
+            "Tuning samples rolled back for violating a per-class "
+            "SLO constraint beyond the guard band")
+        self.tuning_objective = r.gauge(
+            "tuning_objective",
+            "Weighted objective of the most recent scored window")
+        self.tuning_best_objective = r.gauge(
+            "tuning_best_objective",
+            "Best constraint-satisfying objective seen this trajectory")
 
     def observe_ttft(self, priority: str, v: float) -> None:
         self.ttft.labels(**{"class": priority}).observe(v)

@@ -51,6 +51,9 @@ bounded queue.
 * ``GET /stats`` — the engine's :meth:`~InferenceEngine.stats` (on a
   speculative engine with ``spec_k``, ``spec_draft``, ``spec_slots_live``
   and the ``spec_*_tokens`` / ``tokens_per_tick`` counters).
+* ``GET /tuning`` — the online autotuner's state when
+  ``EngineConfig.autotune`` installed one, ``{"enabled": false}``
+  otherwise.
 * ``GET /metrics`` — Prometheus text (0.0.4) of the engine's registry
   and the process-wide default registry (training, timeline, trace and
   ``xla_compiles_total`` families); the achieved-FLOP/s gauge refreshes
@@ -122,6 +125,14 @@ class _Handler(BaseHTTPRequestHandler):
             }, headers=None if code == 200 else {"Retry-After": "1"})
         elif self.path == "/stats":
             self._json(200, engine.stats())
+        elif self.path == "/tuning":
+            # The online autotuner's state: phase, current and best knob
+            # settings, the objective trajectory.
+            tuner = engine._tuner
+            if tuner is None:
+                self._json(200, {"enabled": False})
+            else:
+                self._json(200, {"enabled": True, **tuner.snapshot()})
         elif self.path == "/metrics":
             # One scrape covers the engine's serving_* registry and the
             # process-wide one; the windowed gauges refresh per scrape.

@@ -1208,3 +1208,108 @@ def test_profile_records_k4_in_a_captured_tick(dev, tmp_path):
     assert {e["pid"] // M.PID_STRIDE for e in merged} == {1, 2}
     while not all(f.done() for f in futs):
         engine.step()
+
+
+# --- the serving fleet: a CUDA replica, the online tuner ----------------------
+
+
+def test_cuda_replica_answers_through_replica_main(dev, tmp_path):
+    """One CUDA replica process spawned by the supervisor from the port's
+    ``dump_model`` pickle (its own CUDA context) answers through the
+    router: 200 with its full token count, and its ``/stats`` shows the
+    card, K1 and K4 launched in that process, one tick capture and no
+    admission capture after warmup."""
+    import json
+    import urllib.request
+
+    from horovod_tpu_torch.serving.router import (ReplicaRegistry,
+                                                  ReplicaSpec,
+                                                  ReplicaSupervisor,
+                                                  RouterServer)
+    from horovod_tpu_torch.serving.router.replica_main import dump_model
+
+    cfg = T.TransformerConfig(**SERVE, dtype=torch.bfloat16)
+    pkl = str(tmp_path / "model.pkl")
+    dump_model(pkl, T.init_params(cfg, seed=0, device=dev), cfg)
+    spec = ReplicaSpec(params_path=pkl, slots=4, warm=(8, 16, 32, 64),
+                       device="cuda", request_timeout=120.0)
+    reg = ReplicaRegistry(poll_interval=0.2, heartbeat_stale=60.0)
+    sup = ReplicaSupervisor(spec, 1, registry=reg, startup_timeout=240.0,
+                            log_dir=str(tmp_path / "logs"))
+    rt = RouterServer(reg, port=0, proxy_timeout=120.0)
+    sup.start()
+    rt.start()
+    try:
+        assert sup.wait_ready(timeout=240), \
+            (tmp_path / "logs" / "r0g0.log").read_text()[-2000:]
+        st0 = json.loads(urllib.request.urlopen(
+            reg.in_rotation()[0].endpoint.base_url + "/stats").read())
+        host, port = rt.address
+        req = urllib.request.Request(
+            f"http://{host}:{port}/generate",
+            data=json.dumps({"tokens": list(range(1, 41)),
+                             "max_new_tokens": 16}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            assert r.status == 200
+            assert r.headers["X-Router-Replica"] == "r0g0"
+            assert len(json.loads(r.read())["tokens"]) == 16
+        st = json.loads(urllib.request.urlopen(
+            reg.in_rotation()[0].endpoint.base_url + "/stats").read())
+        assert st["device"].startswith("cuda")
+        assert st["flash_fwd_launches"] > st0["flash_fwd_launches"]
+        assert st["paged_attend_launches"] > st0["paged_attend_launches"]
+        assert st["decode_compilations"] == 1
+        assert st["prefill_compilations"] == st0["prefill_compilations"]
+    finally:
+        rt.stop()
+        sup.stop()
+
+
+def test_autotuner_applies_every_knob_value_without_capture(dev):
+    """Every value of every knob in the online space of a warmed CUDA
+    engine (chunked, so the chunk knob is in it) applied in turn, each
+    followed by a burst of mixed lengths (chunked prompts included): no
+    decode, admission or sampler capture past the warmup, every request
+    its full count.  Then the speculation gate on a speculative engine,
+    both values: still two decode captures."""
+    from horovod_tpu_torch.tuning import apply_settings, online_knob_space
+
+    engine, _ = _serving_engine(dev, prefill_chunk_tokens=32)
+    engine.warmup((8, 16, 32, 64, 128, 256, 500))
+    space = online_knob_space(engine)
+    by_name = {k.name: k for k in space.knobs}
+    assert set(by_name) == {"max_prefills_per_tick",
+                            "prefill_chunk_tokens", "page_grant_ahead"}
+    assert by_name["prefill_chunk_tokens"].bounds == (17, 32)
+    keys = ("decode_compilations", "prefill_compilations",
+            "sample_compilations")
+    warm = {k: engine.stats()[k] for k in keys}
+    assert warm["decode_compilations"] == 1
+    rng = np.random.default_rng(9)
+    applied = 0
+    for knob in space.describe():
+        for value in knob["candidates"]:
+            apply_settings(engine, {knob["name"]: value})
+            applied += 1
+            futs = [engine.submit(rng.integers(0, 32000, n).tolist(),
+                                  max_new_tokens=6, **kw)
+                    for n, kw in zip((5, 45, 130, 300), SAMPLING)]
+            while not all(f.done() for f in futs):
+                engine.step()
+            assert all(len(f.result(timeout=0)) == 6 for f in futs)
+            assert {k: engine.stats()[k] for k in keys} == warm, \
+                (knob["name"], value)
+        apply_settings(engine, {knob["name"]: knob["default"]})
+    assert applied == 2 + 16 + 3
+    engine.terminate()
+    spec, _, _ = _spec_engine(dev, "ngram")
+    spec.warmup((8, 16, 32, 64))
+    assert "spec_enabled" in {k.name for k in online_knob_space(spec).knobs}
+    for on in (False, True, False):
+        apply_settings(spec, {"spec_enabled": on})
+        futs = _mixed_requests(spec, 8)
+        while not all(f.done() for f in futs):
+            spec.step()
+        assert spec.stats()["decode_compilations"] == 2
+    spec.terminate()

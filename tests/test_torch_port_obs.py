@@ -49,11 +49,9 @@ from torch_port_parity import BASE, make_engine, make_model, oracle, run
 ROOT = Path(__file__).resolve().parents[1]
 
 #: The JAX server's serving families the port does not expose yet: the
-#: tensor-parallel degree (tensor-parallel serving) and the online
-#: autotuner's (rollouts), each with the slice that ports its module.
-NOT_PORTED = {"serving_tp_degree", "tuning_samples_total",
-              "tuning_rollbacks_total", "tuning_objective",
-              "tuning_best_objective"}
+#: tensor-parallel degree, with the slice that ports tensor-parallel
+#: serving.
+NOT_PORTED = {"serving_tp_degree"}
 
 #: Tail sampling that keys on nothing but the request itself: no
 #: latency verdict (the JAX engine compiles at first use on the CPU).

@@ -491,7 +491,12 @@ def test_import_hygiene():
                 "horovod_tpu_torch.obs.trace",
                 "horovod_tpu_torch.obs.merge",
                 "horovod_tpu_torch.obs.aggregate",
-                "horovod_tpu_torch.obs.fleet"}
+                "horovod_tpu_torch.obs.fleet",
+                "horovod_tpu_torch.serving.router.replica_main",
+                "horovod_tpu_torch.serving.router.rollout",
+                "horovod_tpu_torch.serving.router.supervisor",
+                "horovod_tpu_torch.tuning.replay",
+                "horovod_tpu_torch.tuning.tuner"}
         print(len(names), bad, sorted(need - set(names)))
         sys.exit(1 if bad or need - set(names) or len(names) < 16 else 0)
     """)
