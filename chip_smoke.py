@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and spill bytes of each kernel printed.  Then the tensor-core
    check: ``cuobjdump -sass`` (from ``nvcc``'s toolkit) counts the
    ``HMMA``/``HGMMA`` instructions of every kernel function in the flash
-   libraries; the bf16 K1, K2 and K3 kernels must have some.
+   and grouped-product libraries; the bf16 K1, K2 and K3 kernels and
+   G1's bf16 kernel must have some.
 3. Kernels against their plain PyTorch versions on the card, at the
    serving path's shapes, each maximum error printed beside its
    tolerance: flash attention forward (K1) in bf16 and f32, head_dim 64
@@ -35,7 +36,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    over T = p0 + S0 keys, shift = -p0), B = 2, H = 16, H_kv = 4; at the
    suffix shapes also with the shift read from device memory (the
    captured suffix prefills' mode), against the plain version and bit
-   for bit against the by-value shift.
+   for bit against the by-value shift.  Then ``grouped_kernel``: G1,
+   the dropless MoE prefill's grouped product, in bf16 and f32 at the
+   prefill's gate and down shapes (T = 4 x 2048, E = 8) with multinomial,
+   skewed and empty-expert routings and T = 1, 17 and 8191, each
+   relative error (of the largest output) within f32 1e-4 / bf16 2e-2;
+   a row's bits the same inside two batch compositions; G1's times.
 4. Serving at full width: the d1024/L8/H16/kv4 bf16 Transformer from
    ``init_params`` seed 0, 8 slots.  First the decode tick at 8 slots
    and depth 1000 (half the slots sampling), three ways, each with its
@@ -211,7 +217,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    FLOP, peak memory and launches, and one more step is profiled
    (device busy, idle share; its K3 must be the tensor-core
    ``flash_bwd_dq_kernel_mma``).
-10. Vision (``vision_full_width``), no kernel of the port: full ResNet-50
+10. Mixture of experts: ``moe_train`` (``benchmarks/moe_dispatch_ab.py``'s
+   protocol, ``MOE_TRAIN``: at E = 8 switch-sort round-robined against
+   switch-cumsum, dense dispatch and the dense MLP, at E = 2 against
+   dense dispatch, each a captured ``make_train_step`` without remat,
+   best of ``MOE_ROUNDS`` turns; tok/s and MFU with one expert a token,
+   the dense dispatch's executed MFU beside it; sort and cumsum losses
+   and one step's gradients bit-identical; the captured switch-sort
+   losses bit-identical to an eager leg's, a remat ``dots`` eager leg
+   within 1e-3; the aux term's wiring and ``expert_load``; at f32 and
+   cf = E switch equal to dense (outputs and gradients) and dropless
+   equal to dense within 1e-4; ``switch_moe`` over a size-1 NCCL group
+   bit-identical to the local call); ``moe_prefill`` (four 2048-token
+   prompts through ``prefill``, dropless against dense dispatch, round-
+   robined); ``moe_serve_bf16`` (the serving configuration with 8
+   experts of d_ff 2048, every graph captured at warmup: the decode
+   tick's profile and the HTTP burst beside the dense serving phase;
+   K1, K4 and G1 launched, nothing captured after warmup) and
+   ``moe_serve_f32`` (the f32 burst's tokens against the oracles by the
+   near-tie rule).
+11. Vision (``vision_full_width``), no kernel of the port: full ResNet-50
    in f32 (batch 4, 224², TF32 off) on CUDA against the same model and
    weights on the CPU (logits, loss, every gradient, the batch
    statistics; the ``s2d`` stem one forward), each error beside its
@@ -227,7 +252,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    64, captured, 3 × 10 timed) and the MLP (20 loader-fed captured
    steps).  Every loss finite and the last below the first, one capture
    a captured leg with every later call a replay, MFU in (0, 1).
-11. Times: each kernel at its path's shape (CUDA events around 10
+12. Times: each kernel at its path's shape (CUDA events around 10
    back-to-back calls, median of 20; also one call alone, which adds
    the host's launch cost; K4 and its yardstick, whose calls are
    shorter than their launching, by the profiler's device time) beside
@@ -249,8 +274,9 @@ the main paths' runs that launch it: the HTTP burst, the prefix run,
 the two SLO legs, the speculative legs, the tracing phase's four
 bursts, the fleet's clean burst in both replicas and its SIGKILL burst
 in the survivor (read from each replica's ``/stats``), the four
-training legs and the traced training steps;
-K4's verify calls at R = 20 in an entry of their own); the last line is
+training legs and the traced training steps, the MoE legs, prefill runs
+and bursts; K4's verify calls at R = 20 in an entry of their own; G1's
+over the dropless prefill runs and both MoE bursts); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository beside it, the script exits non-zero and prints no
 result.
@@ -258,6 +284,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -492,6 +519,10 @@ def _kernel_name(mangled: str) -> str:
         args = [kinds.get(t, kinds.get(toks[0])) if not t.startswith("Li")
                 else next(ints) + t[2:] for t in toks]
         return paged.group(1) + (f"<{','.join(args)}>" if args else "")
+    grouped = re.search(r"\d+(grouped_mm_kernel(?:_mma)?)E", mangled)
+    if grouped:
+        return grouped.group(1) + ("<bf16>" if "_mma" in grouped.group(1)
+                                   else "<f32>")
     name = re.search(r"\d+(flash_[a-z_]+?)I", mangled)
     dim = re.search(r"Li(\d+)E", mangled)
     if not (name and dim):
@@ -502,14 +533,15 @@ def _kernel_name(mangled: str) -> str:
 
 def sass_check() -> dict:
     """Tensor-core instructions (``HMMA``, ``HGMMA``) in each kernel
-    function of the flash libraries, by ``cuobjdump -sass`` from the
-    toolkit of the ``nvcc`` that built them.  Fails unless both bf16
-    instantiations (D = 64, 128) of K1, K2 and K3 have some."""
+    function of the flash and grouped-product libraries, by ``cuobjdump
+    -sass`` from the toolkit of the ``nvcc`` that built them.  Fails
+    unless both bf16 instantiations (D = 64, 128) of K1, K2 and K3, and
+    G1's bf16 kernel, have some."""
     from horovod_tpu_torch.ops import _cuda
 
     tool = Path(_cuda._nvcc()).resolve().parent / "cuobjdump"
     counts = {}
-    for lib in ("flash_fwd", "flash_bwd"):
+    for lib in ("flash_fwd", "flash_bwd", "grouped_matmul"):
         sass = subprocess.run(
             [str(tool), "-sass", str(_cuda.BUILD_DIR / f"lib{lib}.so")],
             capture_output=True, text=True, timeout=300, check=True).stdout
@@ -529,6 +561,9 @@ def sass_check() -> dict:
         if len(got) != 2 or not all(got):
             raise AssertionError(f"{tag}: expected tensor-core instructions "
                                  f"in both instantiations, got {got}")
+    if not counts.get("grouped_mm_kernel_mma<bf16>"):
+        raise AssertionError(f"grouped_mm_kernel_mma: no tensor-core "
+                             f"instruction ({sorted(counts)})")
     return counts
 
 
@@ -990,12 +1025,51 @@ def graph_vs_eager(engine, n_ticks: int = 20) -> dict:
             "k4_launches_per_replay": k4_per_replay}
 
 
+def _generate_burst(engine, prompts):
+    """The serving prompts (``NEW_TOKENS``, ``SAMPLING``) as concurrent
+    ``POST /generate`` requests to a ``ServingServer`` over ``engine``,
+    each checked for its full count.  The main path's run: the kernels'
+    launch counters read 0 just before it and are read when the last
+    request has returned.  -> (replies, wall seconds, launches, the
+    engine's stats at the end)."""
+    from horovod_tpu_torch.serving import ServingServer
+
+    srv = ServingServer(engine, port=0, request_timeout=600).start()
+    url = "http://%s:%d/generate" % srv.address
+    results = [None] * len(prompts)
+    _zero_launches()
+    t0 = time.monotonic()
+
+    def client(i):
+        results[i] = _post(url, {"tokens": prompts[i],
+                                 "max_new_tokens": NEW_TOKENS[i],
+                                 **SAMPLING[i]})
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.monotonic() - t0
+    launches = _launches()
+    stats = engine.stats()
+    srv.stop()
+    for i, res in enumerate(results):
+        if res is None or res[0] != 200:
+            raise AssertionError(f"request {i} failed: {res}")
+        body = res[1]
+        if len(body["tokens"]) != NEW_TOKENS[i] or \
+                body["finish_reason"] != "length":
+            raise AssertionError(f"request {i} returned "
+                                 f"{len(body['tokens'])} tokens "
+                                 f"({body['finish_reason']})")
+    return results, wall, launches, stats
+
+
 def serve_full_width(card: str) -> dict:
     from horovod_tpu_torch.models import transformer as T
-    from horovod_tpu_torch.ops import attention as A
-    from horovod_tpu_torch.ops import paged_attention as PA
-    from horovod_tpu_torch.serving import (EngineConfig, InferenceEngine,
-                                           ServingServer)
+    from horovod_tpu_torch.serving import EngineConfig, InferenceEngine
 
     cfg = T.TransformerConfig(**FULL, dtype=torch.bfloat16)
     params = T.init_params(cfg, seed=0)
@@ -1038,41 +1112,9 @@ def serve_full_width(card: str) -> dict:
     ticks0 = engine.metrics.decode_ticks.value
     sums0 = {k: getattr(engine.metrics, k).snapshot()["sum"]
              for k in ("tick_dispatch", "tick_device_wait", "tick_host")}
-    srv = ServingServer(engine, port=0, request_timeout=600).start()
-    url = "http://%s:%d/generate" % srv.address
     prompts = _prompts()
-    results = [None] * len(prompts)
-    # The main path's run: the launch counters read 0 here and are read
-    # again when the last request has returned.
-    A.flash_fwd_launches = 0
-    PA.paged_attend_launches = 0
-    t0 = time.monotonic()
-
-    def client(i):
-        results[i] = _post(url, {"tokens": prompts[i],
-                                 "max_new_tokens": NEW_TOKENS[i],
-                                 **SAMPLING[i]})
-
-    threads = [threading.Thread(target=client, args=(i,))
-               for i in range(len(prompts))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(900)
-    wall = time.monotonic() - t0
-    launches = {"flash_fwd": A.flash_fwd_launches,
-                "paged_attend": PA.paged_attend_launches}
-    stats = engine.stats()
-    srv.stop()
-    for i, res in enumerate(results):
-        if res is None or res[0] != 200:
-            raise AssertionError(f"request {i} failed: {res}")
-        body = res[1]
-        if len(body["tokens"]) != NEW_TOKENS[i] or \
-                body["finish_reason"] != "length":
-            raise AssertionError(f"request {i} returned "
-                                 f"{len(body['tokens'])} tokens "
-                                 f"({body['finish_reason']})")
+    results, wall, launches, stats = _generate_burst(engine, prompts)
+    del launches["grouped_matmul"]  # a dense model
     if not (launches["flash_fwd"] > 0 and launches["paged_attend"] > 0):
         raise AssertionError(f"the serving run missed a kernel: {launches}")
     captures = (captures0, stats["decode_compilations"])
@@ -3817,6 +3859,661 @@ def collectives_size_one() -> dict:
     return {"checked": checked}
 
 
+# --- mixture of experts --------------------------------------------------------
+
+# benchmarks/moe_dispatch_ab.py's defaults: d1024, L8, 16 heads (MHA),
+# d_ff 2048, seq 2048, batch 4, capacity factor 1.25, flash attention;
+# pairs round-robined MOE_ROUNDS times, MOE_STEPS_PER_ROUND steps a
+# turn, each model keeping its best turn.
+MOE_TRAIN = dict(vocab_size=32000, d_model=1024, n_layers=8, n_heads=16,
+                 n_kv_heads=0, d_ff=2048, max_seq=2048, attention_impl="flash",
+                 capacity_factor=1.25)
+MOE_BATCH, MOE_ROUNDS, MOE_STEPS_PER_ROUND = 4, 4, 3
+# The eager legs' steps: the first MOE_EAGER_STEPS of the captured
+# switch-sort leg (its two warm-up steps and three replays).
+MOE_EAGER_STEPS = 5
+# The serving configuration with 8 experts of d_ff 2048.
+MOE_FULL = dict(FULL, d_ff=2048, n_experts=8)
+# G1's checks: group sizes over 8 experts at the prefill's T = 4 x 2048
+# (drawn from a multinomial), every row on one expert, empty experts, and
+# T = 1, 17 and 8191; at the gate (K 1024, N 2048) and down (K 2048,
+# N 1024) products.
+GMM_SHAPES = {"gate": (1024, 2048), "down": (2048, 1024)}
+GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _gmm_counts() -> dict:
+    rng = np.random.default_rng(14)
+    return {"prefill": rng.multinomial(8192, [1 / 8] * 8).tolist(),
+            "skewed": [0, 0, 8192, 0, 0, 0, 0, 0],
+            "empty": [0, 300, 0, 0, 517, 0, 0, 207],
+            "T1": [0, 0, 0, 1, 0, 0, 0, 0],
+            "T17": [5, 0, 12, 0, 0, 0, 0, 0],
+            "T8191": rng.multinomial(8191, [1 / 8] * 8).tolist()}
+
+
+def _gmm_inputs(counts, K, N, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = torch.randn((sum(counts), K), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((len(counts), K, N), generator=g, device="cuda")
+         / math.sqrt(K)).to(dtype)
+    off = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                       dtype=torch.int32, device="cuda")
+    return xs, w, off
+
+
+def check_grouped() -> dict:
+    """G1 against its plain version in both dtypes, at both products'
+    shapes, for every case of :func:`_gmm_counts`; each relative error
+    (of the largest output) beside its tolerance.  Then row invariance,
+    bit for bit: the prefill case's rows again with 37 rows ahead of
+    them and expert 3 emptied (T and every row's tile position change)."""
+    from horovod_tpu_torch.ops import grouped_matmul as GM
+
+    errs, abs_errs = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, (K, N) in GMM_SHAPES.items():
+            for case, counts in _gmm_counts().items():
+                xs, w, off = _gmm_inputs(counts, K, N, dtype)
+                out = GM.grouped_matmul(xs, w, off)
+                ref = GM.grouped_matmul_reference(xs, w, off)
+                torch.cuda.synchronize()
+                diff = (out.float() - ref.float()).abs().max()
+                err = (diff / ref.float().abs().max()).item()
+                key = f"{str(dtype)[6:]}.{shape}.{case}"
+                errs[key], abs_errs[key] = err, diff.item()
+                if not (err <= GMM_TOL[dtype] and torch.isfinite(out).all()):
+                    raise AssertionError(f"G1 {key}: error {err:.3e} > "
+                                         f"{GMM_TOL[dtype]}")
+        counts = _gmm_counts()["prefill"]
+        xs, w, off = _gmm_inputs(counts, 1024, 2048, dtype)
+        out = GM.grouped_matmul(xs, w, off)
+        starts = np.concatenate([[0], np.cumsum(counts)])
+        extra = torch.randn((37, 1024), device="cuda").to(dtype)
+        counts_b = [counts[0] + 37, *counts[1:3], 0, *counts[4:]]
+        off_b = torch.tensor(np.concatenate([[0], np.cumsum(counts_b)]),
+                             dtype=torch.int32, device="cuda")
+        out_b = GM.grouped_matmul(
+            torch.cat([extra, xs[:starts[3]], xs[starts[4]:]]), w, off_b)
+        if not torch.equal(out_b[37:], torch.cat([out[:starts[3]],
+                                                  out[starts[4]:]])):
+            raise AssertionError(f"G1 {dtype}: rows differ between batches")
+    worst = {str(dt)[6:]: max(v for k, v in errs.items()
+                              if k.startswith(str(dt)[6:]))
+             for dt in GMM_TOL}
+    log(f"grouped_matmul (G1) against its plain version, {len(errs)} cases "
+        f"(prefill, skewed, empty experts, T = 1, 17, 8191; gate and down "
+        f"shapes): worst relative error bf16 {worst['bfloat16']:.3e} (limit "
+        f"2e-2), f32 {worst['float32']:.3e} (limit 1e-4); rows bit-identical "
+        "across batch compositions in both dtypes")
+    return {"errors": errs, "worst": worst, "row_invariant": True,
+            "max_abs_err": abs_errs["bfloat16.gate.prefill"]}
+
+
+def _library_grouped(xs, w, off):
+    """One PyTorch call computing G1's function, which the port never
+    makes: ``torch._grouped_mm`` (offsets of the groups' ends, int32) where
+    this torch has it (bf16); otherwise a loop of
+    per-expert products over counts read on the host.  -> (fn, name)."""
+    from horovod_tpu_torch.ops import grouped_matmul as GM
+
+    if hasattr(torch, "_grouped_mm") and xs.dtype == torch.bfloat16:
+        ends = off[1:].contiguous()
+        got = torch._grouped_mm(xs, w, offs=ends)
+        ref = GM.grouped_matmul_reference(xs, w, off)
+        err = ((got.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        if err > GMM_TOL[xs.dtype]:
+            raise AssertionError(f"torch._grouped_mm disagrees with the "
+                                 f"plain version: {err:.3e}")
+        return (lambda: torch._grouped_mm(xs, w, offs=ends)), \
+            "torch._grouped_mm"
+    bounds = off.tolist()
+
+    def loop():
+        return torch.cat([xs[a:b] @ w[e] for e, (a, b) in
+                          enumerate(zip(bounds[:-1], bounds[1:]))])
+
+    return loop, "per-expert cuBLAS loop (counts read on the host)"
+
+
+def time_grouped(err: float, launches: int) -> list:
+    """G1 at the MoE prefill's shapes (T = 4 x 2048, E = 8, the
+    multinomial routing of :func:`_gmm_counts`): the gate product (K 1024,
+    N 2048; the kernels-line entry) and the down product (K 2048, N 1024)
+    in bf16, the gate product in f32 (its bound on the f32 rate outside
+    the tensor cores).  Bytes: xs and out once, the weights of every
+    non-empty group once."""
+    from horovod_tpu_torch.ops import grouped_matmul as GM
+
+    counts = _gmm_counts()["prefill"]
+    out = []
+    for name, dtype, (K, N) in (("gate", torch.bfloat16, GMM_SHAPES["gate"]),
+                                ("down", torch.bfloat16, GMM_SHAPES["down"]),
+                                ("gate", torch.float32, GMM_SHAPES["gate"])):
+        xs, w, off = _gmm_inputs(counts, K, N, dtype, seed=5)
+        T_, E = xs.shape[0], w.shape[0]
+
+        def kernel():
+            return GM.grouped_matmul(xs, w, off)
+
+        ms, one = time_ms(kernel), time_ms(kernel, batch=1)
+        plain = time_ms(lambda: GM.grouped_matmul_reference(xs, w, off),
+                        reps=5, batch=1)
+        lib_fn, lib_name = _library_grouped(xs, w, off)
+        lib = time_ms(lib_fn)
+        flops = 2 * T_ * K * N
+        nbytes = xs.element_size() * (T_ * K + T_ * N
+                                      + sum(c > 0 for c in counts) * K * N) \
+            + 4 * (E + 1)
+        b_ms, b_by = bound(flops, nbytes, dtype)
+        out.append({
+            "name": "grouped_matmul", "route": "cuda",
+            "source": "horovod_tpu_torch/ops/csrc/grouped_matmul.cu",
+            "replaces": "horovod_tpu/ops/moe.py:229 (lax.ragged_dot, an XLA "
+                        "op: no Pallas original)",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "tflops": tflops(flops, ms),
+            "one_call_ms": one, "library": lib_name,
+            "shape": f"T={T_} K={K} N={N} E={E} {str(dtype)[6:]} "
+                     f"({name} product) groups {counts}"})
+        del xs, w, off
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_cfg(dtype=torch.bfloat16, **kw):
+    from horovod_tpu_torch.models import transformer as T
+
+    return T.TransformerConfig(**{**MOE_TRAIN, **kw}, dtype=dtype)
+
+
+def _moe_flops(cfg, tokens: int, executed: bool = False) -> float:
+    """A step's useful FLOP (benchmarks/transformer.py's count): 6 x the
+    matmul parameters x tokens, each token's MLP ONE expert (the expert
+    stacks count 1/E), plus the causal attention scores; ``executed``
+    counts every expert (the dense dispatch's work)."""
+    D, L, S, F_ = cfg.d_model, cfg.n_layers, cfg.max_seq, cfg.d_ff
+    attn_params = L * (2 * D * D + 2 * D * cfg.kv_heads * cfg.head_dim)
+    E = max(cfg.n_experts, 1)
+    experts = L * 3 * D * F_ * (E if executed else 1)
+    router = L * D * E if E > 1 else 0
+    head = D * cfg.vocab_size
+    return 6 * (attn_params + experts + router + head) * tokens + \
+        6 * L * tokens * S * D
+
+
+def _moe_model(cfg) -> dict:
+    """A captured train step of ``cfg`` on f32 master parameters from
+    ``init_params`` seed 0: AdamW (the optax defaults but decay 1e-4),
+    ``spmd.make_train_step``."""
+    from horovod_tpu_torch import optim, spmd
+    from horovod_tpu_torch.models import transformer as T
+
+    params = T.init_params(cfg, seed=0, param_dtype=torch.float32)
+    named = optim.named_parameters(params)
+    for _, t in named:
+        t.requires_grad_()
+    opt = optim.DistributedOptimizer(
+        torch.optim.AdamW([t for _, t in named], lr=3e-4, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=1e-4),
+        named_parameters=named)
+    step = spmd.make_train_step(lambda p, b: T.loss_fn(p, b, cfg), opt)
+    if not step.graphed:
+        raise AssertionError("make_train_step did not capture on CUDA")
+    return {"cfg": cfg, "params": params, "opt": opt, "step": step,
+            "losses": [], "best_s": math.inf}
+
+
+def _moe_turn(m: dict, batch, n: int, counts: dict) -> float:
+    """``n`` steps of model ``m``, synchronised: seconds a step.  The
+    K1-K3 launches of the steps are added to ``counts``."""
+    from horovod_tpu_torch.ops import attention as A
+
+    A.flash_fwd_launches = A.flash_bwd_dkdv_launches = 0
+    A.flash_bwd_dq_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(n):
+        m["losses"].append(m["step"](m["params"], batch))
+    torch.cuda.synchronize()
+    dt = (time.monotonic() - t0) / n
+    for k, v in (("flash_fwd", A.flash_fwd_launches),
+                 ("flash_bwd_dkdv", A.flash_bwd_dkdv_launches),
+                 ("flash_bwd_dq", A.flash_bwd_dq_launches)):
+        counts[k] = counts.get(k, 0) + v
+    return dt
+
+
+def _moe_ab(models: dict, batch, counts: dict) -> dict:
+    """Round-robin the pair (its models warmed and captured first):
+    each model's best seconds a step over ``MOE_ROUNDS`` turns."""
+    from horovod_tpu_torch import spmd
+
+    best = {}
+    for name, m in models.items():
+        if m["step"].captures == 0:
+            _moe_turn(m, batch, spmd.WARMUP_STEPS + 1, counts)
+        best[name] = math.inf
+    for _ in range(MOE_ROUNDS):
+        for name, m in models.items():
+            best[name] = min(best[name], _moe_turn(
+                m, batch, MOE_STEPS_PER_ROUND, counts))
+    return best
+
+
+def _losses(m) -> list:
+    return [float(x) for x in m["losses"]]
+
+
+def _moe_grads(cfg, params, batch) -> list:
+    from horovod_tpu_torch.models import transformer as T
+
+    leaves = [t for t in [params["embed"], params["head"], params["ln_f"],
+                          *params["layers"].values()]]
+    return torch.autograd.grad(T.loss_fn(params, batch, cfg), leaves)
+
+
+def moe_equalities_f32() -> dict:
+    """At cf >= E nothing drops, so in f32 (TF32 off) the switch
+    dispatch equals the dense dispatch, outputs and every gradient, and
+    the dropless dispatch (G1) equals dense, outputs: the CPU tests'
+    tolerance, 1e-4 of the largest value.  The MoE training model's
+    widths at E = 8, cut to 2 layers, one 2048-token row."""
+    from horovod_tpu_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_cfg(torch.float32, n_layers=2, n_experts=8, capacity_factor=8.0)
+    params = T.init_params(cfg, seed=3)
+    for t in [params["embed"], params["head"], params["ln_f"],
+              *params["layers"].values()]:
+        t.requires_grad_()
+    batch = T.synthetic_batch(3, cfg, 1)
+    outs, grads = {}, {}
+    for impl in ("switch", "dense", "dropless"):
+        c = dataclasses.replace(cfg, moe_impl=impl)
+        with torch.no_grad():
+            outs[impl] = T.forward(params, batch["tokens"], c)
+        if impl != "dropless":
+            grads[impl] = _moe_grads(c, params, batch)
+    res = {"switch_vs_dense": _rel_err(outs["switch"], outs["dense"]),
+           "dropless_vs_dense": _rel_err(outs["dropless"], outs["dense"]),
+           "grads_switch_vs_dense": max(_rel_err(a, b) for a, b in zip(
+               grads["switch"], grads["dense"]))}
+    log(f"MoE f32 at cf = E = 8 (TF32 off): logits switch vs dense "
+        f"{res['switch_vs_dense']:.3e}, dropless (G1) vs dense "
+        f"{res['dropless_vs_dense']:.3e}, gradients switch vs dense "
+        f"{res['grads_switch_vs_dense']:.3e} (limit 1e-4 of the largest)")
+    if max(res.values()) > 1e-4:
+        raise AssertionError(f"MoE dispatches differ at f32: {res}")
+    del params, outs, grads
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_ep_size_one() -> dict:
+    """``switch_moe(group=)`` over a size-1 NCCL group against the local
+    call, bf16 and f32: outputs, aux and every gradient bit-identical."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.ops import moe as M
+
+    pg = dist.new_group([0])
+    checked = []
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device="cuda").manual_seed(8)
+        x = torch.randn((4096, 1024), generator=g, device="cuda").to(dtype)
+        router = torch.randn((1024, 8), generator=g, device="cuda") * 0.05
+        w = [(torch.randn(s, generator=g, device="cuda") / math.sqrt(s[1])
+              ).to(dtype) for s in ((8, 1024, 2048), (8, 1024, 2048),
+                                    (8, 2048, 1024))]
+        res = []
+        for group in (None, pg):
+            leaves = [t.detach().clone().requires_grad_()
+                      for t in (x, router, *w)]
+            y, aux = M.switch_moe(*leaves, capacity_factor=1.25, group=group,
+                                  return_aux=True)
+            (y.float().square().sum() + aux).backward()
+            res.append([y, aux] + [t.grad for t in leaves])
+        if not all(torch.equal(a, b) for a, b in zip(*res)):
+            raise AssertionError(f"switch_moe over a size-1 group differs "
+                                 f"from the local call ({dtype})")
+        checked.append(str(dtype)[6:])
+    log(f"expert parallelism at size 1 over NCCL: switch_moe(group=) equals "
+        f"the local call bit for bit (output, aux, every gradient) in "
+        f"{checked}")
+    return {"bit_identical": checked}
+
+
+def moe_train(card: str) -> dict:
+    """``benchmarks/moe_dispatch_ab.py``'s protocol on the card (see
+    ``MOE_TRAIN``), each model a captured ``make_train_step`` without
+    remat (the protocol's remat ``dots`` runs its policy in Python, a
+    host-bound step here: ``PERF.md`` §5), on a size-1 NCCL group: at
+    E = 8 switch-sort against switch-cumsum, against dense dispatch and
+    against the dense MLP; at E = 2 switch-sort against dense dispatch.
+    Gates: sort and cumsum bit-identical (losses of every step, and the
+    gradients of one step); the captured switch-sort leg's losses
+    bit-identical to an eager leg's; a remat ``dots`` eager leg within
+    1e-3 of it; with ``moe_aux_coeff`` 1e-2 the loss is the
+    cross-entropy plus 1e-2 times the aux term, and ``expert_load``'s
+    rows sum to 1; the f32 dispatch equalities at cf = E; expert
+    parallelism at size 1."""
+    from horovod_tpu_torch import basics
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    basics.init(init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        out = {"equalities_f32": moe_equalities_f32(),
+               "ep_size_one": moe_ep_size_one()}
+        out.update(_moe_legs(card))
+    finally:
+        basics.shutdown()
+    return out
+
+
+def _moe_legs(card: str) -> dict:
+    from horovod_tpu_torch.models import transformer as T
+
+    tokens = MOE_BATCH * MOE_TRAIN["max_seq"]
+    batch = T.synthetic_batch(0, _moe_cfg(), MOE_BATCH)
+    counts: dict = {}
+    rows, legs = [], {}
+
+    def row(E, a, b, best, models):
+        ratio = best[b] / best[a]
+        rows.append({"E": E, "a": a, "b": b, "a_tok_per_s": tokens / best[a],
+                     "b_tok_per_s": tokens / best[b], "a_over_b": ratio})
+        for name in (a, b):
+            m = models[name]
+            cfg = m["cfg"]
+            leg = legs.setdefault(f"E{E}.{name}" if cfg.n_experts else name,
+                                  {"step_s_best": math.inf})
+            leg["step_s_best"] = min(leg["step_s_best"], best[name])
+            leg["tok_per_s"] = tokens / leg["step_s_best"]
+            leg["mfu"] = _moe_flops(cfg, tokens) / leg["step_s_best"] / \
+                PEAK_FLOPS[torch.bfloat16]
+            if cfg.n_experts > 1 and cfg.moe_impl == "dense":
+                leg["mfu_executed"] = _moe_flops(cfg, tokens, True) / \
+                    leg["step_s_best"] / PEAK_FLOPS[torch.bfloat16]
+            leg["captures"] = m["step"].captures
+        log(f"moe_train E={E}: {a} {tokens / best[a]:.0f} tok/s | {b} "
+            f"{tokens / best[b]:.0f} tok/s | {a} = {ratio:.2f}x of {b} "
+            f"(best of {MOE_ROUNDS} turns of {MOE_STEPS_PER_ROUND} steps, "
+            f"captured, {card})")
+
+    for E, others in ((8, ("switch-cumsum", "dense-dispatch", "dense-mlp")),
+                      (2, ("dense-dispatch",))):
+        sort = _moe_model(_moe_cfg(n_experts=E, moe_dispatch="sort"))
+        for other in others:
+            cfg = {"switch-cumsum": _moe_cfg(n_experts=E,
+                                             moe_dispatch="cumsum"),
+                   "dense-dispatch": _moe_cfg(n_experts=E, moe_impl="dense"),
+                   "dense-mlp": _moe_cfg(n_experts=0)}[other]
+            models = {"switch-sort": sort, other: _moe_model(cfg)}
+            best = _moe_ab(models, batch, counts)
+            row(E, "switch-sort", other, best, models)
+            if E == 8 and other == "switch-cumsum":
+                a, b = _losses(sort), _losses(models[other])
+                if a != b:
+                    raise AssertionError(f"switch-sort and switch-cumsum "
+                                         f"losses differ: {a} vs {b}")
+                legs["E8.switch-sort"]["losses"] = a
+            for t in models[other]["params"]["layers"].values():
+                t.grad = None
+            del models
+            gc.collect()
+            torch.cuda.empty_cache()
+        if E == 8:
+            # Where the switch-sort step's device time goes (one more
+            # replay under the profiler).
+            legs["E8.switch-sort"]["profile"] = profile_train_step(
+                sort["step"], sort["params"], batch)
+            eager = _moe_eager_legs(sort, batch, counts)
+        del sort
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"rows": rows, "legs": legs, **eager, "launches": counts}
+
+
+def _moe_eager_legs(sort: dict, batch, counts: dict) -> dict:
+    """The eager switch-sort E = 8 leg against the captured one's first
+    ``MOE_EAGER_STEPS`` losses, bit for bit; a remat ``dots`` eager leg
+    within 1e-3 relative; sort against cumsum gradients bit for bit on
+    one batch; the aux wiring and ``expert_load``."""
+    from horovod_tpu_torch.models import transformer as T
+
+    captured = _losses(sort)[:MOE_EAGER_STEPS]
+    res = {}
+    for name, kw in (("eager", {}), ("remat_dots", dict(
+            remat=True, remat_policy="dots"))):
+        m = _moe_model(_moe_cfg(n_experts=8, **kw))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(MOE_EAGER_STEPS):
+            m["losses"].append(m["step"].body(m["params"], batch))
+        torch.cuda.synchronize()
+        step_s = (time.monotonic() - t0) / MOE_EAGER_STEPS
+        losses = _losses(m)
+        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, captured))
+        res[name] = {"losses": losses, "step_s": step_s,
+                     "loss_gap_vs_captured": gap}
+        log(f"moe_train eager [{name}] E=8 switch-sort: {step_s * 1e3:.1f} "
+            f"ms a step; losses {[round(x, 5) for x in losses]}; largest "
+            f"gap against the captured leg {gap:.3e}")
+        if name == "eager" and losses != captured:
+            raise AssertionError(f"the captured MoE step's losses {captured} "
+                                 f"differ from the eager step's {losses}")
+        if gap > 1e-3 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"[{name}] MoE losses {losses} against "
+                                 f"{captured}")
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    # Sort against cumsum, one batch: the gradient of every parameter.
+    params = T.init_params(_moe_cfg(n_experts=8), seed=0,
+                           param_dtype=torch.float32)
+    for t in [params["embed"], params["head"], params["ln_f"],
+              *params["layers"].values()]:
+        t.requires_grad_()
+    g_sort = _moe_grads(_moe_cfg(n_experts=8, moe_dispatch="sort"), params,
+                        batch)
+    g_cum = _moe_grads(_moe_cfg(n_experts=8, moe_dispatch="cumsum"), params,
+                       batch)
+    if not all(torch.equal(a, b) for a, b in zip(g_sort, g_cum)):
+        raise AssertionError("switch-sort and switch-cumsum gradients differ")
+    del g_sort, g_cum
+    # The balance term: loss(coeff) = loss(0) + coeff * aux.
+    cfg0 = _moe_cfg(n_experts=8)
+    cfg_aux = dataclasses.replace(cfg0, moe_aux_coeff=1e-2)
+    with torch.no_grad():
+        base = T.loss_fn(params, batch, cfg0).item()
+        _, aux = T.forward(params, batch["tokens"], cfg0, return_aux=True)
+        with_aux = T.loss_fn(params, batch, cfg_aux).item()
+        load = T.expert_load(params, batch["tokens"], cfg0)
+    gap = abs(with_aux - (base + 1e-2 * aux.item())) / abs(with_aux)
+    rows = load.sum(-1)
+    log(f"moe aux: loss {base:.6f} + 1e-2 x aux {aux.item():.6f} = "
+        f"{base + 1e-2 * aux.item():.6f}, loss_fn with the coefficient "
+        f"{with_aux:.6f} (gap {gap:.2e}); expert_load rows sum to "
+        f"{rows.tolist()}; sort and cumsum gradients bit-identical")
+    if gap > 1e-6 or not torch.allclose(rows, torch.ones_like(rows),
+                                        atol=1e-6):
+        raise AssertionError(f"aux wiring: gap {gap}, load rows {rows}")
+    res["aux"] = {"loss": base, "aux": aux.item(), "loss_with_aux": with_aux,
+                  "expert_load": load.tolist()}
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_prefill(card: str) -> dict:
+    """``moe_dispatch_ab.py --prefill``'s A/B at E = 8: four 2048-token
+    prompts through ``prefill`` with the dropless dispatch (G1) and with
+    the dense dispatch, round-robined (best of ``MOE_ROUNDS`` turns of
+    ``MOE_STEPS_PER_ROUND``), attention through K1 (JAX's A/B used its
+    reference attention).  The dropless runs are a main path: G1's
+    launches are counted over them."""
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import grouped_matmul as GM
+
+    cfg = _moe_cfg(n_experts=8)
+    params = T.init_params(cfg, seed=0)
+    prompt = T.synthetic_batch(0, cfg, MOE_BATCH)["tokens"]
+    S = cfg.max_seq
+
+    def run(impl):
+        return T.prefill(params, prompt, T.init_cache(cfg, MOE_BATCH, S), cfg,
+                         moe_impl=impl)[0]
+
+    logits = {impl: run(impl) for impl in ("dropless", "dense")}
+    best = {impl: math.inf for impl in logits}
+    launches = {"grouped_matmul": 0, "flash_fwd": 0}
+    for _ in range(MOE_ROUNDS):
+        for impl in best:
+            GM.grouped_matmul_launches = A.flash_fwd_launches = 0
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for _ in range(MOE_STEPS_PER_ROUND):
+                run(impl)
+            torch.cuda.synchronize()
+            best[impl] = min(best[impl],
+                             (time.monotonic() - t0) / MOE_STEPS_PER_ROUND)
+            if impl == "dropless":
+                launches["grouped_matmul"] += GM.grouped_matmul_launches
+            launches["flash_fwd"] += A.flash_fwd_launches
+    want = 3 * cfg.n_layers * MOE_ROUNDS * MOE_STEPS_PER_ROUND
+    if launches["grouped_matmul"] != want:
+        raise AssertionError(f"dropless prefill launched G1 "
+                             f"{launches['grouped_matmul']} times, not {want}")
+    diff = (logits["dropless"] - logits["dense"]).abs().max().item()
+    out = {"dropless_ms": best["dropless"] * 1e3,
+           "dense_ms": best["dense"] * 1e3,
+           "dropless_speedup": best["dense"] / best["dropless"],
+           "logits_max_diff_bf16": diff, "launches": launches}
+    log(f"moe_prefill E=8 (4 x 2048, bf16, K1 attention) on {card}: dropless "
+        f"(G1) {out['dropless_ms']:.2f} ms | dense dispatch "
+        f"{out['dense_ms']:.2f} ms | dropless = {out['dropless_speedup']:.2f}x"
+        f" faster; last-position logits differ by {diff:.3e} (bf16; the "
+        f"dense dispatch routes with a bf16 router)")
+    del params, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zero_launches() -> None:
+    """Every kernel's launch counter to 0, just before a main path's run."""
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import grouped_matmul as GM
+    from horovod_tpu_torch.ops import paged_attention as PA
+
+    A.flash_fwd_launches = PA.paged_attend_launches = 0
+    GM.grouped_matmul_launches = 0
+
+
+def _launches() -> dict:
+    """The serving kernels' launches since :func:`_zero_launches`."""
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import grouped_matmul as GM
+    from horovod_tpu_torch.ops import paged_attention as PA
+
+    return {"flash_fwd": A.flash_fwd_launches,
+            "paged_attend": PA.paged_attend_launches,
+            "grouped_matmul": GM.grouped_matmul_launches}
+
+
+def _moe_engine(cfg, params):
+    from horovod_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    engine = InferenceEngine(params, cfg, EngineConfig(**ENGINE))
+    engine.warmup(ENGINE_WARM_LENS)
+    return engine, _admission_graphs(engine)
+
+
+def _no_capture_after(engine, warm: dict, label: str) -> None:
+    now = _admission_graphs(engine)
+    if now != warm or now["decode_compilations"] != 1:
+        raise AssertionError(f"{label}: captures after warmup: {warm} -> "
+                             f"{now}")
+
+
+def moe_serve_bf16(card: str, dense: dict) -> dict:
+    """The serving configuration with 8 experts of d_ff 2048
+    (``MOE_FULL``), bf16, every graph captured at warmup: the decode tick
+    profiled at 8 slots and depth ``PROFILE_DEPTH`` (the dense
+    dispatch), then the serving phase's HTTP burst of the 8 prompts
+    (half sampled); K1, K4 and G1 must launch, and nothing is captured
+    after warmup.  Printed beside the dense serving phase of this run."""
+    from horovod_tpu_torch.models import transformer as T
+
+    cfg = T.TransformerConfig(**MOE_FULL, dtype=torch.bfloat16)
+    params = T.init_params(cfg, seed=0)
+    engine, warm = _moe_engine(cfg, params)
+    tick = profile_decode(engine, "graph_overlap",
+                          dense["sampler"]["sampler_ms"])
+    results, wall, launches, _ = _generate_burst(engine, _prompts())
+    _no_capture_after(engine, warm, "moe_serve_bf16")
+    if not all(launches.values()):
+        raise AssertionError(f"the MoE burst missed a kernel: {launches}")
+    ttft = sorted(r[1]["ttft_ms"] for r in results)
+    run = {"wall_s": wall, "tok_per_s": sum(NEW_TOKENS) / wall,
+           "ttft_ms_p50": statistics.median(ttft), "ttft_ms_max": ttft[-1],
+           "launches": launches}
+    dense_tick = dense["decode_modes"][-1]
+    out = {**run, "tick": tick, "admission_graphs": warm}
+    log(f"moe_serve_bf16 on {card}: burst {run['tok_per_s']:.1f} tok/s, TTFT "
+        f"p50 {run['ttft_ms_p50']:.1f} max {run['ttft_ms_max']:.1f} ms; decode "
+        f"tick device busy {tick['device_busy_ms']:.3f} ms of "
+        f"{tick['tick_wall_ms']:.3f} ms wall | the dense serving phase: "
+        f"{dense['tok_per_s']:.1f} tok/s, TTFT p50 {dense['ttft_ms_p50']:.1f} "
+        f"max {dense['ttft_ms_max']:.1f} ms, tick busy "
+        f"{dense_tick['device_busy_ms']:.3f} ms of "
+        f"{dense_tick['tick_wall_ms']:.3f} ms; launches {run['launches']}; "
+        f"no capture after warmup ({warm['prefill_compilations']} prefill, "
+        f"{warm['sample_compilations']} sampler, 1 tick)")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_serve_f32(card: str) -> dict:
+    """The same MoE configuration in f32 (TF32 off): the half-sampled
+    burst's tokens against ``greedy_decode`` / ``sample_decode`` (the
+    dropless prefill and dense decode of one request) under the
+    serving phase's near-tie rule; K1, K4 and G1 launched; no capture
+    after warmup."""
+    from horovod_tpu_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = T.TransformerConfig(**MOE_FULL, dtype=torch.float32)
+    params = T.init_params(cfg, seed=0)
+    engine, warm = _moe_engine(cfg, params)
+    prompts = _prompts(seed=1)
+    _zero_launches()
+    run = _stepped_burst(engine, prompts, SAMPLING, F32_NEW_TOKENS)
+    run["launches"] = _launches()
+    _no_capture_after(engine, warm, "moe_serve_f32")
+    if not all(run["launches"].values()):
+        raise AssertionError(f"the MoE burst missed a kernel: "
+                             f"{run['launches']}")
+    engine.terminate("moe_serve_f32 done")
+    del engine
+    refs = _f32_oracles(params, cfg, prompts)
+    exempt = _check_f32("moe f32", prompts, run.pop("tokens"), refs)
+    log(f"moe_serve_f32 on {card}: {len(prompts)} requests (half sampled) x "
+        f"{F32_NEW_TOKENS} tokens equal to the oracles, {len(exempt)} "
+        f"near-tie exemptions; launches {run['launches']}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**run, "exemptions": exempt}
+
+
 # --- phase 8: times ----------------------------------------------------------
 
 
@@ -4059,6 +4756,10 @@ def main() -> int:
         k4 = check_paged()
     REPORT["kernel_checks"] = {"flash_fwd": k1, "flash_bwd": k23,
                                "paged_attend": k4}
+    with phase("grouped_kernel"):
+        g1 = check_grouped()
+        g1_times = time_grouped(g1["max_abs_err"], None)
+    REPORT["kernel_checks"]["grouped_matmul"] = g1
     with phase("serving"):
         serving = serve_full_width(card)
     REPORT["serving_bf16"] = serving
@@ -4107,6 +4808,18 @@ def main() -> int:
             f"{lg['peak_mem_gb']:.2f} / "
             f"{lg['profile']['device_busy_ms']:.1f} / "
             f"{lg['profile']['idle_share']:.3f}" for n, lg in legs.items()))
+    with phase("moe_train"):
+        moe_tr = moe_train(card)
+    REPORT["moe_train"] = moe_tr
+    with phase("moe_prefill"):
+        moe_pf = moe_prefill(card)
+    REPORT["moe_prefill"] = moe_pf
+    with phase("moe_serve_bf16"):
+        moe_sv = moe_serve_bf16(card, serving)
+    REPORT["moe_serve_bf16"] = moe_sv
+    with phase("moe_serve_f32"):
+        moe_sv32 = moe_serve_f32(card)
+    REPORT["moe_serve_f32"] = moe_sv32
     with phase("vision"):
         vision = vision_full_width(card)
     REPORT["vision"] = vision
@@ -4127,26 +4840,33 @@ def main() -> int:
     # for K1-K3, the four training legs (K1 twice a layer a step in the
     # remat legs) and the tracing phase's traced training steps.
     served = [serving, serving["prefix"], *serving["slo"].values(),
-              *spec["legs"].values(), *traced["legs"]]
+              *spec["legs"].values(), *traced["legs"], moe_sv, moe_sv32]
     trained = {k: train["launches"][k] + traced["train"]["launches"][k]
-               for k in train["launches"]}
+               + moe_tr["launches"][k] for k in train["launches"]}
     # The fleet's bursts, per replica process (its /stats counters): the
     # clean leg's two replicas and the SIGKILL leg's survivor.
     fleet_launches = {k: sum(d[f"{k}_launches"] for leg in ("clean", "sigkill")
                              for d in fleet[leg]["launches"].values())
                       for k in ("flash_fwd", "paged_attend")}
     k1_launches = sum(r["launches"]["flash_fwd"] for r in served) + \
-        trained["flash_fwd"] + fleet_launches["flash_fwd"]
+        trained["flash_fwd"] + fleet_launches["flash_fwd"] + \
+        moe_pf["launches"]["flash_fwd"]
+    # G1's main paths: the dropless prefill runs and both MoE bursts.
+    g1_launches = moe_pf["launches"]["grouped_matmul"] + sum(
+        r["launches"]["grouped_matmul"] for r in (moe_sv, moe_sv32))
     verify_rows = FULL["n_heads"] // FULL["n_kv_heads"] * (SPEC_K + 1)
     k4_verify = sum(leg["launches"]["paged_attend_by_rows"].get(
         verify_rows, 0) for leg in spec["legs"].values())
     k4_launches = sum(r["launches"]["paged_attend"] for r in served) \
         - k4_verify + fleet_launches["paged_attend"]
     t_times = time.monotonic()
+    g1_times[0]["launches"] = g1_launches
     kernels = [time_flash(k1["serving"], k1_launches),
                *time_flash_bwd(k23["training"], trained),
                time_paged(k4["serving"], k4_launches),
-               time_paged(k4["verify"], k4_verify, R=verify_rows)]
+               time_paged(k4["verify"], k4_verify, R=verify_rows),
+               g1_times[0]]
+    REPORT["grouped_matmul_other_shapes"] = g1_times[1:]
     k1_train = time_flash(None, train["launches"]["flash_fwd"],
                           B=TRAIN_BATCH, Hkv=16)
     REPORT["flash_fwd_training_shape"] = k1_train
@@ -4166,7 +4886,7 @@ def main() -> int:
         f"); SDPA over gathered K/V at R = {verify_rows} "
         f"{k4r20['library_ms']:.4f} ms; {k4_verify} verify launches in the "
         "speculative legs")
-    for kr in kernels + [k1_train, k1_suffix]:
+    for kr in kernels + [k1_train, k1_suffix, *g1_times[1:]]:
         log(f"{kr['name']} [{kr['shape']}]: {kr['ms']:.4f} ms "
             f"({kr['tflops']:.1f} TFLOP/s; one call alone "
             f"{kr['one_call_ms']:.4f} ms), bound {kr['bound_ms']:.4f} ms "
@@ -4179,7 +4899,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {k: v for k, v in kr.items()
          if k not in ("shape", "grid", "pages_per_split", "call_ms",
-                      "library_call_ms")}
+                      "library_call_ms", "library")}
         for kr in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

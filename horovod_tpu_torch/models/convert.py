@@ -30,7 +30,10 @@ def params_from_jax(tree: Dict, cfg: TransformerConfig, *,
     Matrices are held in ``param_dtype``, by default ``cfg.dtype``: the
     serving load casts once here, and the model's casts at use are then
     no-ops, which gives JAX's values.  ``torch.float32`` keeps every leaf
-    f32, as JAX does: the training load.  The RMSNorm scales stay f32."""
+    f32, as JAX does: the training load.  The RMSNorm scales stay f32,
+    and so does an MoE model's ``router``: the switch and dropless
+    dispatches route in f32 from the f32 parameter, as JAX's do, and a
+    router rounded at load would route tokens differently."""
     device = resolve_device(device)
     param_dtype = param_dtype or cfg.dtype
 
@@ -39,11 +42,13 @@ def params_from_jax(tree: Dict, cfg: TransformerConfig, *,
         return t.to(device=device,
                     dtype=param_dtype if cast else torch.float32)
 
-    expected = set(_MATRICES) | {"ln1", "ln2"}
+    moe = cfg.n_experts > 1
+    expected = set(_MATRICES) | {"ln1", "ln2"} | ({"router"} if moe else set())
     layers = tree["layers"]
     if set(layers) != expected:
         raise ValueError(f"layer parameters {sorted(layers)} are not the "
-                         f"dense model's {sorted(expected)}")
+                         f"{'MoE' if moe else 'dense'} model's "
+                         f"{sorted(expected)}")
     return {
         "embed": load(tree["embed"], True),
         "layers": {k: load(v, k in _MATRICES) for k, v in layers.items()},

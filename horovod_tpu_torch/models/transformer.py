@@ -1,10 +1,12 @@
 """The decoder-only Transformer LM in PyTorch: training and serving.
 
-Counterpart of ``horovod_tpu/models/transformer.py`` for the dense
-model: parameters, the training forward and loss (:func:`forward`,
-:func:`loss_fn`, :func:`synthetic_batch`; flash attention K1-K3 when
+Counterpart of ``horovod_tpu/models/transformer.py``: parameters, the
+training forward and loss (:func:`forward`, :func:`loss_fn`,
+:func:`synthetic_batch`; flash attention K1-K3 when
 ``attention_impl="flash"``; each layer rematerialised with
-``remat=True``, policy ``full`` or ``dots``), prefill (whole prompts, and suffixes over an
+``remat=True``, policy ``full`` or ``dots``; a top-1
+mixture-of-experts MLP with ``n_experts > 1``, its Switch balance loss
+and :func:`expert_load`), prefill (whole prompts, and suffixes over an
 already-cached prefix: :func:`prefill_with_prefix`, K1 with a runtime
 shift), the contiguous-cache decode step
 with the per-request :func:`sample_decode` / :func:`greedy_decode`
@@ -22,7 +24,16 @@ on a leading ``L`` axis, the same names and shapes.  Every matrix is
 cast to ``cfg.dtype`` at use, as in JAX, so the same code serves f32
 master parameters (training: ``param_dtype=torch.float32``) and
 matrices already held in ``cfg.dtype`` (serving's default, where the
-casts are no-ops).  The RMSNorm scales stay f32.
+casts are no-ops).  The RMSNorm scales and the MoE router stay f32: the
+switch and dropless dispatches route in f32 from the f32 parameter, as
+JAX's do, while the dense dispatch casts the router to ``cfg.dtype`` at
+use, as JAX's ``_moe_mlp_dense`` does (so at bf16 a prefill and a
+decode step can route one token differently, in both packages).
+
+MoE dispatch by path, as in JAX: training runs ``cfg.moe_impl``
+(``"switch"`` by default), :func:`prefill` and
+:func:`prefill_with_prefix` the dropless grouped products (G1 on CUDA),
+and every per-step decode path the dense every-expert dispatch.
 
 Unlike JAX, tensors are mutable: caches and page pools are updated in
 place (the JAX engine donates them to the same effect).
@@ -33,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -43,11 +54,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from horovod_tpu_torch.basics import resolve_device
 from horovod_tpu_torch.ops import attention as attn
+from horovod_tpu_torch.ops import moe
 from horovod_tpu_torch.ops import paged_attention as pa
 from horovod_tpu_torch.ops import threefry
 
 __all__ = ["TransformerConfig", "decode_step", "decode_step_paged",
-           "decode_verify_paged", "draft_propose_paged", "forward",
+           "decode_verify_paged", "draft_propose_paged", "expert_load",
+           "forward",
            "greedy_decode", "init_cache", "init_params", "kv_dequantize",
            "kv_quantize", "loss_fn", "ngram_propose", "prefill",
            "prefill_with_prefix", "resolve_device", "sample_decode",
@@ -64,7 +77,26 @@ class TransformerConfig:
     n_layers: int = 4
     d_ff: int = 2048
     max_seq: int = 1024
-    n_experts: int = 0  # 0/1 = dense MLP; MoE is not ported
+    n_experts: int = 0  # 0/1 = dense MLP
+    # MoE dispatch: "switch" = sparse capacity-factor token dispatch
+    # (ops/moe.py; each token computes ONE expert); "dense" = every
+    # expert, combined with the routing one-hot (the exact oracle, and
+    # the per-step decode dispatch); "dropless" = grouped products, exact
+    # at one expert's work a token (the prefill dispatch).
+    moe_impl: str = "switch"
+    # Per-expert capacity multiplier for switch dispatch: each expert
+    # accepts ceil(cf * T / E) tokens a step; overflow tokens pass
+    # through the residual only.
+    capacity_factor: float = 2.0
+    # Switch dispatch mechanism: "sort" or "cumsum" (identical outputs,
+    # gradients and drops).
+    moe_dispatch: str = "sort"
+    # Model-level expert parallelism (JAX: a shard_map mesh axis): not
+    # ported; None only.
+    moe_axis: Optional[str] = None
+    # Switch load-balancing loss coefficient: loss_fn adds
+    # coeff * sum over layers of E * sum_e frac_e * pbar_e when > 0.
+    moe_aux_coeff: float = 0.0
     # Grouped-query attention: K/V heads (0 = n_heads, i.e. MHA).
     n_kv_heads: int = 0
     rope_theta: float = 10000.0
@@ -78,9 +110,13 @@ class TransformerConfig:
     remat_policy: str = "full"
 
     def __post_init__(self):
-        if self.n_experts > 1:
+        if self.moe_axis is not None:
             raise NotImplementedError(
-                "mixture-of-experts (n_experts > 1) is not ported")
+                "moe_axis (model-level expert parallelism over a mesh axis) "
+                "is not ported: it needs the mesh and an optimizer that does "
+                "not average the resident experts (ROADMAP.md Queue 1, item "
+                "10); ops.moe.switch_moe(group=) runs expert parallelism at "
+                "the op level")
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}; "
                              "expected 'full' or 'dots'")
@@ -115,7 +151,9 @@ def init_params(cfg: TransformerConfig, *, seed: int = 0, device=None,
 
     Matrices are held in ``param_dtype``, by default ``cfg.dtype``
     (serving); training passes ``torch.float32`` for f32 master
-    parameters, as the JAX package keeps."""
+    parameters, as the JAX package keeps.  With ``n_experts > 1`` the
+    MLP is a stack of experts: ``router (L, D, E)``, always f32, and
+    ``w_gate`` / ``w_up (L, E, D, F)``, ``w_down (L, E, F, D)``."""
     device = resolve_device(device)
     param_dtype = param_dtype or cfg.dtype
     g = torch.Generator(device=device)
@@ -123,29 +161,34 @@ def init_params(cfg: TransformerConfig, *, seed: int = 0, device=None,
     D, H, Dh, Fd, L, V = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
                           cfg.n_layers, cfg.vocab_size)
 
-    def normal(shape, scale):
+    def normal(shape, scale, dtype=None):
         x = torch.randn(shape, generator=g, device=device,
                         dtype=torch.float32)
-        return (x * scale).to(param_dtype)
+        return (x * scale).to(dtype or param_dtype)
 
     s_d, s_f = 1.0 / math.sqrt(D), 1.0 / math.sqrt(Fd)
     ones = dict(device=device, dtype=torch.float32)
-    return {
-        "embed": normal((V, D), 1.0),
-        "layers": {
-            "ln1": torch.ones((L, D), **ones),
-            "ln2": torch.ones((L, D), **ones),
-            "wq": normal((L, D, H, Dh), s_d),
-            "wk": normal((L, D, cfg.kv_heads, Dh), s_d),
-            "wv": normal((L, D, cfg.kv_heads, Dh), s_d),
-            "wo": normal((L, H, Dh, D), s_d),
-            "w_gate": normal((L, D, Fd), s_d),
-            "w_up": normal((L, D, Fd), s_d),
-            "w_down": normal((L, Fd, D), s_f),
-        },
-        "ln_f": torch.ones((D,), **ones),
-        "head": normal((D, V), s_d),
+    embed = normal((V, D), 1.0)
+    layers = {
+        "ln1": torch.ones((L, D), **ones),
+        "ln2": torch.ones((L, D), **ones),
+        "wq": normal((L, D, H, Dh), s_d),
+        "wk": normal((L, D, cfg.kv_heads, Dh), s_d),
+        "wv": normal((L, D, cfg.kv_heads, Dh), s_d),
+        "wo": normal((L, H, Dh, D), s_d),
     }
+    E = cfg.n_experts
+    if E > 1:
+        layers.update(router=normal((L, D, E), s_d, torch.float32),
+                      w_gate=normal((L, E, D, Fd), s_d),
+                      w_up=normal((L, E, D, Fd), s_d),
+                      w_down=normal((L, E, Fd, D), s_f))
+    else:
+        layers.update(w_gate=normal((L, D, Fd), s_d),
+                      w_up=normal((L, D, Fd), s_d),
+                      w_down=normal((L, Fd, D), s_f))
+    return {"embed": embed, "layers": layers,
+            "ln_f": torch.ones((D,), **ones), "head": normal((D, V), s_d)}
 
 
 def _layer(params: Dict, l: int) -> Dict:
@@ -222,9 +265,76 @@ def _dense_mlp(x, p, cfg: TransformerConfig):
     return torch.einsum("bsf,fd->bsd", F.silu(g) * u, p["w_down"].to(dt))
 
 
-def _mlp_block(x, p, cfg: TransformerConfig):
-    """Residual MLP half of a layer (the dense branch of ``_mlp_block``)."""
-    return x + _dense_mlp(_rmsnorm(x, p["ln2"]), p, cfg)
+def _moe_mlp_dense(x, p, cfg: TransformerConfig, return_aux: bool = False):
+    """Top-1 MoE, dense dispatch: routing probabilities from the router
+    cast to ``cfg.dtype`` (as JAX's), every expert evaluated, combined
+    with the routing one-hot.  Exact and dropless: the oracle of the
+    sparse dispatches, and the per-step decode dispatch."""
+    dt, E = cfg.dtype, cfg.n_experts
+    B, S, D = x.shape
+    logits = torch.einsum("bsd,de->bse", x, p["router"].to(dt))
+    probs = torch.softmax(logits.float(), dim=-1)
+    top = torch.argmax(probs, dim=-1)
+    gate = probs.amax(dim=-1)
+    onehot = moe._onehot(top, E, dt)
+    # Every expert on every token, batched over the experts: (E, B*S, .)
+    # products that read each expert's weights in place.
+    xt = x.reshape(1, B * S, D)
+    g = torch.matmul(xt, p["w_gate"].to(dt))
+    u = torch.matmul(xt, p["w_up"].to(dt))
+    y = torch.matmul(F.silu(g) * u, p["w_down"].to(dt))
+    y = torch.einsum("etd,te->td", y, onehot.reshape(B * S, E))
+    y = y.reshape(B, S, D) * gate[..., None].to(dt)
+    if not return_aux:
+        return y
+    frac = onehot.float().reshape(-1, E).mean(0)
+    pbar = probs.reshape(-1, E).mean(0)
+    return y, E * torch.sum(frac * pbar)
+
+
+def _moe_mlp(x, p, cfg: TransformerConfig, impl: Optional[str] = None,
+             return_aux: bool = False):
+    """Mixture-of-experts FFN; ``impl`` overrides ``cfg.moe_impl``:
+    "switch" (training), "dense" (per-step decode), "dropless"
+    (prefill).  ``return_aux`` also returns the layer's balance loss
+    (not for dropless, the serving dispatch)."""
+    impl = impl or cfg.moe_impl
+    if impl == "dense":
+        return _moe_mlp_dense(x, p, cfg, return_aux=return_aux)
+    dt = cfg.dtype
+    if impl == "dropless":
+        if return_aux:
+            raise ValueError(
+                "moe_impl='dropless' is the serving dispatch — train with "
+                "'switch' (+ moe_aux_coeff) for the balance loss")
+        return moe.dropless_moe(x, p["router"], p["w_gate"].to(dt),
+                                p["w_up"].to(dt), p["w_down"].to(dt))
+    if impl != "switch":
+        raise ValueError(f"unknown moe_impl {impl!r}; "
+                         "expected 'switch', 'dense', or 'dropless'")
+    return moe.switch_moe(
+        x, p["router"], p["w_gate"].to(dt), p["w_up"].to(dt),
+        p["w_down"].to(dt), capacity_factor=cfg.capacity_factor,
+        return_aux=return_aux, dispatch=cfg.moe_dispatch)
+
+
+def _mlp_block(x, p, cfg: TransformerConfig, moe_impl: Optional[str] = None,
+               return_aux: bool = False):
+    """Residual MLP half of a layer, shared by forward, prefill and the
+    decode steps.  MoE prefill runs the dropless dispatch and decode the
+    dense one, so forward and decode agree exactly when switch drops no
+    token (``capacity_factor >= n_experts``).  ``return_aux`` also
+    returns the MoE balance loss (0 for a dense MLP)."""
+    m = _rmsnorm(x, p["ln2"])
+    if cfg.n_experts > 1:
+        out = _moe_mlp(m, p, cfg, impl=moe_impl, return_aux=return_aux)
+        if return_aux:
+            return x + out[0], out[1]
+        return x + out
+    y = x + _dense_mlp(m, p, cfg)
+    if return_aux:
+        return y, torch.zeros((), dtype=torch.float32, device=x.device)
+    return y
 
 
 def _lm_head(y, ln_f, head, cfg: TransformerConfig):
@@ -259,9 +369,9 @@ def _attention(x, p, cfg: TransformerConfig):
     return _out_proj(oh, p, cfg), kh, vh
 
 
-def _layer_body(x, p, cfg: TransformerConfig):
+def _layer_body(x, p, cfg: TransformerConfig, return_aux: bool = False):
     x = x + _attention(_rmsnorm(x, p["ln1"]), p, cfg)[0]
-    return _mlp_block(x, p, cfg)
+    return _mlp_block(x, p, cfg, return_aux=return_aux)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -269,8 +379,10 @@ def _dots_policy(ctx, op, *args, **kwargs):
     dimension — ``aten.mm`` / ``aten.addmm``, and ``aten.bmm`` over a
     batch of one, which is how ``einsum`` runs the projections
     (``bsd,dhk->bshk``) — and recompute everything else: the attention
-    scores' batched ``bmm`` and the flash ``autograd.Function`` (a JAX
-    ``pallas_call`` is no saveable dot either).  The counterpart of
+    scores' batched ``bmm``, the switch MoE's expert products (a
+    ``bmm`` over E > 1 experts, a batched dot in JAX too) and the flash
+    ``autograd.Function`` (a JAX ``pallas_call`` is no saveable dot
+    either).  The counterpart of
     ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``."""
     aten = torch.ops.aten
     if op in (aten.mm.default, aten.addmm.default) or (
@@ -279,7 +391,7 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _remat_layer(x, p, cfg: TransformerConfig):
+def _remat_layer(x, p, cfg: TransformerConfig, return_aux: bool = False):
     """One layer under ``torch.utils.checkpoint`` (the JAX ``_remat``):
     its backward reruns the forward (K1 launches again, into a fresh
     buffer), saving what the policy says.  The layer draws no random
@@ -289,19 +401,27 @@ def _remat_layer(x, p, cfg: TransformerConfig):
     if cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_policy)
-    return checkpoint(_layer_body, x, p, cfg, use_reentrant=False,
-                      preserve_rng_state=False, **kw)
+    return checkpoint(_layer_body, x, p, cfg, return_aux,
+                      use_reentrant=False, preserve_rng_state=False, **kw)
 
 
-def forward(params: Dict, tokens, cfg: TransformerConfig):
+def forward(params: Dict, tokens, cfg: TransformerConfig,
+            return_aux: bool = False):
     """Logits ``(B, S, V)`` f32 for next-token prediction; ``tokens``
     ``(B, S)`` integer.  With ``cfg.remat`` each layer is
-    rematerialised (:func:`_remat_layer`)."""
+    rematerialised (:func:`_remat_layer`).  ``return_aux`` also returns
+    the sum over layers of the MoE balance loss (0 for a dense model)."""
     x = _embed(params, tokens, cfg)
     layer = _remat_layer if cfg.remat else _layer_body
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in _layers(params):
-        x = layer(x, p, cfg)
-    return _lm_head(x, params["ln_f"], params["head"], cfg)
+        if return_aux:
+            x, a = layer(x, p, cfg, True)
+            aux = aux + a
+        else:
+            x = layer(x, p, cfg)
+    logits = _lm_head(x, params["ln_f"], params["head"], cfg)
+    return (logits, aux) if return_aux else logits
 
 
 def _xent_sum(logits, targets):
@@ -312,9 +432,35 @@ def _xent_sum(logits, targets):
 
 
 def loss_fn(params: Dict, batch: Dict, cfg: TransformerConfig):
-    """Mean next-token cross-entropy; ``batch = {tokens, targets}``."""
+    """Mean next-token cross-entropy; ``batch = {tokens, targets}``.
+    With ``cfg.moe_aux_coeff > 0`` on an MoE config, plus ``coeff *`` the
+    sum over layers of the Switch balance loss."""
+    if cfg.n_experts > 1 and cfg.moe_aux_coeff > 0.0:
+        logits, aux = forward(params, batch["tokens"], cfg, return_aux=True)
+        xent = _xent_sum(logits, batch["targets"]) / batch["targets"].numel()
+        return xent + cfg.moe_aux_coeff * aux
     logits = forward(params, batch["tokens"], cfg)
     return _xent_sum(logits, batch["targets"]) / batch["targets"].numel()
+
+
+@torch.no_grad()
+def expert_load(params: Dict, tokens, cfg: TransformerConfig):
+    """``(n_layers, n_experts)`` f32: the fraction of tokens whose top-1
+    route (f32 router) lands on each expert, on the activations entering
+    each MoE block of a forward pass over ``tokens``.  Rows sum to 1;
+    uniform rows mean a balanced router."""
+    if cfg.n_experts <= 1:
+        raise ValueError("expert_load needs an MoE config (n_experts > 1)")
+    x = _embed(params, tokens, cfg)
+    fracs = []
+    for p in _layers(params):
+        att = x + _attention(_rmsnorm(x, p["ln1"]), p, cfg)[0]
+        m = _rmsnorm(att, p["ln2"])
+        logits = m.float().reshape(-1, cfg.d_model) @ p["router"].float()
+        fracs.append(moe._onehot(torch.argmax(logits, dim=-1),
+                                 cfg.n_experts, torch.float32).mean(0))
+        x = _mlp_block(att, p, cfg)
+    return torch.stack(fracs)
 
 
 def synthetic_batch(seed: int, cfg: TransformerConfig, batch: int,
@@ -348,7 +494,7 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int = 0, *,
 
 @torch.no_grad()
 def prefill(params: Dict, prompt, cache: Dict, cfg: TransformerConfig, *,
-            true_len=None):
+            moe_impl: str = "dropless", true_len=None):
     """Fill a FRESH cache with a ``(B, S0)`` prompt in one forward pass;
     returns ``(last-position logits (B, V), cache)``.  The cache's first
     ``S0`` positions are written in place.
@@ -357,7 +503,11 @@ def prefill(params: Dict, prompt, cache: Dict, cfg: TransformerConfig, *,
     ``S0`` with their real lengths, a scalar or a ``(B,)`` tensor —
     logits come from position ``true_len - 1`` of each row and ``pos``
     becomes ``true_len``.  Causality keeps the padding out of the
-    logits; the junk K/V it leaves past ``true_len`` is never read."""
+    logits; the junk K/V it leaves past ``true_len`` is never read.
+
+    ``moe_impl``: the MoE dispatch of an MoE config, by default
+    ``"dropless"`` (G1 on CUDA), whose rows do not depend on the other
+    rows, padding included."""
     if not isinstance(cache["pos"], int) or cache["pos"] != 0:
         raise ValueError("prefill requires a fresh cache (pos == 0)")
     B, S0 = prompt.shape
@@ -371,7 +521,7 @@ def prefill(params: Dict, prompt, cache: Dict, cfg: TransformerConfig, *,
         h, kh, vh = _attention(_rmsnorm(x, p["ln1"]), p, cfg)
         cache["k"][l, :, :, :S0] = kh
         cache["v"][l, :, :, :S0] = vh
-        x = _mlp_block(x + h, p, cfg)
+        x = _mlp_block(x + h, p, cfg, moe_impl=moe_impl)
     if true_len is None:
         last = x[:, -1:]
         new_pos = S0
@@ -411,7 +561,8 @@ def _prefix_attend_reference(qh, kh, vh, pk, pv, p0):
 
 @torch.no_grad()
 def prefill_with_prefix(params: Dict, suffix, prefix_k, prefix_v,
-                        prefix_len, cfg: TransformerConfig, *, true_len):
+                        prefix_len, cfg: TransformerConfig, *, true_len,
+                        moe_impl: str = "dropless"):
     """Prefill a ``(K, S0)`` suffix whose first ``prefix_len`` logical
     positions already exist as cached K/V: the prefix-sharing prefill
     (a registered prefix is prefilled once, and a request that starts
@@ -429,7 +580,7 @@ def prefill_with_prefix(params: Dict, suffix, prefix_k, prefix_v,
     their causal span of the suffix.  Returns ``(last-real-position
     logits (K, V), {"k": (L, K, H_kv, S0, Dh), "v": ..., "pos":
     prefix_len + true_len})``, the contract of ``prefill_with_prefix`` in
-    the JAX package.
+    the JAX package.  ``moe_impl`` as :func:`prefill`'s.
 
     ``attention_impl="flash"`` attends through K1 over one ``(K, H_kv,
     P0 + S0, Dh)`` buffer a layer: the padded prefix, with the suffix
@@ -466,7 +617,8 @@ def prefill_with_prefix(params: Dict, suffix, prefix_k, prefix_v,
             oh = _prefix_attend_reference(qh, kh, vh, pk, pv, p0)
         ks.append(kh)
         vs.append(vh)
-        x = _mlp_block(x + _out_proj(oh, p, cfg), p, cfg)
+        x = _mlp_block(x + _out_proj(oh, p, cfg), p, cfg,
+                       moe_impl=moe_impl)
     last = x[torch.arange(K, device=dev), tl - 1][:, None]
     logits = _lm_head(last, params["ln_f"], params["head"], cfg)
     return logits[:, 0], {"k": torch.stack(ks), "v": torch.stack(vs),
@@ -521,7 +673,7 @@ def decode_step(params: Dict, tokens_t, cache: Dict,
         p = _layer(params, l)
         h = _attention_decode(_rmsnorm(x, p["ln1"]), p, cfg,
                               cache["k"][l], cache["v"][l], pos)
-        x = _mlp_block(x + h, p, cfg)
+        x = _mlp_block(x + h, p, cfg, moe_impl="dense")
     logits = _lm_head(x, params["ln_f"], params["head"], cfg)
     cache["pos"] = pos + 1
     return logits[:, 0], cache
@@ -791,7 +943,7 @@ def decode_step_paged(params: Dict, tokens_t, pool: Dict, table,
             pool["k_scale"][l] if quantized else None,
             pool["v_scale"][l] if quantized else None,
             table, pos, active, kernel)
-        x = _mlp_block(x + h, p, cfg)
+        x = _mlp_block(x + h, p, cfg, moe_impl="dense")
     logits = _lm_head(x, params["ln_f"], params["head"], cfg)
     pos.add_(active.to(pos.dtype))
     return logits[:, 0], pool
@@ -987,7 +1139,7 @@ def decode_verify_paged(params: Dict, window, pool: Dict, table,
             o = torch.einsum("bkgst,bktd->bkgsd", w.to(v_full.dtype).float(),
                              v_full.float())
         out = _out_proj(o.reshape(S, H, W, Dh).to(cfg.dtype), p, cfg)
-        x = _mlp_block(x + out, p, cfg)
+        x = _mlp_block(x + out, p, cfg, moe_impl="dense")
     logits = _lm_head(x, params["ln_f"], params["head"], cfg)  # (S, W, V)
     t = torch.argmax(logits, dim=-1)
     mx = logits.amax(dim=-1)

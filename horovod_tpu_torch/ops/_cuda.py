@@ -3,7 +3,8 @@
 The counterpart of ``horovod_tpu/ops/_pallas_util.py``.  Every kernel in
 this package (:mod:`~horovod_tpu_torch.ops.attention`: ``flash_fwd.cu``
 and ``flash_bwd.cu``; :mod:`~horovod_tpu_torch.ops.paged_attention`:
-``paged_attention.cu``) is CUDA C++ under
+``paged_attention.cu``; :mod:`~horovod_tpu_torch.ops.grouped_matmul`:
+``grouped_matmul.cu``) is CUDA C++ under
 ``ops/csrc/`` with a plain C entry point, built by ``nvcc`` for
 ``sm_90a`` into a shared library and called through ``ctypes`` — no
 PyTorch headers, so a build takes seconds, not minutes.

@@ -174,6 +174,7 @@ import torch
 from horovod_tpu_torch.models import transformer as T
 from horovod_tpu_torch.obs import tracing as obs_tracing
 from horovod_tpu_torch.ops import attention as _attn
+from horovod_tpu_torch.ops import grouped_matmul as _gmm
 from horovod_tpu_torch.ops import paged_attention as _pa
 from horovod_tpu_torch.serving.cache import NULL_PAGE, PagedSlotCache, \
     pad_pages
@@ -2883,6 +2884,7 @@ class InferenceEngine:
             # versions and leave them at 0).
             "flash_fwd_launches": _attn.flash_fwd_launches,
             "paged_attend_launches": _pa.paged_attend_launches,
+            "grouped_matmul_launches": _gmm.grouped_matmul_launches,
             "speculative": self._spec,
             "autotune": self._tuner is not None,
             **({"tuning": self._tuner.snapshot()}

@@ -70,6 +70,7 @@ from horovod_tpu_torch._capture import capture
 from horovod_tpu_torch.models import transformer as T
 from horovod_tpu_torch.obs import tracing as obs_tracing
 from horovod_tpu_torch.ops import attention as attn
+from horovod_tpu_torch.ops import grouped_matmul as gmm
 from horovod_tpu_torch.ops import paged_attention as pa
 
 __all__ = ["DecodeTick", "Download", "PrefillGraphs", "SpecTick", "download",
@@ -479,6 +480,7 @@ class PrefillGraph:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out = None
         self.k1_launches_per_replay = 0
+        self.g1_launches_per_replay = 0
 
     def set(self, **fields) -> None:
         """Write host values into the named fields (the next run
@@ -505,9 +507,11 @@ class PrefillGraphs:
     the NULL page) and replays it from then on; every graph shares one
     memory pool, so a graph's outputs hold until the next replay of any
     of them: a caller that keeps one past that clones it.  K1's wrapper
-    runs once a layer during capture, where it launches nothing: the
-    count it adds there is taken back, and each replay adds that many
-    launches, so ``attention.flash_fwd_launches`` still counts launches.
+    runs once a layer during capture (an MoE model's G1 three times a
+    layer), where it launches nothing: the count it adds there is taken
+    back, and each replay adds that many launches, so
+    ``attention.flash_fwd_launches`` and
+    ``grouped_matmul.grouped_matmul_launches`` still count launches.
     :attr:`captures` counts captures by kind, :attr:`capture_s` their
     seconds (warm runs included), :meth:`keys` the keys run so far.
     ``draft``: the graphs of a speculative engine's draft model (their
@@ -603,12 +607,14 @@ class PrefillGraphs:
         if self._mempool is None:
             self._mempool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        k1 = attn.flash_fwd_launches
+        k1, g1 = attn.flash_fwd_launches, gmm.grouped_matmul_launches
         with capture(graph, self._mempool):
             out = self.body(g)
             obs_tracing.record_compile(self._compile_fn[g.key[0]])
         g.k1_launches_per_replay = attn.flash_fwd_launches - k1
+        g.g1_launches_per_replay = gmm.grouped_matmul_launches - g1
         attn.flash_fwd_launches = k1
+        gmm.grouped_matmul_launches = g1
         g.graph, g.out = graph, out
         self.captures[g.key[0]] += 1
         self.capture_s += time.monotonic() - t0
@@ -626,4 +632,5 @@ class PrefillGraphs:
         g.graph.replay()
         self.replays += 1
         attn.flash_fwd_launches += g.k1_launches_per_replay
+        gmm.grouped_matmul_launches += g.g1_launches_per_replay
         return g.out

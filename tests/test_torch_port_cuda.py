@@ -25,7 +25,12 @@ in a size-1 NCCL group.  The vision path: the bench's captured ResNet
 step against its eager body bit for bit under ``cudnn.deterministic``,
 the loader's prefetched batches against the host rows (``record_stream``
 held to its purpose), and ``xprof``'s ResNet-50 FLOP count within 10 %
-of the analytic one.
+of the analytic one.  Mixture of experts: the grouped product G1 against
+its plain version (f32 1e-4 and bf16 2e-2 of the largest output: the
+plain version rounds each expert's product once, as G1 does, and sums
+in another order) and bit for bit against itself in another batch; a
+captured MoE admission against its body; the dropless backward raising
+on CUDA.
 """
 
 import numpy as np
@@ -35,6 +40,8 @@ import torch
 from horovod_tpu_torch import serving
 from horovod_tpu_torch.models import transformer as T
 from horovod_tpu_torch.ops import attention as A
+from horovod_tpu_torch.ops import grouped_matmul as GM
+from horovod_tpu_torch.ops import moe as M
 from horovod_tpu_torch.ops import paged_attention as PA
 from horovod_tpu_torch.serving.cache import copy_page, pad_pages
 from horovod_tpu_torch.serving.graph import PrefillGraphs
@@ -1313,3 +1320,147 @@ def test_autotuner_applies_every_knob_value_without_capture(dev):
             spec.step()
         assert spec.stats()["decode_compilations"] == 2
     spec.terminate()
+
+
+# --- mixture of experts ----------------------------------------------------------
+
+
+def _gmm_inputs(dev, dtype, counts, K, N, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.randn((sum(counts), K), generator=g, device=dev).to(dtype)
+    w = (torch.randn((len(counts), K, N), generator=g, device=dev)
+         / K ** 0.5).to(dtype)
+    off = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                       dtype=torch.int32, device=dev)
+    return xs, w, off
+
+
+# Group sizes: the prefill's T = 4 x 2048 over 8 experts, every row on one
+# expert, empty experts, and T = 1, 17 and 8191.
+GMM_COUNTS = {"prefill": [1000, 1100, 900, 1050, 950, 1024, 1100, 1068],
+              "skewed": [0, 0, 8192, 0, 0, 0, 0, 0],
+              "empty": [0, 300, 0, 0, 517, 0, 0, 207],
+              "one": [0, 0, 0, 1, 0, 0, 0, 0],
+              "seventeen": [5, 0, 12, 0, 0, 0, 0, 0],
+              "odd": [1023, 1025, 1024, 1024, 1024, 1024, 1023, 1024]}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("KN", [(1024, 2048), (2048, 1024)],
+                         ids=["gate", "down"])
+@pytest.mark.parametrize("case", sorted(GMM_COUNTS))
+def test_grouped_matmul_kernel(dev, dtype, tol, KN, case):
+    """G1 against its plain version, one launch counted a call."""
+    xs, w, off = _gmm_inputs(dev, dtype, GMM_COUNTS[case], *KN)
+    before = GM.grouped_matmul_launches
+    out = GM.grouped_matmul(xs, w, off)
+    torch.cuda.synchronize()
+    assert GM.grouped_matmul_launches == before + 1
+    ref = GM.grouped_matmul_reference(xs, w, off)
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err <= tol, (case, KN, err.item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_rows_are_invariant(dev, dtype):
+    """A row's bits do not depend on the batch around it: the prefill
+    case's rows, computed again with 37 other rows ahead of them, expert
+    3 emptied and T changed, are bit-identical."""
+    counts = GMM_COUNTS["prefill"]
+    xs, w, off = _gmm_inputs(dev, dtype, counts, 1024, 2048)
+    out = GM.grouped_matmul(xs, w, off)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    extra = torch.randn((37, 1024), device=dev).to(dtype)
+    xs_b = torch.cat([extra, xs[:starts[3]], xs[starts[4]:]])
+    counts_b = [counts[0] + 37, *counts[1:3], 0, *counts[4:]]
+    off_b = torch.tensor(np.concatenate([[0], np.cumsum(counts_b)]),
+                         dtype=torch.int32, device=dev)
+    out_b = GM.grouped_matmul(xs_b, w, off_b)
+    kept = torch.cat([out[:starts[3]], out[starts[4]:]])
+    assert torch.equal(out_b[37:], kept)
+
+
+def test_grouped_matmul_refuses_what_it_does_not_take(dev):
+    xs, w, off = _gmm_inputs(dev, torch.bfloat16, [3, 5], 64, 64)
+    for bad in ((xs.float(), w, off), (xs, w, off.long()),
+                (xs[:, :60], w[:, :60], off),
+                (xs.t().contiguous().t(), w, off)):
+        with pytest.raises((TypeError, ValueError)):
+            GM.grouped_matmul(*bad)
+
+
+def test_dropless_backward_raises_on_cuda(dev):
+    """G1 has no backward: a gradient through the dropless dispatch on
+    CUDA raises, naming ROADMAP; the switch dispatch trains."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((64, 128), generator=g, device=dev, requires_grad=True)
+    router = torch.randn((128, 4), generator=g, device=dev)
+    wg, wu = (torch.randn((4, 128, 256), generator=g, device=dev)
+              for _ in range(2))
+    wd = torch.randn((4, 256, 128), generator=g, device=dev)
+    y = M.dropless_moe(x, router, wg, wu, wd)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        y.sum().backward()
+    M.switch_moe(x, router, wg, wu, wd).sum().backward()
+    assert torch.isfinite(x.grad).all()
+
+
+# The serving width with 8 experts of d_ff 2048, cut to 2 layers.
+SERVE_MOE = dict(SERVE, n_layers=2, d_ff=2048, n_experts=8)
+
+
+def test_captured_moe_admission_equals_eager(dev):
+    """An MoE model's admission graphs (the dropless dispatch, G1 three
+    times a layer) against their bodies run eagerly, bit for bit: a
+    whole-prompt prefill of two prompts and a suffix graph; G1 and K1
+    launches counted per replay; then a burst after ``warmup`` captures
+    nothing more, the tick's dense dispatch included."""
+    cfg = T.TransformerConfig(**SERVE_MOE, dtype=torch.bfloat16)
+    params = T.init_params(cfg, seed=0, device=dev)
+    engine = serving.InferenceEngine(
+        params, cfg, serving.EngineConfig(n_slots=8, max_len=512,
+                                          page_size=16, overlap=False),
+        device=dev)
+    graphs, slots = engine._graphs, engine.slots
+    rng = np.random.default_rng(3)
+    a, b = slots.alloc(), slots.alloc()
+    for s in (a, b):
+        for idx in range(10):
+            slots.grant(s, idx)
+    lens = np.array([50, 33])
+    new_pos, phys, off = slots.landing([a, b], lens, bucket=64)
+    _graph_equals_body(graphs, ("full", 64, 2), dict(
+        tokens=rng.integers(0, 32000, (2, 64)), lens=lens, slots=[a, b],
+        new_pos=new_pos, valid=1, phys=phys, off=off))
+    g = graphs.get(("full", 64, 2))
+    assert g.g1_launches_per_replay == 3 * cfg.n_layers
+    g1, k1 = GM.grouped_matmul_launches, A.flash_fwd_launches
+    graphs.run(g)
+    assert GM.grouped_matmul_launches - g1 == 3 * cfg.n_layers
+    assert A.flash_fwd_launches - k1 == cfg.n_layers
+    lens = np.array([20, 7])
+    new_pos, phys, off = slots.landing([a, b], lens, 75, bucket=32)
+    _graph_equals_body(graphs, ("suffix", 8, 32, 2), dict(
+        tokens=rng.integers(0, 32000, (2, 32)), lens=lens, p0=75,
+        pages=pad_pages(slots.table[a, :slots.pages_for(75)].tolist()),
+        slots=[a, b], new_pos=new_pos, valid=1, phys=phys, off=off))
+    engine.terminate()
+    engine = serving.InferenceEngine(
+        params, cfg, serving.EngineConfig(n_slots=8, max_len=512,
+                                          page_size=16), device=dev)
+    engine.warmup((5, 40, 100, 17, 300, 64, 9, 200))
+    st = engine.stats()
+    warm = (st["prefill_compilations"], st["sample_compilations"],
+            st["decode_compilations"])
+    g1 = st["grouped_matmul_launches"]
+    futs = _mixed_requests(engine, 16)
+    while not all(f.done() for f in futs):
+        engine.step()
+    assert all(len(f.result(timeout=0)) == 16 for f in futs)
+    st = engine.stats()
+    assert (st["prefill_compilations"], st["sample_compilations"],
+            st["decode_compilations"]) == warm
+    assert st["grouped_matmul_launches"] > g1
+    engine.terminate()

@@ -3,11 +3,13 @@
 A CUDA kernel has no interpret mode, and the CPU test run has no
 ``nvcc`` and no card, so the plain-version tests never reach a kernel's
 indexing.
-This file compiles ``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu`` and
-``paged_attention.cu`` with g++ against a small emulation of what they
-use, and holds the kernels (bf16 tensor-core K1, K2 and K3, the scalar
-f32 kernels, K4's split and combine kernels) against their plain
-versions on seeded inputs (K1 also with its shift read from memory):
+This file compiles ``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu``,
+``paged_attention.cu`` and ``grouped_matmul.cu`` with g++ against a
+small emulation of what they use, and holds the kernels (bf16
+tensor-core K1, K2 and K3, the scalar f32 kernels, K4's split and
+combine kernels, G1's tensor-core and scalar kernels) against their
+plain versions on seeded inputs (K1 also with its shift read from
+memory; G1 also bit for bit against itself in another batch):
 
 * one ``std::thread`` per CUDA thread of a block, blocks in turn;
   ``std::barrier`` for ``__syncthreads`` and for warp-synchronous steps;
@@ -28,7 +30,8 @@ the test instead of hanging it.
 
 Tolerances as on the card: K1 5e-2 (bf16) and 1e-4 (f32) absolute;
 K2/K3 2e-2 (bf16) and 1e-4 (f32) of the largest gradient; K4 1e-4 (f32
-and int8 -> f32) and 2e-2 (bf16 and int8 -> bf16) absolute.
+and int8 -> f32) and 2e-2 (bf16 and int8 -> bf16) absolute; G1 2e-2
+(bf16) and 1e-4 (f32) of the largest output.
 """
 
 import json
@@ -296,9 +299,9 @@ def _emulated_source(text: str) -> str:
 
 @pytest.fixture(scope="module")
 def emulated_libs(tmp_path_factory):
-    """``libflash_fwd.so``, ``libflash_bwd.so`` and
-    ``libpaged_attention.so`` built by g++ from the repository's sources
-    under the emulator."""
+    """``libflash_fwd.so``, ``libflash_bwd.so``,
+    ``libpaged_attention.so`` and ``libgrouped_matmul.so`` built by g++
+    from the repository's sources under the emulator."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ with C++20 to build the emulated kernels")
@@ -312,7 +315,8 @@ def emulated_libs(tmp_path_factory):
     (out / "mma_bf16.cuh").write_text(header[:start] + PRIMITIVES
                                       + header[end:])
     procs = []
-    for name in ("flash_fwd", "flash_bwd", "paged_attention"):
+    for name in ("flash_fwd", "flash_bwd", "paged_attention",
+                 "grouped_matmul"):
         src = out / f"{name}.cpp"
         src.write_text(_emulated_source((CSRC / f"{name}.cu").read_text()))
         procs.append(subprocess.Popen(
@@ -545,3 +549,78 @@ def test_emulated_paged_kernel_matches_plain_version(emulated_libs, pool,
         assert err["o"] <= tol and err["lse"] <= tol, (case, err)
         assert err["dead_o"] == 0 and err["dead_lse"] <= -1e30 / 2, (case,
                                                                      err)
+
+
+# G1 through the C entry point the wrapper binds.  Each case: group sizes
+# (empty groups, every row on one group, one row, a group of more than
+# one 64-row tile, ragged T), K and N (a K not a multiple of the 32-deep
+# stage, an N past one 128-column tile).  The outputs start as NaN, so a
+# row the kernel fails to write shows.  Then row invariance: the last
+# case's rows again inside another batch (5 new rows ahead of group 0,
+# group 2 emptied, so every kept row moves to another tile position and
+# T changes), bit for bit.
+GMM_CHILD = r"""
+import ctypes, json, sys
+import numpy as np
+import torch
+from horovod_tpu_torch.ops import grouped_matmul as GM
+
+libdir, dtype = sys.argv[1], {"bf16": torch.bfloat16,
+                              "f32": torch.float32}[sys.argv[2]]
+fn = GM._bind(ctypes.CDLL(f"{libdir}/libgrouped_matmul.so"))
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+def run(xs, w, counts):
+    off = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                       dtype=torch.int32)
+    out = torch.full((xs.shape[0], w.shape[2]), float("nan"), dtype=dtype)
+    rc = fn(ptr(xs), ptr(w), ptr(off), ptr(out), xs.shape[0], xs.shape[1],
+            w.shape[2], w.shape[0], int(dtype == torch.bfloat16), None)
+    assert rc == 0, rc
+    return out, GM.grouped_matmul_reference(xs, w, off)
+
+torch.set_num_threads(1)
+res = []
+for i, (counts, K, N) in enumerate(json.loads(sys.argv[3])):
+    rng = np.random.RandomState(i)
+    xs = torch.from_numpy(rng.randn(sum(counts), K).astype(np.float32))
+    w = torch.from_numpy((rng.randn(len(counts), K, N) / np.sqrt(K))
+                         .astype(np.float32))
+    xs, w = xs.to(dtype), w.to(dtype)
+    out, ref = run(xs, w, counts)
+    res.append({"err": ((out.float() - ref.float()).abs().max()
+                        / ref.float().abs().max()).item()})
+starts = np.concatenate([[0], np.cumsum(counts)])
+extra = torch.from_numpy(rng.randn(5, K).astype(np.float32)).to(dtype)
+xs_b = torch.cat([extra, xs[:starts[2]], xs[starts[3]:]])
+out_b, _ = run(xs_b, w, [counts[0] + 5, counts[1], 0, *counts[3:]])
+kept = torch.cat([out[:starts[2]], out[starts[3]:]])
+bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+res.append({"invariant": torch.equal(out_b[5:].view(bits), kept.view(bits))})
+print(json.dumps(res))
+"""
+
+GMM_CASES = [([0, 5, 0, 12], 40, 24), ([70, 0, 0], 16, 136),
+             ([0, 1], 16, 8), ([3, 9, 4, 24, 65], 32, 16)]
+
+
+@pytest.mark.parametrize("dtype,copies", [("bf16", "immediate"),
+                                          ("bf16", "at_wait"),
+                                          ("f32", "immediate")])
+def test_emulated_grouped_matmul_matches_plain_version(emulated_libs, dtype,
+                                                       copies):
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               EMU_COPIES_AT_WAIT=str(int(copies == "at_wait")))
+    run = subprocess.run(
+        [sys.executable, "-c", GMM_CHILD, str(emulated_libs), dtype,
+         json.dumps(GMM_CASES)], capture_output=True, text=True,
+        timeout=300, env=env)
+    assert run.returncode == 0, run.stderr[-4000:]
+    res = json.loads(run.stdout.strip().splitlines()[-1])
+    assert len(res) == len(GMM_CASES) + 1
+    tol = 2e-2 if dtype == "bf16" else 1e-4
+    for case, err in zip(GMM_CASES, res):
+        assert err["err"] <= tol, (case, err)
+    assert res[-1]["invariant"]

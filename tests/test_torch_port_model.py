@@ -88,8 +88,9 @@ class TestParams:
             assert tuple(p[name].shape) == jparams[name].shape
 
     def test_unported_configs_raise(self):
-        with pytest.raises(NotImplementedError):
-            T.TransformerConfig(n_experts=4)
+        T.TransformerConfig(n_experts=8)  # mixture of experts is ported
+        with pytest.raises(NotImplementedError, match="item 10"):
+            T.TransformerConfig(n_experts=4, moe_axis="ep")
         with pytest.raises(NotImplementedError):
             T.TransformerConfig(attention_impl="ring")
 
