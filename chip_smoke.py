@@ -11,9 +11,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``nvcc`` per source, all started together, with ptxas's registers
    and spill bytes of each kernel printed.  Then the tensor-core
    check: ``cuobjdump -sass`` (from ``nvcc``'s toolkit) counts the
-   ``HMMA``/``HGMMA`` instructions of every kernel function in the flash
-   and grouped-product libraries; the bf16 K1, K2 and K3 kernels and
-   G1's bf16 kernel must have some.
+   ``HMMA``/``HGMMA`` instructions (and ``UTMALDG``, TMA loads) of every
+   kernel function in the flash and grouped-product libraries; the bf16
+   K1, K2 and K3 kernels and G2's bf16 kernel must have some, and G1's
+   bf16 kernel, in both its modes, HGMMA (wgmma), no HMMA, and TMA loads.
 3. Kernels against their plain PyTorch versions on the card, at the
    serving path's shapes, each maximum error printed beside its
    tolerance: flash attention forward (K1) in bf16 and f32, head_dim 64
@@ -37,11 +38,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    suffix shapes also with the shift read from device memory (the
    captured suffix prefills' mode), against the plain version and bit
    for bit against the by-value shift.  Then ``grouped_kernel``: G1,
-   the dropless MoE prefill's grouped product, in bf16 and f32 at the
-   prefill's gate and down shapes (T = 4 x 2048, E = 8) with multinomial,
-   skewed and empty-expert routings and T = 1, 17 and 8191, each
-   relative error (of the largest output) within f32 1e-4 / bf16 2e-2;
-   a row's bits the same inside two batch compositions; G1's times.
+   the dropless MoE dispatch's grouped product, forward and with W read
+   transposed (the input's gradient, dx), and G2, the weights' gradient,
+   in bf16 and f32 at the prefill's gate and down shapes (T = 4 x 2048,
+   E = 8) with multinomial, skewed and empty-expert routings and T = 1,
+   17 and 8191, each relative error (of the largest output) within f32
+   1e-4 / bf16 2e-2; a row's bits the same inside two batch
+   compositions, in both of G1's modes; their times beside
+   ``torch._grouped_mm`` (bf16) or a per-expert cuBLAS loop (f32).
 4. Serving at full width: the d1024/L8/H16/kv4 bf16 Transformer from
    ``init_params`` seed 0, 8 slots.  First the decode tick at 8 slots
    and depth 1000 (half the slots sampling), three ways, each with its
@@ -222,13 +226,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    switch-cumsum, dense dispatch and the dense MLP, at E = 2 against
    dense dispatch, each a captured ``make_train_step`` without remat,
    best of ``MOE_ROUNDS`` turns; tok/s and MFU with one expert a token,
-   the dense dispatch's executed MFU beside it; sort and cumsum losses
-   and one step's gradients bit-identical; the captured switch-sort
-   losses bit-identical to an eager leg's, a remat ``dots`` eager leg
-   within 1e-3; the aux term's wiring and ``expert_load``; at f32 and
-   cf = E switch equal to dense (outputs and gradients) and dropless
-   equal to dense within 1e-4; ``switch_moe`` over a size-1 NCCL group
-   bit-identical to the local call); ``moe_prefill`` (four 2048-token
+   the dense dispatch's executed MFU beside it; the dropless dispatch
+   trained too, against switch-sort in the same turns, with G1 six and
+   G2 three launches a layer a step, its captured losses bit-identical
+   to an eager leg's; sort and cumsum losses and one step's gradients
+   bit-identical; the captured switch-sort losses bit-identical to an
+   eager leg's, a remat ``dots`` eager leg within 1e-3; the aux term's
+   wiring and ``expert_load``; at f32 and cf = E switch and dropless
+   each equal to dense, outputs and gradients, within 1e-4;
+   ``switch_moe`` over a size-1 NCCL group bit-identical to the local
+   call); ``moe_prefill`` (four 2048-token
    prompts through ``prefill``, dropless against dense dispatch, round-
    robined); ``moe_serve_bf16`` (the serving configuration with 8
    experts of d_ff 2048, every graph captured at warmup: the decode
@@ -276,7 +283,8 @@ bursts, the fleet's clean burst in both replicas and its SIGKILL burst
 in the survivor (read from each replica's ``/stats``), the four
 training legs and the traced training steps, the MoE legs, prefill runs
 and bursts; K4's verify calls at R = 20 in an entry of their own; G1's
-over the dropless prefill runs and both MoE bursts); the last line is
+over the dropless prefill runs, both MoE bursts and the dropless
+training leg, G2's over that leg); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository beside it, the script exits non-zero and prints no
 result.
@@ -519,10 +527,14 @@ def _kernel_name(mangled: str) -> str:
         args = [kinds.get(t, kinds.get(toks[0])) if not t.startswith("Li")
                 else next(ints) + t[2:] for t in toks]
         return paged.group(1) + (f"<{','.join(args)}>" if args else "")
-    grouped = re.search(r"\d+(grouped_mm_kernel(?:_mma)?)E", mangled)
+    grouped = re.search(r"\d+(grouped_(?:mm|dw)_kernel(?:_mma|_wgmma)?)"
+                        r"(?:ILi(\d)EE|E)", mangled)
     if grouped:
-        return grouped.group(1) + ("<bf16>" if "_mma" in grouped.group(1)
-                                   else "<f32>")
+        name, mode = grouped.groups()
+        if name.endswith("_wgmma"):  # B_MN_MAJOR: 1 the forward, 0 dx
+            return f"{name}<bf16,{'fwd' if mode == '1' else 'dx'}>"
+        dtype = "bf16" if name.endswith("_mma") else "f32"
+        return f"{name}<{dtype}{',dx' if mode == '1' else ''}>"
     name = re.search(r"\d+(flash_[a-z_]+?)I", mangled)
     dim = re.search(r"Li(\d+)E", mangled)
     if not (name and dim):
@@ -534,13 +546,14 @@ def _kernel_name(mangled: str) -> str:
 def sass_check() -> dict:
     """Tensor-core instructions (``HMMA``, ``HGMMA``) in each kernel
     function of the flash and grouped-product libraries, by ``cuobjdump
-    -sass`` from the toolkit of the ``nvcc`` that built them.  Fails
-    unless both bf16 instantiations (D = 64, 128) of K1, K2 and K3, and
-    G1's bf16 kernel, have some."""
+    -sass`` from the toolkit of the ``nvcc`` that built them, and TMA
+    loads (``UTMALDG``).  Fails unless both bf16 instantiations (D = 64,
+    128) of K1, K2 and K3 and G2's bf16 kernel have some, and G1's bf16
+    kernel, in both modes, runs on wgmma (HGMMA, no HMMA) fed by TMA."""
     from horovod_tpu_torch.ops import _cuda
 
     tool = Path(_cuda._nvcc()).resolve().parent / "cuobjdump"
-    counts = {}
+    counts, tma = {}, {}
     for lib in ("flash_fwd", "flash_bwd", "grouped_matmul"):
         sass = subprocess.run(
             [str(tool), "-sass", str(_cuda.BUILD_DIR / f"lib{lib}.so")],
@@ -550,21 +563,33 @@ def sass_check() -> dict:
             m = re.search(r"Function : (\S+)", line)
             if m:
                 fn = _kernel_name(m.group(1))
-                counts[fn] = 0
-            elif fn is not None and re.search(r"\bHG?MMA\b", line):
-                counts[fn] += 1
+                counts[fn], tma[fn] = {"HMMA": 0, "HGMMA": 0}, 0
+            elif fn is not None:
+                op = re.search(r"\b(HG?MMA)\b", line)
+                if op:
+                    counts[fn][op.group(1)] += 1
+                tma[fn] += bool(re.search(r"\bUTMALDG\b", line))
     for fn, n in sorted(counts.items()):
-        log(f"sass: {fn}: {n} HMMA/HGMMA")
+        log(f"sass: {fn}: {n['HMMA']} HMMA, {n['HGMMA']} HGMMA, {tma[fn]} "
+            f"UTMALDG")
     for tag in ("flash_fwd_kernel_mma", "flash_bwd_dkdv_kernel_mma",
                 "flash_bwd_dq_kernel_mma"):
-        got = [n for fn, n in counts.items() if fn.startswith(tag + "<")]
+        got = [sum(n.values()) for fn, n in counts.items()
+               if fn.startswith(tag + "<")]
         if len(got) != 2 or not all(got):
             raise AssertionError(f"{tag}: expected tensor-core instructions "
                                  f"in both instantiations, got {got}")
-    if not counts.get("grouped_mm_kernel_mma<bf16>"):
-        raise AssertionError(f"grouped_mm_kernel_mma: no tensor-core "
+    for mode in ("fwd", "dx"):
+        fn = f"grouped_mm_kernel_wgmma<bf16,{mode}>"
+        n = counts.get(fn, {})
+        if not (n.get("HGMMA") and not n.get("HMMA") and tma.get(fn)):
+            raise AssertionError(f"{fn}: expected HGMMA, no HMMA and TMA "
+                                 f"loads, got {n}, {tma.get(fn)} UTMALDG "
+                                 f"({sorted(counts)})")
+    if not counts.get("grouped_dw_kernel_mma<bf16>", {}).get("HMMA"):
+        raise AssertionError(f"grouped_dw_kernel_mma: no tensor-core "
                              f"instruction ({sorted(counts)})")
-    return counts
+    return {"tensor_core": counts, "tma_loads": tma}
 
 
 # --- phase 3: kernels against their plain versions ---------------------------
@@ -2237,7 +2262,9 @@ def profile_train_step(step, params, batch, flash: bool = True) -> dict:
         return out
     out.update({"flash_fwd_ms": ms("flash_fwd_kernel"),
                 "flash_bwd_dkdv_ms": ms("flash_bwd_dkdv_kernel"),
-                "flash_bwd_dq_ms": ms("flash_bwd_dq_kernel")})
+                "flash_bwd_dq_ms": ms("flash_bwd_dq_kernel"),
+                "grouped_matmul_ms": ms("grouped_mm_kernel"),
+                "grouped_matmul_dw_ms": ms("grouped_dw_kernel")})
     k13 = out["flash_fwd_ms"] + out["flash_bwd_dkdv_ms"] + \
         out["flash_bwd_dq_ms"]
     out["flash_share_of_busy"] = k13 / busy
@@ -2248,7 +2275,8 @@ def profile_train_step(step, params, batch, flash: bool = True) -> dict:
         f"ms (idle share {out['idle_share']:.3f}); K1 "
         f"{out['flash_fwd_ms']:.1f}, K2 {out['flash_bwd_dkdv_ms']:.1f}, K3 "
         f"{out['flash_bwd_dq_ms']:.1f} ms ({out['flash_share_of_busy']:.1%}"
-        " of busy)")
+        f" of busy); G1 {out['grouped_matmul_ms']:.1f}, G2 "
+        f"{out['grouped_matmul_dw_ms']:.1f} ms")
     return out
 
 
@@ -3893,132 +3921,189 @@ def _gmm_counts() -> dict:
 
 
 def _gmm_inputs(counts, K, N, dtype, seed=0):
+    """xs (T, K), w (E, K, N), the offsets, and an output gradient dy
+    (T, N) for the backward products."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     xs = torch.randn((sum(counts), K), generator=g, device="cuda").to(dtype)
     w = (torch.randn((len(counts), K, N), generator=g, device="cuda")
          / math.sqrt(K)).to(dtype)
     off = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
                        dtype=torch.int32, device="cuda")
-    return xs, w, off
+    dy = torch.randn((sum(counts), N), generator=g, device="cuda").to(dtype)
+    return xs, w, off, dy
+
+
+def _gmm_products():
+    """The three grouped products of the dropless dispatch and its
+    backward, each ``(kernel wrapper, plain version, operands)`` over
+    :func:`_gmm_inputs`' tensors: G1 forward, G1 with W read transposed
+    (dx) and G2 (dW)."""
+    from horovod_tpu_torch.ops import grouped_matmul as GM
+
+    return {"G1": (GM.grouped_matmul, GM.grouped_matmul_reference,
+                   lambda xs, w, off, dy: (xs, w, off)),
+            "G1_dx": (GM.grouped_matmul_dx, GM.grouped_matmul_dx_reference,
+                      lambda xs, w, off, dy: (dy, w, off)),
+            "G2": (GM.grouped_matmul_dw, GM.grouped_matmul_dw_reference,
+                   lambda xs, w, off, dy: (xs, dy, off))}
 
 
 def check_grouped() -> dict:
-    """G1 against its plain version in both dtypes, at both products'
-    shapes, for every case of :func:`_gmm_counts`; each relative error
-    (of the largest output) beside its tolerance.  Then row invariance,
-    bit for bit: the prefill case's rows again with 37 rows ahead of
-    them and expert 3 emptied (T and every row's tile position change)."""
-    from horovod_tpu_torch.ops import grouped_matmul as GM
-
+    """G1 (forward and with W read transposed, dx) and G2 (dW) against
+    their plain versions in both dtypes, at both products' shapes, for
+    every case of :func:`_gmm_counts`; each relative error (of the
+    largest output) beside its tolerance.  Then row invariance of G1's
+    two modes, bit for bit: the prefill case's rows again with 37 rows
+    ahead of them and expert 3 emptied (T and every row's tile position
+    change)."""
     errs, abs_errs = {}, {}
+    products = _gmm_products()
     for dtype in (torch.bfloat16, torch.float32):
         for shape, (K, N) in GMM_SHAPES.items():
             for case, counts in _gmm_counts().items():
-                xs, w, off = _gmm_inputs(counts, K, N, dtype)
-                out = GM.grouped_matmul(xs, w, off)
-                ref = GM.grouped_matmul_reference(xs, w, off)
-                torch.cuda.synchronize()
-                diff = (out.float() - ref.float()).abs().max()
-                err = (diff / ref.float().abs().max()).item()
-                key = f"{str(dtype)[6:]}.{shape}.{case}"
-                errs[key], abs_errs[key] = err, diff.item()
-                if not (err <= GMM_TOL[dtype] and torch.isfinite(out).all()):
-                    raise AssertionError(f"G1 {key}: error {err:.3e} > "
-                                         f"{GMM_TOL[dtype]}")
+                ops = _gmm_inputs(counts, K, N, dtype)
+                for prod, (kernel, plain, args) in products.items():
+                    out = kernel(*args(*ops))
+                    ref = plain(*args(*ops))
+                    torch.cuda.synchronize()
+                    diff = (out.float() - ref.float()).abs().max()
+                    err = (diff / ref.float().abs().max()).item()
+                    key = f"{prod}.{str(dtype)[6:]}.{shape}.{case}"
+                    errs[key], abs_errs[key] = err, diff.item()
+                    if not (err <= GMM_TOL[dtype]
+                            and torch.isfinite(out).all()):
+                        raise AssertionError(f"{key}: error {err:.3e} > "
+                                             f"{GMM_TOL[dtype]}")
+                del ops
         counts = _gmm_counts()["prefill"]
-        xs, w, off = _gmm_inputs(counts, 1024, 2048, dtype)
-        out = GM.grouped_matmul(xs, w, off)
+        xs, w, off, dy = _gmm_inputs(counts, 1024, 2048, dtype)
         starts = np.concatenate([[0], np.cumsum(counts)])
-        extra = torch.randn((37, 1024), device="cuda").to(dtype)
         counts_b = [counts[0] + 37, *counts[1:3], 0, *counts[4:]]
         off_b = torch.tensor(np.concatenate([[0], np.cumsum(counts_b)]),
                              dtype=torch.int32, device="cuda")
-        out_b = GM.grouped_matmul(
-            torch.cat([extra, xs[:starts[3]], xs[starts[4]:]]), w, off_b)
-        if not torch.equal(out_b[37:], torch.cat([out[:starts[3]],
-                                                  out[starts[4]:]])):
-            raise AssertionError(f"G1 {dtype}: rows differ between batches")
-    worst = {str(dt)[6:]: max(v for k, v in errs.items()
-                              if k.startswith(str(dt)[6:]))
-             for dt in GMM_TOL}
-    log(f"grouped_matmul (G1) against its plain version, {len(errs)} cases "
-        f"(prefill, skewed, empty experts, T = 1, 17, 8191; gate and down "
-        f"shapes): worst relative error bf16 {worst['bfloat16']:.3e} (limit "
-        f"2e-2), f32 {worst['float32']:.3e} (limit 1e-4); rows bit-identical "
-        "across batch compositions in both dtypes")
+        for prod in ("G1", "G1_dx"):
+            kernel = products[prod][0]
+            a = xs if prod == "G1" else dy
+            out = kernel(a, w, off)
+            extra = torch.randn((37, a.shape[1]), device="cuda").to(dtype)
+            out_b = kernel(torch.cat([extra, a[:starts[3]], a[starts[4]:]]),
+                           w, off_b)
+            if not torch.equal(out_b[37:], torch.cat([out[:starts[3]],
+                                                      out[starts[4]:]])):
+                raise AssertionError(f"{prod} {dtype}: rows differ between "
+                                     "batches")
+    worst = {f"{prod}.{str(dt)[6:]}": max(v for k, v in errs.items()
+                                          if k.startswith(
+                                              f"{prod}.{str(dt)[6:]}."))
+             for prod in products for dt in GMM_TOL}
+    log(f"grouped products against their plain versions, {len(errs)} cases "
+        f"(G1 forward, G1 transposed for dx, G2 for dW; prefill, skewed, "
+        f"empty experts, T = 1, 17, 8191; gate and down shapes): worst "
+        f"relative error " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                       worst.items())
+        + " (limits bf16 2e-2, f32 1e-4); G1's rows bit-identical across "
+        "batch compositions in both modes and both dtypes")
     return {"errors": errs, "worst": worst, "row_invariant": True,
-            "max_abs_err": abs_errs["bfloat16.gate.prefill"]}
+            "max_abs_err": {prod: abs_errs[f"{prod}.bfloat16.gate.prefill"]
+                            for prod in products}}
 
 
-def _library_grouped(xs, w, off):
-    """One PyTorch call computing G1's function, which the port never
-    makes: ``torch._grouped_mm`` (offsets of the groups' ends, int32) where
-    this torch has it (bf16); otherwise a loop of
-    per-expert products over counts read on the host.  -> (fn, name)."""
-    from horovod_tpu_torch.ops import grouped_matmul as GM
-
-    if hasattr(torch, "_grouped_mm") and xs.dtype == torch.bfloat16:
+def _library_grouped(prod, xs, w, off, dy):
+    """One PyTorch call computing a grouped product, which the port never
+    makes: ``torch._grouped_mm`` (offsets of the groups' ends, int32) in
+    bf16 — G1 ``(xs, W)``, dx ``(dy, W^T)`` and G2 ``(xs^T, dy)``, its
+    2-D by 2-D form with a 3-D result; in f32 (which it does not take) a
+    loop of per-expert cuBLAS products over counts read on the host.
+    Held to the plain version.  -> (fn, name)."""
+    plain, args = _gmm_products()[prod][1:]
+    if xs.dtype == torch.bfloat16:
         ends = off[1:].contiguous()
-        got = torch._grouped_mm(xs, w, offs=ends)
-        ref = GM.grouped_matmul_reference(xs, w, off)
-        err = ((got.float() - ref.float()).abs().max()
-               / ref.float().abs().max()).item()
-        if err > GMM_TOL[xs.dtype]:
-            raise AssertionError(f"torch._grouped_mm disagrees with the "
-                                 f"plain version: {err:.3e}")
-        return (lambda: torch._grouped_mm(xs, w, offs=ends)), \
-            "torch._grouped_mm"
-    bounds = off.tolist()
+        a, b = {"G1": (xs, w), "G1_dx": (dy, w.transpose(1, 2)),
+                "G2": (xs.t(), dy)}[prod]
 
-    def loop():
-        return torch.cat([xs[a:b] @ w[e] for e, (a, b) in
-                          enumerate(zip(bounds[:-1], bounds[1:]))])
+        def fn():
+            return torch._grouped_mm(a, b, offs=ends)
 
-    return loop, "per-expert cuBLAS loop (counts read on the host)"
+        name = "torch._grouped_mm"
+    else:
+        bounds = off.tolist()
+        spans = list(enumerate(zip(bounds[:-1], bounds[1:])))
+        fn = {"G1": lambda: torch.cat([xs[i:j] @ w[e] for e, (i, j) in spans]),
+              "G1_dx": lambda: torch.cat([dy[i:j] @ w[e].t()
+                                          for e, (i, j) in spans]),
+              "G2": lambda: torch.stack([xs[i:j].t() @ dy[i:j]
+                                         for e, (i, j) in spans])}[prod]
+        name = "per-expert cuBLAS loop (counts read on the host)"
+    ref = plain(*args(xs, w, off, dy))
+    err = ((fn().float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    if err > GMM_TOL[xs.dtype]:
+        raise AssertionError(f"{name} ({prod}) disagrees with the plain "
+                             f"version: {err:.3e}")
+    return fn, name
 
 
-def time_grouped(err: float, launches: int) -> list:
-    """G1 at the MoE prefill's shapes (T = 4 x 2048, E = 8, the
-    multinomial routing of :func:`_gmm_counts`): the gate product (K 1024,
-    N 2048; the kernels-line entry) and the down product (K 2048, N 1024)
-    in bf16, the gate product in f32 (its bound on the f32 rate outside
-    the tensor cores).  Bytes: xs and out once, the weights of every
-    non-empty group once."""
-    from horovod_tpu_torch.ops import grouped_matmul as GM
+# The timed products: (product, shape, dtype, routing).  The first G1
+# and G2 rows are the kernels line's.
+GMM_TIMED = (("G1", "gate", torch.bfloat16, "prefill"),
+             ("G2", "gate", torch.bfloat16, "prefill"),
+             ("G1", "down", torch.bfloat16, "prefill"),
+             ("G1_dx", "gate", torch.bfloat16, "prefill"),
+             ("G1_dx", "down", torch.bfloat16, "prefill"),
+             ("G2", "down", torch.bfloat16, "prefill"),
+             ("G2", "gate", torch.bfloat16, "skewed"),
+             ("G1", "gate", torch.float32, "prefill"))
 
-    counts = _gmm_counts()["prefill"]
+
+def time_grouped(errs: dict) -> list:
+    """The grouped products at the MoE prefill's and training step's
+    shapes (T = 4 x 2048, E = 8, the multinomial routing of
+    :func:`_gmm_counts`; G2 also with every row on one expert): each
+    with its bound, its plain version and one library call
+    (:func:`_library_grouped`).  Bytes: each operand once, the output
+    once; G1 reads the weights of every non-empty group, G2 writes every
+    group's dW.  f32 is bound on the f32 rate outside the tensor
+    cores."""
     out = []
-    for name, dtype, (K, N) in (("gate", torch.bfloat16, GMM_SHAPES["gate"]),
-                                ("down", torch.bfloat16, GMM_SHAPES["down"]),
-                                ("gate", torch.float32, GMM_SHAPES["gate"])):
-        xs, w, off = _gmm_inputs(counts, K, N, dtype, seed=5)
-        T_, E = xs.shape[0], w.shape[0]
-
-        def kernel():
-            return GM.grouped_matmul(xs, w, off)
-
-        ms, one = time_ms(kernel), time_ms(kernel, batch=1)
-        plain = time_ms(lambda: GM.grouped_matmul_reference(xs, w, off),
-                        reps=5, batch=1)
-        lib_fn, lib_name = _library_grouped(xs, w, off)
+    products = _gmm_products()
+    for prod, shape, dtype, case in GMM_TIMED:
+        K, N = GMM_SHAPES[shape]
+        counts = _gmm_counts()[case]
+        ops = _gmm_inputs(counts, K, N, dtype, seed=5)
+        kernel, plain, args = products[prod]
+        call = args(*ops)
+        T_, E = ops[0].shape[0], len(counts)
+        ms, one = time_ms(lambda: kernel(*call)), \
+            time_ms(lambda: kernel(*call), batch=1)
+        plain_ms = time_ms(lambda: plain(*call), reps=5, batch=1)
+        lib_fn, lib_name = _library_grouped(prod, *ops)
         lib = time_ms(lib_fn)
         flops = 2 * T_ * K * N
-        nbytes = xs.element_size() * (T_ * K + T_ * N
-                                      + sum(c > 0 for c in counts) * K * N) \
-            + 4 * (E + 1)
+        live = sum(c > 0 for c in counts)
+        elems = {"G1": T_ * K + T_ * N + live * K * N,
+                 "G1_dx": T_ * N + T_ * K + live * K * N,
+                 "G2": T_ * K + T_ * N + E * K * N}[prod]
+        nbytes = ops[0].element_size() * elems + 4 * (E + 1)
         b_ms, b_by = bound(flops, nbytes, dtype)
+        name = {"G1": "grouped_matmul", "G1_dx": "grouped_matmul_dx",
+                "G2": "grouped_matmul_dw"}[prod]
+        what = {"G1": "forward", "G1_dx": "dx = dy W^T, G1 transposed",
+                "G2": "dW = xs^T dy"}[prod]
         out.append({
-            "name": "grouped_matmul", "route": "cuda",
+            "name": name, "route": "cuda",
             "source": "horovod_tpu_torch/ops/csrc/grouped_matmul.cu",
             "replaces": "horovod_tpu/ops/moe.py:229 (lax.ragged_dot, an XLA "
-                        "op: no Pallas original)",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib, "tflops": tflops(flops, ms),
+                        "op: no Pallas original)" if prod != "G2" else
+                        "horovod_tpu/ops/moe.py:229 (the VJP of "
+                        "lax.ragged_dot, an XLA op: no Pallas original)",
+            "launches": None,
+            "max_abs_err": errs[prod],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib, "tflops": tflops(flops, ms),
             "one_call_ms": one, "library": lib_name,
-            "shape": f"T={T_} K={K} N={N} E={E} {str(dtype)[6:]} "
-                     f"({name} product) groups {counts}"})
-        del xs, w, off
+            "shape": f"T={T_} K={K} N={N} E={E} {str(dtype)[6:]} ({shape} "
+                     f"product, {what}) {case} groups {counts}"})
+        del ops, call
     torch.cuda.empty_cache()
     return out
 
@@ -4068,20 +4153,34 @@ def _moe_model(cfg) -> dict:
 
 def _moe_turn(m: dict, batch, n: int, counts: dict) -> float:
     """``n`` steps of model ``m``, synchronised: seconds a step.  The
-    K1-K3 launches of the steps are added to ``counts``."""
+    K1-K3, G1 and G2 launches of the steps are added to ``counts``; a
+    dropless model must launch G1 six times a layer a step (three
+    products and their dx) and G2 three times, any other none."""
     from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import grouped_matmul as GM
 
     A.flash_fwd_launches = A.flash_bwd_dkdv_launches = 0
     A.flash_bwd_dq_launches = 0
+    GM.grouped_matmul_launches = GM.grouped_matmul_dw_launches = 0
     torch.cuda.synchronize()
     t0 = time.monotonic()
     for _ in range(n):
         m["losses"].append(m["step"](m["params"], batch))
     torch.cuda.synchronize()
     dt = (time.monotonic() - t0) / n
-    for k, v in (("flash_fwd", A.flash_fwd_launches),
-                 ("flash_bwd_dkdv", A.flash_bwd_dkdv_launches),
-                 ("flash_bwd_dq", A.flash_bwd_dq_launches)):
+    got = {"flash_fwd": A.flash_fwd_launches,
+           "flash_bwd_dkdv": A.flash_bwd_dkdv_launches,
+           "flash_bwd_dq": A.flash_bwd_dq_launches,
+           "grouped_matmul": GM.grouped_matmul_launches,
+           "grouped_matmul_dw": GM.grouped_matmul_dw_launches}
+    cfg = m["cfg"]
+    dropless = cfg.n_experts > 1 and cfg.moe_impl == "dropless"
+    want = (6 * cfg.n_layers * n, 3 * cfg.n_layers * n) if dropless else (0, 0)
+    if (got["grouped_matmul"], got["grouped_matmul_dw"]) != want:
+        raise AssertionError(f"{n} steps of {cfg.moe_impl} launched G1 "
+                             f"{got['grouped_matmul']} and G2 "
+                             f"{got['grouped_matmul_dw']} times, not {want}")
+    for k, v in got.items():
         counts[k] = counts.get(k, 0) + v
     return dt
 
@@ -4117,10 +4216,11 @@ def _moe_grads(cfg, params, batch) -> list:
 
 def moe_equalities_f32() -> dict:
     """At cf >= E nothing drops, so in f32 (TF32 off) the switch
-    dispatch equals the dense dispatch, outputs and every gradient, and
-    the dropless dispatch (G1) equals dense, outputs: the CPU tests'
-    tolerance, 1e-4 of the largest value.  The MoE training model's
-    widths at E = 8, cut to 2 layers, one 2048-token row."""
+    dispatch and the dropless dispatch (G1 forward; G1 transposed and G2
+    backward) each equal the dense dispatch, outputs and every gradient:
+    the CPU tests' tolerance, 1e-4 of the largest value.  The MoE
+    training model's widths at E = 8, cut to 2 layers, one 2048-token
+    row."""
     from horovod_tpu_torch.models import transformer as T
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4135,16 +4235,19 @@ def moe_equalities_f32() -> dict:
         c = dataclasses.replace(cfg, moe_impl=impl)
         with torch.no_grad():
             outs[impl] = T.forward(params, batch["tokens"], c)
-        if impl != "dropless":
-            grads[impl] = _moe_grads(c, params, batch)
+        grads[impl] = _moe_grads(c, params, batch)
     res = {"switch_vs_dense": _rel_err(outs["switch"], outs["dense"]),
            "dropless_vs_dense": _rel_err(outs["dropless"], outs["dense"]),
            "grads_switch_vs_dense": max(_rel_err(a, b) for a, b in zip(
-               grads["switch"], grads["dense"]))}
+               grads["switch"], grads["dense"])),
+           "grads_dropless_vs_dense": max(_rel_err(a, b) for a, b in zip(
+               grads["dropless"], grads["dense"]))}
     log(f"MoE f32 at cf = E = 8 (TF32 off): logits switch vs dense "
         f"{res['switch_vs_dense']:.3e}, dropless (G1) vs dense "
-        f"{res['dropless_vs_dense']:.3e}, gradients switch vs dense "
-        f"{res['grads_switch_vs_dense']:.3e} (limit 1e-4 of the largest)")
+        f"{res['dropless_vs_dense']:.3e}; gradients switch vs dense "
+        f"{res['grads_switch_vs_dense']:.3e}, dropless (G1 transposed, G2) "
+        f"vs dense {res['grads_dropless_vs_dense']:.3e} (limit 1e-4 of the "
+        f"largest)")
     if max(res.values()) > 1e-4:
         raise AssertionError(f"MoE dispatches differ at f32: {res}")
     del params, outs, grads
@@ -4244,12 +4347,14 @@ def _moe_legs(card: str) -> dict:
             f"(best of {MOE_ROUNDS} turns of {MOE_STEPS_PER_ROUND} steps, "
             f"captured, {card})")
 
-    for E, others in ((8, ("switch-cumsum", "dense-dispatch", "dense-mlp")),
+    for E, others in ((8, ("switch-cumsum", "dropless", "dense-dispatch",
+                           "dense-mlp")),
                       (2, ("dense-dispatch",))):
         sort = _moe_model(_moe_cfg(n_experts=E, moe_dispatch="sort"))
         for other in others:
             cfg = {"switch-cumsum": _moe_cfg(n_experts=E,
                                              moe_dispatch="cumsum"),
+                   "dropless": _moe_cfg(n_experts=E, moe_impl="dropless"),
                    "dense-dispatch": _moe_cfg(n_experts=E, moe_impl="dense"),
                    "dense-mlp": _moe_cfg(n_experts=0)}[other]
             models = {"switch-sort": sort, other: _moe_model(cfg)}
@@ -4261,6 +4366,11 @@ def _moe_legs(card: str) -> dict:
                     raise AssertionError(f"switch-sort and switch-cumsum "
                                          f"losses differ: {a} vs {b}")
                 legs["E8.switch-sort"]["losses"] = a
+            if other == "dropless":
+                legs["E8.dropless"]["losses"] = _losses(models[other])
+                legs["E8.dropless"]["profile"] = profile_train_step(
+                    models[other]["step"], models[other]["params"], batch)
+                dropless_eager = _dropless_eager_leg(models[other], batch)
             for t in models[other]["params"]["layers"].values():
                 t.grad = None
             del models
@@ -4275,7 +4385,41 @@ def _moe_legs(card: str) -> dict:
         del sort
         gc.collect()
         torch.cuda.empty_cache()
-    return {"rows": rows, "legs": legs, **eager, "launches": counts}
+    return {"rows": rows, "legs": legs, **eager,
+            "dropless_eager": dropless_eager, "launches": counts}
+
+
+def _eager_leg(cfg, batch) -> tuple:
+    """``MOE_EAGER_STEPS`` eager steps (``step.body``) of a fresh model
+    of ``cfg`` from the captured legs' seed -> (losses, seconds a step)."""
+    m = _moe_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(MOE_EAGER_STEPS):
+        m["losses"].append(m["step"].body(m["params"], batch))
+    torch.cuda.synchronize()
+    step_s = (time.monotonic() - t0) / MOE_EAGER_STEPS
+    losses = _losses(m)
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, step_s
+
+
+def _dropless_eager_leg(captured: dict, batch) -> dict:
+    """The dropless E = 8 model trained eagerly: its losses bit-identical
+    to the captured leg's first ``MOE_EAGER_STEPS`` (G1 and G2 read the
+    offsets on the device and sum in one fixed order, so a replay equals
+    the eager step)."""
+    want = _losses(captured)[:MOE_EAGER_STEPS]
+    losses, step_s = _eager_leg(captured["cfg"], batch)
+    log(f"moe_train eager [dropless] E=8: {step_s * 1e3:.1f} ms a step; "
+        f"losses {[round(x, 5) for x in losses]}; the captured leg's "
+        f"{[round(x, 5) for x in want]}")
+    if losses != want or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"the captured dropless step's losses {want} "
+                             f"differ from the eager step's {losses}")
+    return {"losses": losses, "step_s": step_s}
 
 
 def _moe_eager_legs(sort: dict, batch, counts: dict) -> dict:
@@ -4289,14 +4433,7 @@ def _moe_eager_legs(sort: dict, batch, counts: dict) -> dict:
     res = {}
     for name, kw in (("eager", {}), ("remat_dots", dict(
             remat=True, remat_policy="dots"))):
-        m = _moe_model(_moe_cfg(n_experts=8, **kw))
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        for _ in range(MOE_EAGER_STEPS):
-            m["losses"].append(m["step"].body(m["params"], batch))
-        torch.cuda.synchronize()
-        step_s = (time.monotonic() - t0) / MOE_EAGER_STEPS
-        losses = _losses(m)
+        losses, step_s = _eager_leg(_moe_cfg(n_experts=8, **kw), batch)
         gap = max(abs(a - b) / abs(b) for a, b in zip(losses, captured))
         res[name] = {"losses": losses, "step_s": step_s,
                      "loss_gap_vs_captured": gap}
@@ -4309,9 +4446,6 @@ def _moe_eager_legs(sort: dict, batch, counts: dict) -> dict:
         if gap > 1e-3 or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"[{name}] MoE losses {losses} against "
                                  f"{captured}")
-        del m
-        gc.collect()
-        torch.cuda.empty_cache()
     # Sort against cumsum, one batch: the gradient of every parameter.
     params = T.init_params(_moe_cfg(n_experts=8), seed=0,
                            param_dtype=torch.float32)
@@ -4355,7 +4489,9 @@ def moe_prefill(card: str) -> dict:
     the dense dispatch, round-robined (best of ``MOE_ROUNDS`` turns of
     ``MOE_STEPS_PER_ROUND``), attention through K1 (JAX's A/B used its
     reference attention).  The dropless runs are a main path: G1's
-    launches are counted over them."""
+    launches are counted over them.  Then one more run of each under the
+    profiler: its device busy time (the eager prefill's wall includes
+    the host's pace, which the device time does not) and G1's share."""
     from horovod_tpu_torch.models import transformer as T
     from horovod_tpu_torch.ops import attention as A
     from horovod_tpu_torch.ops import grouped_matmul as GM
@@ -4390,15 +4526,32 @@ def moe_prefill(card: str) -> dict:
         raise AssertionError(f"dropless prefill launched G1 "
                              f"{launches['grouped_matmul']} times, not {want}")
     diff = (logits["dropless"] - logits["dense"]).abs().max().item()
+    from torch.profiler import ProfilerActivity, profile
+
+    device = {}
+    for impl in best:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(impl)
+            torch.cuda.synchronize()
+        kernels = {e.key: e.self_device_time_total / 1e3
+                   for e in _device_events(prof)}
+        device[impl] = sum(kernels.values())
+        device[f"{impl}_g1"] = sum(t for k, t in kernels.items()
+                                   if "grouped_mm_kernel" in k)
     out = {"dropless_ms": best["dropless"] * 1e3,
            "dense_ms": best["dense"] * 1e3,
            "dropless_speedup": best["dense"] / best["dropless"],
+           "dropless_device_ms": device["dropless"],
+           "dense_device_ms": device["dense"],
+           "dropless_g1_device_ms": device["dropless_g1"],
            "logits_max_diff_bf16": diff, "launches": launches}
     log(f"moe_prefill E=8 (4 x 2048, bf16, K1 attention) on {card}: dropless "
         f"(G1) {out['dropless_ms']:.2f} ms | dense dispatch "
         f"{out['dense_ms']:.2f} ms | dropless = {out['dropless_speedup']:.2f}x"
-        f" faster; last-position logits differ by {diff:.3e} (bf16; the "
-        f"dense dispatch routes with a bf16 router)")
+        f" faster; device busy (profiler, one run each) dropless "
+        f"{device['dropless']:.2f} ms (G1 {device['dropless_g1']:.2f}) | dense "
+        f"{device['dense']:.2f} ms; last-position logits differ by {diff:.3e} "
+        f"(bf16; the dense dispatch routes with a bf16 router)")
     del params, logits
     torch.cuda.empty_cache()
     return out
@@ -4758,7 +4911,7 @@ def main() -> int:
                                "paged_attend": k4}
     with phase("grouped_kernel"):
         g1 = check_grouped()
-        g1_times = time_grouped(g1["max_abs_err"], None)
+        g1_times = time_grouped(g1["max_abs_err"])
     REPORT["kernel_checks"]["grouped_matmul"] = g1
     with phase("serving"):
         serving = serve_full_width(card)
@@ -4851,9 +5004,12 @@ def main() -> int:
     k1_launches = sum(r["launches"]["flash_fwd"] for r in served) + \
         trained["flash_fwd"] + fleet_launches["flash_fwd"] + \
         moe_pf["launches"]["flash_fwd"]
-    # G1's main paths: the dropless prefill runs and both MoE bursts.
+    # G1's main paths: the dropless prefill runs, both MoE bursts and the
+    # dropless training leg (forward and dx); G2's: that leg.
     g1_launches = moe_pf["launches"]["grouped_matmul"] + sum(
-        r["launches"]["grouped_matmul"] for r in (moe_sv, moe_sv32))
+        r["launches"]["grouped_matmul"] for r in (moe_sv, moe_sv32)) + \
+        moe_tr["launches"]["grouped_matmul"]
+    g2_launches = moe_tr["launches"]["grouped_matmul_dw"]
     verify_rows = FULL["n_heads"] // FULL["n_kv_heads"] * (SPEC_K + 1)
     k4_verify = sum(leg["launches"]["paged_attend_by_rows"].get(
         verify_rows, 0) for leg in spec["legs"].values())
@@ -4861,12 +5017,13 @@ def main() -> int:
         - k4_verify + fleet_launches["paged_attend"]
     t_times = time.monotonic()
     g1_times[0]["launches"] = g1_launches
+    g1_times[1]["launches"] = g2_launches
     kernels = [time_flash(k1["serving"], k1_launches),
                *time_flash_bwd(k23["training"], trained),
                time_paged(k4["serving"], k4_launches),
                time_paged(k4["verify"], k4_verify, R=verify_rows),
-               g1_times[0]]
-    REPORT["grouped_matmul_other_shapes"] = g1_times[1:]
+               *g1_times[:2]]
+    REPORT["grouped_matmul_other_shapes"] = g1_times[2:]
     k1_train = time_flash(None, train["launches"]["flash_fwd"],
                           B=TRAIN_BATCH, Hkv=16)
     REPORT["flash_fwd_training_shape"] = k1_train
@@ -4879,14 +5036,14 @@ def main() -> int:
         f"{k1_suffix['ms']:.4f} ms by value (CUDA events, 10 calls); "
         f"kernel device time (profiler, in turns) "
         f"{k1_suffix['kernel_device_ms']}")
-    k4r4, k4r20 = kernels[-2], kernels[-1]
+    k4r4, k4r20 = kernels[-4], kernels[-3]
     log(f"K4 at the verify's R = {verify_rows} on {card}: "
         f"{k4r20['ms']:.4f} ms device time beside {k4r4['ms']:.4f} ms at "
         f"R = 4; byte bound {k4r20['bound_ms']:.4f} ms ({k4r20['bound_by']}"
         f"); SDPA over gathered K/V at R = {verify_rows} "
         f"{k4r20['library_ms']:.4f} ms; {k4_verify} verify launches in the "
         "speculative legs")
-    for kr in kernels + [k1_train, k1_suffix, *g1_times[1:]]:
+    for kr in kernels + [k1_train, k1_suffix, *g1_times[2:]]:
         log(f"{kr['name']} [{kr['shape']}]: {kr['ms']:.4f} ms "
             f"({kr['tflops']:.1f} TFLOP/s; one call alone "
             f"{kr['one_call_ms']:.4f} ms), bound {kr['bound_ms']:.4f} ms "

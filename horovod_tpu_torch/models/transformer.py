@@ -296,8 +296,9 @@ def _moe_mlp(x, p, cfg: TransformerConfig, impl: Optional[str] = None,
              return_aux: bool = False):
     """Mixture-of-experts FFN; ``impl`` overrides ``cfg.moe_impl``:
     "switch" (training), "dense" (per-step decode), "dropless"
-    (prefill).  ``return_aux`` also returns the layer's balance loss
-    (not for dropless, the serving dispatch)."""
+    (prefill; it trains too).  ``return_aux`` also returns the layer's
+    balance loss, which dropless does not give: it raises there, with
+    JAX's message."""
     impl = impl or cfg.moe_impl
     if impl == "dense":
         return _moe_mlp_dense(x, p, cfg, return_aux=return_aux)

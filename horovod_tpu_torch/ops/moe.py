@@ -21,7 +21,9 @@ or None:
   expert products as grouped products (:func:`~horovod_tpu_torch.ops.
   grouped_matmul.grouped_matmul`, kernel G1 on CUDA) over offsets built
   on the device with ``searchsorted``: exact, nothing dropped, one
-  expert's work a token.  The serving dispatch (prefill).
+  expert's work a token.  The prefill's dispatch, and a training one
+  (as in JAX, without the balance loss): on CUDA its backward runs G1
+  with W read transposed for the inputs and G2 for the weights.
 
 Nothing here reads the device on the host (no ``bincount``,
 ``nonzero``, boolean-mask indexing or ``.item()``), so both dispatches
@@ -179,7 +181,9 @@ def dropless_moe(x, router, w_gate, w_up, w_down):
     CUDA, SiLU · up between them), unsort, scale by the gate.  Exact —
     equal to the dense dispatch, nothing dropped — at one expert's work a
     token.  ``x (..., D)``, ``router (D, E)`` (routing in f32),
-    ``w_gate``/``w_up (E, D, F)``, ``w_down (E, F, D)`` in x's dtype."""
+    ``w_gate``/``w_up (E, D, F)``, ``w_down (E, F, D)`` in x's dtype.
+    Differentiable in every argument, with no host read (a train step
+    captures it)."""
     lead, D = x.shape[:-1], x.shape[-1]
     xt = x.reshape(-1, D)
     E = router.shape[1]

@@ -37,6 +37,7 @@ import torch
 from horovod_tpu_torch._capture import capture
 from horovod_tpu_torch.ops import attention as attn
 from horovod_tpu_torch.ops import collectives as C
+from horovod_tpu_torch.ops import grouped_matmul as gmm
 
 __all__ = ["TrainStep", "make_train_step"]
 
@@ -44,8 +45,11 @@ __all__ = ["TrainStep", "make_train_step"]
 #: windows).
 WARMUP_STEPS = 2
 
-_COUNTERS = ("flash_fwd_launches", "flash_bwd_dkdv_launches",
-             "flash_bwd_dq_launches")
+# The launch counters a step can move: K1-K3, and G1 and G2 (the dropless
+# MoE dispatch).
+_COUNTERS = ((attn, "flash_fwd_launches"), (attn, "flash_bwd_dkdv_launches"),
+             (attn, "flash_bwd_dq_launches"), (gmm, "grouped_matmul_launches"),
+             (gmm, "grouped_matmul_dw_launches"))
 
 
 def _tree_map(fn, tree):
@@ -57,7 +61,7 @@ def _tree_map(fn, tree):
 
 
 class _Graph:
-    """One captured pass, its outputs and the K1-K3 launches it makes a
+    """One captured pass, its outputs and the kernel launches it makes a
     replay (the wrappers count at capture, where nothing launches: the
     count is taken back and added each replay)."""
 
@@ -66,8 +70,8 @@ class _Graph:
 
     def replay(self):
         self.graph.replay()
-        for name, n in zip(_COUNTERS, self.launches):
-            setattr(attn, name, getattr(attn, name) + n)
+        for (mod, name), n in zip(_COUNTERS, self.launches):
+            setattr(mod, name, getattr(mod, name) + n)
         return self.out
 
 
@@ -168,15 +172,15 @@ class TrainStep:
         kinds = ("step",) if self.k == 1 else ("accumulate", "boundary")
         graphs = {}
         for kind in kinds:
-            before = [getattr(attn, n) for n in _COUNTERS]
+            before = [getattr(mod, n) for mod, n in _COUNTERS]
             graph = torch.cuda.CUDAGraph()
             with capture(graph, self._pool):
                 out = self._captured_body(params, self._static[key],
                                           kind != "accumulate")
-            launches = [getattr(attn, n) - b
-                        for n, b in zip(_COUNTERS, before)]
-            for n, b in zip(_COUNTERS, before):
-                setattr(attn, n, b)
+            launches = [getattr(mod, n) - b
+                        for (mod, n), b in zip(_COUNTERS, before)]
+            for (mod, n), b in zip(_COUNTERS, before):
+                setattr(mod, n, b)
             # Every graph shares one pool and they replay one at a time;
             # each replay's outputs are cloned before the next replay.
             self._pool = graph.pool()

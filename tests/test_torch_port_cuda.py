@@ -29,8 +29,11 @@ of the analytic one.  Mixture of experts: the grouped product G1 against
 its plain version (f32 1e-4 and bf16 2e-2 of the largest output: the
 plain version rounds each expert's product once, as G1 does, and sums
 in another order) and bit for bit against itself in another batch; a
-captured MoE admission against its body; the dropless backward raising
-on CUDA.
+captured MoE admission against its body; the dropless backward: dx (G1
+with W read transposed) and dW (G2) against their plain versions, the
+gradient through ``dropless_moe`` against the same dispatch on the plain
+version, and a captured dropless train step against its eager body bit
+for bit.
 """
 
 import numpy as np
@@ -1391,20 +1394,129 @@ def test_grouped_matmul_refuses_what_it_does_not_take(dev):
             GM.grouped_matmul(*bad)
 
 
-def test_dropless_backward_raises_on_cuda(dev):
-    """G1 has no backward: a gradient through the dropless dispatch on
-    CUDA raises, naming ROADMAP; the switch dispatch trains."""
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("KN", [(1024, 2048), (2048, 1024)],
+                         ids=["gate", "down"])
+@pytest.mark.parametrize("case", sorted(GMM_COUNTS))
+@pytest.mark.parametrize("prod", ["dx", "dw"])
+def test_grouped_backward_kernels(dev, dtype, tol, KN, case, prod):
+    """The dropless backward's products against their plain versions: dx
+    (G1 with W read transposed, one G1 launch) and dW (G2, one G2 launch;
+    an empty expert's gradient is zero)."""
+    counts = GMM_COUNTS[case]
+    xs, w, off = _gmm_inputs(dev, dtype, counts, *KN)
+    dy = torch.randn((sum(counts), KN[1]), device=dev).to(dtype)
+    g1, g2 = GM.grouped_matmul_launches, GM.grouped_matmul_dw_launches
+    if prod == "dx":
+        out = GM.grouped_matmul_dx(dy, w, off)
+        ref = GM.grouped_matmul_dx_reference(dy, w, off)
+    else:
+        out = GM.grouped_matmul_dw(xs, dy, off)
+        ref = GM.grouped_matmul_dw_reference(xs, dy, off)
+    torch.cuda.synchronize()
+    assert (GM.grouped_matmul_launches - g1,
+            GM.grouped_matmul_dw_launches - g2) == (
+        (1, 0) if prod == "dx" else (0, 1))
+    assert torch.isfinite(out).all()
+    err = (out.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert err <= tol, (case, KN, err.item())
+    if prod == "dw":
+        for e, c in enumerate(counts):
+            if c == 0:
+                assert not out[e].any(), e
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_dx_rows_are_invariant(dev, dtype):
+    """G1's transposed mode keeps a row's bits whatever the batch around
+    it, as the forward does (37 rows ahead, expert 3 emptied)."""
+    counts = GMM_COUNTS["prefill"]
+    _, w, off = _gmm_inputs(dev, dtype, counts, 1024, 2048)
+    dy = torch.randn((sum(counts), 2048), device=dev).to(dtype)
+    out = GM.grouped_matmul_dx(dy, w, off)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    extra = torch.randn((37, 2048), device=dev).to(dtype)
+    counts_b = [counts[0] + 37, *counts[1:3], 0, *counts[4:]]
+    off_b = torch.tensor(np.concatenate([[0], np.cumsum(counts_b)]),
+                         dtype=torch.int32, device=dev)
+    out_b = GM.grouped_matmul_dx(
+        torch.cat([extra, dy[:starts[3]], dy[starts[4]:]]), w, off_b)
+    assert torch.equal(out_b[37:], torch.cat([out[:starts[3]],
+                                              out[starts[4]:]]))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_dropless_backward_on_cuda(dev, dtype, tol, monkeypatch):
+    """A gradient through the dropless dispatch on CUDA: G1 three times
+    forward and three times transposed, G2 three times, against the same
+    dispatch on G1's differentiable plain version, every gradient within
+    ``tol`` of its largest value."""
     g = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn((64, 128), generator=g, device=dev, requires_grad=True)
+    x = torch.randn((300, 128), generator=g, device=dev).to(dtype)
     router = torch.randn((128, 4), generator=g, device=dev)
-    wg, wu = (torch.randn((4, 128, 256), generator=g, device=dev)
-              for _ in range(2))
-    wd = torch.randn((4, 256, 128), generator=g, device=dev)
-    y = M.dropless_moe(x, router, wg, wu, wd)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        y.sum().backward()
-    M.switch_moe(x, router, wg, wu, wd).sum().backward()
-    assert torch.isfinite(x.grad).all()
+    wg, wu = ((torch.randn((4, 128, 256), generator=g, device=dev)
+               / 128 ** 0.5).to(dtype) for _ in range(2))
+    wd = (torch.randn((4, 256, 128), generator=g, device=dev)
+          / 256 ** 0.5).to(dtype)
+    grads = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(M, "grouped_matmul",
+                                GM.grouped_matmul_reference)
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (x, router, wg, wu, wd)]
+        g1, g2 = GM.grouped_matmul_launches, GM.grouped_matmul_dw_launches
+        y = M.dropless_moe(*leaves)
+        (y.float() * torch.linspace(-1, 1, y.numel(), device=dev)
+         .reshape(y.shape)).sum().backward()
+        torch.cuda.synchronize()
+        assert (GM.grouped_matmul_launches - g1,
+                GM.grouped_matmul_dw_launches - g2) == (
+            (0, 0) if plain else (6, 3))
+        grads.append([t.grad for t in leaves])
+    for name, a, b in zip(("x", "router", "w_gate", "w_up", "w_down"),
+                          *grads):
+        assert torch.isfinite(a).all(), name
+        err = (a.float() - b.float()).abs().max() / b.float().abs().max()
+        assert err <= tol, (name, err.item())
+
+
+def test_captured_dropless_step_equals_eager(nccl):
+    """The dropless MoE model trains captured: the train step's replays
+    equal its eager body call for call, losses and every parameter bit
+    for bit (f32, TF32 off; G1 and G2 read the offsets on the device and
+    sum in one order), with G1 launched six times a layer a call (three
+    products and their dx) and G2 three times, replays included."""
+    from horovod_tpu_torch import optim, spmd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = T.TransformerConfig(**TRAIN_CFG, n_experts=4, moe_impl="dropless",
+                              dtype=torch.float32)
+    steps = []
+    for _ in range(2):
+        p = T.init_params(cfg, seed=3, device=nccl,
+                          param_dtype=torch.float32)
+        named = optim.named_parameters(p)
+        for _, t in named:
+            t.requires_grad_()
+        opt = optim.DistributedOptimizer(
+            torch.optim.AdamW([t for _, t in named], lr=1e-3,
+                              weight_decay=1e-4), named_parameters=named)
+        steps.append((p, spmd.make_train_step(
+            lambda p, b: T.loss_fn(p, b, cfg), opt)))
+    (pg, graphed), (pe, eager) = steps
+    batches = [T.synthetic_batch(s, cfg, 2, 128, device=nccl)
+               for s in range(5)]
+    g1, g2 = GM.grouped_matmul_launches, GM.grouped_matmul_dw_launches
+    for b in batches:
+        _same_state(graphed(pg, b), eager.body(pe, b), pg, pe)
+    assert graphed.graphed and graphed.captures == 1
+    assert graphed.replays == len(batches) - 2
+    L, n = cfg.n_layers, 2 * len(batches)  # both steps launch
+    assert (GM.grouped_matmul_launches - g1,
+            GM.grouped_matmul_dw_launches - g2) == (6 * L * n, 3 * L * n)
 
 
 # The serving width with 8 experts of d_ff 2048, cut to 2 layers.

@@ -7,9 +7,10 @@ This file compiles ``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu``,
 ``paged_attention.cu`` and ``grouped_matmul.cu`` with g++ against a
 small emulation of what they use, and holds the kernels (bf16
 tensor-core K1, K2 and K3, the scalar f32 kernels, K4's split and
-combine kernels, G1's tensor-core and scalar kernels) against their
-plain versions on seeded inputs (K1 also with its shift read from
-memory; G1 also bit for bit against itself in another batch):
+combine kernels, G1's wgmma + TMA and scalar kernels in both modes, G2's
+mma.sync and scalar kernels) against their plain versions on seeded
+inputs (K1 also with its shift read from memory; G1 also bit for bit
+against itself in another batch):
 
 * one ``std::thread`` per CUDA thread of a block, blocks in turn;
   ``std::barrier`` for ``__syncthreads`` and for warp-synchronous steps;
@@ -19,19 +20,35 @@ memory; G1 also bit for bit against itself in another batch):
   its addressing and tile loaders are compiled as they are);
 * ``cp.async`` landing at once, or only at ``cp.async.wait_group``
   (both are run: a read before its wait, or a write into a buffer still
-  being read, breaks one of them); shared memory starts as NaN bytes.
+  being read, breaks one of them); shared memory starts as NaN bytes;
+* Hopper (``wgmma_tma.cuh``'s asm primitives swapped likewise):
+  mbarriers with arrival counts, transaction bytes and phase parity
+  (a wait that never completes fails after 60 s); ``cuTensorMapEncodeTiled``
+  with the driver's rules on alignment, strides and box sizes; TMA's box
+  copy, zero past every edge, 128-byte swizzled by the PTX ISA's pattern
+  (bits 4-6 of the offset XOR bits 7-9); ``wgmma.m64nNk16`` reading A
+  and B through their descriptors by the canonical K-major and MN-major
+  layouts and writing its accumulator fragment; TMA tiles and wgmma
+  products land at issue, or at their barrier's wait and their group's
+  ``wgmma.wait_group``; fence, commit and wait are warp barriers, as
+  ``.sync.aligned`` makes them on the card.
 
 What it cannot show: that nvcc accepts the source, the asm strings
 themselves, timing, or races between warps that the barriers order
-here.  Those are the card's (``chip_smoke.py``,
+here; for Hopper, that the descriptor bits, the canonical layouts and
+the swizzle it decodes are the hardware's (the kernel and the emulator
+share one reading of the PTX ISA: the card's tests and
+``chip_smoke.py``'s ``grouped_kernel`` phase are what hold it), the
+tensor cores' own summation order within a k-step, and the TMA unit's
+and wgmma's asynchrony beyond the two landing points.  Those are the card's (``chip_smoke.py``,
 ``tests/test_torch_port_cuda.py``).  The kernels run in a child process
 under a time limit, so a kernel whose warps diverge at a barrier fails
 the test instead of hanging it.
 
 Tolerances as on the card: K1 5e-2 (bf16) and 1e-4 (f32) absolute;
 K2/K3 2e-2 (bf16) and 1e-4 (f32) of the largest gradient; K4 1e-4 (f32
-and int8 -> f32) and 2e-2 (bf16 and int8 -> bf16) absolute; G1 2e-2
-(bf16) and 1e-4 (f32) of the largest output.
+and int8 -> f32) and 2e-2 (bf16 and int8 -> bf16) absolute; G1 and
+G2 2e-2 (bf16) and 1e-4 (f32) of the largest output.
 """
 
 import json
@@ -51,12 +68,16 @@ EMU_H = r"""
 #pragma once
 #include <algorithm>
 #include <barrier>
+#include <chrono>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -116,11 +137,23 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
 }
 
 struct EmuCopy { void* dst; const void* src; int n, size; };
+struct EmuLanding { unsigned char* dst; std::vector<unsigned char> bytes; };
+// An mbarrier: arrivals still owed this phase, bytes still to land (tx),
+// the parity of the phase in progress, and (copies at wait) the TMA
+// tiles that land when a thread waits on the completed phase.
+struct EmuMbar {
+  int count = 0, pending = 0, phase = 0;
+  long tx = 0, deferred_bytes = 0;
+  std::vector<EmuLanding> deferred;
+};
 struct EmuBlock {
   std::vector<unsigned char> smem;
   std::barrier<>* bar;
   std::vector<std::barrier<>*> warp_bar;
   std::vector<uint64_t> xchg;  // 8 words a lane
+  std::mutex mu;               // guards mbars
+  std::condition_variable cv;
+  std::map<const void*, EmuMbar> mbars;
 };
 inline thread_local EmuBlock* emu_blk;
 inline thread_local std::vector<EmuCopy> emu_open;
@@ -233,6 +266,243 @@ inline void emu_mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
   for (int e = 0; e < 4; ++e) d[e] = out[e];
 }
 
+// --- Hopper: tensor maps, mbarriers, TMA, wgmma ----------------------------
+
+#define __grid_constant__
+#define CUDART_VERSION 12080
+typedef uint64_t cuuint64_t;
+typedef uint32_t cuuint32_t;
+enum CUresult { CUDA_SUCCESS = 0, CUDA_ERROR_INVALID_VALUE = 1 };
+enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9 };
+enum CUtensorMapInterleave { CU_TENSOR_MAP_INTERLEAVE_NONE = 0 };
+enum CUtensorMapSwizzle { CU_TENSOR_MAP_SWIZZLE_NONE = 0,
+                          CU_TENSOR_MAP_SWIZZLE_128B = 3 };
+enum CUtensorMapL2promotion { CU_TENSOR_MAP_L2_PROMOTION_L2_256B = 3 };
+enum CUtensorMapFloatOOBfill { CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE = 0 };
+struct alignas(64) CUtensorMap { uint64_t opaque[16]; };
+// What the emulated driver keeps in a tensor map's opaque bytes.
+struct EmuTmap {
+  const unsigned char* base;
+  int rank, swizzle;
+  uint64_t dims[5], strides[5];  // strides in bytes, strides[0] the element
+  uint32_t box[5];
+};
+static_assert(sizeof(EmuTmap) <= sizeof(CUtensorMap), "tensor map");
+enum cudaDriverEntryPointQueryResult { cudaDriverEntryPointSuccess = 0,
+                                       cudaDriverEntryPointSymbolNotFound = 1 };
+enum { cudaEnableDefault = 0 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+
+// cuTensorMapEncodeTiled, refusing what the driver refuses and the
+// kernels would rely on: a base not 16-byte aligned, strides not
+// multiples of 16, boxes past 256 elements a dimension, a 128-byte
+// swizzle with a box row over 128 bytes, element strides other than 1.
+inline CUresult emu_encode_tiled(
+    CUtensorMap* map, CUtensorMapDataType dt, cuuint32_t rank, void* base,
+    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+    const cuuint32_t* estr, CUtensorMapInterleave il, CUtensorMapSwizzle sw,
+    CUtensorMapL2promotion, CUtensorMapFloatOOBfill fill) {
+  if (dt != CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 || rank < 1 || rank > 5 ||
+      (uintptr_t)base % 16 || il != CU_TENSOR_MAP_INTERLEAVE_NONE ||
+      fill != CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
+    return CUDA_ERROR_INVALID_VALUE;
+  EmuTmap t{};
+  t.base = static_cast<const unsigned char*>(base);
+  t.rank = rank;
+  t.swizzle = sw;
+  t.strides[0] = 2;
+  for (unsigned i = 0; i < rank; ++i) {
+    if (dims[i] < 1 || dims[i] > (1ull << 32) || box[i] < 1 ||
+        box[i] > 256 || estr[i] != 1)
+      return CUDA_ERROR_INVALID_VALUE;
+    t.dims[i] = dims[i];
+    t.box[i] = box[i];
+    if (i + 1 < rank) {
+      if (strides[i] % 16 || strides[i] >= (1ull << 40))
+        return CUDA_ERROR_INVALID_VALUE;
+      t.strides[i + 1] = strides[i];
+    }
+  }
+  if ((box[0] * 2) % 16 ||
+      (sw == CU_TENSOR_MAP_SWIZZLE_128B && box[0] * 2 > 128))
+    return CUDA_ERROR_INVALID_VALUE;
+  memcpy(map, &t, sizeof(t));
+  return CUDA_SUCCESS;
+}
+inline cudaError_t cudaGetDriverEntryPointByVersion(
+    const char* sym, void** fn, unsigned, unsigned long long,
+    cudaDriverEntryPointQueryResult* q) {
+  if (strcmp(sym, "cuTensorMapEncodeTiled") != 0) {
+    *q = cudaDriverEntryPointSymbolNotFound;
+    return cudaSuccess;
+  }
+  *fn = reinterpret_cast<void*>(&emu_encode_tiled);
+  *q = cudaDriverEntryPointSuccess;
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+// SMs: a persistent kernel's CTAs each walk several tiles.
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 3;
+  return cudaSuccess;
+}
+
+inline EmuMbar& emu_mbar(const void* bar) {  // emu_blk->mu held
+  if (!emu_in_smem(bar, 8) || (uintptr_t)bar % 8) emu_fail("mbarrier", bar);
+  auto it = emu_blk->mbars.find(bar);
+  if (it == emu_blk->mbars.end()) emu_fail("mbarrier not initialised", bar);
+  return it->second;
+}
+// The phase completes once every arrival is in and every byte landed;
+// deferred TMA tiles land only when `landing` (a thread waits).
+inline void emu_mbar_complete(EmuMbar& m, bool landing) {
+  if (m.pending != 0 || m.tx != m.deferred_bytes ||
+      (!landing && !m.deferred.empty()))
+    return;
+  for (auto& l : m.deferred) memcpy(l.dst, l.bytes.data(), l.bytes.size());
+  m.deferred.clear();
+  m.deferred_bytes = m.tx = 0;
+  m.phase ^= 1;
+  m.pending = m.count;
+}
+inline void emu_mbar_init(uint64_t* bar, int count) {
+  std::lock_guard<std::mutex> lk(emu_blk->mu);
+  if (!emu_in_smem(bar, 8) || (uintptr_t)bar % 8 || count < 1)
+    emu_fail("mbarrier init", bar);
+  EmuMbar& m = emu_blk->mbars[bar];
+  m = EmuMbar();
+  m.count = m.pending = count;
+}
+inline void emu_mbar_arrive(uint64_t* bar, uint32_t tx) {
+  std::lock_guard<std::mutex> lk(emu_blk->mu);
+  EmuMbar& m = emu_mbar(bar);
+  m.tx += tx;
+  if (--m.pending < 0) emu_fail("mbarrier arrival past its count", bar);
+  emu_mbar_complete(m, false);
+  emu_blk->cv.notify_all();
+}
+// Waits out the phase of parity `parity` (returns at once if the phase
+// in progress has the other parity).
+inline void emu_mbar_wait(uint64_t* bar, int parity) {
+  std::unique_lock<std::mutex> lk(emu_blk->mu);
+  EmuMbar& m = emu_mbar(bar);
+  const bool ok = emu_blk->cv.wait_for(lk, std::chrono::seconds(60), [&] {
+    emu_mbar_complete(m, true);
+    return m.phase != (parity & 1);
+  });
+  if (!ok) emu_fail("mbarrier wait never completed", bar);
+}
+// cp.async.bulk.tensor: the box at coordinates c (innermost first), zeros
+// where any coordinate is past its dimension, packed row after row and
+// 128-byte swizzled (bits 4-6 of the offset XOR bits 7-9) into dst.
+inline void emu_tma(void* dst, const CUtensorMap* map, const int* c,
+                    int rank, uint64_t* bar) {
+  EmuTmap t;
+  memcpy(&t, map, sizeof(t));
+  if (t.rank != rank) emu_fail("TMA rank", map);
+  size_t n = 2;
+  for (int i = 0; i < rank; ++i) n *= t.box[i];
+  auto* d = static_cast<unsigned char*>(dst);
+  const size_t align = t.swizzle == CU_TENSOR_MAP_SWIZZLE_128B ? 1024 : 128;
+  if (!emu_in_smem(dst, n) || (size_t)(d - emu_smem()) % align)
+    emu_fail("TMA destination", dst);
+  std::vector<unsigned char> bytes(n, 0);
+  for (size_t e = 0; e < n / 2; ++e) {
+    size_t r = e, src = 0;
+    bool inside = true;
+    for (int i = 0; i < rank; ++i) {
+      const long k = c[i] + (long)(r % t.box[i]);
+      r /= t.box[i];
+      if (k < 0 || k >= (long)t.dims[i]) inside = false;
+      else src += (size_t)k * t.strides[i];
+    }
+    if (!inside) continue;
+    size_t o = 2 * e;
+    if (t.swizzle == CU_TENSOR_MAP_SWIZZLE_128B) o ^= ((o >> 7) & 7) << 4;
+    memcpy(&bytes[o], t.base + src, 2);
+  }
+  std::lock_guard<std::mutex> lk(emu_blk->mu);
+  EmuMbar& m = emu_mbar(bar);
+  if (emu_copies_at_wait) {
+    m.deferred.push_back({d, std::move(bytes)});
+    m.deferred_bytes += n;
+  } else {
+    memcpy(d, bytes.data(), n);
+    m.tx -= n;
+    emu_mbar_complete(m, false);
+  }
+  emu_blk->cv.notify_all();
+}
+
+// wgmma.mma_async m64nNk16 bf16 -> f32 through its descriptors: A
+// K-major, B K-major (trans 0) or MN-major (trans 1), 128-byte swizzled
+// (layout type 1, base offset 0), by the PTX ISA's canonical layouts;
+// each thread computes its own accumulator fragment.  Run at issue, or
+// (copies at wait) at the wgmma.wait_group that retires its group.
+struct EmuWgmma { float* d; int n, trans, scale_d; uint64_t da, db; };
+inline thread_local std::vector<EmuWgmma> emu_wg_open;
+inline thread_local std::vector<std::vector<EmuWgmma>> emu_wg_groups;
+struct EmuDesc { size_t start, lbo, sbo; };
+inline EmuDesc emu_desc(uint64_t d) {
+  if ((d >> 62) != 1 || ((d >> 49) & 7))
+    emu_fail("wgmma descriptor: not 128-byte swizzled at base offset 0",
+             nullptr);
+  return {(size_t)(d & 0x3FFF) << 4, (size_t)((d >> 16) & 0x3FFF) << 4,
+          (size_t)((d >> 32) & 0x3FFF) << 4};
+}
+inline float emu_swizzled_bf16(size_t off) {
+  off ^= ((off >> 7) & 7) << 4;
+  if (off % 2 || off + 2 > emu_blk->smem.size())
+    emu_fail("wgmma operand", (void*)off);
+  uint16_t h;
+  memcpy(&h, emu_smem() + off, 2);
+  return emu_bf(h);
+}
+inline void emu_wgmma_run(const EmuWgmma& op) {
+  const EmuDesc a = emu_desc(op.da), b = emu_desc(op.db);
+  const int tid = threadIdx.x % 128, w = tid / 32, lane = tid % 32;
+  auto kmajor = [](const EmuDesc& s, int row, int k) {
+    return emu_swizzled_bf16(s.start + (row / 8) * s.sbo + (row % 8) * 128 +
+                             2 * k);
+  };
+  auto mnmajor = [](const EmuDesc& s, int k, int col) {
+    return emu_swizzled_bf16(s.start + (col / 64) * s.lbo + (k / 8) * s.sbo +
+                             (k % 8) * 128 + 2 * (col % 64));
+  };
+  for (int i = 0; i < op.n / 2; ++i) {
+    const int row = 16 * w + lane / 4 + 8 * ((i / 2) % 2);
+    const int col = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+    float acc = op.scale_d ? op.d[i] : 0.f;
+    for (int k = 0; k < 16; ++k)
+      acc += kmajor(a, row, k) *
+             (op.trans ? mnmajor(b, k, col) : kmajor(b, col, k));
+    op.d[i] = acc;
+  }
+}
+inline void emu_wgmma(float* d, int n, int trans, uint64_t da, uint64_t db,
+                      int scale_d) {
+  const EmuWgmma op{d, n, trans, scale_d, da, db};
+  if (emu_copies_at_wait) emu_wg_open.push_back(op);
+  else emu_wgmma_run(op);
+}
+// fence, commit and wait are .sync.aligned: the warp's lanes meet there
+// (a lane that releases a stage after its wait knows its warp is done).
+inline void emu_wgmma_commit() {
+  emu_wg_groups.push_back(emu_wg_open);
+  emu_wg_open.clear();
+  emu_warp_sync();
+}
+inline void emu_wgmma_wait(int in_flight) {
+  while ((int)emu_wg_groups.size() > in_flight) {
+    for (const auto& op : emu_wg_groups.front()) emu_wgmma_run(op);
+    emu_wg_groups.erase(emu_wg_groups.begin());
+  }
+  emu_warp_sync();
+}
+
 template <class... P, class... Arg>
 void emu_launch(void (*kern)(P...), dim3 grid, int threads, size_t smem,
                 cudaStream_t, Arg... args) {
@@ -261,9 +531,13 @@ void emu_launch(void (*kern)(P...), dim3 grid, int threads, size_t smem,
             blockIdx = {xb, y, z};
             emu_open.clear();
             emu_groups.clear();
+            emu_wg_open.clear();
+            emu_wg_groups.clear();
             kern(args...);
             for (const auto& g : emu_groups)
               if (!g.empty()) emu_fail("cp.async never waited for", nullptr);
+            if (!emu_wg_open.empty() || !emu_wg_groups.empty())
+              emu_fail("wgmma never waited for", nullptr);
           });
         for (auto& th : ts) th.join();
       }
@@ -283,6 +557,41 @@ inline void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
 inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                      uint32_t b1) {
   emu_mma(d, a, b0, b1);
+}
+"""
+
+# The asm primitives of wgmma_tma.cuh, as calls into the emulator.
+WG_PRIMITIVES = """
+inline uint32_t smem_addr(const void* p) {
+  if (!emu_in_smem(p, 0)) emu_fail("not shared memory", p);
+  return uint32_t(static_cast<const unsigned char*>(p) - emu_smem());
+}
+inline void mbar_init(uint64_t* bar, int count) { emu_mbar_init(bar, count); }
+inline void fence_mbar_init() {}
+inline void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  emu_mbar_arrive(bar, bytes);
+}
+inline void mbar_arrive(uint64_t* bar) { emu_mbar_arrive(bar, 0); }
+inline void mbar_wait(uint64_t* bar, int parity) { emu_mbar_wait(bar, parity); }
+inline void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                        uint64_t* bar) {
+  const int c[2] = {c0, c1};
+  emu_tma(dst, map, c, 2, bar);
+}
+inline void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                        int c2, uint64_t* bar) {
+  const int c[3] = {c0, c1, c2};
+  emu_tma(dst, map, c, 3, bar);
+}
+inline void wgmma_fence() { emu_warp_sync(); }
+inline void wgmma_commit() { emu_wgmma_commit(); }
+template <int N> inline void wgmma_wait() { emu_wgmma_wait(N); }
+inline void fence_operand(float&) {}
+template <int R> inline void setmaxnreg_inc() {}
+template <int R> inline void setmaxnreg_dec() {}
+template <int TRANS_B>
+inline void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b, int s) {
+  emu_wgmma(d, 128, TRANS_B, a, b, s);
 }
 """
 
@@ -307,13 +616,18 @@ def emulated_libs(tmp_path_factory):
         pytest.skip("needs g++ with C++20 to build the emulated kernels")
     out = tmp_path_factory.mktemp("emulated")
     (out / "emu.h").write_text(EMU_H)
-    for shim in ("cuda_runtime.h", "cuda_bf16.h"):
+    for shim in ("cuda.h", "cuda_runtime.h", "cuda_bf16.h"):
         (out / shim).write_text('#pragma once\n#include "emu.h"\n')
     header = (CSRC / "mma_bf16.cuh").read_text()
     start = header.index("__device__ __forceinline__ uint32_t smem_u32")
     end = header.index("// Two f32 values rounded")
     (out / "mma_bf16.cuh").write_text(header[:start] + PRIMITIVES
                                       + header[end:])
+    header = (CSRC / "wgmma_tma.cuh").read_text()
+    start = header.index("// --- asm primitives")
+    end = header.index("// --- end of asm primitives")
+    (out / "wgmma_tma.cuh").write_text(header[:start] + WG_PRIMITIVES
+                                       + header[end:])
     procs = []
     for name in ("flash_fwd", "flash_bwd", "paged_attention",
                  "grouped_matmul"):
@@ -551,14 +865,17 @@ def test_emulated_paged_kernel_matches_plain_version(emulated_libs, pool,
                                                                      err)
 
 
-# G1 through the C entry point the wrapper binds.  Each case: group sizes
+# G1 and G2 through the C entry points the wrappers bind.  Mode
+# "forward": G1, out = xs @ W[g]; "dx": G1 with W read transposed, dx =
+# dy @ W[g]^T; "dw": G2, dW[e] = xs_e^T dy_e.  Each case: group sizes
 # (empty groups, every row on one group, one row, a group of more than
-# one 64-row tile, ragged T), K and N (a K not a multiple of the 32-deep
-# stage, an N past one 128-column tile).  The outputs start as NaN, so a
-# row the kernel fails to write shows.  Then row invariance: the last
-# case's rows again inside another batch (5 new rows ahead of group 0,
-# group 2 emptied, so every kept row moves to another tile position and
-# T changes), bit for bit.
+# one tile, ragged T), K and N (a K not a multiple of a stage, an N past
+# one tile; the last case's K and N wrap the bf16 G1's six-stage ring
+# and span three of its 128-column tiles).  The outputs start as NaN, so an
+# element a kernel fails to write shows.  Then, for G1's two modes, row
+# invariance: case 4's rows again inside another batch (5 new rows ahead
+# of group 0, group 2 emptied, so every kept row moves to another tile
+# position and T changes), bit for bit.
 GMM_CHILD = r"""
 import ctypes, json, sys
 import numpy as np
@@ -567,43 +884,87 @@ from horovod_tpu_torch.ops import grouped_matmul as GM
 
 libdir, dtype = sys.argv[1], {"bf16": torch.bfloat16,
                               "f32": torch.float32}[sys.argv[2]]
-fn = GM._bind(ctypes.CDLL(f"{libdir}/libgrouped_matmul.so"))
+mode = sys.argv[4] if len(sys.argv) > 4 else "forward"
+lib = ctypes.CDLL(f"{libdir}/libgrouped_matmul.so")
+fn, fn_dw = GM._bind(lib), GM._bind_dw(lib)
+is_bf16 = int(dtype == torch.bfloat16)
 
 def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
-def run(xs, w, counts):
-    off = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
-                       dtype=torch.int32)
-    out = torch.full((xs.shape[0], w.shape[2]), float("nan"), dtype=dtype)
-    rc = fn(ptr(xs), ptr(w), ptr(off), ptr(out), xs.shape[0], xs.shape[1],
-            w.shape[2], w.shape[0], int(dtype == torch.bfloat16), None)
+def offsets(counts):
+    return torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                        dtype=torch.int32)
+
+def run(a, b, counts):
+    # forward/dx: a = xs or dy, b = w (E, K, N); dw: a = xs, b = dy.
+    off = offsets(counts)
+    T, E = a.shape[0], len(counts)
+    if mode == "dw":
+        out = torch.full((E, a.shape[1], b.shape[1]), float("nan"),
+                         dtype=dtype)
+        rc = fn_dw(ptr(a), ptr(b), ptr(off), ptr(out), T, a.shape[1],
+                   b.shape[1], E, is_bf16, None)
+        ref = GM.grouped_matmul_dw_reference(a, b, off)
+    else:
+        tr = mode == "dx"
+        out = torch.full((T, b.shape[1] if tr else b.shape[2]),
+                         float("nan"), dtype=dtype)
+        rc = fn(ptr(a), ptr(b), ptr(off), ptr(out), T, b.shape[1],
+                b.shape[2], E, is_bf16, int(tr), None)
+        ref = (GM.grouped_matmul_dx_reference if tr
+               else GM.grouped_matmul_reference)(a, b, off)
     assert rc == 0, rc
-    return out, GM.grouped_matmul_reference(xs, w, off)
+    return out, ref
 
 torch.set_num_threads(1)
 res = []
 for i, (counts, K, N) in enumerate(json.loads(sys.argv[3])):
     rng = np.random.RandomState(i)
-    xs = torch.from_numpy(rng.randn(sum(counts), K).astype(np.float32))
+    T = sum(counts)
+    xs = torch.from_numpy(rng.randn(T, K).astype(np.float32)).to(dtype)
     w = torch.from_numpy((rng.randn(len(counts), K, N) / np.sqrt(K))
-                         .astype(np.float32))
-    xs, w = xs.to(dtype), w.to(dtype)
-    out, ref = run(xs, w, counts)
+                         .astype(np.float32)).to(dtype)
+    dy = torch.from_numpy(rng.randn(T, N).astype(np.float32)).to(dtype)
+    a, b = {"forward": (xs, w), "dx": (dy, w), "dw": (xs, dy)}[mode]
+    out, ref = run(a, b, counts)
     res.append({"err": ((out.float() - ref.float()).abs().max()
                         / ref.float().abs().max()).item()})
-starts = np.concatenate([[0], np.cumsum(counts)])
-extra = torch.from_numpy(rng.randn(5, K).astype(np.float32)).to(dtype)
-xs_b = torch.cat([extra, xs[:starts[2]], xs[starts[3]:]])
-out_b, _ = run(xs_b, w, [counts[0] + 5, counts[1], 0, *counts[3:]])
-kept = torch.cat([out[:starts[2]], out[starts[3]:]])
-bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
-res.append({"invariant": torch.equal(out_b[5:].view(bits), kept.view(bits))})
+    if i == 3:
+        inv = (counts, a, b, out, rng)
+if mode != "dw":
+    counts, a, b, out, rng = inv
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    extra = torch.from_numpy(rng.randn(5, a.shape[1]).astype(np.float32))
+    a_b = torch.cat([extra.to(dtype), a[:starts[2]], a[starts[3]:]])
+    out_b, _ = run(a_b, b, [counts[0] + 5, counts[1], 0, *counts[3:]])
+    kept = torch.cat([out[:starts[2]], out[starts[3]:]])
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    res.append({"invariant": torch.equal(out_b[5:].view(bits),
+                                         kept.view(bits))})
 print(json.dumps(res))
 """
 
 GMM_CASES = [([0, 5, 0, 12], 40, 24), ([70, 0, 0], 16, 136),
-             ([0, 1], 16, 8), ([3, 9, 4, 24, 65], 32, 16)]
+             ([0, 1], 16, 8), ([3, 9, 4, 24, 65], 32, 16),
+             ([130, 0, 7, 60], 328, 264)]
+
+
+def _run_gmm(libdir, dtype, copies, mode):
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               EMU_COPIES_AT_WAIT=str(int(copies == "at_wait")))
+    run = subprocess.run(
+        [sys.executable, "-c", GMM_CHILD, str(libdir), dtype,
+         json.dumps(GMM_CASES), mode], capture_output=True, text=True,
+        timeout=300, env=env)
+    assert run.returncode == 0, run.stderr[-4000:]
+    res = json.loads(run.stdout.strip().splitlines()[-1])
+    assert len(res) == len(GMM_CASES) + (mode != "dw")
+    tol = 2e-2 if dtype == "bf16" else 1e-4
+    for case, err in zip(GMM_CASES, res):
+        assert err["err"] <= tol, (case, err)
+    if mode != "dw":
+        assert res[-1]["invariant"]
 
 
 @pytest.mark.parametrize("dtype,copies", [("bf16", "immediate"),
@@ -611,16 +972,20 @@ GMM_CASES = [([0, 5, 0, 12], 40, 24), ([70, 0, 0], 16, 136),
                                           ("f32", "immediate")])
 def test_emulated_grouped_matmul_matches_plain_version(emulated_libs, dtype,
                                                        copies):
-    env = dict(os.environ, PYTHONPATH=str(REPO),
-               EMU_COPIES_AT_WAIT=str(int(copies == "at_wait")))
-    run = subprocess.run(
-        [sys.executable, "-c", GMM_CHILD, str(emulated_libs), dtype,
-         json.dumps(GMM_CASES)], capture_output=True, text=True,
-        timeout=300, env=env)
-    assert run.returncode == 0, run.stderr[-4000:]
-    res = json.loads(run.stdout.strip().splitlines()[-1])
-    assert len(res) == len(GMM_CASES) + 1
-    tol = 2e-2 if dtype == "bf16" else 1e-4
-    for case, err in zip(GMM_CASES, res):
-        assert err["err"] <= tol, (case, err)
-    assert res[-1]["invariant"]
+    """G1's forward: the bf16 wgmma + TMA kernel (TMA tiles and wgmma
+    products landing at issue, or at their barrier's wait and their
+    group's wait) and the f32 scalar kernel."""
+    _run_gmm(emulated_libs, dtype, copies, "forward")
+
+
+@pytest.mark.parametrize("mode", ["dx", "dw"])
+@pytest.mark.parametrize("dtype,copies", [("bf16", "immediate"),
+                                          ("bf16", "at_wait"),
+                                          ("f32", "immediate")])
+def test_emulated_grouped_backward_matches_plain_version(emulated_libs,
+                                                         dtype, copies,
+                                                         mode):
+    """The dropless dispatch's backward: G1 with W read transposed (dx;
+    the wgmma kernel's K-major B) and G2 (dW; mma.sync with cp.async in
+    bf16, scalar in f32) against their plain versions."""
+    _run_gmm(emulated_libs, dtype, copies, mode)

@@ -349,6 +349,78 @@ class TestDroplessMoE:
         np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), **GRAD)
         np.testing.assert_allclose(wt.grad.numpy(), np.asarray(jgw), **GRAD)
 
+    @pytest.mark.parametrize("counts", [[0, 5, 0, 12], [17, 0, 0, 0],
+                                        [0, 0, 0, 1], [3, 9, 4, 24]],
+                             ids=["empty", "skewed", "one_row", "ragged"])
+    def test_backward_plain_versions_match_ragged_dot_vjp(self, counts):
+        """The plain versions of G1's backward products, the ones the
+        card's kernels are held to: ``grouped_matmul_dx_reference`` (G1
+        on W^T) and ``grouped_matmul_dw_reference`` (G2) against
+        ``jax.vjp`` of ``lax.ragged_dot``, and what the wrappers give on
+        the CPU."""
+        E, K, N = 4, 16, 24
+        T_ = sum(counts)
+        xs, w, cot = _x(5, T_, K), _x(6, E, K, N), _x(7, T_, N)
+        off = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                           dtype=torch.int32)
+        _, vjp = jax.vjp(
+            lambda a, b: jax.lax.ragged_dot(a, b, jnp.asarray(counts,
+                                                              jnp.int32)),
+            jnp.asarray(xs), jnp.asarray(w))
+        jgx, jgw = (np.asarray(g) for g in vjp(jnp.asarray(cot)))
+        dx = GM.grouped_matmul_dx_reference(torch.tensor(cot),
+                                            torch.tensor(w), off)
+        dw = GM.grouped_matmul_dw_reference(torch.tensor(xs),
+                                            torch.tensor(cot), off)
+        np.testing.assert_allclose(dx.numpy(), jgx, atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(dw.numpy(), jgw, atol=1e-5, rtol=1e-5)
+        for e, c in enumerate(counts):
+            if c == 0:
+                assert not dw[e].any(), "an empty group's gradient is zero"
+        np.testing.assert_array_equal(
+            GM.grouped_matmul_dx(torch.tensor(cot), torch.tensor(w),
+                                 off).numpy(), dx.numpy())
+        np.testing.assert_array_equal(
+            GM.grouped_matmul_dw(torch.tensor(xs), torch.tensor(cot),
+                                 off).numpy(), dw.numpy())
+
+    def test_cpu_autograd_equals_the_backward_plain_versions(self):
+        """On the CPU autograd differentiates G1's plain forward; its
+        gradients equal the two plain backward products that the CUDA
+        backward's kernels (G1 transposed, G2) are held to."""
+        counts = [3, 0, 9, 4]
+        E, K, N = 4, 16, 24
+        T_ = sum(counts)
+        xs, w, cot = _x(8, T_, K), _x(9, E, K, N), _x(10, T_, N)
+        off = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                           dtype=torch.int32)
+        xt = torch.tensor(xs, requires_grad=True)
+        wt = torch.tensor(w, requires_grad=True)
+        GM.grouped_matmul(xt, wt, off).backward(torch.tensor(cot))
+        torch.testing.assert_close(
+            xt.grad, GM.grouped_matmul_dx_reference(torch.tensor(cot),
+                                                    torch.tensor(w), off),
+            atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(
+            wt.grad, GM.grouped_matmul_dw_reference(torch.tensor(xs),
+                                                    torch.tensor(cot), off),
+            atol=1e-6, rtol=1e-6)
+
+    def test_grouped_matmul_dw_checks_its_inputs(self):
+        xs, dy = torch.zeros(4, 16), torch.zeros(4, 8)
+        off = torch.tensor([0, 2, 4], dtype=torch.int32)
+        GM._check_dw(xs, dy, off)  # well-formed
+        GM._check(dy, torch.zeros(2, 16, 8), off, transpose_w=True)
+        for bad, exc in (((xs, dy[:3], off), ValueError),
+                         ((xs, dy.double(), off), TypeError),
+                         ((xs, dy[:, :6], off), ValueError),
+                         ((xs, dy, off.long()), ValueError),
+                         ((xs.t().contiguous().t(), dy, off), ValueError)):
+            with pytest.raises(exc):
+                GM._check_dw(*bad)
+        with pytest.raises(ValueError):
+            GM._check(xs, torch.zeros(2, 16, 8), off, transpose_w=True)
+
     def test_grouped_matmul_checks_its_inputs(self):
         xs, w = torch.zeros(4, 16), torch.zeros(2, 16, 8)
         off = torch.tensor([0, 2, 4], dtype=torch.int32)
@@ -640,6 +712,51 @@ class TestModelSwitchMoE:
             np.testing.assert_allclose(tp[name].grad.numpy(),
                                        np.asarray(jg[name]), err_msg=name,
                                        **GRAD)
+
+    def test_dropless_model_gradients_match_jax(self):
+        """The dropless dispatch trains, as in JAX (``moe_aux_coeff`` 0):
+        the loss and the gradient of every parameter through the grouped
+        products' backward, against JAX's ``loss_fn``."""
+        jcfg, tcfg = _cfgs(moe_impl="dropless")
+        jp, tp = _load(jcfg, tcfg, param_dtype=torch.float32)
+        tokens = _tokens(3, 4, 16)
+        _assert_model_routes(jp, tp, tokens, jcfg, tcfg)
+        jbatch = {"tokens": jnp.asarray(tokens),
+                  "targets": jnp.asarray(np.roll(tokens, -1, 1))}
+        jl, jg = jax.value_and_grad(lambda q: JT.loss_fn(q, jbatch, jcfg))(jp)
+        for leaf in jax.tree_util.tree_leaves(tp):
+            leaf.requires_grad_()
+        tl = T.loss_fn(tp, {k: torch.tensor(np.asarray(v))
+                            for k, v in jbatch.items()}, tcfg)
+        tl.backward()
+        np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+        for name, leaf in tp["layers"].items():
+            np.testing.assert_allclose(leaf.grad.numpy(),
+                                       np.asarray(jg["layers"][name]),
+                                       err_msg=name, **GRAD)
+        for name in ("embed", "ln_f", "head"):
+            np.testing.assert_allclose(tp[name].grad.numpy(),
+                                       np.asarray(jg[name]), err_msg=name,
+                                       **GRAD)
+
+    def test_dropless_return_aux_raises_in_both_packages(self):
+        """The balance loss is the switch dispatch's: asking the dropless
+        dispatch for it raises in both packages, with JAX's message."""
+        jcfg, tcfg = _cfgs(moe_impl="dropless", moe_aux_coeff=1e-2)
+        jp, tp = _load(jcfg, tcfg)
+        tokens = _tokens(4, 2, 16)
+        with pytest.raises(ValueError, match="serving dispatch") as jerr:
+            JT.forward(jp, jnp.asarray(tokens), jcfg, return_aux=True)
+        with pytest.raises(ValueError, match="serving dispatch") as terr:
+            T.forward(tp, torch.tensor(tokens), tcfg, return_aux=True)
+        assert str(terr.value) == str(jerr.value)
+        batch = {"tokens": tokens, "targets": np.roll(tokens, -1, 1)}
+        with pytest.raises(ValueError, match="serving dispatch"):
+            JT.loss_fn(jp, {k: jnp.asarray(v) for k, v in batch.items()},
+                       jcfg)
+        with pytest.raises(ValueError, match="serving dispatch"):
+            T.loss_fn(tp, {k: torch.tensor(v) for k, v in batch.items()},
+                      tcfg)
 
     @pytest.mark.parametrize("policy", ["full", "dots"])
     def test_remat_keeps_loss_and_recomputes_the_expert_products(
