@@ -527,14 +527,15 @@ def _kernel_name(mangled: str) -> str:
         args = [kinds.get(t, kinds.get(toks[0])) if not t.startswith("Li")
                 else next(ints) + t[2:] for t in toks]
         return paged.group(1) + (f"<{','.join(args)}>" if args else "")
-    grouped = re.search(r"\d+(grouped_(?:mm|dw)_kernel(?:_mma|_wgmma)?)"
+    grouped = re.search(r"\d+(grouped_(?:mm|dw)_kernel(?:_wgmma)?)"
                         r"(?:ILi(\d)EE|E)", mangled)
     if grouped:
         name, mode = grouped.groups()
+        if name == "grouped_dw_kernel_wgmma":  # G2 bf16: no template
+            return f"{name}<bf16>"
         if name.endswith("_wgmma"):  # B_MN_MAJOR: 1 the forward, 0 dx
             return f"{name}<bf16,{'fwd' if mode == '1' else 'dx'}>"
-        dtype = "bf16" if name.endswith("_mma") else "f32"
-        return f"{name}<{dtype}{',dx' if mode == '1' else ''}>"
+        return f"{name}<f32{',dx' if mode == '1' else ''}>"
     name = re.search(r"\d+(flash_[a-z_]+?)I", mangled)
     dim = re.search(r"Li(\d+)E", mangled)
     if not (name and dim):
@@ -543,13 +544,24 @@ def _kernel_name(mangled: str) -> str:
     return f"{name.group(1)}<{dtype},{dim.group(1)}>"
 
 
+# The grouped kernels by `_kernel_name`: bf16 on wgmma fed by TMA, and
+# f32 on no tensor core at all.
+GROUPED_WGMMA = ("grouped_mm_kernel_wgmma<bf16,fwd>",
+                 "grouped_mm_kernel_wgmma<bf16,dx>",
+                 "grouped_dw_kernel_wgmma<bf16>")
+GROUPED_F32 = ("grouped_mm_kernel<f32>", "grouped_mm_kernel<f32,dx>",
+               "grouped_dw_kernel<f32>")
+
+
 def sass_check() -> dict:
     """Tensor-core instructions (``HMMA``, ``HGMMA``) in each kernel
     function of the flash and grouped-product libraries, by ``cuobjdump
     -sass`` from the toolkit of the ``nvcc`` that built them, and TMA
     loads (``UTMALDG``).  Fails unless both bf16 instantiations (D = 64,
-    128) of K1, K2 and K3 and G2's bf16 kernel have some, and G1's bf16
-    kernel, in both modes, runs on wgmma (HGMMA, no HMMA) fed by TMA."""
+    128) of K1, K2 and K3 have some, G1's bf16 kernel in both modes and
+    G2's bf16 kernel run on wgmma (HGMMA, no HMMA) fed by TMA, and the
+    f32 grouped kernels (G1 in both modes, G2) have no tensor-core
+    instruction at all (TF32 would break the f32 contract)."""
     from horovod_tpu_torch.ops import _cuda
 
     tool = Path(_cuda._nvcc()).resolve().parent / "cuobjdump"
@@ -579,16 +591,17 @@ def sass_check() -> dict:
         if len(got) != 2 or not all(got):
             raise AssertionError(f"{tag}: expected tensor-core instructions "
                                  f"in both instantiations, got {got}")
-    for mode in ("fwd", "dx"):
-        fn = f"grouped_mm_kernel_wgmma<bf16,{mode}>"
+    for fn in GROUPED_WGMMA:
         n = counts.get(fn, {})
         if not (n.get("HGMMA") and not n.get("HMMA") and tma.get(fn)):
             raise AssertionError(f"{fn}: expected HGMMA, no HMMA and TMA "
                                  f"loads, got {n}, {tma.get(fn)} UTMALDG "
                                  f"({sorted(counts)})")
-    if not counts.get("grouped_dw_kernel_mma<bf16>", {}).get("HMMA"):
-        raise AssertionError(f"grouped_dw_kernel_mma: no tensor-core "
-                             f"instruction ({sorted(counts)})")
+    for fn in GROUPED_F32:
+        if fn not in counts or any(counts[fn].values()):
+            raise AssertionError(f"{fn}: expected no tensor-core "
+                                 f"instruction, got {counts.get(fn)} "
+                                 f"({sorted(counts)})")
     return {"tensor_core": counts, "tma_loads": tma}
 
 
@@ -2276,7 +2289,8 @@ def profile_train_step(step, params, batch, flash: bool = True) -> dict:
         f"{out['flash_fwd_ms']:.1f}, K2 {out['flash_bwd_dkdv_ms']:.1f}, K3 "
         f"{out['flash_bwd_dq_ms']:.1f} ms ({out['flash_share_of_busy']:.1%}"
         f" of busy); G1 {out['grouped_matmul_ms']:.1f}, G2 "
-        f"{out['grouped_matmul_dw_ms']:.1f} ms")
+        f"{out['grouped_matmul_dw_ms']:.1f} ms "
+        f"({out['grouped_matmul_dw_ms'] / busy:.1%} of busy)")
     return out
 
 
@@ -3955,7 +3969,8 @@ def check_grouped() -> dict:
     largest output) beside its tolerance.  Then row invariance of G1's
     two modes, bit for bit: the prefill case's rows again with 37 rows
     ahead of them and expert 3 emptied (T and every row's tile position
-    change)."""
+    change).  Then G2's determinism: two calls bit-identical on the
+    prefill, skewed and empty routings at the gate shape."""
     errs, abs_errs = {}, {}
     products = _gmm_products()
     for dtype in (torch.bfloat16, torch.float32):
@@ -3992,6 +4007,16 @@ def check_grouped() -> dict:
                                                       out[starts[4]:]])):
                 raise AssertionError(f"{prod} {dtype}: rows differ between "
                                      "batches")
+        del xs, w, off, dy
+        kernel = products["G2"][0]
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        for case in ("prefill", "skewed", "empty"):
+            xs, _, off, dy = _gmm_inputs(_gmm_counts()[case], 1024, 2048,
+                                         dtype)
+            if not torch.equal(kernel(xs, dy, off).view(bits),
+                               kernel(xs, dy, off).view(bits)):
+                raise AssertionError(f"G2 {dtype} {case}: two calls differ")
+            del xs, off, dy
     worst = {f"{prod}.{str(dt)[6:]}": max(v for k, v in errs.items()
                                           if k.startswith(
                                               f"{prod}.{str(dt)[6:]}."))
@@ -4002,8 +4027,10 @@ def check_grouped() -> dict:
         f"relative error " + ", ".join(f"{k} {v:.3e}" for k, v in
                                        worst.items())
         + " (limits bf16 2e-2, f32 1e-4); G1's rows bit-identical across "
-        "batch compositions in both modes and both dtypes")
+        "batch compositions in both modes and both dtypes; G2 bit-identical "
+        "over two calls (prefill, skewed, empty; both dtypes)")
     return {"errors": errs, "worst": worst, "row_invariant": True,
+            "g2_deterministic": True,
             "max_abs_err": {prod: abs_errs[f"{prod}.bfloat16.gate.prefill"]
                             for prod in products}}
 
@@ -4052,7 +4079,9 @@ GMM_TIMED = (("G1", "gate", torch.bfloat16, "prefill"),
              ("G1_dx", "down", torch.bfloat16, "prefill"),
              ("G2", "down", torch.bfloat16, "prefill"),
              ("G2", "gate", torch.bfloat16, "skewed"),
-             ("G1", "gate", torch.float32, "prefill"))
+             ("G1", "gate", torch.float32, "prefill"),
+             ("G1_dx", "gate", torch.float32, "prefill"),
+             ("G2", "gate", torch.float32, "prefill"))
 
 
 def time_grouped(errs: dict) -> list:

@@ -25,13 +25,20 @@
 // same K loop in one order, with no split-K, and the tile a row falls in
 // changes only which registers hold it.  So neither T, nor the other
 // groups' sizes, nor the row's place in its tile changes its bits.  G2
-// walks its group's rows in one fixed order with no atomics and no split
-// over rows, so it is reproducible bit for bit (graph replay = eager).
+// gives each element of dW[e] to one CTA, which walks the group's rows
+// in one fixed order with no atomics and no split over rows, so the
+// summation order depends on the shapes and offsets only and a call is
+// reproducible bit for bit (graph replay = eager).
 //
 // Bound on an H100: at the MoE prefill's gate product (T = 8192, K =
 // 1024, N = 2048, E = 8, bf16) the work is 34 GFLOP against ~84 MB of
 // inputs and outputs, so the tensor-core rate bounds it (989 TFLOP/s,
-// ~35 us), not HBM (~25 us); G2 at that shape likewise.
+// ~35 us), not HBM (~25 us); G2 at that shape likewise.  What keeps a
+// bf16 kernel from that rate is feeding the tensor cores (wgmma fed by a
+// TMA ring, one persistent CTA an SM, so no SM idles on an empty group)
+// and emptying a tile (G2's epilogue, below).  In f32 the
+// bound is the FMA rate outside the tensor cores (67 TFLOP/s, ~0.51 ms):
+// the f32 contract (one sequential fmaf chain an output) rules out TF32.
 //
 // Kernels, chosen by dtype and mode in the C entry points (not a
 // fallback: each has exactly one):
@@ -56,30 +63,53 @@
 //   row_end).  Tile and ring: 128 x 128 with 6 stages was the fastest
 //   of the variants timed on the card (128 x 256 with the 4 stages that
 //   fit; the two consumers taking whole tiles in turns, ping-pong).
-// * G1 f32 (`grouped_mm_kernel<TRANS_W>`): scalar FMAs, 256 threads on a
-//   64 x 64 tile, 4 x 4 outputs a thread, each a sequential fmaf over k
-//   (TF32 tensor cores would miss the f32 contract, as for K1-K3); grid
-//   ceil(T / 64) + E row tiles (each group starts its own tiles) by
-//   ceil(N / 64), a CTA walking the offsets to find its tile.
-// * G2 bf16 (`grouped_dw_kernel_mma`): mma.sync.m16n8k16 (mma_bf16.cuh);
-//   a CTA of 4 warps (2 x 2) computes a 64 x 128 tile of dW[e] from
-//   32-row stages of xs and dy, double buffered with cp.async; xs's tile
-//   (rows t, K contiguous) is read as A^T with ldmatrix.trans.  Grid E x
-//   ceil(K / 64) by ceil(N / 128), from shapes alone; a CTA reads its
-//   group's two offsets and loops over the group's rows.  An empty group
-//   writes zeros.
-// * G2 f32 (`grouped_dw_kernel`): scalar, 64 x 64 tiles as G1's f32.
+// * G1 f32 (`grouped_mm_kernel<TRANS_W>`): register-tiled FMAs.  128
+//   threads on a 64 x 128 tile, 8 x 8 outputs a thread, at most 128
+//   registers so that four CTAs share an SM; per 8-deep k-step a thread
+//   reads 8 values of A and 8 of B as four 16-byte shared loads for 64
+//   FMAs.  Two shared stages, filled by 16-byte global loads staged in
+//   registers while the other stage is multiplied (one __syncthreads a
+//   step); A is stored k-major (transposed on the way in), and so is
+//   W[e]^T in dx mode, whose rows are Kd-contiguous.  Each output is one
+//   sequential fmaf chain over k from 0 up, starting at 0.0 (no split-K,
+//   no tree, no TF32), as the scalar kernel it replaced summed, so its
+//   bits are that kernel's.  Grid ceil(T / 64) + E row tiles (each group
+//   starts its own tiles) by ceil(N / 128), a CTA walking the offsets to
+//   find its tile.  (128 x 128 tiles of 256 threads, two CTAs an SM,
+//   ran slower on the card at the MoE shapes.)
+// * G2 bf16 (`grouped_dw_kernel_wgmma`): G1's machinery with the
+//   reduction over token rows, dW[e] (K x N) = xs_e^T dy_e.  Both
+//   operands are MN-major (xs's K and dy's N are contiguous): wgmma reads
+//   A = xs_e^T with imm-trans-a set.  A stage is 64 token rows: each
+//   consumer warpgroup's A is one TMA box of 64 K-columns x 64 rows, B
+//   two boxes of 64 N-columns, each token row one 128-byte line.  A
+//   group's boxes start at its first row, so only its last box can hold
+//   rows of the next group (TMA zero-fills only past T): the consumer
+//   zeroes those lines of its A box in shared memory, whole lines (the
+//   swizzle moves 16-byte chunks within a line), fences them to the
+//   async proxy and meets its warpgroup at a named barrier before the
+//   products read them.  Persistent, one CTA an SM, over the units
+//   (expert, 128-row tile of K, 128-column tile of N) numbered from the
+//   shapes; a unit's length comes from the device offsets, so one grid
+//   serves every routing.  An empty group's tiles are written as zeros
+//   with no loads.  The epilogue goes through shared memory (a swizzled
+//   bf16 tile a warpgroup) and leaves as 16-byte stores along dW's rows,
+//   where stores straight from the accumulator fragment would write 4
+//   bytes to each of 8 rows an instruction.  No split over rows: at the
+//   main path's shapes an expert has 128 output tiles, so even one live
+//   expert fills 128 of 132 SMs.
+// * G2 f32 (`grouped_dw_kernel`): scalar, 64 x 64 tiles, 4 x 4 outputs
+//   a thread.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "mma_bf16.cuh"
 #include "wgmma_tma.cuh"
 
 namespace {
 
-using hvd_mma::bf16;
+typedef __nv_bfloat16 bf16;
 
 constexpr int MAX_GROUPS = 64;
 
@@ -225,7 +255,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) grouped_mm_kernel_wgmma(
                                 ? make_desc(b + kk * 16 * 64, 64 * WG_BK * 2,
                                             1024)
                                 : make_desc(b + kk * 16, 16, 1024);
-        wgmma_m64n128k16<B_MN_MAJOR>(acc, da, db, kb > 0 || kk > 0);
+        wgmma_m64n128k16<0, B_MN_MAJOR>(acc, da, db, kb > 0 || kk > 0);
       }
       wgmma_commit();
       // Every product but this stage's has finished: release the last.
@@ -258,78 +288,295 @@ __global__ void __launch_bounds__(WG_THREADS, 1) grouped_mm_kernel_wgmma(
   }
 }
 
-// --- f32: scalar FMAs ---------------------------------------------------------
+// --- G1 f32: register-tiled FMAs ---------------------------------------------
 
-constexpr int FBM = 64, FBN = 64, FBK = 16;
-constexpr int F_THREADS = 256;  // 16 x 16, 4 x 4 outputs a thread
+constexpr int FM_BM = 64, FM_BN = 128, FM_BK = 8;
+constexpr int FM_THREADS = 2 * FM_BM;  // FM_BM / 8 x 16, 8 x 8 outputs each
+constexpr int FM_LDA = FM_BM + 4;      // floats a k-row of a stage (padded)
+constexpr int FM_LDB = FM_BN + 4;
+constexpr int FM_STAGE = FM_BK * (FM_LDA + FM_LDB);
+constexpr int FM_B_LOADS = FM_BK * FM_BN / 4 / FM_THREADS;  // float4 a thread
 
 // G1 f32.  TRANS_W 0: B(k, n) = W[e][k][n] (Kd x Nd); 1: B(k, n) =
-// W[e][n][k] (dx: W[e] is Nd x Kd).
+// W[e][n][k] (dx: W[e] is Nd x Kd).  Kd and Nd are multiples of 8, so a
+// k-step never runs past Kd and a 16-byte load never straddles Nd.
 template <int TRANS_W>
-__global__ void __launch_bounds__(F_THREADS) grouped_mm_kernel(
-    const float* __restrict__ xs, const float* __restrict__ w,
-    const int* __restrict__ offsets, float* __restrict__ out, int T, int Kd,
-    int Nd, int E) {
+__global__ void __launch_bounds__(FM_THREADS, 65536 / 128 / FM_THREADS)
+    grouped_mm_kernel(const float* __restrict__ xs,
+                      const float* __restrict__ w,
+                      const int* __restrict__ offsets,
+                      float* __restrict__ out, int T, int Kd, int Nd, int E) {
   int e, row0, row_end;
-  if (!find_tile(offsets, E, T, FBM, blockIdx.x, e, row0, row_end)) return;
+  if (!find_tile(offsets, E, T, FM_BM, blockIdx.x, e, row0, row_end)) return;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* As = reinterpret_cast<float*>(smem_raw);  // [FBM][FBK + 1]
-  float* Bs = As + FBM * (FBK + 1);                 // [FBK][FBN + 1]
+  // Two stages of A [FM_BK][FM_LDA] and B [FM_BK][FM_LDB], both k-major.
+  float* stages = reinterpret_cast<float*>(smem_raw);
   const float* we = w + (size_t)e * Kd * Nd;
-  const int n0 = blockIdx.y * FBN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int n0 = blockIdx.y * FM_BN;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 
-  float acc[4][4];
+  // A (and B in dx mode): a thread copies 4 k of one row (of xs; of W[e]
+  // (Nd x Kd)) and stores them down a column of the k-major stage.  B in
+  // the forward: 4 columns of one k-row of W[e] (Kd x Nd).
+  const int tr = tid / 2, tk = (tid % 2) * 4;
+  const bool a_ok = row0 + tr < row_end;
+  const float* a_src = xs + (size_t)(a_ok ? row0 + tr : 0) * Kd + tk;
+  int bk[FM_B_LOADS], bn[FM_B_LOADS];
+  const float* b_src[FM_B_LOADS];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < FM_B_LOADS; ++j) {
+    const int q = tid + j * FM_THREADS;
+    bk[j] = TRANS_W ? (q % 2) * 4 : q / (FM_BN / 4);
+    bn[j] = TRANS_W ? q / 2 : (q % (FM_BN / 4)) * 4;
+    const int n = n0 + bn[j] < Nd ? n0 + bn[j] : -1;
+    b_src[j] = n < 0 ? nullptr
+               : we + (TRANS_W ? (size_t)n * Kd + bk[j]
+                               : (size_t)bk[j] * Nd + n);
+  }
+  const float4 zero4 = {0.f, 0.f, 0.f, 0.f};
+  float4 ra, rb[FM_B_LOADS];
+  auto fetch = [&](int k0) {
+    ra = a_ok ? *reinterpret_cast<const float4*>(a_src + k0) : zero4;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < FM_B_LOADS; ++j)
+      rb[j] = b_src[j] == nullptr
+                  ? zero4
+                  : *reinterpret_cast<const float4*>(
+                        b_src[j] + (TRANS_W ? (size_t)k0 : (size_t)k0 * Nd));
+  };
+  auto stash = [&](int s) {
+    float* a = stages + s * FM_STAGE;
+    float* b = a + FM_BK * FM_LDA;
+    a[(tk + 0) * FM_LDA + tr] = ra.x;
+    a[(tk + 1) * FM_LDA + tr] = ra.y;
+    a[(tk + 2) * FM_LDA + tr] = ra.z;
+    a[(tk + 3) * FM_LDA + tr] = ra.w;
+#pragma unroll
+    for (int j = 0; j < FM_B_LOADS; ++j) {
+      if (TRANS_W) {
+        b[(bk[j] + 0) * FM_LDB + bn[j]] = rb[j].x;
+        b[(bk[j] + 1) * FM_LDB + bn[j]] = rb[j].y;
+        b[(bk[j] + 2) * FM_LDB + bn[j]] = rb[j].z;
+        b[(bk[j] + 3) * FM_LDB + bn[j]] = rb[j].w;
+      } else {
+        *reinterpret_cast<float4*>(b + bk[j] * FM_LDB + bn[j]) = rb[j];
+      }
+    }
+  };
 
-  for (int k0 = 0; k0 < Kd; k0 += FBK) {
-    for (int i = threadIdx.x; i < FBM * FBK; i += F_THREADS) {
-      const int r = i / FBK, c = i % FBK;
-      const int row = row0 + r, k = k0 + c;
-      As[r * (FBK + 1) + c] =
-          row < row_end && k < Kd ? xs[(size_t)row * Kd + k] : 0.f;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  // Two stages: the next step's tiles travel through registers while
+  // this one's are multiplied; one barrier a step.
+  const int nk = Kd / FM_BK;
+  fetch(0);
+  stash(0);
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt & 1;
+    if (kt + 1 < nk) fetch((kt + 1) * FM_BK);
+    const float* a = stages + s * FM_STAGE;
+    const float* b = a + FM_BK * FM_LDA;
+#pragma unroll
+    for (int kk = 0; kk < FM_BK; ++kk) {
+      // Rows 4 ty.. and FM_BM / 2 + 4 ty.., columns 4 tx.. and 64 + 4 tx..
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(a + kk * FM_LDA + 4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(
+          a + kk * FM_LDA + FM_BM / 2 + 4 * ty);
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(b + kk * FM_LDB + 4 * tx);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(b + kk * FM_LDB + 64 + 4 * tx);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
-    for (int i = threadIdx.x; i < FBK * FBN; i += F_THREADS) {
-      // Neighbouring threads on neighbouring addresses of W either way.
-      const int r = TRANS_W ? i % FBK : i / FBN;
-      const int c = TRANS_W ? i / FBK : i % FBN;
-      const int k = k0 + r, n = n0 + c;
-      Bs[r * (FBN + 1) + c] =
-          k < Kd && n < Nd
-              ? we[TRANS_W ? (size_t)n * Kd + k : (size_t)k * Nd + n]
-              : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[(ty + 16 * i) * (FBK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk * (FBN + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
+    if (kt + 1 < nk) stash(s ^ 1);
     __syncthreads();
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
+  for (int i = 0; i < 8; ++i) {
+    const int row = row0 + (i < 4 ? 4 * ty + i : FM_BM / 2 + 4 * ty + i - 4);
     if (row >= row_end) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < Nd) out[(size_t)row * Nd + col] = acc[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + 64 * h + 4 * tx;
+      if (col < Nd) {
+        const float4 v = {acc[i][4 * h], acc[i][4 * h + 1],
+                          acc[i][4 * h + 2], acc[i][4 * h + 3]};
+        *reinterpret_cast<float4*>(out + (size_t)row * Nd + col) = v;
+      }
     }
   }
 }
 
-// --- G2: the weight gradient --------------------------------------------------
+// --- G2 bf16: wgmma + TMA -----------------------------------------------------
+
+// G2's shared memory: G1's ring and tables, then the output tile (bf16,
+// WG_BM x WG_BN) on its way to global memory.
+constexpr int DW_C_BYTES = WG_BM * WG_BN * 2;
+constexpr int DW_SMEM = WG_SMEM + DW_C_BYTES;
+
+// dW[e] = xs_e^T dy_e over units (expert, 128-row tile of K, 128-column
+// tile of N), one CTA an SM walking them with a stride of the grid.  The
+// reduction runs over the group's token rows, WG_BK a stage: A = xs_e^T
+// and B = dy_e, both MN-major.
+__global__ void __launch_bounds__(WG_THREADS, 1) grouped_dw_kernel_wgmma(
+    __grid_constant__ const CUtensorMap tm_x,
+    __grid_constant__ const CUtensorMap tm_dy,
+    const int* __restrict__ offsets, bf16* __restrict__ dw, int T, int K,
+    int N, int E) {
+  using namespace hvd_wgmma;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = align_1024(smem_raw);
+  bf16* sA = reinterpret_cast<bf16*>(base);
+  bf16* sB = reinterpret_cast<bf16*>(base + WG_STAGES * WG_A_BYTES);
+  bf16* sC = reinterpret_cast<bf16*>(base + WG_STAGES * (WG_A_BYTES +
+                                                          WG_B_BYTES));
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      base + WG_STAGES * (WG_A_BYTES + WG_B_BYTES) + DW_C_BYTES);
+  uint64_t* empty = full + WG_STAGES;
+  int* lo = reinterpret_cast<int*>(empty + WG_STAGES);  // clamped offsets
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WG_CONSUMER_WARPS);
+    }
+    fence_mbar_init();
+    int l = min(max(offsets[0], 0), T);
+    lo[0] = l;
+    for (int e = 0; e < E; ++e) {
+      l = min(max(offsets[e + 1], l), T);
+      lo[e + 1] = l;
+    }
+  }
+  __syncthreads();
+  const int n_col = (N + WG_BN - 1) / WG_BN;
+  const int per_e = (K + WG_BM - 1) / WG_BM * n_col;
+  const int n_units = E * per_e;
+
+  if (threadIdx.x < 128) {  // the producer warpgroup
+    setmaxnreg_dec<40>();
+    if (threadIdx.x != 0) return;
+    int stage = 0, phase = 0;
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+      const int e = u / per_e;
+      const int m0 = (u % per_e) / n_col * WG_BM, n0 = (u % n_col) * WG_BN;
+      const int nt = (lo[e + 1] - lo[e] + WG_BK - 1) / WG_BK;
+      for (int kb = 0; kb < nt; ++kb) {
+        const int t0 = lo[e] + kb * WG_BK;
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&full[stage], WG_A_BYTES + WG_B_BYTES);
+        bf16* a = sA + stage * (WG_BM * WG_BK);
+        bf16* b = sB + stage * (WG_BK * WG_BN);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          tma_load_2d(a + j * 64 * WG_BK, &tm_x, m0 + 64 * j, t0,
+                      &full[stage]);
+          tma_load_2d(b + j * 64 * WG_BK, &tm_dy, n0 + 64 * j, t0,
+                      &full[stage]);
+        }
+        if (++stage == WG_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroups: rows [64 half, 64 half + 64) of each dW tile.
+  setmaxnreg_inc<232>();
+  const int half = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+  float acc[WG_BN / 2];
+  int stage = 0, phase = 0;
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+    const int e = u / per_e;
+    const int m0 = (u % per_e) / n_col * WG_BM, n0 = (u % n_col) * WG_BN;
+    const int nt = (lo[e + 1] - lo[e] + WG_BK - 1) / WG_BK;
+    int prev = 0;
+    for (int kb = 0; kb < nt; ++kb) {
+      mbar_wait(&full[stage], phase);
+      bf16* a = sA + stage * (WG_BM * WG_BK) + half * 64 * WG_BK;
+      const bf16* b = sB + stage * (WG_BK * WG_BN);
+      // The group's last box may run into the next group's rows: zero
+      // this warpgroup's A lines from the group's end on.
+      const int rows = lo[e + 1] - (lo[e] + kb * WG_BK);
+      if (rows < WG_BK) {
+        uint4* line = reinterpret_cast<uint4*>(a);  // 8 chunks a row
+        const uint4 z = {0u, 0u, 0u, 0u};
+        for (int i = rows * 8 + threadIdx.x % 128; i < WG_BK * 8; i += 128)
+          line[i] = z;
+        fence_proxy_async();
+        named_barrier_sync(1 + half, 128);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk) {
+        const uint64_t da = make_desc(a + kk * 16 * 64, 64 * WG_BK * 2, 1024);
+        const uint64_t db = make_desc(b + kk * 16 * 64, 64 * WG_BK * 2, 1024);
+        wgmma_m64n128k16<1, 1>(acc, da, db, kb > 0 || kk > 0);
+      }
+      wgmma_commit();
+      // Every product but this stage's has finished: release the last.
+      wgmma_wait<1>();
+      if (kb > 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == WG_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    if (nt > 0) {
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+    } else {  // an empty group: zeros, no loads
+#pragma unroll
+      for (int i = 0; i < WG_BN / 2; ++i) acc[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < WG_BN / 2; ++i) fence_operand(acc[i]);
+
+    // The epilogue through shared memory: the fragment's 4-byte pieces
+    // land in this warpgroup's 64 x 128 bf16 tile (rows of 16 16-byte
+    // chunks, chunk c of row r at c ^ (r % 8): no bank conflict either
+    // way), then leave as whole 16-byte chunks along dW's rows.
+    bf16* ct = sC + half * 64 * WG_BN;
+    named_barrier_sync(1 + half, 128);  // the last tile's reads are done
+    const int r0 = warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int i = 0; i < WG_BN / 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        *reinterpret_cast<__nv_bfloat162*>(
+            ct + r * WG_BN + 8 * (i ^ (r & 7)) + 2 * (lane & 3)) =
+            __floats2bfloat162_rn(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+      }
+    named_barrier_sync(1 + half, 128);
+    bf16* out = dw + (size_t)e * K * N;
+#pragma unroll
+    for (int j = threadIdx.x % 128; j < 64 * (WG_BN / 8); j += 128) {
+      const int r = j / (WG_BN / 8), c = j % (WG_BN / 8);
+      const int row = m0 + half * 64 + r, col = n0 + 8 * c;
+      if (row < K && col < N)
+        *reinterpret_cast<uint4*>(out + (size_t)row * N + col) =
+            *reinterpret_cast<const uint4*>(ct + r * WG_BN + 8 * (c ^ (r & 7)));
+    }
+  }
+}
+
+// --- G2 f32: scalar FMAs ------------------------------------------------------
 
 // This CTA's group's rows [lo, hi), clamped to [0, T].
 __device__ __forceinline__ void group_rows(const int* __restrict__ offsets,
@@ -338,115 +585,8 @@ __device__ __forceinline__ void group_rows(const int* __restrict__ offsets,
   hi = min(max(offsets[e + 1], lo), T);
 }
 
-constexpr int DW_BM = 64;   // rows of dW[e] (K) a CTA
-constexpr int DW_BN = 128;  // columns of dW[e] (N) a CTA
-constexpr int DW_BT = 32;   // token rows a stage
-constexpr int DW_LDA = DW_BM + 8;
-constexpr int DW_LDB = DW_BN + 8;
-constexpr int DW_THREADS = 128;
-
-__device__ __forceinline__ void load_dw_stage(bf16* As, bf16* Bs,
-                                              const bf16* __restrict__ xs,
-                                              const bf16* __restrict__ dy,
-                                              int t0, int t_end, int k0,
-                                              int n0, int K, int N) {
-  for (int i = threadIdx.x; i < DW_BT * (DW_BM / 8); i += DW_THREADS) {
-    const int r = i / (DW_BM / 8), c = i % (DW_BM / 8);
-    const int t = t0 + r, k = k0 + c * 8;
-    const bool ok = t < t_end && k < K;
-    hvd_mma::cp_async16(As + r * DW_LDA + c * 8,
-                        xs + (ok ? (size_t)t * K + k : 0), ok ? 16 : 0);
-  }
-  for (int i = threadIdx.x; i < DW_BT * (DW_BN / 8); i += DW_THREADS) {
-    const int r = i / (DW_BN / 8), c = i % (DW_BN / 8);
-    const int t = t0 + r, n = n0 + c * 8;
-    const bool ok = t < t_end && n < N;
-    hvd_mma::cp_async16(Bs + r * DW_LDB + c * 8,
-                        dy + (ok ? (size_t)t * N + n : 0), ok ? 16 : 0);
-  }
-}
-
-__global__ void __launch_bounds__(DW_THREADS) grouped_dw_kernel_mma(
-    const bf16* __restrict__ xs, const bf16* __restrict__ dy,
-    const int* __restrict__ offsets, bf16* __restrict__ dw, int T, int K,
-    int N) {
-  const int k_tiles = (K + DW_BM - 1) / DW_BM;
-  const int e = blockIdx.x / k_tiles;
-  const int k0 = (blockIdx.x % k_tiles) * DW_BM, n0 = blockIdx.y * DW_BN;
-  int lo, hi;
-  group_rows(offsets, e, T, lo, hi);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);  // [2][DW_BT][DW_LDA]
-  bf16* Bs = As + 2 * DW_BT * DW_LDA;             // [2][DW_BT][DW_LDB]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
-
-  const int nt = (hi - lo + DW_BT - 1) / DW_BT;
-  if (nt > 0) {
-    load_dw_stage(As, Bs, xs, dy, lo, hi, k0, n0, K, N);
-    hvd_mma::cp_async_commit();
-  }
-  for (int it = 0; it < nt; ++it) {
-    const int s = it & 1;
-    if (it + 1 < nt)
-      load_dw_stage(As + (s ^ 1) * DW_BT * DW_LDA,
-                    Bs + (s ^ 1) * DW_BT * DW_LDB, xs, dy,
-                    lo + (it + 1) * DW_BT, hi, k0, n0, K, N);
-    hvd_mma::cp_async_commit();
-    hvd_mma::cp_async_wait<1>();  // this stage has landed
-    __syncthreads();
-    const bf16* At = As + s * DW_BT * DW_LDA;
-    const bf16* Bt = Bs + s * DW_BT * DW_LDB;
-#pragma unroll
-    for (int kk = 0; kk < DW_BT; kk += 16) {
-      // A = xs^T: the stage holds xs's rows (t) with K contiguous, so the
-      // A fragments of rows wm.. are ldmatrix.trans of the (t, k) blocks.
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        hvd_mma::ldsm_x4_trans(
-            af[mi], hvd_mma::frag_b<DW_LDA>(At, kk, wm + mi * 16, lane));
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        uint32_t bfr[4];
-        hvd_mma::ldsm_x4_trans(
-            bfr, hvd_mma::frag_a<DW_LDB>(Bt, kk, wn + nj * 16, lane));
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          hvd_mma::mma_bf16(acc[mi][2 * nj], af[mi], bfr[0], bfr[1]);
-          hvd_mma::mma_bf16(acc[mi][2 * nj + 1], af[mi], bfr[2], bfr[3]);
-        }
-      }
-    }
-    __syncthreads();  // before the next prefetch overwrites this stage
-  }
-
-  bf16* out = dw + (size_t)e * K * N;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      const int col = n0 + wn + ni * 8 + 2 * t;
-      if (col >= N) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = k0 + wm + mi * 16 + g + 8 * h;
-        if (row >= K) continue;
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
-            __floats2bfloat162_rn(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
-    }
-}
-
+constexpr int FBM = 64, FBN = 64;
+constexpr int F_THREADS = 256;  // 16 x 16, 4 x 4 outputs a thread
 constexpr int FDT = 16;  // token rows a step of G2 f32
 
 __global__ void __launch_bounds__(F_THREADS) grouped_dw_kernel(
@@ -553,6 +693,15 @@ bool encode(CUtensorMap* map, const void* base, int rank,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The SM count of the current device: the persistent kernels' grid.
+cudaError_t sm_count(int& sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
+}
+
 int launch_wgmma(const bf16* a, const bf16* w, const int* off, bf16* out,
                  int T, int K, int N, int E, int transpose_w,
                  cudaStream_t st) {
@@ -570,10 +719,8 @@ int launch_wgmma(const bf16* a, const bf16* w, const int* off, bf16* out,
   if (!encode(&tm_a, a, 2, a_dims, a_strides, a_box) ||
       !encode(&tm_b, w, 3, w_dims, w_strides, transpose_w ? dx_box : fwd_box))
     return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  cudaError_t err = sm_count(sms);
   if (err != cudaSuccess) return (int)err;
   // Persistent: one CTA an SM, or one a tile where there are fewer tiles
   // than SMs.  Shapes only: the most row tiles any routing can need.
@@ -588,11 +735,40 @@ int launch_wgmma(const bf16* a, const bf16* w, const int* off, bf16* out,
   return (int)cudaGetLastError();
 }
 
+int launch_dw_wgmma(const bf16* xs, const bf16* dy, const int* off,
+                    bf16* dw, int T, int K, int N, int E, cudaStream_t st) {
+  // xs (T, K) and dy (T, N), innermost first, in boxes of 64 columns x
+  // WG_BK token rows.
+  CUtensorMap tm_x, tm_dy;
+  const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)T};
+  const cuuint64_t x_strides[1] = {(cuuint64_t)K * 2};
+  const cuuint64_t dy_dims[2] = {(cuuint64_t)N, (cuuint64_t)T};
+  const cuuint64_t dy_strides[1] = {(cuuint64_t)N * 2};
+  const cuuint32_t box[2] = {64, WG_BK};
+  if (!encode(&tm_x, xs, 2, x_dims, x_strides, box) ||
+      !encode(&tm_dy, dy, 2, dy_dims, dy_strides, box))
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = sm_count(sms);
+  if (err != cudaSuccess) return (int)err;
+  const int units =
+      E * ((K + WG_BM - 1) / WG_BM) * ((N + WG_BN - 1) / WG_BN);
+  const dim3 grid(sms < units ? sms : units);
+  err = cudaFuncSetAttribute(grouped_dw_kernel_wgmma,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             DW_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  grouped_dw_kernel_wgmma<<<grid, WG_THREADS, DW_SMEM, st>>>(
+      tm_x, tm_dy, off, dw, T, K, N, E);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // G1.  W is (E, K, N).  transpose_w 0: out (T, N) = a (T, K) @ W[group];
 // 1: out (T, K) = a (T, N) @ W[group]^T.  Groups by `offsets` (E + 1 int32
-// on the device).  bf16 runs the wgmma kernel, f32 the scalar one.
+// on the device).  bf16 runs the wgmma kernel, f32 the register-tiled
+// one.
 // Pointers must be 16-byte aligned (the wrapper checks).  Returns a
 // cudaError_t; cudaErrorInvalidValue also when the driver refuses a
 // tensor map.
@@ -610,10 +786,10 @@ extern "C" int grouped_matmul(const void* a, const void* w,
                         static_cast<const bf16*>(w), off,
                         static_cast<bf16*>(out), T, K, N, E, transpose_w, st);
   const int Kd = transpose_w ? N : K, Nd = transpose_w ? K : N;
-  const size_t smem = sizeof(float) * (FBM * (FBK + 1) + FBK * (FBN + 1));
+  const size_t smem = sizeof(float) * 2 * FM_STAGE;
   auto kern = transpose_w ? grouped_mm_kernel<1> : grouped_mm_kernel<0>;
-  dim3 grid((T + FBM - 1) / FBM + E, (Nd + FBN - 1) / FBN);
-  kern<<<grid, F_THREADS, smem, st>>>(
+  dim3 grid((T + FM_BM - 1) / FM_BM + E, (Nd + FM_BN - 1) / FM_BN);
+  kern<<<grid, FM_THREADS, smem, st>>>(
       static_cast<const float*>(a), static_cast<const float*>(w), off,
       static_cast<float*>(out), T, Kd, Nd, E);
   return (int)cudaGetLastError();
@@ -621,7 +797,9 @@ extern "C" int grouped_matmul(const void* a, const void* w,
 
 // G2: dw (E, K, N), dw[e] = xs[rows of e]^T @ dy[rows of e], xs (T, K), dy
 // (T, N), groups by `offsets` (E + 1 int32 on the device).  Every element
-// of dw is written (an empty group's as zeros).
+// of dw is written (an empty group's as zeros).  bf16 runs the wgmma
+// kernel, f32 the scalar one; a tensor map the driver refuses is
+// cudaErrorInvalidValue, as in G1.
 extern "C" int grouped_matmul_dw(const void* xs, const void* dy,
                                  const void* offsets, void* dw, int T, int K,
                                  int N, int E, int is_bf16, void* stream) {
@@ -630,21 +808,16 @@ extern "C" int grouped_matmul_dw(const void* xs, const void* dy,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(offsets);
-  if (is_bf16) {
-    const size_t smem = sizeof(bf16) * 2 * DW_BT * (DW_LDA + DW_LDB);
-    auto kern = grouped_dw_kernel_mma;
-    dim3 grid(E * ((K + DW_BM - 1) / DW_BM), (N + DW_BN - 1) / DW_BN);
-    kern<<<grid, DW_THREADS, smem, st>>>(
-        static_cast<const bf16*>(xs), static_cast<const bf16*>(dy), off,
-        static_cast<bf16*>(dw), T, K, N);
-  } else {
-    const size_t smem = sizeof(float) * FDT * (FBM + FBN);
-    auto kern = grouped_dw_kernel;
-    dim3 grid(E * ((K + FBM - 1) / FBM), (N + FBN - 1) / FBN);
-    kern<<<grid, F_THREADS, smem, st>>>(
-        static_cast<const float*>(xs), static_cast<const float*>(dy), off,
-        static_cast<float*>(dw), T, K, N);
-  }
+  if (is_bf16)
+    return launch_dw_wgmma(static_cast<const bf16*>(xs),
+                           static_cast<const bf16*>(dy), off,
+                           static_cast<bf16*>(dw), T, K, N, E, st);
+  const size_t smem = sizeof(float) * FDT * (FBM + FBN);
+  auto kern = grouped_dw_kernel;
+  dim3 grid(E * ((K + FBM - 1) / FBM), (N + FBN - 1) / FBN);
+  kern<<<grid, F_THREADS, smem, st>>>(
+      static_cast<const float*>(xs), static_cast<const float*>(dy), off,
+      static_cast<float*>(dw), T, K, N);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-// Hopper building blocks of G1's bf16 kernel (grouped_matmul.cu), sm_90a:
+// Hopper building blocks of the bf16 grouped products G1 and G2
+// (grouped_matmul.cu), sm_90a:
 //
 // * TMA: one thread copies a whole tile, global -> shared, described by a
 //   tensor map (CUtensorMap, encoded on the host for each call and passed
@@ -13,21 +14,26 @@
 //   of A by a 16 x N tile of B, both read from shared memory through
 //   64-bit descriptors, into f32 accumulators in registers,
 //   asynchronously: fence, issue, commit a group, wait for groups.
+// * Shared memory that threads write (generic proxy) and wgmma then reads
+//   (async proxy) needs `fence.proxy.async` by the writers, then a
+//   barrier, before the product is issued.
 //
 // Shared-memory layouts (PTX ISA, "Shared Memory Matrix Layout", 128-byte
 // swizzle), bf16, byte offsets from a 1024-byte aligned stage:
-//   K-major (A, and B read as W^T): row r of a tile of 64-element rows at
-//     (r / 8) * SBO + (r % 8) * 128, element k at 2k; SBO = 1024, LBO
-//     unused.  The k-th 16-deep slice starts 32 k bytes in.
-//   MN-major (B read as W, N contiguous): k-row k of a 64-column block at
-//     (k / 8) * SBO + (k % 8) * 128, column n at 2 (n % 64), the 64-column
-//     blocks LBO apart; SBO = 1024.  The k-th slice starts 2048 k bytes in.
+//   K-major (A of G1, and B read as W^T): row r of a tile of 64-element
+//     rows at (r / 8) * SBO + (r % 8) * 128, element k at 2k; SBO = 1024,
+//     LBO unused.  The k-th 16-deep slice starts 32 k bytes in.
+//   MN-major (B read as W, N contiguous; both operands of G2, where the
+//     reduction runs over token rows): k-row k of a 64-column block at
+//     (k / 8) * SBO + (k % 8) * 128, column (row of A) n at 2 (n % 64),
+//     the 64-column blocks LBO apart; SBO = 1024.  The k-th slice starts
+//     2048 k bytes in.  Each k-row is one whole 128-byte line.
 // then the swizzle: bits 4-6 of the address XOR bits 7-9 (the 16-byte
 // chunk of a 128-byte row moves by the row's index mod 8), which is what
 // TMA's CU_TENSOR_MAP_SWIZZLE_128B writes and what descriptor layout type
 // 1 reads.  Wgmma's accumulator fragment (m64nNk16, f32): register i of
 // lane l in warp w holds row 16 w + l / 4 + 8 ((i / 2) % 2), column
-// 8 (i / 4) + 2 (l % 4) + i % 2.  G1 uses N = 128.
+// 8 (i / 4) + 2 (l % 4) + i % 2.  G1 and G2 use N = 128.
 
 #pragma once
 
@@ -111,6 +117,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Orders this thread's generic writes to shared memory before later
+// async-proxy reads of it (wgmma's operands).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads,
+// a multiple of 32.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -143,9 +161,10 @@ __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
-// d (+)= A (64 x 16, K-major) * B (16 x 128; TRANS_B 1: MN-major), bf16
-// -> f32; scale_d 0 ignores d's old value.
-template <int TRANS_B>
+// d (+)= A (64 x 16) * B (16 x 128), bf16 -> f32; TRANS_A / TRANS_B 0:
+// K-major, 1: MN-major (the instruction's imm-trans-a / imm-trans-b);
+// scale_d 0 ignores d's old value.
+template <int TRANS_A, int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
                                               uint64_t desc_a,
                                               uint64_t desc_b,
@@ -161,7 +180,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -173,7 +192,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // --- end of asm primitives ----------------------------------------------------

@@ -29,11 +29,13 @@ of the analytic one.  Mixture of experts: the grouped product G1 against
 its plain version (f32 1e-4 and bf16 2e-2 of the largest output: the
 plain version rounds each expert's product once, as G1 does, and sums
 in another order) and bit for bit against itself in another batch; a
-captured MoE admission against its body; the dropless backward: dx (G1
-with W read transposed) and dW (G2) against their plain versions, the
-gradient through ``dropless_moe`` against the same dispatch on the plain
-version, and a captured dropless train step against its eager body bit
-for bit.
+captured MoE admission against its body; the f32 G1's forward and
+transposed modes bit for bit on one product; the dropless backward: dx
+(G1 with W read transposed) and dW (G2) against their plain versions, G2
+bit for bit against a second call and a captured replay over three
+routings, the gradient through ``dropless_moe`` against the same
+dispatch on the plain version, and a captured dropless train step
+against its eager body bit for bit.
 """
 
 import numpy as np
@@ -1366,6 +1368,23 @@ def test_grouped_matmul_kernel(dev, dtype, tol, KN, case):
     assert err <= tol, (case, KN, err.item())
 
 
+@pytest.mark.parametrize("case", ["prefill", "odd"])
+def test_grouped_matmul_f32_is_one_chain_a_output(dev, case):
+    """The f32 G1 at the gate shape sums each output as one fmaf chain
+    over k from 0 up, whichever way it loads W: the forward on W and the
+    transposed mode on a materialised W^T give the same bits, within
+    1e-4 of the plain version."""
+    xs, w, off = _gmm_inputs(dev, torch.float32, GMM_COUNTS[case], 1024,
+                             2048)
+    out = GM.grouped_matmul(xs, w, off)
+    out_t = GM.grouped_matmul_dx(xs, w.transpose(1, 2).contiguous(), off)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), out_t.view(torch.int32))
+    ref = GM.grouped_matmul_reference(xs, w, off)
+    err = (out - ref).abs().max() / ref.abs().max()
+    assert err <= 1e-4, (case, err.item())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_grouped_matmul_rows_are_invariant(dev, dtype):
     """A row's bits do not depend on the batch around it: the prefill
@@ -1444,6 +1463,34 @@ def test_grouped_matmul_dx_rows_are_invariant(dev, dtype):
         torch.cat([extra, dy[:starts[3]], dy[starts[4]:]]), w, off_b)
     assert torch.equal(out_b[37:], torch.cat([out[:starts[3]],
                                               out[starts[4]:]]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_dw_is_deterministic(dev, dtype):
+    """G2 sums each element of dW in an order fixed by the shapes and the
+    offsets: two eager calls are bit-identical, and one captured call,
+    replayed with each routing's offsets copied into its static offsets,
+    equals the eager call bit for bit (prefill, skewed, empty)."""
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    xs, _, off = _gmm_inputs(dev, dtype, GMM_COUNTS["prefill"], 1024, 2048)
+    dy = torch.randn((xs.shape[0], 2048), device=dev).to(dtype)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        GM.grouped_matmul_dw(xs, dy, off)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = GM.grouped_matmul_dw(xs, dy, off)
+    for case in ("prefill", "skewed", "empty"):
+        off.copy_(torch.tensor(np.concatenate(
+            [[0], np.cumsum(GMM_COUNTS[case])]), dtype=torch.int32))
+        eager = GM.grouped_matmul_dw(xs, dy, off)
+        again = GM.grouped_matmul_dw(xs, dy, off)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(eager.view(bits), again.view(bits)), case
+        assert torch.equal(captured.view(bits), eager.view(bits)), case
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),

@@ -7,10 +7,11 @@ This file compiles ``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu``,
 ``paged_attention.cu`` and ``grouped_matmul.cu`` with g++ against a
 small emulation of what they use, and holds the kernels (bf16
 tensor-core K1, K2 and K3, the scalar f32 kernels, K4's split and
-combine kernels, G1's wgmma + TMA and scalar kernels in both modes, G2's
-mma.sync and scalar kernels) against their plain versions on seeded
-inputs (K1 also with its shift read from memory; G1 also bit for bit
-against itself in another batch):
+combine kernels, G1's wgmma + TMA and register-tiled f32 kernels in
+both modes, G2's wgmma + TMA and scalar kernels) against their plain
+versions on seeded inputs (K1 also with its shift read from memory; G1
+also bit for bit against itself in another batch; G2 also bit for bit
+against itself in a second call):
 
 * one ``std::thread`` per CUDA thread of a block, blocks in turn;
   ``std::barrier`` for ``__syncthreads`` and for warp-synchronous steps;
@@ -28,14 +29,17 @@ against itself in another batch):
   copy, zero past every edge, 128-byte swizzled by the PTX ISA's pattern
   (bits 4-6 of the offset XOR bits 7-9); ``wgmma.m64nNk16`` reading A
   and B through their descriptors by the canonical K-major and MN-major
-  layouts and writing its accumulator fragment; TMA tiles and wgmma
-  products land at issue, or at their barrier's wait and their group's
-  ``wgmma.wait_group``; fence, commit and wait are warp barriers, as
-  ``.sync.aligned`` makes them on the card.
+  layouts (each by its own transpose bit) and writing its accumulator
+  fragment; TMA tiles and wgmma products land at issue, or at their
+  barrier's wait and their group's ``wgmma.wait_group``; fence, commit
+  and wait are warp barriers, as ``.sync.aligned`` makes them on the
+  card; named barriers (``bar.sync id, n``) are barriers of n threads.
 
 What it cannot show: that nvcc accepts the source, the asm strings
 themselves, timing, or races between warps that the barriers order
-here; for Hopper, that the descriptor bits, the canonical layouts and
+here; for Hopper, the proxies (generic writes that wgmma reads need
+``fence.proxy.async``: the emulator has one memory, so a missing fence
+shows only on the card), that the descriptor bits, the canonical layouts and
 the swizzle it decodes are the hardware's (the kernel and the emulator
 share one reading of the PTX ISA: the card's tests and
 ``chip_smoke.py``'s ``grouped_kernel`` phase are what hold it), the
@@ -43,7 +47,9 @@ tensor cores' own summation order within a k-step, and the TMA unit's
 and wgmma's asynchrony beyond the two landing points.  Those are the card's (``chip_smoke.py``,
 ``tests/test_torch_port_cuda.py``).  The kernels run in a child process
 under a time limit, so a kernel whose warps diverge at a barrier fails
-the test instead of hanging it.
+the test instead of hanging it.  The file also holds ``chip_smoke.py``'s
+names for the grouped kernels (what its SASS check keys on) against the
+built library's symbols.
 
 Tolerances as on the card: K1 5e-2 (bf16) and 1e-4 (f32) absolute;
 K2/K3 2e-2 (bf16) and 1e-4 (f32) of the largest gradient; K4 1e-4 (f32
@@ -154,6 +160,7 @@ struct EmuBlock {
   std::mutex mu;               // guards mbars
   std::condition_variable cv;
   std::map<const void*, EmuMbar> mbars;
+  std::map<int, std::unique_ptr<std::barrier<>>> named;  // bar.sync id
 };
 inline thread_local EmuBlock* emu_blk;
 inline thread_local std::vector<EmuCopy> emu_open;
@@ -167,6 +174,18 @@ inline int emu_copies_at_wait = 0;
 inline unsigned char* emu_smem() { return emu_blk->smem.data(); }
 inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
 inline int emu_lane() { return threadIdx.x & 31; }
+// bar.sync id, n: a barrier of n threads, made at its first use.
+inline void emu_named_barrier(int id, int threads) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> lk(emu_blk->mu);
+    auto& slot = emu_blk->named[id];
+    if (id < 1 || id > 15 || threads % 32) emu_fail("named barrier", nullptr);
+    if (!slot) slot = std::make_unique<std::barrier<>>(threads);
+    b = slot.get();
+  }
+  b->arrive_and_wait();
+}
 inline uint64_t* emu_x(int lane) {
   return &emu_blk->xchg[((threadIdx.x >> 5) * 32 + lane) * 8];
 }
@@ -437,12 +456,12 @@ inline void emu_tma(void* dst, const CUtensorMap* map, const int* c,
   emu_blk->cv.notify_all();
 }
 
-// wgmma.mma_async m64nNk16 bf16 -> f32 through its descriptors: A
-// K-major, B K-major (trans 0) or MN-major (trans 1), 128-byte swizzled
+// wgmma.mma_async m64nNk16 bf16 -> f32 through its descriptors: A and
+// B each K-major (trans 0) or MN-major (trans 1), 128-byte swizzled
 // (layout type 1, base offset 0), by the PTX ISA's canonical layouts;
 // each thread computes its own accumulator fragment.  Run at issue, or
 // (copies at wait) at the wgmma.wait_group that retires its group.
-struct EmuWgmma { float* d; int n, trans, scale_d; uint64_t da, db; };
+struct EmuWgmma { float* d; int n, trans_a, trans_b, scale_d; uint64_t da, db; };
 inline thread_local std::vector<EmuWgmma> emu_wg_open;
 inline thread_local std::vector<std::vector<EmuWgmma>> emu_wg_groups;
 struct EmuDesc { size_t start, lbo, sbo; };
@@ -477,14 +496,14 @@ inline void emu_wgmma_run(const EmuWgmma& op) {
     const int col = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
     float acc = op.scale_d ? op.d[i] : 0.f;
     for (int k = 0; k < 16; ++k)
-      acc += kmajor(a, row, k) *
-             (op.trans ? mnmajor(b, k, col) : kmajor(b, col, k));
+      acc += (op.trans_a ? mnmajor(a, k, row) : kmajor(a, row, k)) *
+             (op.trans_b ? mnmajor(b, k, col) : kmajor(b, col, k));
     op.d[i] = acc;
   }
 }
-inline void emu_wgmma(float* d, int n, int trans, uint64_t da, uint64_t db,
-                      int scale_d) {
-  const EmuWgmma op{d, n, trans, scale_d, da, db};
+inline void emu_wgmma(float* d, int n, int trans_a, int trans_b, uint64_t da,
+                      uint64_t db, int scale_d) {
+  const EmuWgmma op{d, n, trans_a, trans_b, scale_d, da, db};
   if (emu_copies_at_wait) emu_wg_open.push_back(op);
   else emu_wgmma_run(op);
 }
@@ -583,15 +602,17 @@ inline void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
   const int c[3] = {c0, c1, c2};
   emu_tma(dst, map, c, 3, bar);
 }
+inline void fence_proxy_async() {}
+inline void named_barrier_sync(int id, int n) { emu_named_barrier(id, n); }
 inline void wgmma_fence() { emu_warp_sync(); }
 inline void wgmma_commit() { emu_wgmma_commit(); }
 template <int N> inline void wgmma_wait() { emu_wgmma_wait(N); }
 inline void fence_operand(float&) {}
 template <int R> inline void setmaxnreg_inc() {}
 template <int R> inline void setmaxnreg_dec() {}
-template <int TRANS_B>
+template <int TRANS_A, int TRANS_B>
 inline void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b, int s) {
-  emu_wgmma(d, 128, TRANS_B, a, b, s);
+  emu_wgmma(d, 128, TRANS_A, TRANS_B, a, b, s);
 }
 """
 
@@ -875,7 +896,9 @@ def test_emulated_paged_kernel_matches_plain_version(emulated_libs, pool,
 # element a kernel fails to write shows.  Then, for G1's two modes, row
 # invariance: case 4's rows again inside another batch (5 new rows ahead
 # of group 0, group 2 emptied, so every kept row moves to another tile
-# position and T changes), bit for bit.
+# position and T changes), bit for bit.  For G2 each case also runs a
+# second time, bit for bit against the first, and an empty group's dW
+# must come out exactly 0.
 GMM_CHILD = r"""
 import ctypes, json, sys
 import numpy as np
@@ -930,6 +953,12 @@ for i, (counts, K, N) in enumerate(json.loads(sys.argv[3])):
     out, ref = run(a, b, counts)
     res.append({"err": ((out.float() - ref.float()).abs().max()
                         / ref.float().abs().max()).item()})
+    if mode == "dw":
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        res[-1]["repeat"] = torch.equal(run(a, b, counts)[0].view(bits),
+                                        out.view(bits))
+        res[-1]["empty_zero"] = all(bool((out[e] == 0).all())
+                                    for e, c in enumerate(counts) if c == 0)
     if i == 3:
         inv = (counts, a, b, out, rng)
 if mode != "dw":
@@ -948,21 +977,29 @@ print(json.dumps(res))
 GMM_CASES = [([0, 5, 0, 12], 40, 24), ([70, 0, 0], 16, 136),
              ([0, 1], 16, 8), ([3, 9, 4, 24, 65], 32, 16),
              ([130, 0, 7, 60], 328, 264)]
+# G2's own: a group longer than the bf16 kernel's six-stage ring of
+# 64-row boxes (450 rows) that ends inside a box, the last group running
+# past T inside its box, an empty group; every row on one group that is
+# neither first nor last, between empty ones.
+DW_CASES = GMM_CASES + [([0, 450, 20], 72, 136), ([0, 0, 200, 0], 136, 72)]
 
 
 def _run_gmm(libdir, dtype, copies, mode):
+    cases = DW_CASES if mode == "dw" else GMM_CASES
     env = dict(os.environ, PYTHONPATH=str(REPO),
                EMU_COPIES_AT_WAIT=str(int(copies == "at_wait")))
     run = subprocess.run(
         [sys.executable, "-c", GMM_CHILD, str(libdir), dtype,
-         json.dumps(GMM_CASES), mode], capture_output=True, text=True,
+         json.dumps(cases), mode], capture_output=True, text=True,
         timeout=300, env=env)
     assert run.returncode == 0, run.stderr[-4000:]
     res = json.loads(run.stdout.strip().splitlines()[-1])
-    assert len(res) == len(GMM_CASES) + (mode != "dw")
+    assert len(res) == len(cases) + (mode != "dw")
     tol = 2e-2 if dtype == "bf16" else 1e-4
-    for case, err in zip(GMM_CASES, res):
+    for case, err in zip(cases, res):
         assert err["err"] <= tol, (case, err)
+        if mode == "dw":
+            assert err["repeat"] and err["empty_zero"], (case, err)
     if mode != "dw":
         assert res[-1]["invariant"]
 
@@ -974,7 +1011,7 @@ def test_emulated_grouped_matmul_matches_plain_version(emulated_libs, dtype,
                                                        copies):
     """G1's forward: the bf16 wgmma + TMA kernel (TMA tiles and wgmma
     products landing at issue, or at their barrier's wait and their
-    group's wait) and the f32 scalar kernel."""
+    group's wait) and the f32 register-tiled kernel."""
     _run_gmm(emulated_libs, dtype, copies, "forward")
 
 
@@ -986,6 +1023,32 @@ def test_emulated_grouped_backward_matches_plain_version(emulated_libs,
                                                          dtype, copies,
                                                          mode):
     """The dropless dispatch's backward: G1 with W read transposed (dx;
-    the wgmma kernel's K-major B) and G2 (dW; mma.sync with cp.async in
-    bf16, scalar in f32) against their plain versions."""
+    the wgmma kernel's K-major B) and G2 (dW; wgmma + TMA with both
+    operands MN-major in bf16, scalar in f32) against their plain
+    versions; G2 also bit-identical over two calls, an empty group's dW
+    exactly 0."""
     _run_gmm(emulated_libs, dtype, copies, mode)
+
+
+def test_chip_smoke_names_every_grouped_kernel(emulated_libs):
+    """``chip_smoke.py``'s SASS check finds the grouped kernels by the
+    names its ``_kernel_name`` reads from their mangled symbols: every
+    grouped kernel function of the library built from the repository's
+    source reads as one of the names the check requires, and each
+    required name is there (G2's bf16 kernel is no template, so it must
+    not read as one of G1's two modes)."""
+    import importlib.util
+
+    nm = shutil.which("nm")
+    if nm is None:
+        pytest.skip("needs nm to list the emulated library's symbols")
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    symbols = subprocess.run(
+        [nm, str(emulated_libs / "libgrouped_matmul.so")],
+        capture_output=True, text=True, check=True).stdout.split()
+    names = {smoke._kernel_name(s) for s in symbols
+             if re.search(r"grouped_(mm|dw)_kernel", s)}
+    assert names == set(smoke.GROUPED_WGMMA) | set(smoke.GROUPED_F32), names
