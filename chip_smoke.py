@@ -194,7 +194,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    case, where the adaptive control must disable the slots and fall back
    to the plain graph.  Then an HTTP burst through ``ServingServer``
    (half sampled, one opted out): full counts, ``decode_compilations``
-   2 before and after, no admission capture past the warmup.
+   2 before and after, no admission capture past the warmup.  The
+   repetitive leg (``spec_repetitive``, ``_ab_spec``'s): a target
+   trained with ``spmd.make_train_step`` on the cyclic corpus, the
+   n-gram draft against plain decode on cyclic prompts; its tokens must
+   equal the plain engine's.  Then the slot-contiguous cache
+   (``unpaged``, ``_ab_paged``'s protocol): the f32 ``paged=False``
+   engine's tokens against the oracles and the paged engine's, also
+   through a decode fault (one restart, one capture, the cache's
+   tensors kept); the bf16 p25 step of the paged and the unpaged engine
+   in turns, each tick's profile, the contiguous tick's graph against
+   its eager body, and the most concurrent requests at 2 x max_len
+   cache tokens; and ``paged_kernel_ab`` (``paged_decode_ab.py``'s
+   protocol): the f32 gather engine's tokens against the oracles and
+   K4's, no K4 launch, then K4 against the gathered pages over bf16 and
+   int8 pools (p25 step, profile, the analytic attention bytes).
 7. Collectives: a size-1 NCCL group, every collective of the port
    (each allreduce op with and without pre/postscale, compression,
    grouped Average and Adasum, allgather, broadcast, alltoall even and
@@ -278,8 +292,8 @@ Each phase's seconds are printed as it ends.
 A ``report:`` line carries every measurement as JSON; the line before
 last is a JSON object of the kernels (each one's launches summed over
 the main paths' runs that launch it: the HTTP burst, the prefix run,
-the two SLO legs, the speculative legs, the tracing phase's four
-bursts, the fleet's clean burst in both replicas and its SIGKILL burst
+the two SLO legs, the speculative legs (the repetitive one too), the
+unpaged and paged-kernel A/B runs, the tracing phase's four bursts, the fleet's clean burst in both replicas and its SIGKILL burst
 in the survivor (read from each replica's ``/stats``), the four
 training legs and the traced training steps, the MoE legs, prefill runs
 and bursts; K4's verify calls at R = 20 in an entry of their own; G1's
@@ -378,6 +392,29 @@ SPEC_K = 4
 SPEC_PROMPT_LEN, SPEC_NEW_TOKENS, SPEC_REPS = 64, 128, 2
 SPEC_FAULT_AT = 64
 SPEC_DRAFTS = ("ngram", "self", "half")
+# _ab_spec's repetitive leg (benchmarks/serving.py, at its defaults
+# --steps 128 --iters 3): the target trained on Markov-1 cyclic sequences
+# of period REP_PERIOD (batch REP_BATCH x REP_SEQ, the corpus drawn from
+# seed 5), then the n-gram draft against the plain engine on 8 cyclic
+# prompts of REP_PROMPT_LEN tokens, REP_NEW_TOKENS tokens a request,
+# REP_REPS repetitions after a warm one.  _ab_spec trains 45 Adam steps at
+# lr 1e-2, which diverge at this width; AdamW (REP_LR, weight decay 1e-4
+# as the training legs') over REP_TRAIN_STEPS steps learns to continue
+# the cycle.
+REP_PERIOD, REP_BATCH, REP_SEQ, REP_LR = 8, 32, 48, 3e-4
+REP_TRAIN_STEPS = 200
+REP_PROMPT_LEN, REP_NEW_TOKENS, REP_REPS = 12, 256, 3
+# _ab_paged (benchmarks/serving.py at --prompt-len 2048 --steps 128
+# --iters 3): 8 copies of an AB_PROMPT_LEN-token prompt, AB_NEW_TOKENS
+# tokens each, AB_REPS repetitions interleaved, each engine's
+# full-occupancy ticks compared at their p25.  Its capacity leg: a budget
+# of 2 x max_len cache tokens, 16 requests (PROMPT_LENS twice) of
+# CAPACITY_NEW_TOKENS tokens.  benchmarks/paged_decode_ab.py's protocol
+# (KERNEL_AB_REPS repetitions) on the same workload, over the model's
+# bf16 pool and an int8 one.
+AB_PROMPT_LEN, AB_NEW_TOKENS, AB_REPS = 1024, 128, 4
+CAPACITY_NEW_TOKENS = 16
+KERNEL_AB_REPS, KERNEL_AB_POOLS = 2, (None, "int8")
 
 REPORT: dict = {"phase_s": {}}
 
@@ -888,21 +925,23 @@ def _device_events(prof):
 
 
 def _grant_ahead(engine, n: int) -> None:
-    """Pages for every active slot's next ``n`` positions, and the tick's
-    table, tokens, mask and sampling columns refreshed from the host:
-    the state a tick run outside the engine (the eager twin) needs."""
+    """Pages for every active slot's next ``n`` positions (a paged
+    engine's), and the tick's table, tokens, mask and sampling columns
+    refreshed from the host: the state a tick run outside the engine
+    (the eager twin) needs."""
     from horovod_tpu_torch.serving import NULL_PAGE
 
-    ps = engine.slots.page_size
-    for s in range(engine.engine_cfg.n_slots):
-        if engine._states[s] is None:
-            continue
-        p0 = int(engine._page_pos[s])
-        for idx in range(p0 // ps, (p0 + n) // ps + 1):
-            if engine.slots.table[s, idx] == NULL_PAGE:
-                engine.slots.grant(s, idx)
     tick = engine._tick
-    tick.table.copy_(torch.from_numpy(engine.slots.table))
+    if engine.engine_cfg.paged:
+        ps = engine.slots.page_size
+        for s in range(engine.engine_cfg.n_slots):
+            if engine._states[s] is None:
+                continue
+            p0 = int(engine._page_pos[s])
+            for idx in range(p0 // ps, (p0 + n) // ps + 1):
+                if engine.slots.table[s, idx] == NULL_PAGE:
+                    engine.slots.grant(s, idx)
+        tick.table.copy_(torch.from_numpy(engine.slots.table))
     tick.tokens.copy_(torch.from_numpy(engine._host_tokens()))
     tick.active.copy_(torch.from_numpy(engine.slots.active_mask()))
     engine._samp.device()
@@ -1019,9 +1058,10 @@ def graph_vs_eager(engine, n_ticks: int = 20) -> dict:
     """The captured tick against the eager one, bit for bit: every slot
     busy (half sampling, unequal depths), ``n_ticks`` replays against
     ``n_ticks`` eager runs of ``DecodeTick.body`` on a copy of the same
-    state, one slot leaving halfway.  Tokens, max logits, pool bytes and
-    positions must be equal; K4 must launch once a layer a replay.
-    Leaves the engine's host mirror behind its pool: terminates it."""
+    state, one slot leaving halfway.  Tokens, max logits, pool (or slot
+    cache) bytes and positions must be equal; K4 must launch once a layer
+    a replay on a paged engine with K4 engaged, never otherwise.  Leaves
+    the engine's host mirror behind its cache: terminates it."""
     from horovod_tpu_torch.ops import paged_attention as PA
 
     rng = np.random.default_rng(4)
@@ -1054,11 +1094,15 @@ def graph_vs_eager(engine, n_ticks: int = 20) -> dict:
               if not torch.equal(t, twin.pool[k])]
     if differ:
         raise AssertionError(f"graph and eager pools differ: {differ}")
-    if k4_per_replay != FULL["n_layers"]:
-        raise AssertionError(f"K4 launched {k4_per_replay} times a replay")
+    want_k4 = FULL["n_layers"] if tick.kernel else 0
+    if k4_per_replay != want_k4:
+        raise AssertionError(f"K4 launched {k4_per_replay} times a replay, "
+                             f"expected {want_k4}")
     engine.terminate("graph check done")
-    log(f"graph vs eager: {n_ticks} ticks bit-identical (tokens, max "
-        f"logits, pool, pos), K4 {k4_per_replay:.0f} launches a replay")
+    kind = "paged" if engine.engine_cfg.paged else "slot-contiguous"
+    log(f"graph vs eager ({kind}): {n_ticks} ticks bit-identical (tokens, "
+        f"max logits, cache, pos), K4 {k4_per_replay:.0f} launches a "
+        "replay")
     return {"ticks": n_ticks, "bit_identical": True,
             "k4_launches_per_replay": k4_per_replay}
 
@@ -1390,8 +1434,9 @@ def _durability_checks(label: str, engine, launches: dict, restarts: int,
     return st
 
 
-#: token_identity's prompts, oracles, f32 parameters and config, kept
-#: for the f32 fleet leg and dropped after it.
+#: token_identity's prompts, oracles, f32 parameters, config and the
+#: paged (K4) engine's tokens, kept for the f32 fleet leg, the unpaged
+#: phase and the paged-kernel A/B, and dropped after them.
 F32_ORACLE: dict = {}
 
 
@@ -1461,7 +1506,8 @@ def token_identity() -> dict:
         f"decode_compilations 1; launches {launches}")
     # The f32 fleet leg (beside this phase) serves the same prompts
     # against the same oracles.
-    F32_ORACLE.update(prompts=prompts, refs=refs, params=params, cfg=cfg)
+    F32_ORACLE.update(prompts=prompts, refs=refs, params=params, cfg=cfg,
+                      paged_outs=plain_outs)
     with phase("prefix_f32"):
         prefix = prefix_identity_f32(engine, params, cfg)
     del engine
@@ -2065,29 +2111,34 @@ def _profile_steps(engine, prompts, n_steps: int = 8) -> dict:
     return out
 
 
-def spec_leg_bf16(name: str, params, cfg, plain, prompts, card) -> dict:
+def spec_leg_bf16(name: str, params, cfg, plain, prompts, card, *,
+                  label: str = "", new_tokens: int = SPEC_NEW_TOKENS,
+                  reps: int = SPEC_REPS) -> dict:
     """One draft source's bf16 leg against the plain engine ``plain``:
     the measured repetitions (the main path's run: the launch counters
     read 0 before and are read after), acceptance, tokens a tick, each
-    graph's replays, the step's profile, then the HTTP burst."""
+    graph's replays, the step's profile, then the HTTP burst.  ``label``
+    names the leg (the draft source by default); the random legs' n-gram
+    draft must fall back to the plain graph, a repetitive leg need not."""
     from horovod_tpu_torch.ops import attention as A
     from horovod_tpu_torch.ops import paged_attention as PA
     from horovod_tpu_torch.serving import ServingServer
 
+    label = label or name
     engine = _spec_engine(name, params, cfg)
     t0 = time.monotonic()
-    engine.warmup([SPEC_PROMPT_LEN])
+    engine.warmup([len(prompts[0])])
     warm_s = time.monotonic() - t0
     graphs0 = _admission_graphs(engine)
     if graphs0["decode_compilations"] != 2:
-        raise AssertionError(f"spec {name}: decode_compilations "
+        raise AssertionError(f"spec {label}: decode_compilations "
                              f"{graphs0['decode_compilations']} after warmup")
     spec0, plain0 = engine._spec_tick.runs, engine._tick.runs
     A.flash_fwd_launches = 0
     PA.paged_attend_launches = 0
     PA.paged_attend_launches_by_rows.clear()
     m = _measure_spec({"spec": engine, "plain": plain}, prompts,
-                      SPEC_NEW_TOKENS, SPEC_REPS)
+                      new_tokens, reps)
     launches = {"flash_fwd": A.flash_fwd_launches,
                 "paged_attend": PA.paged_attend_launches,
                 "paged_attend_by_rows": dict(PA.paged_attend_launches_by_rows)}
@@ -2097,9 +2148,9 @@ def spec_leg_bf16(name: str, params, cfg, plain, prompts, card) -> dict:
     verify_rows = FULL["n_heads"] // FULL["n_kv_heads"] * (SPEC_K + 1)
     if not (launches["flash_fwd"] > 0 and launches["paged_attend"] > 0
             and launches["paged_attend_by_rows"].get(verify_rows, 0) > 0):
-        raise AssertionError(f"spec {name}: the leg missed a kernel: "
+        raise AssertionError(f"spec {label}: the leg missed a kernel: "
                              f"{launches}")
-    if name == "ngram" and plain_replays == 0:
+    if label == "ngram" and plain_replays == 0:
         raise AssertionError("spec ngram: the adaptive control never fell "
                              "back to the plain graph")
     ratio = m["spec"]["tok_per_s"] / m["plain"]["tok_per_s"]
@@ -2124,13 +2175,13 @@ def spec_leg_bf16(name: str, params, cfg, plain, prompts, card) -> dict:
     for i, res in enumerate(results):
         if res is None or res[0] != 200 or \
                 len(res[1]["tokens"]) != SPEC_NEW_TOKENS // 2:
-            raise AssertionError(f"spec {name}: HTTP request {i} failed: "
+            raise AssertionError(f"spec {label}: HTTP request {i} failed: "
                                  f"{res and res[0]}")
     graphs1 = _admission_graphs(engine)
     if graphs1 != graphs0:
-        raise AssertionError(f"spec {name}: captured past the warmup: "
+        raise AssertionError(f"spec {label}: captured past the warmup: "
                              f"{graphs0} before, {graphs1} after")
-    out = {"draft": name, "warmup_s": warm_s,
+    out = {"draft": name, "leg": label, "warmup_s": warm_s,
            "spec_tok_per_s": m["spec"]["tok_per_s"],
            "plain_tok_per_s": m["plain"]["tok_per_s"],
            "spec_over_plain": ratio,
@@ -2143,7 +2194,7 @@ def spec_leg_bf16(name: str, params, cfg, plain, prompts, card) -> dict:
            "launches": launches, "profile": prof,
            "decode_compilations": graphs1["decode_compilations"],
            "admission_graphs": graphs1}
-    log(f"speculative bf16 {name} on {card}: {out['spec_tok_per_s']:.1f} "
+    log(f"speculative bf16 {label} on {card}: {out['spec_tok_per_s']:.1f} "
         f"tok/s against plain {out['plain_tok_per_s']:.1f} "
         f"({ratio:.3f}x, full-occupancy steps); acceptance "
         f"{out['acceptance']}, {out['tokens_per_tick_mean']:.3f} tokens a "
@@ -2180,6 +2231,407 @@ def spec_full_width(card: str) -> dict:
                                           card)
     del plain, params
     gc.collect()
+    torch.cuda.empty_cache()
+    with phase("spec_repetitive"):
+        out["legs"]["repetitive"] = spec_repetitive(cfg, card)
+    return out
+
+
+def _cyclic_batch(rng, V: int, n: int, s: int):
+    """_ab_spec's corpus: ``n`` rows of ``s`` tokens cycling through a
+    block of ``REP_PERIOD`` ids from a random phase, and their next
+    tokens."""
+    block = rng.integers(0, V // REP_PERIOD, n)
+    start = rng.integers(0, REP_PERIOD, n)
+    ar = np.arange(s)[None, :]
+    toks = block[:, None] * REP_PERIOD + (start[:, None] + ar) % REP_PERIOD
+    nxt = block[:, None] * REP_PERIOD + (start[:, None] + 1 + ar) % REP_PERIOD
+    return {"tokens": torch.as_tensor(toks, device="cuda"),
+            "targets": torch.as_tensor(nxt, device="cuda")}
+
+
+def _train_repetitive(cfg) -> tuple:
+    """The repetitive leg's target: ``REP_TRAIN_STEPS`` steps of the
+    port's trainer (``spmd.make_train_step`` over a size-1 NCCL group,
+    AdamW at ``REP_LR``, f32 masters, bf16 compute) on the cyclic corpus
+    -> (bf16 serving parameters, losses)."""
+    from horovod_tpu_torch import basics, optim, spmd
+    from horovod_tpu_torch.models import transformer as T
+
+    params = T.init_params(cfg, seed=11, param_dtype=torch.float32)
+    named = optim.named_parameters(params)
+    for _, t in named:
+        t.requires_grad_()
+    rng = np.random.default_rng(5)
+    losses = []
+    basics.init(init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        opt = optim.DistributedOptimizer(
+            torch.optim.AdamW([t for _, t in named], lr=REP_LR,
+                              weight_decay=1e-4),
+            named_parameters=named)
+        step = spmd.make_train_step(lambda p, b: T.loss_fn(p, b, cfg), opt)
+        for _ in range(REP_TRAIN_STEPS):
+            batch = _cyclic_batch(rng, cfg.vocab_size, REP_BATCH, REP_SEQ)
+            losses.append(float(step(params, batch)))
+    finally:
+        basics.shutdown()
+    if not all(math.isfinite(x) for x in losses) or not \
+            losses[-1] < losses[0]:
+        raise AssertionError(f"repetitive training: losses {losses}")
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        return tree.detach().to(cfg.dtype)
+
+    serve = cast(params)
+    del params, named, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return serve, losses
+
+
+def spec_repetitive(cfg, card: str) -> dict:
+    """_ab_spec's repetitive leg at full width: a target trained on the
+    cyclic corpus (:func:`_train_repetitive`), the n-gram draft against
+    the plain engine on cyclic prompts (:func:`spec_leg_bf16`); the
+    speculative tokens must equal the plain engine's."""
+    from horovod_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    t0 = time.monotonic()
+    params, losses = _train_repetitive(cfg)
+    train_s = time.monotonic() - t0
+    V = cfg.vocab_size
+    prompts = [((b % (V // REP_PERIOD)) * REP_PERIOD
+                + np.arange(REP_PROMPT_LEN) % REP_PERIOD).tolist()
+               for b in range(ENGINE["n_slots"])]
+    plain = InferenceEngine(params, cfg, EngineConfig(**ENGINE))
+    plain.warmup([REP_PROMPT_LEN])
+    leg = spec_leg_bf16("ngram", params, cfg, plain, prompts, card,
+                        label="repetitive", new_tokens=REP_NEW_TOKENS,
+                        reps=REP_REPS)
+    if not leg["equal_tokens_to_plain"]:
+        raise AssertionError("spec repetitive: the speculative tokens differ "
+                             "from the plain engine's")
+    leg.update(train_losses=losses, train_s=train_s,
+               new_tokens=REP_NEW_TOKENS, reps=REP_REPS,
+               prompt_len=REP_PROMPT_LEN)
+    log(f"speculative bf16 repetitive on {card}: trained {REP_TRAIN_STEPS} "
+        f"steps in {train_s:.1f} s (loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}); {leg['spec_tok_per_s']:.1f} tok/s against "
+        f"plain {leg['plain_tok_per_s']:.1f} ({leg['spec_over_plain']:.3f}x)"
+        f", acceptance {leg['acceptance']}; tokens equal to plain")
+    del plain, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return leg
+
+
+def _tick_p25(engines: dict, prompt, steps: int, reps: int) -> dict:
+    """_ab_paged's and paged_decode_ab.py's measurement: each engine
+    decodes ``n_slots`` copies of ``prompt`` for ``steps`` tokens, the
+    engines in turns, ``reps`` times; a step's host wall counts when
+    every slot was busy before and after it.  -> each engine's p25 step
+    ms, its tok/s at that p25, the steps counted and its tokens."""
+    S = ENGINE["n_slots"]
+    dts = {n: [] for n in engines}
+    toks = {n: [] for n in engines}
+    for _ in range(reps):
+        for name, eng in engines.items():
+            futs = [eng.submit(prompt, max_new_tokens=steps)
+                    for _ in range(S)]
+            while not all(f.done() for f in futs):
+                full = eng.slots.active_count == S
+                t0 = time.perf_counter()
+                eng.step()
+                dt = time.perf_counter() - t0
+                if full and eng.slots.active_count == S:
+                    dts[name].append(dt)
+            toks[name].extend(f.result(timeout=0) for f in futs)
+    out = {}
+    for name, d in dts.items():
+        p25 = float(np.percentile(d, 25))
+        out[name] = {"tick_ms_p25": p25 * 1e3, "tok_per_s": S / p25,
+                     "ticks": len(d), "tokens": toks[name]}
+    return out
+
+
+def _agreement(a: list, b: list) -> float:
+    """The share of positions at which two lists of token lists agree."""
+    same = total = 0
+    for x, y in zip(a, b):
+        same += sum(int(p == q) for p, q in zip(x, y))
+        total += max(len(x), len(y))
+    return same / total
+
+
+def unpaged_full_width(card: str, sampler_ms: float) -> dict:
+    """The slot-contiguous cache (``EngineConfig(paged=False)``) at full
+    width, by benchmarks/serving.py's ``_ab_paged`` protocol.
+
+    Gates: the f32 engine's tokens (token_identity's prompts, half
+    sampled) equal the oracles and the paged engine's, by the near-tie
+    rule; through a decode fault the same, with one restart, its slot
+    cache reset in place and its tick captured once; the captured
+    contiguous tick equals its eager body (:func:`graph_vs_eager`).
+    Measured: bf16 decode at the p25 step, paged against unpaged in
+    turns (the main path's run: the launch counters read 0 before it and
+    are read after); each tick's device busy and idle share; the most
+    concurrent requests at a budget of 2 x max_len cache tokens."""
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import paged_attention as PA
+    from horovod_tpu_torch.serving import (EngineConfig, FaultInjector,
+                                           InferenceEngine)
+
+    o = F32_ORACLE
+    prompts, refs = o["prompts"], o["refs"]
+    inj = FaultInjector()
+    engine = InferenceEngine(o["params"], o["cfg"],
+                             EngineConfig(**ENGINE, paged=False, faults=inj))
+    futs = [engine.submit(p, max_new_tokens=F32_NEW_TOKENS, **SAMPLING[i])
+            for i, p in enumerate(prompts)]
+    while not all(f.done() for f in futs):
+        engine.step()
+    outs = [f.result(timeout=0) for f in futs]
+    exempt = _check_f32("f32 unpaged", prompts, outs, refs)
+    vs_paged = _check_f32("f32 unpaged vs paged", prompts, outs,
+                          [(po, r[1]) for po, r in zip(o["paged_outs"],
+                                                       refs)])
+    ptrs = [t.data_ptr() for t in engine.slots.cache.values()]
+    A.flash_fwd_launches = PA.paged_attend_launches = 0
+    futs = [engine.submit(p, max_new_tokens=F32_NEW_TOKENS, **SAMPLING[i])
+            for i, p in enumerate(prompts)]
+    run = _burst_with_faults(engine, inj, futs,
+                             [("decode_tick", "raise", F32_FAULTS[1][2])])
+    fault_exempt = _check_f32("f32 unpaged faulted", prompts,
+                              [f.result(timeout=0) for f in futs], refs)
+    st = _durability_checks("f32 unpaged faulted", engine,
+                            {"flash_fwd": A.flash_fwd_launches}, 1)
+    if PA.paged_attend_launches or engine._tick.captures != 1 or \
+            [t.data_ptr() for t in engine.slots.cache.values()] != ptrs:
+        raise AssertionError(
+            f"f32 unpaged faulted: K4 launches {PA.paged_attend_launches}, "
+            f"tick captures {engine._tick.captures}, the cache moved: "
+            f"{[t.data_ptr() for t in engine.slots.cache.values()] != ptrs}")
+    f32 = {"exemptions": exempt, "exemptions_vs_paged": vs_paged,
+           "faulted_exemptions": fault_exempt,
+           "recovery_s": run["recovery_s"],
+           "requests_resumed": st["requests_resumed"]}
+    log(f"unpaged f32: {len(prompts)} requests (half sampled) equal the "
+        f"oracles and the paged engine ({len(exempt)} / {len(vs_paged)} "
+        f"near-tie exemptions); through a decode fault {len(fault_exempt)} "
+        f"exemptions, {st['requests_resumed']} resumes, restarts 1, "
+        "decode_compilations 1, the slot cache reset in place")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = T.TransformerConfig(**FULL, dtype=torch.bfloat16)
+    params = T.init_params(cfg, seed=0)
+    prompt = np.random.default_rng(3).integers(
+        0, FULL["vocab_size"], AB_PROMPT_LEN).tolist()
+    engines = {"paged": InferenceEngine(params, cfg, EngineConfig(**ENGINE)),
+               "unpaged": InferenceEngine(params, cfg, EngineConfig(
+                   **ENGINE, paged=False))}
+    for eng in engines.values():
+        eng.warmup([AB_PROMPT_LEN])
+    graphs0 = {n: _admission_graphs(e) for n, e in engines.items()}
+    _zero_launches()
+    m = _tick_p25(engines, prompt, AB_NEW_TOKENS, AB_REPS)
+    launches = _launches()
+    del launches["grouped_matmul"]
+    graphs1 = {n: _admission_graphs(e) for n, e in engines.items()}
+    if graphs1 != graphs0 or any(g["decode_compilations"] != 1
+                                 for g in graphs1.values()):
+        raise AssertionError(f"unpaged A/B: captures past the warmup: "
+                             f"{graphs0} -> {graphs1}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"unpaged A/B missed a kernel: {launches}")
+    agree = _agreement(m["paged"]["tokens"], m["unpaged"]["tokens"])
+    profiles = {n: profile_decode(e, f"{n}_overlap", sampler_ms)
+                for n, e in engines.items()}
+    check = graph_vs_eager(engines["unpaged"])  # ends the engine
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Capacity at a fixed budget of cache tokens: pages of the budget for
+    # the paged engine, budget // max_len slots for the contiguous one.
+    budget = 2 * ENGINE["max_len"]
+    rng = np.random.default_rng(4)
+    cap_prompts = [rng.integers(0, FULL["vocab_size"], n).tolist()
+                   for n in PROMPT_LENS * 2]
+    capacity = {"budget_tokens": budget}
+    for name, kw in (("paged", dict(n_pages=budget // ENGINE["page_size"])),
+                     ("unpaged", dict(paged=False,
+                                      n_slots=budget // ENGINE["max_len"]))):
+        eng = InferenceEngine(params, cfg, EngineConfig(**{
+            **ENGINE, "max_prefills_per_tick": ENGINE["n_slots"], **kw}))
+        futs = [eng.submit(p, max_new_tokens=CAPACITY_NEW_TOKENS)
+                for p in cap_prompts]
+        peak = 0
+        t0 = time.monotonic()
+        while not all(f.done() for f in futs):
+            eng.step()
+            peak = max(peak, eng.slots.active_count)
+        wall = time.monotonic() - t0
+        if any(len(f.result(timeout=0)) != CAPACITY_NEW_TOKENS
+               for f in futs):
+            raise AssertionError(f"capacity {name}: a request fell short")
+        capacity[name] = {"peak_concurrent": peak, "wall_s": wall,
+                          "preemptions": eng.stats()["preemptions"]}
+        eng.terminate("capacity leg done")
+        del eng
+    out = {"f32": f32, "prompt_len": AB_PROMPT_LEN,
+           "new_tokens": AB_NEW_TOKENS, "reps": AB_REPS,
+           "tick_ms_p25": {n: v["tick_ms_p25"] for n, v in m.items()},
+           "tok_per_s": {n: v["tok_per_s"] for n, v in m.items()},
+           "ticks_counted": {n: v["ticks"] for n, v in m.items()},
+           "unpaged_over_paged_tick": m["unpaged"]["tick_ms_p25"]
+           / m["paged"]["tick_ms_p25"],
+           "bf16_token_agreement": agree, "launches": launches,
+           "profiles": profiles, "graph_vs_eager": check,
+           "capacity": capacity}
+    log(f"unpaged bf16 on {card}: p25 step paged "
+        f"{out['tick_ms_p25']['paged']:.3f} ms vs unpaged "
+        f"{out['tick_ms_p25']['unpaged']:.3f} ms "
+        f"({out['unpaged_over_paged_tick']:.3f}x), tok/s "
+        f"{out['tok_per_s']['paged']:.1f} vs {out['tok_per_s']['unpaged']:.1f}"
+        f"; device busy {profiles['paged']['device_busy_ms']:.3f} vs "
+        f"{profiles['unpaged']['device_busy_ms']:.3f} ms (idle "
+        f"{profiles['paged']['idle_share']:.3f} vs "
+        f"{profiles['unpaged']['idle_share']:.3f}); bf16 tokens agree "
+        f"{agree:.4f}; capacity at {budget} cache tokens: paged "
+        f"{capacity['paged']['peak_concurrent']} concurrent "
+        f"({capacity['paged']['preemptions']} preemptions), unpaged "
+        f"{capacity['unpaged']['peak_concurrent']}; launches {launches}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _attn_bytes(kv_dtype) -> dict:
+    """paged_decode_ab.py's analytic attention bytes a tick over the
+    serving pool (the full table row, ``MP`` pages a slot a layer, both
+    paths): fused ``E * stored [+ scales]``, unfused ``3 * E * stored
+    [+ scales] [+ 2 * E * compute]`` per K or V, ``E = S * H_kv * MP *
+    page * Dh``."""
+    ps = ENGINE["page_size"]
+    mp = -(-ENGINE["max_len"] // ps)
+    hkv, dh = FULL["n_kv_heads"], FULL["d_model"] // FULL["n_heads"]
+    S = ENGINE["n_slots"]
+    elems = S * hkv * mp * ps * dh
+    quant = kv_dtype == "int8"
+    stored = 1 if quant else 2
+    scales = S * hkv * mp * ps * 4 if quant else 0
+    fused = FULL["n_layers"] * 2 * (elems * stored + scales)
+    unfused = FULL["n_layers"] * 2 * (3 * elems * stored + scales
+                                      + (2 * elems * 2 if quant else 0))
+    return {"fused": fused, "unfused": unfused, "ratio": unfused / fused}
+
+
+def paged_kernel_ab(card: str, sampler_ms: float) -> dict:
+    """benchmarks/paged_decode_ab.py's protocol at full width: two
+    engines over the same parameters, ``paged_kernel=None`` (K4) and
+    ``False`` (the gathered pages).  Gates: the f32 gather engine's
+    tokens equal the oracles and the K4 engine's (token_identity's), by
+    the near-tie rule, with no K4 launch; over each pool (the model's
+    bf16, int8) the K4 engine launches K4 once a layer a replay and the
+    gather engine never.  Measured: the p25 step of each in turns (the
+    main path's run), the tick's device busy, the analytic attention
+    bytes, and (reported, not gated) the bf16 tokens' agreement."""
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.ops import paged_attention as PA
+    from horovod_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    o = F32_ORACLE
+    prompts, refs = o["prompts"], o["refs"]
+    engine = InferenceEngine(o["params"], o["cfg"],
+                             EngineConfig(**ENGINE, paged_kernel=False))
+    k4 = PA.paged_attend_launches
+    futs = [engine.submit(p, max_new_tokens=F32_NEW_TOKENS, **SAMPLING[i])
+            for i, p in enumerate(prompts)]
+    while not all(f.done() for f in futs):
+        engine.step()
+    outs = [f.result(timeout=0) for f in futs]
+    if (PA.paged_attend_launches != k4 or engine._tick.k4_launches_per_replay
+            or engine.stats()["paged_kernel_engaged"] is not False):
+        raise AssertionError("f32 gather engine launched K4")
+    exempt = _check_f32("f32 gather", prompts, outs, refs)
+    vs_k4 = _check_f32("f32 gather vs K4", prompts, outs,
+                       [(po, r[1]) for po, r in zip(o["paged_outs"], refs)])
+    out = {"f32": {"exemptions": exempt, "exemptions_vs_k4": vs_k4},
+           "prompt_len": AB_PROMPT_LEN, "new_tokens": AB_NEW_TOKENS,
+           "reps": KERNEL_AB_REPS, "pools": {}}
+    log(f"paged_kernel f32: the gather engine's {len(prompts)} requests "
+        f"equal the oracles and the K4 engine's ({len(exempt)} / "
+        f"{len(vs_k4)} near-tie exemptions), no K4 launch")
+    del engine
+    gc.collect()
+
+    cfg = T.TransformerConfig(**FULL, dtype=torch.bfloat16)
+    params = T.init_params(cfg, seed=0)
+    prompt = np.random.default_rng(3).integers(
+        0, FULL["vocab_size"], AB_PROMPT_LEN).tolist()
+    launches = {"flash_fwd": 0, "paged_attend": 0}
+    for kv in KERNEL_AB_POOLS:
+        pool = kv or "bf16"
+        engines = {"k4": InferenceEngine(params, cfg, EngineConfig(
+                       **ENGINE, kv_dtype=kv)),
+                   "gather": InferenceEngine(params, cfg, EngineConfig(
+                       **ENGINE, kv_dtype=kv, paged_kernel=False))}
+        for eng in engines.values():
+            eng.warmup([AB_PROMPT_LEN])
+        per = {n: e._tick.k4_launches_per_replay for n, e in engines.items()}
+        if per != {"k4": FULL["n_layers"], "gather": 0}:
+            raise AssertionError(f"paged_kernel {pool}: K4 a replay {per}")
+        replays = engines["k4"]._tick.replays
+        _zero_launches()
+        m = _tick_p25(engines, prompt, AB_NEW_TOKENS, KERNEL_AB_REPS)
+        run = _launches()
+        k4_ticks = engines["k4"]._tick.replays - replays
+        if run["paged_attend"] != k4_ticks * FULL["n_layers"] or \
+                not run["flash_fwd"]:
+            raise AssertionError(
+                f"paged_kernel {pool}: {run['paged_attend']} K4 launches "
+                f"for {k4_ticks} K4 ticks; K1 {run['flash_fwd']}")
+        for k in launches:
+            launches[k] += run[k]
+        profiles = {n: profile_decode(e, f"{pool}_{n}_overlap", sampler_ms)
+                    for n, e in engines.items()}
+        leg = {"tick_ms_p25": {n: v["tick_ms_p25"] for n, v in m.items()},
+               "tok_per_s": {n: v["tok_per_s"] for n, v in m.items()},
+               "ticks_counted": {n: v["ticks"] for n, v in m.items()},
+               "gather_over_k4_tick": m["gather"]["tick_ms_p25"]
+               / m["k4"]["tick_ms_p25"],
+               "token_agreement": _agreement(m["k4"]["tokens"],
+                                             m["gather"]["tokens"]),
+               "k4_ticks": k4_ticks, "attn_bytes": _attn_bytes(kv),
+               "profiles": {n: {k: p[k] for k in (
+                   "tick_wall_ms", "device_busy_ms", "idle_share",
+                   "paged_attend_ms")} for n, p in profiles.items()}}
+        out["pools"][pool] = leg
+        log(f"paged_kernel {pool} pool on {card}: p25 step K4 "
+            f"{leg['tick_ms_p25']['k4']:.3f} ms vs gather "
+            f"{leg['tick_ms_p25']['gather']:.3f} ms "
+            f"({leg['gather_over_k4_tick']:.3f}x); device busy "
+            f"{profiles['k4']['device_busy_ms']:.3f} vs "
+            f"{profiles['gather']['device_busy_ms']:.3f} ms; analytic "
+            f"attention bytes a tick {leg['attn_bytes']['fused']} vs "
+            f"{leg['attn_bytes']['unfused']} "
+            f"({leg['attn_bytes']['ratio']:.3f}x); tokens agree "
+            f"{leg['token_agreement']:.4f}; K4 {run['paged_attend']} "
+            f"launches over {k4_ticks} ticks, none in the gather engine")
+        for eng in engines.values():
+            eng.terminate("paged_kernel A/B done")
+        del engines
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    del params
     torch.cuda.empty_cache()
     return out
 
@@ -4959,9 +5411,6 @@ def main() -> int:
     with phase("fleet_f32"), tempfile.TemporaryDirectory(
             prefix="chip_smoke_fleet_f32_") as tmp:
         REPORT["fleet_f32"] = fleet_identity_f32(card, Path(tmp), F32_ORACLE)
-    F32_ORACLE.clear()
-    gc.collect()
-    torch.cuda.empty_cache()
     f32d, bf16d = ident["durability"], serving["durability"]
     log(f"durability on {card}: recovery s from the fault to the first "
         f"clean tick: f32 {[round(s, 4) for s in f32d['recovery_s']]}, "
@@ -4975,6 +5424,16 @@ def main() -> int:
     with phase("speculative"):
         spec = spec_full_width(card)
     REPORT["speculative_bf16"] = spec
+    sampler_ms = serving["sampler"]["sampler_ms"]
+    with phase("unpaged"):
+        unpaged = unpaged_full_width(card, sampler_ms)
+    REPORT["unpaged"] = unpaged
+    with phase("paged_kernel_ab"):
+        kernel_ab = paged_kernel_ab(card, sampler_ms)
+    REPORT["paged_kernel_ab"] = kernel_ab
+    F32_ORACLE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     with phase("collectives"):
         REPORT["collectives"] = collectives_size_one()
     with phase("model_grads_f32"):
@@ -5018,11 +5477,15 @@ def main() -> int:
             for n, lg in vision["legs"].items()))
     # Each kernel's launches are the sum over the main paths' runs that
     # launch it: serving (the HTTP burst, the prefix run, the two SLO
-    # legs, the speculative legs, the tracing phase's four bursts) and,
-    # for K1-K3, the four training legs (K1 twice a layer a step in the
-    # remat legs) and the tracing phase's traced training steps.
+    # legs, the speculative legs, the repetitive one included, the
+    # tracing phase's four bursts, the unpaged A/B: K1 in both engines'
+    # admissions, the contiguous graphs included, K4 in the paged
+    # engine's ticks; the paged-kernel A/B: K4 in the K4 engines' ticks)
+    # and, for K1-K3, the four training legs (K1 twice a layer a step in
+    # the remat legs) and the tracing phase's traced training steps.
     served = [serving, serving["prefix"], *serving["slo"].values(),
-              *spec["legs"].values(), *traced["legs"], moe_sv, moe_sv32]
+              *spec["legs"].values(), *traced["legs"], moe_sv, moe_sv32,
+              unpaged, kernel_ab]
     trained = {k: train["launches"][k] + traced["train"]["launches"][k]
                + moe_tr["launches"][k] for k in train["launches"]}
     # The fleet's bursts, per replica process (its /stats counters): the

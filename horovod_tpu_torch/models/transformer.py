@@ -59,8 +59,8 @@ from horovod_tpu_torch.ops import paged_attention as pa
 from horovod_tpu_torch.ops import threefry
 
 __all__ = ["TransformerConfig", "decode_step", "decode_step_paged",
-           "decode_verify_paged", "draft_propose_paged", "expert_load",
-           "forward",
+           "decode_step_slots", "decode_verify_paged", "draft_propose_paged",
+           "expert_load", "forward",
            "greedy_decode", "init_cache", "init_params", "kv_dequantize",
            "kv_quantize", "loss_fn", "ngram_propose", "prefill",
            "prefill_with_prefix", "resolve_device", "sample_decode",
@@ -677,6 +677,68 @@ def decode_step(params: Dict, tokens_t, cache: Dict,
         x = _mlp_block(x + h, p, cfg, moe_impl="dense")
     logits = _lm_head(x, params["ln_f"], params["head"], cfg)
     cache["pos"] = pos + 1
+    return logits[:, 0], cache
+
+
+def _attention_decode_slots(x, p, cfg: TransformerConfig, k_cache, v_cache,
+                            pos):
+    """Per-slot one-token attention against ONE layer's slot cache
+    ``(S, H_kv, T, Dh)``: row ``b`` writes its K/V at ``pos[b]`` (one
+    ``index_put_``, one position a row, in place) and attends positions
+    ``<= pos[b]``.  A write past the cache lands at ``T - 1``, where the
+    JAX package's ``dynamic_update_slice`` clamps it: only a slot that is
+    retiring (the overlapped pipeline's tick in flight) or inactive gets
+    there, and nothing it writes is attended before it is rewritten."""
+    S = x.shape[0]
+    T = k_cache.shape[2]
+    qh, k_t, v_t = _qkv_proj(x, p, cfg, positions=pos[:, None])
+    rows = torch.arange(S, device=x.device)
+    at = pos.long().clamp(0, T - 1)
+    k_cache[rows, :, at] = k_t[:, :, 0].to(k_cache.dtype)
+    v_cache[rows, :, at] = v_t[:, :, 0].to(v_cache.dtype)
+    mask = torch.arange(T, device=x.device)[None, :] <= pos[:, None]
+    o = _cache_attend(qh, k_cache, v_cache, mask[:, None, None, :])
+    return _out_proj(o.to(cfg.dtype), p, cfg)
+
+
+@torch.no_grad()
+def decode_step_slots(params: Dict, tokens_t, cache: Dict,
+                      cfg: TransformerConfig, active, *,
+                      check_capacity: bool = True):
+    """One continuous-batching decode tick over a SLOT cache
+    (:func:`~horovod_tpu_torch.serving.cache.init_slot_cache`: ``k``/``v``
+    ``(L, S, H_kv, T, Dh)``, per-slot ``pos`` ``(S,)`` int32).
+
+    ``tokens_t`` ``(S,)``: each slot's last emitted token; ``active``
+    ``(S,)`` bool.  Returns ``logits (S, V)`` f32; the cache (K/V and
+    ``pos``, which keeps its storage) is updated in place and also
+    returned.  Inactive rows compute on zeros and keep their position;
+    their K/V still lands at their stale position, which is harmless:
+    a slot writes position ``p`` in the tick that first attends it, so
+    whatever a previous tenant left there is overwritten first.  Row
+    ``s`` of the logits is :func:`decode_step`'s for the same request
+    decoded alone at ``pos[s]``.
+
+    ``check_capacity`` raises when an active slot's position is past the
+    cache (it reads the device on the host); a captured tick passes
+    False, as :func:`decode_step_paged`'s does."""
+    pos = cache["pos"]
+    T_cache = cache["k"].shape[3]
+    if check_capacity:
+        over = active & (pos >= T_cache)
+        if bool(over.any()):
+            raise ValueError(
+                f"decode_step_slots past cache capacity (slots "
+                f"{torch.nonzero(over).flatten().tolist()} at pos >= "
+                f"{T_cache}); init_slot_cache with a larger max_len")
+    x = _embed(params, tokens_t, cfg, active)[:, None]
+    for l in range(cfg.n_layers):
+        p = _layer(params, l)
+        h = _attention_decode_slots(_rmsnorm(x, p["ln1"]), p, cfg,
+                                    cache["k"][l], cache["v"][l], pos)
+        x = _mlp_block(x + h, p, cfg, moe_impl="dense")
+    logits = _lm_head(x, params["ln_f"], params["head"], cfg)
+    pos.add_(active.to(pos.dtype))
     return logits[:, 0], cache
 
 

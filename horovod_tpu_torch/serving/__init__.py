@@ -1,12 +1,17 @@
 """Continuous-batching serving: the paged engine (per-slot sampling, the
 overlapped decode pipeline, the tick as one CUDA graph; supervised
 restarts with journaled resume, the watchdog, preemption and priority
-classes; shared prefixes and chunked prefill) and its server."""
+classes; shared prefixes and chunked prefill), its slot-contiguous
+baseline (``EngineConfig(paged=False)``) and its server."""
 
 from horovod_tpu_torch.serving.cache import (  # noqa: F401
     NULL_PAGE,
     PagedSlotCache,
+    SlotCache,
     init_page_pool,
+    init_slot_cache,
+    insert_prefill,
+    insert_prefill_batch,
     paged_insert,
     resolve_kv_dtype,
 )

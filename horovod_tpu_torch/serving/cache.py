@@ -1,6 +1,13 @@
-"""Paged KV cache: the device page pool and its host-side allocator.
+"""KV caches for continuous batching: the slot-contiguous cache and the
+paged one, each a device cache with its host-side allocator.
 
-Counterpart of the paged half of ``horovod_tpu/serving/cache.py``.  K/V
+Counterpart of ``horovod_tpu/serving/cache.py``.  The slot-contiguous
+cache (:class:`SlotCache`, the engine's ``paged=False``, the A/B
+baseline) is the transformer's static cache with ``batch = S`` and a
+per-slot ``pos``: every slot reserves ``max_len`` positions, admission
+lands a prefilled block at position 0 of its slot
+(:func:`insert_prefill_batch`) and the decode tick writes each slot at
+its own position.  In the paged cache K/V
 live in a pool of fixed-size pages (PagedAttention, Kwon et al., SOSP
 2023); each slot owns an int32 page-table row that the decode tick
 resolves on the device, so the live set and the allocation pattern are
@@ -17,13 +24,13 @@ Freed pages are not scrubbed: a page's next owner writes every position
 before first attending it (prefill landing covers the prompt; decode
 writes position ``p`` in the tick that first attends it).
 
-The pool is updated in place (the JAX package returns a new pool and
-donates the old one): the captured decode tick and the captured
-admission graphs read it by address, so no operation here rebinds a pool
-tensor, the copy-on-write included.  Landing is split for the graphs:
-:meth:`PagedSlotCache.landing` builds the indices on the host, and
-:func:`paged_insert` (inside a graph, or :meth:`PagedSlotCache.land`
-eagerly) scatters the block.
+Both caches are updated in place (the JAX package returns a new cache
+and donates the old one): the captured decode tick and the captured
+admission graphs read them by address, so no operation here rebinds a
+cache tensor, the copy-on-write and the restart's reset included.
+Landing is split for the graphs: :meth:`PagedSlotCache.landing` builds
+the indices on the host, and :func:`paged_insert` (inside a graph, or
+:meth:`PagedSlotCache.land` eagerly) scatters the block.
 """
 
 from __future__ import annotations
@@ -38,8 +45,149 @@ from horovod_tpu_torch.models import transformer as T
 from horovod_tpu_torch.serving.graph import upload
 from horovod_tpu_torch.serving.scheduler import CacheOutOfPagesError
 
-__all__ = ["NULL_PAGE", "PagedSlotCache", "copy_page", "gather_prefix_pages",
-           "init_page_pool", "pad_pages", "paged_insert", "resolve_kv_dtype"]
+__all__ = ["NULL_PAGE", "PagedSlotCache", "SlotCache", "copy_page",
+           "gather_prefix_pages", "init_page_pool", "init_slot_cache",
+           "insert_prefill", "insert_prefill_batch", "pad_pages",
+           "paged_insert", "resolve_kv_dtype"]
+
+
+# --- the slot-contiguous layout ----------------------------------------------
+
+
+def init_slot_cache(cfg: T.TransformerConfig, n_slots: int,
+                    max_len: int = 0, *, device=None) -> Dict:
+    """``k``/``v`` ``(L, S, H_kv, T, Dh)`` in ``cfg.dtype``, as
+    :func:`~horovod_tpu_torch.models.transformer.init_cache` lays them out
+    for ``batch = S``, and ``pos`` ``(S,)`` int32: one write position a
+    slot."""
+    base = T.init_cache(cfg, n_slots, max_len, device=device)
+    return {"k": base["k"], "v": base["v"],
+            "pos": torch.zeros((n_slots,), dtype=torch.int32,
+                               device=base["k"].device)}
+
+
+def insert_prefill(cache: Dict, slot, prefilled: Dict) -> Dict:
+    """Land a batch-1 prefilled cache (``k``/``v`` ``(L, 1, H_kv, T_pre,
+    Dh)``, ``T_pre <= T``, a scalar ``pos``) at position 0 of slot
+    ``slot``, in place, and adopt its position."""
+    t_pre = prefilled["k"].shape[3]
+    cache["k"][:, slot, :, :t_pre] = prefilled["k"][:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot, :, :t_pre] = prefilled["v"][:, 0].to(cache["v"].dtype)
+    cache["pos"][slot] = torch.as_tensor(prefilled["pos"], dtype=torch.int32)
+    return cache
+
+
+def insert_prefill_batch(cache: Dict, slots, prefilled: Dict) -> Dict:
+    """Land a batch-K prefilled cache (per-row ``true_len``: ``k``/``v``
+    ``(L, K, H_kv, T_pre, Dh)``, ``pos`` ``(K,)``) in K slots with one
+    scatter a tensor, in place: row ``i`` lands at position 0 of slot
+    ``slots[i]`` (a ``(K,)`` index tensor, or a sequence) and the slot
+    adopts ``pos[i]``."""
+    slots = torch.as_tensor(slots, dtype=torch.long,
+                            device=cache["k"].device)
+    t_pre = prefilled["k"].shape[3]
+    cache["k"][:, slots, :, :t_pre] = prefilled["k"].to(cache["k"].dtype)
+    cache["v"][:, slots, :, :t_pre] = prefilled["v"].to(cache["v"].dtype)
+    cache["pos"][slots] = torch.as_tensor(
+        prefilled["pos"], device=slots.device).to(torch.int32)
+    return cache
+
+
+class SlotCache:
+    """Host-side slot allocator over one device slot cache
+    (:attr:`cache`, :func:`init_slot_cache`): slots are handed out
+    lowest index first (a heap), freed at retirement, and exported as the
+    tick's ``(S,)`` active mask.  A freed slot is not scrubbed: decode
+    writes position ``p`` in the tick that first attends it, so a
+    previous tenant's K/V is overwritten before the next one can read
+    it."""
+
+    def __init__(self, cfg: T.TransformerConfig, n_slots: int,
+                 max_len: int = 0, *, device=None):
+        if n_slots < 1:
+            raise ValueError(f"need at least one slot, got {n_slots}")
+        self.cfg = cfg
+        self.device = T.resolve_device(device)
+        self.n_slots = n_slots
+        self.max_len = max_len or cfg.max_seq
+        self.cache = init_slot_cache(cfg, n_slots, self.max_len,
+                                     device=self.device)
+        self._active = np.zeros(n_slots, bool)
+        self._free: List[int] = list(range(n_slots))  # heap (sorted)
+
+    # -- allocation ---------------------------------------------------------
+
+    def alloc(self) -> Optional[int]:
+        """Lowest free slot index, or None when every slot is busy."""
+        if not self._free:
+            return None
+        slot = heapq.heappop(self._free)
+        self._active[slot] = True
+        return slot
+
+    def free(self, slot: int) -> None:
+        if not self._active[slot]:
+            raise ValueError(f"slot {slot} is not active")
+        self._active[slot] = False
+        heapq.heappush(self._free, slot)
+
+    def release_all(self) -> None:
+        """Host-side reset: every slot freed, the device K/V left where
+        it is (write before attend makes scrubbing unnecessary)."""
+        self._active[:] = False
+        self._free = list(range(self.n_slots))
+
+    def reset(self) -> None:
+        """A fresh cache in place (the supervised restart): the host
+        reset of :meth:`release_all`, then K/V and positions zeroed where
+        they lie, so the captured tick and admission graphs keep reading
+        the tensors they captured."""
+        self.release_all()
+        for t in self.cache.values():
+            t.zero_()
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def active_count(self) -> int:
+        return int(self._active.sum())
+
+    @property
+    def occupancy(self) -> float:
+        return self.active_count / self.n_slots
+
+    def active_mask(self) -> np.ndarray:
+        """(S,) bool — a copy."""
+        return self._active.copy()
+
+    def positions(self) -> np.ndarray:
+        """Each slot's device write position (a host sync)."""
+        return self.cache["pos"].cpu().numpy()
+
+    # -- device ops ---------------------------------------------------------
+
+    def insert(self, slot: int, prefilled: Dict) -> None:
+        """Write a batch-1 prefilled cache into allocated ``slot`` and
+        adopt its position."""
+        if not self._active[slot]:
+            raise ValueError(f"slot {slot} is not allocated")
+        insert_prefill(self.cache, slot, prefilled)
+
+    def insert_batch(self, slots: Sequence[int], prefilled: Dict) -> None:
+        """Write a batch-K prefilled cache into K allocated slots, row
+        ``i`` into ``slots[i]``, with one scatter a tensor."""
+        for s in slots:
+            if not self._active[s]:
+                raise ValueError(f"slot {s} is not allocated")
+        insert_prefill_batch(
+            self.cache, upload(np.asarray(slots, np.int64), self.device),
+            prefilled)
+
+
+# --- the paged layout --------------------------------------------------------
+
 
 NULL_PAGE = 0
 

@@ -1,12 +1,12 @@
 """Continuous-batching inference engine: the paged path with per-slot
 sampling, the overlapped decode pipeline and the tick as one CUDA graph,
-supervised and durable.
+supervised and durable; and the slot-contiguous baseline.
 
-Counterpart of ``horovod_tpu/serving/engine.py`` in its default
+Counterpart of ``horovod_tpu/serving/engine.py``: its default
 configuration (``paged=True``, ``overlap=True``, sampling as data,
-``max_restarts=3``, ``tick_timeout=60``, ``resume=True``).  One decode
-tick runs over a fixed pool of S slots; new requests land in freed
-slots between ticks.
+``max_restarts=3``, ``tick_timeout=60``, ``resume=True``) and every
+other but tensor parallelism (``tp``).  One decode tick runs over a
+fixed pool of S slots; new requests land in freed slots between ticks.
 
 Tick (:meth:`InferenceEngine.step`):
 
@@ -34,7 +34,19 @@ Tick (:meth:`InferenceEngine.step`):
    tick is one CUDA graph captured at :meth:`~InferenceEngine.warmup`
    (or at the first tick) and replayed; ``decode_compilations`` counts
    captures and stays 1 across any request mix and any number of
-   restarts.
+   restarts.  ``EngineConfig.paged_kernel`` picks the tick's attention
+   (K4, or the gathered pages); it is fixed at construction.
+
+The slot-contiguous cache (``EngineConfig(paged=False)``, the JAX
+engine's A/B baseline): every slot reserves ``max_len`` positions of a
+:class:`~horovod_tpu_torch.serving.cache.SlotCache`; admission is one
+``("contig", bucket, k)`` graph (K1's prefill, then one scatter into the
+slots), the tick ``decode_step_slots`` (plain attention over each
+slot's window, as the JAX engine's ``jnp`` path).  It has no pages, so
+no shared prefixes, chunking or speculation (they raise at
+construction, as in the JAX engine), and it never preempts for pages;
+overlap, sampling, restarts with resume, the watchdog and the priority
+classes (slot-pressure preemption included) work as on the paged path.
 
 Shared prefixes (:meth:`InferenceEngine.register_prefix`): a registered
 prefix (a system prompt) is prefilled once into pinned pages; a request
@@ -176,8 +188,12 @@ from horovod_tpu_torch.obs import tracing as obs_tracing
 from horovod_tpu_torch.ops import attention as _attn
 from horovod_tpu_torch.ops import grouped_matmul as _gmm
 from horovod_tpu_torch.ops import paged_attention as _pa
-from horovod_tpu_torch.serving.cache import NULL_PAGE, PagedSlotCache, \
-    pad_pages
+from horovod_tpu_torch.serving.cache import (
+    NULL_PAGE,
+    PagedSlotCache,
+    SlotCache,
+    pad_pages,
+)
 from horovod_tpu_torch.serving.faults import FaultInjector
 from horovod_tpu_torch.serving.graph import (
     DecodeTick,
@@ -362,10 +378,20 @@ class EngineConfig:
     """``n_slots`` (S) is the decode batch; ``max_len`` caps prompt +
     generation per slot (0 = ``cfg.max_seq``); ``max_prefills_per_tick``
     (K) bounds admissions per tick and sizes the batched prefill;
-    ``page_size`` / ``n_pages`` shape the page pool (``n_pages=0`` =
-    capacity parity: every slot can reach ``max_len``); ``kv_dtype``
-    selects page storage (None = the model dtype, "bf16", "f32",
-    "int8"); ``max_queue_depth`` bounds the queue;
+    ``paged`` (default on) keeps K/V in a page pool; ``paged=False``
+    keeps the slot-contiguous :class:`~horovod_tpu_torch.serving.cache.
+    SlotCache`, the A/B baseline, where ``page_size``, ``n_pages`` and
+    ``kv_dtype`` do not apply.  ``page_size`` / ``n_pages`` shape the
+    page pool (``n_pages=0`` = capacity parity: every slot can reach
+    ``max_len``); ``kv_dtype`` selects page storage (None = the model
+    dtype, "bf16", "f32", "int8"); ``paged_kernel`` routes every paged
+    decode, draft and verify tick's attention through kernel K4 (True)
+    or through the gathered pages (False); None resolves to K4 on a CUDA
+    engine and to the gathered pages on the CPU, the JAX engine's CPU
+    default (True on the CPU runs K4's plain version).  The tokens are
+    the same either way; the knob is fixed at construction (a rebuild,
+    as in the JAX engine), and ``paged=False`` resolves it False.
+    ``max_queue_depth`` bounds the queue;
     ``default_max_new_tokens`` applies when a request names none;
     ``min_prefill_bucket`` floors the power-of-two prompt buckets;
     ``overlap`` runs decoding as the two-stage pipeline (module
@@ -401,9 +427,8 @@ class EngineConfig:
     model's page pool (0 = capacity parity); ``spec_adaptive`` disables
     a slot's speculation when its acceptance over ``spec_window`` ticks
     falls under ``spec_min_acceptance``, and re-enables it for a probe
-    window every ``spec_probe_period`` ticks.  The JAX check that
-    speculation needs ``paged=True`` has no counterpart: the port is
-    paged only.
+    window every ``spec_probe_period`` ticks.  Speculation, like
+    ``prefill_chunk_tokens`` and shared prefixes, needs ``paged=True``.
 
     ``model_flops_per_token`` (e.g. ``obs.xprof.
     transformer_flops_per_token(params)``) turns the token rate into
@@ -423,13 +448,15 @@ class EngineConfig:
     n_slots: int = 4
     max_len: int = 0
     max_prefills_per_tick: int = 2
+    overlap: bool = True
+    paged: bool = True
     page_size: int = 16
     n_pages: int = 0
     kv_dtype: Optional[str] = None
+    paged_kernel: Optional[bool] = None
     max_queue_depth: int = 64
     default_max_new_tokens: int = 64
     min_prefill_bucket: int = 8
-    overlap: bool = True
     prefill_chunk_tokens: int = 0
     max_restarts: int = 3
     restart_backoff: float = 0.05
@@ -527,6 +554,11 @@ class InferenceEngine:
         self.draft_params = draft_params
         self.draft_cfg = draft_cfg
         if self._spec:
+            if not ec.paged:
+                raise ValueError(
+                    "EngineConfig.speculative requires paged=True (the "
+                    "verify kernel resolves page tables inside the "
+                    "compiled tick)")
             if ec.spec_k < 1:
                 raise ValueError(f"spec_k must be >= 1, got {ec.spec_k}")
             mode = ec.spec_draft
@@ -547,14 +579,33 @@ class InferenceEngine:
                         f"draft model must share the tokenizer: vocab "
                         f"{draft_cfg.vocab_size} != {cfg.vocab_size}")
             self._spec_model = mode == "model"
-        if ec.prefill_chunk_tokens < 0:
-            raise ValueError(
-                f"prefill_chunk_tokens must be >= 1 (or 0 to disable), got "
-                f"{ec.prefill_chunk_tokens}")
-        self.slots = PagedSlotCache(cfg, ec.n_slots, ec.max_len,
-                                    page_size=ec.page_size,
-                                    n_pages=ec.n_pages, kv_dtype=ec.kv_dtype,
-                                    device=self.device)
+        if ec.prefill_chunk_tokens:
+            if not ec.paged:
+                raise ValueError(
+                    "EngineConfig.prefill_chunk_tokens requires paged=True "
+                    "(chunks attend the already-landed pages through "
+                    "prefill_with_prefix)")
+            if ec.prefill_chunk_tokens < 1:
+                raise ValueError(
+                    f"prefill_chunk_tokens must be >= 1 (or 0 to disable), "
+                    f"got {ec.prefill_chunk_tokens}")
+        if ec.paged:
+            self.slots = PagedSlotCache(cfg, ec.n_slots, ec.max_len,
+                                        page_size=ec.page_size,
+                                        n_pages=ec.n_pages,
+                                        kv_dtype=ec.kv_dtype,
+                                        device=self.device)
+        else:
+            self.slots = SlotCache(cfg, ec.n_slots, ec.max_len,
+                                   device=self.device)
+        # The paged ticks' attention, resolved once (EngineConfig.
+        # paged_kernel): None is K4 on CUDA and, as the JAX engine's
+        # default off the TPU, the gathered pages on the CPU.  A K4 that
+        # fails to build or launch raises; nothing falls back.
+        want = ec.paged_kernel
+        if want is None:
+            want = self.device.type == "cuda"
+        self._paged_kernel = bool(want) and ec.paged
         self.metrics = ServingMetrics()
         self.scheduler = Scheduler(
             max_queue_depth=ec.max_queue_depth,
@@ -628,7 +679,8 @@ class InferenceEngine:
         self._samp = SlotSampling(ec.n_slots, self.device)
         self._tick = DecodeTick(params, cfg, self.slots.cache,
                                 self._samp.device(), ec.n_slots,
-                                self.slots.max_pages, self.device)
+                                self.slots.max_pages if ec.paged else None,
+                                self.device, kernel=self._paged_kernel)
         self._table_uploaded = -1
         self._active_uploaded: Optional[np.ndarray] = None
         # The admission path's graphs (whole prompts, suffixes and chunks,
@@ -698,8 +750,9 @@ class InferenceEngine:
         self._rate_metrics = self.metrics
         if ec.model_flops_per_token:
             self.metrics.model_flops_per_token.set(ec.model_flops_per_token)
-        self.metrics.kv_pages_total.set(self.slots.n_pages)
-        self.metrics.kv_bytes_per_token.set(self.slots.bytes_per_token)
+        if ec.paged:
+            self.metrics.kv_pages_total.set(self.slots.n_pages)
+            self.metrics.kv_bytes_per_token.set(self.slots.bytes_per_token)
         self._update_page_gauges()
 
     # -- lifecycle ---------------------------------------------------------
@@ -826,7 +879,8 @@ class InferenceEngine:
             raise RequestTooLongError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({n_new}) "
                 f"exceeds slot capacity ({self.slots.max_len})")
-        if self.slots.pages_for(need) > self.slots.n_pages:
+        if (self.engine_cfg.paged
+                and self.slots.pages_for(need) > self.slots.n_pages):
             self.metrics.rejected.inc()
             raise CacheOutOfPagesError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({n_new}) needs "
@@ -952,6 +1006,10 @@ class InferenceEngine:
         return worked
 
     def _update_page_gauges(self) -> None:
+        """The page-pool gauges; a slot-contiguous engine leaves them at
+        0, as the JAX engine does."""
+        if not self.engine_cfg.paged:
+            return
         self.metrics.kv_pages_free.set(self.slots.free_pages)
         self.metrics.kv_pages_shared.set(self.slots.pages_shared)
 
@@ -1027,7 +1085,10 @@ class InferenceEngine:
         re-prefills at its next use.  Raises :class:`ServingError` (empty
         or out-of-vocabulary), :class:`RequestTooLongError`, or
         :class:`CacheOutOfPagesError` when the pool cannot pin it; a
-        failed registration leaves nothing behind."""
+        failed registration leaves nothing behind.  Needs a paged engine
+        (``ValueError`` otherwise, as in the JAX engine)."""
+        if not self.engine_cfg.paged:
+            raise ValueError("prefix sharing requires EngineConfig.paged")
         tokens = tuple(int(t) for t in tokens)
         if not tokens:
             raise ServingError("empty prefix")
@@ -1232,16 +1293,18 @@ class InferenceEngine:
         # Slot pressure before the take: a strictly better-class arrival
         # claims a slot from the worst occupant (suspended, not lost).
         preempted = self._preempt_for_slots()
-        # Page back-pressure: the take stops (requests wait, order kept)
-        # when the next admission's planned pages would overdraw the
-        # free heap.  The plan is clamped to the deepest the heap can
+        # Page back-pressure (paged): the take stops (requests wait, order
+        # kept) when the next admission's planned pages would overdraw
+        # the free heap.  The plan is clamped to the deepest the heap can
         # get (the pool less the registry's pins), or a request that fit
         # at submit would wait at the head forever.
-        budget = self.slots.free_pages
-        pinned = sum(len(e.pages) for e in self._prefixes.values()
-                     if e.pages is not None
-                     and e.epoch == self._cache_epoch)
-        attainable = max(self.slots.n_pages - pinned, 1)
+        paged = self.engine_cfg.paged
+        if paged:
+            budget = self.slots.free_pages
+            pinned = sum(len(e.pages) for e in self._prefixes.values()
+                         if e.pages is not None
+                         and e.epoch == self._cache_epoch)
+            attainable = max(self.slots.n_pages - pinned, 1)
         reserved = 0
         # The per-tick prefill token budget (chunked prefill): admissions
         # after the first stop once the tick's budget is spent.  The
@@ -1252,9 +1315,10 @@ class InferenceEngine:
 
         def admit_fn(req):
             nonlocal reserved, n_admit
-            need = min(self._plan_pages(req), attainable)
-            if reserved + need > budget:
-                return False
+            if paged:
+                need = min(self._plan_pages(req), attainable)
+                if reserved + need > budget:
+                    return False
             if tok_budget:
                 cost = self._prefill_cost(req)
                 if n_admit and self._tick_prefill_spent + cost > tok_budget:
@@ -1263,7 +1327,8 @@ class InferenceEngine:
                     # A chunked admission's chunk is counted where it
                     # lands (_ingest_step).
                     self._tick_prefill_spent += cost
-            reserved += need
+            if paged:
+                reserved += need
             n_admit += 1
             return True
 
@@ -1323,7 +1388,9 @@ class InferenceEngine:
         t_adm = time.monotonic()
         for req in reqs:
             self._observe_admission(req, t_adm)
-        slots, live, firsts, synced = self._admit_paged(reqs)
+        admit = (self._admit_paged if self.engine_cfg.paged
+                 else self._admit_contiguous)
+        slots, live, firsts, synced = admit(reqs)
         if not live:
             return
         if synced:
@@ -1335,6 +1402,26 @@ class InferenceEngine:
             self._taken.remove(req)  # landed: _states owns it now
             self._start_decoding(slot, req, int(first), now)
         self._land_first_tokens(slots, firsts)
+
+    def _admit_contiguous(self, reqs: List[Request]):
+        """The slot-contiguous admission -> ``(slots, requests, first
+        tokens, True)``: a slot each, then one ``("contig", bucket, k)``
+        replay — the group's batch prefill (K1) landed in the slots with
+        one scatter (:func:`~horovod_tpu_torch.serving.cache.
+        insert_prefill_batch`) — and one fetch of the first tokens."""
+        k = len(reqs)
+        lens = np.array([len(r.prompt) for r in reqs], np.int64)
+        padded = np.zeros((k, max(self._bucket(n) for n in lens)), np.int64)
+        for i, r in enumerate(reqs):
+            padded[i, :lens[i]] = r.prompt
+        slots: List[int] = []
+        for _ in reqs:
+            slot = self.slots.alloc()
+            assert slot is not None  # take() is bounded by free_count
+            slots.append(slot)
+        out = self._replay(("contig", padded.shape[1], k),
+                           dict(tokens=padded, lens=lens, slots=slots))
+        return slots, reqs, self._first_tokens(reqs, *out), True
 
     def _map_pages(self, slot: int, req: Request,
                    entry: Optional[_PrefixEntry]) -> None:
@@ -2122,7 +2209,7 @@ class InferenceEngine:
     def _decode_tick(self) -> bool:
         """The synchronous tick (``overlap=False``, the A/B baseline):
         upload the tokens, dispatch, fetch and emit in the same step."""
-        if self.slots.active_count:
+        if self.engine_cfg.paged and self.slots.active_count:
             self._prepare_tick()
         active = self._decode_mask()
         if not active.any():
@@ -2138,7 +2225,7 @@ class InferenceEngine:
         device — then fetch and apply tick N's results while the device
         computes tick N+1."""
         worked = False
-        if self.slots.active_count:
+        if self.engine_cfg.paged and self.slots.active_count:
             # Page grants (and preemptions) before the mask snapshot:
             # host bookkeeping and a non-blocking table copy.
             self._prepare_tick()
@@ -2850,12 +2937,9 @@ class InferenceEngine:
             "slots_active": self.slots.active_count,
             "max_len": self.slots.max_len,
             "prefill_calls": self._prefill_calls,
+            "paged": self.engine_cfg.paged,
             "prefill_chunk_tokens": self.engine_cfg.prefill_chunk_tokens,
             "slots_ingesting": len(self._ingest),
-            "prefixes_registered": len(self._prefixes),
-            "page_size": self.slots.page_size,
-            "kv_dtype": str(self.slots._storage_dtype).replace("torch.", ""),
-            "kv_pages_high_water": self.slots.pages_high_water,
             "overlap": self.engine_cfg.overlap,
             "resume": self.engine_cfg.resume,
             "journal_inflight":
@@ -2865,9 +2949,10 @@ class InferenceEngine:
             # request mix and however many restarts.
             "decode_compilations": self.decode_compilations,
             # Captures of the admission graphs (0 on the CPU): prefills
-            # per ("full", bucket, k) and ("suffix", prefix pages, bucket,
-            # k), the first-token sampler per k; their seconds, and the
-            # device memory reserved around the last warmup.
+            # per ("full", bucket, k), ("suffix", prefix pages, bucket, k)
+            # and ("contig", bucket, k), the first-token sampler per k;
+            # their seconds, and the device memory reserved around the
+            # last warmup.
             "prefill_compilations": (
                 self._graphs.captures["full"] + self._graphs.captures["suffix"]
                 + (self._draft_graphs.captures["full"]
@@ -2875,10 +2960,11 @@ class InferenceEngine:
             "sample_compilations": self._graphs.captures["sample"],
             "prefill_capture_s": round(self._graphs.capture_s, 4),
             "warmup_reserved_bytes": list(self._warm_reserved),
-            # The (bucket, k) whole-prompt prefill shapes used, as the
-            # JAX engine lists its compiled ones; the suffix shapes
-            # (prefix pages, bucket, k).
-            "prefill_buckets": self._graphs.keys("full"),
+            # The (bucket, k) whole-prompt prefill shapes used (paged or
+            # contiguous), as the JAX engine lists its compiled ones; the
+            # suffix shapes (prefix pages, bucket, k).
+            "prefill_buckets": sorted(self._graphs.keys("full")
+                                      + self._graphs.keys("contig")),
             "prefill_suffix_shapes": self._graphs.keys("suffix"),
             # Process-wide kernel launch counts (CPU runs take the plain
             # versions and leave them at 0).
@@ -2897,4 +2983,14 @@ class InferenceEngine:
                     self.draft_slots.free_pages
                     if self.draft_slots is not None else None,
             } if self._spec else {}),
+            **({
+                "page_size": self.slots.page_size,
+                "kv_dtype": str(self.slots._storage_dtype).replace(
+                    "torch.", ""),
+                "kv_pages_high_water": self.slots.pages_high_water,
+                "prefixes_registered": len(self._prefixes),
+                # Whether the paged ticks attend through K4 (resolved at
+                # construction from EngineConfig.paged_kernel).
+                "paged_kernel_engaged": self._paged_kernel,
+            } if self.engine_cfg.paged else {}),
         }

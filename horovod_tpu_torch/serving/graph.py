@@ -12,10 +12,14 @@ SlotSampling`), the parameters and the page pool by address; the
 engine refreshes the inputs with ``copy_`` before each run.
 
 The tick: :func:`~horovod_tpu_torch.models.transformer.decode_step_paged`
-with kernel K4 and no capacity check (the engine's host mirror proves
-capacity), the sampled pick at key position ``pos + 1``, the max logit
-(the engine's finiteness probe), and the picked tokens written back into
-the token input, where the overlapped pipeline's next tick reads them.
+with no capacity check (the engine's host mirror proves capacity),
+attending through kernel K4 or, with the engine's ``paged_kernel``
+resolved False, through the gathered pages; or, over a slot-contiguous
+cache (the engine's ``paged=False``), :func:`~horovod_tpu_torch.models.
+transformer.decode_step_slots`, which has no table input.  Then the
+sampled pick at key position ``pos + 1``, the max logit (the engine's
+finiteness probe), and the picked tokens written back into the token
+input, where the overlapped pipeline's next tick reads them.
 
 A speculative engine also owns a :class:`SpecTick`, captured as one more
 graph over the same token, mask and table inputs (the JAX engine's
@@ -32,10 +36,12 @@ the JAX engine's compile sets: a whole-prompt prefill per ``("full",
 bucket, k)`` (the JAX ``_prefill_fn``), a suffix or chunk prefill over a
 gathered prefix per ``("suffix", prefix pages, bucket, k)`` (the JAX
 ``_suffix_prefill``, whose prefix length is a traced scalar: here a
-device scalar that K1 reads), and the first-token sampler per
-``("sample", k)`` (the JAX ``_first_sample``).  Each prefill graph
-prefills, lands its K/V in the pages and takes each row's argmax and
-max logit (the engine's finiteness probe), so an admission is one
+device scalar that K1 reads), a whole-prompt prefill landed in a
+slot-contiguous cache per ``("contig", bucket, k)`` (the JAX
+``_prefill_fn`` followed by ``SlotCache.insert_batch``), and the
+first-token sampler per ``("sample", k)`` (the JAX ``_first_sample``).
+Each prefill graph prefills, lands its K/V and takes each row's argmax
+and max logit (the engine's finiteness probe), so an admission is one
 replay and one host sync.
 
 Each capture counts ``xla_compiles_total{fn=}`` in the default registry
@@ -138,27 +144,35 @@ def download(*tensors: torch.Tensor) -> Download:
 class DecodeTick:
     """One decode tick over all slots, with its static inputs.
 
-    ``pool`` is the page pool (updated in place by the tick), ``samp``
-    the four sampling columns; both are read by address.  On CUDA the
+    ``pool`` is the page pool, or with ``max_pages=None`` the
+    slot-contiguous cache (no page table then); the tick updates it in
+    place.  ``samp`` holds the four sampling columns; both are read by
+    address.  ``kernel`` (paged only) attends through K4, else through
+    the gathered pages; it is fixed for the tick's life, as the JAX
+    engine bakes ``paged_kernel`` into its executable.  On CUDA the
     first :meth:`run` captures the tick (or :meth:`capture` does, at
     warmup) and every run replays it; :attr:`captures` and
     :attr:`replays` count them.  K4's wrapper runs once a layer during
     capture, where it launches nothing: the count it adds there is taken
     back, and each replay adds that many launches, so
-    ``paged_attention.paged_attend_launches`` still counts launches."""
+    ``paged_attention.paged_attend_launches`` still counts launches (a
+    tick that never calls K4 adds none)."""
 
     def __init__(self, params, cfg: T.TransformerConfig, pool, samp,
-                 n_slots: int, max_pages: int, device: torch.device):
+                 n_slots: int, max_pages: Optional[int],
+                 device: torch.device, *, kernel: bool = True):
         self.params = params
         self.cfg = cfg
         self.pool = pool
         self.samp = samp
+        self.kernel = bool(kernel) and max_pages is not None
         self.device = torch.device(device)
         dev = self.device
         self.tokens = torch.zeros(n_slots, dtype=torch.int64, device=dev)
         self.active = torch.zeros(n_slots, dtype=torch.bool, device=dev)
-        self.table = torch.zeros((n_slots, max_pages), dtype=torch.int32,
-                                 device=dev)
+        self.table = (torch.zeros((n_slots, max_pages), dtype=torch.int32,
+                                  device=dev)
+                      if max_pages is not None else None)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.captures = 0
         self.replays = 0
@@ -175,9 +189,14 @@ class DecodeTick:
         """The tick's operations: ``(next tokens (S,) int64, max logit
         (S,) f32)``; inactive rows pick token 0."""
         key_pos = self.pool["pos"].long() + 1  # the picked token's position
-        logits, _ = T.decode_step_paged(
-            self.params, self.tokens, self.pool, self.table, self.cfg,
-            self.active, kernel=True, check_capacity=False)
+        if self.table is None:
+            logits, _ = T.decode_step_slots(
+                self.params, self.tokens, self.pool, self.cfg, self.active,
+                check_capacity=False)
+        else:
+            logits, _ = T.decode_step_paged(
+                self.params, self.tokens, self.pool, self.table, self.cfg,
+                self.active, kernel=self.kernel, check_capacity=False)
         s_t, s_k, s_p, s_key = self.samp
         nxt = T.sample_token_rows(logits, s_t, s_k, s_p, s_key, key_pos,
                                   torch.zeros_like(key_pos))
@@ -187,9 +206,11 @@ class DecodeTick:
 
     def capture(self) -> None:
         """Capture the tick as a CUDA graph (CUDA only; once).  The warmup
-        runs go with every slot inactive: inactive rows write only to the
-        NULL page and keep their positions, so nothing a slot reads
-        changes; the token and mask inputs are restored after."""
+        runs go with every slot inactive: inactive rows keep their
+        positions and write only to the NULL page (paged) or at their
+        own next write position (contiguous), which the next real tick
+        writes before it attends it, so nothing a slot reads changes;
+        the token and mask inputs are restored after."""
         _capture_tick(self, (self.tokens, self.active))
 
     def reset_inputs(self) -> None:
@@ -197,7 +218,8 @@ class DecodeTick:
         supervised restart): the graph keeps reading the same tensors,
         so a restart never recaptures."""
         for t in (self.tokens, self.active, self.table):
-            t.zero_()
+            if t is not None:
+                t.zero_()
 
     def twin(self) -> "DecodeTick":
         """An uncaptured tick over copies of this one's pool, inputs and
@@ -206,10 +228,12 @@ class DecodeTick:
         t = DecodeTick(self.params, self.cfg,
                        {k: v.clone() for k, v in self.pool.items()},
                        tuple(c.clone() for c in self.samp),
-                       self.tokens.shape[0], self.table.shape[1],
-                       self.device)
+                       self.tokens.shape[0],
+                       None if self.table is None else self.table.shape[1],
+                       self.device, kernel=self.kernel)
         for name in ("tokens", "active", "table"):
-            getattr(t, name).copy_(getattr(self, name))
+            if getattr(self, name) is not None:
+                getattr(t, name).copy_(getattr(self, name))
         return t
 
     def run(self):
@@ -238,9 +262,10 @@ def _count_k4(tick) -> None:
 
 def _capture_tick(tick, inputs) -> None:
     """Capture ``tick.body`` (CUDA only; once): warm runs on a side
-    stream with every slot inactive — inactive rows write only to the
-    NULL page, keep their positions and commit nothing — then the
-    capture.  K4's capture-time count is taken back into
+    stream with every slot inactive — inactive rows keep their positions
+    and commit nothing; their writes land where no slot attends before
+    rewriting (the NULL page, or a contiguous slot's next position) —
+    then the capture.  K4's capture-time count is taken back into
     ``tick.k4_launches_per_replay``; ``inputs`` (tensors the body
     rewrites: the token vector, the mask) hold what they held before."""
     if not tick.graphed or tick.graph is not None:
@@ -294,13 +319,15 @@ class SpecTick:
     draft_propose_paged`, K4 once a draft layer a step); one
     :func:`~horovod_tpu_torch.models.transformer.decode_verify_paged`
     over the window (K4 at ``R = G * (k + 1)``, sampled rows drawn at
-    offset 0); the accepted drafts committed to the history, or the
-    draft pool's ``pos`` set back to the target's; each slot's next
-    input ``t[s, acc[s]]`` (0 for inactive rows) written into the token
-    input.  It returns ``(t (S, W), max logit (S, W), acc (S,))``.  On
-    CUDA it is captured once and replayed, as :class:`DecodeTick` is;
-    K4's launches a replay are ``(k + 1) * L_draft + L`` for a model
-    draft, ``L`` for the n-gram one."""
+    offset 0; with the plain tick's ``kernel`` False, the draft and the
+    verify attend the gathered pages instead of K4); the accepted drafts
+    committed to the history, or the draft pool's ``pos`` set back to
+    the target's; each slot's next input ``t[s, acc[s]]`` (0 for
+    inactive rows) written into the token input.  It returns ``(t (S,
+    W), max logit (S, W), acc (S,))``.  On CUDA it is captured once and
+    replayed, as :class:`DecodeTick` is; K4's launches a replay are
+    ``(k + 1) * L_draft + L`` for a model draft, ``L`` for the n-gram
+    one (0 with ``kernel`` False)."""
 
     def __init__(self, plain: DecodeTick, k: int, max_len: int,
                  draft: Optional[Tuple] = None):
@@ -349,11 +376,11 @@ class SpecTick:
             dpool["pos"].copy_(pool["pos"])
             drafts, _ = T.draft_propose_paged(dparams, tokens, dpool,
                                               self.dtable, dcfg, active,
-                                              self.k, kernel=True)
+                                              self.k, kernel=pl.kernel)
         window = torch.cat([tokens[:, None], drafts], dim=1)
         t, mx, acc, _ = T.decode_verify_paged(
             pl.params, window, pool, pl.table, pl.cfg, active, self.spec_on,
-            sample=pl.samp, kernel=True)
+            sample=pl.samp, kernel=pl.kernel)
         if self.draft is None:
             # Accepted drafts are committed history too.
             j = torch.arange(1, self.k + 1, device=self.device)[None, :]
@@ -451,6 +478,9 @@ class PrefillGraph:
       pages of no slot), ``phys`` and ``off`` (k, bucket); for
       ``suffix`` also ``p0`` () the prefix length and ``pages``
       (n_pages,) the prefix's page ids, NULL-padded.
+    * ``("contig", bucket, k)``: ``tokens`` (k, bucket) right-padded,
+      ``lens`` (k,) real lengths and ``slots`` (k,), the slot-contiguous
+      cache's slots the rows land in, at position 0.
     * ``("sample", k)``: ``keys`` (k, 2), ``top_k`` (k,), ``pos`` (k,);
       f32 ``temp`` (k,), ``top_p`` (k,); and :attr:`logits` (k, V) f32,
       filled by a device copy."""
@@ -463,6 +493,9 @@ class PrefillGraph:
             k = key[1]
             ints = [("keys", (k, 2)), ("top_k", (k,)), ("pos", (k,))]
             floats = [("temp", (k,)), ("top_p", (k,))]
+        elif kind == "contig":
+            bucket, k = key[1:]
+            ints = [("tokens", (k, bucket)), ("lens", (k,)), ("slots", (k,))]
         elif kind in ("full", "suffix"):
             bucket, k = key[-2:]
             ints = [("tokens", (k, bucket)), ("lens", (k,)),
@@ -496,24 +529,27 @@ class PrefillGraph:
 
 
 class PrefillGraphs:
-    """The admission path's graphs over one model and one page pool,
-    keyed as :class:`PrefillGraph` says, created at first use.
+    """The admission path's graphs over one model and one page pool (or
+    one slot-contiguous cache, for ``contig`` keys), keyed as
+    :class:`PrefillGraph` says, created at first use.
 
-    ``pool`` (the page pool, written by every prefill graph's landing)
-    and the parameters are read by address, as :class:`DecodeTick` reads
-    them, so a restart (the pool zeroed in place) or a copy-on-write
-    never recaptures.  On CUDA :meth:`run` captures a key's graph at its
-    first run (warm eager runs on a side stream first, landing only in
-    the NULL page) and replays it from then on; every graph shares one
-    memory pool, so a graph's outputs hold until the next replay of any
-    of them: a caller that keeps one past that clones it.  K1's wrapper
-    runs once a layer during capture (an MoE model's G1 three times a
-    layer), where it launches nothing: the count it adds there is taken
-    back, and each replay adds that many launches, so
+    ``pool`` (written by every prefill graph's landing) and the
+    parameters are read by address, as :class:`DecodeTick` reads them,
+    so a restart (the cache zeroed in place) or a copy-on-write never
+    recaptures.  On CUDA :meth:`run` captures a key's graph at its first
+    run (warm eager runs on a side stream first, landing only in the NULL
+    page; a ``contig`` graph's warm runs land what its replay lands, in
+    the slots being admitted) and replays it from then on; every graph
+    shares one memory pool, so a graph's outputs hold until the next
+    replay of any of them: a caller that keeps one past that clones it.
+    K1's wrapper runs once a layer during capture (an MoE model's G1
+    three times a layer), where it launches nothing: the count it adds
+    there is taken back, and each replay adds that many launches, so
     ``attention.flash_fwd_launches`` and
     ``grouped_matmul.grouped_matmul_launches`` still count launches.
-    :attr:`captures` counts captures by kind, :attr:`capture_s` their
-    seconds (warm runs included), :meth:`keys` the keys run so far.
+    :attr:`captures` counts captures by kind (``contig`` under ``full``:
+    both are the JAX engine's whole-prompt prefill), :attr:`capture_s`
+    their seconds (warm runs included), :meth:`keys` the keys run so far.
     ``draft``: the graphs of a speculative engine's draft model (their
     captures count as ``serving_draft_prefill``)."""
 
@@ -530,11 +566,13 @@ class PrefillGraphs:
         self._graphs: Dict[tuple, PrefillGraph] = {}
         self._used: set = set()
         self._mempool = None
+        # Captures by kind; a contig key counts as a full one (both are
+        # the JAX engine's whole-prompt _prefill_fn).
         self.captures = {"full": 0, "suffix": 0, "sample": 0}
         # xla_compiles_total's fn label a capture counts under, by kind.
         prefill = "serving_draft_prefill" if draft else "serving_prefill"
         self._compile_fn = {"full": prefill, "suffix": prefill,
-                            "sample": "serving_sample"}
+                            "contig": prefill, "sample": "serving_sample"}
         self.capture_s = 0.0
         self.replays = 0
 
@@ -568,11 +606,15 @@ class PrefillGraphs:
                                        fl["top_p"], f["keys"], f["pos"],
                                        torch.zeros_like(f["pos"]))
             return toks, g.logits.amax(dim=-1)
-        if kind == "full":
+        if kind in ("full", "contig"):
             k, bucket = f["tokens"].shape
             cache = T.init_cache(self.cfg, k, bucket, device=self.device)
             logits, kv = T.prefill(self.params, f["tokens"], cache, self.cfg,
                                    true_len=f["lens"])
+            if kind == "contig":
+                self._cache.insert_prefill_batch(self.pool, f["slots"], kv)
+                return (logits, torch.argmax(logits, dim=-1),
+                        logits.amax(dim=-1))
         else:
             pk, pv = self._cache.gather_prefix_pages(self.pool, f["pages"])
             logits, kv = T.prefill_with_prefix(
@@ -586,14 +628,16 @@ class PrefillGraphs:
 
     def capture(self, g: PrefillGraph) -> None:
         """Capture ``g`` (CUDA only; once): warm runs of its body on a
-        side stream, landing only in the NULL page and writing no slot's
-        position, then the capture into the shared memory pool.  Its
-        static inputs hold what they held before."""
+        side stream, a paged landing only in the NULL page and writing no
+        slot's position (a ``contig`` landing writes the admitted slots,
+        as the replay after the capture does again), then the capture
+        into the shared memory pool.  Its static inputs hold what they
+        held before."""
         if not self.graphed or g.graph is not None:
             return
         t0 = time.monotonic()
         saved = g.ints.dev.clone()
-        if g.key[0] != "sample":
+        if g.key[0] in ("full", "suffix"):
             g.ints.d["phys"].zero_()
             g.ints.d["valid"].zero_()
         stream = torch.cuda.current_stream(self.device)
@@ -616,7 +660,7 @@ class PrefillGraphs:
         attn.flash_fwd_launches = k1
         gmm.grouped_matmul_launches = g1
         g.graph, g.out = graph, out
-        self.captures[g.key[0]] += 1
+        self.captures["full" if g.key[0] == "contig" else g.key[0]] += 1
         self.capture_s += time.monotonic() - t0
 
     def run(self, g: PrefillGraph):

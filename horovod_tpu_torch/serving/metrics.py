@@ -35,7 +35,8 @@ class ServingMetrics:
     * ``tick_dispatch`` / ``tick_device_wait`` / ``tick_host`` — the
       decode tick's phases: enqueueing the tick's work, blocking on its
       results, and host bookkeeping.
-    * ``kv_pages_*`` / ``kv_bytes_per_token`` — page-pool gauges.
+    * ``kv_pages_*`` / ``kv_bytes_per_token`` — page-pool gauges (0 on a
+      slot-contiguous engine).
     * ``decode_ticks`` / ``host_syncs`` — ticks dispatched and blocking
       fetches on the serving path (``host_syncs_per_tick`` in /stats).
     * ``tokens_per_tick`` — tokens one tick emitted for a slot (1
@@ -124,7 +125,8 @@ class ServingMetrics:
             "serving_host_syncs_total",
             "Host sync points (blocking value fetches) on the serving path")
         self.kv_pages_total = r.gauge(
-            "serving_kv_pages_total", "KV page pool size")
+            "serving_kv_pages_total",
+            "KV page pool size (paged cache; 0 = slot-contiguous)")
         self.kv_pages_free = r.gauge(
             "serving_kv_pages_free",
             "KV pages on the free heap (admission headroom)")

@@ -22,17 +22,19 @@ The online space, derived from a warmed engine by
   chunk size changes where the chunks fall.  A value is kept when every
   key it reaches, on every prompt the construction value serves without
   a capture, is captured (:func:`_captured_chunk_bounds`).
-* ``page_grant_ahead`` — swept {0, 1, 2} pages: how far past the write
-  position decode growth grants pages.  Page-table data only.  The port
-  is paged only, so the knob is always in the space.
+* ``page_grant_ahead`` — swept {0, 1, 2} pages (paged engines only):
+  how far past the write position decode growth grants pages.
+  Page-table data only.
 * ``spec_enabled`` — swept {on, off} (speculative engines only): both
   tick graphs are captured by warmup and the toggle is admission-mask
   data (``_spec_runtime_enabled``).
 
 No knob changes emitted tokens.  Constructor-level knobs (``kv_dtype``,
-``n_slots``, ``page_size``, ``spec_k``) are the offline space
-:mod:`horovod_tpu_torch.tuning.replay` explores by building an engine a
-sample.
+``n_slots``, ``page_size``, ``spec_k``, ``paged``, ``paged_kernel``) are
+the offline space :mod:`horovod_tpu_torch.tuning.replay` explores by
+building an engine a sample: ``paged_kernel`` is fixed in the captured
+tick, so ``--set paged_kernel=false`` on a replay run A/Bs K4 against
+the gathered pages.
 """
 
 from __future__ import annotations
@@ -150,12 +152,13 @@ def online_knob_space(engine) -> KnobSpace:
                 apply_path=f"EngineConfig replace; moves inside the "
                            f"warmed {bucket}-token chunk bucket"))
 
-    knobs.append(Knob(
-        name="page_grant_ahead", default=cfg.page_grant_ahead,
-        kind="sweep",
-        candidates=tuple(sorted({cfg.page_grant_ahead, 0, 1, 2})),
-        apply_path="EngineConfig replace; page-table data only "
-                   "(_ensure_write_page grant-ahead span)"))
+    if cfg.paged:
+        knobs.append(Knob(
+            name="page_grant_ahead", default=cfg.page_grant_ahead,
+            kind="sweep",
+            candidates=tuple(sorted({cfg.page_grant_ahead, 0, 1, 2})),
+            apply_path="EngineConfig replace; page-table data only "
+                       "(_ensure_write_page grant-ahead span)"))
 
     if getattr(engine, "_spec", False):
         knobs.append(Knob(

@@ -5,11 +5,12 @@ replay loop, the offline tuner and the CLI are the JAX module's code
 (``tests/test_torch_port_tuning.py`` compares them); the engine build
 (:func:`_build_cli_engine`) is the port's, through
 :mod:`~horovod_tpu_torch.serving.router.replica_main`'s model loaders on
-``--device`` (``cuda`` unless ``cpu`` is asked for).  Offline knobs that
-the port's engine does not have — ``paged_kernel`` (the port is paged
-and always decodes through its kernel) and ``tp`` (tensor-parallel
-serving is not ported) — raise :class:`UnsupportedKnobError` rather than
-being dropped.
+``--device`` (``cuda`` unless ``cpu`` is asked for).  The one offline
+knob the port's engine does not have, ``tp`` (tensor-parallel serving is
+not ported), raises :class:`UnsupportedKnobError` rather than being
+dropped; ``--set paged=false`` builds the slot-contiguous engine and
+``--set paged_kernel=false`` the gathered-pages tick, as in the JAX
+module.
 
 A journal file becomes a trace (every begun request with its emitted
 tokens and arrival offset); :func:`replay` drives a warmed engine with
@@ -19,7 +20,7 @@ scores the run with the online tuner's
 replayed request's tokens against the journal's record.  :func:`tune`
 runs Bayesian optimization over replay runs, one engine a sample, so
 constructor knobs (``kv_dtype``, ``n_slots``, ``page_size``,
-``spec_k``) are tunable offline.
+``spec_k``, ``paged``, ``paged_kernel``) are tunable offline.
 
 CLI::
 
@@ -44,9 +45,6 @@ __all__ = ["TraceRequest", "ReplayReport", "read_trace", "replay",
 #: EngineConfig fields of the JAX engine that the port's engine lacks,
 #: with the reason.
 UNSUPPORTED_KNOBS = {
-    "paged_kernel": "the port is paged only and always decodes through "
-                    "its paged-attention kernel",
-    "paged": "the port is paged only",
     "tp": "tensor-parallel serving is not ported",
 }
 

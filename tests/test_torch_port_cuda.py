@@ -15,7 +15,11 @@ step is 2^-8 = 3.9e-3 of a value: a few one-step flips where the f32
 sums differ in their last bits).  The serving engine's decode tick,
 captured as a CUDA graph, is held to the same tick run eagerly bit for
 bit: the same kernels on the same inputs, also after a copy-on-write of
-a shared prefix page; so is each admission graph (a whole-prompt
+a shared prefix page, and on a slot-contiguous engine (``paged=False``:
+no K4 launch; its contiguous admission graph too, and a restart keeps
+its cache tensors and its capture); ``paged_kernel`` engages K4 by
+default on the card and ``False`` launches none; so is each admission
+graph (a whole-prompt
 prefill, a suffix prefill replayed at two prefix lengths, a chunk, the
 first-token sampler) against its body run eagerly, and K1 reading its
 shift from the device against K1 given it by value.  The captured train
@@ -1220,6 +1224,115 @@ def test_profile_records_k4_in_a_captured_tick(dev, tmp_path):
     assert {e["pid"] // M.PID_STRIDE for e in merged} == {1, 2}
     while not all(f.done() for f in futs):
         engine.step()
+
+
+# --- the slot-contiguous cache and the paged_kernel knob ---------------------
+
+
+def test_captured_contiguous_tick_bit_identical_to_eager(dev):
+    """A ``paged=False`` engine: twenty replays of its captured tick
+    (``decode_step_slots``, the live mix at unequal depths, one slot
+    leaving halfway) equal the eager tick run from a copy of the same
+    state — tokens, max logits, the slot cache and positions — with no
+    K4 launch; a contiguous admission graph (``("contig", 64, 2)``)
+    equals its body; a decode fault restarts the engine with the slot
+    cache zeroed where it lies and nothing recaptured."""
+    inj = serving.FaultInjector()
+    engine, cfg = _serving_engine(dev, overlap=False, paged=False,
+                                  faults=inj)
+    engine.warmup((8,))
+    assert engine.stats()["decode_compilations"] == 1
+    assert "paged_kernel_engaged" not in engine.stats()
+    futs = _mixed_requests(engine, 60)
+    while engine.scheduler.depth or engine.slots.active_count < 8:
+        engine.step()
+    engine.step()
+    tick = engine._tick
+    assert tick.table is None and tick.k4_launches_per_replay == 0
+    tick.tokens.copy_(torch.from_numpy(engine._host_tokens()))
+    tick.active.fill_(True)
+    engine._samp.device()
+    eager = tick.twin()
+    k4, replays = PA.paged_attend_launches, tick.replays
+    graphed = []
+    for i in range(20):
+        if i == 10:
+            tick.active[3] = False
+        nxt, mx = tick.run()
+        graphed.append((nxt.clone(), mx.clone()))
+    assert tick.replays - replays == 20
+    assert PA.paged_attend_launches == k4
+    for i in range(20):
+        if i == 10:
+            eager.active[3] = False
+        nxt, mx = eager.body()
+        assert torch.equal(nxt, graphed[i][0]), i
+        assert torch.equal(mx, graphed[i][1]), i
+    for name, t in tick.pool.items():
+        assert torch.equal(t, eager.pool[name]), name
+    engine.terminate()
+    # The admission graph against its body, on a fresh engine's cache.
+    engine, cfg = _serving_engine(dev, overlap=False, paged=False,
+                                  faults=inj)
+    graphs = engine._graphs
+    rng = np.random.default_rng(3)
+    fields = dict(tokens=rng.integers(0, 32000, (2, 64)),
+                  lens=np.array([50, 33]), slots=[5, 2])
+    cache0 = {k: t.clone() for k, t in graphs.pool.items()}
+    g = graphs.get(("contig", 64, 2))
+    g.set(**fields)
+    out = [t.clone() for t in graphs.run(g)]
+    assert g.k1_launches_per_replay == cfg.n_layers
+    twin = PrefillGraphs(graphs.params, graphs.cfg, cache0, graphs.device)
+    e = twin.get(("contig", 64, 2))
+    e.set(**fields)
+    e.upload()
+    for a, b in zip(out, twin.body(e)):
+        assert torch.equal(a, b)
+    for name, t in graphs.pool.items():
+        assert torch.equal(t, cache0[name]), name
+    assert graphs.pool["pos"][[5, 2]].tolist() == [50, 33]
+    # A restart mid-burst: same tensors, one capture, full counts.
+    engine.warmup((8,))
+    ptrs = {k: t.data_ptr() for k, t in engine.slots.cache.items()}
+    futs = _mixed_requests(engine, 24)
+    while sum(len(f.tokens_so_far()) for f in futs) < 60:
+        engine.step()
+    inj.add(serving.FaultSpec(site="decode_tick", kind="raise",
+                              skip=inj.visits("decode_tick")))
+    while not all(f.done() for f in futs):
+        engine.step()
+    assert all(len(f.result(timeout=0)) == 24 for f in futs)
+    st = engine.stats()
+    assert (st["engine_restarts"], st["decode_compilations"],
+            st["journal_inflight"]) == (1, 1, 0)
+    assert {k: t.data_ptr() for k, t in engine.slots.cache.items()} == ptrs
+
+
+@pytest.mark.parametrize("knob", [None, False])
+def test_paged_kernel_knob_on_cuda(dev, knob):
+    """``paged_kernel=None`` engages K4 on a CUDA engine (once a layer a
+    replay); ``False`` launches no K4 (the gathered pages), in the plain
+    and the speculative tick alike; both serve a mixed burst to its full
+    count with one capture a tick."""
+    for spec in (False, True):
+        engine, cfg = _serving_engine(dev, paged_kernel=knob,
+                                      speculative=spec, spec_k=4)
+        engine.warmup((8,))
+        st = engine.stats()
+        assert st["paged_kernel_engaged"] is (knob is None)
+        per = cfg.n_layers if knob is None else 0
+        assert engine._tick.k4_launches_per_replay == per
+        if spec:
+            assert engine._spec_tick.k4_launches_per_replay == per
+        k4 = PA.paged_attend_launches
+        futs = _mixed_requests(engine, 24)
+        while not all(f.done() for f in futs):
+            engine.step()
+        assert all(len(f.result(timeout=0)) == 24 for f in futs)
+        assert (PA.paged_attend_launches > k4) is (knob is None)
+        assert engine.stats()["decode_compilations"] == (2 if spec else 1)
+        engine.terminate()
 
 
 # --- the serving fleet: a CUDA replica, the online tuner ----------------------

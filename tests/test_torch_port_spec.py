@@ -37,9 +37,9 @@ d_model 32, 4 heads over 2 kv heads, 2 layers; a 1-layer draft):
   ``"speculative"`` field.
 
 JAX tests with no counterpart here: ``test_speculative_requires_paged``
-(the port is paged only: ``EngineConfig`` has no ``paged`` field), and
-the JAX engine's tuner gate (``_spec_runtime_enabled``, set by
-``tuning/``, which is not ported).  The ``spec_fallback`` span events
+(its counterpart is in ``test_torch_port_unpaged.py``), and the JAX
+engine's tuner gate (``_spec_runtime_enabled``, set by ``tuning/``,
+which ``test_torch_port_tuning.py`` covers).  The ``spec_fallback`` span events
 are held to the JAX engine's in ``test_torch_port_obs.py``.
 
 Engines are lent across scenarios (``run_both(shared=True)``) and read

@@ -40,6 +40,7 @@ from horovod_tpu.tuning import gp as JGP
 from horovod_tpu.tuning import params as JPARAMS
 from horovod_tpu_torch import serving
 from horovod_tpu_torch import tuning as TTUNE
+from horovod_tpu_torch.models import transformer as T
 from horovod_tpu_torch.tuning import (
     BayesianOptimizer,
     CategoricalSweep,
@@ -149,15 +150,16 @@ def test_copies_stay_verbatim(rel):
 
 def test_params_copy_but_paged_and_the_chunk_range():
     """``params.py`` is the JAX module but for ``online_knob_space``
-    (no ``cfg.paged`` test; the chunk knob's bounds from
-    ``_captured_chunk_bounds``) and the two helpers that compute them."""
+    (the chunk knob's bounds from ``_captured_chunk_bounds``; the page
+    knob, as in the JAX module, only on a paged engine) and the two
+    helpers that compute them."""
     port = _defs(_tree("horovod_tpu_torch", "tuning/params.py", False))
     jax_ = _defs(_tree("horovod_tpu", "tuning/params.py", True))
     assert set(port) - set(jax_) == {"_pow2", "_captured_chunk_bounds"}
     for name in set(jax_) - {"online_knob_space"}:
         assert ast.dump(port[name]) == ast.dump(jax_[name]), name
     text = ast.unparse(port["online_knob_space"])
-    assert "paged" not in text and "_captured_chunk_bounds" in text
+    assert "if cfg.paged:" in text and "_captured_chunk_bounds" in text
 
 
 def test_replay_copy_but_the_engine_build():
@@ -179,22 +181,47 @@ def test_package_exports_match():
     assert TTUNE.__all__ == JTUNE.__all__
 
 
-def test_unsupported_offline_knobs_are_typed(model):
-    """The JAX engine's ``paged_kernel``, ``paged`` and ``tp`` are not
-    the port's: asking for one raises, never drops it."""
+def _cli_args():
     import argparse
 
-    args = argparse.Namespace(params="", seed=0, vocab=64, d_model=32,
+    return argparse.Namespace(params="", seed=0, vocab=64, d_model=32,
                               n_heads=4, n_layers=2, d_ff=64, max_seq=48,
                               kv_heads=2, slots=2, max_queue_depth=8,
                               max_prefills_per_tick=1, chunk=0, set={},
                               device="cpu")
-    for knob in ("paged_kernel", "tp", "paged"):
-        with pytest.raises(TREPLAY.UnsupportedKnobError, match=knob):
-            TREPLAY._build_cli_engine(args, {knob: 1})
+
+
+def test_unsupported_offline_knobs_are_typed(model):
+    """The JAX engine's ``tp`` is not the port's: asking for it raises,
+    never drops it.  It is the only such knob."""
+    assert set(TREPLAY.UNSUPPORTED_KNOBS) == {"tp"}
+    args = _cli_args()
+    with pytest.raises(TREPLAY.UnsupportedKnobError, match="tp"):
+        TREPLAY._build_cli_engine(args, {"tp": 1})
     engine = TREPLAY._build_cli_engine(args, {"page_grant_ahead": 1})
     assert engine.engine_cfg.page_grant_ahead == 1
     assert engine.device.type == "cpu"
+
+
+@pytest.mark.parametrize("knob,engaged", [("paged", None),
+                                          ("paged_kernel", False)])
+def test_offline_paged_knobs_build_engines(model, knob, engaged):
+    """``--set paged=false`` builds the slot-contiguous engine and
+    ``--set paged_kernel=false`` the gathered-pages one, and each serves
+    the oracle's tokens; the online space of the slot-contiguous engine
+    has no page knob, as the JAX module's."""
+    engine = TREPLAY._build_cli_engine(_cli_args(), {knob: False})
+    st = engine.stats()
+    assert st["paged"] is (knob != "paged")
+    assert st.get("paged_kernel_engaged") is engaged
+    fut = engine.submit([1, 2, 3], max_new_tokens=5)
+    while not fut.done():
+        engine.step()
+    ref = T.greedy_decode(engine.params, torch.tensor([[1, 2, 3]]), 5,
+                          engine.cfg)
+    assert fut.result(timeout=0) == ref[0].tolist()
+    names = {k.name for k in online_knob_space(engine).knobs}
+    assert ("page_grant_ahead" in names) is (knob != "paged")
 
 
 # ---------------------------------------------------------------------------
