@@ -269,6 +269,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    timed, its bytes; ``restore`` into a zeroed template) whose next
    step's loss equals the uninterrupted one's bit for bit; then each
    step's wall, queued device time, tok/s and eager body's wall.
+   Then ``pipeline``, pipeline and expert parallelism on one card
+   (``pipeline_full_width``): ``TRAIN`` at B = 8 through the virtual
+   pipeline (``parallel.pipeline._Stages.virtual``: every stage in this
+   process, the exchange a list rotation) at P = 4 (2 layers a stage),
+   M = 8: ``gpipe``, ``1f1b`` and ``interleaved`` (v = 2) in f32 against
+   ``loss_fn``'s backward (the loss within ``PIPE_LOSS_TOL``, each
+   gradient's largest difference within ``PIPE_GRAD_TOL`` of its largest
+   value), then in bf16 each timed against the eager plain step (the
+   same backward; wall, the host's enqueue, and the profiler's device
+   busy time, profiled last), K1, K2 and K3 counted on each call against
+   the schedule's count (1F1B replays every stage's forward); 1F1B's peak
+   memory over its start at M = 4 and 16 with microbatches of one row
+   (below 2 x and below GPipe's at 16); ``pipelined_value_and_grad``
+   under 1F1B over the real exchange at pp = 1 on a size-1 NCCL group
+   against ``loss_fn`` in f32; then ``MOE_TRAIN`` with ``moe_axis="ep"``
+   bound to a size-1 group, bit-equal to ``moe_axis=None`` eager and
+   through a captured ``make_train_step(mesh=, axis="ep")`` with
+   ``DistributedOptimizer(axis_name="ep")``, and pipelined under 1F1B
+   with the balance loss at M = 1 against ``loss_fn`` in f32.  The phase
+   must end within ``PIPE_BUDGET_S``.
    Then ``launcher_elastic``, the launch and cluster layer: ``python -m
    horovod_tpu_torch.runner --check-build``, then one LM job of the same
    width and batch (``LAUNCH_WORKER``, written to a temporary directory:
@@ -352,7 +372,8 @@ unpaged and paged-kernel A/B runs, the tracing phase's four bursts, the fleet's 
 in the survivor (read from each replica's ``/stats``), the four
 training legs and the traced training steps, the MoE legs, prefill runs
 and bursts, the sequence_parallel phase's virtual-ring passes, sp = 1
-training legs and ring-config bursts, the gspmd phase's GSPMD leg; K4's
+training legs and ring-config bursts, the gspmd phase's GSPMD leg, the
+pipeline phase's schedules and MoE legs; K4's
 verify calls at R = 20 in an entry of their own; G1's
 over the dropless prefill runs, both MoE bursts and the dropless
 training leg, G2's over that leg); the last line is
@@ -475,6 +496,7 @@ CAPACITY_NEW_TOKENS = 16
 KERNEL_AB_REPS, KERNEL_AB_POOLS = 2, (None, "int8")
 
 REPORT: dict = {"phase_s": {}}
+SCRIPT_LIMIT_S = 900.0  # time budget for the whole script, in seconds
 
 
 def log(msg: str) -> None:
@@ -567,7 +589,9 @@ def queued_ms(fn, n: int = 10, reps: int = 5) -> float:
     back-to-back events time the host; and where ``torch.profiler``
     cannot be trusted: late in this script it has kept about one kernel
     record in five of a session (a chunk kernel's device time a fifth
-    of the same call's in a fresh process)."""
+    of the same call's in a fresh process).  Not for an eager step of
+    thousands of launches: the launch queue fills behind the sleep and
+    the host waits, so the calls never fit."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -3594,6 +3618,362 @@ def gspmd_full_width(card: str, tmp: Path) -> dict:
     del g, d, full
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# --- the pipeline phase: GPipe, 1F1B, interleaved; expert parallelism --------
+
+# The virtual pipeline: TRAIN at B = PIPE_M rows cut into PIPE_M
+# microbatches of one row, PIPE_P stages of 2 layers, the interleaved
+# schedule at PIPE_V chunks a stage.  f32 tolerances, relative: the loss,
+# and a gradient's largest difference over its largest value (K1-K3's
+# f32 tolerance in the sequence_parallel phase).  The bf16 timings: the
+# median of PIPE_REPS calls after a warm one.  1F1B's memory at
+# microbatches of one row, M in PIPE_MEM_M.  The phase's budget.
+PIPE_P, PIPE_M, PIPE_V, PIPE_REPS = 4, 8, 2, 3
+PIPE_SCHEDULES = ("gpipe", "1f1b", "interleaved")
+PIPE_LOSS_TOL, PIPE_GRAD_TOL = 1e-5, 1e-4
+PIPE_MEM_M = (4, 16)
+PIPE_BUDGET_S = 90.0
+
+
+def _flash_zero() -> None:
+    from horovod_tpu_torch.ops import attention as A
+
+    A.flash_fwd_launches = A.flash_bwd_dkdv_launches = 0
+    A.flash_bwd_dq_launches = 0
+
+
+def _counted(fn, total: dict):
+    """``fn()`` with K1-K3's counters set to 0 just before and read just
+    after -> (its result, its launches); the launches are added to
+    ``total``."""
+    _flash_zero()
+    out = fn()
+    got = dict(zip(("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"),
+                   _flash_counts()))
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    return out, got
+
+
+def _pipe_launches(schedule: str, layers: int, P: int, M: int) -> dict:
+    """K1-K3 a call of a schedule: each layer's forward and backward once
+    a microbatch; 1F1B also replays the forward of every stage but the
+    last (whose forward wave output goes nowhere)."""
+    fwd = layers * M
+    if schedule == "1f1b":
+        fwd += layers * M * (P - 1) // P
+    return {"flash_fwd": fwd, "flash_bwd_dkdv": layers * M,
+            "flash_bwd_dq": layers * M}
+
+
+def _plain_value_and_grad(params, batch, cfg):
+    """``loss_fn``'s loss and gradients by autograd, in ``params``'
+    shape (the eager plain step's forward and backward)."""
+    from horovod_tpu_torch import optim
+    from horovod_tpu_torch.models import transformer as T
+
+    leaves = [t.detach().requires_grad_() for _, t in
+              optim.named_parameters(params)]
+    tree = optim._unflatten(params, leaves)
+    loss = T.loss_fn(tree, batch, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), optim._unflatten(params, grads)
+
+
+def _pipe_errors(ref, got) -> dict:
+    """The loss's relative difference, and each gradient's largest
+    difference over its largest value."""
+    from horovod_tpu_torch import optim
+
+    (l0, g0), (l1, g1) = ref, got
+    out = {"loss": abs(float(l1) - float(l0)) / abs(float(l0))}
+    want = dict(optim.named_parameters(g0))
+    for name, t in optim.named_parameters(g1):
+        w = want[name].float()
+        out[name] = float((t.float() - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30)
+    return out
+
+
+def _check_pipe(label: str, errs: dict) -> None:
+    worst = max((k for k in errs if k != "loss"), key=errs.get)
+    log(f"pipeline [{label}]: loss {errs['loss']:.3e} (limit "
+        f"{PIPE_LOSS_TOL:.0e}), largest gradient difference {errs[worst]:.3e}"
+        f" ({worst}; limit {PIPE_GRAD_TOL:.0e})")
+    if errs["loss"] > PIPE_LOSS_TOL or errs[worst] > PIPE_GRAD_TOL:
+        raise AssertionError(f"pipeline [{label}] differs from loss_fn: "
+                             f"{errs}")
+
+
+def _median_s(fn) -> tuple:
+    """The median over PIPE_REPS calls (after a warm one) of a call's
+    wall, ending in a synchronise, and of the host's time to enqueue it
+    (up to the synchronise): an enqueue near the wall is a device that
+    waits on the host."""
+    fn()
+    torch.cuda.synchronize()
+    walls, enqueues = [], []
+    for _ in range(PIPE_REPS):
+        t0 = time.monotonic()
+        fn()
+        enqueues.append(time.monotonic() - t0)
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    return statistics.median(walls), statistics.median(enqueues)
+
+
+def _busy_ms(fn) -> float:
+    """The profiler's kernel time of one call (device busy)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in _device_events(prof)) / 1e3
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return busy
+
+
+def _pipe_schedules(card: str, total: dict) -> dict:
+    """The virtual pipeline at full width: f32 against ``loss_fn``, bf16
+    timed against the plain step, launches counted a call, 1F1B's
+    memory."""
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.parallel import pipeline as PL
+
+    st = PL._Stages.virtual(PIPE_P)
+    B, S = PIPE_M, TRAIN["max_seq"]
+    out = {"f32": {}, "bf16": {}, "launches": {}, "memory": {}}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = T.TransformerConfig(**TRAIN, dtype=torch.float32)
+    params = T.init_params(cfg, seed=0, param_dtype=torch.float32)
+    batch = T.synthetic_batch(0, cfg, B, S)
+    ref, _ = _counted(lambda: _plain_value_and_grad(params, batch, cfg),
+                      total)
+    for sched in PIPE_SCHEDULES:
+        got, _ = _counted(lambda: T._pipelined_value_and_grad(
+            params, batch, cfg, st, n_microbatches=PIPE_M, schedule=sched,
+            n_virtual=PIPE_V), total)
+        errs = _pipe_errors(ref, got)
+        _check_pipe(f"f32 {sched}", errs)
+        out["f32"][sched] = {"loss": errs.pop("loss"),
+                             "grad": max(errs.values())}
+        del got
+    del ref, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = T.TransformerConfig(**TRAIN, dtype=torch.bfloat16)
+    params = T.init_params(cfg, seed=0, param_dtype=torch.float32)
+    runs = {"plain": lambda: _plain_value_and_grad(params, batch, cfg)}
+    for sched in PIPE_SCHEDULES:
+        runs[sched] = (lambda sched=sched: T._pipelined_value_and_grad(
+            params, batch, cfg, st, n_microbatches=PIPE_M, schedule=sched,
+            n_virtual=PIPE_V))
+    for name, fn in runs.items():
+        _, got = _counted(fn, total)
+        if name != "plain":
+            want = _pipe_launches(name, cfg.n_layers, PIPE_P, PIPE_M)
+            out["launches"][name] = got
+            if got != want:
+                raise AssertionError(f"pipeline [{name}]: K1-K3 launches "
+                                     f"{got}, want {want}")
+        (step_s, enqueue_s), _ = _counted(lambda: _median_s(fn), total)
+        out["bf16"][name] = {"step_ms": step_s * 1e3,
+                             "enqueue_ms": enqueue_s * 1e3,
+                             "tokens_per_s": B * S / step_s}
+    # Device busy last: after a profiler session the host launches more
+    # slowly (the plain step's wall is taken again after them).
+    for name, fn in runs.items():
+        v = out["bf16"][name]
+        v["busy_ms"], _ = _counted(lambda: _busy_ms(fn), total)
+        v["idle_share"] = 1 - v["busy_ms"] / v["step_ms"]
+    (step_s, _), _ = _counted(lambda: _median_s(runs["plain"]), total)
+    out["bf16"]["plain"]["step_ms_after_profiler"] = step_s * 1e3
+    plain = out["bf16"]["plain"]["step_ms"]
+    for sched in PIPE_SCHEDULES:
+        out["bf16"][sched]["over_plain"] = \
+            out["bf16"][sched]["step_ms"] / plain
+    log(f"pipeline bf16 on {card} (TRAIN, B = {B}, P = {PIPE_P}, M = "
+        f"{PIPE_M}; forward and backward, no update; wall synchronised and "
+        f"the host's enqueue before it, median of {PIPE_REPS}; device busy: "
+        "the profiler's kernel time of one call): " + "; ".join(
+            f"{k} {v['step_ms']:.1f} ms wall ({v.get('over_plain', 1):.3f}x"
+            f" plain), enqueue {v['enqueue_ms']:.1f} ms, busy "
+            f"{v['busy_ms']:.1f} ms, idle share {v['idle_share']:.3f}"
+            for k, v in out["bf16"].items())
+        + "; plain again after the profiler "
+        f"{out['bf16']['plain']['step_ms_after_profiler']:.1f} ms; launches "
+        f"K1/K2/K3 {out['launches']}")
+
+    for sched, M in [("1f1b", m) for m in PIPE_MEM_M] + [
+            ("gpipe", PIPE_MEM_M[-1])]:
+        b = T.synthetic_batch(1, cfg, M, S)
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res, _ = _counted(lambda: T._pipelined_value_and_grad(
+            params, b, cfg, st, n_microbatches=M, schedule=sched), total)
+        torch.cuda.synchronize()
+        out["memory"][f"{sched}.m{M}"] = \
+            torch.cuda.max_memory_allocated() - base
+        del res, b
+    mem = out["memory"]
+    small, big = (mem[f"1f1b.m{m}"] for m in PIPE_MEM_M)
+    gpipe = mem[f"gpipe.m{PIPE_MEM_M[-1]}"]
+    log(f"pipeline memory on {card} (peak over the start, bf16, one row a "
+        f"microbatch): 1F1B M={PIPE_MEM_M[0]} {small / 1e9:.3f} GB, "
+        f"M={PIPE_MEM_M[1]} {big / 1e9:.3f} GB ({big / small:.3f}x); GPipe "
+        f"M={PIPE_MEM_M[1]} {gpipe / 1e9:.3f} GB")
+    if not (big < 2 * small and big < gpipe):
+        raise AssertionError(f"1F1B's memory grows with M: {mem}")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pipe_size_one(total: dict) -> dict:
+    """``pipelined_value_and_grad`` (the bound pp axis, a size-1 NCCL
+    group: the real exchange, the identity) under 1F1B against
+    ``loss_fn`` in f32."""
+    from horovod_tpu_torch import parallel
+    from horovod_tpu_torch.models import transformer as T
+
+    cfg = T.TransformerConfig(**TRAIN, dtype=torch.float32)
+    params = T.init_params(cfg, seed=0, param_dtype=torch.float32)
+    batch = T.synthetic_batch(2, cfg, PIPE_M, TRAIN["max_seq"])
+    ref, _ = _counted(lambda: _plain_value_and_grad(params, batch, cfg),
+                      total)
+    with parallel.bind(parallel.make_mesh(parallel.MeshSpec())):
+        got, launches = _counted(lambda: T.pipelined_value_and_grad(
+            params, batch, cfg, n_microbatches=2, schedule="1f1b"), total)
+    errs = _pipe_errors(ref, got)
+    _check_pipe("pp = 1, NCCL", errs)
+    want = _pipe_launches("1f1b", cfg.n_layers, 1, 2)
+    if launches != want:
+        raise AssertionError(f"pp = 1: K1-K3 launches {launches}, want "
+                             f"{want}")
+    del params, ref, got
+    return {"loss": errs.pop("loss"), "grad": max(errs.values())}
+
+
+def _moe_ep_leg(card: str, total: dict) -> dict:
+    """``MOE_TRAIN`` (8 experts) with ``moe_axis="ep"`` bound to a size-1
+    group: eager loss and gradients bit-equal to ``moe_axis=None``'s;
+    ``make_train_step(mesh=, axis="ep")`` with
+    ``DistributedOptimizer(axis_name="ep")``, captured, its losses and
+    parameters bit-equal to the plain captured step's; then 1F1B at
+    P = PIPE_P over the virtual pipeline with ``moe_aux_coeff`` at one
+    microbatch against ``loss_fn`` in f32."""
+    from horovod_tpu_torch import optim, parallel, spmd
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.parallel import pipeline as PL
+
+    mesh = parallel.make_mesh(parallel.MeshSpec())
+    base = _moe_cfg(n_experts=8)
+    batch = T.synthetic_batch(0, base, MOE_BATCH)
+    out = {}
+    with parallel.bind(mesh):
+        res = []
+        for axis in (None, "ep"):
+            cfg = dataclasses.replace(base, moe_axis=axis)
+            params = T.init_params(cfg, seed=0, param_dtype=torch.float32)
+            (loss, grads), _ = _counted(
+                lambda: _plain_value_and_grad(params, batch, cfg), total)
+            res.append([loss] + [g for _, g in
+                                 optim.named_parameters(grads)])
+            del params, grads
+        out["eager_bit_equal"] = all(torch.equal(a, b)
+                                     for a, b in zip(*res))
+        del res
+    steps = {}
+    for axis in (None, "ep"):
+        cfg = dataclasses.replace(base, moe_axis=axis)
+        params = T.init_params(cfg, seed=0, param_dtype=torch.float32)
+        named = optim.named_parameters(params)
+        for _, t in named:
+            t.requires_grad_()
+        opt = optim.DistributedOptimizer(_adamw([t for _, t in named]),
+                                         named_parameters=named,
+                                         axis_name=axis)
+        kw = dict(mesh=mesh, axis="ep") if axis else {}
+        step = spmd.make_train_step(lambda p, b, c=cfg: T.loss_fn(p, b, c),
+                                    opt, **kw)
+        losses, _ = _counted(lambda: [float(step(params, batch))
+                                      for _ in range(MOE_EAGER_STEPS)],
+                             total)
+        steps[axis] = {"losses": losses, "captures": step.captures,
+                       "params": [t.detach() for _, t in named]}
+        del opt, step
+    a, b = steps[None], steps["ep"]
+    out["captured_bit_equal"] = a["losses"] == b["losses"] and all(
+        torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+    out["captures"] = b["captures"]
+    out["losses"] = b["losses"]
+    del steps, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _moe_cfg(torch.float32, n_experts=8, capacity_factor=8.0,
+                   moe_aux_coeff=1e-2, moe_axis="ep")
+    params = T.init_params(cfg, seed=0, param_dtype=torch.float32)
+    with parallel.bind(mesh):
+        ref, _ = _counted(lambda: _plain_value_and_grad(params, batch, cfg),
+                          total)
+        got, launches = _counted(lambda: T._pipelined_value_and_grad(
+            params, batch, cfg, PL._Stages.virtual(PIPE_P),
+            n_microbatches=1, schedule="1f1b"), total)
+    errs = _pipe_errors(ref, got)
+    _check_pipe("MoE 1F1B, aux, M = 1", errs)
+    want = _pipe_launches("1f1b", cfg.n_layers, PIPE_P, 1)
+    if launches != want:
+        raise AssertionError(f"MoE 1F1B: K1-K3 launches {launches}, want "
+                             f"{want}")
+    out["aux_1f1b"] = {"loss": errs.pop("loss"), "grad": max(errs.values())}
+    log(f"expert parallelism on {card} (MOE_TRAIN, E = 8, moe_axis='ep' "
+        f"bound to a size-1 group): eager bit-equal to moe_axis=None "
+        f"{out['eager_bit_equal']}; captured make_train_step(mesh=, "
+        f"axis='ep') bit-equal {out['captured_bit_equal']} ({out['captures']}"
+        f" capture, losses {out['losses']})")
+    if not (out["eager_bit_equal"] and out["captured_bit_equal"]
+            and out["captures"] == 1):
+        raise AssertionError(f"moe_axis at size 1 differs: {out}")
+    del params, ref, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_full_width(card: str) -> dict:
+    """The phase (see the module docstring): on a size-1 NCCL group."""
+    from horovod_tpu_torch import basics
+
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    total: dict = {}
+    basics.init(init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        out = {"virtual": _pipe_schedules(card, total)}
+        t1 = time.monotonic()
+        out["size_one"] = _pipe_size_one(total)
+        t2 = time.monotonic()
+        out["moe"] = _moe_ep_leg(card, total)
+        out["part_s"] = {"virtual": t1 - t0, "size_one": t2 - t1,
+                         "moe": time.monotonic() - t2}
+    finally:
+        basics.shutdown()
+    out["launches"] = total
+    out["seconds"] = time.monotonic() - t0
+    log(f"pipeline phase: {out['seconds']:.1f} s of its {PIPE_BUDGET_S:.0f}"
+        f" s budget (by part: {out['part_s']}); launches {total}")
+    if out["seconds"] > PIPE_BUDGET_S:
+        raise AssertionError(f"the pipeline phase took {out['seconds']:.1f}"
+                             f" s, over its {PIPE_BUDGET_S:.0f} s budget")
     return out
 
 
@@ -6889,6 +7269,9 @@ def main() -> int:
             prefix="chip_smoke_gspmd_") as tmp:
         gs = gspmd_full_width(card, Path(tmp))
     REPORT["gspmd"] = gs
+    with phase("pipeline"):
+        pipe = pipeline_full_width(card)
+    REPORT["pipeline"] = pipe
     with phase("launcher_elastic"), tempfile.TemporaryDirectory(
             prefix="chip_smoke_launch_") as tmp:
         launch = launcher_elastic(card, Path(tmp))
@@ -6941,8 +7324,10 @@ def main() -> int:
     # The sequence_parallel phase: the virtual ring's passes and the sp
     # training legs (K1-K3), the ring config's prefill burst (K1, K4).
     trained = {k: v + sp["launches"][k] for k, v in trained.items()}
-    # The gspmd phase's GSPMD leg (K1-K3 under local_map).
-    trained = {k: v + gs["launches"][k] for k, v in trained.items()}
+    # The gspmd phase's GSPMD leg (K1-K3 under local_map), the pipeline
+    # phase's schedules and MoE legs.
+    trained = {k: v + gs["launches"][k] + pipe["launches"][k]
+               for k, v in trained.items()}
     k1_launches = sum(r["launches"]["flash_fwd"] for r in served) + \
         trained["flash_fwd"] + fleet_launches["flash_fwd"] + \
         moe_pf["launches"]["flash_fwd"]
@@ -6994,6 +7379,10 @@ def main() -> int:
             f"{kr['library_ms']:.4f} ms")
     REPORT["kernels"] = kernels
     REPORT["seconds"] = time.monotonic() - t_start
+    log(f"script: {REPORT['seconds']:.1f} s, headroom "
+        f"{SCRIPT_LIMIT_S - REPORT['seconds']:.1f} s of {SCRIPT_LIMIT_S:.0f};"
+        " phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                    REPORT["phase_s"].items()))
     log("report: " + json.dumps(REPORT, default=str))
     log(f"card: {card}")
     print(json.dumps({"kernels": [

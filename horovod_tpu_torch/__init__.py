@@ -42,18 +42,21 @@ fused, cached; ``join`` in arrival order; ``autotune`` under
 ``HOROVOD_AUTOTUNE``), unless ``HOROVOD_NATIVE=0``; ``allreduce_async_``
 and ``broadcast_async_`` work in place.  ``parallel`` holds the
 multi-axis mesh (``MeshSpec``, ``make_mesh``: a
-``DeviceMesh``; ``bind`` and the axis reads) and sequence parallelism
+``DeviceMesh``; ``bind`` and the axis reads), sequence parallelism
 (``ring_attention``, ``ulysses_attention``; the model's ``ring``,
-``ring_zigzag``, ``ring_reference`` and ``ulysses`` impls).  The
+``ring_zigzag``, ``ring_reference`` and ``ulysses`` impls) and the
+pipeline (``pipeline_apply``, ``pipeline_value_and_grad``: GPipe, 1F1B,
+interleaved; the model's ``pipelined_value_and_grad``); the model's
+expert parallelism is ``TransformerConfig(moe_axis=)``.  The
 package has every top-level name of the JAX package, the worker meshes
 among them (``AXIS``, ``CROSS_AXIS``, ``LOCAL_AXIS``, ``mesh``,
 ``hierarchical_mesh``, ``axis_name``, ``sharding_for``,
 ``worker_index``), ``parallel.PartitionSpec`` / ``NamedSharding`` over
 DTensor, and GSPMD training (``spmd.make_gspmd_train_step``, ``shard``,
 ``run``, ``init_replicated``, ``shard_batch``; the ``DataLoader``'s and
-``checkpoint``'s pod modes).  ``parallel``'s pipeline waits for a later
-slice (Queue 1 item 10c).  Importing the package builds no kernel or
-library and touches no CUDA device.
+``checkpoint``'s pod modes) over every axis, pp and ep included.
+Importing the package builds no kernel or library and touches no CUDA
+device.
 
 It imports ``torch`` and never ``jax`` or ``horovod_tpu``.  Entry points
 run on CUDA unless the caller passes ``device="cpu"``.

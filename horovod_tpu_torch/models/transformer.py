@@ -25,8 +25,24 @@ GSPMD training (``spmd.make_gspmd_train_step``): :func:`param_specs`
 and :func:`batch_specs` are JAX's sharding rules; with parameters placed
 by them as DTensors, the same :func:`loss_fn` runs on DTensors (flash
 K1-K3 under ``local_map`` on each rank's rows and heads, the switch MoE
-on every token, the embedding and the loss vocabulary-parallel over
-``tp``), and on plain tensors it computes what it always did.
+on every token with the experts gathered over ep, the layer stack
+gathered over pp before it is unbound, the embedding and the loss
+vocabulary-parallel over ``tp``), and on plain tensors it computes what
+it always did.
+
+Expert parallelism (``moe_axis``) and the pipeline
+(:func:`pipelined_forward`, :func:`pipelined_value_and_grad`: GPipe,
+1F1B, interleaved over the bound ``pp`` axis, through
+:mod:`horovod_tpu_torch.parallel.pipeline`) read the bound mesh
+(``parallel.bind``).  With ``moe_axis`` the parameters stay whole on
+every rank: rank e of the axis runs its resident experts (slice
+``[e*E_loc, (e+1)*E_loc)`` of the ``(L, E, ...)`` stacks) on every
+rank's tokens routed to them (one all_to_all each way), so the
+gradient of an expert stack is zero outside the resident slice and
+complete inside it, and the average over the axis is JAX's reassembly
+of the resident pieces (``psum``, then ``/ ep``): a plain
+``DistributedOptimizer(axis_name=moe_axis)`` trains it, averaging the
+other parameters' gradients over the axis as JAX's ``pmean`` does.
 
 Parameters are a plain dict in the JAX package's layout: layers stacked
 on a leading ``L`` axis, the same names and shapes.  Every matrix is
@@ -70,6 +86,7 @@ from horovod_tpu_torch.ops import moe
 from horovod_tpu_torch.ops import paged_attention as pa
 from horovod_tpu_torch.ops import threefry
 from horovod_tpu_torch.parallel import meshes
+from horovod_tpu_torch.parallel import pipeline as _pl
 from horovod_tpu_torch.parallel.sharding import P
 
 __all__ = ["TransformerConfig", "batch_specs", "decode_step",
@@ -77,7 +94,8 @@ __all__ = ["TransformerConfig", "batch_specs", "decode_step",
            "draft_propose_paged", "expert_load", "forward",
            "greedy_decode", "init_cache", "init_params", "kv_dequantize",
            "kv_quantize", "loss_fn", "ngram_propose", "param_specs",
-           "prefill", "prefill_with_prefix", "resolve_device",
+           "pipelined_forward", "pipelined_value_and_grad", "prefill",
+           "prefill_with_prefix", "resolve_device",
            "sample_decode", "sample_token_rows", "synthetic_batch"]
 
 _MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -107,8 +125,12 @@ class TransformerConfig:
     # Switch dispatch mechanism: "sort" or "cumsum" (identical outputs,
     # gradients and drops).
     moe_dispatch: str = "sort"
-    # Model-level expert parallelism (JAX: a shard_map mesh axis): not
-    # ported; None only.
+    # Model-level expert parallelism: the mesh axis the switch dispatch's
+    # experts are spread over (the bound mesh's, ``parallel.bind``; None =
+    # one device).  The parameters stay whole on every rank: each rank's
+    # loss runs its resident experts, slice ``[e*E_loc, (e+1)*E_loc)`` of
+    # the expert stacks (rank e of ep), and the tokens ride one
+    # all_to_all each way.
     moe_axis: Optional[str] = None
     # Switch load-balancing loss coefficient: loss_fn adds
     # coeff * sum over layers of E * sum_e frac_e * pbar_e when > 0.
@@ -135,13 +157,6 @@ class TransformerConfig:
     remat_policy: str = "full"
 
     def __post_init__(self):
-        if self.moe_axis is not None:
-            raise NotImplementedError(
-                "moe_axis (model-level expert parallelism over a mesh axis) "
-                "is not ported: it needs the mesh and an optimizer that does "
-                "not average the resident experts (ROADMAP.md Queue 1, item "
-                "10b); ops.moe.switch_moe(group=) runs expert parallelism at "
-                "the op level")
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}; "
                              "expected 'full' or 'dots'")
@@ -261,9 +276,10 @@ def _layer(params: Dict, l: int) -> Dict:
 def _layers(params: Dict):
     """Every layer's parameter dict, from one ``unbind`` per stacked
     parameter: its gradient is one stack, not a full-size zero tensor
-    per layer as indexing each layer would give."""
+    per layer as indexing each layer would give.  A stack that a GSPMD
+    placement shards over pp is gathered first (:func:`_unshard_pp`)."""
     names = list(params["layers"])
-    per_name = [params["layers"][n].unbind(0) for n in names]
+    per_name = [_unshard_pp(params["layers"][n]).unbind(0) for n in names]
     return [dict(zip(names, vals)) for vals in zip(*per_name)]
 
 
@@ -356,12 +372,14 @@ def _moe_mlp_dense(x, p, cfg: TransformerConfig, return_aux: bool = False):
 
 
 def _moe_mlp(x, p, cfg: TransformerConfig, impl: Optional[str] = None,
-             return_aux: bool = False):
+             return_aux: bool = False, ep=None):
     """Mixture-of-experts FFN; ``impl`` overrides ``cfg.moe_impl``:
     "switch" (training), "dense" (per-step decode), "dropless"
     (prefill; it trains too).  ``return_aux`` also returns the layer's
     balance loss, which dropless does not give: it raises there, with
-    JAX's message."""
+    JAX's message.  ``ep`` (:func:`_ep_axis`): the switch dispatch runs
+    this rank's resident experts over the ``moe_axis`` group; dense and
+    dropless take no axis, as in JAX."""
     impl = impl or cfg.moe_impl
     if isinstance(x, DTensor):
         return _replicated_moe(x, p, cfg, impl, return_aux)
@@ -378,14 +396,19 @@ def _moe_mlp(x, p, cfg: TransformerConfig, impl: Optional[str] = None,
     if impl != "switch":
         raise ValueError(f"unknown moe_impl {impl!r}; "
                          "expected 'switch', 'dense', or 'dropless'")
+    group, experts = None, [p[n] for n in ("w_gate", "w_up", "w_down")]
+    if ep is not None:  # the resident slice of the whole stacks
+        group, e, n = ep
+        e_loc = cfg.n_experts // n
+        experts = [w.narrow(0, e * e_loc, e_loc) for w in experts]
     return moe.switch_moe(
-        x, p["router"], p["w_gate"].to(dt), p["w_up"].to(dt),
-        p["w_down"].to(dt), capacity_factor=cfg.capacity_factor,
+        x, p["router"], *(w.to(dt) for w in experts),
+        capacity_factor=cfg.capacity_factor, group=group,
         return_aux=return_aux, dispatch=cfg.moe_dispatch)
 
 
 def _mlp_block(x, p, cfg: TransformerConfig, moe_impl: Optional[str] = None,
-               return_aux: bool = False):
+               return_aux: bool = False, ep=None):
     """Residual MLP half of a layer, shared by forward, prefill and the
     decode steps.  MoE prefill runs the dropless dispatch and decode the
     dense one, so forward and decode agree exactly when switch drops no
@@ -393,7 +416,8 @@ def _mlp_block(x, p, cfg: TransformerConfig, moe_impl: Optional[str] = None,
     returns the MoE balance loss (0 for a dense MLP)."""
     m = _rmsnorm(x, p["ln2"])
     if cfg.n_experts > 1:
-        out = _moe_mlp(m, p, cfg, impl=moe_impl, return_aux=return_aux)
+        out = _moe_mlp(m, p, cfg, impl=moe_impl, return_aux=return_aux,
+                       ep=ep)
         if return_aux:
             return x + out[0], out[1]
         return x + out
@@ -532,6 +556,19 @@ def _vocab_parallel_xent_sum(logits, targets):
                      redistribute_inputs=True)(logits, targets)
 
 
+def _unshard_pp(t):
+    """A DTensor layer stack sharded over pp (``param_specs``' dim 0)
+    redistributed to replicated over pp, its other placements kept:
+    JAX's GSPMD gathers the pp-sharded stack on use, and DTensor cannot
+    ``unbind`` a sharded dimension.  Anything else as it is."""
+    if not isinstance(t, DTensor) or "pp" not in t.device_mesh.mesh_dim_names:
+        return t
+    i = t.device_mesh.mesh_dim_names.index("pp")
+    placements = list(t.placements)
+    placements[i] = Replicate()
+    return t.redistribute(t.device_mesh, placements)
+
+
 def _local_flash(q, k, v):
     """K1-K3 on DTensor q/k/v ``(B, H, S, D)``: under ``local_map``, each
     rank's batch rows (over every axis but tp and sp) and heads (over tp),
@@ -552,7 +589,7 @@ def _replicated_moe(x, p, cfg: TransformerConfig, impl, return_aux: bool):
     """The MoE block on DTensors: JAX's global function, every token
     dispatched by every rank (the capacity is set by the global token
     count), on the tokens gathered over the data axes and the experts
-    gathered over fsdp and tp."""
+    gathered over ep, fsdp and tp."""
     mesh = x.device_mesh
     rep = [Replicate()] * mesh.ndim
     names = ("router", "w_gate", "w_up", "w_down")
@@ -579,6 +616,18 @@ def _sp_axis(cfg: TransformerConfig):
         return None
     return (meshes.axis_group("sp"), meshes.axis_index("sp"),
             meshes.axis_size("sp"))
+
+
+def _ep_axis(cfg: TransformerConfig):
+    """``(group, index, size)`` of the bound mesh's ``cfg.moe_axis`` when
+    the training dispatch is the switch one over experts (``NameError``
+    when the axis is not bound), else None.  Read once by the caller of
+    the layers, as :func:`_sp_axis`."""
+    if cfg.moe_axis is None or cfg.n_experts <= 1 or \
+            cfg.moe_impl != "switch":
+        return None
+    return (meshes.axis_group(cfg.moe_axis), meshes.axis_index(cfg.moe_axis),
+            meshes.axis_size(cfg.moe_axis))
 
 
 def _attention(x, p, cfg: TransformerConfig, sp=None, prefill=False):
@@ -626,9 +675,9 @@ def _attention(x, p, cfg: TransformerConfig, sp=None, prefill=False):
 
 
 def _layer_body(x, p, cfg: TransformerConfig, return_aux: bool = False,
-                sp=None):
+                sp=None, ep=None):
     x = x + _attention(_rmsnorm(x, p["ln1"]), p, cfg, sp)[0]
-    return _mlp_block(x, p, cfg, return_aux=return_aux)
+    return _mlp_block(x, p, cfg, return_aux=return_aux, ep=ep)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -649,7 +698,7 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 def _remat_layer(x, p, cfg: TransformerConfig, return_aux: bool = False,
-                 sp=None):
+                 sp=None, ep=None):
     """One layer under ``torch.utils.checkpoint`` (the JAX ``_remat``):
     its backward reruns the forward (K1 launches again, into a fresh
     buffer), saving what the policy says.  The layer draws no random
@@ -659,7 +708,7 @@ def _remat_layer(x, p, cfg: TransformerConfig, return_aux: bool = False,
     if cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_policy)
-    return checkpoint(_layer_body, x, p, cfg, return_aux, sp,
+    return checkpoint(_layer_body, x, p, cfg, return_aux, sp, ep,
                       use_reentrant=False, preserve_rng_state=False, **kw)
 
 
@@ -670,17 +719,18 @@ def forward(params: Dict, tokens, cfg: TransformerConfig,
     rematerialised (:func:`_remat_layer`).  ``return_aux`` also returns
     the sum over layers of the MoE balance loss (0 for a dense model).
     A sequence-parallel impl reads the bound ``sp`` axis here
-    (:func:`_sp_axis`): ``tokens`` are this rank's sequence shard."""
-    sp = _sp_axis(cfg)
+    (:func:`_sp_axis`): ``tokens`` are this rank's sequence shard; so
+    does ``moe_axis`` its axis (:func:`_ep_axis`)."""
+    sp, ep = _sp_axis(cfg), _ep_axis(cfg)
     x = _embed(params, tokens, cfg)
     layer = _remat_layer if cfg.remat else _layer_body
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in _layers(params):
         if return_aux:
-            x, a = layer(x, p, cfg, True, sp)
+            x, a = layer(x, p, cfg, True, sp, ep)
             aux = aux + a
         else:
-            x = layer(x, p, cfg, False, sp)
+            x = layer(x, p, cfg, False, sp, ep)
     logits = _lm_head(x, params["ln_f"], params["head"], cfg)
     return (logits, aux) if return_aux else logits
 
@@ -714,7 +764,7 @@ def expert_load(params: Dict, tokens, cfg: TransformerConfig):
     uniform rows mean a balanced router."""
     if cfg.n_experts <= 1:
         raise ValueError("expert_load needs an MoE config (n_experts > 1)")
-    sp = _sp_axis(cfg)
+    sp, ep = _sp_axis(cfg), _ep_axis(cfg)
     x = _embed(params, tokens, cfg)
     fracs = []
     for p in _layers(params):
@@ -723,7 +773,7 @@ def expert_load(params: Dict, tokens, cfg: TransformerConfig):
         logits = m.float().reshape(-1, cfg.d_model) @ p["router"].float()
         fracs.append(moe._onehot(torch.argmax(logits, dim=-1),
                                  cfg.n_experts, torch.float32).mean(0))
-        x = _mlp_block(att, p, cfg)
+        x = _mlp_block(att, p, cfg, ep=ep)
     return torch.stack(fracs)
 
 
@@ -737,6 +787,183 @@ def synthetic_batch(seed: int, cfg: TransformerConfig, batch: int,
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq or cfg.max_seq),
                            generator=g, device=device)
     return {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+
+
+# --- pipeline parallelism over the bound ``pp`` axis -------------------------
+
+
+def _pipeline_stage_setup(cfg: TransformerConfig, P_: int, batch: int,
+                          n_microbatches: Optional[int],
+                          return_aux: bool = False):
+    """Shared pipeline plumbing (every schedule): the divisibility checks
+    (JAX's texts), the microbatch count, the layers a stage, and the
+    stage function over a stage's (or a chunk's) stacked layers, with
+    the bound ``sp`` and ``moe_axis`` axes read here, once, as
+    :func:`forward` reads them; with ``return_aux`` it returns the
+    stage's MoE balance-loss sum too."""
+    if cfg.n_layers % P_:
+        raise ValueError(
+            f"n_layers={cfg.n_layers} must divide over {P_} pipeline stages")
+    per_stage = cfg.n_layers // P_
+    M = n_microbatches or P_
+    if batch % M:
+        raise ValueError(f"batch {batch} must divide into {M} microbatches")
+    sp, ep = _sp_axis(cfg), _ep_axis(cfg)
+    layer = _remat_layer if cfg.remat else _layer_body
+
+    def stage_fn(stack, x):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p in _layers({"layers": stack}):
+            if return_aux:
+                x, a = layer(x, p, cfg, True, sp, ep)
+                aux = aux + a
+            else:
+                x = layer(x, p, cfg, False, sp, ep)
+        return (x, aux) if return_aux else x
+
+    return M, per_stage, stage_fn
+
+
+def _stage_layers(params: Dict, first: int, n: int) -> Dict:
+    """Layers ``[first, first + n)`` of the stacks, as views."""
+    return {k: v.narrow(0, first, n) for k, v in params["layers"].items()}
+
+
+def pipelined_forward(params: Dict, tokens, cfg: TransformerConfig, *,
+                      n_microbatches: Optional[int] = None,
+                      return_aux: bool = False):
+    """:func:`forward` with the layer stack run as a GPipe pipeline over
+    the bound mesh's ``pp`` axis (``parallel.bind``): rank ``s`` of the
+    axis runs layers ``[s * L/P, (s + 1) * L/P)`` on ``n_microbatches``
+    (default P) microbatches (:func:`~horovod_tpu_torch.parallel.
+    pipeline.pipeline_apply`); the parameters and ``tokens`` are the
+    same on every rank of the axis.  The logits are :func:`forward`'s.
+
+    ``return_aux`` also returns THIS stage's MoE balance-loss sum (its
+    sum over the axis is :func:`forward`'s aux).  Differentiable, each
+    rank taking its own stage's share of the layer gradients (and stage
+    0 the embedding's); :func:`pipelined_value_and_grad` is the training
+    entry."""
+    group, s = meshes.axis_group("pp"), meshes.axis_index("pp")
+    B = tokens.shape[0]
+    M, per, stage_fn = _pipeline_stage_setup(
+        cfg, meshes.axis_size("pp"), B, n_microbatches, return_aux)
+    x = _embed(params, tokens, cfg)
+    mb = x.reshape(M, B // M, *x.shape[1:])
+    out = _pl.pipeline_apply(stage_fn, _stage_layers(params, s * per, per),
+                             mb, group=group, stage_aux=return_aux)
+    if return_aux:
+        out, aux_local = out
+    logits = _lm_head(out.reshape(x.shape), params["ln_f"], params["head"],
+                      cfg)
+    return (logits, aux_local) if return_aux else logits
+
+
+def pipelined_value_and_grad(params: Dict, batch: Dict,
+                             cfg: TransformerConfig, *,
+                             n_microbatches: Optional[int] = None,
+                             schedule: str = "gpipe", n_virtual: int = 2):
+    """The loss and EXACT full-parameter gradients of the model trained
+    as a pipeline over the bound mesh's ``pp`` axis: ``(loss, grads)``,
+    ``grads`` a dict shaped as ``params``, the same on every rank of the
+    axis; the parameters and the batch are the same on every rank of it
+    (the batch is this rank's shard over the other axes: its sequence
+    shard under ``sp``, its rows under ``ep``).  ``loss`` is
+    :func:`loss_fn`'s, its aux term per microbatch (the dispatch group
+    the switch routing sees, averaged over the M groups: equal to
+    :func:`loss_fn`'s at ``n_microbatches=1``).
+
+    ``schedule``: ``"gpipe"``, ``"1f1b"`` (memory flat in M) or
+    ``"interleaved"`` (``n_virtual`` chunks a stage, laid round-robin:
+    chunk ``c`` of stage ``s`` is global chunk ``c * P + s``), as
+    :func:`~horovod_tpu_torch.parallel.pipeline.pipeline_value_and_grad`
+    runs them on the embedded microbatches, the final norm and the head
+    as the loss's parameters and the input gradients returned.  Each
+    gradient has one owning stage: the layer gradients are gathered from
+    their stages over pp, the final norm's and the head's come from the
+    last stage, and the embedding's is stage 0's input gradients added
+    into the token rows.  JAX's ``_varying_value_and_grad`` makes the
+    same ownership explicit for shard_map's varying types; here each
+    stage's backward is local and the exchange over pp is the sum.
+
+    With ``moe_axis`` the parameters stay whole on every rank and each
+    ep rank's gradient of an expert stack is zero outside its resident
+    slice, so the average over ep (``DistributedOptimizer(axis_name=
+    "ep")``) equals JAX's reassembly of the resident pieces."""
+    st = _pl._Stages.of_group(meshes.axis_group("pp"))
+    return _pipelined_value_and_grad(params, batch, cfg, st,
+                                     n_microbatches=n_microbatches,
+                                     schedule=schedule, n_virtual=n_virtual)
+
+
+def _pipelined_value_and_grad(params: Dict, batch: Dict,
+                              cfg: TransformerConfig, st, *,
+                              n_microbatches: Optional[int] = None,
+                              schedule: str = "gpipe", n_virtual: int = 2):
+    """:func:`pipelined_value_and_grad` over the stages ``st`` holds (a
+    ``parallel.pipeline._Stages``: one stage of the pp group, or every
+    stage of a virtual pipeline in this process)."""
+    if schedule not in _pl._SCHEDULES:
+        raise ValueError(f"unknown pipeline schedule {schedule!r}")
+    P_ = st.P
+    tokens, targets = batch["tokens"], batch["targets"]
+    B, S = tokens.shape
+    aux_on = cfg.n_experts > 1 and cfg.moe_aux_coeff > 0.0
+    M, _, stage_fn = _pipeline_stage_setup(cfg, P_, B, n_microbatches,
+                                           aux_on)
+    v = 1
+    if schedule == "interleaved":
+        v = int(n_virtual)
+        if cfg.n_layers % (v * P_):
+            raise ValueError(
+                f"n_layers={cfg.n_layers} must divide over "
+                f"{v} virtual x {P_} stages")
+    n = cfg.n_layers // (v * P_)  # layers a chunk
+    n_tok = B * S
+    with torch.no_grad():
+        x = _embed(params, tokens, cfg)
+    xs = x.reshape(M, B // M, S, cfg.d_model)
+    ts = targets.reshape(M, B // M, S)
+
+    def loss_fn(lp, y, tgt):
+        logits = _lm_head(y, lp["ln_f"], lp["head"], cfg)
+        return _xent_sum(logits, tgt) / n_tok  # microbatch losses sum to mean
+
+    chunks = [[_stage_layers(params, (c * P_ + s) * n, n) for c in range(v)]
+              for s in st.held]
+    res = _pl._run(st, stage_fn, chunks, xs, ts, loss_fn, schedule=schedule,
+                   lp={"ln_f": params["ln_f"], "head": params["head"]},
+                   aux_w=cfg.moe_aux_coeff / M if aux_on else None,
+                   input_grad=True, v=v)
+    loss = st.sum([r[0] for r in res])
+
+    # Layers: each chunk's gradient from its stage, in global chunk order.
+    names = list(params["layers"])
+    layer_grads = {}
+    for j, name in enumerate(names):
+        mine = []
+        for (_, cgrads, _, _), cs in zip(res, chunks):
+            mine.append(torch.stack([
+                torch.zeros_like(c[name]) if g is None or g[j] is None
+                else g[j] for g, c in zip(cgrads, cs)]))
+        full = torch.stack(st.gather(mine))  # (P, v, n, ...)
+        layer_grads[name] = full.transpose(0, 1).reshape(
+            params["layers"][name].shape)
+    # The final norm and the head: the last stage's.
+    lpg = [r[2] for r in res]
+    out = {}
+    for j, name in enumerate(("ln_f", "head")):
+        out[name] = st.broadcast([None if g is None else g[j] for g in lpg],
+                                 P_ - 1, params[name])[0]
+    # The embedding: stage 0's input gradients, into the token rows.
+    xg = [None if r[3] is None else torch.stack(r[3]) for r in res]
+    gx = st.broadcast(xg, 0, xs)[0]
+    embed = torch.zeros(params["embed"].shape, dtype=cfg.dtype,
+                        device=gx.device).index_add_(
+        0, tokens.reshape(-1).long(), gx.reshape(n_tok, cfg.d_model))
+    return loss, {"embed": embed.to(params["embed"].dtype),
+                  "layers": layer_grads, "ln_f": out["ln_f"],
+                  "head": out["head"]}
 
 
 # --- prefill + the contiguous-cache oracle -----------------------------------

@@ -20,6 +20,9 @@ The trailing-underscore forms work in place.
   across hosts.  Both need :func:`~horovod_tpu_torch.basics.
   is_homogeneous` (the JAX package's hierarchical mesh exists only
   then); otherwise the flat collective runs.
+* ``allreduce(axis_name=)`` reduces over one axis's ranks
+  (:func:`_axis_group`: a mesh axis of the bound mesh, or a flat name),
+  directly and flat; the other collectives reduce over the job.
 * The async API (``*_async``, :func:`poll`, :func:`synchronize`) holds
   ``async_op=True`` work objects, each handle used once; the op's
   post-processing (Average's division, the postscale, decompression,
@@ -304,16 +307,23 @@ def _check_allreduce(t: torch.Tensor, op: str) -> None:
 def _allreduce_start(t: torch.Tensor, op: str, prescale, postscale,
                      async_op: bool, group=None) -> _Pending:
     """Reduce ``t`` in place over ``group`` (default: the world); the
-    result is ``t``."""
+    result is ``t``.  A group smaller than the world (a mesh axis's, see
+    :func:`_axis_group`) reduces flat over its own ranks."""
     _check_allreduce(t, op)
-    n = basics.size()
+    n = basics.size() if group is None else dist.get_world_size(group)
+    sub = n != basics.size()
     _scale_(t, prescale)
     if op == Adasum:
-        t.copy_(adasum.adasum_allreduce_group(
-            [t], hierarchical=_use_hierarchical("allreduce"),
-            group=group)[0])
+        if sub:
+            out = adasum._adasum_over(
+                [t], dist.get_process_group_ranks(group), group)
+        else:
+            out = adasum.adasum_allreduce_group(
+                [t], hierarchical=_use_hierarchical("allreduce"),
+                group=group)
+        t.copy_(out[0])
         return _done(_scale_(t, postscale))
-    if op in (Average, Sum) and _use_hierarchical("allreduce"):
+    if op in (Average, Sum) and not sub and _use_hierarchical("allreduce"):
         _hier_allreduce_(t)
         work = None
     else:
@@ -328,36 +338,70 @@ def _allreduce_start(t: torch.Tensor, op: str, prescale, postscale,
     return _Pending(work, finish)
 
 
+def _axis_group(axis_name):
+    """The process group that ``axis_name`` names, as the JAX package
+    resolves an ``axis_name`` to the axes it reduces over: None (the
+    job's world) for None, the flat axis :data:`~horovod_tpu_torch.
+    basics.AXIS` and the pair ``(cross, local)``; the local or the cross
+    group for those names; else the axis of the bound mesh
+    (:func:`horovod_tpu_torch.parallel.bind`; ``NameError`` naming an
+    unbound axis)."""
+    names = (tuple(axis_name) if isinstance(axis_name, (tuple, list))
+             else (axis_name,))
+    if names in ((None,), (basics.AXIS,),
+                 (basics.CROSS_AXIS, basics.LOCAL_AXIS)):
+        return None
+    if len(names) != 1:
+        raise ValueError(f"axis_name {axis_name!r}: a tuple of axes other "
+                         f"than ({basics.CROSS_AXIS!r}, "
+                         f"{basics.LOCAL_AXIS!r}) is not supported")
+    if names[0] == basics.LOCAL_AXIS:
+        return basics.local_group()
+    if names[0] == basics.CROSS_AXIS:
+        return basics.cross_group()
+    from horovod_tpu_torch.parallel import meshes
+
+    return meshes.axis_group(names[0])
+
+
 def _allreduce_pending(tensor: torch.Tensor, op: str, name, prescale,
-                       postscale, async_op: bool, inplace: bool):
+                       postscale, async_op: bool, inplace: bool,
+                       axis_name=None):
     """Reduce ``tensor`` (in place when ``inplace``, else into a new
-    tensor): through the runtime, or directly."""
-    rt = _native_rt()
+    tensor): through the runtime, or directly.  Over a named axis's
+    group the reduction is direct: the runtime negotiates over the
+    world."""
+    group = _axis_group(axis_name)
+    rt = _native_rt() if group is None else None
     if rt is None:
         return _allreduce_start(tensor if inplace else tensor.clone(), op,
-                                prescale, postscale, async_op)
+                                prescale, postscale, async_op, group)
     return _native_allreduce(rt, [tensor], op, name, prescale, postscale,
                              _into(tensor, inplace))
 
 
-def allreduce_(tensor: torch.Tensor, op: str = Average, *,
+def allreduce_(tensor: torch.Tensor, op: str = Average, *, axis_name=None,
                name: Optional[str] = None, prescale_factor: float = 1.0,
                postscale_factor: float = 1.0) -> torch.Tensor:
     """Reduce ``tensor`` over the ranks in place and return it: ``Sum``,
     ``Average`` (the sum over the job's size), ``Min``, ``Max``,
-    ``Product`` or ``Adasum``."""
+    ``Product`` or ``Adasum``.  ``axis_name``: reduce over that axis's
+    ranks only (:func:`_axis_group`; ``Average`` divides by its size)."""
     return _allreduce_pending(tensor, op, name, prescale_factor,
-                              postscale_factor, False, True).wait()
+                              postscale_factor, False, True,
+                              axis_name).wait()
 
 
-def allreduce(tensor: torch.Tensor, op: str = Average, *, compression=None,
-              name: Optional[str] = None, prescale_factor: float = 1.0,
+def allreduce(tensor: torch.Tensor, op: str = Average, *, axis_name=None,
+              compression=None, name: Optional[str] = None,
+              prescale_factor: float = 1.0,
               postscale_factor: float = 1.0) -> torch.Tensor:
     """:func:`allreduce_` into a new tensor, compressed on the wire."""
     _check_op(op)
     wire, ctx = _compress(compression, tensor)
     out = _allreduce_pending(wire, op, name, prescale_factor,
-                             postscale_factor, False, False).wait()
+                             postscale_factor, False, False,
+                             axis_name).wait()
     return _decompress(compression, out, ctx)
 
 

@@ -62,15 +62,18 @@ def make_buckets(tensors: Sequence[torch.Tensor],
 
 
 def fused_allreduce(tensors: Sequence[torch.Tensor], op: str = C.Average,
-                    threshold: Optional[int] = None) -> List[torch.Tensor]:
+                    threshold: Optional[int] = None, *,
+                    axis_name=None) -> List[torch.Tensor]:
     """Allreduce every tensor, bucket by bucket: flatten, concatenate,
-    one collective, split.  Returns new tensors in the input order."""
+    one collective, split.  Returns new tensors in the input order.
+    ``axis_name``: over that axis's ranks (``collectives.allreduce``)."""
     if threshold is None:
         threshold = fusion_threshold_bytes()
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     for idxs in make_buckets(tensors, threshold):
         group = [tensors[i] for i in idxs]
-        buf = C.allreduce_(torch.cat([t.reshape(-1) for t in group]), op)
+        buf = C.allreduce_(torch.cat([t.reshape(-1) for t in group]), op,
+                           axis_name=axis_name)
         pieces = buf.split([t.numel() for t in group])
         for i, t, piece in zip(idxs, group, pieces):
             out[i] = piece.view(t.shape)

@@ -56,19 +56,25 @@ __all__ = ["DistributedAdasumOptimizer", "DistributedGradientTape",
 
 
 def distributed_gradients(grads: Sequence[torch.Tensor], op: str = C.Average,
-                          *, compression=Compression.none, fuse: bool = True,
+                          *, axis_name=None, compression=Compression.none,
+                          fuse: bool = True,
                           fusion_threshold: Optional[int] = None,
                           sparse_keys=(), names: Sequence[str] = None
                           ) -> List[torch.Tensor]:
     """Allreduce a list of gradients -> new tensors in the same order:
     compressed for the wire, reduced through fused buckets
     (:mod:`~horovod_tpu_torch.ops.fusion`, Average and Sum) or one
-    collective each, and restored to their dtypes.  With ``sparse_keys``
-    (Average and Sum), the gradients whose name in ``names`` contains a
-    key reduce by :func:`~horovod_tpu_torch.ops.sparse.sparse_allreduce`,
-    uncompressed."""
+    collective each, and restored to their dtypes.  ``axis_name``: over
+    that axis's ranks only (``collectives.allreduce``).  With
+    ``sparse_keys`` (Average and Sum), the gradients whose name in
+    ``names`` contains a key reduce by :func:`~horovod_tpu_torch.ops.
+    sparse.sparse_allreduce`, uncompressed, over the whole job (so not
+    with ``axis_name``)."""
     C._check_op(op)
     grads = list(grads)
+    if sparse_keys and axis_name is not None:
+        raise ValueError("sparse_keys reduce over the whole job; they do "
+                         "not take an axis_name")
     if sparse_keys and op in (C.Average, C.Sum):
         if names is None or len(names) != len(grads):
             raise ValueError("sparse_keys needs one name a gradient")
@@ -87,9 +93,10 @@ def distributed_gradients(grads: Sequence[torch.Tensor], op: str = C.Average,
     packed = [compression.compress(g) for g in grads]
     wire = [t for t, _ in packed]
     if fuse and op in (C.Average, C.Sum):
-        reduced = F.fused_allreduce(wire, op, fusion_threshold)
+        reduced = F.fused_allreduce(wire, op, fusion_threshold,
+                                    axis_name=axis_name)
     else:
-        reduced = [C.allreduce(t, op) for t in wire]
+        reduced = [C.allreduce(t, op, axis_name=axis_name) for t in wire]
     return [compression.decompress(r, ctx)
             for r, (_, ctx) in zip(reduced, packed)]
 
@@ -154,10 +161,11 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     def __init__(self, inner: torch.optim.Optimizer, op, compression,
                  backward_passes_per_step, average_aggregated_gradients,
-                 fuse, fusion_threshold, sparse_keys, names):
+                 axis_name, fuse, fusion_threshold, sparse_keys, names):
         super().__init__(inner.param_groups)  # the wrapped class's init
         self.defaults.update(inner.defaults)
         self._op = op
+        self._axis_name = axis_name
         self._compression = compression
         self.backward_passes_per_step = backward_passes_per_step
         self._average_aggregated = average_aggregated_gradients
@@ -213,8 +221,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         # background thread).
         with C._direct_path():
             reduced = distributed_gradients(
-                grads, self._op, compression=self._compression,
-                fuse=self._fuse, fusion_threshold=self._fusion_threshold,
+                grads, self._op, axis_name=self._axis_name,
+                compression=self._compression, fuse=self._fuse,
+                fusion_threshold=self._fusion_threshold,
                 sparse_keys=self._sparse_keys, names=names)
         for g, r in zip(grads, reduced):
             g.copy_(r)
@@ -247,7 +256,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          compression=Compression.none,
                          backward_passes_per_step: int = 1,
                          average_aggregated_gradients: bool = True,
-                         fuse: bool = True,
+                         axis_name=None, fuse: bool = True,
                          fusion_threshold: Optional[int] = None,
                          sparse_keys=()):
     """Wrap a freshly built ``torch.optim.Optimizer`` so that ``step()``
@@ -258,6 +267,12 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     ``named_parameters`` (pairs ``(name, tensor)``), when given, must name
     exactly the optimizer's parameters, each once; ``sparse_keys`` needs
     them.  ``op=Adasum`` reduces each gradient by Adasum, unfused.
+    ``axis_name`` reduces over one axis's ranks only: a mesh axis of the
+    mesh bound when ``step()`` runs (``parallel.bind``, or
+    ``spmd.make_train_step(mesh=)``), or one of ``basics``' flat names;
+    ``NameError`` when the axis is not bound.  Model-level expert
+    parallelism averages over its ``ep`` axis this way
+    (:mod:`~horovod_tpu_torch.models.transformer`).
 
     Note ``torch.optim.AdamW`` decays by 1e-2 by default, ``optax.adamw``
     by 1e-4: pass ``weight_decay`` explicitly to match the JAX package."""
@@ -270,7 +285,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     _set_capturable(optimizer)
     return _wrap(_DistributedOptimizer, optimizer, op, compression,
                  backward_passes_per_step, average_aggregated_gradients,
-                 fuse, fusion_threshold, sparse_keys, names)
+                 axis_name, fuse, fusion_threshold, sparse_keys, names)
 
 
 class _DistributedAdasumOptimizer(torch.optim.Optimizer):
@@ -354,7 +369,7 @@ def _unflatten(tree, values, it=None):
 
 
 def DistributedGradientTape(fn, *, op: str = C.Average,
-                            compression=Compression.none,
+                            compression=Compression.none, axis_name=None,
                             has_aux: bool = False, fuse: bool = True,
                             sparse_keys=()):
     """``fn(params, *args) -> loss`` (``(loss, aux)`` with ``has_aux``) ->
@@ -362,7 +377,8 @@ def DistributedGradientTape(fn, *, op: str = C.Average,
     ``value_and_grad`` with reduced gradients: ``value`` as ``fn``
     returned it, ``grads`` the reduced gradients of the loss with respect
     to ``params`` (a nested dict of tensors that require grad, or a list
-    of them), in its shape, through ``torch.autograd.grad``."""
+    of them), in its shape, through ``torch.autograd.grad``.
+    ``axis_name`` as :func:`DistributedOptimizer`'s."""
     C._check_op(op)
 
     def wrapped(params, *args, **kwargs):
@@ -376,8 +392,9 @@ def DistributedGradientTape(fn, *, op: str = C.Average,
                  for g, t in zip(grads, tensors)]
         with C._direct_path():  # JAX's value_and_grad reduces in-graph
             reduced = distributed_gradients(
-                grads, op, compression=compression, fuse=fuse,
-                sparse_keys=sparse_keys, names=[n for n, _ in named])
+                grads, op, axis_name=axis_name, compression=compression,
+                fuse=fuse, sparse_keys=sparse_keys,
+                names=[n for n, _ in named])
         if isinstance(params, dict):
             return value, _unflatten(params, reduced)
         return value, reduced

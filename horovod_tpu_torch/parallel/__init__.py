@@ -14,8 +14,10 @@ Counterpart of ``horovod_tpu/parallel``.
 - :func:`ring_attention` and :func:`ulysses_attention` (re-exports of
   :mod:`horovod_tpu_torch.ops.attention`'s) — sequence parallelism over
   a process group.
-
-Pipeline parallelism waits for a later slice.
+- :mod:`horovod_tpu_torch.parallel.pipeline` — pipeline parallelism
+  over the ``pp`` group: :func:`pipeline_apply`,
+  :func:`pipeline_value_and_grad` (GPipe, 1F1B, interleaved),
+  :func:`stack_to_stages`.
 """
 
 from horovod_tpu_torch.parallel.meshes import (  # noqa: F401
@@ -32,6 +34,11 @@ from horovod_tpu_torch.parallel.sharding import (  # noqa: F401
     NamedSharding,
     P,
     PartitionSpec,
+)
+from horovod_tpu_torch.parallel.pipeline import (  # noqa: F401
+    pipeline_apply,
+    pipeline_value_and_grad,
+    stack_to_stages,
 )
 from horovod_tpu_torch.ops.attention import (  # noqa: F401
     ring_attention,

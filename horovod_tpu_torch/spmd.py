@@ -8,6 +8,10 @@ The data-parallel step: every rank
 calls ``step`` with its own shard of the batch; the optimizer (a
 :func:`~horovod_tpu_torch.optim.DistributedOptimizer`) reduces the
 gradients before its update, and the loss is averaged over the ranks.
+With ``mesh=`` the step runs under that mesh's binding and ``axis=``
+names the axis the loss is averaged over (the model's expert
+parallelism trains this way over ``ep``, with
+``DistributedOptimizer(axis_name="ep")``).
 
 Where the JAX package compiles forward, backward, gradient allreduce and
 update into one program, the port captures them on the card as one CUDA
@@ -39,10 +43,14 @@ made inside the model, a RoPE table or a mask, counts as replicated;
 the backward runs under it too, as its saved plain tensors meet DTensor
 gradients).  It is captured as :class:`TrainStep` is: at mesh size 1
 DTensor's dispatch is host work only, and the replays carry none.
+Every axis of the mesh may be larger than 1: over pp the layer stack is
+gathered where the forward unbinds it, over ep the MoE block gathers
+the experts.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional
 
 import torch
@@ -98,11 +106,14 @@ class TrainStep:
     ``graphed`` says whether calls past the warm-up replay CUDA graphs;
     ``captures`` and ``replays`` count them."""
 
-    def __init__(self, loss_fn, optimizer, has_aux, hierarchical):
+    def __init__(self, loss_fn, optimizer, has_aux, hierarchical,
+                 mesh=None, axis=None):
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.has_aux = has_aux
         self.hierarchical = hierarchical
+        self.mesh = mesh
+        self.axis = axis
         self.k = getattr(optimizer, "backward_passes_per_step", 1)
         params = [p for g in optimizer.param_groups for p in g["params"]]
         self.graphed = bool(params and params[0].is_cuda
@@ -127,16 +138,23 @@ class TrainStep:
         return loss, aux
 
     def _result(self, loss, aux):
-        avg = C.allreduce(loss.detach(), C.Average)
+        avg = C.allreduce(loss.detach(), C.Average, axis_name=self.axis)
         if not self.has_aux:
             return avg
         return avg, tree_map(lambda t: t.detach(), aux)
 
+    def _bound(self):
+        """The step's mesh bound (``parallel.bind``), if it has one."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return meshes.bind(self.mesh)
+
     def body(self, params, batch):
         """The eager step: zero the gradients, forward, backward, the
         optimizer's step (parameters updated in place), the loss
-        averaged over the ranks."""
-        with C._hierarchical(self.hierarchical):
+        averaged over the ranks (of ``axis``), all under the step's
+        mesh."""
+        with C._hierarchical(self.hierarchical), self._bound():
             self.optimizer.zero_grad()
             loss, aux = self._forward_backward(params, batch)
             self.optimizer.step()
@@ -149,7 +167,7 @@ class TrainStep:
         exist; the boundary pass then reduces, updates and zeroes them."""
         if self.k == 1:
             return self.body(params, batch)
-        with C._hierarchical(self.hierarchical):
+        with C._hierarchical(self.hierarchical), self._bound():
             loss, aux = self._forward_backward(params, batch)
             if boundary:
                 self.optimizer._update()
@@ -251,6 +269,7 @@ class TrainStep:
 
 
 def make_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer, *,
+                    mesh=None, axis: Optional[str] = None,
                     has_aux: bool = False,
                     hierarchical: Optional[bool] = None) -> TrainStep:
     """``loss_fn(params, batch) -> scalar loss`` (``(loss, aux)`` with
@@ -260,6 +279,14 @@ def make_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer, *,
     updated in place), and the loss averaged over the ranks; ``aux`` is
     this rank's.  On CUDA the step is captured as CUDA graphs after its
     warm-up (:class:`TrainStep`).
+
+    ``mesh`` (from ``parallel.make_mesh``) is bound while the step runs,
+    as JAX's step runs under ``shard_map`` over it: the model's axes
+    (``moe_axis``, the sequence-parallel ``sp``) and an optimizer's
+    ``axis_name`` read it.  ``axis`` names the axis the loss is averaged
+    over (a mesh axis, or one of ``basics``' flat names); by default the
+    whole job.  Each rank passes its own shard of the batch, as without
+    them.
 
     ``hierarchical`` (default: ``HOROVOD_HIERARCHICAL_ALLREDUCE`` or
     ``HOROVOD_HIERARCHICAL_ALLGATHER`` set) makes the step's collectives
@@ -273,7 +300,7 @@ def make_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer, *,
     if hierarchical is None:
         hierarchical = (C._env_flag("HOROVOD_HIERARCHICAL_ALLREDUCE")
                         or C._env_flag("HOROVOD_HIERARCHICAL_ALLGATHER"))
-    return TrainStep(loss_fn, optimizer, has_aux, hierarchical)
+    return TrainStep(loss_fn, optimizer, has_aux, hierarchical, mesh, axis)
 
 
 # --- shard_map over the worker mesh ------------------------------------------
@@ -339,17 +366,8 @@ class GSPMDStep(TrainStep):
     :class:`TrainStep`'s."""
 
     def __init__(self, loss_fn, optimizer, mesh, param_spec, batch_spec):
-        names = tuple(mesh.mesh_dim_names or ())
-        for axis, item in (("pp", "10c"), ("ep", "10b")):
-            if axis in names and mesh.size(names.index(axis)) > 1:
-                raise NotImplementedError(
-                    f"make_gspmd_train_step over {axis} > 1 is not ported: "
-                    "the forward unbinds the stacked layer axis, which pp "
-                    "shards, and ep needs the model's expert parallelism "
-                    f"(ROADMAP.md Queue 1, item {item})")
         _set_capturable(optimizer)
-        super().__init__(loss_fn, optimizer, False, False)
-        self.mesh = mesh
+        super().__init__(loss_fn, optimizer, False, False, mesh)
         self.param_shardings = named_shardings(mesh, param_spec)
         self.batch_shardings = named_shardings(mesh, batch_spec)
 
@@ -394,13 +412,20 @@ def make_gspmd_train_step(loss_fn: Callable,
     ``parallel.sharding.distribute`` or a pod checkpoint's restore), a
     plain batch is placed by ``batch_spec``, and DTensor's sharding
     propagation inserts every collective: gradient reductions over dp
-    and fsdp, tp's gathers and reductions, sp's gathers.  The same plain
+    and fsdp, tp's gathers and reductions, sp's gathers, pp's and ep's
+    gathers of the layer stack and the experts on use.  The same plain
     ``loss_fn(params, batch)`` serves :func:`make_train_step`.
+
+    Over pp the layer stack is sharded and gathered where the forward
+    reads it (JAX's layer-stack sharding, no pipeline: that is
+    ``models.transformer.pipelined_value_and_grad``); over ep the
+    expert stacks are sharded and the MoE block gathers them, dispatching
+    every token on every rank as the GSPMD MoE block does.
 
     ``optimizer`` is a plain ``torch.optim`` optimizer over the DTensor
     parameters, so its state is sharded as they are (ZeRO-3 over fsdp);
     the update is in place (``donate`` is accepted).  On CUDA the step is
     captured as a CUDA graph after its warm-up, as :class:`TrainStep`
-    (``capturable`` is set on the optimizer).  ``pp > 1`` and ``ep > 1``
-    raise ``NotImplementedError``.  ``step(params, batch) -> loss``."""
+    (``capturable`` is set on the optimizer).
+    ``step(params, batch) -> loss``."""
     return GSPMDStep(loss_fn, optimizer, mesh, param_spec, batch_spec)

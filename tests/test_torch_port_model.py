@@ -89,8 +89,15 @@ class TestParams:
 
     def test_unported_configs_raise(self):
         T.TransformerConfig(n_experts=8)  # mixture of experts is ported
-        with pytest.raises(NotImplementedError, match="item 10"):
-            T.TransformerConfig(n_experts=4, moe_axis="ep")
+        # Model-level expert parallelism is ported: the config constructs,
+        # and its forward reads the ep axis of the bound mesh.
+        cfg = T.TransformerConfig(vocab_size=64, d_model=32, n_heads=4,
+                                  n_layers=1, d_ff=64, max_seq=16,
+                                  n_experts=4, moe_axis="ep",
+                                  dtype=torch.float32)
+        tok = torch.zeros((1, 8), dtype=torch.long)
+        with pytest.raises(NameError, match="unbound axis name: ep"):
+            T.forward(T.init_params(cfg, device="cpu"), tok, cfg)
         for impl in T.SP_IMPLS:  # sequence parallelism is ported
             T.TransformerConfig(attention_impl=impl)
         with pytest.raises(ValueError, match="unknown attention_impl"):

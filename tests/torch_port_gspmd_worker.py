@@ -181,11 +181,10 @@ def pod():
                                                        hvd.LOCAL_AXIS)),
                                               hierarchical=True)
                              .placements)])
-    dummy = torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=1.0)
-    for axis in ("pp", "ep"):
-        m = mesh_of({"dp": 2, axis: 2})
-        put(f"error.{axis}", error(lambda: spmd.make_gspmd_train_step(
-            None, dummy, mesh=m, param_spec={}, batch_spec={})))
+    # pp > 1 and ep > 1: the layer stack sharded over pp and the expert
+    # stacks over ep, each gathered on use; (a)'s and (c)'s batches.
+    train_case("a_pp", "A", {"dp": 2, "pp": 2}, "sgd")
+    train_case("c_ep", "C", {"dp": 2, "ep": 2}, "sgd")
     # (e) worker_index under spmd.run.
     put("error.unbound", error(lambda: hvd.worker_index()))
     out = spmd.run(lambda: hvd.worker_index()[None], in_specs=(),
