@@ -361,6 +361,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    R = 20 (8 slots x 2176 positions; K4 at R = 4 timed beside it, SDPA
    over the gathered K/V at R = 20 its yardstick), its own entry in the
    kernels line with the verify launches of the speculative legs.
+13. Tensor-parallel serving (``tp``, run after ``paged_kernel_ab``):
+   one card has no peers and NCCL refuses two ranks on one device, so
+   the sharded engine runs in its virtual form (every shard in this
+   process, one after another).  K4 at R = 4 and 20 and K1 at a
+   shard's heads (H_kv 2 and 1) against their plain versions; ``FULL``
+   in f32 at tp = 1, 2 and 4 over 8 requests on 4 slots (prompts 5-700,
+   half sampled), each request's tokens against ``greedy_decode`` /
+   ``sample_decode`` by the near-tie rule and the tp > 1 tokens counted
+   against tp = 1's, one decode capture an engine, K4 tp x layers a
+   replay and K1 tp x layers a whole-prompt prefill replay; the real
+   form (one shard, its collectives captured in the graphs, the step's
+   broadcast) over a size-1 NCCL group, equal to tp = 1; bf16's first
+   decode tick at tp = 2 and 4 within ``TP_BF16_TOL`` of tp = 1's
+   logits; then K1 and K4 timed at the shard shapes.
 
 Each phase's seconds are printed as it ends.
 
@@ -376,7 +390,8 @@ training legs and ring-config bursts, the gspmd phase's GSPMD leg, the
 pipeline phase's schedules and MoE legs; K4's
 verify calls at R = 20 in an entry of their own; G1's
 over the dropless prefill runs, both MoE bursts and the dropless
-training leg, G2's over that leg); the last line is
+training leg, G2's over that leg; K1's and K4's also over the tp
+phase's churns); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository beside it, the script exits non-zero and prints no
 result.
@@ -6960,26 +6975,30 @@ def moe_serve_f32(card: str) -> dict:
 # --- phase 8: times ----------------------------------------------------------
 
 
-def time_flash(err: float, launches: int, B: int = 2, Hkv: int = 4) -> dict:
+def time_flash(err: float, launches: int, B: int = 2, Hkv: int = 4,
+               H: int = 16, queued: bool = False) -> dict:
+    """K1 at the serving prefill's shape (``H`` query heads over ``Hkv``);
+    ``queued`` times the kernel and its yardstick by :func:`queued_ms`."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import attention as A
 
-    H, S, D, dt = 16, 2048, 64, torch.bfloat16
+    S, D, dt = 2048, 64, torch.bfloat16
+    timer = queued_ms if queued else time_ms
     q, k, v = _k1_inputs(B, H, Hkv, S, D, dt, seed=100)
     ke, ve = A.expand_kv(k, H), A.expand_kv(v, H)
     scale = 1.0 / math.sqrt(D)
     def kernel():
         return A.flash_attention_with_lse(q, k, v, True)
 
-    ms, one = time_ms(kernel), time_ms(kernel, batch=1)
+    ms, one = timer(kernel), time_ms(kernel, batch=1)
     plain = time_ms(lambda: A._reference_attention_lse(
         q, A.expand_kv(k, H), A.expand_kv(v, H), 0, scale), reps=5, batch=1)
     try:
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
+        lib = timer(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True))
     except TypeError:  # a PyTorch without enable_gqa: expanded K/V
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
+        lib = timer(lambda: F.scaled_dot_product_attention(
             q, ke, ve, is_causal=True))
     pairs = B * H * S * (S + 1) / 2
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) \
@@ -7113,16 +7132,17 @@ def time_flash_bwd(errs: dict, launches: dict) -> list:
     return out
 
 
-def time_paged(err: float, launches: int, R: int = 4) -> dict:
+def time_paged(err: float, launches: int, R: int = 4, Hkv: int = 4) -> dict:
     """K4 at the serving shape, 8 slots x 2176 positions, with ``R``
     query rows a kv head: the decode tick's G = 4, or the speculative
-    verify's G * W = 20 (its own kernels-line entry)."""
+    verify's G * W = 20 (its own kernels-line entry); ``Hkv`` kv heads
+    (a tp shard's ``4 / tp``)."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.models import transformer as T
     from horovod_tpu_torch.ops import paged_attention as PA
 
-    S, Hkv, Dh, ps, MP = 8, 4, 64, 16, 136
+    S, Dh, ps, MP = 8, 64, 16, 136
     P = S * MP + 1
     g = torch.Generator(device="cuda").manual_seed(7)
     qg = torch.randn((S, Hkv, R, Dh), generator=g, device="cuda").to(
@@ -7175,6 +7195,280 @@ def time_paged(err: float, launches: int, R: int = 4) -> dict:
             "grid": list(grid), "pages_per_split": pps,
             "shape": f"S={S} H_kv={Hkv} R={R} Dh={Dh} page={ps} "
                      f"pages/slot={MP} bf16, every slot at {MP * ps}"}
+
+
+# --- the tp phase: tensor-parallel serving -----------------------------------
+
+# One card has no peers and NCCL refuses two ranks on one device, so the
+# sharded body runs here in the virtual form (every shard in this
+# process, the partials summed in shard order; the body the CPU tests
+# hold to JAX over gloo ranks), against the tp = 1 engine at full width:
+# f32 churns at tp = 2 and 4 (one kv head a shard) of 8 requests over 4
+# slots, TP_PROMPT_LENS (buckets 8 to 1024), half of them sampled; a bf16
+# first decode tick;
+# K1 and K4 at the shard-local shapes; and the real form's collectives,
+# captured in the tick, over a size-1 NCCL group.
+TP_DEGREES = (2, 4)
+TP_ENGINE = dict(n_slots=4, max_len=1024, max_prefills_per_tick=2,
+                 page_size=16, max_queue_depth=64, paged_kernel=True)
+TP_PROMPT_LENS = [5, 16, 40, 100, 300, 700, 200, 64]
+TP_SAMPLING = SAMPLING
+TP_NEW_TOKENS = 32
+# The bf16 first tick's logits against tp = 1, over the tp = 1 logits'
+# largest magnitude: partials rounded to bf16 once each and once more
+# after the f32 sum, where tp = 1 rounds once (8 layers, 2 sums each).
+TP_BF16_TOL = 0.05
+
+
+def _tp_engine(params, cfg, tp: int, **kw):
+    from horovod_tpu_torch import serving
+
+    return serving.InferenceEngine(
+        params, cfg, serving.EngineConfig(**TP_ENGINE, tp=tp), device="cuda",
+        _virtual_tp=tp > 1, **kw)
+
+
+def _tp_churn(engine, prompts, label: str) -> dict:
+    """Warm ``engine`` over the prompts' buckets, then serve them all at
+    once: tokens, and the captures and launches the churn made."""
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import paged_attention as PA
+
+    engine.warmup(sorted({len(p) for p in prompts}))
+    caps = engine.decode_compilations
+    k1, k4 = A.flash_fwd_launches, PA.paged_attend_launches
+    replays, pre = engine._tick.replays, engine._graphs.replays
+    t0 = time.monotonic()
+    futs = [engine.submit(p, max_new_tokens=TP_NEW_TOKENS, **TP_SAMPLING[i])
+            for i, p in enumerate(prompts)]
+    while not all(f.done() for f in futs):
+        engine.step()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    tp, L = engine.engine_cfg.tp, engine.cfg.n_layers
+    full = {k: g.k1_launches_per_replay
+            for k, g in engine._graphs._graphs.items() if k[0] == "full"}
+    out = {"tokens": [f.result() for f in futs], "seconds": dt,
+           "captures": [caps, engine.decode_compilations],
+           "tick_replays": engine._tick.replays - replays,
+           "prefill_replays": engine._graphs.replays - pre,
+           "k4_per_replay": engine._tick.k4_launches_per_replay,
+           "k1_per_full_prefill": sorted(set(full.values())),
+           "launches": {"flash_fwd": A.flash_fwd_launches - k1,
+                        "paged_attend": PA.paged_attend_launches - k4},
+           "mesh": engine.stats()["mesh"]}
+    if out["captures"] != [1, 1]:
+        raise AssertionError(f"tp {label}: decode captures "
+                             f"{out['captures']}, want one across the churn")
+    if out["k4_per_replay"] != tp * L or out["launches"]["paged_attend"] \
+            != out["tick_replays"] * tp * L:
+        raise AssertionError(
+            f"tp {label}: K4 {out['launches']['paged_attend']} launches over "
+            f"{out['tick_replays']} replays, {out['k4_per_replay']} a "
+            f"replay; want tp x layers = {tp * L} a replay")
+    if out["k1_per_full_prefill"] != [tp * L]:
+        raise AssertionError(f"tp {label}: K1 a prefill replay "
+                             f"{out['k1_per_full_prefill']}, want {tp * L}")
+    return out
+
+
+def _tp_first_tick(params, cfg, prompts, sharding=None, first=None) -> tuple:
+    """The decode tick's body once, after a prefill landed in a paged pool
+    (K1, then K4 with ``kernel=True``), sharded by ``sharding`` (virtual)
+    or whole: ``(prefill logits, tick logits, the tick's input tokens)``.
+    The tick takes ``first`` (the whole model's picks), else the
+    prefill's argmax: a near-tie picked otherwise would feed a row
+    another token."""
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.serving import cache as C
+
+    tparams = sharding.shard_params(params) if sharding else params
+    S, n = len(prompts), max(len(p) for p in prompts)
+    ps = TP_ENGINE["page_size"]
+    MP = -(-(n + 1) // ps)
+    pool = C.init_page_pool(cfg, S, S * MP + 1, ps, device="cuda",
+                            sharding=sharding)
+    table = torch.arange(1, S * MP + 1, dtype=torch.int32,
+                         device="cuda").reshape(S, MP)
+    tokens = torch.zeros((S, n), dtype=torch.long, device="cuda")
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.tensor(p, device="cuda")
+    lens = torch.tensor([len(p) for p in prompts], device="cuda")
+    cache = T.init_cache(cfg, S, n, device="cuda", params=tparams)
+    logits0, kv = T.prefill(tparams, tokens, cache, cfg, true_len=lens)
+    t = torch.arange(n, device="cuda")
+    phys = torch.where(t[None, :] < lens[:, None],
+                       table[:, t // ps].long(), torch.zeros_like(t))
+    C.paged_insert(pool, torch.arange(S, device="cuda"), lens, phys,
+                   (t % ps)[None, :].expand(S, n), kv["k"], kv["v"])
+    if first is None:
+        first = torch.argmax(logits0, dim=-1)
+    active = torch.ones(S, dtype=torch.bool, device="cuda")
+    logits, _ = T.decode_step_paged(tparams, first, pool, table, cfg, active,
+                                    kernel=True, check_capacity=False)
+    torch.cuda.synchronize()
+    return logits0, logits, first
+
+
+def check_tp_kernels() -> dict:
+    """K4 at R = 4 (the tick) and R = 20 (the verify) and K1 over the
+    shard-local heads, H_kv = 2 (tp = 2) and 1 (tp = 4), bf16 and f32,
+    against their plain versions (K4 twice, bit for bit)."""
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import paged_attention as PA
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    tol = {f32: 1e-4, bf16: 2e-2}
+    errs = {}
+    for i, (dt, Hkv, R) in enumerate((dt, Hkv, R) for dt in (f32, bf16)
+                                     for Hkv in (2, 1) for R in (4, 20)):
+        args, table, limit = _k4_case(dt, dt, Hkv=Hkv, R=R, seed=900 + i)
+        o, lse = PA.paged_attend(*args, table, limit, compute_dtype=dt)
+        o2, lse2 = PA.paged_attend(*args, table, limit, compute_dtype=dt)
+        o_r, l_r = PA.paged_attend_reference(*args, table, limit,
+                                             compute_dtype=dt)
+        torch.cuda.synchronize()
+        live = limit > 0
+        err = max((o - o_r).abs().max().item(),
+                  (lse[live] - l_r[live]).abs().max().item())
+        name = f"K4 tp-local {str(dt)[6:]} H_kv={Hkv} R={R}"
+        log(f"{name}: max_abs_err={err:.3e} tol={tol[dt]:.0e}")
+        if not (err <= tol[dt] and torch.equal(o, o2)
+                and torch.equal(lse, lse2)):
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 "or between two calls")
+        errs[name] = err
+    k1_tol = {f32: 1e-4, bf16: 5e-2}
+    for i, (dt, Hkv) in enumerate((dt, Hkv) for dt in (f32, bf16)
+                                  for Hkv in (2, 1)):
+        H, S, D = 4 * Hkv, 1024, 64
+        q, k, v = _k1_inputs(2, H, Hkv, S, D, dt, seed=950 + i)
+        o, lse = A.flash_attention_with_lse(q, k, v, True)
+        o_r, l_r = A._reference_attention_lse(
+            q, A.expand_kv(k, H), A.expand_kv(v, H), 0, 1.0 / math.sqrt(D))
+        torch.cuda.synchronize()
+        err = max((o.float() - o_r.float()).abs().max().item(),
+                  (lse - l_r).abs().max().item())
+        name = f"K1 tp-local {str(dt)[6:]} H={H} H_kv={Hkv} S={S}"
+        log(f"{name}: max_abs_err={err:.3e} tol={k1_tol[dt]:.0e}")
+        if not err <= k1_tol[dt]:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        errs[name] = err
+    return errs
+
+
+def _tp_size_one(params, cfg, prompts, want: list) -> dict:
+    """The real form (a rank's one shard and its group's collectives: two
+    all_reduce a layer, the embedding's, the logits' all_gather, and the
+    step's broadcast) over a size-1 NCCL group, the collectives captured
+    in the tick and the admission graphs: tokens equal to tp = 1's."""
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.serving.sharding import ServingSharding
+
+    basics.init(init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        sh = ServingSharding(cfg, 1, device="cuda")
+        if sh.group is None or not sh.replicated:
+            raise AssertionError("the size-1 real form has no group")
+        eng = _tp_engine(params, cfg, 1, _sharding=sh)
+        res = _tp_churn(eng, prompts, "real form, size-1 NCCL")
+        del eng
+    finally:
+        basics.shutdown()
+    if res["tokens"] != want:
+        raise AssertionError("tp real form over a size-1 NCCL group: "
+                             "tokens differ from the tp = 1 engine's")
+    return res
+
+
+def time_tp_kernels(errs: dict, launches: dict) -> list:
+    """K1 and K4 at the shard-local shapes of tp = 2 and 4 (queued device
+    time, bound, plain version, SDPA), K4 at the tick's 8 x 2176."""
+    rows = []
+    for tp in TP_DEGREES:
+        Hkv, H = 4 // tp, 16 // tp
+        k4 = time_paged(errs[f"K4 tp-local bfloat16 H_kv={Hkv} R=4"],
+                        launches[tp]["paged_attend"], Hkv=Hkv)
+        k4["name"] = f"paged_attend_tp{tp}"
+        k1 = time_flash(errs[f"K1 tp-local bfloat16 H={H} H_kv={Hkv} "
+                             "S=1024"], launches[tp]["flash_fwd"], Hkv=Hkv,
+                        H=H, queued=True)
+        k1["name"] = f"flash_fwd_tp{tp}"
+        rows += [k1, k4]
+    return rows
+
+
+def tp_full_width(card: str) -> dict:
+    """The tp phase (module docstring, phase 13)."""
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.serving.sharding import ServingSharding
+
+    out = {"kernels": check_tp_kernels()}
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, FULL["vocab_size"], n).tolist()
+               for n in TP_PROMPT_LENS]
+    cfg = T.TransformerConfig(**FULL, dtype=torch.float32)
+    params = T.init_params(cfg, seed=0, device="cuda")
+    refs = _f32_oracles(params, cfg, prompts, TP_SAMPLING, TP_NEW_TOKENS)
+    legs = {}
+    for tp in (1,) + TP_DEGREES:
+        eng = _tp_engine(params, cfg, tp)
+        legs[tp] = _tp_churn(eng, prompts, f"f32 tp={tp}")
+        legs[tp]["exempt"] = _check_f32(f"tp={tp} f32", prompts,
+                                        legs[tp]["tokens"], refs,
+                                        TP_SAMPLING)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = {tp: sum(a == b for a, b in zip(legs[tp]["tokens"],
+                                           legs[1]["tokens"]))
+            for tp in TP_DEGREES}
+    log(f"tp f32 on {card}: requests token-identical to tp = 1 "
+        + ", ".join(f"tp={tp} {same[tp]}/{len(prompts)}"
+                    for tp in TP_DEGREES)
+        + "; churn s " + ", ".join(f"tp={tp} {legs[tp]['seconds']:.2f}"
+                                   for tp in legs)
+        + " (virtual: shards one after another on one card, not a "
+          "tp speed-up)")
+    out["size_one_nccl"] = _tp_size_one(params, cfg, prompts,
+                                        legs[1]["tokens"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg16 = T.TransformerConfig(**FULL, dtype=torch.bfloat16)
+    p16 = T.init_params(cfg16, seed=0, device="cuda")
+    base0, base, first = _tp_first_tick(p16, cfg16, prompts)
+    bf16 = {}
+    for tp in TP_DEGREES:
+        sh = ServingSharding(cfg16, tp, device="cuda", virtual=True)
+        l0, l1, _ = _tp_first_tick(p16, cfg16, prompts, sh, first)
+        scale = base.abs().max().item()
+        bf16[tp] = {
+            "prefill_err": (l0 - base0).abs().max().item()
+            / base0.abs().max().item(),
+            "tick_err": (l1 - base).abs().max().item() / scale,
+            "prefill_agree": float((l0.argmax(-1) == base0.argmax(-1))
+                                   .float().mean()),
+            "tick_agree": float((l1.argmax(-1) == base.argmax(-1))
+                                .float().mean())}
+        log(f"tp bf16 first tick on {card}, tp={tp} vs tp = 1: prefill "
+            f"logits err {bf16[tp]['prefill_err']:.3e}, tick logits err "
+            f"{bf16[tp]['tick_err']:.3e} (of the largest |logit|; tol "
+            f"{TP_BF16_TOL}), argmax agreement prefill "
+            f"{bf16[tp]['prefill_agree']:.2f} tick "
+            f"{bf16[tp]['tick_agree']:.2f}")
+        if not max(bf16[tp]["prefill_err"], bf16[tp]["tick_err"]) \
+                <= TP_BF16_TOL:
+            raise AssertionError(f"tp={tp} bf16 first tick beyond "
+                                 f"{TP_BF16_TOL} of tp = 1")
+    del p16
+    out.update(f32={tp: {k: v for k, v in leg.items() if k != "tokens"}
+                    for tp, leg in legs.items()},
+               identical_to_tp1=same, bf16=bf16,
+               launches={tp: legs[tp]["launches"] for tp in legs})
+    out["launches"]["size_one"] = out["size_one_nccl"]["launches"]
+    out["size_one_nccl"].pop("tokens")
+    return out
 
 
 def main() -> int:
@@ -7242,6 +7536,9 @@ def main() -> int:
     with phase("paged_kernel_ab"):
         kernel_ab = paged_kernel_ab(card, sampler_ms)
     REPORT["paged_kernel_ab"] = kernel_ab
+    with phase("tp"):
+        tp = tp_full_width(card)
+    REPORT["tp"] = tp
     F32_ORACLE.clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -7328,9 +7625,14 @@ def main() -> int:
     # phase's schedules and MoE legs.
     trained = {k: v + gs["launches"][k] + pipe["launches"][k]
                for k, v in trained.items()}
+    # The tp phase's churns: tp = 1, the virtual tp = 2 and 4 engines
+    # (K1 and K4 shard-local, tp x layers a replay) and the real form
+    # over a size-1 NCCL group.
+    tp_launches = {k: sum(leg[k] for leg in tp["launches"].values())
+                   for k in ("flash_fwd", "paged_attend")}
     k1_launches = sum(r["launches"]["flash_fwd"] for r in served) + \
         trained["flash_fwd"] + fleet_launches["flash_fwd"] + \
-        moe_pf["launches"]["flash_fwd"]
+        moe_pf["launches"]["flash_fwd"] + tp_launches["flash_fwd"]
     # G1's main paths: the dropless prefill runs, both MoE bursts and the
     # dropless training leg (forward and dx); G2's: that leg.
     g1_launches = moe_pf["launches"]["grouped_matmul"] + sum(
@@ -7342,7 +7644,7 @@ def main() -> int:
         verify_rows, 0) for leg in spec["legs"].values())
     k4_launches = sum(r["launches"]["paged_attend"] for r in served) \
         - k4_verify + fleet_launches["paged_attend"] + \
-        sp["launches"]["paged_attend"]
+        sp["launches"]["paged_attend"] + tp_launches["paged_attend"]
     t_times = time.monotonic()
     g1_times[0]["launches"] = g1_launches
     g1_times[1]["launches"] = g2_launches
@@ -7357,6 +7659,8 @@ def main() -> int:
     REPORT["flash_fwd_training_shape"] = k1_train
     k1_suffix = time_flash_suffix(k1["suffix"])
     REPORT["flash_fwd_suffix_shape"] = k1_suffix
+    tp_kernels = time_tp_kernels(tp["kernels"], tp["launches"])
+    REPORT["tp_kernels"] = tp_kernels
     REPORT["phase_s"]["times"] = time.monotonic() - t_times
     log(f"phase times: {REPORT['phase_s']['times']:.1f} s")
     log(f"flash_fwd device shift [{k1_suffix['shape']}]: "
@@ -7371,7 +7675,7 @@ def main() -> int:
         f"); SDPA over gathered K/V at R = {verify_rows} "
         f"{k4r20['library_ms']:.4f} ms; {k4_verify} verify launches in the "
         "speculative legs")
-    for kr in kernels + [k1_train, k1_suffix, *g1_times[2:]]:
+    for kr in kernels + [k1_train, k1_suffix, *g1_times[2:], *tp_kernels]:
         log(f"{kr['name']} [{kr['shape']}]: {kr['ms']:.4f} ms "
             f"({kr['tflops']:.1f} TFLOP/s; one call alone "
             f"{kr['one_call_ms']:.4f} ms), bound {kr['bound_ms']:.4f} ms "

@@ -30,6 +30,16 @@ gathered over pp before it is unbound, the embedding and the loss
 vocabulary-parallel over ``tp``), and on plain tensors it computes what
 it always did.
 
+Tensor-parallel serving: :func:`serving_param_specs` and the cache,
+pool, kernel and prefix specs are JAX's; :func:`shard_params` cuts a
+model into the shards a process holds (:class:`TPShards`), and the
+serving bodies (:func:`prefill`, :func:`prefill_with_prefix`,
+:func:`decode_step`, :func:`decode_step_paged`,
+:func:`decode_verify_paged`, so :func:`greedy_decode` and
+:func:`sample_decode` too) run them: each local shard's heads (K1, K4)
+and hidden slice, the partials reduced over the tp group, the logits
+gathered (the section's comment below).
+
 Expert parallelism (``moe_axis``) and the pipeline
 (:func:`pipelined_forward`, :func:`pipelined_value_and_grad`: GPipe,
 1F1B, interleaved over the bound ``pp`` axis, through
@@ -89,14 +99,17 @@ from horovod_tpu_torch.parallel import meshes
 from horovod_tpu_torch.parallel import pipeline as _pl
 from horovod_tpu_torch.parallel.sharding import P
 
-__all__ = ["TransformerConfig", "batch_specs", "decode_step",
-           "decode_step_paged", "decode_step_slots", "decode_verify_paged",
-           "draft_propose_paged", "expert_load", "forward",
-           "greedy_decode", "init_cache", "init_params", "kv_dequantize",
-           "kv_quantize", "loss_fn", "ngram_propose", "param_specs",
+__all__ = ["TPShards", "TransformerConfig", "batch_specs", "cache_specs",
+           "decode_step", "decode_step_paged", "decode_step_slots",
+           "decode_verify_paged", "draft_propose_paged", "expert_load",
+           "forward", "greedy_decode", "init_cache", "init_params",
+           "kv_dequantize", "kv_quantize", "loss_fn", "ngram_propose",
+           "paged_kernel_specs", "paged_pool_specs", "param_specs",
            "pipelined_forward", "pipelined_value_and_grad", "prefill",
-           "prefill_with_prefix", "resolve_device",
-           "sample_decode", "sample_token_rows", "synthetic_batch"]
+           "prefill_with_prefix", "prefix_kv_specs", "resolve_device",
+           "sample_decode", "sample_token_rows", "serving_param_specs",
+           "serving_shardings", "shard_kv_pool", "shard_params",
+           "synthetic_batch", "tp_bounds"]
 
 _MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 #: The sequence-parallel attention impls (over the bound ``sp`` axis).
@@ -659,9 +672,10 @@ def _attention(x, p, cfg: TransformerConfig, sp=None, prefill=False):
     elif impl == "flash":
         oh = attn.flash_attention(qh, kh, vh, True)
     elif impl == "reference":
+        # The query heads of this call: a tp shard holds H / tp of them.
         oh = attn.reference_attention(
-            qh, attn.expand_kv(kh, cfg.n_heads),
-            attn.expand_kv(vh, cfg.n_heads), causal=True)
+            qh, attn.expand_kv(kh, qh.shape[1]),
+            attn.expand_kv(vh, qh.shape[1]), causal=True)
     elif impl == "ring":
         oh = attn.ring_attention(qh, kh, vh, group=group, causal=True)
     elif impl == "ring_zigzag":
@@ -966,19 +980,264 @@ def _pipelined_value_and_grad(params: Dict, batch: Dict,
                   "head": out["head"]}
 
 
+# --- tensor-parallel serving -------------------------------------------------
+#
+# Megatron-style tp over the serving path (JAX's serving_param_specs and
+# GSPMD): attention heads and the MLP hidden dimension split over tp, the
+# embedding and the LM head at the vocabulary, norms replicated, KV caches
+# and page pools split by kv head.  A process holds some of the shards
+# (:class:`TPShards`: one in the real form, one process a tp rank; all of
+# them in the virtual form, which has no group) and runs every local
+# shard's heads and hidden slice; the row-parallel partials (``wo``,
+# ``w_down``) and the vocabulary-masked embedding are summed in f32 in
+# shard order, then over the group, and rounded once to ``cfg.dtype``;
+# the vocabulary-sharded f32 logits are gathered, so every rank samples
+# the same token from the same logits.  A sharded cache or pool holds a
+# list (one tensor a local shard, each its own contiguous storage) where
+# an unsharded one holds a tensor; ``pos`` is shared.
+
+
+def serving_param_specs(cfg: TransformerConfig, axes=("tp",)) -> Dict:
+    """:func:`param_specs` with every mesh axis but ``axes`` replicated
+    (JAX's ``serving_param_specs``): heads, the MLP hidden dimension and
+    the vocabulary over tp, everything else replicated."""
+    def keep(tree):
+        if isinstance(tree, dict):
+            return {k: keep(v) for k, v in tree.items()}
+        return P(*[a if a in axes else None for a in tree])
+
+    return keep(param_specs(cfg))
+
+
+def cache_specs() -> Dict:
+    """KV-cache specs ``(L, B, H_kv, T, Dh)``: the kv-head dimension over
+    tp (also the layout of a prefill's output block), ``pos``
+    replicated."""
+    return {"k": P(None, None, "tp", None, None),
+            "v": P(None, None, "tp", None, None),
+            "pos": P()}
+
+
+def paged_pool_specs(quantized: bool = False) -> Dict:
+    """Page-pool specs ``(L, P, H_kv, page, Dh)``: pages split by kv head,
+    never by page id, so page tables, grants, refcounts and copy-on-write
+    stay host data; int8 scales ``(L, P, H_kv, page)`` ride the same
+    split; ``pos`` replicated."""
+    specs = {"k": P(None, None, "tp", None, None),
+             "v": P(None, None, "tp", None, None),
+             "pos": P()}
+    if quantized:
+        specs["k_scale"] = P(None, None, "tp", None)
+        specs["v_scale"] = P(None, None, "tp", None)
+    return specs
+
+
+def paged_kernel_specs(quantized: bool = False):
+    """K4's operand and result specs under tp, ``(q, k_pool, v_pool[,
+    k_scale, v_scale], table, limit)`` / ``(o, lse)``: the kernel's grid is
+    per (slot, kv head) with no traffic across heads, so every operand
+    splits at its kv-head dimension and the table and limits stay
+    replicated."""
+    head = P(None, "tp", None, None)
+    scale = P(None, "tp", None)
+    in_specs = (head, head, head)
+    if quantized:
+        in_specs = in_specs + (scale, scale)
+    return in_specs + (P(), P()), (head, P(None, "tp", None))
+
+
+def prefix_kv_specs():
+    """A gathered prefix block ``(L, H_kv, n * page, Dh)``: kv heads over
+    tp, as the pool it was gathered from."""
+    return P(None, "tp", None, None)
+
+
+def serving_shardings(mesh, cfg: TransformerConfig):
+    """``(param shardings, cache shardings)``: :class:`~horovod_tpu_torch.
+    parallel.sharding.NamedSharding` trees of :func:`serving_param_specs`
+    and :func:`cache_specs` over a tp ``mesh``."""
+    from horovod_tpu_torch.parallel.sharding import named_shardings
+
+    return (named_shardings(mesh, serving_param_specs(cfg)),
+            named_shardings(mesh, cache_specs()))
+
+
+def tp_bounds(n: int, tp: int):
+    """The ``tp + 1`` bounds of a dimension of ``n`` split over tp, as even
+    as integers allow (GSPMD pads instead; the sums are the same)."""
+    return [(i * n) // tp for i in range(tp + 1)]
+
+
+class TPShards:
+    """The tensor-parallel shards of a model's parameters that this
+    process holds (:func:`shard_params`).
+
+    ``shards``: parameter dicts in the package layout, each cut to one
+    shard by :func:`serving_param_specs`; ``index``: the shard number of
+    each (``(rank,)`` in the real form, ``0..tp-1`` in the virtual one);
+    ``group``: the process group over the tp ranks, None when this
+    process holds every shard.  :meth:`reduce` and :meth:`gather` are the
+    collectives of the sharded body; with a group of one shard a rank
+    they are one ``all_reduce`` and one ``all_gather`` each."""
+
+    def __init__(self, shards, index, tp: int, vocab_size: int, group=None):
+        self.shards = list(shards)
+        self.index = tuple(index)
+        self.tp = tp
+        self.group = group
+        if group is not None and len(self.shards) != 1:
+            raise ValueError("a tp rank in a group holds one shard")
+        b = tp_bounds(vocab_size, tp)
+        self.vocab_bounds = [(b[i], b[i + 1]) for i in range(tp)]
+
+    def reduce(self, parts, dtype):
+        """The sum of row-parallel partials: in f32, local shards in
+        order, then over the group, rounded once to ``dtype``."""
+        s = parts[0].float()
+        for p in parts[1:]:
+            s = s + p.float()
+        if self.group is not None:
+            s = s.contiguous()
+            dist.all_reduce(s, group=self.group)
+        return s.to(dtype)
+
+    def gather(self, parts):
+        """Vocabulary-sharded logits ``(..., V_shard)`` -> ``(..., V)`` in
+        shard order, on every rank."""
+        if self.group is None:
+            return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+        x = parts[0]
+        width = max(hi - lo for lo, hi in self.vocab_bounds)
+        if x.shape[-1] < width:
+            x = F.pad(x, (0, width - x.shape[-1]))
+        bufs = [torch.empty_like(x) for _ in range(self.tp)]
+        dist.all_gather(bufs, x.contiguous(), group=self.group)
+        return torch.cat([b[..., :hi - lo] for b, (lo, hi)
+                          in zip(bufs, self.vocab_bounds)], dim=-1)
+
+    def embed(self, tokens, dtype, active=None):
+        """The vocabulary-parallel lookup: each shard looks up the ids in
+        its rows and zeros the others (and inactive rows), summed."""
+        parts = []
+        for sh, i in zip(self.shards, self.index):
+            lo, hi = self.vocab_bounds[i]
+            t = tokens.long() - lo
+            inside = (t >= 0) & (t < hi - lo)
+            if active is not None:
+                inside = inside & active.reshape(
+                    active.shape + (1,) * (t.dim() - active.dim()))
+            x = sh["embed"].to(dtype)[t.clamp(0, hi - lo - 1)]
+            parts.append(torch.where(inside[..., None], x,
+                                     torch.zeros_like(x)))
+        return self.reduce(parts, dtype)
+
+
+def _cut(t, spec, tp: int, i: int):
+    """Shard ``i`` of tp of ``t`` by ``spec`` in storage of its own; a
+    replicated leaf as it is."""
+    for d, a in enumerate(spec):
+        if a == "tp":
+            b = tp_bounds(t.shape[d], tp)
+            return t.narrow(d, b[i], b[i + 1] - b[i]).clone(
+                memory_format=torch.contiguous_format)
+    return t
+
+
+def shard_params(params: Dict, sharding, cfg: TransformerConfig) -> TPShards:
+    """The local shards of ``params`` on a serving ``sharding``
+    (:class:`~horovod_tpu_torch.serving.sharding.ServingSharding`: its
+    ``tp``, the ``index`` of the shards this process holds and the tp
+    ``group``), cut by :func:`serving_param_specs`, each leaf contiguous
+    (K1 and K4 read them in place)."""
+    specs = serving_param_specs(cfg)
+
+    def one(i):
+        def walk(tree, spec):
+            if isinstance(tree, dict):
+                return {k: walk(v, spec[k]) for k, v in tree.items()}
+            return _cut(tree, spec, sharding.tp, i)
+        return walk(params, specs)
+
+    return TPShards([one(i) for i in sharding.index], sharding.index,
+                    sharding.tp, cfg.vocab_size, sharding.group)
+
+
+def shard_kv_pool(pool: Dict, sharding) -> Dict:
+    """A whole paged pool cut to the local shards of ``sharding`` by
+    :func:`paged_pool_specs` (payload and int8 scales by kv head, each
+    shard contiguous; ``pos`` shared)."""
+    specs = paged_pool_specs("k_scale" in pool)
+    return {k: (v if k == "pos" else
+                [_cut(v, specs[k], sharding.tp, i) for i in sharding.index])
+            for k, v in pool.items()}
+
+
+def _tp(params):
+    """``(shard dicts, TPShards or None)``: a sharded model's local
+    shards, or a whole model as its one shard."""
+    if isinstance(params, TPShards):
+        return params.shards, params
+    return [params], None
+
+
+def _tp_sum(parts, tp, dtype):
+    return parts[0] if tp is None else tp.reduce(parts, dtype)
+
+
+def _local(store: Dict, n: int):
+    """A cache or pool dict as ``n`` per-shard dicts (a list-valued entry
+    is sharded, a tensor shared)."""
+    return [{k: (v[i] if isinstance(v, list) else v)
+             for k, v in store.items()} for i in range(n)]
+
+
+def _embed_tp(params, tokens, cfg: TransformerConfig, active=None):
+    if isinstance(params, TPShards):
+        return params.embed(tokens, cfg.dtype, active)
+    return _embed(params, tokens, cfg, active)
+
+
+def _mlp_block_tp(x, ps, tp, cfg: TransformerConfig, moe_impl: str):
+    """:func:`_mlp_block` over the local shards ``ps``: each shard's MLP
+    on its hidden slice (an MoE's expert FFNs split the same way, the
+    router replicated), the partials reduced."""
+    if tp is None:
+        return _mlp_block(x, ps[0], cfg, moe_impl=moe_impl)
+    m = _rmsnorm(x, ps[0]["ln2"])
+    parts = [_moe_mlp(m, p, cfg, impl=moe_impl) if cfg.n_experts > 1
+             else _dense_mlp(m, p, cfg) for p in ps]
+    return x + tp.reduce(parts, x.dtype)
+
+
+def _lm_head_tp(y, params, cfg: TransformerConfig):
+    shards, tp = _tp(params)
+    if tp is None:
+        return _lm_head(y, params["ln_f"], params["head"], cfg)
+    return tp.gather([_lm_head(y, s["ln_f"], s["head"], cfg)
+                      for s in shards])
+
+
 # --- prefill + the contiguous-cache oracle -----------------------------------
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int = 0, *,
-               device=None) -> Dict:
+               device=None, params=None) -> Dict:
     """KV cache ``(L, B, H_kv, T, Dh)`` in ``cfg.dtype`` and a scalar
-    position (a Python int, the write position of the next token)."""
+    position (a Python int, the write position of the next token).  For
+    :class:`TPShards` ``params``, ``k`` and ``v`` are lists: one tensor a
+    local shard, at the shard's kv heads."""
     device = resolve_device(device)
     T = max_len or cfg.max_seq
-    shape = (cfg.n_layers, batch, cfg.kv_heads, T, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "pos": 0}
+
+    def zeros(hkv):
+        return torch.zeros((cfg.n_layers, batch, hkv, T, cfg.head_dim),
+                           dtype=cfg.dtype, device=device)
+
+    if isinstance(params, TPShards):
+        heads = [s["layers"]["wk"].shape[2] for s in params.shards]
+        return {"k": [zeros(h) for h in heads],
+                "v": [zeros(h) for h in heads], "pos": 0}
+    return {"k": zeros(cfg.kv_heads), "v": zeros(cfg.kv_heads), "pos": 0}
 
 
 
@@ -1002,17 +1261,25 @@ def prefill(params: Dict, prompt, cache: Dict, cfg: TransformerConfig, *,
     if not isinstance(cache["pos"], int) or cache["pos"] != 0:
         raise ValueError("prefill requires a fresh cache (pos == 0)")
     B, S0 = prompt.shape
-    if S0 > cache["k"].shape[3]:
+    shards, tp = _tp(params)
+    caches = _local(cache, len(shards))
+    if S0 > caches[0]["k"].shape[3]:
         raise ValueError(
             f"prompt ({S0} tokens) exceeds cache capacity "
-            f"({cache['k'].shape[3]}); init_cache with a larger max_len")
-    x = _embed(params, prompt, cfg)
+            f"({caches[0]['k'].shape[3]}); init_cache with a larger "
+            "max_len")
+    x = _embed_tp(params, prompt, cfg)
     for l in range(cfg.n_layers):
-        p = _layer(params, l)
-        h, kh, vh = _attention(_rmsnorm(x, p["ln1"]), p, cfg, prefill=True)
-        cache["k"][l, :, :, :S0] = kh
-        cache["v"][l, :, :, :S0] = vh
-        x = _mlp_block(x + h, p, cfg, moe_impl=moe_impl)
+        ps = [_layer(s, l) for s in shards]
+        xn = _rmsnorm(x, ps[0]["ln1"])
+        hs = []
+        for p, c in zip(ps, caches):
+            h, kh, vh = _attention(xn, p, cfg, prefill=True)
+            c["k"][l, :, :, :S0] = kh
+            c["v"][l, :, :, :S0] = vh
+            hs.append(h)
+        x = _mlp_block_tp(x + _tp_sum(hs, tp, x.dtype), ps, tp, cfg,
+                          moe_impl)
     if true_len is None:
         last = x[:, -1:]
         new_pos = S0
@@ -1021,7 +1288,7 @@ def prefill(params: Dict, prompt, cache: Dict, cfg: TransformerConfig, *,
         idx = (tl - 1).expand(B) if tl.dim() == 0 else tl - 1
         last = x[torch.arange(B, device=x.device), idx][:, None]
         new_pos = int(tl) if tl.dim() == 0 else tl.to(torch.int32)
-    logits = _lm_head(last, params["ln_f"], params["head"], cfg)
+    logits = _lm_head_tp(last, params, cfg)
     cache["pos"] = new_pos
     return logits[:, 0], cache
 
@@ -1091,30 +1358,40 @@ def prefill_with_prefix(params: Dict, suffix, prefix_k, prefix_v,
     tl = torch.as_tensor(true_len, dtype=torch.long, device=dev).reshape(-1)
     positions = p0 + torch.arange(S0, device=dev)
     shift = (-p0).to(torch.int32)
-    x = _embed(params, suffix, cfg)
-    ks, vs = [], []
+    shards, tp = _tp(params)
+    pre = _local({"k": prefix_k, "v": prefix_v}, len(shards))
+    x = _embed_tp(params, suffix, cfg)
+    ks, vs = [[] for _ in shards], [[] for _ in shards]
     for l in range(cfg.n_layers):
-        p = _layer(params, l)
-        qh, kh, vh = _qkv_proj(_rmsnorm(x, p["ln1"]), p, cfg,
-                               positions=positions)
-        pk, pv = prefix_k[l].to(kh.dtype), prefix_v[l].to(vh.dtype)
-        if cfg.attention_impl != "reference":
-            Hkv, P0, Dh = pk.shape
-            k_full = torch.cat([pk[None].expand(K, Hkv, P0, Dh), kh], dim=2)
-            v_full = torch.cat([pv[None].expand(K, Hkv, P0, Dh), vh], dim=2)
-            k_full.index_copy_(2, positions, kh)
-            v_full.index_copy_(2, positions, vh)
-            oh, _ = attn.flash_attention_shifted(qh, k_full, v_full, shift)
-        else:
-            oh = _prefix_attend_reference(qh, kh, vh, pk, pv, p0)
-        ks.append(kh)
-        vs.append(vh)
-        x = _mlp_block(x + _out_proj(oh, p, cfg), p, cfg,
-                       moe_impl=moe_impl)
+        ps = [_layer(s, l) for s in shards]
+        xn = _rmsnorm(x, ps[0]["ln1"])
+        outs = []
+        for i, (p, pr) in enumerate(zip(ps, pre)):
+            qh, kh, vh = _qkv_proj(xn, p, cfg, positions=positions)
+            pk, pv = pr["k"][l].to(kh.dtype), pr["v"][l].to(vh.dtype)
+            if cfg.attention_impl != "reference":
+                Hkv, P0, Dh = pk.shape
+                k_full = torch.cat([pk[None].expand(K, Hkv, P0, Dh), kh],
+                                   dim=2)
+                v_full = torch.cat([pv[None].expand(K, Hkv, P0, Dh), vh],
+                                   dim=2)
+                k_full.index_copy_(2, positions, kh)
+                v_full.index_copy_(2, positions, vh)
+                oh, _ = attn.flash_attention_shifted(qh, k_full, v_full,
+                                                     shift)
+            else:
+                oh = _prefix_attend_reference(qh, kh, vh, pk, pv, p0)
+            ks[i].append(kh)
+            vs[i].append(vh)
+            outs.append(_out_proj(oh, p, cfg))
+        x = _mlp_block_tp(x + _tp_sum(outs, tp, x.dtype), ps, tp, cfg,
+                          moe_impl)
     last = x[torch.arange(K, device=dev), tl - 1][:, None]
-    logits = _lm_head(last, params["ln_f"], params["head"], cfg)
-    return logits[:, 0], {"k": torch.stack(ks), "v": torch.stack(vs),
-                          "pos": p0 + tl}
+    logits = _lm_head_tp(last, params, cfg)
+    k, v = [torch.stack(a) for a in ks], [torch.stack(a) for a in vs]
+    if tp is None:
+        k, v = k[0], v[0]
+    return logits[:, 0], {"k": k, "v": v, "pos": p0 + tl}
 
 
 def _cache_attend(qh, k_cache, v_cache, mask):
@@ -1156,17 +1433,22 @@ def decode_step(params: Dict, tokens_t, cache: Dict,
     ``tokens_t`` (B,) -> ``(logits (B, V) f32, cache)``, cache updated in
     place."""
     pos = int(cache["pos"])
-    if pos >= cache["k"].shape[3]:
+    shards, tp = _tp(params)
+    caches = _local(cache, len(shards))
+    T_cache = caches[0]["k"].shape[3]
+    if pos >= T_cache:
         raise ValueError(
             f"decode_step past cache capacity (pos {pos} >= "
-            f"{cache['k'].shape[3]}); init_cache with a larger max_len")
-    x = _embed(params, tokens_t, cfg)[:, None]
+            f"{T_cache}); init_cache with a larger max_len")
+    x = _embed_tp(params, tokens_t, cfg)[:, None]
     for l in range(cfg.n_layers):
-        p = _layer(params, l)
-        h = _attention_decode(_rmsnorm(x, p["ln1"]), p, cfg,
-                              cache["k"][l], cache["v"][l], pos)
-        x = _mlp_block(x + h, p, cfg, moe_impl="dense")
-    logits = _lm_head(x, params["ln_f"], params["head"], cfg)
+        ps = [_layer(s, l) for s in shards]
+        xn = _rmsnorm(x, ps[0]["ln1"])
+        hs = [_attention_decode(xn, p, cfg, c["k"][l], c["v"][l], pos)
+              for p, c in zip(ps, caches)]
+        x = _mlp_block_tp(x + _tp_sum(hs, tp, x.dtype), ps, tp, cfg,
+                          "dense")
+    logits = _lm_head_tp(x, params, cfg)
     cache["pos"] = pos + 1
     return logits[:, 0], cache
 
@@ -1325,7 +1607,7 @@ def sample_decode(params: Dict, prompt, steps: int, cfg: TransformerConfig,
     f32 (:func:`sample_token_rows`)."""
     B, S0 = prompt.shape
     dev = prompt.device
-    cache = init_cache(cfg, B, S0 + steps, device=dev)
+    cache = init_cache(cfg, B, S0 + steps, device=dev, params=params)
     logits, cache = prefill(params, prompt, cache, cfg)
     temp = torch.full((B,), float(temperature), dtype=torch.float32,
                       device=dev)
@@ -1480,7 +1762,9 @@ def decode_step_paged(params: Dict, tokens_t, pool: Dict, table,
     capacity, and the tick must stay free of host syncs (for the
     overlapped pipeline and for CUDA-graph capture)."""
     pos = pool["pos"]
-    T_cap = table.shape[1] * pool["k"].shape[3]
+    shards, tp = _tp(params)
+    pools = _local(pool, len(shards))
+    T_cap = table.shape[1] * pools[0]["k"].shape[3]
     if check_capacity:
         over = active & (pos >= T_cap)
         if bool(over.any()):
@@ -1488,17 +1772,19 @@ def decode_step_paged(params: Dict, tokens_t, pool: Dict, table,
                 f"decode_step_paged past table capacity (slots "
                 f"{torch.nonzero(over).flatten().tolist()} at pos >= "
                 f"{T_cap}); init_page_pool with more pages per slot")
-    x = _embed(params, tokens_t, cfg, active)[:, None]
+    x = _embed_tp(params, tokens_t, cfg, active)[:, None]
     quantized = "k_scale" in pool
     for l in range(cfg.n_layers):
-        p = _layer(params, l)
-        h = _attention_decode_paged(
-            _rmsnorm(x, p["ln1"]), p, cfg, pool["k"][l], pool["v"][l],
-            pool["k_scale"][l] if quantized else None,
-            pool["v_scale"][l] if quantized else None,
-            table, pos, active, kernel)
-        x = _mlp_block(x + h, p, cfg, moe_impl="dense")
-    logits = _lm_head(x, params["ln_f"], params["head"], cfg)
+        ps = [_layer(s, l) for s in shards]
+        xn = _rmsnorm(x, ps[0]["ln1"])
+        hs = [_attention_decode_paged(
+            xn, p, cfg, sp["k"][l], sp["v"][l],
+            sp["k_scale"][l] if quantized else None,
+            sp["v_scale"][l] if quantized else None,
+            table, pos, active, kernel) for p, sp in zip(ps, pools)]
+        x = _mlp_block_tp(x + _tp_sum(hs, tp, x.dtype), ps, tp, cfg,
+                          "dense")
+    logits = _lm_head_tp(x, params, cfg)
     pos.add_(active.to(pos.dtype))
     return logits[:, 0], pool
 
@@ -1610,15 +1896,15 @@ def decode_verify_paged(params: Dict, window, pool: Dict, table,
     pos = pool["pos"]
     S, W = window.shape
     dev = window.device
+    shards, tp = _tp(params)
+    pools = _local(pool, len(shards))
     max_pages = table.shape[1]
-    ps = pool["k"].shape[3]
+    ps = pools[0]["k"].shape[3]
     T_cap = max_pages * ps
     quantized = "k_scale" in pool
-    storage = pool["k"].dtype
-    H, Hkv, Dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    G = H // Hkv
+    storage = pools[0]["k"].dtype
     p0 = pos.long()
-    x = params["embed"].to(cfg.dtype)[window.long()]       # (S, W, D)
+    x = _embed_tp(params, window, cfg)                     # (S, W, D)
     x = torch.where(active[:, None, None], x, torch.zeros_like(x))
     jw = torch.arange(W, device=dev)
     positions = p0[:, None] + jw[None, :]
@@ -1632,69 +1918,80 @@ def decode_verify_paged(params: Dict, window, pool: Dict, table,
         mask = torch.cat([cache_vis[:, None, :].expand(S, W, T_cap),
                           win_vis[None].expand(S, W, W)], dim=2)
         mask = mask[:, None, None]                         # (S,1,1,W,T+W)
-    ys = []
+    ys = [[] for _ in shards]
     for l in range(cfg.n_layers):
-        p = _layer(params, l)
-        k_c, v_c = pool["k"][l], pool["v"][l]
-        ks_c = pool["k_scale"][l] if quantized else None
-        vs_c = pool["v_scale"][l] if quantized else None
-        qh, kh, vh = _qkv_proj(_rmsnorm(x, p["ln1"]), p, cfg,
-                               positions=positions)
-        if quantized:
-            qk, sk = kv_quantize(kh)
-            qv, sv = kv_quantize(vh)
-            kh_a = kv_dequantize(qk, sk, cfg.dtype)
-            vh_a = kv_dequantize(qv, sv, cfg.dtype)
-            ys.append((qk, sk, qv, sv))
-        else:
-            kh_a, vh_a = kh.to(storage), vh.to(storage)
-            ys.append((kh_a, vh_a))
-        qg = qh.reshape(S, Hkv, G, W, Dh)
-        if kernel:
-            o_c, lse_c = pa.paged_attend(
-                qg.reshape(S, Hkv, G * W, Dh), k_c, v_c, ks_c, vs_c, table,
-                climit, compute_dtype=cfg.dtype)
-            o_c = o_c.reshape(S, Hkv, G, W, Dh)
-            lse_c = lse_c.reshape(S, Hkv, G, W)
-            # The window's own causal attention, unnormalized beside its
-            # log-sum-exp (the diagonal is always visible: lw >= 1).
-            sw = torch.einsum("bkgsd,bktd->bkgst",
-                              qg.to(kh_a.dtype).float(),
-                              kh_a.float()) / math.sqrt(Dh)
-            sw = torch.where(win_vis, sw, torch.full_like(sw, -1e30))
-            mw = sw.amax(dim=-1)
-            pw = torch.exp(sw - mw[..., None])
-            lw = pw.sum(dim=-1)
-            o_w = torch.einsum("bkgst,bktd->bkgsd", pw.to(vh_a.dtype).float(),
-                               vh_a.float()) / lw[..., None]
-            lse_w = mw + torch.log(lw)
-            # Cross-source merge; a_c is exactly 0 for a row with no
-            # committed context (lse_c = NEG_INF).
-            m = torch.maximum(lse_c, lse_w)
-            a_c = torch.exp(lse_c - m)
-            a_w = torch.exp(lse_w - m)
-            o = ((a_c[..., None] * o_c + a_w[..., None] * o_w)
-                 / (a_c + a_w)[..., None])
-        else:
+        lps = [_layer(s, l) for s in shards]
+        xn = _rmsnorm(x, lps[0]["ln1"])
+        outs = []
+        for p, sp, y in zip(lps, pools, ys):
+            k_c, v_c = sp["k"][l], sp["v"][l]
+            ks_c = sp["k_scale"][l] if quantized else None
+            vs_c = sp["v_scale"][l] if quantized else None
+            qh, kh, vh = _qkv_proj(xn, p, cfg, positions=positions)
+            # This shard's heads: H / tp query heads over H_kv / tp.
+            H, Hkv, Dh = qh.shape[1], kh.shape[1], qh.shape[3]
+            G = H // Hkv
             if quantized:
-                kg = kv_dequantize(_gather_pages(k_c, table),
-                                   _gather_scales(ks_c, table), cfg.dtype)
-                vg = kv_dequantize(_gather_pages(v_c, table),
-                                   _gather_scales(vs_c, table), cfg.dtype)
+                qk, sk = kv_quantize(kh)
+                qv, sv = kv_quantize(vh)
+                kh_a = kv_dequantize(qk, sk, cfg.dtype)
+                vh_a = kv_dequantize(qv, sv, cfg.dtype)
+                y.append((qk, sk, qv, sv))
             else:
-                kg, vg = _gather_pages(k_c, table), _gather_pages(v_c, table)
-            k_full = torch.cat([kg, kh_a], dim=2)          # (S,Hkv,T+W,Dh)
-            v_full = torch.cat([vg, vh_a], dim=2)
-            sc = torch.einsum("bkgsd,bktd->bkgst",
-                              qg.to(k_full.dtype).float(),
-                              k_full.float()) / math.sqrt(Dh)
-            sc = torch.where(mask, sc, torch.full_like(sc, -1e30))
-            w = _softmax(sc)
-            o = torch.einsum("bkgst,bktd->bkgsd", w.to(v_full.dtype).float(),
-                             v_full.float())
-        out = _out_proj(o.reshape(S, H, W, Dh).to(cfg.dtype), p, cfg)
-        x = _mlp_block(x + out, p, cfg, moe_impl="dense")
-    logits = _lm_head(x, params["ln_f"], params["head"], cfg)  # (S, W, V)
+                kh_a, vh_a = kh.to(storage), vh.to(storage)
+                y.append((kh_a, vh_a))
+            qg = qh.reshape(S, Hkv, G, W, Dh)
+            if kernel:
+                o_c, lse_c = pa.paged_attend(
+                    qg.reshape(S, Hkv, G * W, Dh), k_c, v_c, ks_c, vs_c,
+                    table, climit, compute_dtype=cfg.dtype)
+                o_c = o_c.reshape(S, Hkv, G, W, Dh)
+                lse_c = lse_c.reshape(S, Hkv, G, W)
+                # The window's own causal attention, unnormalized beside
+                # its log-sum-exp (the diagonal is always visible: lw >= 1).
+                sw = torch.einsum("bkgsd,bktd->bkgst",
+                                  qg.to(kh_a.dtype).float(),
+                                  kh_a.float()) / math.sqrt(Dh)
+                sw = torch.where(win_vis, sw, torch.full_like(sw, -1e30))
+                mw = sw.amax(dim=-1)
+                pw = torch.exp(sw - mw[..., None])
+                lw = pw.sum(dim=-1)
+                o_w = torch.einsum("bkgst,bktd->bkgsd",
+                                   pw.to(vh_a.dtype).float(),
+                                   vh_a.float()) / lw[..., None]
+                lse_w = mw + torch.log(lw)
+                # Cross-source merge; a_c is exactly 0 for a row with no
+                # committed context (lse_c = NEG_INF).
+                m = torch.maximum(lse_c, lse_w)
+                a_c = torch.exp(lse_c - m)
+                a_w = torch.exp(lse_w - m)
+                o = ((a_c[..., None] * o_c + a_w[..., None] * o_w)
+                     / (a_c + a_w)[..., None])
+            else:
+                if quantized:
+                    kg = kv_dequantize(_gather_pages(k_c, table),
+                                       _gather_scales(ks_c, table),
+                                       cfg.dtype)
+                    vg = kv_dequantize(_gather_pages(v_c, table),
+                                       _gather_scales(vs_c, table),
+                                       cfg.dtype)
+                else:
+                    kg = _gather_pages(k_c, table)
+                    vg = _gather_pages(v_c, table)
+                k_full = torch.cat([kg, kh_a], dim=2)      # (S,Hkv,T+W,Dh)
+                v_full = torch.cat([vg, vh_a], dim=2)
+                sc = torch.einsum("bkgsd,bktd->bkgst",
+                                  qg.to(k_full.dtype).float(),
+                                  k_full.float()) / math.sqrt(Dh)
+                sc = torch.where(mask, sc, torch.full_like(sc, -1e30))
+                w = _softmax(sc)
+                o = torch.einsum("bkgst,bktd->bkgsd",
+                                 w.to(v_full.dtype).float(), v_full.float())
+            outs.append(_out_proj(o.reshape(S, H, W, Dh).to(cfg.dtype), p,
+                                  cfg))
+        x = _mlp_block_tp(x + _tp_sum(outs, tp, x.dtype), lps, tp, cfg,
+                          "dense")
+    logits = _lm_head_tp(x, params, cfg)  # (S, W, V)
     t = torch.argmax(logits, dim=-1)
     mx = logits.amax(dim=-1)
     match = (window[:, 1:].long() == t[:, :-1]).long()
@@ -1723,14 +2020,12 @@ def decode_verify_paged(params: Dict, window, pool: Dict, table,
     off = wpos % ps
     # Per layer (S, H_kv, W, ...) stacked to (L, ...), laid out (S, W, L,
     # H_kv, ...) as the indexed result of pool[:, phys, :, off].
-    if quantized:
-        for name, i in (("k", 0), ("k_scale", 1), ("v", 2), ("v_scale", 3)):
-            vals = torch.stack([y[i] for y in ys])
+    names = ((("k", 0), ("k_scale", 1), ("v", 2), ("v_scale", 3))
+             if quantized else (("k", 0), ("v", 1)))
+    for sp, y in zip(pools, ys):
+        for name, i in names:
+            vals = torch.stack([e[i] for e in y])
             perm = (1, 3, 0, 2, 4) if vals.dim() == 5 else (1, 3, 0, 2)
-            pool[name][:, phys, :, off] = vals.permute(*perm)
-    else:
-        for name, i in (("k", 0), ("v", 1)):
-            vals = torch.stack([y[i] for y in ys])
-            pool[name][:, phys, :, off] = vals.permute(1, 3, 0, 2, 4)
+            sp[name][:, phys, :, off] = vals.permute(*perm)
     pos.add_(torch.where(active, acc + 1, torch.zeros_like(acc)).to(pos.dtype))
     return t, mx, acc, pool

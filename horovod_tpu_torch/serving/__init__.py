@@ -54,6 +54,10 @@ from horovod_tpu_torch.serving.scheduler import (  # noqa: F401
     ServingError,
     priority_rank,
 )
+from horovod_tpu_torch.serving.sharding import (  # noqa: F401
+    ServingSharding,
+    ShardingConfigError,
+)
 from horovod_tpu_torch.serving.server import (  # noqa: F401
     TRACE_ID_HEADER,
     ServingServer,

@@ -211,23 +211,47 @@ def resolve_kv_dtype(cfg: T.TransformerConfig, kv_dtype):
 
 
 def init_page_pool(cfg: T.TransformerConfig, n_slots: int, n_pages: int,
-                   page_size: int, kv_dtype=None, *, device=None) -> Dict:
+                   page_size: int, kv_dtype=None, *, device=None,
+                   sharding=None) -> Dict:
     """``k``/``v`` ``(L, P, H_kv, page, Dh)`` page pools (``P`` counts
     the NULL page), per-slot ``pos`` ``(S,)`` int32, and for int8
-    storage ``k_scale``/``v_scale`` ``(L, P, H_kv, page)`` f32."""
+    storage ``k_scale``/``v_scale`` ``(L, P, H_kv, page)`` f32.  With a
+    tp ``sharding`` (:class:`~horovod_tpu_torch.serving.sharding.
+    ServingSharding`) the payload and scales are lists, one pool a local
+    shard at its ``H_kv / tp`` heads, each its own contiguous storage
+    (K4 refuses a strided pool); ``pos`` is shared."""
     device = T.resolve_device(device)
     dt, quant = resolve_kv_dtype(cfg, kv_dtype)
-    shape = (cfg.n_layers, n_pages, cfg.kv_heads, page_size, cfg.head_dim)
-    pool = {
-        "k": torch.zeros(shape, dtype=dt, device=device),
-        "v": torch.zeros(shape, dtype=dt, device=device),
-        "pos": torch.zeros((n_slots,), dtype=torch.int32, device=device),
-    }
+    heads = ([cfg.kv_heads] if sharding is None
+             else sharding.local_sizes(cfg.kv_heads))
+
+    def zeros(hkv, dtype, scale=False):
+        shape = (cfg.n_layers, n_pages, hkv, page_size, cfg.head_dim)
+        return torch.zeros(shape[:-1] if scale else shape, dtype=dtype,
+                           device=device)
+
+    names = [("k", dt, False), ("v", dt, False)]
     if quant:
-        for name in ("k_scale", "v_scale"):
-            pool[name] = torch.zeros(shape[:-1], dtype=torch.float32,
-                                     device=device)
+        names += [("k_scale", torch.float32, True),
+                  ("v_scale", torch.float32, True)]
+    pool = {}
+    for name, dtype, scale in names:
+        ts = [zeros(h, dtype, scale) for h in heads]
+        pool[name] = ts if sharding is not None else ts[0]
+    pool["pos"] = torch.zeros((n_slots,), dtype=torch.int32, device=device)
     return pool
+
+
+def _listed(x) -> list:
+    """A pool entry as its list of local shards (an unsharded pool's
+    tensor is its one shard)."""
+    return x if isinstance(x, list) else [x]
+
+
+def _pool_tensors(pool: Dict) -> list:
+    """Every tensor of a pool or cache, shards included."""
+    return [t for v in pool.values() if torch.is_tensor(v) or
+            isinstance(v, list) for t in _listed(v)]
 
 
 def paged_insert(pool: Dict, slots, new_pos, phys, off, prefilled_k,
@@ -237,31 +261,37 @@ def paged_insert(pool: Dict, slots, new_pos, phys, off, prefilled_k,
     offset off[i, t])``; bucket padding points at the NULL page, where
     duplicate targets are harmless because nothing attends it.  ``slots``
     adopt ``new_pos`` (``slots`` None for a slotless landing, prefix
-    registration).  int8 pools quantize per vector on the way in."""
-    k, v = prefilled_k, prefilled_v
-    if "k_scale" in pool:
-        qk, sk = T.kv_quantize(k)
-        qv, sv = T.kv_quantize(v)
-        pool["k"][:, phys, :, off] = qk.permute(1, 3, 0, 2, 4)
-        pool["v"][:, phys, :, off] = qv.permute(1, 3, 0, 2, 4)
-        pool["k_scale"][:, phys, :, off] = sk.permute(1, 3, 0, 2)
-        pool["v_scale"][:, phys, :, off] = sv.permute(1, 3, 0, 2)
-    else:
-        dt = pool["k"].dtype
-        pool["k"][:, phys, :, off] = k.to(dt).permute(1, 3, 0, 2, 4)
-        pool["v"][:, phys, :, off] = v.to(dt).permute(1, 3, 0, 2, 4)
+    registration).  int8 pools quantize per vector on the way in.  A
+    sharded pool takes a block a local shard (lists), each landing in its
+    own shard."""
+    quant = "k_scale" in pool
+    for i, (k, v) in enumerate(zip(_listed(prefilled_k),
+                                   _listed(prefilled_v))):
+        sp = {n: _listed(t)[i] for n, t in pool.items() if n != "pos"}
+        if quant:
+            qk, sk = T.kv_quantize(k)
+            qv, sv = T.kv_quantize(v)
+            sp["k"][:, phys, :, off] = qk.permute(1, 3, 0, 2, 4)
+            sp["v"][:, phys, :, off] = qv.permute(1, 3, 0, 2, 4)
+            sp["k_scale"][:, phys, :, off] = sk.permute(1, 3, 0, 2)
+            sp["v_scale"][:, phys, :, off] = sv.permute(1, 3, 0, 2)
+        else:
+            dt = sp["k"].dtype
+            sp["k"][:, phys, :, off] = k.to(dt).permute(1, 3, 0, 2, 4)
+            sp["v"][:, phys, :, off] = v.to(dt).permute(1, 3, 0, 2, 4)
     if slots is not None:
         pool["pos"][slots] = new_pos.to(torch.int32)
     return pool
 
 
 def copy_page(pool: Dict, src: int, dst: int) -> None:
-    """Copy one physical page (every layer, payload and scales) inside
-    the pool tensors: the copy-on-write primitive, enqueued on the
-    current stream like the tick that reads the result."""
+    """Copy one physical page (every layer, payload and scales, every
+    local shard) inside the pool tensors: the copy-on-write primitive,
+    enqueued on the current stream like the tick that reads the
+    result."""
     for name in ("k", "v", "k_scale", "v_scale"):
-        if name in pool:
-            pool[name][:, dst].copy_(pool[name][:, src])
+        for t in _listed(pool.get(name, [])):
+            t[:, dst].copy_(t[:, src])
 
 
 def pad_pages(pages: Sequence[int]) -> List[int]:
@@ -280,7 +310,12 @@ def gather_prefix_pages(pool: Dict, pages):
     """``pages`` (an ``(n,)`` index tensor) as contiguous ``(k, v)`` of
     shape ``(L, H_kv, n * page, Dh)``: the shared-prefix K/V handed to
     :func:`~horovod_tpu_torch.models.transformer.prefill_with_prefix`.
-    int8 pools dequantize here, to f32."""
+    int8 pools dequantize here, to f32.  A sharded pool gives lists, a
+    pair a local shard."""
+    if isinstance(pool["k"], list):  # a sharded pool: a pair a shard
+        ks, vs = zip(*(gather_prefix_pages(sp, pages)
+                       for sp in T._local(pool, len(pool["k"]))))
+        return list(ks), list(vs)
     k = pool["k"][:, pages]                   # (L, n, H_kv, ps, Dh)
     v = pool["v"][:, pages]
     L, n, Hkv, ps, Dh = k.shape
@@ -305,7 +340,8 @@ class PagedSlotCache:
 
     def __init__(self, cfg: T.TransformerConfig, n_slots: int,
                  max_len: int = 0, *, page_size: int = 16,
-                 n_pages: int = 0, kv_dtype=None, device=None):
+                 n_pages: int = 0, kv_dtype=None, device=None,
+                 sharding=None):
         if n_slots < 1:
             raise ValueError(f"need at least one slot, got {n_slots}")
         if page_size < 1:
@@ -319,8 +355,14 @@ class PagedSlotCache:
         # 0 = capacity parity: every slot can grow to max_len.
         self.n_pages = n_pages or n_slots * self.max_pages
         self._storage_dtype, self.quantized = resolve_kv_dtype(cfg, kv_dtype)
+        # Tensor-parallel serving: the pool is split by kv head into this
+        # process's shards; everything host-side here (tables, grants,
+        # refcounts, copy-on-write) is the same, since pages are split
+        # by head, never by page id.
+        self.sharding = sharding
         self.cache = init_page_pool(cfg, n_slots, self.n_pages + 1,
-                                    page_size, kv_dtype, device=self.device)
+                                    page_size, kv_dtype, device=self.device,
+                                    sharding=sharding)
         self.table = np.zeros((n_slots, self.max_pages), np.int32)
         self.table_version = 0
         self._ref = np.zeros(self.n_pages + 1, np.int64)
@@ -383,7 +425,7 @@ class PagedSlotCache:
         tensors must stay the ones it captured.  The zeroing is enqueued
         on the current stream, behind any tick still in flight."""
         self.release_all()
-        for t in self.cache.values():
+        for t in _pool_tensors(self.cache):
             t.zero_()
 
     @property
@@ -420,10 +462,13 @@ class PagedSlotCache:
 
     @property
     def bytes_per_token(self) -> int:
-        """KV bytes one token costs: k+v payload across layers, plus the
-        per-vector scales for int8."""
+        """KV bytes one token costs in this process's pool: k+v payload
+        across layers and the local kv heads (all of them unless the pool
+        is tp-sharded), plus the per-vector scales for int8."""
         elem = torch.empty((), dtype=self._storage_dtype).element_size()
-        n = self.cfg.n_layers * self.cfg.kv_heads
+        heads = (self.cfg.kv_heads if self.sharding is None
+                 else sum(self.sharding.local_sizes(self.cfg.kv_heads)))
+        n = self.cfg.n_layers * heads
         b = 2 * n * self.cfg.head_dim * elem
         if self.quantized:
             b += 2 * n * 4

@@ -5,8 +5,8 @@ supervised and durable; and the slot-contiguous baseline.
 Counterpart of ``horovod_tpu/serving/engine.py``: its default
 configuration (``paged=True``, ``overlap=True``, sampling as data,
 ``max_restarts=3``, ``tick_timeout=60``, ``resume=True``) and every
-other but tensor parallelism (``tp``).  One decode tick runs over a
-fixed pool of S slots; new requests land in freed slots between ticks.
+other, tensor parallelism (``tp``) included.  One decode tick runs over
+a fixed pool of S slots; new requests land in freed slots between ticks.
 
 Tick (:meth:`InferenceEngine.step`):
 
@@ -171,10 +171,33 @@ the JAX function names (:mod:`~horovod_tpu_torch.serving.graph`).
 ``EngineConfig.model_flops_per_token`` turns the token rate into
 ``serving_achieved_flops_per_sec``, refreshed by :meth:`~InferenceEngine.
 stats` and by a ``/metrics`` scrape.
+
+Tensor parallelism (``EngineConfig.tp``, :mod:`~horovod_tpu_torch.serving.
+sharding`): the parameters, the page pool and every tick body are split
+Megatron-style over a tp group (heads and the MLP hidden dimension;
+the vocabulary; the pool by kv head), K1 and K4 run shard-locally, and
+the collectives (two ``all_reduce`` a layer, one for the embedding, one
+``all_gather`` of the logits) run inside the captured graphs.  One
+process a rank: every rank builds this engine on its own shards, and
+rank 0, the leader, takes the requests.  At the top of each step the
+leader broadcasts what changed (new requests with their ids, seeds,
+classes and deadlines, cancellations, futures it resolved outside a
+step, a watchdog restart, drain, the tuner's settings, and its clock
+reading, which every decision of the step reads), over a gloo group
+beside the tensor group; each follower applies them and runs the same
+step, so admission, pages, copy-on-write, chunking, speculation and
+resume agree on every rank and the device collectives meet in order.
+Programs call :meth:`~InferenceEngine.warmup`, :meth:`~InferenceEngine.
+register_prefix` and synchronous :meth:`~InferenceEngine.step` loops on
+every rank alike; :meth:`~InferenceEngine.start` makes the leader the
+only entry for requests (the HTTP server) and runs the followers'
+:meth:`~InferenceEngine.follow` loops, which end at the leader's
+:meth:`~InferenceEngine.stop`.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 import time
@@ -209,6 +232,12 @@ from horovod_tpu_torch.serving.sampling import (
     SlotSampling,
     seed_key,
     validate,
+)
+from horovod_tpu_torch.serving import scheduler as _sched
+from horovod_tpu_torch.serving.sharding import (
+    ServingSharding,
+    ShardingConfigError,
+    StepInputs,
 )
 from horovod_tpu_torch.serving.scheduler import (
     CacheOutOfPagesError,
@@ -248,6 +277,10 @@ class GenerationFuture:
         self._done = threading.Event()
         self._exc: Optional[BaseException] = None
         self._cancel = False
+        # A replicated tp leader's request: cancel() only asks, and the
+        # next step's broadcast makes it take effect on every rank.
+        self._defer_cancel = False
+        self._cancel_req = False
         self._on_token = on_token
         # Resolution is serialized: the watchdog, a caller-side
         # resolution (a submit racing a drain) and the engine may race,
@@ -356,7 +389,10 @@ class GenerationFuture:
         ``finish_reason == "cancelled"``.  False if already resolved."""
         if self._done.is_set():
             return False
-        self._cancel = True
+        if self._defer_cancel:
+            self._cancel_req = True
+        else:
+            self._cancel = True
         return True
 
     @property
@@ -391,6 +427,12 @@ class EngineConfig:
     default (True on the CPU runs K4's plain version).  The tokens are
     the same either way; the knob is fixed at construction (a rebuild,
     as in the JAX engine), and ``paged=False`` resolves it False.
+    ``tp`` (default 1) shards the engine Megatron-style over a tensor-
+    parallel group of that many ranks (module docstring): it needs
+    ``paged=True`` and ``n_heads`` and ``kv_heads`` divisible by it
+    (:class:`~horovod_tpu_torch.serving.sharding.ShardingConfigError` at
+    construction), and a ``torch.distributed`` job of exactly ``tp``
+    ranks, each building the engine; the tokens are the tp = 1 engine's.
     ``max_queue_depth`` bounds the queue;
     ``default_max_new_tokens`` applies when a request names none;
     ``min_prefill_bucket`` floors the power-of-two prompt buckets;
@@ -454,6 +496,7 @@ class EngineConfig:
     n_pages: int = 0
     kv_dtype: Optional[str] = None
     paged_kernel: Optional[bool] = None
+    tp: int = 1
     max_queue_depth: int = 64
     default_max_new_tokens: int = 64
     min_prefill_bucket: int = 8
@@ -535,7 +578,9 @@ class InferenceEngine:
     def __init__(self, params: Dict, cfg: T.TransformerConfig,
                  engine_cfg: EngineConfig = EngineConfig(), *, device=None,
                  draft_params: Optional[Dict] = None,
-                 draft_cfg: Optional[T.TransformerConfig] = None):
+                 draft_cfg: Optional[T.TransformerConfig] = None,
+                 _virtual_tp: bool = False,
+                 _sharding: Optional[ServingSharding] = None):
         self.device = T.resolve_device(device)
         for name, tree in (("params", params), ("draft_params",
                                                 draft_params)):
@@ -589,12 +634,55 @@ class InferenceEngine:
                 raise ValueError(
                     f"prefill_chunk_tokens must be >= 1 (or 0 to disable), "
                     f"got {ec.prefill_chunk_tokens}")
+        # Tensor parallelism: every check typed and here, never a shape
+        # crash inside a tick.  The engine holds its shards of the
+        # parameters and of the page pool.  Neither private keyword is a
+        # feature of its own: ``_virtual_tp`` runs the real form's body
+        # with every shard in this process over a group of one (a card
+        # without peers), ``_sharding`` takes a sharding built by the
+        # caller (the real form at tp = 1 over a group of one rank, whose
+        # collectives a single card can run).
+        self._shard: Optional[ServingSharding] = _sharding
+        if ec.tp < 1:
+            raise ShardingConfigError(
+                f"EngineConfig.tp must be >= 1, got {ec.tp}")
+        if _sharding is not None and _sharding.tp != ec.tp:
+            raise ShardingConfigError(
+                f"a sharding of tp={_sharding.tp} for EngineConfig.tp="
+                f"{ec.tp}")
+        if ec.tp > 1 and not ec.paged:
+            raise ShardingConfigError(
+                "EngineConfig.tp > 1 requires paged=True (the tp "
+                "group shards the paged KV pool by head; the "
+                "slot-contiguous A/B cache stays single-device)")
+        if ec.tp > 1 and _sharding is None:
+            self._shard = ServingSharding(
+                cfg, ec.tp, device=self.device,
+                draft_cfg=draft_cfg if self._spec_model else None,
+                virtual=_virtual_tp)
+        if self._shard is not None:
+            params = self.params = self._shard.shard_params(params)
+            if self._spec_model:
+                draft_params = self.draft_params = \
+                    self._shard.shard_params(draft_params, draft_cfg)
+        # The real form's step replication (module docstring).
+        self._rep = (StepInputs(self._shard) if self._shard is not None
+                     and self._shard.replicated else None)
+        self._rep_now = 0.0
+        self._rep_lock = threading.Lock()
+        self._rep_inbox: List[Request] = []
+        self._rep_live: Dict[int, Request] = {}
+        self._rep_finished = collections.deque(maxlen=1024)
+        self._rep_stall = False
+        self._rep_settings: Optional[Dict] = None
+        self._rep_stopped = False
         if ec.paged:
             self.slots = PagedSlotCache(cfg, ec.n_slots, ec.max_len,
                                         page_size=ec.page_size,
                                         n_pages=ec.n_pages,
                                         kv_dtype=ec.kv_dtype,
-                                        device=self.device)
+                                        device=self.device,
+                                        sharding=self._shard)
         else:
             self.slots = SlotCache(cfg, ec.n_slots, ec.max_len,
                                    device=self.device)
@@ -610,6 +698,7 @@ class InferenceEngine:
         self.scheduler = Scheduler(
             max_queue_depth=ec.max_queue_depth,
             max_prefills_per_tick=ec.max_prefills_per_tick,
+            clock=self._now,
             on_reject=lambda req, err: self.metrics.rejected.inc(),
             on_cancel=lambda req: self.metrics.cancelled.inc(),
             # A requeued (preempted or resumed) request whose deadline
@@ -720,7 +809,7 @@ class InferenceEngine:
                 self.draft_slots = PagedSlotCache(
                     draft_cfg, ec.n_slots, self.slots.max_len,
                     page_size=ec.page_size, n_pages=ec.draft_n_pages,
-                    device=self.device)
+                    device=self.device, sharding=self._shard)
                 self._draft_graphs = PrefillGraphs(
                     draft_params, draft_cfg, self.draft_slots.cache,
                     self.device, draft=True)
@@ -753,6 +842,7 @@ class InferenceEngine:
         if ec.paged:
             self.metrics.kv_pages_total.set(self.slots.n_pages)
             self.metrics.kv_bytes_per_token.set(self.slots.bytes_per_token)
+        self.metrics.tp_degree.set(ec.tp)
         self._update_page_gauges()
 
     # -- lifecycle ---------------------------------------------------------
@@ -896,19 +986,10 @@ class InferenceEngine:
                       eos_id=eos_id, deadline=deadline, trace=fut.trace,
                       temperature=temperature, top_k=top_k, top_p=top_p,
                       seed=seed, priority=priority, speculative=speculative)
-        if self.journal is not None:
-            # Journal before the enqueue, the purge wired first: every
-            # resolution funnels through the future, so an entry never
-            # outlives its request.
-            journal, rid = self.journal, req.id
-            fut._on_resolve = lambda: journal.end(rid)
-            journal.begin(req)
-        try:
-            self.scheduler.submit(req)  # QueueFullError counts via on_reject
-        except QueueFullError:
-            if self.journal is not None:
-                self.journal.end(req.id)  # never enqueued: nothing to resume
-            raise
+        if self._rep_serving():
+            self._post(req)
+        else:
+            self._enqueue(req)
         if fut._spans is not None:
             # The span's start record is written (and flushed) the moment
             # the request is live: a process killed after this leaves
@@ -935,6 +1016,174 @@ class InferenceEngine:
         self.metrics.queue_depth.set(self.scheduler.depth)
         return fut
 
+    def _enqueue(self, req: Request) -> None:
+        """Journal a request and queue it; raises :class:`QueueFullError`
+        (counted through ``on_reject``) with nothing journaled."""
+        if self.journal is not None:
+            # Journal before the enqueue, the purge wired first: every
+            # resolution funnels through the future, so an entry never
+            # outlives its request.
+            journal, rid = self.journal, req.id
+            req.future._on_resolve = lambda: journal.end(rid)
+            journal.begin(req)
+        try:
+            self.scheduler.submit(req)  # QueueFullError counts via on_reject
+        except QueueFullError:
+            if self.journal is not None:
+                self.journal.end(req.id)  # never enqueued: nothing to resume
+            raise
+
+    # -- tensor-parallel step replication (the real form) -------------------
+
+    @property
+    def tp_degree(self) -> int:
+        return self.engine_cfg.tp
+
+    def _now(self) -> float:
+        """The clock every decision reads (deadlines, EDF): the monotonic
+        clock, or on a replicated tp engine the leader's reading at the
+        top of the step, the same on every rank."""
+        return time.monotonic() if self._rep is None else self._rep_now
+
+    def _rep_serving(self) -> bool:
+        """A replicated leader running :meth:`start`: requests arrive
+        from other threads and reach every rank through the step's
+        broadcast."""
+        if self._rep is None or self._thread is None:
+            return False
+        if not self._rep.leader:
+            raise ServingError("a tp follower takes no requests; submit "
+                               "to rank 0")
+        return True
+
+    def _post(self, req: Request) -> None:
+        """The leader's submit while serving: typed queue-full now (the
+        queue plus what waits for the next broadcast), the enqueue on
+        every rank at the next step's top."""
+        with self._rep_lock:
+            if (self.scheduler.depth + len(self._rep_inbox)
+                    >= self.scheduler.max_queue_depth):
+                err = QueueFullError(
+                    f"request queue at capacity "
+                    f"({self.scheduler.max_queue_depth})")
+                self.metrics.rejected.inc()
+                raise err
+            req.future._defer_cancel = True
+            self._rep_inbox.append(req)
+
+    @staticmethod
+    def _wire(req: Request) -> Dict:
+        return {"id": req.id, "prompt": list(req.prompt),
+                "max_new_tokens": req.max_new_tokens, "eos_id": req.eos_id,
+                "deadline": req.deadline, "temperature": req.temperature,
+                "top_k": req.top_k, "top_p": req.top_p, "seed": req.seed,
+                "priority": req.priority, "speculative": req.speculative,
+                "trace_id": req.trace.trace_id if req.trace else None}
+
+    def _unwire(self, w: Dict) -> Request:
+        fut = GenerationFuture()
+        fut.trace = obs_tracing.RequestTrace(w["trace_id"])
+        return Request(prompt=w["prompt"], max_new_tokens=w["max_new_tokens"],
+                       future=fut, eos_id=w["eos_id"], deadline=w["deadline"],
+                       trace=fut.trace, temperature=w["temperature"],
+                       top_k=w["top_k"], top_p=w["top_p"], seed=w["seed"],
+                       priority=w["priority"],
+                       speculative=w["speculative"], id=w["id"])
+
+    def _tuner_knobs(self) -> Dict:
+        ec = self.engine_cfg
+        return {"max_prefills_per_tick": ec.max_prefills_per_tick,
+                "prefill_chunk_tokens": ec.prefill_chunk_tokens,
+                "page_grant_ahead": ec.page_grant_ahead,
+                "spec_enabled": self._spec_runtime_enabled}
+
+    def _replicate(self) -> bool:
+        """The step's inputs, broadcast by the leader and applied on every
+        rank (module docstring).  False: the leader stopped this
+        follower."""
+        rep = self._rep
+        if rep.leader:
+            with self._rep_lock:
+                # A submit that raised after posting (a failure or drain
+                # racing it) resolved its future: no rank queues it.
+                subs = [r for r in self._rep_inbox if not r.future.done()]
+                self._rep_inbox = []
+            cancels, done = [], {}
+            for rid, req in list(self._rep_live.items()):
+                fut = req.future
+                if fut.done():
+                    exc = fut._exc
+                    done[rid] = ((type(exc).__name__, str(exc))
+                                 if exc is not None else fut.finish_reason)
+                    del self._rep_live[rid]
+                elif fut._cancel_req and not fut._cancel:
+                    fut._cancel = True
+                    cancels.append(rid)
+            msg = {"now": time.monotonic(),
+                   "subs": [self._wire(r) for r in subs],
+                   "cancels": cancels, "done": done,
+                   "stall": self._rep_stall, "drain": self._draining,
+                   "settings": self._rep_settings,
+                   "terminal": self.error if self._terminal else None}
+            self._rep_stall, self._rep_settings = False, None
+            rep.exchange(msg)
+        else:
+            msg = rep.exchange()
+            if msg.get("stop"):
+                self._rep_stopped = True
+                return False
+            subs = [self._unwire(w) for w in msg["subs"]]
+            if msg["settings"]:
+                from horovod_tpu_torch.tuning.params import apply_settings
+
+                with self._lock:
+                    apply_settings(self, msg["settings"])
+            for rid, how in msg["done"].items():
+                req = self._rep_live.pop(rid, None)
+                if req is None:
+                    continue
+                self._rep_finished.append(req.future)
+                if isinstance(how, tuple):
+                    cls = getattr(_sched, how[0], None)
+                    if not (isinstance(cls, type)
+                            and issubclass(cls, ServingError)):
+                        cls = ServingError
+                    req.future.set_exception(cls(how[1]))
+                else:
+                    req.future._finish(how)
+            for rid in msg["cancels"]:
+                if rid in self._rep_live:
+                    self._rep_live[rid].future._cancel = True
+            if msg["stall"]:
+                self._recover(EngineStalledError(
+                    "the leader's tick exceeded its watchdog budget"),
+                    counted=True)
+            if msg["drain"] and not self._draining:
+                self.begin_drain()
+            if msg["terminal"] and not self._terminal:
+                self._go_terminal(EngineFailedError(msg["terminal"]))
+        self._rep_now = msg["now"]
+        for req in subs:
+            self._rep_live[req.id] = req
+            try:
+                self._enqueue(req)
+            except QueueFullError as exc:
+                req.future.set_exception(exc)
+        return True
+
+    def follow(self) -> None:
+        """A follower's serving loop: the leader's steps, one for each of
+        its broadcasts, until the leader's :meth:`stop` (or its loss,
+        which leaves this engine terminally failed)."""
+        while not self._rep_stopped and not self._stop.is_set():
+            try:
+                self.step()
+            except Exception as exc:  # the leader is gone
+                self.error = self.error or f"tp leader lost: {exc!r}"
+                self._terminal = True
+                self._set_health(FAILED)
+                break
+
     # -- the tick ----------------------------------------------------------
 
     def step(self) -> bool:
@@ -944,7 +1193,23 @@ class InferenceEngine:
         Never raises: a failure anywhere in the tick restarts the engine
         (:meth:`_recover`) — in-flight requests resume from the journal —
         or, once the restart budget is spent, leaves it terminally
-        ``failed`` with every future resolved typed."""
+        ``failed`` with every future resolved typed.
+
+        On a replicated tp engine the step starts with the leader's
+        broadcast (:meth:`_replicate`); a broadcast that fails (a rank is
+        gone) leaves the leader terminally ``failed`` and raises out of a
+        follower's step."""
+        if self._rep is not None:
+            if not self._rep.leader:
+                if not self._replicate():
+                    return False
+            else:
+                try:
+                    self._replicate()
+                except Exception as exc:
+                    self._go_terminal(EngineFailedError(
+                        f"tp group lost: {exc!r}"))
+                    return False
         if self._health == FAILED:
             return False
         with self._hb_lock:
@@ -977,7 +1242,9 @@ class InferenceEngine:
             stalled = self._stalled
         if stalled:
             # The watchdog declared the tick stalled, but it returned:
-            # restart through the same supervised path.
+            # restart through the same supervised path (on every tp
+            # rank: the next broadcast carries it).
+            self._rep_stall = self._rep is not None
             self._recover(EngineStalledError(
                 f"tick exceeded the {self.engine_cfg.tick_timeout}s "
                 f"watchdog budget"), counted=True)
@@ -998,11 +1265,17 @@ class InferenceEngine:
         # The autotuner, after a clean step and outside the step lock:
         # an apply takes the lock, so it lands between two steps, never
         # inside one step's dispatch-to-fetch sequence.
-        if self._tuner is not None:
+        if self._tuner is not None and (self._rep is None
+                                        or self._rep.leader):
+            # A replicated leader's tuner decides for every rank: its
+            # settings ride the next broadcast.
+            before = self._tuner_knobs()
             try:
                 self._tuner.on_tick(self, worked)
             except Exception:  # tuning never takes serving down
                 self._tuner = None
+            if self._rep is not None and self._tuner_knobs() != before:
+                self._rep_settings = self._tuner_knobs()
         return worked
 
     def _update_page_gauges(self) -> None:
@@ -1654,7 +1927,7 @@ class InferenceEngine:
         if self._reap_ingest(slot):
             return True
         req = ing.request
-        if req.deadline is not None and time.monotonic() > req.deadline:
+        if req.deadline is not None and self._now() > req.deadline:
             # The caller is gone: retire with whatever an earlier life
             # emitted rather than finish an ingestion nobody reads.
             req.future._finish("deadline")
@@ -2149,7 +2422,7 @@ class InferenceEngine:
             reason = "length"
         elif len(req.prompt) + st.n_generated - 1 >= self.slots.max_len:
             reason = "capacity"  # submit() sizing makes this unreachable
-        elif req.deadline is not None and time.monotonic() > req.deadline:
+        elif req.deadline is not None and self._now() > req.deadline:
             reason = "deadline"
         if reason is not None:
             req.future._finish(reason)
@@ -2711,8 +2984,17 @@ class InferenceEngine:
     def start(self, idle_sleep: float = 0.001) -> None:
         """Run the tick loop in a daemon thread until :meth:`stop`; arm
         the watchdog when ``tick_timeout > 0``.  A failing tick never
-        ends the loop (``step`` recovers); a terminal engine idles."""
+        ends the loop (``step`` recovers); a terminal engine idles.  A
+        replicated tp follower runs :meth:`follow` in the thread instead
+        (its watchdog is the leader's)."""
         if self._thread is not None:
+            return
+        if self._rep is not None and not self._rep.leader:
+            self._stop.clear()
+            self._thread = threading.Thread(target=self.follow,
+                                            name="serving-follower",
+                                            daemon=True)
+            self._thread.start()
             return
 
         def loop():
@@ -2731,14 +3013,23 @@ class InferenceEngine:
             self._watchdog.start()
 
     def stop(self, timeout: float = 10.0) -> None:
+        """End :meth:`start`'s loop.  A replicated leader then tells its
+        followers to stop; a follower waits for that."""
         if self._thread is None:
             return
-        self._stop.set()
+        follower = self._rep is not None and not self._rep.leader
+        if not follower:
+            self._stop.set()
         self._thread.join(timeout)
         self._thread = None
         if self._watchdog is not None:
             self._watchdog.join(timeout)
             self._watchdog = None
+        if self._rep is not None and self._rep.leader:
+            try:
+                self._rep.exchange({"stop": True})
+            except Exception:  # a follower already gone
+                pass
 
     def warmup(self, prompt_lens: Sequence[int] = (1,)) -> None:
         """Capture the decode tick (CUDA), then drive the engine
@@ -2925,10 +3216,12 @@ class InferenceEngine:
             "occupancy": float(self.slots.occupancy),
             "engine_state": str(self._health),
             "heartbeat_age_s": round(age, 3) if age is not None else -1.0,
-            # The front tier's contract: one device a replica (tensor
-            # parallelism is not ported), and the rollout's label.
-            "tp": 1,
-            "mesh": "",
+            # The front tier's contract, typed: the tensor-parallel degree
+            # and the group's layout ("" unsharded), and the rollout's
+            # label.
+            "tp": int(self.engine_cfg.tp),
+            "mesh": (self._shard.describe() if self._shard is not None
+                     else ""),
             "config_generation": int(self.engine_cfg.config_generation),
             "state_transitions": self.state_transitions,
             "error": self.error,

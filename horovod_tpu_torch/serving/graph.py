@@ -44,6 +44,13 @@ Each prefill graph prefills, lands its K/V and takes each row's argmax
 and max logit (the engine's finiteness probe), so an admission is one
 replay and one host sync.
 
+Under tensor parallelism every body runs the sharded model (the
+parameters a :class:`~horovod_tpu_torch.models.transformer.TPShards`, the
+pool's payload a list of local shards): K1 and K4 run once a layer for
+each local shard (tp x layers a replay in the virtual form), and the tp
+group's collectives are captured inside the graphs like any other
+operation.
+
 Each capture counts ``xla_compiles_total{fn=}`` in the default registry
 (:func:`~horovod_tpu_torch.obs.tracing.record_compile`) under the JAX
 engine's function names: ``serving_decode`` for the tick and the
@@ -225,8 +232,7 @@ class DecodeTick:
         """An uncaptured tick over copies of this one's pool, inputs and
         sampling columns: its :meth:`body` is the eager tick to hold the
         captured one against."""
-        t = DecodeTick(self.params, self.cfg,
-                       {k: v.clone() for k, v in self.pool.items()},
+        t = DecodeTick(self.params, self.cfg, _clone(self.pool),
                        tuple(c.clone() for c in self.samp),
                        self.tokens.shape[0],
                        None if self.table is None else self.table.shape[1],
@@ -249,6 +255,12 @@ class DecodeTick:
         self.replays += 1
         _count_k4(self)
         return self._out
+
+
+def _clone(pool: Dict) -> Dict:
+    """A copy of a pool (a tp-sharded pool's shard lists too)."""
+    return {k: [t.clone() for t in v] if isinstance(v, list) else v.clone()
+            for k, v in pool.items()}
 
 
 def _count_k4(tick) -> None:
@@ -417,7 +429,7 @@ class SpecTick:
         draft = None
         if self.draft is not None:
             dparams, dcfg, dpool = self.draft
-            draft = (dparams, dcfg, {k: v.clone() for k, v in dpool.items()})
+            draft = (dparams, dcfg, _clone(dpool))
         max_len = self.hist.shape[1] - 1 if self.hist is not None else 0
         t = SpecTick(self.plain.twin(), self.k, max_len, draft)
         for name in ("spec_on", "dtable", "hist"):
@@ -608,7 +620,8 @@ class PrefillGraphs:
             return toks, g.logits.amax(dim=-1)
         if kind in ("full", "contig"):
             k, bucket = f["tokens"].shape
-            cache = T.init_cache(self.cfg, k, bucket, device=self.device)
+            cache = T.init_cache(self.cfg, k, bucket, device=self.device,
+                                 params=self.params)
             logits, kv = T.prefill(self.params, f["tokens"], cache, self.cfg,
                                    true_len=f["lens"])
             if kind == "contig":

@@ -172,6 +172,10 @@ class ServingMetrics:
             "serving_streamed_ttfb_seconds",
             "Request arrival to first streamed token event on the "
             "wire (the honest user-facing TTFT for stream=true)")
+        self.tp_degree = r.gauge(
+            "serving_tp_degree",
+            "Tensor-parallel degree of this engine's serving mesh "
+            "(1 = unsharded single-device serving)")
         self.model_flops_per_token = r.gauge(
             "serving_model_flops_per_token",
             "Configured model FLOPs per generated token "

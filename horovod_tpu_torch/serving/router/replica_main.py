@@ -16,9 +16,17 @@ rewritten for the port:
   ``init_params`` from the shape flags (the numbers are not
   ``jax.random``'s).
 * ``--device`` is ``cuda`` unless the caller asks for ``cpu``; with no
-  CUDA device it raises, never falls back to the CPU.  ``--tp`` above 1
-  raises :class:`NotImplementedError`: tensor-parallel serving is not
-  ported.
+  CUDA device it raises, never falls back to the CPU.
+* ``--tp N`` serves one engine sharded over N ranks
+  (:mod:`~horovod_tpu_torch.serving.sharding`), one process a rank, over
+  NCCL on CUDA (rank ``r`` on visible device ``r``) and gloo with
+  ``--device cpu``.  This process is rank 0, the leader: it checks the
+  split (typed :class:`~horovod_tpu_torch.serving.sharding.
+  ShardingConfigError`) before it starts the N - 1 followers (this
+  module again, the same flags), and only it listens for HTTP, journals
+  and writes spans.  A follower dies with its leader (the kernel's
+  parent-death signal, SIGKILL, set before it runs anything) and exits
+  when the leader stops or is lost.
 
 Lifecycle contract with the supervisor: SIGTERM / SIGINT -> graceful
 drain, exit 0; the engine going terminally ``failed`` -> exit
@@ -31,17 +39,23 @@ FaultInjector, its skips counted from after warmup.
 Run one by hand:
 
     python -m horovod_tpu_torch.serving.router.replica_main --port 8001 \\
-        --seed 0 --warm 8 --device cpu
+        --seed 0 --warm 8 --device cpu [--tp 2]
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import os
 import pickle
 import signal
+import subprocess
 import sys
 import threading
+
+#: A follower rank's environment: its rank and the rendezvous port.
+_TP_RANK = "HOROVOD_REPLICA_TP_RANK"
+_TP_PORT = "HOROVOD_REPLICA_TP_PORT"
 
 
 def dump_model(path: str, params, cfg) -> None:
@@ -86,16 +100,22 @@ def load_model(path: str, device=None):
     return params_from_jax(blob["params"], cfg, device=device), cfg
 
 
-def build_model(args, device=None):
+def _config(args):
     import torch
 
     from horovod_tpu_torch.models import transformer as T
 
-    cfg = T.TransformerConfig(
+    return T.TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model,
         n_heads=args.n_heads, n_layers=args.n_layers, d_ff=args.d_ff,
         max_seq=args.max_seq, dtype=torch.float32,
         attention_impl="reference", n_kv_heads=args.kv_heads)
+
+
+def build_model(args, device=None):
+    from horovod_tpu_torch.models import transformer as T
+
+    cfg = _config(args)
     return T.init_params(cfg, seed=args.seed, device=device), cfg
 
 
@@ -154,7 +174,11 @@ def main(argv=None) -> int:
     ap.add_argument("--max-seq", type=int, default=48)
     ap.add_argument("--kv-heads", type=int, default=2)
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree; only 1 is ported")
+                    help="tensor-parallel degree: shard this replica's "
+                         "engine over tp ranks, one process each "
+                         "(heads + MLP hidden split, paged KV pool "
+                         "head-sharded); this process leads and starts "
+                         "the others")
     ap.add_argument("--device", default="cuda",
                     help="the engine's device: cuda (the default; no "
                          "CUDA device is an error) or cpu")
@@ -210,11 +234,6 @@ def main(argv=None) -> int:
                          "no dedicated flag)")
     args = ap.parse_args(argv)
 
-    if args.tp > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: tensor-parallel serving is not ported "
-            "(ROADMAP Queue 1 item 11); the port serves one device a "
-            "replica")
     import torch
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
@@ -227,6 +246,12 @@ def main(argv=None) -> int:
         EXIT_CODE_REPLICA_FAILED,
     )
 
+    rank, followers = 0, []
+    if args.tp > 1:
+        rank, followers = _join_tp(args, argv)
+        if rank:  # a follower: no listener, no journal, no spans
+            args.spans = args.journal = ""
+
     if args.spans:
         from horovod_tpu_torch.obs import tracing as obs_tracing
 
@@ -238,10 +263,13 @@ def main(argv=None) -> int:
                 latency_threshold_s=args.span_latency_threshold,
                 head_rate=args.span_head_rate))
 
+    device = args.device
+    if args.tp > 1 and device.startswith("cuda"):
+        device = f"cuda:{rank}"
     if args.params:
-        params, cfg = load_model(args.params, device=args.device)
+        params, cfg = load_model(args.params, device=device)
     else:
-        params, cfg = build_model(args, device=args.device)
+        params, cfg = build_model(args, device=device)
 
     # Armed EMPTY here; the specs are added AFTER warmup so their
     # skips are post-warmup relative (below) — a spec present during
@@ -256,13 +284,12 @@ def main(argv=None) -> int:
         autotune=args.autotune,
         resume=not args.no_resume,
         journal_path=args.journal or None, faults=inj,
-        config_generation=args.config_gen)
+        config_generation=args.config_gen, tp=args.tp)
     # --set overrides land LAST so a rollout candidate can retarget any
     # EngineConfig field, dedicated flag or not.
     cfg_kwargs.update(dict(args.settings))
     engine = serving.InferenceEngine(
-        params, cfg, serving.EngineConfig(**cfg_kwargs),
-        device=args.device)
+        params, cfg, serving.EngineConfig(**cfg_kwargs), device=device)
     if args.warm or args.autotune:
         # Capture BEFORE the listener exists: the registry's first
         # successful poll means "routable", and a routable replica must
@@ -279,6 +306,11 @@ def main(argv=None) -> int:
         for spec in args.fault:
             spec.skip += inj.visits(spec.site)
             inj.add(spec)
+
+    if rank:
+        # The leader's steps until it stops (exit 0) or is lost.
+        engine.follow()
+        return EXIT_CODE_REPLICA_FAILED if engine.terminal else 0
 
     stop_requested = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
@@ -299,6 +331,11 @@ def main(argv=None) -> int:
         stop_requested.wait(0.2)
 
     srv.stop(drain_timeout=args.drain_timeout)
+    for p in followers:
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
     if args.spans:
         from horovod_tpu_torch.obs import tracing as obs_tracing
 
@@ -306,6 +343,57 @@ def main(argv=None) -> int:
     print(f"replica on port {port} stopped "
           f"(engine state: {engine.health})", flush=True)
     return EXIT_CODE_REPLICA_FAILED if failed else 0
+
+
+def _die_with_parent() -> None:
+    """SIGKILL this process when its parent dies (Linux
+    ``PR_SET_PDEATHSIG``): a follower rank never outlives its leader."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(1, signal.SIGKILL, 0, 0, 0) != 0:  # PR_SET_PDEATHSIG
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_PDEATHSIG)")
+
+
+def _join_tp(args, argv):
+    """Rank 0 checks the split, starts the followers and joins the tp
+    group with them; a follower (its rank in the environment) joins.
+    Returns ``(rank, follower processes)``."""
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.serving.sharding import validate_tp
+    from horovod_tpu_torch.serving.router.supervisor import _free_port
+
+    rank = int(os.environ.get(_TP_RANK, "0"))
+    followers = []
+    if rank == 0:
+        cfg = (load_model(args.params, device="cpu")[1] if args.params
+               else _config(args))
+        validate_tp(cfg, args.tp)
+        port = _free_port()
+        argv = list(sys.argv[1:] if argv is None else argv)
+        for r in range(1, args.tp):
+            env = dict(os.environ, **{_TP_RANK: str(r), _TP_PORT: str(port)})
+            followers.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "horovod_tpu_torch.serving.router.replica_main", *argv],
+                env=env, preexec_fn=_die_with_parent))
+        print("tp followers: " + " ".join(str(p.pid) for p in followers),
+              flush=True)
+        os.environ[_TP_PORT] = str(port)
+    else:
+        if os.getppid() == 1:  # the leader died before the signal was set
+            sys.exit(1)
+        # The leader's stop ends a follower (a signal to the process
+        # group must not kill it under a draining leader).
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, signal.SIG_IGN)
+    for var, val in (("HOROVOD_RANK", rank), ("HOROVOD_SIZE", args.tp),
+                     ("HOROVOD_LOCAL_RANK", rank),
+                     ("HOROVOD_LOCAL_SIZE", args.tp),
+                     ("HOROVOD_NATIVE", 0)):
+        os.environ[var] = str(val)
+    basics.init(device=args.device if args.device == "cpu"
+                else f"cuda:{rank}",
+                init_method=f"tcp://127.0.0.1:{os.environ[_TP_PORT]}")
+    return rank, followers
 
 
 if __name__ == "__main__":

@@ -9,9 +9,9 @@ for its named departures:
 * :class:`ReplicaSpec` carries ``device`` (``"cuda"`` unless the caller
   asks for ``"cpu"``), rendered as ``--device``: every replica process
   opens its own CUDA context on the card, no NCCL between them;
-* a ``tp > 1`` spec gets no ``XLA_FLAGS`` (its replica refuses
-  ``--tp > 1``: tensor-parallel serving is not ported), only the
-  visible-devices pinning.
+* a ``tp > 1`` spec gets no ``XLA_FLAGS``, only the visible-devices
+  pinning: its replica starts ``tp`` ranks, rank ``r`` on visible
+  device ``r``, and a SIGKILL of the replica takes its followers too.
 
 Replicas are independent: a death never touches the survivors, the dead
 slot respawns alone (exponential backoff, unbounded restarts) while the
@@ -75,9 +75,8 @@ class ReplicaSpec:
     d_ff: int = 64
     max_seq: int = 48
     n_kv_heads: int = 2
-    #: tensor-parallel degree per replica, rendered as ``--tp``; the
-    #: port's replica refuses anything above 1 (tensor-parallel serving
-    #: is not ported).
+    #: tensor-parallel degree per replica, rendered as ``--tp`` (the
+    #: replica's ``tp`` ranks, one process each).
     tp: int = 1
     slots: int = 4
     max_queue_depth: int = 64
@@ -437,8 +436,8 @@ class ReplicaSupervisor:
                              if env.get("PYTHONPATH") else pkg_root)
         # A tp > 1 spec gets a disjoint set of visible devices per slot
         # (stable across respawns); an operator who already pinned the
-        # env wins.  Its replica refuses --tp > 1 (tensor-parallel
-        # serving is not ported), so no XLA flag is set here.
+        # env wins.  The replica's rank r serves on its visible device r
+        # (replica_main --tp); no XLA flag is set here.
         spec = self.slot_spec(slot)
         tp = getattr(spec, "tp", 1) if not callable(spec) else 1
         if tp > 1:

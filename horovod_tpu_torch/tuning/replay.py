@@ -5,12 +5,11 @@ replay loop, the offline tuner and the CLI are the JAX module's code
 (``tests/test_torch_port_tuning.py`` compares them); the engine build
 (:func:`_build_cli_engine`) is the port's, through
 :mod:`~horovod_tpu_torch.serving.router.replica_main`'s model loaders on
-``--device`` (``cuda`` unless ``cpu`` is asked for).  The one offline
-knob the port's engine does not have, ``tp`` (tensor-parallel serving is
-not ported), raises :class:`UnsupportedKnobError` rather than being
-dropped; ``--set paged=false`` builds the slot-contiguous engine and
-``--set paged_kernel=false`` the gathered-pages tick, as in the JAX
-module.
+``--device`` (``cuda`` unless ``cpu`` is asked for).  Every offline knob
+of the JAX module builds: ``--set paged=false`` the slot-contiguous
+engine, ``--set paged_kernel=false`` the gathered-pages tick, and ``tp``
+a tensor-parallel engine, which needs a job of that many ranks (in one
+process a ``tp`` above 1 raises the typed ``ShardingConfigError``).
 
 A journal file becomes a trace (every begun request with its emitted
 tokens and arrival offset); :func:`replay` drives a warmed engine with
@@ -40,17 +39,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 __all__ = ["TraceRequest", "ReplayReport", "read_trace", "replay",
-           "warm_lens", "tune", "main", "UnsupportedKnobError"]
-
-#: EngineConfig fields of the JAX engine that the port's engine lacks,
-#: with the reason.
-UNSUPPORTED_KNOBS = {
-    "tp": "tensor-parallel serving is not ported",
-}
-
-
-class UnsupportedKnobError(ValueError):
-    """An offline knob the port's engine cannot build."""
+           "warm_lens", "tune", "main"]
 
 
 @dataclass
@@ -311,8 +300,7 @@ def tune(build_engine: Callable[[Dict], object],
 def _build_cli_engine(args, settings: Optional[Dict] = None):
     """Model + engine from the replica_main flag conventions (shared
     loader — a replayed replica and a live one must agree on what a
-    ``--params`` pickle means), on ``args.device``.  Raises
-    :class:`UnsupportedKnobError` for a knob the port's engine lacks."""
+    ``--params`` pickle means), on ``args.device``."""
     from horovod_tpu_torch import serving
     from horovod_tpu_torch.serving.router.replica_main import (
         build_model,
@@ -322,10 +310,6 @@ def _build_cli_engine(args, settings: Optional[Dict] = None):
     overrides = dict(args.set or {})
     if settings:
         overrides.update(settings)
-    for name in overrides:
-        if name in UNSUPPORTED_KNOBS:
-            raise UnsupportedKnobError(
-                f"{name}: {UNSUPPORTED_KNOBS[name]}")
     device = getattr(args, "device", None) or "cuda"
     if args.params:
         params, cfg = load_model(args.params, device=device)

@@ -2166,3 +2166,99 @@ def test_gspmd_pod_checkpoint_round_trip_on_cuda(nccl, tmp_path):
             back["opt"]["state"][i].values(), sd["state"][i].values())]
         assert flat and all(torch.equal(SH.full(a), SH.full(b))
                             for a, b in flat)
+
+
+# --- tensor-parallel serving: the shard-local shapes --------------------------
+
+
+@pytest.mark.parametrize("Hkv", [2, 1], ids=["tp2", "tp4"])
+@pytest.mark.parametrize("R", [4, 20], ids=["tick", "verify"])
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+def test_paged_kernel_at_shard_heads(dev, kv, R, Hkv):
+    """K4 on a tp shard of the serving pool (4 kv heads over tp = 2 and
+    4), the tick's R = 4 and the verify's R = 20, on the edge table cut
+    to the shard's heads (each cut contiguous, as a shard owns its
+    pool): against its plain version, two calls bit for bit."""
+    args, table, limit = _edge_case(kv, dev)
+    g = torch.Generator(device=dev).manual_seed(R + Hkv)
+    qg = torch.randn((8, Hkv, R, 64), generator=g, device=dev)
+    args = [qg] + [a[:, :Hkv].contiguous() if a is not None else None
+                   for a in args[1:]]
+    o, lse = PA.paged_attend(*args, table, limit,
+                             compute_dtype=torch.float32)
+    o2, lse2 = PA.paged_attend(*args, table, limit,
+                               compute_dtype=torch.float32)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o_r, l_r = PA.paged_attend_reference(*args, table, limit,
+                                         compute_dtype=torch.float32)
+    tol = 2e-2 if kv == "bf16" else 1e-4
+    live = limit > 0
+    assert (o - o_r).abs().max().item() <= tol
+    assert (lse[live] - l_r[live]).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("Hkv", [2, 1], ids=["tp2", "tp4"])
+def test_flash_kernel_at_shard_heads(dev, dtype, tol, Hkv):
+    """K1 on a tp shard of the serving model's heads (16 over 4 kv heads:
+    8 over 2 at tp = 2, 4 over 1 at tp = 4), the prefill's causal mask,
+    against its plain version."""
+    g = torch.Generator(device=dev).manual_seed(Hkv)
+    H, S, D = 4 * Hkv, 300, 64
+    q = torch.randn((2, H, S, D), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((2, Hkv, S, D), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    o, lse = A.flash_attention_with_lse(q, k, v, True)
+    o_r, l_r = A._reference_attention_lse(
+        q, A.expand_kv(k, H), A.expand_kv(v, H), 0, 1 / D ** 0.5)
+    assert (o.float() - o_r.float()).abs().max().item() <= tol
+    assert (lse - l_r).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_virtual_tp_engine_equals_tp1(dev, tp):
+    """The virtual tp engine (every shard on this card) serves the mixed
+    burst's tokens at f32 as the tp = 1 engine does, with one decode
+    capture, K4 launched tp x layers a replay and K1 tp x layers a
+    whole-prompt prefill."""
+    cfg = T.TransformerConfig(**dict(SERVE, n_layers=2), dtype=torch.float32)
+    params = T.init_params(cfg, seed=0, device=dev)
+    out = {}
+    for n in (1, tp):
+        engine = serving.InferenceEngine(
+            params, cfg, serving.EngineConfig(n_slots=8, max_len=512, tp=n),
+            device=dev, _virtual_tp=n > 1)
+        engine.warmup([8, 64, 300])
+        futs = _mixed_requests(engine, 16)
+        while not all(f.done() for f in futs):
+            engine.step()
+        out[n] = [f.result() for f in futs]
+        assert engine.decode_compilations == 1
+        assert engine._tick.k4_launches_per_replay == n * 2
+        assert {g.k1_launches_per_replay for k, g in
+                engine._graphs._graphs.items() if k[0] == "full"} == {n * 2}
+    assert out[tp] == out[1]
+
+
+def test_real_form_over_a_size_one_nccl_group(nccl):
+    """The real form (one shard, the group's collectives captured in the
+    tick and the admission graphs, the step's broadcast) over a size-1
+    NCCL group: the tp = 1 engine's tokens."""
+    from horovod_tpu_torch.serving.sharding import ServingSharding
+
+    cfg = T.TransformerConfig(**dict(SERVE, n_layers=2), dtype=torch.float32)
+    params = T.init_params(cfg, seed=0, device=nccl)
+    out = {}
+    for real in (False, True):
+        sh = ServingSharding(cfg, 1, device=nccl) if real else None
+        engine = serving.InferenceEngine(
+            params, cfg, serving.EngineConfig(n_slots=8, max_len=512),
+            device=nccl, _sharding=sh)
+        engine.warmup([8, 64, 300])
+        futs = _mixed_requests(engine, 16)
+        while not all(f.done() for f in futs):
+            engine.step()
+        out[real] = [f.result() for f in futs]
+        assert engine.decode_compilations == 1
+    assert out[True] == out[False]

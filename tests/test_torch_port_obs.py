@@ -11,8 +11,7 @@ package's, on the CPU at f32.
 * Ingress: the four header cases of the JAX package's tests
   (``tests/test_tracing.py``), over the port's server.
 * ``/metrics``: strict Prometheus text whose serving families are the
-  JAX server's for the same config, less the two it does not port yet
-  (``serving_tp_degree``, the ``tuning_*`` autotuner families);
+  JAX server's for the same config, ``serving_tp_degree`` included;
   achieved FLOP/s from ``model_flops_per_token``.
 * Overhead: with no tracer a tick adds no host sync; with one, exactly
   three tick-phase emissions a tick and none else (the JAX tests'
@@ -49,10 +48,9 @@ from torch_port_parity import BASE, make_engine, make_model, oracle, run
 
 ROOT = Path(__file__).resolve().parents[1]
 
-#: The JAX server's serving families the port does not expose yet: the
-#: tensor-parallel degree, with the slice that ports tensor-parallel
-#: serving.
-NOT_PORTED = {"serving_tp_degree"}
+#: The JAX server's serving families the port does not expose: none
+#: since tensor-parallel serving (``serving_tp_degree``) was ported.
+NOT_PORTED = set()
 
 #: Tail sampling that keys on nothing but the request itself: no
 #: latency verdict (the JAX engine compiles at first use on the CPU).

@@ -1215,11 +1215,13 @@ def test_build_model_is_seeded_f32(tmp_path):
 
 
 def test_replica_refuses_tp_and_a_missing_card(monkeypatch):
-    """``--tp 2`` raises ``NotImplementedError`` (tensor-parallel serving
-    is not ported); ``--device cuda`` without a CUDA device raises, never
-    serving from the CPU instead."""
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        TRM.main(["--port", "0", "--tp", "2", "--device", "cpu"])
+    """A ``--tp`` the model cannot split (3 over 4 heads) raises the typed
+    ``ShardingConfigError`` before any rank starts; ``--device cuda``
+    without a CUDA device raises, never serving from the CPU instead."""
+    from horovod_tpu_torch.serving.sharding import ShardingConfigError
+
+    with pytest.raises(ShardingConfigError, match="n_heads"):
+        TRM.main(["--port", "0", "--tp", "3", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TRM.main(["--port", "0"])

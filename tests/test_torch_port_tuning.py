@@ -5,8 +5,8 @@ the JAX package's, on the CPU.
   code; ``params.py`` is too, less ``cfg.paged`` (the port is paged
   only) and the chunk knob's range, narrowed to the values whose chunk
   graphs warmup captured; ``replay.py`` is the JAX module less its
-  engine build (the port's, with :class:`UnsupportedKnobError` for the
-  JAX-only knobs); the package exports what the JAX one does.
+  engine build (the port's, which builds every JAX knob, ``tp``
+  included); the package exports what the JAX one does.
 * The JAX tier-1 classes of ``tests/test_tuning.py`` on the port: the
   GP, EI, sweep and knob units, the online tuner's rollback and crash
   isolation, trace replay, ``GET /tuning`` and the restart hook.
@@ -163,12 +163,11 @@ def test_params_copy_but_paged_and_the_chunk_range():
 
 
 def test_replay_copy_but_the_engine_build():
-    """``replay.py`` is the JAX module but for ``_build_cli_engine``, the
-    CLI's ``--device`` and the knobs the port's engine lacks."""
+    """``replay.py`` is the JAX module but for ``_build_cli_engine`` and
+    the CLI's ``--device``: the same names, no knob left out."""
     port = _defs(_tree("horovod_tpu_torch", "tuning/replay.py", False))
     jax_ = _defs(_tree("horovod_tpu", "tuning/replay.py", True))
-    assert set(port) - set(jax_) == {"UNSUPPORTED_KNOBS",
-                                     "UnsupportedKnobError"}
+    assert set(port) == set(jax_)
     for name in set(jax_) - {"_build_cli_engine", "main", "__all__"}:
         assert ast.dump(port[name]) == ast.dump(jax_[name]), name
     main = ast.unparse(port["main"])
@@ -192,12 +191,17 @@ def _cli_args():
 
 
 def test_unsupported_offline_knobs_are_typed(model):
-    """The JAX engine's ``tp`` is not the port's: asking for it raises,
-    never drops it.  It is the only such knob."""
-    assert set(TREPLAY.UNSUPPORTED_KNOBS) == {"tp"}
+    """Every JAX offline knob builds, ``tp`` too, never dropped: ``tp`` 1
+    reaches the engine, and a ``tp`` this one-process job cannot honor
+    raises the typed ``ShardingConfigError`` (past its devices), as the
+    JAX engine does past its visible devices."""
+    from horovod_tpu_torch.serving.sharding import ShardingConfigError
+
+    assert not hasattr(TREPLAY, "UNSUPPORTED_KNOBS")
     args = _cli_args()
-    with pytest.raises(TREPLAY.UnsupportedKnobError, match="tp"):
-        TREPLAY._build_cli_engine(args, {"tp": 1})
+    assert TREPLAY._build_cli_engine(args, {"tp": 1}).engine_cfg.tp == 1
+    with pytest.raises(ShardingConfigError, match="devices"):
+        TREPLAY._build_cli_engine(args, {"tp": 2})
     engine = TREPLAY._build_cli_engine(args, {"page_grant_ahead": 1})
     assert engine.engine_cfg.page_grant_ahead == 1
     assert engine.device.type == "cpu"

@@ -24,7 +24,7 @@ heads, 2 layers), weights drawn with numpy and shared through
 * ``paged_kernel`` None, True and False give equal tokens, and
   ``paged_kernel_engaged`` resolves as the JAX engine's on the CPU, for
   the plain and the speculative engine; False never calls K4's wrapper.
-* ``EngineConfig`` differs from the JAX class by ``tp`` alone; ``/stats``
+* ``EngineConfig`` equals the JAX class field for field; ``/stats``
   and ``/metrics`` carry ``paged`` and the page keys as the JAX server
   does.
 
@@ -418,7 +418,8 @@ def test_paged_kernel_resolves_as_jax_and_keeps_tokens(model, knob,
 
 def test_engine_config_differs_from_jax_by_tp_alone():
     """The two ``EngineConfig`` classes, field by field (name, annotation,
-    default): the port lacks ``tp`` and nothing else."""
+    default): equal, ``tp`` included (the port lacked it until tensor-
+    parallel serving was ported)."""
 
     def fields(rel):
         tree = ast.parse((ROOT / rel).read_text())
@@ -429,8 +430,8 @@ def test_engine_config_differs_from_jax_by_tp_alone():
 
     jax_ = fields("horovod_tpu/serving/engine.py")
     port = fields("horovod_tpu_torch/serving/engine.py")
-    assert set(jax_) - set(port) == {"tp"} and set(port) <= set(jax_)
-    assert {k: v for k, v in jax_.items() if k != "tp"} == port
+    assert set(jax_) == set(port)
+    assert jax_ == port
 
 
 #: The ``/stats`` keys a paged engine adds (JAX ``engine.stats``).
