@@ -216,7 +216,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    every ``*_async`` with ``poll`` and one ``synchronize``, sparse
    against dense, the object collectives, ``join``, ``masked_average``
    at active 0 and 1) on CUDA tensors in f32 and bf16: each result must
-   equal its size-1 value exactly.
+   equal its size-1 value exactly.  With the native runtime and without
+   it, and once more after ``basics.init(axis_name="workers")``, the
+   ``axis_name`` forms under the bound ``MeshSpec()`` mesh: every
+   collective over ``dp``, ``tp``, ``(dp, tp)``, ``(tp, dp)`` and
+   ``(dp, fsdp, tp)``, Adasum over an axis and a pair, ``masked_average``
+   over an axis, exact, and JAX's texts where a tuple is refused; then
+   ``TRAIN`` 3 eager steps through ``DistributedAdasumOptimizer(AdamW,
+   axis_name="dp")`` and ``DistributedOptimizer(AdamW, axis_name="dp",
+   sparse_keys=("embed",))``, each bit-equal to plain AdamW, K1-K3
+   counted.
 8. Model gradients: a 2-layer d1024 model's f32 loss and parameter
    gradients through the kernels against the plain attention path, and
    with remat ``full`` and ``dots`` against no remat (TF32 off).
@@ -5875,10 +5884,220 @@ def check_collectives(device) -> list:
     return checked
 
 
-def collectives_size_one() -> dict:
+# The axis forms the collectives phase drives at size 1: one axis, a pair
+# in both orders, three axes (alltoall, reducescatter and Adasum refuse
+# it, as JAX's do).
+AXIS_FORMS = ("dp", "tp", ("dp", "tp"), ("tp", "dp"), ("dp", "fsdp", "tp"))
+AXIS_TRAIN_STEPS = 3
+
+
+def check_axis_forms(device) -> list:
+    """The collectives' ``axis_name`` forms on ``device`` tensors in f32
+    and bf16, in a job of size 1 (``basics.init`` already called), under
+    the bound mesh of ``MeshSpec()``: every collective over each of
+    :data:`AXIS_FORMS`, ``adasum_allreduce`` over an axis and a pair,
+    ``masked_average`` over an axis.  Each result must equal its size-1
+    value exactly; alltoall and reducescatter over a tuple, and Adasum
+    over three axes, must raise JAX's texts."""
+    import importlib
+
+    join = importlib.import_module("horovod_tpu_torch.join")
+    from horovod_tpu_torch.ops import adasum as AD
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.parallel import meshes
+
+    checked = []
+
+    def same(label, got, want):
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"axis form {label}: {got} != {want}")
+        checked.append(label)
+
+    def raises(label, fn, text):
+        try:
+            fn()
+        except ValueError as e:
+            if str(e) != text:
+                raise AssertionError(f"axis form {label}: {e!r}") from e
+            checked.append(label)
+            return
+        raise AssertionError(f"axis form {label}: no ValueError")
+
+    g = torch.Generator(device=device).manual_seed(6)
+    with meshes.bind(meshes.make_mesh(meshes.MeshSpec())):
+        for dt in (torch.float32, torch.bfloat16):
+            tag = str(dt)[6:]
+            x = torch.randn((96, 33), generator=g, device=device).to(dt)
+            parts = [x, x[:7, :5]]
+            for axes in AXIS_FORMS:
+                one = isinstance(axes, str)
+                name = axes if one else "_".join(axes)
+                ops = ["Sum", "Average", "Min", "Max", "Product"]
+                if one or len(axes) == 2:
+                    ops.append("Adasum")
+                for op in ops:
+                    same(f"{name}.allreduce.{op}.{tag}",
+                         C.allreduce(x, op, axis_name=axes), x)
+                    for i, t in enumerate(C.grouped_allreduce(
+                            parts, op, axis_name=axes)):
+                        same(f"{name}.grouped.{op}.{i}.{tag}", t, parts[i])
+                same(f"{name}.allgather.{tag}",
+                     C.allgather(x, axis_name=axes), x)
+                same(f"{name}.broadcast.{tag}",
+                     C.broadcast(x, 0, axis_name=axes), x)
+                same(f"{name}.broadcast_.{tag}",
+                     C.broadcast_(x.clone(), 0, axis_name=axes), x)
+                if one:
+                    same(f"{name}.alltoall.{tag}",
+                         C.alltoall(x, axis_name=axes), x)
+                    same(f"{name}.alltoall.splits.{tag}",
+                         C.alltoall(x, [x.shape[0]], axis_name=axes), x)
+                    for op in ("Sum", "Average"):
+                        same(f"{name}.reducescatter.{op}.{tag}",
+                             C.reducescatter(x, op, axis_name=axes), x)
+                    continue
+                for kind, fn in (("alltoall", C.alltoall),
+                                 ("reducescatter", C.reducescatter)):
+                    raises(f"{name}.{kind}.raises.{tag}",
+                           lambda: fn(x, axis_name=axes),
+                           f"{kind} supports a single mesh axis")
+            for axes in ("dp", ("dp", "tp")):
+                same(f"adasum_allreduce.{axes}.{tag}",
+                     AD.adasum_allreduce(x, axis_name=axes), x)
+            raises(f"adasum_allreduce.three_axes.raises.{tag}",
+                   lambda: AD.adasum_allreduce(x, axis_name=AXIS_FORMS[-1]),
+                   "adasum_allreduce takes one axis or (cross, local)")
+            for active in (0, 1):
+                same(f"masked_average.dp.active{active}.{tag}",
+                     join.masked_average([x], active, axis_name="dp")[0],
+                     x if active else torch.zeros_like(x))
+    return checked
+
+
+def check_workers_axis(device) -> list:
+    """After ``basics.init(axis_name="workers")``: the flat mesh takes
+    the name, an allreduce over it is the world's, and the default name
+    is unbound (``NameError``, as JAX's unbound axis)."""
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.ops import collectives as C
+
+    if basics.axis_name() != "workers" or \
+            basics.mesh().mesh_dim_names != ("workers",):
+        raise AssertionError(f"init(axis_name='workers'): "
+                             f"{basics.axis_name()} "
+                             f"{basics.mesh().mesh_dim_names}")
+    x = torch.randn((96, 33), device=device)
+    for op in ("Sum", "Average", "Adasum"):
+        got = C.allreduce(x, op, axis_name="workers")
+        if not torch.equal(got, x) or not torch.equal(got,
+                                                      C.allreduce(x, op)):
+            raise AssertionError(f"allreduce {op} over 'workers' is not "
+                                 "the world's")
+    try:
+        C.allreduce(x, axis_name=basics.AXIS)
+    except NameError:
+        pass
+    else:
+        raise AssertionError("the default axis name is still bound")
+    return ["workers.allreduce.Sum", "workers.allreduce.Average",
+            "workers.allreduce.Adasum", "workers.unbound_default"]
+
+
+def _axis_train_leg(kind: str, batches) -> dict:
+    """TRAIN from ``init_params`` seed 0 (bf16 on f32 masters), one eager
+    step a batch under the bound size-1 mesh through ``kind``'s
+    optimizer over one AdamW (``capturable`` with a device ``lr``, as
+    ``optim.DistributedOptimizer`` sets its own): ``plain``, the AdamW
+    itself; ``adasum``, ``DistributedAdasumOptimizer(axis_name="dp")``;
+    ``sparse``, ``DistributedOptimizer(axis_name="dp",
+    sparse_keys=("embed",))``.  The K1-K3 counters are set to 0 just
+    before the steps and read just after."""
+    from horovod_tpu_torch import optim
+    from horovod_tpu_torch.models import transformer as T
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.parallel import meshes
+
+    cfg = T.TransformerConfig(**TRAIN, dtype=torch.bfloat16)
+    params = T.init_params(cfg, seed=0, param_dtype=torch.float32)
+    named = optim.named_parameters(params)
+    for _, t in named:
+        t.requires_grad_()
+    tensors = [t for _, t in named]
+    lr = torch.tensor(3e-4, dtype=torch.float32, device=tensors[0].device)
+    opt = torch.optim.AdamW(tensors, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4, capturable=True)
+    if kind == "adasum":
+        opt = optim.DistributedAdasumOptimizer(opt, axis_name="dp")
+    elif kind == "sparse":
+        opt = optim.DistributedOptimizer(opt, named_parameters=named,
+                                         axis_name="dp",
+                                         sparse_keys=("embed",))
+    torch.cuda.synchronize()
+    A.flash_fwd_launches = A.flash_bwd_dkdv_launches = 0
+    A.flash_bwd_dq_launches = 0
+    times, losses = [], []
+    with meshes.bind(meshes.make_mesh(meshes.MeshSpec())):
+        for b in batches:
+            t0 = time.monotonic()
+            opt.zero_grad()
+            loss = T.loss_fn(params, b, cfg)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))  # waits for the card
+            times.append(time.monotonic() - t0)
+    launches = dict(zip(("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"),
+                        _flash_counts()))
+    want = cfg.n_layers * len(batches)
+    if launches != dict.fromkeys(launches, want):
+        raise AssertionError(f"axis TRAIN leg {kind}: K1-K3 launches "
+                             f"{launches}, want {want} each")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"axis TRAIN leg {kind}: losses {losses}")
+    return {"params": [t.detach() for t in tensors], "losses": losses,
+            "step_ms": [round(v * 1e3, 3) for v in times],
+            "launches": launches}
+
+
+def axis_train_legs(card: str) -> dict:
+    """The two TRAIN legs over ``axis_name="dp"`` at size 1, each held
+    bit for bit to plain AdamW on the same batches."""
+    from horovod_tpu_torch.models import transformer as T
+
+    cfg = T.TransformerConfig(**TRAIN, dtype=torch.bfloat16)
+    batches = [T.synthetic_batch(300 + i, cfg, TRAIN_BATCH, TRAIN["max_seq"])
+               for i in range(AXIS_TRAIN_STEPS)]
+    plain = _axis_train_leg("plain", batches)
+    legs = {}
+    for kind in ("adasum", "sparse"):
+        leg = _axis_train_leg(kind, batches)
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(leg.pop("params"), plain["params"]))
+        if diff != 0.0 or leg["losses"] != plain["losses"]:
+            raise AssertionError(f"axis TRAIN leg {kind}: parameters differ "
+                                 f"from plain AdamW's by {diff:.3e}, losses "
+                                 f"{leg['losses']} against "
+                                 f"{plain['losses']}")
+        legs[kind] = leg
+        _collect()
+    plain.pop("params")
+    log(f"axis TRAIN legs on {card} ({AXIS_TRAIN_STEPS} eager steps of batch "
+        f"{TRAIN_BATCH} x {TRAIN['max_seq']}, axis_name='dp' at size 1): "
+        "parameters and losses bit-equal to plain AdamW's; step ms "
+        + "; ".join(f"{k} {v['step_ms']}" for k, v in
+                    {"plain": plain, **legs}.items())
+        + f"; K1-K3 launches a leg {legs['adasum']['launches']}")
+    return {"plain": plain, **legs, "launches": {
+        k: sum(leg["launches"][k] for leg in legs.values())
+        for k in plain["launches"]}}
+
+
+def collectives_size_one(card: str) -> dict:
     """The collectives phase: a size-1 NCCL group on the card, twice:
     through the native eager runtime (``basics.init``'s default) and with
-    ``HOROVOD_NATIVE=0`` (the direct path)."""
+    ``HOROVOD_NATIVE=0`` (the direct path), each with the axis forms;
+    then once more after ``basics.init(axis_name="workers")``: the axis
+    forms again, the new flat name, and the two TRAIN legs over
+    ``axis_name="dp"`` (:func:`axis_train_legs`)."""
     from horovod_tpu_torch import basics, eager_runtime
 
     out = {}
@@ -5898,6 +6117,9 @@ def collectives_size_one() -> dict:
             if (rt is None) != (mode == "direct"):
                 raise AssertionError(f"collectives {mode}: runtime {rt}")
             checked = check_collectives(basics.device())
+            t_axes = time.monotonic()
+            axes = check_axis_forms(basics.device())
+            t_axes = time.monotonic() - t_axes
             responses = rt.responses_executed if rt is not None else 0
             if mode == "native" and responses == 0:
                 raise AssertionError("no collective went through the runtime")
@@ -5908,7 +6130,25 @@ def collectives_size_one() -> dict:
             "native responses: "
             + ", ".join(sorted({c.rsplit(".", 1)[0] if c.endswith((
                 "float32", "bfloat16")) else c for c in checked})))
-        out[mode] = {"checked": checked, "native_responses": responses}
+        log(f"collectives axis forms at size 1 ({mode}): {len(axes)} checks "
+            f"exact in {t_axes:.2f} s over "
+            + ", ".join(str(a) for a in AXIS_FORMS))
+        out[mode] = {"checked": checked, "native_responses": responses,
+                     "axis_forms": axes, "axis_forms_s": t_axes}
+    t0 = time.monotonic()
+    basics.init(init_method=f"tcp://127.0.0.1:{_free_port()}",
+                axis_name="workers")
+    try:
+        dev = basics.device()
+        workers = check_workers_axis(dev) + check_axis_forms(dev)
+        legs = axis_train_legs(card)
+    finally:
+        basics.shutdown()
+    out["workers"] = {"checked": workers, "seconds": time.monotonic() - t0}
+    out["axis_train"] = legs
+    out["launches"] = legs.pop("launches")
+    log(f"collectives after init(axis_name='workers'): {len(workers)} checks "
+        f"exact; with the TRAIN legs {out['workers']['seconds']:.1f} s")
     return out
 
 
@@ -7889,7 +8129,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     with phase("collectives"):
-        REPORT["collectives"] = collectives_size_one()
+        coll = collectives_size_one(card)
+    REPORT["collectives"] = coll
     with phase("eager_native"):
         REPORT["eager_native"] = eager_native(card)
     with phase("frontend"), tempfile.TemporaryDirectory(
@@ -7982,6 +8223,9 @@ def main() -> int:
                for k, v in trained.items()}
     # The frontend phase's LM legs through the hooks (k = 1 and 2).
     trained = {k: v + front["launches"][k] for k, v in trained.items()}
+    # The collectives phase's TRAIN legs over axis_name="dp" (Adasum and
+    # the dense sparse_keys route, not their plain AdamW reference).
+    trained = {k: v + coll["launches"][k] for k, v in trained.items()}
     # The tp phase's churns: tp = 1, the virtual tp = 2 and 4 engines
     # (K1 and K4 shard-local, tp x layers a replay) and the real form
     # over a size-1 NCCL group.

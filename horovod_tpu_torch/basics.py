@@ -49,7 +49,8 @@ process; PyTorch's idiom is a process per GPU).
   raises, as every entry point of the port does.
 * The worker meshes, built at :func:`init` from the groups above as
   ``DeviceMesh`` objects on the job's device: :func:`mesh`, 1-D over the
-  world with axis :data:`AXIS` (the GLOBAL communicator), and
+  world with axis :func:`axis_name` (``init``'s ``axis_name``, default
+  :data:`AXIS`: the GLOBAL communicator), and
   :func:`hierarchical_mesh`, ``(cross, local)`` when the job is
   homogeneous, else None.  :func:`sharding_for` places a spec over
   either; :func:`worker_index` reads this rank's place on an axis of the
@@ -122,10 +123,13 @@ class _Context:
     cross_size: int
     homogeneous: bool
     # The process groups of this rank's host and of its local rank
-    # across hosts (with the cross group's global ranks, in order).
+    # across hosts (with their global ranks, in order).
     local_group: object
     cross_group: object
+    local_ranks: Tuple[int, ...]
     cross_ranks: Tuple[int, ...]
+    # The flat mesh's axis name (init's axis_name).
+    axis_name: str = AXIS
     # The worker meshes (DeviceMesh): flat over the world, and (cross,
     # local) or None.
     mesh: object = None
@@ -178,12 +182,15 @@ def _pg_timeout() -> dict:
         seconds=float(v) if v else ELASTIC_TIMEOUT_S)}
 
 
-def init(*, device=None, init_method: Optional[str] = None) -> None:
+def init(*, device=None, init_method: Optional[str] = None,
+         axis_name: str = AXIS) -> None:
     """Join the job's process group.  Idempotent.
 
     ``init_method`` (a ``torch.distributed`` URL such as
     ``tcp://127.0.0.1:29500``) overrides the coordinator from the
-    environment; a size-1 job without one uses an in-process store."""
+    environment; a size-1 job without one uses an in-process store.
+    ``axis_name`` names the flat mesh's axis (:func:`axis_name`), the
+    world's name for every collective's ``axis_name``."""
     global _context
     if _context is not None:
         return
@@ -219,11 +226,13 @@ def init(*, device=None, init_method: Optional[str] = None) -> None:
                    and csize * lsize == size
                    and all(r == c * lsize + l
                            for r, (c, l, _) in enumerate(layout)))
-    local, _ = _groups(layout, 0, crank)
+    local, lranks = _groups(layout, 0, crank)
     cross, cranks = _groups(layout, 1, lrank)
-    flat, hier = _meshes(dev, size, csize, lsize, homogeneous, local, cross)
+    flat, hier = _meshes(dev, size, csize, lsize, homogeneous, local, cross,
+                         axis_name)
     _context = _Context(rank, size, lrank, lsize, dev, crank, csize,
-                        homogeneous, local, cross, cranks, flat, hier)
+                        homogeneous, local, cross, lranks, cranks, axis_name,
+                        flat, hier)
     # The native control plane's eager runtime (negotiation, fusion, the
     # response cache, the stall inspector) over this process group.
     from horovod_tpu_torch import eager_runtime
@@ -294,14 +303,15 @@ def _groups(layout, field: int, mine: int):
     return ours
 
 
-def _meshes(dev, size, csize, lsize, homogeneous, local, cross):
-    """The flat mesh over the world group and, for a homogeneous job, the
-    ``(cross, local)`` mesh over the cross and local groups (rank ``r``
-    at ``(r // local size, r % local size)``); no new group is made."""
+def _meshes(dev, size, csize, lsize, homogeneous, local, cross, axis_name):
+    """The flat mesh (axis ``axis_name``) over the world group and, for a
+    homogeneous job, the ``(cross, local)`` mesh over the cross and local
+    groups (rank ``r`` at ``(r // local size, r % local size)``); no new
+    group is made."""
     from torch.distributed.device_mesh import DeviceMesh
 
     flat = DeviceMesh.from_group(dist.group.WORLD, dev.type,
-                                 mesh_dim_names=(AXIS,))
+                                 mesh_dim_names=(axis_name,))
     if not homogeneous:
         return flat, None
     hier = DeviceMesh.from_group(
@@ -322,23 +332,28 @@ def shutdown() -> None:
     eager_runtime.stop()
     if _context.timeline is not None:
         _context.timeline.close()
+    from horovod_tpu_torch.parallel import meshes
+
+    meshes.forget_axes_groups()
     dist.destroy_process_group()
     _context = None
 
 
-def reinit(*, device=None) -> None:
+def reinit(*, device=None, axis_name: Optional[str] = None) -> None:
     """Tear down and re-initialize the process group (the elastic restart
     path of ``elastic.run`` in a one-process job): :func:`shutdown`, which
     destroys the process groups, then :func:`init` over the current
     environment, on ``device`` (default: the device this process drives
-    now).  Counts ``elastic_rendezvous_total`` and marks the timeline, as
+    now), with the flat axis named ``axis_name`` (default: the current
+    name).  Counts ``elastic_rendezvous_total`` and marks the timeline, as
     the JAX package's ``reinit`` does.  A job of several processes cannot
     re-rendezvous in-process; the elastic driver respawns its ranks with
     a fresh epoch's environment instead."""
-    if device is None and _context is not None:
-        device = _context.device
+    if _context is not None:
+        device = _context.device if device is None else device
+        axis_name = _context.axis_name if axis_name is None else axis_name
     shutdown()
-    init(device=device)
+    init(device=device, axis_name=axis_name or AXIS)
     try:
         from horovod_tpu_torch.obs import tracing as obs_tracing
         from horovod_tpu_torch.obs.registry import elastic_metrics
@@ -411,7 +426,7 @@ def cross_group():
 
 def mesh():
     """The flat worker mesh: a 1-D ``DeviceMesh`` over the world with
-    axis :data:`AXIS` (the GLOBAL communicator)."""
+    axis :func:`axis_name` (the GLOBAL communicator)."""
     return _ctx().mesh
 
 
@@ -423,9 +438,9 @@ def hierarchical_mesh():
 
 
 def axis_name() -> str:
-    """The flat mesh's axis name, :data:`AXIS`."""
-    _ctx()
-    return AXIS
+    """The flat mesh's axis name: ``init``'s ``axis_name``, default
+    :data:`AXIS`."""
+    return _ctx().axis_name
 
 
 def sharding_for(spec, *, hierarchical: bool = False):
@@ -440,7 +455,7 @@ def sharding_for(spec, *, hierarchical: bool = False):
 
 
 def worker_index(axis: Optional[str] = None) -> torch.Tensor:
-    """This rank's index along ``axis`` (default :data:`AXIS`) of the
+    """This rank's index along ``axis`` (default :func:`axis_name`) of the
     bound mesh, a 0-dim int32 tensor on the job's device.  Only valid
     under a binding (``parallel.bind``, ``spmd.shard``): outside one it
     raises the unbound-axis ``NameError``, as JAX's does outside
@@ -448,8 +463,8 @@ def worker_index(axis: Optional[str] = None) -> torch.Tensor:
     from horovod_tpu_torch.parallel import meshes
 
     ctx = _ctx()
-    return torch.tensor(meshes.axis_index(axis or AXIS), dtype=torch.int32,
-                        device=ctx.device)
+    return torch.tensor(meshes.axis_index(axis or ctx.axis_name),
+                        dtype=torch.int32, device=ctx.device)
 
 
 def process_rank() -> int:

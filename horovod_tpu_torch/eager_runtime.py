@@ -255,6 +255,7 @@ class EagerRuntime:
                     mine.append(False)
 
         g = self._group
+        w = C._world(g)
         # The runtime's collectives are flat, as the JAX eager path is;
         # HOROVOD_HIERARCHICAL_* shape the direct path and the step.
         with C._hierarchical(False):
@@ -275,20 +276,19 @@ class EagerRuntime:
                             if len(inputs) > 1 else
                             inputs[0].reshape(-1).clone())
                     red = C._allreduce_start(flat, op, pre, post, False,
-                                             group=g).wait()
+                                             w).wait()
                     outs = [piece.view(a.shape) for a, piece in zip(
                         inputs, red.split([a.numel() for a in inputs]))]
             elif resp.type == native.ALLGATHER:
-                outs = [C._allgather_start(inputs[0], False, group=g).wait()]
+                outs = [C._allgather_start(inputs[0], False, w).wait()]
             elif resp.type == native.BROADCAST:
                 outs = [C._broadcast_start(inputs[0].clone(), resp.root_rank,
-                                           False, group=g).wait()]
+                                           False, w).wait()]
             elif resp.type == native.ALLTOALL:
-                outs = [C._alltoall_start(inputs[0], None, False,
-                                          group=g).wait()]
+                outs = [C._alltoall_start(inputs[0], None, False, w).wait()]
             elif resp.type == native.RESP_REDUCESCATTER:
                 outs = [C._reducescatter_start(inputs[0], to_op[resp.op],
-                                               False, group=g).wait()]
+                                               False, w).wait()]
             else:
                 return native.STATUS_INVALID
 

@@ -25,18 +25,22 @@ __all__ = ["join", "masked_average"]
 
 
 def masked_average(grads: Union[torch.Tensor, Sequence[torch.Tensor]],
-                   active) -> Union[torch.Tensor, List[torch.Tensor]]:
+                   active, *,
+                   axis_name=None) -> Union[torch.Tensor, List[torch.Tensor]]:
     """Average ``grads`` (a tensor or a list) over the ranks whose
     ``active`` (a 0/1 flag) is set: an inactive rank contributes zeros,
     and the divisor is the live count clamped to 1, so a step where
-    every rank has joined returns zeros, not NaN."""
+    every rank has joined returns zeros, not NaN.  ``axis_name``: the
+    ranks of that axis or tuple of axes only (the live count and the
+    sums over its group; ``collectives.allreduce``'s)."""
     single = torch.is_tensor(grads)
     tensors = [grads] if single else list(grads)
     dev = tensors[0].device if tensors else basics.device()
     a = torch.as_tensor(active, dtype=torch.float32, device=dev).reshape(())
     with C._direct_path():
-        live = C.allreduce(a, C.Sum).clamp_min(1.0)
-        out = [C.allreduce_(g * a.to(g.dtype), C.Sum).div_(live.to(g.dtype))
+        live = C.allreduce(a, C.Sum, axis_name=axis_name).clamp_min(1.0)
+        out = [C.allreduce_(g * a.to(g.dtype), C.Sum,
+                            axis_name=axis_name).div_(live.to(g.dtype))
                for g in tensors]
     return out[0] if single else out
 

@@ -13,8 +13,9 @@ heartbeats); this module gives it *slowness* and *state*:
 * each elastic worker publishes its registry export and a step-duration
   heartbeat payload over the rendezvous KV
   (the JAX package's ``elastic.worker.WorkerNotificationManager``;
-  the port's driver side is not ported yet);
-* the driver feeds them into a :class:`FleetMonitor`, which merges the
+  the port's is :mod:`horovod_tpu_torch.elastic.worker`);
+* the driver (:mod:`horovod_tpu_torch.runner.elastic_driver`) feeds
+  them into a :class:`FleetMonitor`, which merges the
   exports (:mod:`horovod_tpu_torch.obs.aggregate` — counters sum, gauges get
   ``rank``/``host`` labels + min/median/max, histograms merge
   bucket-wise) and watches per-rank step durations for **stragglers**:

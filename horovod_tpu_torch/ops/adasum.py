@@ -13,6 +13,13 @@ with the lower rank as ``a``, so after log2(P) levels every rank holds
 the same result; at size 1 it is the identity.  The hierarchical form
 averages over the local group, then runs Adasum over the cross group.
 
+An ``axis_name`` is JAX's in-graph ``adasum_allreduce(axis_name=)``,
+whatever the hierarchical switch says: one axis (a mesh axis of the
+bound mesh, or one of ``basics``' flat names) runs the exchange over
+its ranks in its order; a pair ``(A, B)`` averages over ``B``, then
+runs Adasum over ``A`` (``(cross, local)``: the hierarchical form);
+more axes raise JAX's text.
+
 At a group size that is not a power of two the in-graph forms (the calls
 of the training step and an ``axis_name``'s group) raise, as JAX's
 ``adasum_allreduce`` does.  The eager entry points (the eager
@@ -93,14 +100,36 @@ def _adasum_over(tensors: List[torch.Tensor], ranks: Sequence[int],
     return out
 
 
-def _local_mean(tensors: List[torch.Tensor], ctx) -> List[torch.Tensor]:
-    """Each tensor averaged over this rank's local group (new tensors)."""
+def _mean(tensors: List[torch.Tensor], group,
+          n: int) -> List[torch.Tensor]:
+    """Each tensor averaged over the ``n`` ranks of ``group`` (new
+    tensors)."""
     out = []
     for t in tensors:
         t = t.contiguous().clone()
-        dist.all_reduce(t, group=ctx.local_group)
-        out.append(t.div_(ctx.local_size))
+        dist.all_reduce(t, group=group)
+        out.append(t.div_(n))
     return out
+
+
+def _axis_form(tensors: List[torch.Tensor],
+               axis_name) -> List[torch.Tensor]:
+    """JAX's in-graph ``adasum_allreduce`` over ``axis_name``: the mean
+    over a pair's second axis first, then the exchange over the (first)
+    axis's ranks in JAX's order; a size that is not a power of two
+    raises."""
+    from horovod_tpu_torch.ops import collectives as C
+
+    names = C._names(axis_name)
+    if len(names) == 2:
+        inner = C._axis_group(names[1])
+        tensors = _mean(tensors, inner.group, inner.size)
+        names = names[:1]
+    elif len(names) != 1:
+        raise ValueError("adasum_allreduce takes one axis or (cross, local)")
+    ax = C._axis_group(names[0])
+    _check_size(ax.size)
+    return _adasum_over(tensors, list(ax.ranks), ax.group)
 
 
 def _gathered(tensors: List[torch.Tensor], group,
@@ -118,7 +147,8 @@ def _gathered(tensors: List[torch.Tensor], group,
 
 
 def adasum_allreduce_group(tensors: Sequence[torch.Tensor], *,
-                           hierarchical: bool = False, group=None,
+                           axis_name=None, hierarchical: bool = False,
+                           group=None,
                            eager: bool = False) -> List[torch.Tensor]:
     """Adasum of a group of tensors: the log2(P) exchange rounds are
     shared, each tensor keeps its own coefficients (the JAX
@@ -132,8 +162,14 @@ def adasum_allreduce_group(tensors: Sequence[torch.Tensor], *,
     JAX's ``adasum_allreduce`` does; with ``eager`` (the eager entry
     points) every rank's tensor is gathered and reduced by
     :func:`adasum_reduce_stack`, per tensor (the JAX
-    ``eager_adasum_group`` / ``eager_adasum``)."""
+    ``eager_adasum_group`` / ``eager_adasum``).
+
+    ``axis_name`` (not None) takes the axis form of the module's
+    docstring instead; ``hierarchical``, ``group`` and ``eager`` are then
+    not read."""
     tensors = list(tensors)
+    if axis_name is not None:
+        return _axis_form(tensors, axis_name)
     ctx = basics._ctx()
     if hierarchical:
         ranks, group = list(ctx.cross_ranks), ctx.cross_group
@@ -142,17 +178,21 @@ def adasum_allreduce_group(tensors: Sequence[torch.Tensor], *,
     if not eager:
         _check_size(len(ranks))
     if hierarchical:
-        tensors = _local_mean(tensors, ctx)
+        tensors = _mean(tensors, ctx.local_group, ctx.local_size)
     if _power_of_two(len(ranks)):
         return _adasum_over(tensors, ranks, group)
     return _gathered(tensors, group, len(ranks))
 
 
-def adasum_allreduce(tensor: torch.Tensor, *,
+def adasum_allreduce(tensor: torch.Tensor, *, axis_name=None,
                      hierarchical: bool = False) -> torch.Tensor:
-    """Adasum of one tensor over the job -> a new tensor, equal on every
-    rank (see :func:`adasum_allreduce_group`)."""
-    return adasum_allreduce_group([tensor], hierarchical=hierarchical)[0]
+    """Adasum of one tensor -> a new tensor, equal on every rank of the
+    reduction: over the job (two-level with ``hierarchical``), or over
+    ``axis_name``: one axis, or a pair ``(A, B)`` (the mean over ``B``,
+    then Adasum over ``A``), as JAX's ``adasum_allreduce`` (see
+    :func:`adasum_allreduce_group`)."""
+    return adasum_allreduce_group([tensor], axis_name=axis_name,
+                                  hierarchical=hierarchical)[0]
 
 
 def adasum_reduce_stack(stacked: torch.Tensor) -> torch.Tensor:

@@ -24,9 +24,19 @@ The trailing-underscore forms work in place.
   gather and reduce serially (the JAX eager fallback); inside
   :func:`_direct_path` and over an ``axis_name`` it raises, as JAX's
   in-graph ``adasum_allreduce`` does.
-* ``allreduce(axis_name=)`` reduces over one axis's ranks
-  (:func:`_axis_group`: a mesh axis of the bound mesh, or a flat name),
-  directly and flat; the other collectives reduce over the job.
+* ``axis_name`` (every collective but the ``*_async`` forms and the
+  barrier) is JAX's in-graph form, run directly, never through the
+  eager runtime: the ranks of one axis or a tuple of axes
+  (:func:`_axis_group`): an axis of the bound mesh or a tuple of its
+  axes, in JAX's order for the tuple (the first axis outermost); the
+  local or the cross group; the world for the flat name
+  (:func:`~horovod_tpu_torch.basics.axis_name`) and ``(cross,
+  local)``.  allgather's blocks, broadcast's ``root_rank`` (an index
+  along the axes) and Adasum's pairing follow that order; alltoall and
+  reducescatter take one axis only; Adasum over a pair averages over
+  the second axis, then combines over the first, whatever the
+  hierarchical switch says: the switch chooses the form only without an
+  ``axis_name``.
 * The async API (``*_async``, :func:`poll`, :func:`synchronize`) holds
   ``async_op=True`` work objects, each handle used once; the op's
   post-processing (Average's division, the postscale, decompression,
@@ -307,32 +317,27 @@ def _check_allreduce(t: torch.Tensor, op: str) -> None:
 
 
 def _allreduce_start(t: torch.Tensor, op: str, prescale, postscale,
-                     async_op: bool, group=None) -> _Pending:
-    """Reduce ``t`` in place over ``group`` (default: the world); the
-    result is ``t``.  A group smaller than the world (a mesh axis's, see
-    :func:`_axis_group`) reduces flat over its own ranks."""
+                     async_op: bool, ax=None) -> _Pending:
+    """Reduce ``t`` in place over ``ax`` (:func:`_axis_group`; default
+    the world); the result is ``t``.  Adasum here is the world's, whose
+    form the hierarchical switch chooses (an explicit ``axis_name``'s
+    runs through :func:`adasum.adasum_allreduce_group`)."""
     _check_allreduce(t, op)
-    n = basics.size() if group is None else dist.get_world_size(group)
-    sub = n != basics.size()
+    ax = _world() if ax is None else ax
     _scale_(t, prescale)
     if op == Adasum:
-        if sub:
-            out = adasum._adasum_over(
-                [t], dist.get_process_group_ranks(group), group)
-        else:
-            out = _adasum_group([t], group)
-        t.copy_(out[0])
+        t.copy_(_adasum_group([t], ax.group)[0])
         return _done(_scale_(t, postscale))
-    if op in (Average, Sum) and not sub and _use_hierarchical("allreduce"):
+    if op in (Average, Sum) and ax.world and _use_hierarchical("allreduce"):
         _hier_allreduce_(t)
         work = None
     else:
-        work = dist.all_reduce(t, op=_DIST_OPS[op], group=group,
+        work = dist.all_reduce(t, op=_DIST_OPS[op], group=ax.group,
                                async_op=async_op)
 
     def finish():
         if op == Average:
-            t.div_(n)
+            t.div_(ax.size)
         return _scale_(t, postscale)
 
     return _Pending(work, finish)
@@ -340,58 +345,78 @@ def _allreduce_start(t: torch.Tensor, op: str, prescale, postscale,
 
 def _adasum_group(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
     """Adasum over the job (``group``: a process group of every rank, or
-    None for the world): in-graph inside :func:`_direct_path` (a size
-    that is not a power of two raises, as JAX's ``adasum_allreduce``
-    does), else eager (gathered and reduced serially at such a size, as
-    JAX's eager Adasum is)."""
+    None for the world), two-level where the hierarchical switch says:
+    in-graph inside :func:`_direct_path` (a size that is not a power of
+    two raises, as JAX's ``adasum_allreduce`` does), else eager (gathered
+    and reduced serially at such a size, as JAX's eager Adasum is)."""
     return adasum.adasum_allreduce_group(
         tensors, hierarchical=_use_hierarchical("allreduce"), group=group,
         eager=not _direct.get())
 
 
-def _axis_group(axis_name):
-    """The process group that ``axis_name`` names, as the JAX package
-    resolves an ``axis_name`` to the axes it reduces over: None (the
-    job's world) for None, the flat axis :data:`~horovod_tpu_torch.
-    basics.AXIS` and the pair ``(cross, local)``; the local or the cross
-    group for those names; else the axis of the bound mesh
-    (:func:`horovod_tpu_torch.parallel.bind`; ``NameError`` naming an
-    unbound axis)."""
-    names = (tuple(axis_name) if isinstance(axis_name, (tuple, list))
-             else (axis_name,))
-    if names in ((None,), (basics.AXIS,),
-                 (basics.CROSS_AXIS, basics.LOCAL_AXIS)):
-        return None
-    if len(names) != 1:
-        raise ValueError(f"axis_name {axis_name!r}: a tuple of axes other "
-                         f"than ({basics.CROSS_AXIS!r}, "
-                         f"{basics.LOCAL_AXIS!r}) is not supported")
-    if names[0] == basics.LOCAL_AXIS:
-        return basics.local_group()
-    if names[0] == basics.CROSS_AXIS:
-        return basics.cross_group()
+def _names(axis_name) -> tuple:
+    return (tuple(axis_name) if isinstance(axis_name, (tuple, list))
+            else (axis_name,))
+
+
+def _world(group=None):
+    """The job's own axis: every rank, in rank order, over ``group``
+    (default the world's; the eager runtime passes its own)."""
     from horovod_tpu_torch.parallel import meshes
 
-    return meshes.axis_group(names[0])
+    ctx = basics._ctx()
+    return meshes.Axes(group, tuple(range(ctx.size)), ctx.rank, world=True)
+
+
+def _axis_group(axis_name):
+    """``axis_name`` resolved on this rank, as the JAX package resolves
+    an ``axis_name`` to the axes it reduces over -> a
+    :class:`~horovod_tpu_torch.parallel.meshes.Axes` (its process group,
+    its ranks in JAX's order, this rank's index): the job's world for
+    None, the flat name (:func:`~horovod_tpu_torch.basics.axis_name`)
+    and the pair ``(cross, local)``; the local or the cross group for
+    those names; else an axis or a tuple of axes of the bound mesh
+    (:func:`~horovod_tpu_torch.parallel.meshes.axes_group`;
+    ``NameError`` naming an unbound axis)."""
+    from horovod_tpu_torch.parallel import meshes
+
+    ctx = basics._ctx()
+    names = _names(axis_name)
+    if names in ((None,), (ctx.axis_name,),
+                 (basics.CROSS_AXIS, basics.LOCAL_AXIS)):
+        return _world()
+    if names == (basics.LOCAL_AXIS,):
+        return meshes.Axes(ctx.local_group, ctx.local_ranks,
+                           ctx.local_ranks.index(ctx.rank))
+    if names == (basics.CROSS_AXIS,):
+        return meshes.Axes(ctx.cross_group, ctx.cross_ranks,
+                           ctx.cross_ranks.index(ctx.rank))
+    return meshes.axes_group(names)
 
 
 def _allreduce_pending(tensor: torch.Tensor, op: str, name, prescale,
                        postscale, async_op: bool, inplace: bool,
                        axis_name=None):
     """Reduce ``tensor`` (in place when ``inplace``, else into a new
-    tensor): through the runtime, or directly.  Over a named axis's
-    group the reduction is direct: the runtime negotiates over the
-    world."""
-    group = _axis_group(axis_name)
-    if axis_name is not None and op == Adasum:
-        # An axis's Adasum is JAX's in-graph form, whatever the axis.
+    tensor): through the runtime, or directly.  An explicit
+    ``axis_name`` is JAX's in-graph form, direct (the runtime negotiates
+    over the world), its Adasum :func:`adasum.adasum_allreduce_group`'s
+    axis form whatever the hierarchical switch says."""
+    if axis_name is not None:
+        t = tensor if inplace else tensor.clone()
         with _direct_path():
-            return _allreduce_start(tensor if inplace else tensor.clone(),
-                                    op, prescale, postscale, async_op, group)
-    rt = _native_rt() if group is None else None
+            if op != Adasum:
+                return _allreduce_start(t, op, prescale, postscale,
+                                        async_op, _axis_group(axis_name))
+            _check_allreduce(t, op)
+            _scale_(t, prescale)
+            t.copy_(adasum.adasum_allreduce_group(
+                [t], axis_name=axis_name)[0])
+            return _done(_scale_(t, postscale))
+    rt = _native_rt()
     if rt is None:
         return _allreduce_start(tensor if inplace else tensor.clone(), op,
-                                prescale, postscale, async_op, group)
+                                prescale, postscale, async_op)
     return _native_allreduce(rt, [tensor], op, name, prescale, postscale,
                              _into(tensor, inplace))
 
@@ -401,8 +426,9 @@ def allreduce_(tensor: torch.Tensor, op: str = Average, *, axis_name=None,
                postscale_factor: float = 1.0) -> torch.Tensor:
     """Reduce ``tensor`` over the ranks in place and return it: ``Sum``,
     ``Average`` (the sum over the job's size), ``Min``, ``Max``,
-    ``Product`` or ``Adasum``.  ``axis_name``: reduce over that axis's
-    ranks only (:func:`_axis_group`; ``Average`` divides by its size)."""
+    ``Product`` or ``Adasum``.  ``axis_name``: over that axis's or
+    tuple of axes' ranks only (:func:`_axis_group`; ``Average`` divides
+    by its size; Adasum as :func:`adasum.adasum_allreduce`'s)."""
     return _allreduce_pending(tensor, op, name, prescale_factor,
                               postscale_factor, False, True,
                               axis_name).wait()
@@ -441,7 +467,7 @@ def process_sum(tensor: torch.Tensor, *,
 
 
 def grouped_allreduce(tensors: Sequence[torch.Tensor], op: str = Average, *,
-                      name: Optional[str] = None,
+                      axis_name=None, name: Optional[str] = None,
                       prescale_factor: float = 1.0,
                       postscale_factor: float = 1.0) -> List[torch.Tensor]:
     """Allreduce a list of tensors as one fused operation -> new tensors
@@ -450,34 +476,39 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor], op: str = Average, *,
     every op but Adasum reduces through the fusion buckets
     (:mod:`~horovod_tpu_torch.ops.fusion`); Adasum shares its exchange
     rounds across the group and keeps one coefficient per tensor, never
-    concatenating a bucket."""
+    concatenating a bucket.  ``axis_name``: over that axis's or tuple of
+    axes' ranks (as :func:`allreduce`'s), directly."""
     _check_op(op)
     tensors = list(tensors)
-    rt = _native_rt()
+    rt = _native_rt() if axis_name is None else None
     if rt is not None:
         return _native_allreduce(rt, tensors, op, name, prescale_factor,
                                  postscale_factor, list).wait()
     tensors = [t.clone() for t in tensors]
     for t in tensors:
         _scale_(t, prescale_factor)
-    if op == Adasum:
+    if op == Adasum and axis_name is None:
         out = _adasum_group(tensors, None)
     else:
         from horovod_tpu_torch.ops import fusion
 
         with _direct_path():
-            out = fusion.fused_allreduce(tensors, op)
+            out = (adasum.adasum_allreduce_group(tensors,
+                                                 axis_name=axis_name)
+                   if op == Adasum else
+                   fusion.fused_allreduce(tensors, op, axis_name=axis_name))
     return [_scale_(t, postscale_factor) for t in out]
 
 
 # --- allgather, broadcast -----------------------------------------------------
 
 
-def _row_counts(tensor: torch.Tensor, group=None) -> List[int]:
+def _row_counts(tensor: torch.Tensor, ax) -> List[int]:
+    """Every rank's dim 0 along ``ax``, in JAX's order."""
     rows = torch.tensor([tensor.shape[0]], device=tensor.device)
-    parts = [torch.empty_like(rows) for _ in range(basics.size())]
-    dist.all_gather(parts, rows, group=group)
-    return [int(r) for r in parts]
+    parts = [torch.empty_like(rows) for _ in range(ax.size)]
+    dist.all_gather(parts, rows, group=ax.group)
+    return [int(r) for r in ax.to_jax_order(parts)]
 
 
 def _check_allgather(tensor: torch.Tensor) -> None:
@@ -486,17 +517,18 @@ def _check_allgather(tensor: torch.Tensor) -> None:
 
 
 def _allgather_start(tensor: torch.Tensor, async_op: bool,
-                     group=None) -> _Pending:
+                     ax=None) -> _Pending:
     _check_allgather(tensor)
-    n = basics.size()
-    counts = _row_counts(tensor, group)
+    ax = _world() if ax is None else ax
+    n = ax.size
+    counts = _row_counts(tensor, ax)
     padded = tensor.new_zeros((max(counts),) + tuple(tensor.shape[1:]))
     padded[:tensor.shape[0]] = tensor
 
     def trim(parts):
         return torch.cat([p[:c] for p, c in zip(parts, counts)])
 
-    if _use_hierarchical("allgather"):
+    if ax.world and _use_hierarchical("allgather"):
         n_local = basics.local_size()
         local = [torch.empty_like(padded) for _ in range(n_local)]
         dist.all_gather(local, padded, group=basics.local_group())
@@ -505,62 +537,83 @@ def _allgather_start(tensor: torch.Tensor, async_op: bool,
         dist.all_gather(hosts, block, group=basics.cross_group())
         return _done(trim([p for h in hosts for p in h.unbind(0)]))
     parts = [torch.empty_like(padded) for _ in range(n)]
-    work = dist.all_gather(parts, padded, group=group, async_op=async_op)
-    return _Pending(work, lambda: trim(parts))
+    work = dist.all_gather(parts, padded, group=ax.group, async_op=async_op)
+    return _Pending(work, lambda: trim(ax.to_jax_order(parts)))
 
 
-def _allgather_pending(tensor: torch.Tensor, name, async_op: bool):
-    rt = _native_rt()
+def _allgather_pending(tensor: torch.Tensor, name, async_op: bool,
+                       axis_name=None):
+    rt = _native_rt() if axis_name is None else None
     if rt is None:
-        return _allgather_start(tensor, async_op)
+        return _allgather_start(tensor, async_op, _axis_group(axis_name))
     _check_allgather(tensor)
     return _NativePending(rt, _native_submit(rt, "allgather", [tensor],
                                              name), _first)
 
 
-def allgather(tensor: torch.Tensor, *,
+def allgather(tensor: torch.Tensor, *, axis_name=None,
               name: Optional[str] = None) -> torch.Tensor:
     """Every rank's ``tensor`` concatenated along dim 0, in rank order;
-    the first dimension may differ between ranks."""
-    return _allgather_pending(tensor, name, False).wait()
+    the first dimension may differ between ranks.  ``axis_name``: the
+    ranks of that axis or tuple of axes, in JAX's order for it (the
+    first axis outermost), directly."""
+    return _allgather_pending(tensor, name, False, axis_name).wait()
 
 
 def _broadcast_start(tensor: torch.Tensor, root_rank: int,
-                     async_op: bool, group=None) -> _Pending:
-    basics.size()  # raises before init
-    work = dist.broadcast(tensor, src=root_rank, group=group,
+                     async_op: bool, ax=None) -> _Pending:
+    """``root_rank``: an index along ``ax`` (default the world, where it
+    is the global rank)."""
+    ax = _world() if ax is None else ax
+    work = dist.broadcast(tensor, src=ax.ranks[root_rank], group=ax.group,
                           async_op=async_op)
     return _Pending(work, lambda: tensor)
 
 
 def _broadcast_pending(tensor: torch.Tensor, root_rank: int, name,
-                       async_op: bool, inplace: bool):
-    rt = _native_rt()
+                       async_op: bool, inplace: bool, axis_name=None):
+    rt = _native_rt() if axis_name is None else None
     if rt is None:
         return _broadcast_start(tensor if inplace else tensor.clone(),
-                                root_rank, async_op)
+                                root_rank, async_op, _axis_group(axis_name))
     return _NativePending(rt, _native_submit(
         rt, "broadcast", [tensor], name, root_rank=root_rank),
         _into(tensor, inplace))
 
 
-def broadcast_(tensor: torch.Tensor, root_rank: int = 0, *,
+def broadcast_(tensor: torch.Tensor, root_rank: int = 0, *, axis_name=None,
                name: Optional[str] = None) -> torch.Tensor:
-    """Overwrite ``tensor`` with ``root_rank``'s, in place."""
-    return _broadcast_pending(tensor, root_rank, name, False, True).wait()
+    """Overwrite ``tensor`` with ``root_rank``'s, in place.
+    ``axis_name``: among the ranks of that axis or tuple of axes, where
+    ``root_rank`` is the index along it in JAX's order (the masked psum
+    of JAX's in-graph broadcast), directly."""
+    return _broadcast_pending(tensor, root_rank, name, False, True,
+                              axis_name).wait()
 
 
-def broadcast(tensor: torch.Tensor, root_rank: int = 0, *,
+def broadcast(tensor: torch.Tensor, root_rank: int = 0, *, axis_name=None,
               name: Optional[str] = None) -> torch.Tensor:
     """:func:`broadcast_` into a new tensor."""
-    return _broadcast_pending(tensor, root_rank, name, False, False).wait()
+    return _broadcast_pending(tensor, root_rank, name, False, False,
+                              axis_name).wait()
 
 
 # --- alltoall, reducescatter --------------------------------------------------
 
 
-def _check_alltoall(tensor: torch.Tensor, splits) -> Optional[List[int]]:
-    P = basics.size()
+def _single_axis(axis_name, kind: str):
+    """The one axis of ``alltoall`` and ``reducescatter`` (None: the
+    world); a tuple of several raises JAX's text."""
+    if axis_name is None:
+        return None
+    if len(_names(axis_name)) != 1:
+        raise ValueError(f"{kind} supports a single mesh axis")
+    return _axis_group(axis_name)
+
+
+def _check_alltoall(tensor: torch.Tensor, splits,
+                    n: Optional[int] = None) -> Optional[List[int]]:
+    P = basics.size() if n is None else n
     if splits is None and tensor.shape[0] % P != 0:
         raise ValueError("alltoall without splits requires dim0 % size == 0")
     if splits is not None:
@@ -571,24 +624,41 @@ def _check_alltoall(tensor: torch.Tensor, splits) -> Optional[List[int]]:
 
 
 def _alltoall_start(tensor: torch.Tensor, splits, async_op: bool,
-                    group=None) -> _Pending:
-    splits = _check_alltoall(tensor, splits)
+                    ax=None) -> _Pending:
+    """Slice ``j`` (in JAX's order along ``ax``) goes to the rank of
+    index ``j``; the received slices come back in that order."""
+    ax = _world() if ax is None else ax
+    splits = _check_alltoall(tensor, splits, ax.size)
     src = tensor.contiguous()
     if splits is None:
+        if ax.perm is not None:
+            src = torch.cat(ax.to_group_order(list(src.chunk(ax.size))))
         out = torch.empty_like(src)
-        work = dist.all_to_all_single(out, src, group=group,
+        work = dist.all_to_all_single(out, src, group=ax.group,
                                       async_op=async_op)
-        return _Pending(work, lambda: out)
-    send = torch.tensor(splits, dtype=torch.int64, device=tensor.device)
+        if ax.perm is None:
+            return _Pending(work, lambda: out)
+        return _Pending(work, lambda: torch.cat(ax.to_jax_order(
+            list(out.chunk(ax.size)))))
+    pieces = ax.to_group_order(list(src.split(splits)))
+    sends = [p.shape[0] for p in pieces]
+    send = torch.tensor(sends, dtype=torch.int64, device=tensor.device)
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send)
+    dist.all_to_all_single(recv, send, group=ax.group)
     counts = recv.tolist()
     out = src.new_empty((sum(counts),) + tuple(src.shape[1:]))
-    dist.all_to_all_single(out, src, counts, splits)
+    dist.all_to_all_single(out, src if ax.perm is None else
+                           torch.cat(pieces), counts, sends, group=ax.group)
+    if ax.perm is not None:
+        out = torch.cat(ax.to_jax_order(list(out.split(counts))))
     return _done(out)
 
 
-def _alltoall_pending(tensor: torch.Tensor, splits, name, async_op: bool):
+def _alltoall_pending(tensor: torch.Tensor, splits, name, async_op: bool,
+                      axis_name=None):
+    ax = _single_axis(axis_name, "alltoall")
+    if ax is not None:
+        return _alltoall_start(tensor, splits, async_op, ax)
     rt = _native_rt()
     if rt is not None:
         _check_alltoall(tensor, splits)
@@ -606,18 +676,22 @@ def _alltoall_pending(tensor: torch.Tensor, splits, name, async_op: bool):
     return _alltoall_start(tensor, splits, async_op)
 
 
-def alltoall(tensor: torch.Tensor, splits=None, *,
+def alltoall(tensor: torch.Tensor, splits=None, *, axis_name=None,
              name: Optional[str] = None) -> torch.Tensor:
     """Exchange dim-0 slices: rank ``p`` receives slice ``p`` of every
     rank, in rank order.  ``splits`` (one row count a rank, summing to
-    dim 0) sends uneven slices; without it dim 0 splits evenly."""
-    return _alltoall_pending(tensor, splits, name, False).wait()
+    dim 0) sends uneven slices; without it dim 0 splits evenly.
+    ``axis_name``: among one axis's ranks, in its order, directly; a
+    tuple of several axes raises, as JAX's does."""
+    return _alltoall_pending(tensor, splits, name, False, axis_name).wait()
 
 
-def _validate_reducescatter(tensor: torch.Tensor, op: str) -> None:
+def _validate_reducescatter(tensor: torch.Tensor, op: str,
+                            n: Optional[int] = None) -> None:
     if op not in (Average, Sum):
         raise ValueError("reducescatter supports Sum/Average")
-    P = basics.size() if basics.is_initialized() else 1
+    P = n if n is not None else (
+        basics.size() if basics.is_initialized() else 1)
     if tensor.dim() == 0:
         raise ValueError("reducescatter requires tensors with >= 1 dim")
     if tensor.shape[0] % max(P, 1) != 0:
@@ -627,12 +701,15 @@ def _validate_reducescatter(tensor: torch.Tensor, op: str) -> None:
 
 
 def _reducescatter_start(tensor: torch.Tensor, op: str, async_op: bool,
-                         group=None) -> _Pending:
-    _validate_reducescatter(tensor, op)
-    P = basics.size()
-    ins = list(tensor.contiguous().chunk(P))
+                         ax=None) -> _Pending:
+    """Reduce over ``ax``'s ranks; the rank of index ``j`` along it keeps
+    dim-0 slice ``j``; ``Average`` divides by its size."""
+    _validate_reducescatter(tensor, op, None if ax is None else ax.size)
+    ax = _world() if ax is None else ax
+    P = ax.size
+    ins = ax.to_group_order(list(tensor.contiguous().chunk(P)))
     out = torch.empty_like(ins[0])
-    work = dist.reduce_scatter(out, ins, group=group, async_op=async_op)
+    work = dist.reduce_scatter(out, ins, group=ax.group, async_op=async_op)
 
     def finish():
         return out.div_(P) if op == Average else out
@@ -641,7 +718,10 @@ def _reducescatter_start(tensor: torch.Tensor, op: str, async_op: bool,
 
 
 def _reducescatter_pending(tensor: torch.Tensor, op: str, name,
-                           async_op: bool):
+                           async_op: bool, axis_name=None):
+    ax = _single_axis(axis_name, "reducescatter")
+    if ax is not None:
+        return _reducescatter_start(tensor, op, async_op, ax)
     rt = _native_rt()
     if rt is None:
         return _reducescatter_start(tensor, op, async_op)
@@ -652,9 +732,14 @@ def _reducescatter_pending(tensor: torch.Tensor, op: str, name,
 
 
 def reducescatter(tensor: torch.Tensor, op: str = Average, *,
+                  axis_name=None,
                   name: Optional[str] = None) -> torch.Tensor:
-    """Reduce over the ranks, then rank ``p`` keeps dim-0 slice ``p``."""
-    return _reducescatter_pending(tensor, op, name, False).wait()
+    """Reduce over the ranks, then rank ``p`` keeps dim-0 slice ``p``.
+    ``axis_name``: over one axis's ranks, the rank of index ``j`` along
+    it keeping slice ``j``, directly; a tuple of several axes raises, as
+    JAX's does."""
+    return _reducescatter_pending(tensor, op, name, False,
+                                  axis_name).wait()
 
 
 def barrier() -> None:

@@ -66,7 +66,8 @@ def fused_allreduce(tensors: Sequence[torch.Tensor], op: str = C.Average,
                     axis_name=None) -> List[torch.Tensor]:
     """Allreduce every tensor, bucket by bucket: flatten, concatenate,
     one collective, split.  Returns new tensors in the input order.
-    ``axis_name``: over that axis's ranks (``collectives.allreduce``)."""
+    ``axis_name``: over the ranks of that axis or tuple of axes
+    (``collectives.allreduce``)."""
     if threshold is None:
         threshold = fusion_threshold_bytes()
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)

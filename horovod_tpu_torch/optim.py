@@ -14,7 +14,8 @@ Semantics kept from the JAX package:
   collective a tensor, Adasum included); ``compression`` casts for the
   wire only; ``sparse_keys`` routes the gradients whose names contain a
   key through :func:`~horovod_tpu_torch.ops.sparse.sparse_allreduce`,
-  uncompressed (Average and Sum only).
+  uncompressed (Average and Sum only); with an ``axis_name`` they
+  reduce densely over the axis, as JAX's traced leaves do.
 * ``backward_passes_per_step = k``: gradients of k backward passes
   accumulate locally (in ``.grad``; ``zero_grad`` keeps them until the
   k-th ``step``), and only every k-th ``step()`` reduces and updates;
@@ -65,17 +66,15 @@ def distributed_gradients(grads: Sequence[torch.Tensor], op: str = C.Average,
     compressed for the wire, reduced through fused buckets
     (:mod:`~horovod_tpu_torch.ops.fusion`, Average and Sum) or one
     collective each, and restored to their dtypes.  ``axis_name``: over
-    that axis's ranks only (``collectives.allreduce``).  With
-    ``sparse_keys`` (Average and Sum), the gradients whose name in
-    ``names`` contains a key reduce by :func:`~horovod_tpu_torch.ops.
-    sparse.sparse_allreduce`, uncompressed, over the whole job (so not
-    with ``axis_name``)."""
+    the ranks of that axis or tuple of axes only
+    (``collectives.allreduce``).  With ``sparse_keys`` (Average and
+    Sum), the gradients whose name in ``names`` contains a key reduce by
+    :func:`~horovod_tpu_torch.ops.sparse.sparse_allreduce`, uncompressed,
+    over the whole job; with ``axis_name`` too they reduce densely over
+    the axis with the others, as JAX's traced leaves do in-graph."""
     C._check_op(op)
     grads = list(grads)
-    if sparse_keys and axis_name is not None:
-        raise ValueError("sparse_keys reduce over the whole job; they do "
-                         "not take an axis_name")
-    if sparse_keys and op in (C.Average, C.Sum):
+    if sparse_keys and op in (C.Average, C.Sum) and axis_name is None:
         if names is None or len(names) != len(grads):
             raise ValueError("sparse_keys needs one name a gradient")
         dense, sparse = SP.split_sparse_leaves(list(zip(names, grads)),
@@ -267,12 +266,12 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     ``named_parameters`` (pairs ``(name, tensor)``), when given, must name
     exactly the optimizer's parameters, each once; ``sparse_keys`` needs
     them.  ``op=Adasum`` reduces each gradient by Adasum, unfused.
-    ``axis_name`` reduces over one axis's ranks only: a mesh axis of the
-    mesh bound when ``step()`` runs (``parallel.bind``, or
-    ``spmd.make_train_step(mesh=)``), or one of ``basics``' flat names;
-    ``NameError`` when the axis is not bound.  Model-level expert
-    parallelism averages over its ``ep`` axis this way
-    (:mod:`~horovod_tpu_torch.models.transformer`).
+    ``axis_name`` reduces over one axis's ranks only: a mesh axis or a
+    tuple of axes of the mesh bound when ``step()`` runs
+    (``parallel.bind``, or ``spmd.make_train_step(mesh=)``), or one of
+    ``basics``' flat names; ``NameError`` when the axis is not bound.
+    Model-level expert parallelism averages over its ``ep`` axis this
+    way (:mod:`~horovod_tpu_torch.models.transformer`).
 
     Note ``torch.optim.AdamW`` decays by 1e-2 by default, ``optax.adamw``
     by 1e-4: pass ``weight_decay`` explicitly to match the JAX package."""
@@ -295,10 +294,11 @@ class _DistributedAdasumOptimizer(torch.optim.Optimizer):
     graph_safe = False  # point-to-point exchange rounds: the step is eager
 
     def __init__(self, inner: torch.optim.Optimizer, compression,
-                 backward_passes_per_step):
+                 backward_passes_per_step, axis_name):
         super().__init__(inner.param_groups)
         self.defaults.update(inner.defaults)
         self._compression = compression
+        self._axis_name = axis_name
         self.backward_passes_per_step = backward_passes_per_step
         self._passes = 0
         self._start: Optional[List[torch.Tensor]] = None
@@ -310,7 +310,7 @@ class _DistributedAdasumOptimizer(torch.optim.Optimizer):
     def _adasum(self, deltas: List[torch.Tensor]) -> List[torch.Tensor]:
         with C._direct_path():  # the step's reduction, as synchronize's
             return [self._compression.decompress(
-                C.allreduce(t, C.Adasum), ctx)
+                C.allreduce(t, C.Adasum, axis_name=self._axis_name), ctx)
                 for t, ctx in (self._compression.compress(d)
                                for d in deltas)]
 
@@ -319,7 +319,13 @@ class _DistributedAdasumOptimizer(torch.optim.Optimizer):
         """The wrapped optimizer's local update; on every
         ``backward_passes_per_step``-th call the drift since the last
         sync is Adasum-reduced and the parameters set to ``start +``
-        that."""
+        that.  Over a group of one rank the Adasum of the drift is the
+        drift, so the step is the wrapped optimizer's own, bit for bit
+        (the reference's factory takes the plain optimizer at size 1):
+        nothing is snapshotted, reduced or compressed."""
+        if C._axis_group(self._axis_name).size == 1:
+            with torch.enable_grad():
+                return super().step(closure)
         params = self._params()
         if self._start is None or self.backward_passes_per_step == 1:
             self._start = [p.detach().clone() for p in params]
@@ -337,6 +343,7 @@ class _DistributedAdasumOptimizer(torch.optim.Optimizer):
 
 
 def DistributedAdasumOptimizer(optimizer: torch.optim.Optimizer, *,
+                               axis_name=None,
                                compression=Compression.none,
                                backward_passes_per_step: int = 1):
     """Delta-model Adasum: combine local optimizer updates, not gradients.
@@ -352,12 +359,15 @@ def DistributedAdasumOptimizer(optimizer: torch.optim.Optimizer, *,
     With ``backward_passes_per_step = k > 1`` the local updates apply for
     k - 1 steps (the ranks drift apart) and the k-th step reduces the
     cumulative drift from ``start`` (the parameters at the first step, then at
-    each sync).  Returns an instance of a subclass of the optimizer's
-    class; its step runs eagerly, never inside a CUDA graph."""
+    each sync).  ``axis_name``: the delta is Adasum-reduced over that
+    axis, or a pair ``(A, B)`` (the mean over ``B``, then Adasum over
+    ``A``), as ``adasum.adasum_allreduce``'s; None, over the job.
+    Returns an instance of a subclass of the optimizer's class; its step
+    runs eagerly, never inside a CUDA graph."""
     if backward_passes_per_step < 1:
         raise ValueError("backward_passes_per_step must be >= 1")
     return _wrap(_DistributedAdasumOptimizer, optimizer, compression,
-                 backward_passes_per_step)
+                 backward_passes_per_step, axis_name)
 
 
 def _unflatten(tree, values, it=None):

@@ -11,9 +11,11 @@ Where JAX binds a mesh's axis names with ``shard_map`` and reads them
 with ``lax.axis_index`` / ``lax.axis_size``, the port binds a mesh with
 :func:`bind` (a context manager on a ``contextvars`` variable) and reads
 an axis with :func:`axis_group` (its process group), :func:`axis_index`
-(this rank's place on it) and :func:`axis_size`.  Outside a binding
-they raise ``NameError`` naming the axis, as JAX's unbound-axis error
-does.  The binding is read on the host: an axis index is a Python int,
+(this rank's place on it) and :func:`axis_size`; :func:`axes_group`
+resolves a tuple of axes to :class:`Axes`, the group over their
+product with its ranks in JAX's order for the tuple.  Outside a
+binding they raise ``NameError`` naming the axis, as JAX's unbound-axis
+error does.  The binding is read on the host: an axis index is a Python int,
 so a CUDA graph captured under it bakes in the right value.  Code that
 runs in the autograd engine's threads (a rematerialised layer's
 recompute) does not see the caller's binding: read the axis before,
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -33,8 +36,9 @@ import torch.distributed as dist
 
 from horovod_tpu_torch.basics import resolve_device
 
-__all__ = ["AXIS_ORDER", "MeshSpec", "axis_group", "axis_index",
-           "axis_name_of", "axis_size", "bind", "infer_spec", "make_mesh"]
+__all__ = ["AXIS_ORDER", "Axes", "MeshSpec", "axes_group", "axis_group",
+           "axis_index", "axis_name_of", "axis_size", "bind", "infer_spec",
+           "make_mesh"]
 
 # Canonical axis order, outermost -> innermost.
 AXIS_ORDER = ("dp", "pp", "ep", "fsdp", "sp", "tp")
@@ -154,3 +158,106 @@ def axis_name_of(group) -> Optional[str]:
         if mesh.get_group(name) is group:
             return name
     return None
+
+
+# --- a tuple of axes ---------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Axes:
+    """A tuple of axes resolved on this rank: ``group``, the process group
+    over their product that holds this rank (None: the default group,
+    the world); ``ranks``, its global ranks in JAX's order for the tuple
+    (the first axis outermost: a rank's index is ``idx * size(a) +
+    index(a)`` over the axes in the order they are named); ``index``,
+    this rank's place in ``ranks``.  ``world``: the job's own axis (the
+    flat name, or the pair ``(cross, local)``), the one the hierarchical
+    switches may run two-level."""
+
+    group: object
+    ranks: Tuple[int, ...]
+    index: int
+    world: bool = False
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    @functools.cached_property
+    def perm(self) -> Optional[Tuple[int, ...]]:
+        """The JAX index of each rank of ``group`` in the group's own
+        order, ascending global ranks (``dist.new_group`` sorts them);
+        None where the two orders agree."""
+        if list(self.ranks) == sorted(self.ranks):
+            return None
+        where = {r: j for j, r in enumerate(self.ranks)}
+        return tuple(where[r] for r in sorted(self.ranks))
+
+    def to_group_order(self, parts: list) -> list:
+        """``parts`` in JAX's order -> in the group's."""
+        return parts if self.perm is None else [parts[j] for j in self.perm]
+
+    def to_jax_order(self, parts: list) -> list:
+        """``parts`` in the group's order -> in JAX's."""
+        if self.perm is None:
+            return parts
+        out = [None] * len(parts)
+        for q, j in enumerate(self.perm):
+            out[j] = parts[q]
+        return out
+
+
+# (mesh, tuple) -> this rank's Axes (a DeviceMesh hashes and compares by
+# its ranks, names and device type).  Every rank makes every group of a
+# tuple's partition, in one order, the first time any collective names
+# the tuple; basics.shutdown forgets them with the process group.
+_axes_cache: dict = {}
+
+
+def axes_group(names) -> Axes:
+    """The bound mesh's axes ``names`` (a tuple, first axis outermost)
+    resolved on this rank (:class:`Axes`).  One axis is the mesh's own
+    group; a tuple over the whole world is the default group; any other
+    tuple makes one ``dist.new_group`` per group of the partition (every
+    rank makes each of them, once a mesh, so every rank must name the
+    tuple at the same point, and not first inside a CUDA-graph capture:
+    an eager call, such as a captured step's warm-up, makes them).
+    ``NameError`` for an unbound axis."""
+    names = tuple(names)
+    dims = [_dim(n)[1] for n in names]
+    if len(set(names)) != len(names):
+        raise ValueError(f"axis_name {names!r} names an axis twice")
+    mesh = _bound.get()
+    hit = _axes_cache.get((mesh, names))
+    if hit is not None:
+        return hit
+    ranks = mesh.mesh
+    rest = [d for d in range(ranks.dim()) if d not in dims]
+    rows = [tuple(row) for row in ranks.permute(*rest, *dims).reshape(
+        -1, int(np.prod([ranks.shape[d] for d in dims]))).tolist()]
+    me = dist.get_rank()
+    ours = next(row for row in rows if me in row)
+    if len(names) == 1:
+        group = mesh.get_group(names[0])
+    elif len(ours) == dist.get_world_size():
+        group = None
+    else:
+        if torch.cuda.is_available() and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the process groups of the axes {names!r} are made on "
+                "first use, which a CUDA-graph capture cannot hold: call "
+                "a collective over them eagerly first")
+        group = None
+        for row in rows:
+            g = dist.new_group(sorted(row))
+            if row == ours:
+                group = g
+    out = Axes(group, ours, ours.index(me))
+    _axes_cache[(mesh, names)] = out
+    return out
+
+
+def forget_axes_groups() -> None:
+    """Drop the cached tuples' groups (the process group is going)."""
+    _axes_cache.clear()

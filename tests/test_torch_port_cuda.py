@@ -28,7 +28,9 @@ eager body bit for bit at f32, and every collective runs on CUDA tensors
 in a size-1 NCCL group; through the native eager runtime too (a fused
 group equal to the direct path bit for bit, a side-stream tensor
 submitted without a sync, the captured step with the runtime up and 0
-native responses, the native ``join``).  The vision path: the bench's captured ResNet
+native responses, the native ``join``); so does every collective's
+``axis_name`` form over the size-1 mesh axes and tuples of them, also
+after ``init(axis_name="workers")``.  The vision path: the bench's captured ResNet
 step against its eager body bit for bit under ``cudnn.deterministic``,
 the loader's prefetched batches against the host rows (``record_stream``
 held to its purpose), and ``xprof``'s ResNet-50 FLOP count within 10 %
@@ -1173,6 +1175,48 @@ def test_every_collective_on_cuda_at_size_one(nccl):
     import chip_smoke
 
     assert len(chip_smoke.check_collectives(nccl)) == 2 * 43 + 4
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def test_axis_forms_on_cuda_at_size_one(nccl):
+    """``chip_smoke.check_axis_forms``: every collective over one axis, a
+    pair in both orders and three axes of the bound ``MeshSpec()`` mesh,
+    Adasum over an axis and a pair, ``masked_average`` over an axis, f32
+    and bf16 on CUDA tensors, each equal to its size-1 value (121 checks
+    a dtype, the tuple raises with JAX's texts among them)."""
+    assert len(_chip_smoke().check_axis_forms(nccl)) == 2 * 121
+
+
+@pytest.fixture()
+def nccl_workers(dev):
+    import socket
+
+    from horovod_tpu_torch import basics
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    basics.init(init_method=f"tcp://127.0.0.1:{port}", axis_name="workers")
+    yield dev
+    basics.shutdown()
+
+
+def test_workers_axis_name_on_cuda(nccl_workers):
+    """After ``init(axis_name="workers")`` on NCCL: the flat mesh's name,
+    allreduce over it the world's, the default name unbound; the axis
+    forms again."""
+    cs = _chip_smoke()
+    assert len(cs.check_workers_axis(nccl_workers)) == 4
+    assert len(cs.check_axis_forms(nccl_workers)) == 2 * 121
 
 
 # --- the vision path: the captured ResNet step, the loader, the FLOP count -----
