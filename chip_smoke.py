@@ -690,9 +690,13 @@ def build() -> None:
 
 
 def _kernel_name(mangled: str) -> str:
-    """``flash_fwd_kernel_mma<bf16,64>``-style name of a mangled flash
-    kernel, ``paged_attend_split_kernel<int8,bf16,R4,L8>`` of a paged one
-    (other names are returned as they are)."""
+    """``flash_fwd_kernel_wgmma<bf16,64>``-style name of a mangled flash
+    kernel, ``paged_attend_split_kernel<int8,bf16,R4,L8>`` or
+    ``paged_attend_rows_kernel<bf16,64>`` of a paged one (other names are
+    returned as they are)."""
+    rows = re.search(r"\d+(paged_attend_rows_kernel)ILi(\d+)E", mangled)
+    if rows:  # bf16 pools only; the template is the head-dim block
+        return f"{rows.group(1)}<bf16,{rows.group(2)}>"
     paged = re.search(r"\d+(paged_attend_[a-z_]+?)(?:I(.*?)EEv|E)", mangled)
     if paged:
         kinds = {"13__nv_bfloat16": "bf16", "a": "int8", "f": "f32"}
@@ -719,13 +723,18 @@ def _kernel_name(mangled: str) -> str:
     return f"{name.group(1)}<{dtype},{dim.group(1)}>"
 
 
-# The grouped kernels and the flash backward (K2, K3) by `_kernel_name`:
-# bf16 on wgmma fed by TMA, and f32 on no tensor core at all.
+# The grouped kernels and the flash kernels (K1, K2, K3) by
+# `_kernel_name`: bf16 on wgmma fed by TMA, and f32 on no tensor core at
+# all; K4's rows kernel (bf16 pools, R > 8) on mma.sync fed by TMA.
 GROUPED_WGMMA = ("grouped_mm_kernel_wgmma<bf16,fwd>",
                  "grouped_mm_kernel_wgmma<bf16,dx>",
                  "grouped_dw_kernel_wgmma<bf16>")
 GROUPED_F32 = ("grouped_mm_kernel<f32>", "grouped_mm_kernel<f32,dx>",
                "grouped_dw_kernel<f32>")
+FLASH_FWD_WGMMA = tuple(f"flash_fwd_kernel_wgmma<bf16,{d}>"
+                        for d in (64, 128))
+FLASH_FWD_F32 = tuple(f"flash_fwd_kernel<f32,{d}>" for d in (64, 128))
+PAGED_ROWS = tuple(f"paged_attend_rows_kernel<bf16,{d}>" for d in (64, 128))
 FLASH_BWD_WGMMA = tuple(f"flash_bwd_{k}_kernel_wgmma<bf16,{d}>"
                         for k in ("dkdv", "dq") for d in (64, 128))
 FLASH_BWD_F32 = tuple(f"flash_bwd_{k}_kernel<f32,{d}>"
@@ -734,19 +743,21 @@ FLASH_BWD_F32 = tuple(f"flash_bwd_{k}_kernel<f32,{d}>"
 
 def sass_check() -> dict:
     """Tensor-core instructions (``HMMA``, ``HGMMA``) in each kernel
-    function of the flash and grouped-product libraries, by ``cuobjdump
-    -sass`` from the toolkit of the ``nvcc`` that built them, and TMA
-    loads (``UTMALDG``).  Fails unless both bf16 instantiations (D = 64,
-    128) of K1 have some, both of K2 and K3, G1's bf16 kernel in both
-    modes and G2's bf16 kernel run on wgmma (HGMMA, no HMMA) fed by TMA,
-    and the f32 kernels of K2, K3, G1 (both modes) and G2 have no
+    function of the flash, paged and grouped-product libraries, by
+    ``cuobjdump -sass`` from the toolkit of the ``nvcc`` that built them,
+    and TMA loads (``UTMALDG``).  Fails unless both bf16 instantiations
+    (D = 64, 128) of K1, K2 and K3, G1's bf16 kernel in both modes and
+    G2's bf16 kernel run on wgmma (HGMMA, no HMMA) fed by TMA, K4's rows
+    kernel (both head-dim blocks) runs on mma.sync (HMMA) fed by TMA, and
+    the f32 kernels of K1, K2, K3, G1 (both modes) and G2 have no
     tensor-core instruction at all (TF32 would break the f32
     contract)."""
     from horovod_tpu_torch.ops import _cuda
 
     tool = Path(_cuda._nvcc()).resolve().parent / "cuobjdump"
     counts, tma = {}, {}
-    for lib in ("flash_fwd", "flash_bwd", "grouped_matmul"):
+    for lib in ("flash_fwd", "flash_bwd", "paged_attention",
+                "grouped_matmul"):
         sass = subprocess.run(
             [str(tool), "-sass", str(_cuda.BUILD_DIR / f"lib{lib}.so")],
             capture_output=True, text=True, timeout=300, check=True).stdout
@@ -764,18 +775,19 @@ def sass_check() -> dict:
     for fn, n in sorted(counts.items()):
         log(f"sass: {fn}: {n['HMMA']} HMMA, {n['HGMMA']} HGMMA, {tma[fn]} "
             f"UTMALDG")
-    got = [sum(n.values()) for fn, n in counts.items()
-           if fn.startswith("flash_fwd_kernel_mma<")]
-    if len(got) != 2 or not all(got):
-        raise AssertionError(f"flash_fwd_kernel_mma: expected tensor-core "
-                             f"instructions in both instantiations, got {got}")
-    for fn in FLASH_BWD_WGMMA + GROUPED_WGMMA:
+    for fn in FLASH_FWD_WGMMA + FLASH_BWD_WGMMA + GROUPED_WGMMA:
         n = counts.get(fn, {})
         if not (n.get("HGMMA") and not n.get("HMMA") and tma.get(fn)):
             raise AssertionError(f"{fn}: expected HGMMA, no HMMA and TMA "
                                  f"loads, got {n}, {tma.get(fn)} UTMALDG "
                                  f"({sorted(counts)})")
-    for fn in FLASH_BWD_F32 + GROUPED_F32:
+    for fn in PAGED_ROWS:
+        n = counts.get(fn, {})
+        if not (n.get("HMMA") and tma.get(fn)):
+            raise AssertionError(f"{fn}: expected HMMA and TMA loads, got "
+                                 f"{n}, {tma.get(fn)} UTMALDG "
+                                 f"({sorted(counts)})")
+    for fn in FLASH_FWD_F32 + FLASH_BWD_F32 + GROUPED_F32:
         if fn not in counts or any(counts[fn].values()):
             raise AssertionError(f"{fn}: expected no tensor-core "
                                  f"instruction, got {counts.get(fn)} "
@@ -835,20 +847,27 @@ def check_flash() -> dict:
         B, H, Hkv = 2, 16, 4
         shift = _shift(mask, S, T)
         q, k, v = _k1_inputs(B, H, Hkv, S, D, dt, seed=i, T=T)
-        if shift is None:
-            o, lse = A.flash_attention_with_lse(q, k, v, False)
-        else:
-            o, lse = A.flash_attention_shifted(q, k, v, shift)
+
+        def k1():
+            if shift is None:
+                return A.flash_attention_with_lse(q, k, v, False)
+            return A.flash_attention_shifted(q, k, v, shift)
+
+        (o, lse), (o2, lse2) = k1(), k1()
         o_r, l_r = A._reference_attention_lse(
             q, A.expand_kv(k, H), A.expand_kv(v, H), shift,
             1.0 / math.sqrt(D))
         torch.cuda.synchronize()
         err = max((o.float() - o_r.float()).abs().max().item(),
                   (lse - l_r).abs().max().item())
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
         name = f"K1 {str(dt)[6:]} D={D} S={S} T={T} {mask}"
-        log(f"{name}: max_abs_err={err:.3e} tol={tol[dt]:.0e}")
+        log(f"{name}: max_abs_err={err:.3e} tol={tol[dt]:.0e}, two calls "
+            f"bit-identical: {same}")
         if not err <= tol[dt]:
             raise AssertionError(f"{name} disagrees with its plain version")
+        if not same:
+            raise AssertionError(f"{name}: two calls differ")
         if dt == torch.bfloat16 and D == 64 and S == T == 2048:
             worst["serving"] = err
         if dt == torch.bfloat16 and (T - S, S) == SUFFIX_SHAPES[0]:
@@ -999,10 +1018,15 @@ def check_paged() -> dict:
              (bf16, bf16, 64, 1, K4_SPLIT_LIMITS, 2e-2),
              (bf16, bf16, 64, 8, K4_LIMITS, 2e-2),
              (f32, f32, 128, 8, K4_SPLIT_LIMITS, 1e-4),
-             # The speculative verify: R = G * W = 4 * 5.
+             # The speculative verify: R = G * W = 4 * 5; a bf16 pool's
+             # R > 8 runs the rows kernel (16: one row tile, 32: both
+             # full, 20 at Dh = 128: two boxes a row).
              (f32, f32, 64, 20, K4_LIMITS, 1e-4),
              (bf16, bf16, 64, 20, K4_LIMITS, 2e-2),
-             ("int8", bf16, 64, 20, K4_LIMITS, 2e-2)]
+             ("int8", bf16, 64, 20, K4_LIMITS, 2e-2),
+             (bf16, bf16, 64, 16, K4_SPLIT_LIMITS, 2e-2),
+             (bf16, bf16, 64, 32, K4_LIMITS, 2e-2),
+             (bf16, bf16, 128, 20, K4_SPLIT_LIMITS, 2e-2)]
     for i, (kind, compute, Dh, R, lim, tol) in enumerate(cases):
         args, table, limit = _k4_case(kind, compute, Dh=Dh, R=R, seed=i,
                                       lim=lim)
@@ -7765,8 +7789,9 @@ def time_paged(err: float, launches: int, R: int = 4, Hkv: int = 4) -> dict:
         return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=vis)
 
     lib, lib_call = queued_ms(library), time_ms(library)
-    pps, grid = PA.split_grid(S, Hkv, R, MP)
-    log(f"K4 grid at the serving shape: split kernel {grid} = "
+    pps, grid = PA.split_grid(S, Hkv, R, MP, kp.dtype)
+    log(f"K4 grid at the serving shape, R = {R}: "
+        f"{'rows' if R > 8 else 'split'} kernel {grid} = "
         f"{math.prod(grid)} CTAs of {pps} pages, combine {grid[0]} CTAs")
     n_pos = int(limit.sum())
     kv_bytes = 2 * n_pos * Hkv * Dh * kp.element_size()

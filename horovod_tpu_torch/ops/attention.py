@@ -194,6 +194,11 @@ def _check_inputs(q, k, v):
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash kernels need 16-byte aligned q, k, v "
                          "(rows are copied 16 bytes at a time)")
+    # The bf16 kernels' tensor maps (TMA) need, beyond that alignment and
+    # rows of D * 2 = 128 or 256 bytes, a head's stride under 2^40 bytes.
+    if max(S, k.shape[2]) * D * q.element_size() >= 1 << 40:
+        raise ValueError(f"flash kernels take a head of under 2^40 bytes, "
+                         f"got {max(S, k.shape[2])} rows of {D}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
 

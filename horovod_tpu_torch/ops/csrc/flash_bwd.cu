@@ -389,7 +389,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 
 // --- K2 and K3 in bf16: wgmma + TMA -----------------------------------------
 
-using hvd_wgmma::encode;
+using hvd_wgmma::map_heads;
 typedef __nv_bfloat16 bf16;
 
 constexpr int WG_THREADS = 384;  // the producer warpgroup + 2 consumers
@@ -420,55 +420,6 @@ struct WgLayout {
   static constexpr int SMEM = 1024 /* alignment slack */ + BARS +
                               (2 * WG_STAGES + 1) * 8;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// The f32 fragment of an m64n64 product, columns 16 kk .. 16 kk + 15,
-// rounded to bf16 as the A operand of an RS product (see wgmma_tma.cuh).
-__device__ __forceinline__ void to_a_frags(const float (&f)[32],
-                                           uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[kk][r] = pack_bf16(f[8 * kk + 2 * r], f[8 * kk + 2 * r + 1]);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_all(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) hvd_wgmma::fence_operand(r[i]);
-}
-
-// Keeps an RS product's A registers live, and in place, until here: the
-// product reads them after the instruction that names them, until its
-// group is waited for.  (Read only: a register the compiler thought
-// written here would make ptxas wait for the product first.)
-__device__ __forceinline__ void keep_frags(const uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" ::"r"(a[i / 4][i % 4]));
-}
-
-// Descriptor of k-slice kk (16 deep) of a K-major operand: `tile` holds
-// D / 64 boxes of `box` bytes, rows of 64 elements; the slice's 16
-// elements sit in box kk / 4 at 32 (kk % 4) bytes into each row.
-__device__ __forceinline__ uint64_t kmajor(const unsigned char* tile,
-                                           int box, int kk) {
-  return hvd_wgmma::make_desc(tile + (kk / 4) * box + (kk % 4) * 32, 16,
-                              1024);
-}
-
-// Descriptor of k-slice kk of an MN-major B: the streamed tile's rows are
-// the reduction (k) and its columns N, in boxes of 64 columns STEP_BOX
-// bytes apart (LBO); k-rows 16 kk .. start 2048 kk bytes in.
-__device__ __forceinline__ uint64_t mnmajor(const unsigned char* tile,
-                                            int kk) {
-  return hvd_wgmma::make_desc(tile + kk * 16 * 128,
-                              WG_STEP * BOX_COLS * 2, 1024);
-}
 
 // K2 in bf16.  A CTA: one kv head's WG_ROWS K/V rows (grid (K blocks,
 // B * H_kv): the CTAs of one kv head run side by side, so the Q and dO
@@ -662,7 +613,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_bwd_dkdv_kernel_wgmma(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<D>(dva, pa[kk], mnmajor(so, kk), 1);
+      wgmma_rs<D>(dva, pa[kk], mnmajor(so, kk, L::STEP_BOX), 1);
     wgmma_commit();
 
     // ds = p (dp - delta_qi) scale, once dP^T is in (dV may still run).
@@ -682,7 +633,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_bwd_dkdv_kernel_wgmma(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<D>(dka, da[kk], mnmajor(sq, kk), 1);
+      wgmma_rs<D>(dka, da[kk], mnmajor(sq, kk, L::STEP_BOX), 1);
     wgmma_commit();
     if (!DEFER) {
       wgmma_wait<0>();
@@ -866,7 +817,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_bwd_dq_kernel_wgmma(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<D>(dqa, da[kk], mnmajor(skt, kk), 1);
+      wgmma_rs<D>(dqa, da[kk], mnmajor(skt, kk, L::STEP_BOX), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_all(dqa);
@@ -883,19 +834,6 @@ __global__ void __launch_bounds__(WG_THREADS, 1) flash_bwd_dq_kernel_wgmma(
     for (int n = 0; n < D / 8; ++n)
       dqr[n * 4] = pack_bf16(dqa[4 * n + 2 * h2], dqa[4 * n + 2 * h2 + 1]);
   }
-}
-
-// A (heads, rows, D) bf16 tensor as a tensor map read in boxes of 64
-// columns x `box_rows` rows of one head; rows past `rows` land as zeros,
-// so a box never reads the next head's rows.
-bool map_heads(CUtensorMap* map, const void* p, int heads, int rows, int D,
-               int box_rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {BOX_COLS, (cuuint32_t)box_rows, 1};
-  return encode(map, p, 3, dims, strides, box);
 }
 
 // K2 (dk_dv 1) or K3 (0) in bf16; tensor maps encoded for this call.

@@ -5,11 +5,13 @@
 // attention with an online softmax in f32, an optional shifted causal
 // mask (position (row, col) attends iff col + shift <= row; shift 0 is
 // causal, the runtime scalar of `flash_attention_shifted`), K tiles
-// wholly past the shifted diagonal skipped, `o` in the
-// input dtype and the row logsumexp in f32; a fully masked row gives
+// wholly past the shifted diagonal of a CTA's last row skipped, `o` in
+// the input dtype and the row logsumexp in f32; a fully masked row gives
 // o = 0 and lse = NEG_INF.  Rounding points mirror the JAX kernel:
-// s = (q . k) * scale in f32 (bf16 products are exact in f32), p cast to
-// V's dtype before p . v, f32 accumulation, o cast to the input dtype.
+// s = (q . k) * scale in f32 (bf16 products are exact in f32; the bf16
+// kernel takes the scale into its exp's FMA), p cast to V's dtype before
+// p . v, f32 accumulation, o cast to the input dtype.
+// No atomics: two calls give the same bits.
 //
 // The shift is a kernel argument, or, with `shift_dev` non-null, an int
 // every CTA reads from device memory before it bounds its key loop:
@@ -22,40 +24,64 @@
 // h / (H / H_kv), the grouping of `jnp.repeat` in `expand_kv`, so no
 // expanded copy of K/V is ever materialised.
 //
-// Bound on an H100: at the serving prefill shape (B=2, H=16, H_kv=4,
-// S=T=2048, D=64, bf16, causal) the work is ~17 GFLOP against ~21 MB
-// of inputs and outputs, so the tensor-core rate (989 TFLOP/s, ~17 us)
-// bounds it, not HBM (~6 us).
+// Bound on an H100: 4 D FLOPs a visible (row, col) pair.  At the serving
+// prefill shape (B=2, H=16, H_kv=4, S=T=2048, D=64, bf16, causal) that is
+// ~17 GFLOP against ~21 MB of inputs and outputs, and at the training
+// shape (B=8, H=16 MHA) ~69 GFLOP against ~34 MB, so the tensor-core rate
+// bounds it (0.017 and 0.069 ms at 989 TFLOP/s), not HBM.  What keeps it
+// from that: only wgmma reaches the tensor cores' rate, and only with its
+// operands in shared memory or registers ahead of time; at D = 64 the
+// exp of every score takes the SFU (16 a clock an SM) as long as the
+// products take the tensor cores, so the two must overlap; and each
+// warpgroup runs its step's chain (S, softmax, rescale) in order.
 //
-// Two instantiations, chosen by dtype in the C entry point (not a
-// fallback: each dtype has exactly one kernel):
+// Two kernels, chosen by dtype in the C entry point (not a fallback: each
+// dtype has exactly one kernel):
 //
-// * bf16 (`flash_fwd_kernel_mma`): both products on the tensor cores
-//   with mma.sync.m16n8k16 (mma_bf16.cuh).  A CTA of 4 warps takes a
-//   64-row Q tile, 16 rows a warp, held in registers as A fragments for
-//   the whole K loop.  64-row K and V tiles are staged in shared memory
-//   in bf16 (rows padded to D + 8 for conflict-free ldmatrix), double
-//   buffered with cp.async so tile t + 1 lands while tile t computes.
-//   S = Q K^T accumulates in f32 fragments; the online softmax runs on
-//   them (row max and sum across the 4 lanes of a quad by shuffles), and
-//   P, rounded to bf16 in registers, is the A operand of P V with V's B
-//   fragments from ldmatrix.trans: P never touches shared memory.  Only
-//   tiles that cross the shifted diagonal or the ragged T edge are
-//   masked element by element; a warp skips the products of a tile that
-//   lies wholly past its rows' diagonal.  Q tiles launch longest first
-//   (reverse order in grid y) so the causal triangle's short tail fills
-//   the last wave.  mma.sync, not wgmma + TMA: the first tensor-core
-//   design, one warp-level product per instruction; wgmma is later work.
+// * bf16, wgmma fed by TMA (`flash_fwd_kernel_wgmma`; wgmma_tma.cuh): a
+//   CTA of three warpgroups takes 128 query rows of one head.  The first
+//   produces: its thread 0 lands the CTA's Q rows once by TMA, then keeps
+//   a four-stage ring of K and V tiles of kv head h / G in flight (128
+//   key rows a step at D = 64, 64 at D = 128), 128-byte swizzled,
+//   completing on mbarriers; the warpgroup gives its registers to the
+//   consumers (setmaxnreg 24 / 240).  The other two each own 64 of the
+//   rows.  Step it of a consumer warpgroup issues S_it = Q K_it^T on
+//   wgmma with both operands K-major in shared memory (SS), then
+//   O += P_{it-1} V_{it-1} with P rounded to bf16 as register A (the f32
+//   fragment's own layout) and V read MN-major, and takes the online
+//   softmax of S_it while that second product runs: masked scores (only
+//   on tiles crossing the diagonal or the T edge) NEG_INF, the row max
+//   across a quad by shuffles, p = exp2(s scale log2e - m scale log2e)
+//   by one FMA and `ex2.approx` each, with no branch; a row with nothing
+//   visible yet takes its exps against 0, so its masked scores give
+//   exactly 0.  Only then does it wait for the product, rescale O's f32
+//   registers by alpha, release the previous stage and pack P_it.  The
+//   two warpgroups issue their products in turns (named barriers), so
+//   one's products run while the other takes its softmax.  O stays in
+//   f32 registers until one write at the end, o = O / l by rows.  Both
+//   warpgroups take every step of the CTA (a tile wholly past a
+//   warpgroup's diagonal is masked to zeros), so every wait is uniform:
+//   ptxas serialises every wgmma of a kernel whose waits it cannot prove
+//   so.  The producer and the consumers count the steps from the same
+//   (device) shift; a CTA with none issues no copy and writes o = 0 and
+//   lse = NEG_INF.  The grid puts a head's CTAs side by side, longest
+//   causal tiles first, so the K and V tiles they all stream come from
+//   L2.  Tensor maps (Q over (D, S, B H), K and V over (D, T, B H_kv):
+//   rows past S or T land as zeros, a box never reads the next head) are
+//   encoded on the host for each call and passed as __grid_constant__
+//   parameters; the kernel allocates nothing and never synchronises, so
+//   it runs inside the captured tick, admission and train-step graphs.
 // * f32 (`flash_fwd_kernel`): the scalar kernel of the first port, one
 //   CTA per (batch*head, 64-row Q tile), four threads a query row,
 //   tiles in shared memory as f32 and scalar FMAs.  TF32 tensor cores
 //   would round the products to 10 mantissa bits and miss the f32
 //   contract (1e-4 of the plain version, exact greedy tokens).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "mma_bf16.cuh"
+#include "wgmma_tma.cuh"
 
 namespace {
 
@@ -193,218 +219,276 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// --- bf16: tensor cores ------------------------------------------------------
+// --- bf16: wgmma fed by TMA -------------------------------------------------
 
-using hvd_mma::bf16;
+using hvd_wgmma::map_heads;
+typedef __nv_bfloat16 bf16;
 
-constexpr int MMA_WARPS = 4;                 // 16 query rows a warp
-constexpr int MMA_THREADS = 32 * MMA_WARPS;
+constexpr int WG_THREADS = 384;  // the producer warpgroup + 2 consumers
+constexpr int WG_CONSUMER_WARPS = 8;
+constexpr int WG_ROWS = 128;  // a CTA's query rows, 64 a consumer
+constexpr int BOX_COLS = 64;  // a TMA box row: one 128-byte swizzle line
 constexpr float LOG2E = 1.4426950408889634f;  // exp(x) = exp2(x * LOG2E)
+constexpr float LN2 = 0.6931471805599453f;
+
+// Shared memory (byte offsets from a 1024-byte aligned base): the CTA's
+// Q rows (WG_ROWS), then a ring of STAGES stages of a K and a V tile
+// (WG_STEP rows), each tile D / 64 boxes of 64 columns, box after box;
+// then the mbarriers: full[STAGES], empty[STAGES], Q's.
+// WG_STEP: 128 key rows a step at D = 64 (fewer, longer steps: S is
+// m64n128), 64 at D = 128 (128-key tiles would leave room for two
+// stages, and ran slower), four stages either way.
+template <int D>
+struct WgLayout {
+  static constexpr int WG_STEP = D == 64 ? 128 : 64;
+  static constexpr int NB = D / BOX_COLS;
+  static constexpr int STAGES = 4;
+  static constexpr int RES_BOX = WG_ROWS * BOX_COLS * 2;  // bytes
+  static constexpr int STEP_BOX = WG_STEP * BOX_COLS * 2;
+  static constexpr int RING = NB * RES_BOX;   // past the Q tile
+  static constexpr int TILE = NB * STEP_BOX;  // a streamed tile
+  static constexpr int BARS = RING + STAGES * 2 * TILE;
+  static constexpr int SMEM = 1024 /* alignment slack */ + BARS +
+                              (2 * STAGES + 1) * 8;
+};
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS) flash_fwd_kernel_mma(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ o,
+__global__ void __launch_bounds__(WG_THREADS, 1) flash_fwd_kernel_wgmma(
+    __grid_constant__ const CUtensorMap tm_q,
+    __grid_constant__ const CUtensorMap tm_k,
+    __grid_constant__ const CUtensorMap tm_v, bf16* __restrict__ o,
     float* __restrict__ lse, int H, int Hkv, int S, int Tn, int masked,
     int shift, const int* __restrict__ shift_dev, float scale) {
-  using namespace hvd_mma;
-  constexpr int LD = D + 8;   // padded row stride of every tile
-  constexpr int KS = D / 16;  // k-steps of Q K^T
-  constexpr int NT = BK / 8;  // n-tiles of a warp's 16 x BK score tile
-  constexpr int ND = D / 8;   // n-tiles of a warp's 16 x D output
+  using namespace hvd_wgmma;
+  using L = WgLayout<D>;
+  constexpr int BN = L::WG_STEP, KK = BN / 16;  // keys a step, k-slices
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
-  bf16* Ks = Qs + BQ * LD;                       // [2][BK][LD]
-  bf16* Vs = Ks + 2 * BK * LD;                   // [2][BK][LD]
+  unsigned char* base = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::BARS);
+  uint64_t* empty = full + L::STAGES;
+  uint64_t* q_full = empty + L::STAGES;
 
-  const int bh = blockIdx.x;  // b * H + h
+  const int bh = blockIdx.y;  // b * H + h
   const int b = bh / H, h = bh % H;
-  const int hk = h / (H / Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wq0 = q0 + warp * 16;                     // the warp's rows
-  const int row0 = wq0 + (lane >> 2), row1 = row0 + 8;  // this lane's
-  const size_t kv_off = ((size_t)b * Hkv + hk) * (size_t)Tn * D;
-  const bf16* kb = k + kv_off;
-  const bf16* vb = v + kv_off;
-
+  const int bkv = b * Hkv + h / (H / Hkv);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * WG_ROWS;  // longest first
   if (shift_dev) shift = max(-Tn, min(S, *shift_dev));
-  // Masked: tiles starting past this CTA's last row's shifted diagonal
-  // (t0 + shift > q0 + BQ - 1) contribute nothing.
-  const int t_end = masked ? min(Tn, max(0, q0 + BQ - shift)) : Tn;
-  const int n_tiles = (t_end + BK - 1) / BK;
+  // K tiles starting past the shifted diagonal of this CTA's last row
+  // contribute nothing: k0 + shift <= q0 + WG_ROWS - 1 is needed.  The
+  // producer and the consumers count from the same shift.
+  const int t_end = masked ? min(Tn, max(0, q0 + WG_ROWS - shift)) : Tn;
+  const int n_tiles = (t_end + BN - 1) / BN;
 
-  // cp.async groups: Q, then one per K/V tile (empty past the last), so
-  // "all but the newest group landed" is always the tile about to run.
-  load_rows_async<BQ, D, MMA_THREADS>(Qs, q + (size_t)bh * S * D, q0, S);
-  cp_async_commit();
-  if (n_tiles > 0) {
-    load_rows_async<BK, D, MMA_THREADS>(Ks, kb, 0, Tn);
-    load_rows_async<BK, D, MMA_THREADS>(Vs, vb, 0, Tn);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WG_CONSUMER_WARPS);
+    }
+    mbar_init(q_full, 1);
+    fence_mbar_init();
   }
-  cp_async_commit();
-  cp_async_wait<1>();
   __syncthreads();
 
-  uint32_t qf[KS][4];  // the warp's Q rows as A fragments, all of D
+  if (threadIdx.x < 128) {  // the producer: thread 0
+    setmaxnreg_dec<24>();
+    if (threadIdx.x != 0 || n_tiles == 0) return;
+    mbar_arrive_expect_tx(q_full, L::RING);
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ldsm_x4(qf[ks], frag_a<LD>(Qs, warp * 16, ks * 16, lane));
-
-  float acc[ND][4];
+    for (int j = 0; j < L::NB; ++j)
+      tma_load_3d(base + j * L::RES_BOX, &tm_q, BOX_COLS * j, q0, bh, q_full);
+    int stage = 0, phase = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      mbar_wait(&empty[stage], phase ^ 1);
+      mbar_arrive_expect_tx(&full[stage], 2 * L::TILE);
+      unsigned char* t = base + L::RING + stage * 2 * L::TILE;
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  // Row state of rows row0 and row1; l is this lane's share of the row
-  // sum (its columns), summed over the quad once at the end.
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int t0 = it * BK;
-    const bf16* Kt = Ks + (it & 1) * BK * LD;
-    const bf16* Vt = Vs + (it & 1) * BK * LD;
-    if (it + 1 < n_tiles) {  // prefetch the next tile into the other half
-      load_rows_async<BK, D, MMA_THREADS>(Ks + ((it + 1) & 1) * BK * LD, kb,
-                                          t0 + BK, Tn);
-      load_rows_async<BK, D, MMA_THREADS>(Vs + ((it + 1) & 1) * BK * LD, vb,
-                                          t0 + BK, Tn);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    // A tile wholly past the diagonal of the warp's last row adds nothing.
-    if (!(masked && t0 + shift > wq0 + 15)) {
-      float s[NT][4];
-#pragma unroll
-      for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t kf[4];
-          ldsm_x4(kf, frag_b<LD>(Kt, np * 16, ks * 16, lane));
-          mma_bf16(s[2 * np], qf[ks], kf[0], kf[1]);
-          mma_bf16(s[2 * np + 1], qf[ks], kf[2], kf[3]);
-        }
-
-      // s = (q . k) * scale in f32; NEG_INF where masked, as in JAX.
-      // Only tiles crossing the diagonal or the T edge test elements.
-      const bool edge = t0 + BK > Tn || (masked && t0 + BK - 1 + shift > wq0);
-      float mx0 = NEG_INF, mx1 = NEG_INF;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[n][e] * scale;
-          if (edge) {
-            const int col = t0 + n * 8 + 2 * (lane & 3) + (e & 1);
-            const int row = e < 2 ? row0 : row1;
-            if (!(col < Tn && (!masked || col + shift <= row))) x = NEG_INF;
-          }
-          s[n][e] = x;
-          if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
-        }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float al0 = exp2f((m0 - mn0) * LOG2E);
-      const float al1 = exp2f((m1 - mn1) * LOG2E);
-      m0 = mn0;
-      m1 = mn1;
-      // Rows masked so far have m == NEG_INF: exp(s - m) would be 1 for
-      // their masked lanes, so those are zeroed explicitly.
-      float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float mn = e < 2 ? mn0 : mn1;
-          const float p =
-              s[n][e] > NEG_INF * 0.5f ? exp2f((s[n][e] - mn) * LOG2E) : 0.f;
-          s[n][e] = p;
-          if (e < 2) ps0 += p; else ps1 += p;
-        }
-      l0 = l0 * al0 + ps0;
-      l1 = l1 * al1 + ps1;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        acc[n][0] *= al0;
-        acc[n][1] *= al0;
-        acc[n][2] *= al1;
-        acc[n][3] *= al1;
+      for (int j = 0; j < L::NB; ++j) {
+        tma_load_3d(t + j * L::STEP_BOX, &tm_k, BOX_COLS * j, it * BN, bkv,
+                    &full[stage]);
+        tma_load_3d(t + L::TILE + j * L::STEP_BOX, &tm_v, BOX_COLS * j,
+                    it * BN, bkv, &full[stage]);
       }
-
-      // o += P V: P rounded to V's dtype (bf16) in registers, as the A
-      // fragment of k-step kt (columns 16 kt .. 16 kt + 15 of P).
-#pragma unroll
-      for (int kt = 0; kt < BK / 16; ++kt) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kt][0], s[2 * kt][1]),
-                                pack_bf16(s[2 * kt][2], s[2 * kt][3]),
-                                pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-                                pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
-#pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
-          uint32_t vf[4];
-          ldsm_x4_trans(vf, frag_a<LD>(Vt, kt * 16, dp * 16, lane));
-          mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
-          mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
-        }
+      if (++stage == L::STAGES) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-    __syncthreads();  // before the next prefetch overwrites this half
+    return;
   }
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  // Row row0 holds fragment entries 0, 1 and row row1 entries 2, 3; each
-  // lane writes two neighbouring columns of every n-tile, and lane 0 of
-  // the quad the row's logsumexp.
+  // The consumers: warpgroup wg owns Q rows r0 .. r0 + 63; this lane rows
+  // `row` and row + 8 (fragment registers i with (i / 2) % 2 = 0 and 1).
+  setmaxnreg_inc<240>();
+  const int wg = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+  const int r0 = q0 + 64 * wg;
+  const int row = r0 + 16 * warp + (lane >> 2);
+  const int tq = 2 * (lane & 3);  // the lane's first column of 8
+  const unsigned char* sq = base + 64 * wg * 128;  // the warpgroup's rows
+  const float sl = scale * LOG2E;  // raw scores to log2 units
+
+  float oa[D / 2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = half ? row1 : row0;
-    const float m = half ? m1 : m0, l = half ? l1 : l0;
-    if (row >= S) continue;
-    const bool live = l > 0.f;
-    uint32_t* orow = reinterpret_cast<uint32_t*>(
-        o + ((size_t)bh * S + row) * D + 2 * (lane & 3));
+  for (int i = 0; i < D / 2; ++i) oa[i] = 0.f;
+  // Row state: the max of the raw scores q . k, and this lane's share of
+  // the row sum (its columns), summed over the quad once at the end.
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  uint32_t pa[KK][4];  // P rounded to bf16: the A of O += P V
+  if (n_tiles > 0) mbar_wait(q_full, 0);
+
+  // Step it issues S_it = Q K_it^T and then O += P_{it-1} V_{it-1}, takes
+  // the softmax of S_it while that second product runs, and only then
+  // waits for it, rescales O and packs P_it.  Every wait is taken on
+  // every step (the first step's second group is empty).  The two
+  // warpgroups issue their products in turns (named barriers 1 and 2,
+  // warpgroup 0 first), so that one's products run on the tensor cores
+  // while the other takes its softmax.
+  if (wg == 1) named_barrier_arrive(1, 256);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it % L::STAGES, t0 = it * BN;
+    mbar_wait(&full[stage], (it / L::STAGES) & 1);
+    named_barrier_sync(1 + wg, 256);  // this warpgroup's turn
+    const unsigned char* skt = base + L::RING + stage * 2 * L::TILE;
+    const unsigned char* svp =  // the previous step's V
+        base + L::RING + ((it + L::STAGES - 1) % L::STAGES) * 2 * L::TILE +
+        L::TILE;
+    // S = Q K^T, both operands K-major in shared memory; then O += P V
+    // over k = the previous tile's key rows: A (P rounded to V's dtype)
+    // from registers, V read MN-major.
+    float s[BN / 2];
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      orow[n * 4] = live ? pack_bf16(acc[n][2 * half] / l,
-                                     acc[n][2 * half + 1] / l)
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BN, 0, 0>(s, kmajor(sq, L::RES_BOX, kk),
+                         kmajor(skt, L::STEP_BOX, kk), kk > 0);
+    wgmma_commit();
+    if (it > 0) {
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk)
+        wgmma_rs<D>(oa, pa[kk], mnmajor(svp, kk, L::STEP_BOX), 1);
+    }
+    wgmma_commit();
+    named_barrier_arrive(2 - wg, 256);  // the other warpgroup's turn
+    wgmma_wait<1>();
+    fence_all(s);
+
+    // NEG_INF where masked, tested element by element only on tiles
+    // crossing the diagonal or the T edge; the row max of the raw scores
+    // (scale > 0 keeps their order).
+    if (t0 + BN > Tn || (masked && t0 + BN - 1 + shift > r0)) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int col = t0 + 8 * (i / 4) + tq + (i & 1);
+        const int r = row + 8 * ((i >> 1) & 1);
+        if (!(col < Tn && (!masked || col + shift <= r))) s[i] = NEG_INF;
+      }
+    }
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    float alpha[2], mb[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float mn = fmaxf(m[hh], mx[hh]);
+      alpha[hh] = fast_exp2((m[hh] - mn) * sl);
+      m[hh] = mn;
+      // p = exp2(s sl - m sl), one FMA and one exp an element.  A row
+      // with nothing visible yet (max NEG_INF) takes its exps against 0:
+      // exp2(NEG_INF sl) is exactly 0, where against its own max it would
+      // be exp2(0) = 1.
+      mb[hh] = mn > NEG_INF * 0.5f ? -mn * sl : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      s[i] = fast_exp2(fmaf(s[i], sl, mb[(i >> 1) & 1]));
+      ps[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + ps[hh];
+
+    // The previous P V is done: its stage is free, O can be rescaled and
+    // its A registers hold P_it.
+    wgmma_wait<0>();
+    keep_frags(pa);
+    fence_all(oa);
+    if (it > 0 && lane == 0)
+      mbar_arrive(&empty[(it + L::STAGES - 1) % L::STAGES]);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oa[i] *= alpha[(i >> 1) & 1];
+    to_a_frags(s, pa);
+  }
+  // The last step's O += P V (an empty group when there was no step).
+  wgmma_fence();
+  if (n_tiles > 0) {
+    const unsigned char* svp = base + L::RING +
+                               ((n_tiles - 1) % L::STAGES) * 2 * L::TILE +
+                               L::TILE;
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+      wgmma_rs<D>(oa, pa[kk], mnmajor(svp, kk, L::STEP_BOX), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  keep_frags(pa);
+  fence_all(oa);
+  if (n_tiles > 0 && lane == 0)
+    mbar_arrive(&empty[(n_tiles - 1) % L::STAGES]);
+
+  // Row `row` holds fragment entries 4n, 4n + 1 and row + 8 entries
+  // 4n + 2, 4n + 3 of every 8 columns; each lane writes two neighbours,
+  // and lane 0 of the quad the row's logsumexp, m scale + log l.
+  const size_t q_off = (size_t)bh * S * D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lt = l[hh];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int r = row + 8 * hh;
+    if (r >= S) continue;
+    const bool live = lt > 0.f;
+    uint32_t* orow =
+        reinterpret_cast<uint32_t*>(o + q_off + (size_t)r * D + tq);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      orow[n * 4] = live ? pack_bf16(oa[4 * n + 2 * hh] / lt,
+                                     oa[4 * n + 2 * hh + 1] / lt)
                          : 0u;
     if ((lane & 3) == 0)
-      lse[(size_t)bh * S + row] = live ? m + logf(l) : NEG_INF;
+      lse[(size_t)bh * S + r] =
+          live ? m[hh] * sl * LN2 + logf(lt) : NEG_INF;
   }
 }
 
+// K1 in bf16; tensor maps encoded for this call.
 template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int B, int H, int Hkv, int S, int Tn,
-                       int masked, int shift, const int* shift_dev,
-                       float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (BQ + 4 * BK) * (D + 8);
-  auto kern = flash_fwd_kernel_mma<D>;
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, void* lse, int B, int H, int Hkv, int S,
+                         int Tn, int masked, int shift, const int* shift_dev,
+                         float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!map_heads(&tq, q, B * H, S, D, WG_ROWS) ||
+      !map_heads(&tk, k, B * Hkv, Tn, D, WgLayout<D>::WG_STEP) ||
+      !map_heads(&tv, v, B * Hkv, Tn, D, WgLayout<D>::WG_STEP))
+    return cudaErrorInvalidValue;
+  const int smem = WgLayout<D>::SMEM;
+  auto kern = flash_fwd_kernel_wgmma<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (S + BQ - 1) / BQ);
-  kern<<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), H, Hkv, S, Tn, masked, shift, shift_dev,
-      scale);
+  dim3 grid((S + WG_ROWS - 1) / WG_ROWS, B * H);
+  kern<<<grid, WG_THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), H, Hkv,
+      S, Tn, masked, shift, shift_dev, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 runs the tensor-core kernel, f32 the scalar one (see the note at
-// the top).  Pointers must be 16-byte aligned (the wrapper checks).
+// bf16 runs the wgmma kernel, f32 the scalar one (see the note at the
+// top).  Pointers must be 16-byte aligned (the wrapper checks).
 // `shift_dev`: null for the by-value `shift`, else a device int32 that
 // replaces it (with `masked` set).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
@@ -418,11 +502,11 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   const int* sd = static_cast<const int*>(shift_dev);
   cudaError_t err;
   if (is_bf16 && D == 64)
-    err = launch_mma<64>(q, k, v, o, lse, B, H, Hkv, S, T, masked, shift, sd,
-                         scale, st);
+    err = launch_wgmma<64>(q, k, v, o, lse, B, H, Hkv, S, T, masked, shift,
+                           sd, scale, st);
   else if (is_bf16 && D == 128)
-    err = launch_mma<128>(q, k, v, o, lse, B, H, Hkv, S, T, masked, shift,
-                          sd, scale, st);
+    err = launch_wgmma<128>(q, k, v, o, lse, B, H, Hkv, S, T, masked,
+                            shift, sd, scale, st);
   else if (!is_bf16 && D == 64)
     err = launch<64>(q, k, v, o, lse, B, H, Hkv, S, T, masked, shift, sd,
                      scale, st);

@@ -1,15 +1,12 @@
-// Tensor-core building blocks of the bf16 flash forward (K1 in
-// flash_fwd.cu), sm_90a.
+// Tensor-core and copy building blocks of the paged decode (K4 in
+// paged_attention.cu), sm_90a:
 //
-// * cp.async copies global -> shared (16 bytes a thread for tile rows,
-//   4 bytes for f32 row vectors), with zero fill past a ragged edge;
-// * ldmatrix loads 8x8 bf16 blocks of a padded shared tile straight into
+// * cp.async copies global -> shared (16 bytes a thread for page rows,
+//   4 bytes for int8 scales), with zero fill past a ragged edge (the
+//   split kernel);
+// * ldmatrix loads 8x8 bf16 blocks of a shared tile straight into
 //   mma.sync fragments, `.trans` where the operand is stored k-major;
-// * mma.sync.m16n8k16 bf16 x bf16 -> f32.
-//
-// Tiles live in shared memory as bf16 rows of D + 8 elements: the row
-// stride of D * 2 + 16 bytes shifts each row by four banks, so the eight
-// 16-byte rows one ldmatrix phase reads land on 32 different banks.
+// * mma.sync.m16n8k16 bf16 x bf16 -> f32 (the rows kernel).
 //
 // Fragment layouts of m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
@@ -99,56 +96,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   uint32_t r;
   memcpy(&r, &v, sizeof(r));
   return r;
-}
-
-// --- addressing of the padded tiles ------------------------------------------
-
-// This lane's row address for ldsm_x4 of the 16 x 16 block at (r0, c0)
-// of a row-major tile with row stride LD, read as an A fragment (or,
-// with ldsm_x4_trans, as the B fragments of the two n-tiles c0..c0+15
-// of a k-major operand: k = rows r0..r0+15).  Blocks: rows +0/+8 by
-// lane bit 3, columns +0/+8 by lane bit 4.
-template <int LD>
-__device__ __forceinline__ const bf16* frag_a(const bf16* tile, int r0,
-                                              int c0, int lane) {
-  return tile + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8;
-}
-
-// This lane's row address for ldsm_x4 of the B fragments of two n-tiles
-// (n0..n0+7, n0+8..n0+15) at k-step k0 of an operand stored n-major
-// (row n holds k contiguous, as K rows for Q K^T): registers 0, 1 are
-// n-tile 0's b0, b1 and registers 2, 3 n-tile 1's.
-template <int LD>
-__device__ __forceinline__ const bf16* frag_b(const bf16* tile, int n0,
-                                              int k0, int lane) {
-  return tile + (n0 + (lane & 7) + (lane >> 4) * 8) * LD + k0 +
-         ((lane >> 3) & 1) * 8;
-}
-
-// Rows [r0, r0 + ROWS) of a (n, D) bf16 matrix into a padded tile of row
-// stride D + 8, 16 bytes a thread per step; rows past n read as 0.
-template <int ROWS, int D, int THREADS>
-__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
-                                                int r0, int n) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH;
-    const bool ok = r0 + r < n;
-    cp_async16(dst + r * (D + 8) + c * 8,
-               src + (size_t)(ok ? r0 + r : 0) * D + c * 8, ok ? 16 : 0);
-  }
-}
-
-// Entries [r0, r0 + N) of an f32 vector of length n into shared memory,
-// 4 bytes a thread; entries past n read as 0.
-template <int N>
-__device__ __forceinline__ void load_vec_async(float* dst, const float* src,
-                                               int r0, int n, int first) {
-  const int i = threadIdx.x - first;
-  if (i >= 0 && i < N) {
-    const bool ok = r0 + i < n;
-    cp_async4(dst + i, src + (ok ? r0 + i : 0), ok ? 4 : 0);
-  }
 }
 
 }  // namespace hvd_mma

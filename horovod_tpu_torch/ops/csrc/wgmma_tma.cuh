@@ -1,6 +1,7 @@
 // Hopper building blocks of the bf16 grouped products G1 and G2
-// (grouped_matmul.cu) and of the flash-attention backward K2 and K3
-// (flash_bwd.cu), sm_90a:
+// (grouped_matmul.cu), of the flash-attention forward K1 (flash_fwd.cu)
+// and backward K2 and K3 (flash_bwd.cu), and of the paged decode's
+// tensor-core rows kernel (paged_attention.cu), sm_90a:
 //
 // * TMA: one thread copies a whole tile, global -> shared, described by a
 //   tensor map (CUtensorMap, encoded on the host for each call and passed
@@ -35,9 +36,10 @@
 // TMA's CU_TENSOR_MAP_SWIZZLE_128B writes and what descriptor layout type
 // 1 reads.  Wgmma's accumulator fragment (m64nNk16, f32): register i of
 // lane l in warp w holds row 16 w + l / 4 + 8 ((i / 2) % 2), column
-// 8 (i / 4) + 2 (l % 4) + i % 2.  G1 and G2 use N = 128; K2 and K3 use
-// N = 64 for their score products (SS) and N = D (64 or 128) for their
-// gradient products (RS, A = the scores' fragment rounded to bf16).
+// 8 (i / 4) + 2 (l % 4) + i % 2.  G1 and G2 use N = 128; K1, K2 and K3
+// use N = 64 for their score products (SS) and N = D (64 or 128) for
+// their value and gradient products (RS, A = the scores' fragment
+// rounded to bf16).
 
 #pragma once
 
@@ -132,6 +134,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 // a multiple of 32.
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// This thread's arrival at named barrier `id` without waiting for it:
+// the other `threads` - (this warp group) wait there.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -305,6 +313,57 @@ __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
   return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
+// --- the flash kernels' operands ---------------------------------------------
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// The f32 fragment of an m64nN product (N = 16 KK), columns 16 kk ..
+// 16 kk + 15, rounded to bf16 as the A operand of an RS product.
+template <int KK>
+__device__ __forceinline__ void to_a_frags(const float (&f)[8 * KK],
+                                           uint32_t (&a)[KK][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(f[8 * kk + 2 * r], f[8 * kk + 2 * r + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_operand(r[i]);
+}
+
+// Keeps an RS product's A registers live, and in place, until here: the
+// product reads them after the instruction that names them, until its
+// group is waited for.  (Read only: a register the compiler thought
+// written here would make ptxas wait for the product first.)
+template <int KK>
+__device__ __forceinline__ void keep_frags(const uint32_t (&a)[KK][4]) {
+#pragma unroll
+  for (int i = 0; i < 4 * KK; ++i) asm volatile("" ::"r"(a[i / 4][i % 4]));
+}
+
+// Descriptor of k-slice kk (16 deep) of a K-major operand: `tile` holds
+// D / 64 boxes of `box` bytes, rows of 64 elements; the slice's 16
+// elements sit in box kk / 4 at 32 (kk % 4) bytes into each row.
+__device__ __forceinline__ uint64_t kmajor(const unsigned char* tile,
+                                           int box, int kk) {
+  return make_desc(tile + (kk / 4) * box + (kk % 4) * 32, 16, 1024);
+}
+
+// Descriptor of k-slice kk of an MN-major B: the tile's rows are the
+// reduction (k) and its columns N, in boxes of 64 columns `box` bytes
+// apart (LBO); k-rows 16 kk .. start 2048 kk bytes in.
+__device__ __forceinline__ uint64_t mnmajor(const unsigned char* tile,
+                                            int kk, int box) {
+  return make_desc(tile + kk * 16 * 128, box, 1024);
+}
+
 // --- host: tensor maps and the grid -------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -357,6 +416,20 @@ inline cudaError_t sm_count(int& sms) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return err;
+}
+
+// A (heads, rows, D) bf16 tensor as a tensor map read in boxes of 64
+// columns (one 128-byte swizzle line) x `box_rows` rows of one head;
+// rows past `rows` and columns past D land as zeros, so a box never
+// reads the next head's rows.
+inline bool map_heads(CUtensorMap* map, const void* p, int heads, int rows,
+                      int D, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  return encode(map, p, 3, dims, strides, box);
 }
 
 }  // namespace hvd_wgmma

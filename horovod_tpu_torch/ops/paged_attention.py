@@ -17,7 +17,12 @@ most 128): other head dims raise ``ValueError`` on a CUDA tensor.
 The kernel is split-K flash-decoding: the slot's page-table entries are
 cut into fixed runs (:func:`split_grid`, from the shapes alone, never
 from ``limit``), one CTA a run writes a partial softmax state into
-scratch allocated here, and a second kernel combines the partials.
+scratch allocated here, and a second kernel combines the partials.  The
+first kernel is chosen by pool dtype and ``R``: a bf16 pool with ``R >
+8`` (the speculative verify's ``G * W`` rows) runs the rows kernel, which
+copies each page by TMA once for up to 32 rows and runs the scores and
+``p . v`` on the tensor cores; every other call runs the split kernel on
+the CUDA cores.
 """
 
 from __future__ import annotations
@@ -104,15 +109,23 @@ _POOL_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # CTAs the split kernel aims for: ~4 a streaming multiprocessor of an
 # H100 (132), so that every SM keeps several page copies in flight.
 SPLIT_TARGET_CTAS = 512
-_R_BLOCK = 8  # query rows a CTA when R > 4 (csrc/paged_attention.cu)
+_R_BLOCK = 8  # query rows a CTA of the split kernel when R > 4
+_ROWS_BLOCK = 32  # query rows a CTA of the rows kernel (bf16 pools, R > 8)
 _PPS_MAX = 1024  # pages a split, at most (their ids sit in shared memory)
 
 
-def split_grid(S: int, Hkv: int, R: int, max_pages: int):
-    """``(pages_per_split, grid)`` of K4's split kernel: ``grid = (S *
-    H_kv, n_split, R blocks)``.  From the shapes alone — reading
-    ``limit`` on the host would add a device sync to every layer."""
-    r_blocks = 1 if R <= 4 else -(-R // _R_BLOCK)
+def split_grid(S: int, Hkv: int, R: int, max_pages: int, pool_dtype=None):
+    """``(pages_per_split, grid)`` of K4's first kernel: ``grid = (S *
+    H_kv, n_split, R blocks)``.  A bf16 pool with ``R > 8`` runs the
+    tensor-core rows kernel, ``R`` in blocks of 32; every other call the
+    split kernel, ``R`` in blocks of 4 or 8 (the C entry point
+    ``paged_attend`` makes the same choice).  From the shapes and dtype
+    alone — reading ``limit`` on the host would add a device sync to
+    every layer."""
+    if pool_dtype == torch.bfloat16 and R > _R_BLOCK:
+        r_blocks = -(-R // _ROWS_BLOCK)
+    else:
+        r_blocks = 1 if R <= 4 else -(-R // _R_BLOCK)
     n_split = max(1, min(max_pages,
                          -(-SPLIT_TARGET_CTAS // (S * Hkv * r_blocks))),
                   -(-max_pages // _PPS_MAX))
@@ -169,14 +182,14 @@ def _paged_attend_cuda(qg, k_pool, v_pool, k_scale, v_scale, table, limit,
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_int])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int])
     # The kernel reads q in f32 or bf16 and rounds it to the compute
     # dtype itself; other dtypes are widened here.
     if qg.dtype not in (torch.float32, torch.bfloat16):
         qg = qg.float()
     o = torch.empty((S, Hkv, R, Dh), dtype=torch.float32, device=qg.device)
     lse = torch.empty((S, Hkv, R), dtype=torch.float32, device=qg.device)
-    pps, grid = split_grid(S, Hkv, R, max_pages)
+    pps, grid = split_grid(S, Hkv, R, max_pages, k_pool.dtype)
     part = torch.empty(S * Hkv * grid[1] * R * (Dh + 2), dtype=torch.float32,
                        device=qg.device)
     null = ctypes.c_void_p(0)
@@ -187,7 +200,7 @@ def _paged_attend_cuda(qg, k_pool, v_pool, k_scale, v_scale, table, limit,
             S, Hkv, R, Dh, ps, max_pages, kind,
             int(compute_dtype == torch.bfloat16), math.sqrt(Dh),
             _cuda.stream(qg.device), _cuda.ptr(part), pps,
-            int(qg.dtype == torch.bfloat16))
+            int(qg.dtype == torch.bfloat16), P)
     _cuda.check(lib, rc, "paged_attend launch")
     paged_attend_launches += 1
     paged_attend_launches_by_rows[R] = paged_attend_launches_by_rows.get(

@@ -157,6 +157,28 @@ def test_flash_kernel_device_shift(dev, dtype, p0, S0):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("shift", [0, -70, None])
+def test_flash_forward_is_deterministic(dev, D, shift):
+    """Two K1 calls on the same inputs give the same bits (bf16, GQA
+    G = 4, S = 300 over T = 370: several 128-row CTAs and 64-row K
+    tiles, ragged edges; causal, shifted and unmasked)."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    q = torch.randn((2, 8, 300, D), generator=g, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((2, 2, 370, D), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+
+    def k1():
+        if shift is None:
+            return A.flash_attention_with_lse(q, k, v, False)
+        return A.flash_attention_shifted(q, k, v, shift)
+
+    first, second = k1(), k1()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def _rel_err(got, want):
     want = want.float()
     return ((got.float() - want).abs().max()
@@ -197,13 +219,13 @@ def test_flash_backward_kernels(dev, dtype, tol, D, Hkv, S, T, mask):
 
 
 @pytest.mark.parametrize("dtype,kernels", [
-    (torch.bfloat16, ("_mma", "_wgmma", "_wgmma")),
+    (torch.bfloat16, ("_wgmma", "_wgmma", "_wgmma")),
     (torch.float32, ("", "", ""))])
 def test_each_dtype_reaches_its_instantiation(dev, dtype, kernels):
-    """bf16 runs the tensor-core K1 (``flash_fwd_kernel_mma``) and the
-    wgmma K2 and K3 (``*_kernel_wgmma``), f32 the scalar ones: the
-    profiler names the kernels each call launched, the launch counters
-    grow by one each, and the results match the plain versions."""
+    """bf16 runs the wgmma K1, K2 and K3 (``*_kernel_wgmma``), f32 the
+    scalar ones: the profiler names the kernels each call launched, the
+    launch counters grow by one each, and the results match the plain
+    versions."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -685,11 +707,13 @@ def test_flash_launches_count_replays(dev):
 
 
 @pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("W", [4, 5])
+@pytest.mark.parametrize("W", [4, 5, 3, 8])
 def test_paged_kernel_at_verify_rows(dev, kv, W):
     """K4 at the speculative verify's R = G * W (G = 4: 16 and 20 rows,
-    two and three row blocks) on the edge table, against its plain
-    version; a second call gives the same bits."""
+    and 12 and 32) on the edge table, against its plain version; a
+    second call gives the same bits.  A bf16 pool runs every one on the
+    rows kernel (one block of up to 32 rows), the others on the split
+    kernel's 8-row blocks."""
     args, table, limit = _edge_case(kv, dev)
     g = torch.Generator(device=dev).manual_seed(W)
     qg = torch.randn((8, 4, 4 * W, 64), generator=g, device=dev)
@@ -705,6 +729,47 @@ def test_paged_kernel_at_verify_rows(dev, kv, W):
     live = limit > 0
     assert (o - o_r).abs().max().item() <= tol
     assert (lse[live] - l_r[live]).abs().max().item() <= tol
+    assert not o[~live].any() and (lse[~live] <= PA.NEG_INF / 2).all()
+
+
+@pytest.mark.parametrize("R,Dh,kernel", [
+    (20, 64, "paged_attend_rows_kernel"), (20, 128, "paged_attend_rows_kernel"),
+    (8, 64, "paged_attend_split_kernel")])
+def test_bf16_pool_reaches_its_paged_kernel(dev, R, Dh, kernel):
+    """A bf16 pool's R > 8 launches the rows kernel and R <= 8 the split
+    kernel (the profiler names what three calls after a first launched,
+    the combine kernel beside it), one counted call each, within 2e-2 of
+    the plain version and bit-identical from call to call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(R + Dh)
+    S, Hkv, ps, MP, P = 4, 2, 16, 24, 100
+    qg = torch.randn((S, Hkv, R, Dh), generator=g, device=dev)
+    kp, vp = (torch.randn((P, Hkv, ps, Dh), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    table = torch.randint(1, P, (S, MP), generator=g, device=dev,
+                          dtype=torch.int32)
+    limit = torch.tensor([ps * MP, 0, 100, 17], dtype=torch.int32,
+                         device=dev)
+    before = PA.paged_attend_launches
+    o, lse = PA.paged_attend(qg, kp, vp, None, None, table, limit)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            o2, lse2 = PA.paged_attend(qg, kp, vp, None, None, table, limit)
+        torch.cuda.synchronize()
+    assert PA.paged_attend_launches == before + 4
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    assert any(kernel in n for n in names), names
+    assert any("paged_attend_combine_kernel" in n for n in names), names
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o_r, l_r = PA.paged_attend_reference(qg, kp, vp, None, None, table,
+                                         limit)
+    live = limit > 0
+    assert (o - o_r).abs().max().item() <= 2e-2
+    assert (lse[live] - l_r[live]).abs().max().item() <= 2e-2
     assert not o[~live].any() and (lse[~live] <= PA.NEG_INF / 2).all()
 
 

@@ -1,14 +1,13 @@
 """K1, K2 and K3 (``flash_fwd.cu``, ``flash_bwd.cu``) run on the CPU
 through the emulator of :mod:`torch_port_emu` (whose docstring says what
 it emulates and what it cannot show), against their plain versions:
-the bf16 K1 on mma.sync with ``cp.async``, the bf16 K2 and K3 on wgmma
-fed by TMA through an mbarrier ring, and the f32 scalar kernels; copies
-and products landing at once or at their waits.  The cases cross more
-than one of K2's and K3's 128-row blocks and 64-row stages, with GQA,
-ragged S and T, both head dims and shifted masks; one case runs K2 and
-K3 twice, bit for bit.  The file also holds ``chip_smoke.py``'s names
-for K2 and K3 (what its SASS check keys on) against the built library's
-symbols.
+the bf16 K1, K2 and K3 on wgmma fed by TMA through an mbarrier ring,
+and the f32 scalar kernels; copies and products landing at once or at
+their waits.  The cases cross more than one of the kernels' 128-row
+blocks and 64-row stages, with GQA, ragged S and T, both head dims and
+shifted masks; one case runs K1, K2 and K3 twice, bit for bit.  The file
+also holds ``chip_smoke.py``'s names for K1, K2 and K3 (what its SASS
+check keys on) against the built library's symbols.
 
 Tolerances as on the card: K1 5e-2 (bf16) and 1e-4 (f32) absolute;
 K2/K3 2e-2 (bf16) and 1e-4 (f32) of the largest gradient.  Each child
@@ -16,13 +15,11 @@ runs under :data:`CHILD_TIMEOUT_S`, a hang guard.
 """
 
 import json
-import re
-import shutil
-import subprocess
 
 import pytest
 
-from torch_port_emu import CASES, CHILD, REPEAT_CASES, REPO, build, run_child
+from torch_port_emu import (CASES, CHILD, REPEAT_CASES, build,
+                            kernel_names, run_child)
 
 # The hang guard, three times the slowest case's time in the 6-worker
 # tier-1 run, `pytest -n 6 --dist loadfile`
@@ -62,19 +59,17 @@ def test_chip_smoke_names_every_flash_backward_kernel(emulated_libs):
     reads as one of the names the check requires (the wgmma kernels in
     bf16, the scalar ones in f32, each at D = 64 and 128), and each
     required name is there."""
-    import importlib.util
-
-    nm = shutil.which("nm")
-    if nm is None:
-        pytest.skip("needs nm to list the emulated library's symbols")
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  REPO / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    symbols = subprocess.run(
-        [nm, str(emulated_libs / "libflash_bwd.so")],
-        capture_output=True, text=True, check=True).stdout.split()
-    names = {smoke._kernel_name(s) for s in symbols
-             if re.search(r"flash_bwd_(dkdv|dq)_kernel", s)}
+    smoke, names = kernel_names(emulated_libs / "libflash_bwd.so",
+                                 r"flash_bwd_(dkdv|dq)_kernel")
     assert names == set(smoke.FLASH_BWD_WGMMA) | set(smoke.FLASH_BWD_F32), \
+        names
+
+
+def test_chip_smoke_names_every_flash_forward_kernel(emulated_libs):
+    """The same for K1: the forward library's kernel functions read as
+    the names ``chip_smoke.py``'s SASS check requires, the wgmma kernel
+    in bf16 and the scalar one in f32, each at D = 64 and 128."""
+    smoke, names = kernel_names(emulated_libs / "libflash_fwd.so",
+                                 r"flash_fwd_kernel")
+    assert names == set(smoke.FLASH_FWD_WGMMA) | set(smoke.FLASH_FWD_F32), \
         names

@@ -10,14 +10,11 @@ output.  Each child runs under :data:`CHILD_TIMEOUT_S`, a hang guard.
 """
 
 import json
-import re
-import shutil
-import subprocess
 
 import pytest
 
-from torch_port_emu import (DW_CASES, GMM_CASES, GMM_CHILD, REPO, build,
-                            run_child)
+from torch_port_emu import (DW_CASES, GMM_CASES, GMM_CHILD, build,
+                            kernel_names, run_child)
 
 # The hang guard: 15x the slowest case's time in the driver's 6-worker
 # tier-1 command, rounded up to 30 s
@@ -79,18 +76,6 @@ def test_chip_smoke_names_every_grouped_kernel(emulated_libs):
     source reads as one of the names the check requires, and each
     required name is there (G2's bf16 kernel is no template, so it must
     not read as one of G1's two modes)."""
-    import importlib.util
-
-    nm = shutil.which("nm")
-    if nm is None:
-        pytest.skip("needs nm to list the emulated library's symbols")
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  REPO / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    symbols = subprocess.run(
-        [nm, str(emulated_libs / "libgrouped_matmul.so")],
-        capture_output=True, text=True, check=True).stdout.split()
-    names = {smoke._kernel_name(s) for s in symbols
-             if re.search(r"grouped_(mm|dw)_kernel", s)}
+    smoke, names = kernel_names(emulated_libs / "libgrouped_matmul.so",
+                                r"grouped_(mm|dw)_kernel")
     assert names == set(smoke.GROUPED_WGMMA) | set(smoke.GROUPED_F32), names

@@ -7,14 +7,14 @@ indexing.
 Those files compile ``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu``,
 ``paged_attention.cu`` and ``grouped_matmul.cu`` with g++ against a
 small emulation of what they use (:func:`build`, each file only the
-sources it runs), and hold the kernels (the bf16 K1 on mma.sync, the
-bf16 K2 and K3 on wgmma + TMA, the scalar f32 kernels, K4's split and
-combine kernels, G1's wgmma + TMA and register-tiled f32 kernels in
-both modes, G2's wgmma + TMA and scalar kernels) against their plain
-versions on seeded inputs (K1 also with its shift read from memory; K2
-and K3 also bit for bit against themselves in a second call; G1 also
-bit for bit against itself in another batch; G2 also bit for bit
-against itself in a second call):
+sources it runs), and hold the kernels (the bf16 K1, K2 and K3 on
+wgmma + TMA, the scalar f32 kernels, K4's split, rows (mma.sync fed by
+TMA) and combine kernels, G1's wgmma + TMA and register-tiled f32
+kernels in both modes, G2's wgmma + TMA and scalar kernels) against
+their plain versions on seeded inputs (K1 also with its shift read from
+memory; K1, K2 and K3 also bit for bit against themselves in a second
+call; G1 also bit for bit against itself in another batch; G2 also bit
+for bit against itself in a second call):
 
 * one ``std::thread`` per CUDA thread of a block, blocks in turn;
   ``std::barrier`` for ``__syncthreads`` and for warp-synchronous steps;
@@ -40,7 +40,8 @@ against itself in a second call):
   reads its A registers then too, so a kernel that overwrites them
   before the wait fails in that mode); fence, commit and wait are warp
   barriers, as ``.sync.aligned`` makes them on the card; named barriers
-  (``bar.sync id, n``) are barriers of n threads; ``ex2.approx.ftz`` is
+  (``bar.sync id, n`` waits, ``bar.arrive id, n`` only arrives) are
+  barriers of n threads; ``ex2.approx.ftz`` is
   ``exp2f``.
 
 What it cannot show: that nvcc accepts the source, the asm strings
@@ -58,8 +59,8 @@ a kernel whose waits it cannot prove uniform: ``chip_smoke.py``'s times
 show that).  Those are the card's (``chip_smoke.py``,
 ``tests/test_torch_port_cuda.py``).  The kernels run in a child process
 under a time limit (:func:`run_child`), so a kernel whose warps diverge
-at a barrier fails the test instead of hanging it.  The flash and
-grouped files also hold ``chip_smoke.py``'s names for K2, K3 and the
+at a barrier fails the test instead of hanging it.  The flash, paged
+and grouped files also hold ``chip_smoke.py``'s names for K1-K4 and the
 grouped kernels (what its SASS check keys on) against the built
 library's symbols.
 
@@ -186,17 +187,20 @@ inline int emu_copies_at_wait = 0;
 inline unsigned char* emu_smem() { return emu_blk->smem.data(); }
 inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
 inline int emu_lane() { return threadIdx.x & 31; }
-// bar.sync id, n: a barrier of n threads, made at its first use.
+// Named barrier id of n threads, made at its first use.
+inline std::barrier<>* emu_named(int id, int threads) {
+  std::lock_guard<std::mutex> lk(emu_blk->mu);
+  auto& slot = emu_blk->named[id];
+  if (id < 1 || id > 15 || threads % 32) emu_fail("named barrier", nullptr);
+  if (!slot) slot = std::make_unique<std::barrier<>>(threads);
+  return slot.get();
+}
+// bar.sync id, n: arrive and wait; bar.arrive id, n: arrive only.
 inline void emu_named_barrier(int id, int threads) {
-  std::barrier<>* b;
-  {
-    std::lock_guard<std::mutex> lk(emu_blk->mu);
-    auto& slot = emu_blk->named[id];
-    if (id < 1 || id > 15 || threads % 32) emu_fail("named barrier", nullptr);
-    if (!slot) slot = std::make_unique<std::barrier<>>(threads);
-    b = slot.get();
-  }
-  b->arrive_and_wait();
+  emu_named(id, threads)->arrive_and_wait();
+}
+inline void emu_named_barrier_arrive(int id, int threads) {
+  (void)emu_named(id, threads)->arrive();
 }
 inline uint64_t* emu_x(int lane) {
   return &emu_blk->xchg[((threadIdx.x >> 5) * 32 + lane) * 8];
@@ -643,6 +647,9 @@ inline void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
 }
 inline void fence_proxy_async() {}
 inline void named_barrier_sync(int id, int n) { emu_named_barrier(id, n); }
+inline void named_barrier_arrive(int id, int n) {
+  emu_named_barrier_arrive(id, n);
+}
 inline void wgmma_fence() { emu_warp_sync(); }
 inline void wgmma_commit() { emu_wgmma_commit(); }
 template <int N> inline void wgmma_wait() { emu_wgmma_wait(N); }
@@ -726,6 +733,25 @@ def run_child(script: str, args, timeout: float, copies_at_wait: bool):
     return json.loads(run.stdout.strip().splitlines()[-1])
 
 
+def kernel_names(lib: Path, pattern: str):
+    """``(chip_smoke, names)``: the module ``chip_smoke.py`` and its
+    ``_kernel_name`` of every symbol of the emulated library ``lib`` that
+    matches ``pattern`` (the names its SASS check keys on)."""
+    import importlib.util
+
+    nm = shutil.which("nm")
+    if nm is None:
+        pytest.skip("needs nm to list the emulated library's symbols")
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    symbols = subprocess.run([nm, str(lib)], capture_output=True, text=True,
+                             check=True).stdout.split()
+    return smoke, {smoke._kernel_name(s) for s in symbols
+                   if re.search(pattern, s)}
+
+
 # Runs in a child process: loads the emulated libraries through the same
 # C entry points the wrappers bind, prints one JSON line of errors.
 CHILD = r"""
@@ -736,8 +762,8 @@ from horovod_tpu_torch.ops import attention as A
 libdir, dtype = sys.argv[1], {"bf16": torch.bfloat16, "f32": torch.float32}[sys.argv[2]]
 # "value": K1's shift by value, then K2 and K3; "device": K1 alone, its
 # shift read from memory (the by-value argument a decoy).  Cases listed in
-# the optional fifth argument run K2 and K3 a second time, bit for bit
-# against the first.
+# the optional fifth argument run K1, K2 and K3 a second time, bit for
+# bit against the first.
 device_shift = sys.argv[4] == "device"
 repeat = [tuple(c) for c in json.loads(sys.argv[5])] if len(sys.argv) > 5 else []
 fwd = ctypes.CDLL(f"{libdir}/libflash_fwd.so")
@@ -792,15 +818,20 @@ for i, (B, H, Hkv, S, T, D, shift) in enumerate(json.loads(sys.argv[3])):
         "lse": (lse - lse_r).abs().max().item(),
         "dk": rel(dk, rk), "dv": rel(dv, rv), "dq": rel(dq, rq)}
     if (B, H, Hkv, S, T, D, shift) in repeat:
-        again = [torch.empty_like(t) for t in (dk, dv, dq)]
-        call(bwd, "flash_bwd_dkdv", 8, (q, k, v, do, lse_r, delta, *again[:2]),
+        again = [torch.empty_like(t) for t in (o, lse, dk, dv, dq)]
+        rc = A._bind_fwd(fwd)(*map(ptr, (q, k, v, *again[:2])), *dims, None,
+                              None)
+        assert rc == 0, ("flash_fwd", rc)
+        call(bwd, "flash_bwd_dkdv", 8, (q, k, v, do, lse_r, delta,
+                                        *again[2:4]), *dims)
+        call(bwd, "flash_bwd_dq", 7, (q, k, v, do, lse_r, delta, again[4]),
              *dims)
-        call(bwd, "flash_bwd_dq", 7, (q, k, v, do, lse_r, delta, again[2]),
-             *dims)
-        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
         res[str([B, H, Hkv, S, T, D, shift])]["repeat"] = all(
-            torch.equal(a.view(bits), b.view(bits))
-            for a, b in zip(again, (dk, dv, dq)))
+            torch.equal(a.view(torch.int16 if a.element_size() == 2
+                               else torch.int32),
+                        b.view(torch.int16 if b.element_size() == 2
+                               else torch.int32))
+            for a, b in zip(again, (o, lse, dk, dv, dq)))
 print(json.dumps(res))
 """
 
@@ -808,7 +839,7 @@ print(json.dumps(res))
 # head dims, S != T unmasked / bottom-right causal / fully masked, a
 # shifted diagonal that leaves the first rows fully masked, one query
 # row, and D = 128 with GQA and a ragged S.  The last three cross more
-# than one of the bf16 K2's and K3's 128-row blocks and 64-row ring
+# than one of the bf16 K1's, K2's and K3's 128-row blocks and 64-row ring
 # stages both ways, with GQA (G = 2) and ragged S and T edges (the last
 # K block's second warpgroup wholly past T): causal with S > T at D =
 # 64, a shift of -70 with T > S and a shift of 40 at D = 128, two
@@ -819,7 +850,7 @@ CASES = [(1, 2, 2, 64, 64, 64, 0), (1, 4, 1, 130, 130, 64, 0),
          (1, 2, 2, 1, 1, 64, 0), (1, 4, 2, 77, 77, 128, 0),
          (1, 2, 1, 300, 260, 64, 0), (1, 2, 1, 200, 330, 128, -70),
          (2, 2, 1, 200, 200, 128, 40)]
-# The case whose K2 and K3 run twice, bit for bit.
+# The case whose K1, K2 and K3 run twice, bit for bit.
 REPEAT_CASES = [CASES[-1]]
 
 
@@ -839,7 +870,7 @@ fn = lib.paged_attend
 fn.restype = ctypes.c_int
 fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                  ctypes.c_int, ctypes.c_int])
+                  ctypes.c_int, ctypes.c_int, ctypes.c_int])
 kind, compute = {"f32": (0, torch.float32), "bf16": (1, torch.bfloat16),
                  "int8_f32": (2, torch.float32),
                  "int8_bf16": (2, torch.bfloat16)}[pool]
@@ -874,7 +905,7 @@ for i, case in enumerate(json.loads(sys.argv[3])):
     rc = fn(ptr(qg), ptr(kp), ptr(vp), ptr(ks), ptr(vs), ptr(table),
             ptr(lim), ptr(o), ptr(lse), S, Hkv, R, Dh, ps, MP, kind,
             int(compute == torch.bfloat16), math.sqrt(Dh), None, ptr(part),
-            pps, int(qg.dtype == torch.bfloat16))
+            pps, int(qg.dtype == torch.bfloat16), Pn)
     assert rc == 0, (case, rc)
     o_r, l_r = PA.paged_attend_reference(qg, kp, vp, ks, vs, table, lim,
                                          compute_dtype=compute)
@@ -894,10 +925,18 @@ print(json.dumps(res))
 # position past it, a partial last page with splits wholly past the
 # limit, and two slots sharing their pages; the others R = 1 at
 # Dh = 128 with q in bf16, R = 8 on pages of 8, and R = 12 (two R
-# blocks) at Dh = 96 (idle lanes) on pages of 40 rows (ring chunks of 64
-# rows that cross a page boundary); then the speculative verify's rows,
-# R = G * W at G = 4: 16 (W = 4, two R blocks) and 20 (W = 5, three, the
-# last one half full) with a limit on a split boundary.
+# blocks of the split kernel) at Dh = 96 (idle lanes) on pages of 40 rows
+# (ring chunks of 64 rows that cross a page boundary); then the
+# speculative verify's rows, R = G * W at G = 4: 16 (W = 4, two R blocks)
+# and 20 (W = 5, three, the last one half full) with a limit on a split
+# boundary.  A bf16 pool runs every R > 8 case on the rows kernel
+# (one block of up to 32 rows, pages copied by TMA, columns past Dh = 96
+# and rows past a page of 8 or 40 landing as zeros); the last three cases
+# (`pools`: the pools that run them) are the rows kernel's alone: R = 32
+# (both row tiles full) with a limit on a split boundary and a limit of
+# 0, R = 20 at Dh = 128 (two boxes a row) likewise, and R = 36 (two row
+# blocks, the second of 4 rows) on pages of 80 rows (two ring chunks a
+# page, the second past the page's end).
 PAGED_CASES = [
     dict(Hkv=2, R=4, Dh=64, ps=16, pps=2, MP=6, pages=40,
          limit=[0, 96, 32, 33, 5, 50], share=[[1, 5]]),
@@ -908,6 +947,12 @@ PAGED_CASES = [
     dict(Hkv=1, R=16, Dh=64, ps=16, pps=2, MP=4, pages=13,
          limit=[64, 30, 0]),
     dict(Hkv=2, R=20, Dh=64, ps=8, pps=2, MP=5, pages=12, limit=[40, 16]),
+    dict(Hkv=1, R=32, Dh=64, ps=16, pps=2, MP=4, pages=14,
+         limit=[32, 0, 61], pools=["bf16"]),
+    dict(Hkv=1, R=20, Dh=128, ps=16, pps=2, MP=4, pages=13,
+         limit=[64, 32, 0], q_bf16=True, pools=["bf16"]),
+    dict(Hkv=1, R=36, Dh=64, ps=80, pps=1, MP=2, pages=5, limit=[150, 81],
+         pools=["bf16"]),
 ]
 
 
