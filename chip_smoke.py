@@ -9,8 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. Card: the card's name and power limit, as ``nvidia-smi`` reports them.
 2. Build: every kernel under ``horovod_tpu_torch/ops/csrc/``, one
    ``nvcc`` per source, all started together, with ptxas's registers
-   and spill bytes of each kernel printed.  Then the tensor-core
-   check: ``cuobjdump -sass`` (from ``nvcc``'s toolkit) counts the
+   and spill bytes of each kernel printed, and those of the
+   register-tiled f32 K1 and G2 on a line of their own (a spill fails).
+   Then the tensor-core check: ``cuobjdump -sass`` (from ``nvcc``'s toolkit) counts the
    ``HMMA``/``HGMMA`` instructions (and ``UTMALDG``, TMA loads) of every
    kernel function in the flash and grouped-product libraries; the bf16
    K1 kernel must have some, and the bf16 K2 and K3 kernels (D = 64 and
@@ -402,7 +403,17 @@ pipeline phase's schedules and MoE legs; K4's
 verify calls at R = 20 in an entry of their own; G1's
 over the dropless prefill runs, both MoE bursts and the dropless
 training leg, G2's over that leg; K1's and K4's also over the tp
-phase's churns); the last line is
+phase's churns).  Launches go to the dtype each run runs: the f32
+kernels (K1-K4, G1 and G2 in f32, their own kernel functions) have
+entries of their own, over the f32 serving phase's faulted burst, its
+speculative and SLO legs, the f32 MoE burst and gate, the tp churns,
+the virtual ring's f32 passes and the pipeline phase's f32 runs, each
+timed at the bf16 entry's shape with its bound at the f32 rate and SDPA
+(TF32 off, its backend named) or the cuBLAS loop beside it; the rest
+are bf16 (K4: bf16 and int8 pools).  The f32 K1 is also timed at the
+training and tp shard shapes, K1 and K4 at the tp shards in both
+dtypes (f32 with the churns' launches, bf16 with the first tick's),
+and G2 in f32 with every row on one expert.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository beside it, the script exits non-zero and prints no
 result.
@@ -741,6 +752,24 @@ FLASH_BWD_F32 = tuple(f"flash_bwd_{k}_kernel<f32,{d}>"
                       for k in ("dkdv", "dq") for d in (64, 128))
 
 
+# The f32 kernels redesigned as register-tiled FFMA fed by cp.async.
+FFMA_TILED = FLASH_FWD_F32 + ("grouped_dw_kernel<f32>",)
+
+
+def ptxas_check() -> dict:
+    """ptxas's registers and spills of the register-tiled f32 kernels
+    (:data:`FFMA_TILED`), from :func:`build`'s report: fails on a spill
+    or a missing kernel."""
+    regs = {fn: REPORT["ptxas"].get(fn) for fn in FFMA_TILED}
+    log("register-tiled f32 kernels, ptxas: " + ", ".join(
+        f"{fn} {r}" for fn, r in regs.items()))
+    bad = {fn: r for fn, r in regs.items()
+           if not r or r.get("spill_store_bytes", 0) or "registers" not in r}
+    if bad:
+        raise AssertionError(f"spills or no ptxas report: {bad}")
+    return regs
+
+
 def sass_check() -> dict:
     """Tensor-core instructions (``HMMA``, ``HGMMA``) in each kernel
     function of the flash, paged and grouped-product libraries, by
@@ -868,8 +897,8 @@ def check_flash() -> dict:
             raise AssertionError(f"{name} disagrees with its plain version")
         if not same:
             raise AssertionError(f"{name}: two calls differ")
-        if dt == torch.bfloat16 and D == 64 and S == T == 2048:
-            worst["serving"] = err
+        if D == 64 and S == T == 2048:
+            worst["serving" + _suffix(dt)] = err
         if dt == torch.bfloat16 and (T - S, S) == SUFFIX_SHAPES[0]:
             worst["suffix"] = err
         worst[name] = err
@@ -928,7 +957,7 @@ def check_flash_bwd() -> dict:
               for D in (64, 128) for m in masks]
     # The training run's attention (MHA), at B = 2: its errors go in the
     # kernels line.
-    cases.append((bf16, 64, 2048, 2048, "causal", 1))
+    cases += [(dt, 64, 2048, 2048, "causal", 1) for dt in (bf16, f32)]
     cases += [(dt, 64, S, S, "causal", G) for dt in (bf16, f32)
               for S in EDGE_S for G in (1, 4)]
     cases += [(dt, D, *EDGE_T, m, 4) for dt in (bf16, f32) for D in (64, 128)
@@ -957,7 +986,7 @@ def check_flash_bwd() -> dict:
             failed.append(name)
         worst[name] = err
         if S == T == 2048 and G == 1:
-            worst["training"] = {
+            worst["training" + _suffix(dt)] = {
                 "dkdv": max((dk.float() - rk.float()).abs().max().item(),
                             (dv.float() - rv.float()).abs().max().item()),
                 "dq": (dq.float() - rq.float()).abs().max().item()}
@@ -1050,8 +1079,8 @@ def check_paged() -> dict:
             raise AssertionError(f"{name}: a limit=0 slot is not (0, NEG_INF)")
         if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
             raise AssertionError(f"{name}: two calls differ")
-        if kind == bf16 and Dh == 64 and R == 4 and lim is K4_LIMITS:
-            worst["serving"] = err
+        if kind in (bf16, f32) and Dh == 64 and R == 4 and lim is K4_LIMITS:
+            worst["serving" + _suffix(kind)] = err
         if kind == bf16 and Dh == 64 and R == 20:
             worst["verify"] = err
         worst[name] = err
@@ -3700,13 +3729,19 @@ def _flash_zero() -> None:
 def _counted(fn, total: dict):
     """``fn()`` with K1-K3's counters set to 0 just before and read just
     after -> (its result, its launches); the launches are added to
-    ``total``."""
+    ``total``, and by dtype to ``total["by_dtype"]``."""
     _flash_zero()
+    before = _by_dtype()
     out = fn()
     got = dict(zip(("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"),
                    _flash_counts()))
     for k, v in got.items():
         total[k] = total.get(k, 0) + v
+    by_dtype = total.setdefault("by_dtype", {})
+    for dt, counts in _by_dtype_since(before).items():
+        into = by_dtype.setdefault(dt, {})
+        for k, v in counts.items():
+            into[k] = into.get(k, 0) + v
     return out, got
 
 
@@ -6923,7 +6958,8 @@ def check_grouped() -> dict:
     return {"errors": errs, "worst": worst, "row_invariant": True,
             "g2_deterministic": True,
             "max_abs_err": {prod: abs_errs[f"{prod}.bfloat16.gate.prefill"]
-                            for prod in products}}
+                            for prod in products},
+            "abs_errors": abs_errs}
 
 
 def _library_grouped(prod, xs, w, off, dy):
@@ -6972,7 +7008,8 @@ GMM_TIMED = (("G1", "gate", torch.bfloat16, "prefill"),
              ("G2", "gate", torch.bfloat16, "skewed"),
              ("G1", "gate", torch.float32, "prefill"),
              ("G1_dx", "gate", torch.float32, "prefill"),
-             ("G2", "gate", torch.float32, "prefill"))
+             ("G2", "gate", torch.float32, "prefill"),
+             ("G2", "gate", torch.float32, "skewed"))
 
 
 def time_grouped(errs: dict) -> list:
@@ -6983,7 +7020,7 @@ def time_grouped(errs: dict) -> list:
     (:func:`_library_grouped`).  Bytes: each operand once, the output
     once; G1 reads the weights of every non-empty group, G2 writes every
     group's dW.  f32 is bound on the f32 rate outside the tensor
-    cores."""
+    cores.  ``errs``: :func:`check_grouped`'s absolute errors by case."""
     out = []
     products = _gmm_products()
     for prod, shape, dtype, case in GMM_TIMED:
@@ -6995,7 +7032,7 @@ def time_grouped(errs: dict) -> list:
         T_, E = ops[0].shape[0], len(counts)
         ms, one = time_ms(lambda: kernel(*call)), \
             time_ms(lambda: kernel(*call), batch=1)
-        plain_ms = time_ms(lambda: plain(*call), reps=5, batch=1)
+        plain_ms = _plain_ms(lambda: plain(*call), dtype)
         lib_fn, lib_name = _library_grouped(prod, *ops)
         lib = time_ms(lib_fn)
         flops = 2 * T_ * K * N
@@ -7006,7 +7043,7 @@ def time_grouped(errs: dict) -> list:
         nbytes = ops[0].element_size() * elems + 4 * (E + 1)
         b_ms, b_by = bound(flops, nbytes, dtype)
         name = {"G1": "grouped_matmul", "G1_dx": "grouped_matmul_dx",
-                "G2": "grouped_matmul_dw"}[prod]
+                "G2": "grouped_matmul_dw"}[prod] + _suffix(dtype)
         what = {"G1": "forward", "G1_dx": "dx = dy W^T, G1 transposed",
                 "G2": "dW = xs^T dy"}[prod]
         out.append({
@@ -7017,7 +7054,7 @@ def time_grouped(errs: dict) -> list:
                         "horovod_tpu/ops/moe.py:229 (the VJP of "
                         "lax.ragged_dot, an XLA op: no Pallas original)",
             "launches": None,
-            "max_abs_err": errs[prod],
+            "max_abs_err": errs[f"{prod}.{_dt(dtype)}.{shape}.{case}"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib, "tflops": tflops(flops, ms),
             "one_call_ms": one, "library": lib_name,
@@ -7151,6 +7188,7 @@ def moe_equalities_f32() -> dict:
         t.requires_grad_()
     batch = T.synthetic_batch(3, cfg, 1)
     outs, grads = {}, {}
+    before = _by_dtype()
     for impl in ("switch", "dense", "dropless"):
         c = dataclasses.replace(cfg, moe_impl=impl)
         with torch.no_grad():
@@ -7170,6 +7208,9 @@ def moe_equalities_f32() -> dict:
         f"largest)")
     if max(res.values()) > 1e-4:
         raise AssertionError(f"MoE dispatches differ at f32: {res}")
+    # Every launch above is the gate's own run (f32): K1-K3 in all
+    # three, G1 and G2 in the dropless one.
+    res["launches"] = _by_dtype_since(before).get("float32", {})
     del params, outs, grads
     torch.cuda.empty_cache()
     return res
@@ -7590,15 +7631,84 @@ def moe_serve_f32(card: str) -> dict:
 # --- phase 8: times ----------------------------------------------------------
 
 
+def _dt(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _suffix(dtype) -> str:
+    """A kernels-line name's suffix: f32 runs its own kernel functions."""
+    return "_f32" if dtype == torch.float32 else ""
+
+
+def _plain_ms(fn, dtype) -> float:
+    """The plain version's time: five calls alone in bf16; in f32, whose
+    plain versions run for tens of milliseconds, one call after one
+    warm-up."""
+    if dtype == torch.float32:
+        return time_ms(fn, reps=1, warm=1, batch=1)
+    return time_ms(fn, reps=5, batch=1)
+
+
+def sdpa_backend(*args, **kw) -> str:
+    """The backend PyTorch's dispatcher picks for one SDPA call on these
+    arguments (``torch._fused_sdp_choice``, what
+    ``scaled_dot_product_attention`` itself asks): ``FLASH_ATTENTION``,
+    ``EFFICIENT_ATTENTION`` (CUTLASS's memory-efficient kernels),
+    ``CUDNN_ATTENTION`` or ``MATH`` (PyTorch's own matmuls and softmax).
+    Read from the dispatcher, not a profile: late in this script the
+    profiler has kept no kernel record of such a call."""
+    from torch.nn.attention import SDPBackend
+
+    return "SDPA " + SDPBackend(torch._fused_sdp_choice(*args, **kw)).name
+
+
+# The wrappers' counters by dtype (never set to 0: read before and after
+# a run), under the kernels line's keys.
+BY_DTYPE = {"flash_fwd": ("A", "flash_fwd_launches_by_dtype"),
+            "flash_bwd_dkdv": ("A", "flash_bwd_dkdv_launches_by_dtype"),
+            "flash_bwd_dq": ("A", "flash_bwd_dq_launches_by_dtype"),
+            "paged_attend": ("PA", "paged_attend_launches_by_dtype"),
+            "grouped_matmul": ("GM", "grouped_matmul_launches_by_dtype"),
+            "grouped_matmul_dw": ("GM",
+                                  "grouped_matmul_dw_launches_by_dtype")}
+
+
+def _by_dtype() -> dict:
+    """Every kernel's launches so far by dtype: ``{kernel: {dtype: n}}``."""
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import grouped_matmul as GM
+    from horovod_tpu_torch.ops import paged_attention as PA
+
+    mods = {"A": A, "PA": PA, "GM": GM}
+    return {k: dict(getattr(mods[m], attr)) for k, (m, attr) in
+            BY_DTYPE.items()}
+
+
+def _by_dtype_since(before: dict) -> dict:
+    """The launches by dtype since ``before`` (:func:`_by_dtype`):
+    ``{dtype: {kernel: n}}``."""
+    out: dict = {}
+    for k, now in _by_dtype().items():
+        for dt, n in now.items():
+            d = n - before[k].get(dt, 0)
+            if d:
+                out.setdefault(dt, {})[k] = d
+    return out
+
+
 def time_flash(err: float, launches: int, B: int = 2, Hkv: int = 4,
-               H: int = 16, queued: bool = False) -> dict:
-    """K1 at the serving prefill's shape (``H`` query heads over ``Hkv``);
-    ``queued`` times the kernel and its yardstick by :func:`queued_ms`."""
+               H: int = 16, queued: bool = False,
+               dtype=torch.bfloat16) -> dict:
+    """K1 at the serving prefill's shape (``H`` query heads over ``Hkv``)
+    in ``dtype``; ``queued`` times the kernel and its yardstick by
+    :func:`queued_ms`.  The yardstick is SDPA on the same inputs; in
+    f32 with TF32 off, as the f32 paths run, its backend named."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import attention as A
 
-    S, D, dt = 2048, 64, torch.bfloat16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S, D, dt = 2048, 64, dtype
     timer = queued_ms if queued else time_ms
     q, k, v = _k1_inputs(B, H, Hkv, S, D, dt, seed=100)
     ke, ve = A.expand_kv(k, H), A.expand_kv(v, H)
@@ -7607,26 +7717,34 @@ def time_flash(err: float, launches: int, B: int = 2, Hkv: int = 4,
         return A.flash_attention_with_lse(q, k, v, True)
 
     ms, one = timer(kernel), time_ms(kernel, batch=1)
-    plain = time_ms(lambda: A._reference_attention_lse(
-        q, A.expand_kv(k, H), A.expand_kv(v, H), 0, scale), reps=5, batch=1)
+    plain = _plain_ms(lambda: A._reference_attention_lse(
+        q, A.expand_kv(k, H), A.expand_kv(v, H), 0, scale), dt)
+
+    lib_args = ((q, k, v), dict(is_causal=True, enable_gqa=True))
+
+    def library():
+        return F.scaled_dot_product_attention(*lib_args[0], **lib_args[1])
+
     try:
-        lib = timer(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))
+        lib = timer(library)
     except TypeError:  # a PyTorch without enable_gqa: expanded K/V
-        lib = timer(lambda: F.scaled_dot_product_attention(
-            q, ke, ve, is_causal=True))
+        lib_args = ((q, ke, ve), dict(is_causal=True))
+        lib = timer(library)
     pairs = B * H * S * (S + 1) / 2
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) \
-        + 4 * B * H * S
+    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                 + q.numel()) + 4 * B * H * S
     b_ms, b_by = bound(4 * D * pairs, nbytes, dt)
-    return {"name": "flash_fwd", "route": "cuda",
+    return {"name": "flash_fwd" + _suffix(dt), "route": "cuda",
             "source": "horovod_tpu_torch/ops/csrc/flash_fwd.cu",
             "replaces": "horovod_tpu/ops/attention.py:124",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib, "tflops": tflops(4 * D * pairs, ms),
             "one_call_ms": one,
-            "shape": f"B={B} H={H} H_kv={Hkv} S=T={S} D={D} bf16 causal"}
+            "library": sdpa_backend(*lib_args[0], **lib_args[1])
+            + (", GQA" if Hkv < H else ""),
+            "shape": f"B={B} H={H} H_kv={Hkv} S=T={S} D={D} {_dt(dt)} "
+                     "causal"}
 
 
 def time_flash_suffix(err: float) -> dict:
@@ -7694,15 +7812,18 @@ def time_flash_suffix(err: float) -> dict:
                      f"shift={-p0}"}
 
 
-def time_flash_bwd(errs: dict, launches: dict) -> list:
-    """K2 and K3 at the training shape; the library yardstick is the
-    backward of ``scaled_dot_product_attention`` (one autograd call, dq,
-    dk and dv together), so both rows carry the pair's time."""
+def time_flash_bwd(errs: dict, launches: dict,
+                   dtype=torch.bfloat16) -> list:
+    """K2 and K3 at the training shape in ``dtype``; the library
+    yardstick is the backward of ``scaled_dot_product_attention`` (one
+    autograd call, dq, dk and dv together; TF32 off), so both rows carry
+    the pair's time."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import attention as A
 
-    B, H, S, D, dt = TRAIN_BATCH, 16, 2048, 64, torch.bfloat16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, S, D, dt = TRAIN_BATCH, 16, 2048, 64, dtype
     scale = 1.0 / math.sqrt(D)
     q, k, v = _k1_inputs(B, H, H, S, D, dt, seed=300)
     do = torch.randn((B, H, S, D), device="cuda").to(dt)
@@ -7713,20 +7834,22 @@ def time_flash_bwd(errs: dict, launches: dict) -> list:
     ms3 = time_ms(lambda: A._flash_bwd_dq_cuda(*args))
     one2 = time_ms(lambda: A._flash_bwd_dkdv_cuda(*args), batch=1)
     one3 = time_ms(lambda: A._flash_bwd_dq_cuda(*args), batch=1)
-    plain2 = time_ms(lambda: A._flash_bwd_dkdv_reference(*args), reps=5,
-                     batch=1)
+    plain2 = _plain_ms(lambda: A._flash_bwd_dkdv_reference(*args), dt)
     torch.cuda.empty_cache()
-    plain3 = time_ms(lambda: A._flash_bwd_dq_reference(*args), reps=5,
-                     batch=1)
+    plain3 = _plain_ms(lambda: A._flash_bwd_dq_reference(*args), dt)
     torch.cuda.empty_cache()
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-    lib = time_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
-                                              retain_graph=True))
+
+    def library():
+        return torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)
+
+    lib = time_ms(library)
+    lib_name = sdpa_backend(ql, kl, vl, is_causal=True) + " backward"
     pairs = B * H * S * (S + 1) / 2
     rows = 4 * B * H * S  # lse and delta, f32
-    n = q.numel()
-    shape = f"B={B} H={H} S=T={S} D={D} bf16 causal"
+    n, es = q.numel(), q.element_size()
+    shape = f"B={B} H={H} S=T={S} D={D} {_dt(dt)} causal"
     out = []
     for name, src, line, ms, one, plain, flop_per_pair, outs in (
             ("flash_bwd_dkdv", "horovod_tpu/ops/attention.py:254", "dkdv",
@@ -7734,24 +7857,26 @@ def time_flash_bwd(errs: dict, launches: dict) -> list:
             ("flash_bwd_dq", "horovod_tpu/ops/attention.py:315", "dq",
              ms3, one3, plain3, 6 * D, 1)):
         flops = flop_per_pair * pairs
-        b_ms, b_by = bound(flops, 2 * 4 * n + 2 * rows + 2 * outs * n, dt)
-        out.append({"name": name, "route": "cuda",
+        b_ms, b_by = bound(flops, es * 4 * n + 2 * rows + es * outs * n, dt)
+        out.append({"name": name + _suffix(dt), "route": "cuda",
                     "source": "horovod_tpu_torch/ops/csrc/flash_bwd.cu",
                     "replaces": src, "launches": launches[name],
                     "max_abs_err": errs[line], "ms": ms, "plain_ms": plain,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
                     "tflops": tflops(flops, ms), "one_call_ms": one,
-                    "shape": shape})
+                    "library": lib_name, "shape": shape})
     del q, k, v, do, o, lse, delta, ql, kl, vl, ol
     torch.cuda.empty_cache()
     return out
 
 
-def time_paged(err: float, launches: int, R: int = 4, Hkv: int = 4) -> dict:
+def time_paged(err: float, launches: int, R: int = 4, Hkv: int = 4,
+               dtype=torch.bfloat16) -> dict:
     """K4 at the serving shape, 8 slots x 2176 positions, with ``R``
     query rows a kv head: the decode tick's G = 4, or the speculative
     verify's G * W = 20 (its own kernels-line entry); ``Hkv`` kv heads
-    (a tp shard's ``4 / tp``)."""
+    (a tp shard's ``4 / tp``); q and the pool in ``dtype`` (an f32 pool
+    runs the split kernel's f32 instantiation)."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch.models import transformer as T
@@ -7760,17 +7885,16 @@ def time_paged(err: float, launches: int, R: int = 4, Hkv: int = 4) -> dict:
     S, Dh, ps, MP = 8, 64, 16, 136
     P = S * MP + 1
     g = torch.Generator(device="cuda").manual_seed(7)
-    qg = torch.randn((S, Hkv, R, Dh), generator=g, device="cuda").to(
-        torch.bfloat16)
-    kp = torch.randn((P, Hkv, ps, Dh), generator=g, device="cuda").to(
-        torch.bfloat16)
+    qg = torch.randn((S, Hkv, R, Dh), generator=g, device="cuda").to(dtype)
+    kp = torch.randn((P, Hkv, ps, Dh), generator=g, device="cuda").to(dtype)
     vp = torch.randn_like(kp)
     # Every slot at full depth, each with its own pages in shuffled order.
     perm = torch.randperm(P - 1, generator=g, device="cuda")[:S * MP] + 1
     table = perm.reshape(S, MP).to(torch.int32).contiguous()
     limit = torch.full((S,), MP * ps, dtype=torch.int32, device="cuda")
     def kernel():
-        return PA.paged_attend(qg, kp, vp, None, None, table, limit)
+        return PA.paged_attend(qg, kp, vp, None, None, table, limit,
+                               compute_dtype=dtype)
 
     # Device time (split + combine kernels): CUDA events around 10
     # back-to-back calls time the host's launching at this size, and the
@@ -7779,7 +7903,8 @@ def time_paged(err: float, launches: int, R: int = 4, Hkv: int = 4) -> dict:
     ms = queued_ms(kernel)
     call_ms, one = time_ms(kernel), time_ms(kernel, batch=1)
     plain = time_ms(lambda: PA.paged_attend_reference(
-        qg, kp, vp, None, None, table, limit), reps=10, batch=1)
+        qg, kp, vp, None, None, table, limit, compute_dtype=dtype), reps=10,
+        batch=1)
     kg = T._gather_pages(kp, table)
     vg = T._gather_pages(vp, table)
     vis = (torch.arange(MP * ps, device="cuda")[None, :]
@@ -7788,6 +7913,7 @@ def time_paged(err: float, launches: int, R: int = 4, Hkv: int = 4) -> dict:
     def library():
         return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=vis)
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     lib, lib_call = queued_ms(library), time_ms(library)
     pps, grid = PA.split_grid(S, Hkv, R, MP, kp.dtype)
     log(f"K4 grid at the serving shape, R = {R}: "
@@ -7798,8 +7924,9 @@ def time_paged(err: float, launches: int, R: int = 4, Hkv: int = 4) -> dict:
     nbytes = (kv_bytes + qg.numel() * qg.element_size() + table.numel() * 4
               + S * 4 + S * Hkv * R * Dh * 4 + S * Hkv * R * 4)
     flops = 4 * Hkv * R * Dh * n_pos
-    b_ms, b_by = bound(flops, nbytes, torch.bfloat16)
-    return {"name": "paged_attend" if R == 4 else "paged_attend_verify",
+    b_ms, b_by = bound(flops, nbytes, dtype)
+    return {"name": ("paged_attend" if R == 4 else "paged_attend_verify")
+            + _suffix(dtype),
             "route": "cuda",
             "source": "horovod_tpu_torch/ops/csrc/paged_attention.cu",
             "replaces": "horovod_tpu/ops/paged_attention.py:101",
@@ -7808,9 +7935,11 @@ def time_paged(err: float, launches: int, R: int = 4, Hkv: int = 4) -> dict:
             "library_ms": lib, "tflops": tflops(flops, ms),
             "one_call_ms": one, "call_ms": call_ms,
             "library_call_ms": lib_call,
+            "library": sdpa_backend(qg, kg, vg, attn_mask=vis)
+            + ", gathered K/V",
             "grid": list(grid), "pages_per_split": pps,
             "shape": f"S={S} H_kv={Hkv} R={R} Dh={Dh} page={ps} "
-                     f"pages/slot={MP} bf16, every slot at {MP * ps}"}
+                     f"pages/slot={MP} {_dt(dtype)}, every slot at {MP * ps}"}
 
 
 # --- the tp phase: tensor-parallel serving -----------------------------------
@@ -7999,18 +8128,22 @@ def _tp_size_one(params, cfg, prompts, want: list) -> dict:
 
 def time_tp_kernels(errs: dict, launches: dict) -> list:
     """K1 and K4 at the shard-local shapes of tp = 2 and 4 (queued device
-    time, bound, plain version, SDPA), K4 at the tick's 8 x 2176."""
+    time, bound, plain version, SDPA), K4 at the tick's 8 x 2176: in f32,
+    with the launches of the f32 churns (``launches["float32"]``), and in
+    bf16, with those of the bf16 first tick (``launches["bfloat16"]``)."""
     rows = []
-    for tp in TP_DEGREES:
-        Hkv, H = 4 // tp, 16 // tp
-        k4 = time_paged(errs[f"K4 tp-local bfloat16 H_kv={Hkv} R=4"],
-                        launches[tp]["paged_attend"], Hkv=Hkv)
-        k4["name"] = f"paged_attend_tp{tp}"
-        k1 = time_flash(errs[f"K1 tp-local bfloat16 H={H} H_kv={Hkv} "
-                             "S=1024"], launches[tp]["flash_fwd"], Hkv=Hkv,
-                        H=H, queued=True)
-        k1["name"] = f"flash_fwd_tp{tp}"
-        rows += [k1, k4]
+    for dt in (torch.float32, torch.bfloat16):
+        for tp in TP_DEGREES:
+            Hkv, H = 4 // tp, 16 // tp
+            n = launches[_dt(dt)][tp]
+            k4 = time_paged(errs[f"K4 tp-local {_dt(dt)} H_kv={Hkv} R=4"],
+                            n.get("paged_attend", 0), Hkv=Hkv, dtype=dt)
+            k4["name"] = f"paged_attend_tp{tp}" + _suffix(dt)
+            k1 = time_flash(errs[f"K1 tp-local {_dt(dt)} H={H} H_kv={Hkv} "
+                                 "S=1024"], n.get("flash_fwd", 0), Hkv=Hkv,
+                            H=H, queued=True, dtype=dt)
+            k1["name"] = f"flash_fwd_tp{tp}" + _suffix(dt)
+            rows += [k1, k4]
     return rows
 
 
@@ -8054,10 +8187,12 @@ def tp_full_width(card: str) -> dict:
     cfg16 = T.TransformerConfig(**FULL, dtype=torch.bfloat16)
     p16 = T.init_params(cfg16, seed=0, device="cuda")
     base0, base, first = _tp_first_tick(p16, cfg16, prompts)
-    bf16 = {}
+    bf16, bf16_launches = {}, {}
     for tp in TP_DEGREES:
         sh = ServingSharding(cfg16, tp, device="cuda", virtual=True)
+        before = _by_dtype()
         l0, l1, _ = _tp_first_tick(p16, cfg16, prompts, sh, first)
+        bf16_launches[tp] = _by_dtype_since(before).get("bfloat16", {})
         scale = base.abs().max().item()
         bf16[tp] = {
             "prefill_err": (l0 - base0).abs().max().item()
@@ -8081,6 +8216,7 @@ def tp_full_width(card: str) -> dict:
     out.update(f32={tp: {k: v for k, v in leg.items() if k != "tokens"}
                     for tp, leg in legs.items()},
                identical_to_tp1=same, bf16=bf16,
+               bf16_launches=bf16_launches,
                launches={tp: legs[tp]["launches"] for tp in legs})
     out["launches"]["size_one"] = out["size_one_nccl"]["launches"]
     out["size_one_nccl"].pop("tokens")
@@ -8104,6 +8240,7 @@ def main() -> int:
     card = card_info()
     with phase("build"):
         build()
+        REPORT["ffma_tiled_ptxas"] = ptxas_check()
         REPORT["sass_hmma"] = sass_check()
     with phase("kernel_checks"):
         k1 = check_flash()
@@ -8113,7 +8250,7 @@ def main() -> int:
                                "paged_attend": k4}
     with phase("grouped_kernel"):
         g1 = check_grouped()
-        g1_times = time_grouped(g1["max_abs_err"])
+        g1_times = time_grouped(g1["abs_errors"])
     REPORT["kernel_checks"]["grouped_matmul"] = g1
     with phase("serving"):
         serving = serve_full_width(card)
@@ -8276,6 +8413,39 @@ def main() -> int:
     k4_launches = sum(r["launches"]["paged_attend"] for r in served) \
         - k4_verify + fleet_launches["paged_attend"] + \
         sp["launches"]["paged_attend"] + tp_launches["paged_attend"]
+    # By dtype: each phase's launches go to the dtype it runs.  The f32
+    # runs among the sums above: the f32 MoE burst, the tp churns, the
+    # virtual ring's f32 passes and the pipeline phase's f32 runs; and,
+    # counted only here, the f32 serving phase's faulted burst, its
+    # speculative and SLO legs, and the f32 MoE gate.  The rest is bf16
+    # (K4: bf16 and int8 pools).
+    keys = tuple(BY_DTYPE)
+    sp_f32 = {k: sum(c["launches"][i] for n, c in
+                     sp["virtual_ring"]["cases"].items() if "float32" in n)
+              for i, k in enumerate(keys[:3])}
+    pipe_f32 = pipe["launches"].get("by_dtype", {}).get("float32", {})
+    in_sums = [moe_sv32["launches"], *tp["launches"].values(), sp_f32,
+               pipe_f32]
+    serve_f32 = [ident["durability"]["launches"], ident["slo"]["launches"],
+                 *(leg["launches"] for leg in
+                   ident["speculative"].values()), moe_sv32["launches"]]
+    train_f32 = [sp_f32, pipe_f32, moe_tr["equalities_f32"]["launches"]]
+
+    def total(runs):
+        return {k: sum(r.get(k, 0) for r in runs) for k in keys}
+
+    f32_in_sums, f32 = total(in_sums), total(
+        serve_f32 + train_f32 + list(tp["launches"].values()))
+    f32_k1 = {"serving": total(serve_f32)["flash_fwd"],
+              "training": total(train_f32)["flash_fwd"]}
+    k1_launches -= f32_in_sums["flash_fwd"]
+    k4_launches -= f32_in_sums["paged_attend"]
+    g1_launches -= f32_in_sums["grouped_matmul"]
+    trained = {k: v - f32_in_sums[k] for k, v in trained.items()}
+    REPORT["launches_f32"] = {"all": f32, "K1": f32_k1}
+    log(f"f32 launches over every f32 path: {f32} (K1: serving "
+        f"{f32_k1['serving']}, training {f32_k1['training']}, the tp "
+        "churns the rest)")
     t_times = time.monotonic()
     g1_times[0]["launches"] = g1_launches
     g1_times[1]["launches"] = g2_launches
@@ -8284,13 +8454,35 @@ def main() -> int:
                time_paged(k4["serving"], k4_launches),
                time_paged(k4["verify"], k4_verify, R=verify_rows),
                *g1_times[:2]]
-    REPORT["grouped_matmul_other_shapes"] = g1_times[2:]
+    gmm_f32 = {(r["name"], "skewed" in r["shape"]): r
+               for r in g1_times[2:]}
+    g1_f32 = gmm_f32[("grouped_matmul_f32", False)]
+    g2_f32 = gmm_f32[("grouped_matmul_dw_f32", False)]
+    g1_f32["launches"] = f32["grouped_matmul"]
+    g2_f32["launches"] = f32["grouped_matmul_dw"]
+    # The f32 kernels, each with its launches over every f32 path.
+    kernels += [time_flash(k1["serving_f32"], f32["flash_fwd"],
+                           dtype=torch.float32),
+                *time_flash_bwd(k23["training_f32"], f32,
+                                dtype=torch.float32),
+                time_paged(k4["serving_f32"], f32["paged_attend"],
+                           dtype=torch.float32),
+                g1_f32, g2_f32]
+    REPORT["grouped_matmul_other_shapes"] = [
+        r for r in g1_times[2:] if r is not g1_f32 and r is not g2_f32]
+    idle = [kr["name"] for kr in kernels if not kr["launches"]]
+    if idle:
+        raise AssertionError(f"kernels no main path launched: {idle}")
     k1_train = time_flash(None, train["launches"]["flash_fwd"],
                           B=TRAIN_BATCH, Hkv=16)
     REPORT["flash_fwd_training_shape"] = k1_train
+    k1_train_f32 = time_flash(None, f32_k1["training"], B=TRAIN_BATCH,
+                              Hkv=16, dtype=torch.float32)
+    REPORT["flash_fwd_f32_training_shape"] = k1_train_f32
     k1_suffix = time_flash_suffix(k1["suffix"])
     REPORT["flash_fwd_suffix_shape"] = k1_suffix
-    tp_kernels = time_tp_kernels(tp["kernels"], tp["launches"])
+    tp_kernels = time_tp_kernels(tp["kernels"], {
+        "float32": tp["launches"], "bfloat16": tp["bf16_launches"]})
     REPORT["tp_kernels"] = tp_kernels
     REPORT["phase_s"]["times"] = time.monotonic() - t_times
     log(f"phase times: {REPORT['phase_s']['times']:.1f} s")
@@ -8299,19 +8491,22 @@ def main() -> int:
         f"{k1_suffix['ms']:.4f} ms by value (CUDA events, 10 calls); "
         f"kernel device time (profiler, in turns) "
         f"{k1_suffix['kernel_device_ms']}")
-    k4r4, k4r20 = kernels[-4], kernels[-3]
+    k4r4, k4r20 = kernels[3], kernels[4]
     log(f"K4 at the verify's R = {verify_rows} on {card}: "
         f"{k4r20['ms']:.4f} ms device time beside {k4r4['ms']:.4f} ms at "
         f"R = 4; byte bound {k4r20['bound_ms']:.4f} ms ({k4r20['bound_by']}"
         f"); SDPA over gathered K/V at R = {verify_rows} "
         f"{k4r20['library_ms']:.4f} ms; {k4_verify} verify launches in the "
         "speculative legs")
-    for kr in kernels + [k1_train, k1_suffix, *g1_times[2:], *tp_kernels]:
+    for kr in kernels + [k1_train, k1_train_f32, k1_suffix,
+                         *REPORT["grouped_matmul_other_shapes"],
+                         *tp_kernels]:
         log(f"{kr['name']} [{kr['shape']}]: {kr['ms']:.4f} ms "
             f"({kr['tflops']:.1f} TFLOP/s; one call alone "
             f"{kr['one_call_ms']:.4f} ms), bound {kr['bound_ms']:.4f} ms "
             f"({kr['bound_by']}), plain {kr['plain_ms']:.4f} ms, library "
-            f"{kr['library_ms']:.4f} ms")
+            f"{kr['library_ms']:.4f} ms ({kr.get('library', 'SDPA')}); "
+            f"launches {kr['launches']}")
     REPORT["kernels"] = kernels
     REPORT["seconds"] = time.monotonic() - t_start
     log(f"script: {REPORT['seconds']:.1f} s, headroom "

@@ -40,7 +40,8 @@ from typing import Dict, Iterable
 
 import torch
 
-__all__ = ["NEG_INF", "build_all", "check", "library", "ptr", "stream"]
+__all__ = ["NEG_INF", "build_all", "check", "count", "library", "ptr",
+           "stream"]
 
 NEG_INF = -1e30  # finite mask value: exp(NEG_INF - anything_real) == 0
 
@@ -132,6 +133,13 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def count(by_dtype: dict, dtype: torch.dtype) -> None:
+    """One more launch in a wrapper's counter by dtype name ("float32",
+    "bfloat16", "int8"): each dtype runs its own kernel functions."""
+    name = str(dtype).removeprefix("torch.")
+    by_dtype[name] = by_dtype.get(name, 0) + 1
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -24,7 +24,9 @@ sum, as ``jnp.repeat``'s is).
   launch; a tensor it reads by address).
 * Each launch adds one to its counter (:data:`flash_fwd_launches`,
   :data:`flash_bwd_dkdv_launches`, :data:`flash_bwd_dq_launches`), so a
-  run can show that its main path went through the kernels.
+  run can show that its main path went through the kernels, and one to
+  the same kernel's count for its dtype (``*_launches_by_dtype``: f32
+  and bf16 run different kernel functions).
 * Sequence parallelism over a process group, as the JAX functions of
   the same names compute it under ``shard_map``: :func:`ring_attention`
   and :func:`zigzag_ring_attention` (K/V shards passed around the ring
@@ -59,6 +61,10 @@ __all__ = ["NEG_INF", "expand_kv", "flash_attention",
 flash_fwd_launches = 0
 flash_bwd_dkdv_launches = 0
 flash_bwd_dq_launches = 0
+#: The same launches by dtype name ("float32", "bfloat16").
+flash_fwd_launches_by_dtype: dict = {}
+flash_bwd_dkdv_launches_by_dtype: dict = {}
+flash_bwd_dq_launches_by_dtype: dict = {}
 
 
 def _sm_scale(q, sm_scale):
@@ -259,6 +265,7 @@ def _flash_fwd_cuda(q, k, v, shift, scale):
         *mask, scale, _cuda.stream(q.device), shift_dev)
     _cuda.check(lib, rc, "flash_fwd launch")
     flash_fwd_launches += 1
+    _cuda.count(flash_fwd_launches_by_dtype, q.dtype)
     return o, lse
 
 
@@ -293,6 +300,7 @@ def _flash_bwd_dkdv_cuda(q, k, v, do, lse, delta, shift, scale):
         _cuda.stream(q.device))
     _cuda.check(lib, rc, "flash_bwd_dkdv launch")
     flash_bwd_dkdv_launches += 1
+    _cuda.count(flash_bwd_dkdv_launches_by_dtype, q.dtype)
     return dk, dv
 
 
@@ -305,6 +313,7 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, shift, scale):
                                        _cuda.stream(q.device))
     _cuda.check(lib, rc, "flash_bwd_dq launch")
     flash_bwd_dq_launches += 1
+    _cuda.count(flash_bwd_dq_launches_by_dtype, q.dtype)
     return dq
 
 

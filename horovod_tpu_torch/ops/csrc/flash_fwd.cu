@@ -71,132 +71,301 @@
 //   encoded on the host for each call and passed as __grid_constant__
 //   parameters; the kernel allocates nothing and never synchronises, so
 //   it runs inside the captured tick, admission and train-step graphs.
-// * f32 (`flash_fwd_kernel`): the scalar kernel of the first port, one
-//   CTA per (batch*head, 64-row Q tile), four threads a query row,
-//   tiles in shared memory as f32 and scalar FMAs.  TF32 tensor cores
-//   would round the products to 10 mantissa bits and miss the f32
-//   contract (1e-4 of the plain version, exact greedy tokens).
+// * f32 (`flash_fwd_kernel`): register-tiled FFMA fed by cp.async.  In
+//   f32 the bound is the FMA rate outside the tensor cores (67 TFLOP/s:
+//   0.26 ms at the serving prefill, 1.03 ms at the training shape); TF32
+//   tensor cores would round the products to 10 mantissa bits and miss
+//   the f32 contract (1e-4 of the plain version, exact greedy tokens).
+//   What keeps an FFMA kernel from that rate is feeding it: the scalar
+//   kernel it replaced read one shared float an FMA (Q K^T) or two (P V)
+//   and landed its tiles 4 bytes at a time between barriers.  Here a CTA
+//   of 256 threads takes 64 query rows of one head; Q, and K and V tiles
+//   of 64 keys (32 at D = 128), land by 16-byte cp.async (zeros past S
+//   and T), K and V into two stages, so the next tile arrives while this
+//   one is multiplied.  Each thread keeps 4 rows x 4 key columns of S and
+//   4 rows x D / 16 columns of O in registers and reads its operands as
+//   16-byte shared loads, 8 FMAs a load in both products (against the
+//   scalar kernel's 1 and 1/2).  The softmax runs on the raw scores: a
+//   row's max and sum go across its 16 lanes by shuffles, p = exp2(s sl
+//   - m sl) by one FMA (sl = scale log2 e), masked scores (only on tiles
+//   crossing T or a shifted diagonal) NEG_INF; P goes through shared
+//   memory to the warp that wrote it.  The grid runs heads fastest and
+//   Q blocks longest first.  No spill at D = 128 (128 registers a
+//   thread, two CTAs an SM).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_bf16.cuh"
 #include "wgmma_tma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per CTA
-constexpr int BK = 64;        // key columns per staged tile
-constexpr int TPR = 4;        // threads per query row
-constexpr int THREADS = BQ * TPR;
+using hvd_mma::cp_async16;
+using hvd_mma::cp_async_commit;
+using hvd_mma::cp_async_wait;
+
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;  // exp(x) = exp2(x * LOG2E)
 
-// --- f32: scalar FMAs ---------------------------------------------------------
+// --- f32: register-tiled FFMA fed by cp.async ------------------------------
 
+constexpr int F_BQ = 64;   // query rows a CTA
+constexpr int F_RPT = 4;   // query rows a thread
+constexpr int F_THREADS = F_BQ / F_RPT * 16;  // row groups x 16 columns
+
+// Shared memory, in floats: the CTA's Q rows [F_BQ][LDQ], its P tile
+// [F_BQ][LDP], then STAGES stages of a K tile [BK][LDQ] and a V tile
+// [BK][D].  Rows of Q and K are padded by 4 floats, so that the 16 rows
+// a half-warp reads at one column fall on distinct 16-byte bank groups;
+// P's by 16, so that a warp's two rows do.  D = 64: 103 KB, D = 128
+// (32 keys a stage): 110 KB, two CTAs an SM either way.  (Eight rows a
+// thread on 128 threads took 200 registers and ran 1.4-1.7x slower on
+// the card; one barrier a tile, with one tile ahead, 1-4 % slower.)
 template <int D>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
+struct F32Layout {
+  static constexpr int BK = D == 64 ? 64 : 32;  // keys a stage
+  static constexpr int SC = BK / 16;            // score columns a thread
+  static constexpr int OV = D / 64;             // output float4s a row
+  static constexpr int LDQ = D + 4;
+  static constexpr int LDP = BK + 16;
+  static constexpr int STAGES = 2;
+  static constexpr int Q_FLOATS = F_BQ * LDQ;
+  static constexpr int P_FLOATS = F_BQ * LDP;
+  static constexpr int K_FLOATS = BK * LDQ;
+  static constexpr int STAGE = K_FLOATS + BK * D;
+  static constexpr int SMEM =
+      4 * (Q_FLOATS + P_FLOATS + STAGES * STAGE);
+};
+
+// Thread (ty, tx) = (tid / 16, tid % 16) owns query rows ty + RG i (i <
+// F_RPT, RG = F_BQ / F_RPT row groups), the tile's key columns tx + 16 j
+// (j < SC) of S, and output columns 64 h + 4 tx .. + 3 (h < D / 64) of
+// O; a warp's two row groups are its own, so P needs no barrier.  S =
+// Q K^T goes 4 deep in d a step: F_RPT float4 of Q (its rows) and SC
+// float4 of K (its keys), 4 F_RPT SC FMAs; O += P V goes 4 keys a step:
+// F_RPT float4 of P, then for each key D / 64 float4 of V, F_RPT D / 4
+// FMAs.  Every score and output is one fmaf chain in d or key order
+// (keys tiled from 0 whatever the CTA), and a row's max and sum go
+// across its 16 lanes by xor shuffles in one fixed order, so a row's
+// bits depend on that row, its keys and its visible range only: not on
+// S, its place in its tile, the batch or how the shift came.
+template <int D>
+__global__ void __launch_bounds__(F_THREADS, 2) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
     float* __restrict__ lse, int H, int Hkv, int S, int Tn, int masked,
     int shift, const int* __restrict__ shift_dev, float scale) {
-  extern __shared__ float smem[];
-  float* Ks = smem;                 // [BK][D + 1]  (padded: no bank clash)
-  float* Vs = Ks + BK * (D + 1);    // [BK][D]
-  float* Ps = Vs + BK * D;          // [BQ][BK + 1]
+  using L = F32Layout<D>;
+  constexpr int BK = L::BK, SC = L::SC, OV = L::OV, R = F_RPT;
+  constexpr int RG = F_BQ / R;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Ps = Qs + L::Q_FLOATS;
+  float* ring = Ps + L::P_FLOATS;
 
-  const int bh = blockIdx.y;        // b * H + h
+  // The grid runs heads fastest, Q blocks longest first: every head's
+  // longest CTAs start in the first wave, and the CTAs in flight read the
+  // K and V tiles of a few Q-block rows of every head, which stay in L2.
+  const int bh = blockIdx.x;  // b * H + h
   const int b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int r = tid / TPR, sub = tid % TPR;  // a row's 4 threads share a warp
-  const int row = q0 + r;
-  const bool row_ok = row < S;      // ragged edge: S smaller than the tile
-
-  const float* qrow = q + ((size_t)bh * S + (row_ok ? row : 0)) * D;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * F_BQ;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const float* qb = q + (size_t)bh * S * D;
   const size_t kv_off = ((size_t)b * Hkv + hk) * (size_t)Tn * D;
   const float* kb = k + kv_off;
   const float* vb = v + kv_off;
 
-  float qr[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) qr[d] = row_ok ? qrow[d] : 0.f;
-
-  constexpr int NC = D / TPR;       // output columns per thread
-  constexpr int NS = BK / TPR;      // scores per thread per tile
-  float acc[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) acc[c] = 0.f;
-  float m = NEG_INF, l = 0.f;
-
   if (shift_dev) shift = max(-Tn, min(S, *shift_dev));
   // Masked: tiles starting past this CTA's last row's shifted diagonal
-  // (t0 + shift > q0 + BQ - 1) contribute nothing.
-  const int t_end = masked ? min(Tn, max(0, q0 + BQ - shift)) : Tn;
-  for (int t0 = 0; t0 < t_end; t0 += BK) {
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int j = i / D, d = i % D, t = t0 + j;
-      float kk = 0.f, vv = 0.f;
-      if (t < Tn) {
-        kk = kb[(size_t)t * D + d];
-        vv = vb[(size_t)t * D + d];
-      }
-      Ks[j * (D + 1) + d] = kk;
-      Vs[j * D + d] = vv;
-    }
-    __syncthreads();
+  // (t0 + shift > q0 + F_BQ - 1) contribute nothing.
+  const int t_end = masked ? min(Tn, max(0, q0 + F_BQ - shift)) : Tn;
+  const int n_tiles = (t_end + BK - 1) / BK;
 
-    float s[NS];
-    float mt = NEG_INF;
-#pragma unroll
-    for (int jj = 0; jj < NS; ++jj) {
-      const int j = sub + TPR * jj, col = t0 + j;
-      const float* kr = Ks + j * (D + 1);
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-      const bool ok =
-          row_ok && col < Tn && (!masked || col + shift <= row);
-      s[jj] = ok ? dot * scale : NEG_INF;
-      mt = fmaxf(mt, s[jj]);
+  // Stage s <- keys [t BK, t BK + BK), zeros past T.
+  auto load_tile = [&](int t, int s) {
+    float* Ks = ring + s * L::STAGE;
+    float* Vs = Ks + L::K_FLOATS;
+    for (int i = tid; i < BK * D / 4; i += F_THREADS) {
+      const int r = i / (D / 4), c = i % (D / 4) * 4, key = t * BK + r;
+      const bool ok = key < Tn;
+      const size_t off = ok ? (size_t)key * D + c : 0;
+      cp_async16(Ks + r * L::LDQ + c, kb + off, ok ? 16 : 0);
+      cp_async16(Vs + r * D + c, vb + off, ok ? 16 : 0);
     }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-    const float m_new = fmaxf(m, mt);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < NS; ++jj) {
-      // Rows masked so far have m_new == NEG_INF: exp(s - m_new) would
-      // be exp(0) = 1 for masked lanes, so zero them explicitly.
-      const float p = s[jj] > NEG_INF * 0.5f ? expf(s[jj] - m_new) : 0.f;
-      psum += p;
-      Ps[r * (BK + 1) + sub + TPR * jj] = p;
+  };
+  // Two groups in flight ahead of the loop: Q with tile 0, tile 1.  A CTA
+  // with no tile copies nothing and writes o = 0, lse = NEG_INF below.
+  if (n_tiles > 0) {
+    for (int i = tid; i < F_BQ * D / 4; i += F_THREADS) {
+      const int r = i / (D / 4), c = i % (D / 4) * 4;
+      const bool ok = q0 + r < S;
+      cp_async16(Qs + r * L::LDQ + c, qb + (ok ? (size_t)(q0 + r) * D + c : 0),
+                 ok ? 16 : 0);
     }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = alpha * l + psum;
-    m = m_new;
-    __syncwarp();  // the row's P entries come from its own warp
-
-    const float* pr = Ps + r * (BK + 1);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = sub + TPR * c;
-      float pv = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < BK; ++j) pv = fmaf(pr[j], Vs[j * D + d], pv);
-      acc[c] = acc[c] * alpha + pv;
-    }
-    __syncthreads();  // before the next tile overwrites Ks / Vs
+    load_tile(0, 0);
   }
+  cp_async_commit();
+  if (n_tiles > 1) load_tile(1, 1);
+  cp_async_commit();
 
-  if (!row_ok) return;
-  const bool live = l > 0.f;
-  float* orow = o + ((size_t)bh * S + row) * D;
+  float acc[R][4 * OV];
+  float m[R], l[R];
 #pragma unroll
-  for (int c = 0; c < NC; ++c) orow[sub + TPR * c] = live ? acc[c] / l : 0.f;
-  if (sub == 0) lse[(size_t)bh * S + row] = live ? m + logf(l) : NEG_INF;
+  for (int i = 0; i < R; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * OV; ++c) acc[i][c] = 0.f;
+  }
+  const float sl = scale * LOG2E;  // exp(s scale) = exp2(s sl)
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t & 1;
+    cp_async_wait<1>();  // tile t (and Q) landed; tile t + 1 in flight
+    __syncthreads();
+    const float* Ks = ring + s * L::STAGE;
+    const float* Vs = Ks + L::K_FLOATS;
+
+    float sc[R][SC];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) sc[i][j] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[R], kv[SC];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + RG * i) * L::LDQ + d);
+#pragma unroll
+      for (int j = 0; j < SC; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * L::LDQ + d);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < SC; ++j) {
+          float a = sc[i][j];
+          a = fmaf(qv[i].x, kv[j].x, a);
+          a = fmaf(qv[i].y, kv[j].y, a);
+          a = fmaf(qv[i].z, kv[j].z, a);
+          sc[i][j] = fmaf(qv[i].w, kv[j].w, a);
+        }
+    }
+
+    // Online softmax on the raw scores: masked ones NEG_INF (only on a
+    // tile that crosses T or some row's shifted diagonal; rows past S
+    // are zeros, never stored), the row max and sum across the row's 16
+    // lanes (every row's shuffles of one level together), p = exp2(s sl
+    // - m sl) by one FMA.  A row this tile hides wholly keeps m, l and O
+    // as they were (alpha = exp2(0) = 1, p = 0).
+    const int t0 = t * BK;
+    if (t0 + BK > Tn || (masked && t0 + BK - 1 + shift > q0)) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int row = q0 + ty + RG * i;
+#pragma unroll
+        for (int j = 0; j < SC; ++j) {
+          const int col = t0 + tx + 16 * j;
+          if (col >= Tn || (masked && col + shift > row)) sc[i][j] = NEG_INF;
+        }
+      }
+    }
+    float mt[R], psum[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      mt[i] = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < SC; ++j) mt[i] = fmaxf(mt[i], sc[i][j]);
+    }
+#pragma unroll
+    for (int x = 1; x < 16; x *= 2)
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], x));
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float m_new = fmaxf(m[i], mt[i]);
+      const float alpha = exp2f((m[i] - m_new) * sl);
+      const float nm = -m_new * sl;
+      psum[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        // Masked lanes are zeroed: a row with nothing visible yet has
+        // m_new = NEG_INF, where exp2 of s sl - m sl would not be 0.
+        const float p =
+            sc[i][j] > NEG_INF * 0.5f ? exp2f(fmaf(sc[i][j], sl, nm)) : 0.f;
+        psum[i] += p;
+        Ps[(ty + RG * i) * L::LDP + tx + 16 * j] = p;
+      }
+      m[i] = m_new;
+      mt[i] = alpha;
+#pragma unroll
+      for (int c = 0; c < 4 * OV; ++c) acc[i][c] *= alpha;
+    }
+#pragma unroll
+    for (int x = 1; x < 16; x *= 2)
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], x);
+#pragma unroll
+    for (int i = 0; i < R; ++i) l[i] = mt[i] * l[i] + psum[i];
+    __syncwarp();  // a row's P comes from its own warp
+
+#pragma unroll
+    for (int j = 0; j < BK; j += 4) {
+      float4 pv[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ps + (ty + RG * i) * L::LDP + j);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float4 vv[OV];
+#pragma unroll
+        for (int hh = 0; hh < OV; ++hh)
+          vv[hh] = *reinterpret_cast<const float4*>(Vs + (j + u) * D + 64 * hh +
+                                                    4 * tx);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y
+                          : u == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+          for (int hh = 0; hh < OV; ++hh) {
+            acc[i][4 * hh] = fmaf(p, vv[hh].x, acc[i][4 * hh]);
+            acc[i][4 * hh + 1] = fmaf(p, vv[hh].y, acc[i][4 * hh + 1]);
+            acc[i][4 * hh + 2] = fmaf(p, vv[hh].z, acc[i][4 * hh + 2]);
+            acc[i][4 * hh + 3] = fmaf(p, vv[hh].w, acc[i][4 * hh + 3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // stage s and P read by every thread
+    if (t + 2 < n_tiles) load_tile(t + 2, s);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // o = O / l by rows, 16-byte stores; lse = m scale + log l.
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty + RG * i;
+    if (row >= S) continue;
+    const bool live = l[i] > 0.f;
+    float* orow = o + ((size_t)bh * S + row) * D;
+#pragma unroll
+    for (int hh = 0; hh < OV; ++hh) {
+      float4 r;
+      r.x = live ? acc[i][4 * hh] / l[i] : 0.f;
+      r.y = live ? acc[i][4 * hh + 1] / l[i] : 0.f;
+      r.z = live ? acc[i][4 * hh + 2] / l[i] : 0.f;
+      r.w = live ? acc[i][4 * hh + 3] / l[i] : 0.f;
+      *reinterpret_cast<float4*>(orow + 64 * hh + 4 * tx) = r;
+    }
+    if (tx == 0)
+      lse[(size_t)bh * S + row] = live ? m[i] * scale + logf(l[i]) : NEG_INF;
+  }
 }
 
 template <int D>
@@ -204,14 +373,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int H, int Hkv, int S, int Tn,
                    int masked, int shift, const int* shift_dev, float scale,
                    cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (BK * (D + 1) + BK * D + BQ * (BK + 1));
+  const int smem = F32Layout<D>::SMEM;
   auto kern = flash_fwd_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + BQ - 1) / BQ, B * H);
-  kern<<<grid, THREADS, smem, stream>>>(
+  dim3 grid(B * H, (S + F_BQ - 1) / F_BQ);
+  kern<<<grid, F_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), H, Hkv, S, Tn, masked, shift, shift_dev,
@@ -228,7 +396,6 @@ constexpr int WG_THREADS = 384;  // the producer warpgroup + 2 consumers
 constexpr int WG_CONSUMER_WARPS = 8;
 constexpr int WG_ROWS = 128;  // a CTA's query rows, 64 a consumer
 constexpr int BOX_COLS = 64;  // a TMA box row: one 128-byte swizzle line
-constexpr float LOG2E = 1.4426950408889634f;  // exp(x) = exp2(x * LOG2E)
 constexpr float LN2 = 0.6931471805599453f;
 
 // Shared memory (byte offsets from a 1024-byte aligned base): the CTA's

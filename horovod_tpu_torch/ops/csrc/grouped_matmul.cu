@@ -38,7 +38,10 @@
 // TMA ring, one persistent CTA an SM, so no SM idles on an empty group)
 // and emptying a tile (G2's epilogue, below).  In f32 the
 // bound is the FMA rate outside the tensor cores (67 TFLOP/s, ~0.51 ms):
-// the f32 contract (one sequential fmaf chain an output) rules out TF32.
+// the f32 contract (one sequential fmaf chain an output) rules out TF32,
+// and what keeps an FFMA kernel from that rate is feeding it from shared
+// memory (16-byte loads, many FMAs a load) and landing the next tiles
+// while these are multiplied.
 //
 // Kernels, chosen by dtype and mode in the C entry points (not a
 // fallback: each has exactly one):
@@ -98,17 +101,34 @@
 //   bytes to each of 8 rows an instruction.  No split over rows: at the
 //   main path's shapes an expert has 128 output tiles, so even one live
 //   expert fills 128 of 132 SMs.
-// * G2 f32 (`grouped_dw_kernel`): scalar, 64 x 64 tiles, 4 x 4 outputs
-//   a thread.
+// * G2 f32 (`grouped_dw_kernel`): register-tiled FMAs fed by cp.async.
+//   Both operands lie along the output's axes (xs rows along K, dy rows
+//   along N), so 16-byte cp.async copies land token-major stages [rows]
+//   [128] of each with no transpose, zeros at or past the group's end, in
+//   three stages of 16 token rows.  256 threads on a 128 x 128 tile of
+//   dW[e], 8 x 8 outputs a thread: per token row four 16-byte shared
+//   loads, 64 FMAs; 127 registers, two CTAs an SM.  (G1's 64 x 128 tile
+//   of 128 threads at four CTAs an SM spilled at 128 registers and ran
+//   0.95 ms against 0.82 at the gate shape; 32 rows a stage spilled;
+//   8 rows in four stages, or two stages, ran no faster.)  Each output
+//   is one sequential fmaf chain over the group's rows in order from
+//   0.0, no split over rows (so every row on one expert leaves the grid
+//   K / 128 x N / 128 live tiles), no atomics, no TF32: the scalar
+//   kernel's bits, which it replaced.  The grid comes from the shapes,
+//   the offsets from device memory; an empty group's tiles are zeros.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_bf16.cuh"
 #include "wgmma_tma.cuh"
 
 namespace {
 
+using hvd_mma::cp_async16;
+using hvd_mma::cp_async_commit;
+using hvd_mma::cp_async_wait;
 using hvd_wgmma::encode;
 using hvd_wgmma::sm_count;
 typedef __nv_bfloat16 bf16;
@@ -578,7 +598,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) grouped_dw_kernel_wgmma(
   }
 }
 
-// --- G2 f32: scalar FMAs ------------------------------------------------------
+// --- G2 f32: register-tiled FMAs fed by cp.async ------------------------------
 
 // This CTA's group's rows [lo, hi), clamped to [0, T].
 __device__ __forceinline__ void group_rows(const int* __restrict__ offsets,
@@ -587,65 +607,118 @@ __device__ __forceinline__ void group_rows(const int* __restrict__ offsets,
   hi = min(max(offsets[e + 1], lo), T);
 }
 
-constexpr int FBM = 64, FBN = 64;
-constexpr int F_THREADS = 256;  // 16 x 16, 4 x 4 outputs a thread
-constexpr int FDT = 16;  // token rows a step of G2 f32
+constexpr int DW_F_BM = 128, DW_F_BN = 128;  // a dW tile: K rows x N columns
+constexpr int DW_F_TX = DW_F_BN / 8;         // threads along N
+constexpr int DW_F_THREADS = DW_F_BM / 8 * DW_F_TX;  // 8 x 8 outputs each
+constexpr int DW_F_ROWS = 16;                // token rows a stage
+constexpr int DW_F_STAGES = 3;
+constexpr int DW_F_STAGE = DW_F_ROWS * (DW_F_BM + DW_F_BN);  // floats
+constexpr int DW_F_COPIES = DW_F_STAGE / 4 / DW_F_THREADS;  // 16 B a thread
+constexpr int DW_F_SMEM = 4 * DW_F_STAGES * DW_F_STAGE;
+static_assert(DW_F_ROWS * DW_F_BM / 4 % DW_F_THREADS == 0,
+              "a copy step lands xs or dy, never both");
 
-__global__ void __launch_bounds__(F_THREADS) grouped_dw_kernel(
-    const float* __restrict__ xs, const float* __restrict__ dy,
-    const int* __restrict__ offsets, float* __restrict__ dw, int T, int K,
-    int N) {
-  const int k_tiles = (K + FBM - 1) / FBM;
+// G2 f32: dW[e][k0.., n0..] for one (expert, K tile, N tile).  A stage is
+// DW_F_ROWS token rows of xs [rows][DW_F_BM] and of dy [rows][DW_F_BN],
+// landed as they lie in memory (16-byte cp.async along K and N), zeros at
+// or past the group's end and past K or N.  Thread (ty, tx) keeps rows 4
+// ty.. and DW_F_BM / 2 + 4 ty.. of the tile and columns 4 tx.. and
+// DW_F_BN / 2 + 4 tx..: per token row four 16-byte shared loads, 64
+// FMAs.  Each output is one fmaf chain over the group's rows in order
+// from 0.0 (a zero row adds nothing), as the scalar kernel it replaced
+// summed: its bits, but for the sign of a zero (the card gave every bit
+// of the scalar kernel's at the gate shape, zeros' signs too).
+__global__ void __launch_bounds__(DW_F_THREADS, 65536 / 128 / DW_F_THREADS)
+    grouped_dw_kernel(const float* __restrict__ xs,
+                      const float* __restrict__ dy,
+                      const int* __restrict__ offsets, float* __restrict__ dw,
+                      int T, int K, int N) {
+  const int k_tiles = (K + DW_F_BM - 1) / DW_F_BM;
   const int e = blockIdx.x / k_tiles;
-  const int k0 = (blockIdx.x % k_tiles) * FBM, n0 = blockIdx.y * FBN;
+  const int k0 = (blockIdx.x % k_tiles) * DW_F_BM, n0 = blockIdx.y * DW_F_BN;
   int lo, hi;
   group_rows(offsets, e, T, lo, hi);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* As = reinterpret_cast<float*>(smem_raw);  // [FDT][FBM]
-  float* Bs = As + FDT * FBM;                       // [FDT][FBN]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float* stages = reinterpret_cast<float*>(smem_raw);
+  const int tid = threadIdx.x, tx = tid % DW_F_TX, ty = tid / DW_F_TX;
 
-  float acc[4][4];
+  // Stage s <- token rows [t0, t0 + DW_F_ROWS): copy q of a thread is
+  // xs's 16-byte chunk q, or past them dy's.
+  auto load = [&](int t0, int s) {
+    float* a = stages + s * DW_F_STAGE;
+    float* b = a + DW_F_ROWS * DW_F_BM;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < DW_F_COPIES; ++j) {
+      const int q = tid + j * DW_F_THREADS;
+      if (q < DW_F_ROWS * DW_F_BM / 4) {
+        const int r = q / (DW_F_BM / 4), c = q % (DW_F_BM / 4) * 4;
+        const bool ok = t0 + r < hi && k0 + c < K;
+        cp_async16(a + r * DW_F_BM + c,
+                   ok ? xs + (size_t)(t0 + r) * K + k0 + c : xs, ok ? 16 : 0);
+      } else {
+        const int qb = q - DW_F_ROWS * DW_F_BM / 4;
+        const int r = qb / (DW_F_BN / 4), c = qb % (DW_F_BN / 4) * 4;
+        const bool ok = t0 + r < hi && n0 + c < N;
+        cp_async16(b + r * DW_F_BN + c,
+                   ok ? dy + (size_t)(t0 + r) * N + n0 + c : dy, ok ? 16 : 0);
+      }
+    }
+  };
 
-  for (int t0 = lo; t0 < hi; t0 += FDT) {
-    for (int i = threadIdx.x; i < FDT * FBM; i += F_THREADS) {
-      const int r = i / FBM, c = i % FBM;
-      const int t = t0 + r, k = k0 + c;
-      As[i] = t < hi && k < K ? xs[(size_t)t * K + k] : 0.f;
-    }
-    for (int i = threadIdx.x; i < FDT * FBN; i += F_THREADS) {
-      const int r = i / FBN, c = i % FBN;
-      const int t = t0 + r, n = n0 + c;
-      Bs[i] = t < hi && n < N ? dy[(size_t)t * N + n] : 0.f;
-    }
-    __syncthreads();
+  float acc[8][8];
 #pragma unroll
-    for (int tt = 0; tt < FDT; ++tt) {
-      float a[4], b[4];
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[tt * FBM + ty + 16 * i];
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  // DW_F_STAGES - 1 steps in flight ahead; each step waits for its own
+  // stage, then refills the one the step before read.
+  const int steps = (hi - lo + DW_F_ROWS - 1) / DW_F_ROWS;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[tt * FBN + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < DW_F_STAGES - 1; ++s) {
+    if (s < steps) load(lo + s * DW_F_ROWS, s);
+    cp_async_commit();
   }
+  for (int it = 0; it < steps; ++it) {
+    cp_async_wait<DW_F_STAGES - 2>();
+    __syncthreads();
+    const int nx = it + DW_F_STAGES - 1;
+    if (nx < steps) load(lo + nx * DW_F_ROWS, nx % DW_F_STAGES);
+    cp_async_commit();
+    const float* a = stages + (it % DW_F_STAGES) * DW_F_STAGE;
+    const float* b = a + DW_F_ROWS * DW_F_BM;
+#pragma unroll
+    for (int r = 0; r < DW_F_ROWS; ++r) {
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(a + r * DW_F_BM + 4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(
+          a + r * DW_F_BM + DW_F_BM / 2 + 4 * ty);
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(b + r * DW_F_BN + 4 * tx);
+      const float4 b1 = *reinterpret_cast<const float4*>(
+          b + r * DW_F_BN + DW_F_BN / 2 + 4 * tx);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
   float* out = dw + (size_t)e * K * N;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty + 16 * i;
+  for (int i = 0; i < 8; ++i) {
+    const int row = k0 + (i < 4 ? 4 * ty + i : DW_F_BM / 2 + 4 * ty + i - 4);
     if (row >= K) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < N) out[(size_t)row * N + col] = acc[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + DW_F_BN / 2 * h + 4 * tx;
+      if (col < N) {
+        const float4 v = {acc[i][4 * h], acc[i][4 * h + 1],
+                          acc[i][4 * h + 2], acc[i][4 * h + 3]};
+        *reinterpret_cast<float4*>(out + (size_t)row * N + col) = v;
+      }
     }
   }
 }
@@ -760,10 +833,12 @@ extern "C" int grouped_matmul_dw(const void* xs, const void* dy,
     return launch_dw_wgmma(static_cast<const bf16*>(xs),
                            static_cast<const bf16*>(dy), off,
                            static_cast<bf16*>(dw), T, K, N, E, st);
-  const size_t smem = sizeof(float) * FDT * (FBM + FBN);
-  auto kern = grouped_dw_kernel;
-  dim3 grid(E * ((K + FBM - 1) / FBM), (N + FBN - 1) / FBN);
-  kern<<<grid, F_THREADS, smem, st>>>(
+  cudaError_t err = cudaFuncSetAttribute(
+      grouped_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      DW_F_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(E * ((K + DW_F_BM - 1) / DW_F_BM), (N + DW_F_BN - 1) / DW_F_BN);
+  grouped_dw_kernel<<<grid, DW_F_THREADS, DW_F_SMEM, st>>>(
       static_cast<const float*>(xs), static_cast<const float*>(dy), off,
       static_cast<float*>(dw), T, K, N);
   return (int)cudaGetLastError();

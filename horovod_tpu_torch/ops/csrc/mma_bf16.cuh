@@ -3,7 +3,8 @@
 //
 // * cp.async copies global -> shared (16 bytes a thread for page rows,
 //   4 bytes for int8 scales), with zero fill past a ragged edge (the
-//   split kernel);
+//   split kernel; also the f32 K1's tiles in flash_fwd.cu and the f32
+//   G2's token rows in grouped_matmul.cu);
 // * ldmatrix loads 8x8 bf16 blocks of a shared tile straight into
 //   mma.sync fragments, `.trans` where the operand is stored k-major;
 // * mma.sync.m16n8k16 bf16 x bf16 -> f32 (the rows kernel).

@@ -25,7 +25,8 @@ grouped product that takes its offsets from the device.
   :func:`grouped_matmul_dw_reference`) are what the CPU tests hold to
   JAX's VJP; on the CPU autograd differentiates the plain forward.
 * :data:`grouped_matmul_launches` counts G1's launches (both modes),
-  :data:`grouped_matmul_dw_launches` G2's.
+  :data:`grouped_matmul_dw_launches` G2's; ``*_launches_by_dtype`` the
+  same by dtype (f32 and bf16 run different kernel functions).
 """
 
 from __future__ import annotations
@@ -45,6 +46,9 @@ __all__ = ["MAX_GROUPS", "grouped_matmul", "grouped_matmul_dw",
 grouped_matmul_launches = 0
 #: Launches of G2 in this process.
 grouped_matmul_dw_launches = 0
+#: The same launches by dtype name ("float32", "bfloat16").
+grouped_matmul_launches_by_dtype: dict = {}
+grouped_matmul_dw_launches_by_dtype: dict = {}
 
 #: The most groups (experts) G1 and G2 take: a CTA walks the offsets.
 MAX_GROUPS = 64
@@ -185,6 +189,7 @@ def _grouped_matmul_cuda(xs, w, offsets, transpose_w: bool = False):
                     _cuda.stream(xs.device))
     _cuda.check(lib, rc, "grouped_matmul launch")
     grouped_matmul_launches += 1
+    _cuda.count(grouped_matmul_launches_by_dtype, xs.dtype)
     return out
 
 
@@ -201,6 +206,7 @@ def _grouped_matmul_dw_cuda(xs, dy, offsets):
                        _cuda.stream(xs.device))
     _cuda.check(lib, rc, "grouped_matmul_dw launch")
     grouped_matmul_dw_launches += 1
+    _cuda.count(grouped_matmul_dw_launches_by_dtype, xs.dtype)
     return dw
 
 

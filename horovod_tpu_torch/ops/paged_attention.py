@@ -44,6 +44,9 @@ paged_attend_launches = 0
 #: The same calls by their query rows a kv head, R (the decode tick's G,
 #: the speculative verify's G * W).
 paged_attend_launches_by_rows: dict = {}
+#: The same calls by the pool's dtype name ("float32", "bfloat16",
+#: "int8"): each pool dtype runs its own kernel functions.
+paged_attend_launches_by_dtype: dict = {}
 
 # The pinned dequant compute dtype: int8 payloads and their scales
 # multiply in f32 — even when the compute dtype is bf16 — and only THEN
@@ -205,6 +208,7 @@ def _paged_attend_cuda(qg, k_pool, v_pool, k_scale, v_scale, table, limit,
     paged_attend_launches += 1
     paged_attend_launches_by_rows[R] = paged_attend_launches_by_rows.get(
         R, 0) + 1
+    _cuda.count(paged_attend_launches_by_dtype, k_pool.dtype)
     return o, lse
 
 

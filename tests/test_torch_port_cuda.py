@@ -179,6 +179,64 @@ def test_flash_forward_is_deterministic(dev, D, shift):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S,T,shift", [(300, 300, 0), (300, 370, None),
+                                       (130, 300, -170), (200, 200, 67)])
+def test_flash_f32_kernel_is_deterministic(dev, D, S, T, shift):
+    """The f32 K1 (register-tiled FFMA) against its plain version within
+    1e-4, GQA G = 4, over several 64-row CTAs and key stages with ragged
+    edges (causal, unmasked, a suffix's shift, rows 0..66 fully masked),
+    and bit-identical over two calls."""
+    g = torch.Generator(device=dev).manual_seed(D + S)
+    q = torch.randn((2, 8, S, D), generator=g, device=dev)
+    k, v = (torch.randn((2, 2, T, D), generator=g, device=dev)
+            for _ in range(2))
+
+    def k1():
+        if shift is None:
+            return A.flash_attention_with_lse(q, k, v, False)
+        return A.flash_attention_shifted(q, k, v, shift)
+
+    (o, lse), (o2, lse2) = k1(), k1()
+    o_r, l_r = A._reference_attention_lse(
+        q, A.expand_kv(k, 8), A.expand_kv(v, 8), shift, D ** -0.5)
+    assert (o - o_r).abs().max().item() <= 1e-4
+    assert (lse - l_r).abs().max().item() <= 1e-4
+    assert torch.equal(o.view(torch.int32), o2.view(torch.int32))
+    assert torch.equal(lse.view(torch.int32), lse2.view(torch.int32))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_f32_rows_are_invariant(dev, D):
+    """An f32 K1 row's bits depend on that row, its keys and its visible
+    range only: causal rows 0..299 over T = 300 keys equal the same rows
+    inside a longer S (400 rows), the rows from 37 on equal the same rows
+    as a suffix (shift -37, read from device memory: each row in another
+    place of its 64-row tile), and batch 1 of a two-batch call equals the
+    same head alone."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    q = torch.randn((2, 8, 400, D), generator=g, device=dev)
+    k, v = (torch.randn((2, 2, 300, D), generator=g, device=dev)
+            for _ in range(2))
+    base = A.flash_attention_shifted(q[:, :, :300].contiguous(), k, v, 0)
+    longer = A.flash_attention_shifted(q, k, v, 0)
+    shift = torch.tensor(-37, dtype=torch.int32, device=dev)
+    suffix = A.flash_attention_shifted(q[:, :, 37:300].contiguous(), k, v,
+                                       shift)
+    alone = A.flash_attention_shifted(q[1:, :, :300].contiguous(),
+                                      k[1:].contiguous(), v[1:].contiguous(),
+                                      0)
+    torch.cuda.synchronize()
+    for t, whole, part in ((0, base[0], longer[0][:, :, :300]),
+                           (1, base[1], longer[1][:, :, :300]),
+                           (0, base[0][:, :, 37:], suffix[0]),
+                           (1, base[1][:, :, 37:], suffix[1]),
+                           (0, base[0][1:], alone[0]),
+                           (1, base[1][1:], alone[1])):
+        assert torch.equal(whole.contiguous().view(torch.int32),
+                           part.contiguous().view(torch.int32)), t
+
+
 def _rel_err(got, want):
     want = want.float()
     return ((got.float() - want).abs().max()
@@ -223,7 +281,8 @@ def test_flash_backward_kernels(dev, dtype, tol, D, Hkv, S, T, mask):
     (torch.float32, ("", "", ""))])
 def test_each_dtype_reaches_its_instantiation(dev, dtype, kernels):
     """bf16 runs the wgmma K1, K2 and K3 (``*_kernel_wgmma``), f32 the
-    scalar ones: the profiler names the kernels each call launched, the
+    FFMA ones (``*_kernel``: K1 register-tiled, K2 and K3 scalar): the
+    profiler names the kernels each call launched, the
     launch counters grow by one each, and the results match the plain
     versions."""
     from torch.autograd import DeviceType
@@ -1926,6 +1985,34 @@ def test_grouped_dw_is_deterministic(dev, dtype):
         torch.cuda.synchronize()
         assert torch.equal(eager.view(bits), again.view(bits)), case
         assert torch.equal(captured.view(bits), eager.view(bits)), case
+
+
+# G2's f32 tile edges (64 K rows x 128 N columns, 16 token rows a
+# stage): (group sizes, K, N).
+DW_EDGE_CASES = [([21, 0, 35, 1], 72, 200), ([1], 8, 8),
+                 ([0, 17, 0], 136, 40), ([0, 1000, 0, 3], 1024, 2048)]
+
+
+@pytest.mark.parametrize("counts,K,N", DW_EDGE_CASES)
+def test_grouped_dw_f32_at_its_tile_edges(dev, counts, K, N):
+    """The f32 G2 (register-tiled, fed by cp.async) at the edges of its
+    tiles and stages (groups ending inside a stage, empty groups, one
+    row, K and N off the tiles, T = 1) within 1e-4 of the plain
+    version, an empty group's dW exactly 0, two calls bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(K + N)
+    T_ = sum(counts)
+    xs = torch.randn((T_, K), generator=g, device=dev)
+    dy = torch.randn((T_, N), generator=g, device=dev)
+    off = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                       dtype=torch.int32, device=dev)
+    dw, dw2 = GM.grouped_matmul_dw(xs, dy, off), GM.grouped_matmul_dw(
+        xs, dy, off)
+    ref = GM.grouped_matmul_dw_reference(xs, dy, off)
+    assert (dw - ref).abs().max() / ref.abs().max() <= 1e-4
+    assert torch.equal(dw.view(torch.int32), dw2.view(torch.int32))
+    for e, c in enumerate(counts):
+        if c == 0:
+            assert (dw[e] == 0).all(), e
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),

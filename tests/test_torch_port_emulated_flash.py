@@ -2,10 +2,12 @@
 through the emulator of :mod:`torch_port_emu` (whose docstring says what
 it emulates and what it cannot show), against their plain versions:
 the bf16 K1, K2 and K3 on wgmma fed by TMA through an mbarrier ring,
-and the f32 scalar kernels; copies and products landing at once or at
-their waits.  The cases cross more than one of the kernels' 128-row
+the f32 K1 register-tiled and fed by cp.async, and the f32 scalar K2
+and K3; copies and products landing at once or at their waits.  The cases cross more than one of the kernels' 128-row
 blocks and 64-row stages, with GQA, ragged S and T, both head dims and
-shifted masks; one case runs K1, K2 and K3 twice, bit for bit.  The file
+shifted masks; one case runs K1, K2 and K3 twice, bit for bit.  The f32
+K1 also runs at the edges of its own tiles, its shift by value and from
+memory.  The file
 also holds ``chip_smoke.py``'s names for K1, K2 and K3 (what its SASS
 check keys on) against the built library's symbols.
 
@@ -18,8 +20,8 @@ import json
 
 import pytest
 
-from torch_port_emu import (CASES, CHILD, REPEAT_CASES, build,
-                            kernel_names, run_child)
+from torch_port_emu import (CASES, CHILD, K1_F32_CASES, REPEAT_CASES,
+                            build, kernel_names, run_child)
 
 # The hang guard, three times the slowest case's time in the 6-worker
 # tier-1 run, `pytest -n 6 --dist loadfile`
@@ -50,6 +52,28 @@ def test_emulated_kernels_match_plain_versions(emulated_libs, dtype, copies):
         assert max(err["dk"], err["dv"], err["dq"]) <= bwd_tol, (case, err)
     for case in REPEAT_CASES:
         assert res[str(list(case))]["repeat"] is True, case
+
+
+@pytest.mark.parametrize("copies,shift", [("immediate", "device"),
+                                          ("at_wait", "value")])
+def test_emulated_f32_forward_at_its_tile_edges(emulated_libs, copies,
+                                                shift):
+    """The f32 K1 (register-tiled, fed by cp.async) at the edges of its
+    tiles, :data:`~torch_port_emu.K1_F32_CASES`, within 1e-4 of the
+    plain version: its shift read from memory with copies landing at
+    once, and by value with copies landing at their wait (then K2 and
+    K3 too, and every case again bit for bit)."""
+    value = shift == "value"
+    res = run_child(CHILD, [emulated_libs, "f32", json.dumps(K1_F32_CASES),
+                            shift,
+                            json.dumps(K1_F32_CASES if value else [])],
+                    CHILD_TIMEOUT_S, copies == "at_wait")
+    assert len(res) == len(K1_F32_CASES)
+    for case, err in res.items():
+        assert err["o"] <= 1e-4 and err["lse"] <= 1e-4, (case, err)
+        if value:
+            assert max(err["dk"], err["dv"], err["dq"]) <= 1e-4, (case, err)
+            assert err["repeat"] is True, case
 
 
 def test_chip_smoke_names_every_flash_backward_kernel(emulated_libs):

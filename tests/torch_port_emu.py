@@ -852,6 +852,14 @@ CASES = [(1, 2, 2, 64, 64, 64, 0), (1, 4, 1, 130, 130, 64, 0),
          (2, 2, 1, 200, 200, 128, 40)]
 # The case whose K1, K2 and K3 run twice, bit for bit.
 REPEAT_CASES = [CASES[-1]]
+# The f32 K1's own edges (64-row query tiles; stages of 64 keys at D =
+# 64, of 32 at D = 128), each masked so that its shift also runs from
+# memory: GQA G = 4 at D = 128 with S and T off the tiles and a
+# bottom-right shift; a positive shift that masks the first 40 rows
+# wholly, GQA G = 4 at D = 64, S and T off the tiles; a suffix (33
+# queries over 161 keys, shift -128) at D = 128.
+K1_F32_CASES = [(1, 4, 1, 70, 200, 128, -100), (1, 4, 1, 65, 97, 64, 40),
+                (1, 4, 1, 33, 161, 128, -128)]
 
 
 # K4 through the same C entry point the wrapper binds, with the pages a
@@ -1052,3 +1060,9 @@ GMM_CASES = [([0, 5, 0, 12], 40, 24), ([70, 0, 0], 16, 136),
 # past T inside its box, an empty group; every row on one group that is
 # neither first nor last, between empty ones.
 DW_CASES = GMM_CASES + [([0, 450, 20], 72, 136), ([0, 0, 200, 0], 136, 72)]
+# The edges of G2's f32 tiles (64 K rows x 128 N columns, 16 token rows a
+# stage): groups ending inside a stage (21 and 35 rows), an empty group
+# and a group of one row, with K and N past a tile and off it (multiples
+# of 8); T = 1 with K = N = 8; a 17-row group between empty ones.
+DW_EDGE_CASES = [([21, 0, 35, 1], 72, 200), ([1], 8, 8),
+                 ([0, 17, 0], 136, 40)]
