@@ -679,25 +679,31 @@ def build() -> None:
     dt = time.monotonic() - t0
     log(f"build: {sorted(built)} in {dt:.1f} s")
     REPORT["build_s"] = dt
-    # ptxas's report (-Xptxas -v): registers a thread and spill bytes of
-    # each kernel, which set how many CTAs an SM holds.
     regs = {}
     for out in built.values():
-        fn = None
-        for line in out.splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                fn = _kernel_name(m.group(1))
-                regs[fn] = {}
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m and fn:
-                regs[fn]["spill_store_bytes"] = int(m.group(1))
-            m = re.search(r"Used (\d+) registers", line)
-            if m and fn:
-                regs[fn]["registers"] = int(m.group(1))
+        regs.update(_ptxas(out))
     for fn, r in sorted(regs.items()):
         log(f"ptxas: {fn}: {r}")
     REPORT["ptxas"] = regs
+
+
+def _ptxas(out: str) -> dict:
+    """ptxas's report (-Xptxas -v) in one nvcc's output: registers a
+    thread and spill bytes of each kernel, which set how many CTAs an SM
+    holds."""
+    regs, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = _kernel_name(m.group(1))
+            regs[fn] = {}
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            regs[fn]["spill_store_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            regs[fn]["registers"] = int(m.group(1))
+    return regs
 
 
 def _kernel_name(mangled: str) -> str:
@@ -753,7 +759,7 @@ FLASH_BWD_F32 = tuple(f"flash_bwd_{k}_kernel<f32,{d}>"
 
 
 # The f32 kernels redesigned as register-tiled FFMA fed by cp.async.
-FFMA_TILED = FLASH_FWD_F32 + ("grouped_dw_kernel<f32>",)
+FFMA_TILED = FLASH_FWD_F32 + FLASH_BWD_F32 + ("grouped_dw_kernel<f32>",)
 
 
 def ptxas_check() -> dict:
@@ -938,6 +944,16 @@ def _rel_err(got, want) -> float:
             / want.abs().max().clamp_min(1.0)).item()
 
 
+def _bwd_repeats(*args) -> bool:
+    """Two calls of K2 and of K3 on ``args`` give the same bits."""
+    from horovod_tpu_torch.ops import attention as A
+
+    first = (*A._flash_bwd_dkdv_cuda(*args), A._flash_bwd_dq_cuda(*args))
+    again = (*A._flash_bwd_dkdv_cuda(*args), A._flash_bwd_dq_cuda(*args))
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(first, again))
+
+
 def check_flash_bwd() -> dict:
     """K2 and K3 through the autograd Function against the plain backward
     on the same forward results.  Tolerance, relative to the largest
@@ -945,7 +961,8 @@ def check_flash_bwd() -> dict:
     ds and the outputs round to bf16, whose step is 2^-8 of a value; the
     kernel and the plain version sum in other orders, so a few entries
     round one step apart).  The shifted mask (shift = S // 3) leaves the
-    first rows fully masked (lse = NEG_INF)."""
+    first rows fully masked (lse = NEG_INF).  Every f32 case also runs
+    K2 and K3 twice, bit for bit."""
     from horovod_tpu_torch.ops import attention as A
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -984,6 +1001,10 @@ def check_flash_bwd() -> dict:
         log(f"{name}: rel_err={err:.3e} tol={tol[dt]:.0e}")
         if not err <= tol[dt]:
             failed.append(name)
+        if dt == f32 and not _bwd_repeats(q.detach(), k.detach(), v.detach(),
+                                          do, lse.detach(), delta, shift,
+                                          scale):
+            failed.append(name + " (two calls differ)")
         worst[name] = err
         if S == T == 2048 and G == 1:
             worst["training" + _suffix(dt)] = {
@@ -7870,6 +7891,48 @@ def time_flash_bwd(errs: dict, launches: dict,
     return out
 
 
+def flash_bwd_ab(sources: list) -> list:
+    """The f32 K2 and K3 of this tree against other builds of
+    ``flash_bwd.cu`` (each a directory holding its ``csrc`` sources, such
+    as the parent commit's, built here into ``build/ab/``), in turns on
+    one card: :func:`time_flash_bwd` at the training shape with each
+    build loaded, in the order a, b, ..., this, this, ..., b, a."""
+    import ctypes
+
+    from horovod_tpu_torch.ops import _cuda
+
+    libs, procs = {"this": _cuda.library("flash_bwd")}, {}
+    for i, src in enumerate(sources):
+        out = _cuda.BUILD_DIR.parent / "ab" / str(i)
+        out.mkdir(parents=True, exist_ok=True)
+        procs[src] = out, subprocess.Popen(
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o",
+             str(out / "libflash_bwd.so"), str(Path(src) / "flash_bwd.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for src, (out, proc) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src}:\n{text}")
+        for fn, r in sorted(_ptxas(text).items()):
+            if fn in FLASH_BWD_F32:
+                log(f"ptxas ({src}): {fn}: {r}")
+        libs[src] = ctypes.CDLL(str(out / "libflash_bwd.so"))
+    runs = []
+    for tag in [*sources, "this", "this", *reversed(sources)]:
+        _cuda._libs["flash_bwd"] = libs[tag]
+        rows = time_flash_bwd({"dkdv": None, "dq": None},
+                              {"flash_bwd_dkdv": 0, "flash_bwd_dq": 0},
+                              dtype=torch.float32)
+        for r in rows:
+            log(f"flash_bwd_ab {tag}: {r['name']} [{r['shape']}] "
+                f"{r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s; one call "
+                f"{r['one_call_ms']:.4f}), bound {r['bound_ms']:.4f}, plain "
+                f"{r['plain_ms']:.4f}, {r['library']} {r['library_ms']:.4f}")
+        runs.append({"build": tag, "rows": rows})
+    _cuda._libs["flash_bwd"] = libs["this"]
+    return runs
+
+
 def time_paged(err: float, launches: int, R: int = 4, Hkv: int = 4,
                dtype=torch.bfloat16) -> dict:
     """K4 at the serving shape, 8 slots x 2176 positions, with ``R``
@@ -8238,6 +8301,13 @@ def main() -> int:
     PEAK_FLOPS[torch.bfloat16] = xprof.PEAK_FLOPS_BY_KIND[H100]
     t_start = time.monotonic()
     card = card_info()
+    if sys.argv[1:2] == ["--ab-flash-bwd"]:
+        # `chip_smoke.py --ab-flash-bwd DIR [DIR ...]`: only the f32 K2
+        # and K3 of this tree against the flash_bwd.cu under each DIR.
+        build()
+        log(json.dumps({"flash_bwd_ab": flash_bwd_ab(sys.argv[2:]),
+                        "card": card}))
+        return 0
     with phase("build"):
         build()
         REPORT["ffma_tiled_ptxas"] = ptxas_check()

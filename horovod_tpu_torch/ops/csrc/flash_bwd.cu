@@ -76,271 +76,447 @@
 // kernels allocate nothing and never synchronise, so they run inside a
 // CUDA graph.
 //
-// f32 (`flash_bwd_dkdv_kernel`, `flash_bwd_dq_kernel`): the scalar
-// kernels of the first port.  256 threads as a 16 x 16 grid, each owning
-// a 4 x 4 block of the 64 x 64 score tile and a 4 x D/16 block of its
-// output tile, every product a scalar f32 FMA from shared memory
-// (`Smem`, `load_tile`, `probs`), at CUDA-core rate.
+// f32 (`flash_bwd_dkdv_kernel`, `flash_bwd_dq_kernel`): register-tiled
+// FFMA fed by 16-byte cp.async, as the f32 K1 (flash_fwd.cu).  In f32
+// the bound is the FMA rate outside the tensor cores (67 TFLOP/s: 2.05
+// ms for K2 and 1.54 for K3 at the training shape); TF32 would round the
+// products to 10 mantissa bits and miss the f32 contract.  What keeps an
+// FFMA kernel from that rate is feeding it: the scalar kernels these
+// replace read one shared float every two FMAs and landed their tiles 4
+// bytes at a time between barriers.  A CTA owns a block of rows (K2:
+// keys of one kv head; K3: queries of one head), landed once, and
+// streams the other side's rows through two cp.async stages (zeros past
+// S and T), 64 rows a stage at D = 64 and 32 at D = 128, so the next
+// stage lands while this one is multiplied.  A thread keeps 4 own rows x
+// 4 (2) streamed columns of each score tile and 4 own rows x D / 16
+// columns of each output in registers, and reads every operand as a
+// 16-byte shared load: 8 FMAs a load in every product.  Per stage:
+//   K3: S = Q K^T and dP = dO V^T, p = exp2(s sl - lse log2e) by one
+//       FMA (sl = scale log2e), ds = p (dp - delta) scale, dS through
+//       shared memory to the warp that wrote it, dQ += dS K.
+//   K2: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T likewise through
+//       two shared tiles, then dV += P^T dO and dK += dS^T Q side by
+//       side in one pass.
+// Masks apply only on stages that cross T or a shifted diagonal; a
+// masked element gives p = 0 exactly, so a fully masked row (lse =
+// NEG_INF) gives 0.  Rows read across a tile are padded by 4 floats (the
+// 16 rows a half-warp reads at one column fall on distinct 16-byte bank
+// groups), P's and dS's by 16 (a warp's two rows do).  One CTA an SM:
+// K3 128 rows on 512 threads (128 registers; 177 KB of shared memory at
+// D = 64, 222 KB at D = 128); K2 128 rows at D = 64 (217 KB), 96 on 384
+// threads at D = 128 (168 registers for its 64 accumulators of dK and
+// dV; 202 KB).  The grid runs heads fastest and the longest blocks first
+// (K2: the lowest keys; K3: the last queries).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_bf16.cuh"
 #include "wgmma_tma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per tile
-constexpr int BK = 64;       // key rows per tile
-constexpr int TS = 16;       // thread grid side: THREADS = TS * TS
-constexpr int THREADS = TS * TS;
-constexpr int RA = BQ / TS;  // score rows per thread
-constexpr int RB = BK / TS;  // score columns per thread
+using hvd_mma::cp_async16;
+using hvd_mma::cp_async4;
+using hvd_mma::cp_async_commit;
+using hvd_mma::cp_async_wait;
 
-// Shared-memory layout, all f32; rows padded by one word so that a
-// column walk hits 32 different banks.
-template <int D> struct Smem {
-  static constexpr int LD = D + 1;
-  static constexpr int LP = BK + 1;
-  static constexpr size_t floats =
-      2 * BQ * LD + 2 * BK * LD + 2 * BQ * LP + 2 * BQ;
-  float* q;      // [BQ][LD]
-  float* dout;   // [BQ][LD]
-  float* k;      // [BK][LD]
-  float* v;      // [BK][LD]
-  float* p;      // [BQ][LP]
-  float* ds;     // [BQ][LP]
-  float* lse;    // [BQ]
-  float* delta;  // [BQ]
-  __device__ explicit Smem(float* base) {
-    q = base;
-    dout = q + BQ * LD;
-    k = dout + BQ * LD;
-    v = k + BK * LD;
-    p = v + BK * LD;
-    ds = p + BQ * LP;
-    lse = ds + BQ * LP;
-    delta = lse + BQ;
-  }
+constexpr float LOG2E = 1.4426950408889634f;  // exp(x) = exp2(x * LOG2E)
+
+// --- K2 and K3 in f32: register-tiled FFMA fed by cp.async ------------------
+
+constexpr int F_RPT = 4;  // own rows a thread
+
+// A CTA of ROWS own rows (K2: keys; K3: queries) on ROWS / F_RPT row
+// groups x 16 columns of threads.  Shared memory, in floats: two
+// resident tiles [ROWS][LD] (K2: K, V; K3: Q, dO), two stages of two
+// streamed tiles [STEP][LD] (K2: Q, dO, then the stage's lse and delta
+// [STEP] each; K3: K, V), then NP tiles [ROWS][LDP] (K2: P^T and dS^T;
+// K3: dS).
+template <int D, int ROWS, int NP>
+struct F32Bwd {
+  static constexpr int DIM = D;
+  static constexpr int RG = ROWS / F_RPT;         // row groups
+  static constexpr int THREADS = RG * 16;
+  static constexpr int STEP = D == 64 ? 64 : 32;  // streamed rows a stage
+  static constexpr int SC = STEP / 16;            // score columns a thread
+  static constexpr int OV = D / 64;               // output float4s a row
+  static constexpr int LD = D + 4;
+  static constexpr int LDP = STEP + 16;
+  static constexpr int OWN = ROWS * LD;
+  static constexpr int TILE = STEP * LD;
+  static constexpr int STAGE = 2 * TILE + 2 * STEP;
+  static constexpr int P_TILE = ROWS * LDP;
+  static constexpr int SMEM = 4 * (2 * OWN + 2 * STAGE + NP * P_TILE);
 };
 
-// Rows [r0, r0 + n) of a (rows, D) matrix into a padded f32 tile; rows
-// past `rows` read as 0.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int rows, int n) {
-  for (int i = threadIdx.x; i < n * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    dst[r * (D + 1) + d] =
-        r0 + r < rows ? src[(size_t)(r0 + r) * D + d] : 0.f;
-  }
-}
-
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int r0, int rows) {
-  for (int r = threadIdx.x; r < BQ; r += THREADS)
-    dst[r] = r0 + r < rows ? src[r0 + r] : 0.f;
-}
-
-// p and ds of one (Q tile, K tile) pair into shared memory.  Thread
-// (ty, tx) computes rows ty + TS*a and columns tx + TS*b of the tile.
-template <int D>
-__device__ __forceinline__ void probs(const Smem<D>& sm, int q0, int k0,
-                                      int S, int Tn, int masked, int shift,
-                                      float scale) {
-  constexpr int LD = D + 1, LP = BK + 1;
-  const int ty = threadIdx.x / TS, tx = threadIdx.x % TS;
-  float s[RA][RB], dp[RA][RB];
+// c[i][j] = sum over d of A[ty + RG i][d] B[tx + 16 j][d]: 4 deep a
+// step, F_RPT float4 of A (the thread's own rows, the same for its
+// half-warp) and SC float4 of B, one fmaf chain in d order an element.
+template <class L>
+__device__ __forceinline__ void scores(float (&c)[F_RPT][L::SC],
+                                       const float* A, const float* B,
+                                       int ty, int tx) {
 #pragma unroll
-  for (int a = 0; a < RA; ++a)
+  for (int i = 0; i < F_RPT; ++i)
 #pragma unroll
-    for (int b = 0; b < RB; ++b) s[a][b] = dp[a][b] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qa[RA], oa[RA], kb[RB], vb[RB];
+    for (int j = 0; j < L::SC; ++j) c[i][j] = 0.f;
 #pragma unroll
-    for (int a = 0; a < RA; ++a) {
-      qa[a] = sm.q[(ty + TS * a) * LD + d];
-      oa[a] = sm.dout[(ty + TS * a) * LD + d];
-    }
+  for (int d = 0; d < L::DIM; d += 4) {
+    float4 a[F_RPT], b[L::SC];
 #pragma unroll
-    for (int b = 0; b < RB; ++b) {
-      kb[b] = sm.k[(tx + TS * b) * LD + d];
-      vb[b] = sm.v[(tx + TS * b) * LD + d];
-    }
+    for (int i = 0; i < F_RPT; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + (ty + L::RG * i) * L::LD + d);
 #pragma unroll
-    for (int a = 0; a < RA; ++a)
+    for (int j = 0; j < L::SC; ++j)
+      b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * L::LD + d);
 #pragma unroll
-      for (int b = 0; b < RB; ++b) {
-        s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
-        dp[a][b] = fmaf(oa[a], vb[b], dp[a][b]);
+    for (int i = 0; i < F_RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < L::SC; ++j) {
+        float s = c[i][j];
+        s = fmaf(a[i].x, b[j].x, s);
+        s = fmaf(a[i].y, b[j].y, s);
+        s = fmaf(a[i].z, b[j].z, s);
+        c[i][j] = fmaf(a[i].w, b[j].w, s);
       }
   }
+}
+
+// acc[i][4 h + e] += sum over r < STEP of P[ty + RG i][r] M[r][64 h +
+// 4 tx + e]: 4 rows of M a step, F_RPT float4 of P (rows this warp
+// wrote), then for each row D / 64 float4 of M; one fmaf chain in r
+// order an element.
+template <class L>
+__device__ __forceinline__ void accumulate(float (&acc)[F_RPT][4 * L::OV],
+                                           const float* P, const float* M,
+                                           int ty, int tx) {
 #pragma unroll
-  for (int a = 0; a < RA; ++a) {
-    const int r = ty + TS * a, row = q0 + r;
-    const float lse = sm.lse[r], delta = sm.delta[r];
+  for (int r = 0; r < L::STEP; r += 4) {
+    float4 pv[F_RPT];
 #pragma unroll
-    for (int b = 0; b < RB; ++b) {
-      const int c = tx + TS * b, col = k0 + c;
-      const bool ok =
-          row < S && col < Tn && (!masked || col + shift <= row);
-      // Masked scores are NEG_INF (-1e30) in the JAX kernels, whose p is
-      // then exactly 0; fully masked rows (lse = NEG_INF) get p = 0 too.
-      const float p = ok ? expf(s[a][b] * scale - lse) : 0.f;
-      const float ds = p * (dp[a][b] - delta) * scale;
-      sm.p[r * LP + c] = p;
-      sm.ds[r * LP + c] = ds;
+    for (int i = 0; i < F_RPT; ++i)
+      pv[i] = *reinterpret_cast<const float4*>(P + (ty + L::RG * i) * L::LDP +
+                                               r);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float4 mv[L::OV];
+#pragma unroll
+      for (int h = 0; h < L::OV; ++h)
+        mv[h] = *reinterpret_cast<const float4*>(M + (r + u) * L::LD +
+                                                 64 * h + 4 * tx);
+#pragma unroll
+      for (int i = 0; i < F_RPT; ++i) {
+        const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y
+                        : u == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+        for (int h = 0; h < L::OV; ++h) {
+          acc[i][4 * h] = fmaf(p, mv[h].x, acc[i][4 * h]);
+          acc[i][4 * h + 1] = fmaf(p, mv[h].y, acc[i][4 * h + 1]);
+          acc[i][4 * h + 2] = fmaf(p, mv[h].z, acc[i][4 * h + 2]);
+          acc[i][4 * h + 3] = fmaf(p, mv[h].w, acc[i][4 * h + 3]);
+        }
+      }
     }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_kernel(
+// The same for two products side by side, a1 += P1 M1 and a2 += P2 M2,
+// their loads and FMAs interleaved.  (One helper over an array of
+// accumulators spilled at D = 64 on the card, where this does not.)
+template <class L>
+__device__ __forceinline__ void accumulate2(float (&a1)[F_RPT][4 * L::OV],
+                                            const float* P1, const float* M1,
+                                            float (&a2)[F_RPT][4 * L::OV],
+                                            const float* P2, const float* M2,
+                                            int ty, int tx) {
+#pragma unroll
+  for (int r = 0; r < L::STEP; r += 4) {
+    float4 pv[F_RPT], qv[F_RPT];
+#pragma unroll
+    for (int i = 0; i < F_RPT; ++i) {
+      const int off = (ty + L::RG * i) * L::LDP + r;
+      pv[i] = *reinterpret_cast<const float4*>(P1 + off);
+      qv[i] = *reinterpret_cast<const float4*>(P2 + off);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float4 m1[L::OV], m2[L::OV];
+#pragma unroll
+      for (int h = 0; h < L::OV; ++h) {
+        const int off = (r + u) * L::LD + 64 * h + 4 * tx;
+        m1[h] = *reinterpret_cast<const float4*>(M1 + off);
+        m2[h] = *reinterpret_cast<const float4*>(M2 + off);
+      }
+#pragma unroll
+      for (int i = 0; i < F_RPT; ++i) {
+        const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y
+                        : u == 2 ? pv[i].z : pv[i].w;
+        const float d = u == 0 ? qv[i].x : u == 1 ? qv[i].y
+                        : u == 2 ? qv[i].z : qv[i].w;
+#pragma unroll
+        for (int h = 0; h < L::OV; ++h) {
+          a1[i][4 * h] = fmaf(p, m1[h].x, a1[i][4 * h]);
+          a1[i][4 * h + 1] = fmaf(p, m1[h].y, a1[i][4 * h + 1]);
+          a1[i][4 * h + 2] = fmaf(p, m1[h].z, a1[i][4 * h + 2]);
+          a1[i][4 * h + 3] = fmaf(p, m1[h].w, a1[i][4 * h + 3]);
+          a2[i][4 * h] = fmaf(d, m2[h].x, a2[i][4 * h]);
+          a2[i][4 * h + 1] = fmaf(d, m2[h].y, a2[i][4 * h + 1]);
+          a2[i][4 * h + 2] = fmaf(d, m2[h].z, a2[i][4 * h + 2]);
+          a2[i][4 * h + 3] = fmaf(d, m2[h].w, a2[i][4 * h + 3]);
+        }
+      }
+    }
+  }
+}
+
+// Rows [r0, r0 + n) of a (rows, D) matrix into a padded tile by 16-byte
+// cp.async, zeros past `rows`.
+template <class L>
+__device__ __forceinline__ void land_rows(float* dst, const float* src,
+                                          int r0, int rows, int n) {
+  constexpr int V = L::DIM / 4;  // float4s a row
+  for (int i = threadIdx.x; i < n * V; i += L::THREADS) {
+    const int r = i / V, c = i % V * 4;
+    const bool ok = r0 + r < rows;
+    cp_async16(dst + r * L::LD + c,
+               src + (ok ? (size_t)(r0 + r) * L::DIM + c : 0),
+               ok ? 16 : 0);
+  }
+}
+
+// An accumulator's rows [r0, r0 + ROWS), rows past `rows` dropped.
+template <class L>
+__device__ __forceinline__ void store_rows(float* dst,
+                                           const float (&acc)[F_RPT][4 * L::OV],
+                                           int r0, int rows, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < F_RPT; ++i) {
+    const int row = r0 + ty + L::RG * i;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int h = 0; h < L::OV; ++h) {
+      float4 o;
+      o.x = acc[i][4 * h];
+      o.y = acc[i][4 * h + 1];
+      o.z = acc[i][4 * h + 2];
+      o.w = acc[i][4 * h + 3];
+      *reinterpret_cast<float4*>(dst + (size_t)row * L::DIM + 64 * h + 4 * tx) =
+          o;
+    }
+  }
+}
+
+// K2.  Thread (ty, tx) = (tid / 16, tid % 16) owns key rows ty + RG i
+// (a warp's two row groups are its own, so P^T and dS^T need no
+// barrier), query columns tx + 16 j of each stage, and columns 64 h + 4
+// tx .. + 3 of dK and dV.  Each dK / dV element is one fmaf chain over
+// the group's heads g, then query rows ascending; a query a key cannot
+// see adds p = ds = 0 exactly, so a row's bits do not depend on its CTA
+// or the stage.
+template <int D, int ROWS>
+__global__ void __launch_bounds__(ROWS * 4, 1) flash_bwd_dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv, int H, int Hkv, int S, int Tn,
-    int masked, int shift, float scale) {
-  extern __shared__ float smem[];
-  const Smem<D> sm(smem);
-  constexpr int LD = D + 1, LP = BK + 1, NC = D / TS;
-  const int bk = blockIdx.y;  // b * Hkv + hk
+    float* __restrict__ dk, float* __restrict__ dv, int H, int Hkv, int S,
+    int Tn, int masked, int shift, float scale) {
+  using L = F32Bwd<D, ROWS, 2>;
+  constexpr int STEP = L::STEP, SC = L::SC, R = F_RPT, RG = L::RG;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);
+  float* Vs = Ks + L::OWN;
+  float* ring = Vs + L::OWN;
+  float* Ps = ring + 2 * L::STAGE;  // P^T
+  float* Ds = Ps + L::P_TILE;       // dS^T
+
+  const int bk = blockIdx.x;  // b * Hkv + hk: kv heads fastest
   const int b = bk / Hkv, hk = bk % Hkv;
   const int G = H / Hkv;
-  const int k0 = blockIdx.x * BK;
-  const int ty = threadIdx.x / TS, tx = threadIdx.x % TS;
-
+  const int k0 = blockIdx.y * ROWS;  // under the mask the longest first
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const size_t kv_off = (size_t)bk * Tn * D;
-  load_tile<D>(sm.k, k + kv_off, k0, Tn, BK);
-  load_tile<D>(sm.v, v + kv_off, k0, Tn, BK);
-
-  // This thread's share of dk / dv: rows ty + TS*a, columns tx + TS*c.
-  float acc_k[RB][NC], acc_v[RB][NC];
-#pragma unroll
-  for (int a = 0; a < RB; ++a)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc_k[a][c] = acc_v[a][c] = 0.f;
 
   // Q blocks wholly above the shifted diagonal contribute nothing: the
-  // first that does has q0 + BQ - 1 >= k0 + shift.
+  // first that does has q0 + STEP - 1 >= k0 + shift.
   int qb_begin = 0;
   if (masked) {
-    const int lo = k0 + shift - (BQ - 1);
-    if (lo > 0) qb_begin = (lo + BQ - 1) / BQ;
+    const int lo = k0 + shift - (STEP - 1);
+    if (lo > 0) qb_begin = (lo + STEP - 1) / STEP;
   }
-  const int nqb = (S + BQ - 1) / BQ;
-  for (int g = 0; g < G; ++g) {
-    const int bh = b * H + hk * G + g;
-    const float* qh = q + (size_t)bh * S * D;
-    const float* oh = dout + (size_t)bh * S * D;
-    for (int qb = qb_begin; qb < nqb; ++qb) {
-      const int q0 = qb * BQ;
-      __syncthreads();  // the previous step's reads of the tiles are done
-      load_tile<D>(sm.q, qh, q0, S, BQ);
-      load_tile<D>(sm.dout, oh, q0, S, BQ);
-      load_rows(sm.lse, lse + (size_t)bh * S, q0, S);
-      load_rows(sm.delta, delta + (size_t)bh * S, q0, S);
-      __syncthreads();
-      probs<D>(sm, q0, k0, S, Tn, masked, shift, scale);
-      __syncthreads();
-#pragma unroll 2
-      for (int i = 0; i < BQ; ++i) {
-        float pa[RB], da[RB];
+  const int per_head = max(0, (S + STEP - 1) / STEP - qb_begin);
+  const int n_steps = G * per_head;
+
+  // Stage s <- step n: head g's query rows [q0, q0 + STEP), zeros past S.
+  auto load_step = [&](int n, int s) {
+    const int bh = b * H + hk * G + n / per_head;
+    const int q0 = (qb_begin + n % per_head) * STEP;
+    float* Qt = ring + s * L::STAGE;
+    float* Ot = Qt + L::TILE;
+    float* lt = Ot + L::TILE;
+    land_rows<L>(Qt, q + (size_t)bh * S * D, q0, S, STEP);
+    land_rows<L>(Ot, dout + (size_t)bh * S * D, q0, S, STEP);
+    for (int i = tid; i < STEP; i += L::THREADS) {
+      const bool ok = q0 + i < S;
+      const size_t off = (size_t)bh * S + (ok ? q0 + i : 0);
+      cp_async4(lt + i, lse + off, ok ? 4 : 0);
+      cp_async4(lt + STEP + i, delta + off, ok ? 4 : 0);
+    }
+  };
+  // Two groups in flight ahead of the loop: K and V with step 0, step 1.
+  // A CTA with no step copies nothing and writes dK = dV = 0.
+  if (n_steps > 0) {
+    land_rows<L>(Ks, k + kv_off, k0, Tn, ROWS);
+    land_rows<L>(Vs, v + kv_off, k0, Tn, ROWS);
+    load_step(0, 0);
+  }
+  cp_async_commit();
+  if (n_steps > 1) load_step(1, 1);
+  cp_async_commit();
+
+  float dv_acc[R][4 * L::OV], dk_acc[R][4 * L::OV];
 #pragma unroll
-        for (int a = 0; a < RB; ++a) {
-          pa[a] = sm.p[i * LP + ty + TS * a];
-          da[a] = sm.ds[i * LP + ty + TS * a];
-        }
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float o = sm.dout[i * LD + tx + TS * c];
-          const float qq = sm.q[i * LD + tx + TS * c];
+    for (int c = 0; c < 4 * L::OV; ++c) dv_acc[i][c] = dk_acc[i][c] = 0.f;
+  const float sl = scale * LOG2E;  // exp(s scale) = exp2(s sl)
+
+  for (int n = 0; n < n_steps; ++n) {
+    const int s = n & 1;
+    cp_async_wait<1>();  // step n (and K, V) landed; step n + 1 in flight
+    __syncthreads();
+    const float* Qt = ring + s * L::STAGE;
+    const float* Ot = Qt + L::TILE;
+    const float* lt = Ot + L::TILE;
+    const int q0 = (qb_begin + n % per_head) * STEP;
+    float c[R][SC], dp[R][SC];
+    scores<L>(c, Ks, Qt, ty, tx);   // S^T = K Q^T
+    scores<L>(dp, Vs, Ot, ty, tx);  // dP^T = V dO^T
+    // Columns past S read lse = delta = 0 and zero rows: p = 1 against a
+    // zero dO row and ds = 0, so they add exact zeros.
+    const bool edge = masked && k0 + ROWS - 1 + shift > q0;
 #pragma unroll
-          for (int a = 0; a < RB; ++a) {
-            acc_v[a][c] = fmaf(pa[a], o, acc_v[a][c]);
-            acc_k[a][c] = fmaf(da[a], qq, acc_k[a][c]);
-          }
-        }
+    for (int j = 0; j < SC; ++j) {
+      const float nl = -lt[tx + 16 * j] * LOG2E, dl = lt[STEP + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        float p = exp2f(fmaf(c[i][j], sl, nl));
+        if (edge && k0 + ty + RG * i + shift > q0 + tx + 16 * j) p = 0.f;
+        const int e = (ty + RG * i) * L::LDP + tx + 16 * j;
+        Ps[e] = p;
+        Ds[e] = p * (dp[i][j] - dl) * scale;
       }
     }
+    __syncwarp();  // a key row's P^T and dS^T come from its own warp
+    accumulate2<L>(dv_acc, Ps, Ot, dk_acc, Ds, Qt, ty, tx);  // dV, dK
+    __syncthreads();  // stage s, P^T and dS^T read by every thread
+    if (n + 2 < n_steps) load_step(n + 2, s);
+    cp_async_commit();
   }
-
-#pragma unroll
-  for (int a = 0; a < RB; ++a) {
-    const int row = k0 + ty + TS * a;
-    if (row >= Tn) continue;
-    float* dkr = dk + kv_off + (size_t)row * D;
-    float* dvr = dv + kv_off + (size_t)row * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dkr[tx + TS * c] = acc_k[a][c];
-      dvr[tx + TS * c] = acc_v[a][c];
-    }
-  }
+  cp_async_wait<0>();
+  store_rows<L>(dk + kv_off, dk_acc, k0, Tn, ty, tx);
+  store_rows<L>(dv + kv_off, dv_acc, k0, Tn, ty, tx);
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
+// K3.  Thread (ty, tx) owns query rows ty + RG i, key columns tx + 16
+// j of each stage, and columns 64 h + 4 tx .. + 3 of dQ.  Each dQ
+// element is one fmaf chain over keys ascending from 0 (a key past the
+// row's diagonal adds ds = 0 exactly), so a row's bits do not depend on
+// its CTA, S, or the stage.
+template <int D, int ROWS>
+__global__ void __launch_bounds__(ROWS * 4, 1) flash_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dq, int H, int Hkv, int S, int Tn, int masked,
     int shift, float scale) {
-  extern __shared__ float smem[];
-  const Smem<D> sm(smem);
-  constexpr int LD = D + 1, LP = BK + 1, NC = D / TS;
-  const int bh = blockIdx.y;  // b * H + h
+  using L = F32Bwd<D, ROWS, 1>;
+  constexpr int STEP = L::STEP, SC = L::SC, R = F_RPT, RG = L::RG;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Os = Qs + L::OWN;
+  float* ring = Os + L::OWN;
+  float* Ps = ring + 2 * L::STAGE;
+
+  // Heads fastest, Q blocks longest first: every head's longest CTAs
+  // start in the first wave.
+  const int bh = blockIdx.x;  // b * H + h
   const int b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
-  const int q0 = blockIdx.x * BQ;
-  const int ty = threadIdx.x / TS, tx = threadIdx.x % TS;
-
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const size_t q_off = (size_t)bh * S * D;
   const size_t kv_off = ((size_t)b * Hkv + hk) * (size_t)Tn * D;
-  load_tile<D>(sm.q, q + q_off, q0, S, BQ);
-  load_tile<D>(sm.dout, dout + q_off, q0, S, BQ);
-  load_rows(sm.lse, lse + (size_t)bh * S, q0, S);
-  load_rows(sm.delta, delta + (size_t)bh * S, q0, S);
 
-  float acc[RA][NC];
-#pragma unroll
-  for (int a = 0; a < RA; ++a)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[a][c] = 0.f;
+  // Masked: stages starting past this CTA's last row's shifted diagonal
+  // contribute nothing.
+  const int t_end = masked ? min(Tn, max(0, q0 + ROWS - shift)) : Tn;
+  const int n_tiles = (t_end + STEP - 1) / STEP;
 
-  // K blocks starting past the shifted diagonal of this CTA's last row
-  // contribute nothing: k0 + shift <= q0 + BQ - 1 is needed.
-  const int k_end = masked ? min(Tn, max(0, q0 + BQ - shift)) : Tn;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous step's reads of the tiles are done
-    load_tile<D>(sm.k, k + kv_off, k0, Tn, BK);
-    load_tile<D>(sm.v, v + kv_off, k0, Tn, BK);
+  auto load_tile = [&](int t, int s) {  // stage s <- keys [t STEP, +STEP)
+    float* Kt = ring + s * L::STAGE;
+    land_rows<L>(Kt, k + kv_off, t * STEP, Tn, STEP);
+    land_rows<L>(Kt + L::TILE, v + kv_off, t * STEP, Tn, STEP);
+  };
+  if (n_tiles > 0) {
+    land_rows<L>(Qs, q + q_off, q0, S, ROWS);
+    land_rows<L>(Os, dout + q_off, q0, S, ROWS);
+    load_tile(0, 0);
+  }
+  cp_async_commit();
+  if (n_tiles > 1) load_tile(1, 1);
+  cp_async_commit();
+
+  // The own rows' -lse log2e and delta (rows past S: 0, never stored).
+  float nl[R], dl[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty + RG * i;
+    nl[i] = row < S ? -lse[(size_t)bh * S + row] * LOG2E : 0.f;
+    dl[i] = row < S ? delta[(size_t)bh * S + row] : 0.f;
+  }
+  float acc[R][4 * L::OV];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * L::OV; ++c) acc[i][c] = 0.f;
+  const float sl = scale * LOG2E;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t & 1;
+    cp_async_wait<1>();  // tile t (and Q, dO) landed; tile t + 1 in flight
     __syncthreads();
-    probs<D>(sm, q0, k0, S, Tn, masked, shift, scale);
-    __syncthreads();
-#pragma unroll 2
-    for (int j = 0; j < BK; ++j) {
-      float da[RA];
+    const float* Kt = ring + s * L::STAGE;
+    const float* Vt = Kt + L::TILE;
+    float c[R][SC], dp[R][SC];
+    scores<L>(c, Qs, Kt, ty, tx);   // S = Q K^T
+    scores<L>(dp, Os, Vt, ty, tx);  // dP = dO V^T
+    // Keys past T are zero rows, whose p = exp(-lse) could overflow:
+    // masked, with the shifted diagonal, on the tiles that cross either.
+    const int t0 = t * STEP;
+    const bool edge =
+        t0 + STEP > Tn || (masked && t0 + STEP - 1 + shift > q0);
 #pragma unroll
-      for (int a = 0; a < RA; ++a) da[a] = sm.ds[(ty + TS * a) * LP + j];
+    for (int i = 0; i < R; ++i) {
+      const int row = q0 + ty + RG * i;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float kk = sm.k[j * LD + tx + TS * c];
-#pragma unroll
-        for (int a = 0; a < RA; ++a) acc[a][c] = fmaf(da[a], kk, acc[a][c]);
+      for (int j = 0; j < SC; ++j) {
+        const int col = t0 + tx + 16 * j;
+        float p = exp2f(fmaf(c[i][j], sl, nl[i]));
+        if (edge && (col >= Tn || (masked && col + shift > row))) p = 0.f;
+        Ps[(ty + RG * i) * L::LDP + tx + 16 * j] =
+            p * (dp[i][j] - dl[i]) * scale;
       }
     }
+    __syncwarp();  // a row's dS comes from its own warp
+    accumulate<L>(acc, Ps, Kt, ty, tx);  // dQ += dS K
+    __syncthreads();  // stage s and dS read by every thread
+    if (t + 2 < n_tiles) load_tile(t + 2, s);
+    cp_async_commit();
   }
-
-#pragma unroll
-  for (int a = 0; a < RA; ++a) {
-    const int row = q0 + ty + TS * a;
-    if (row >= S) continue;
-    float* dqr = dq + q_off + (size_t)row * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dqr[tx + TS * c] = acc[a][c];
-  }
+  cp_async_wait<0>();
+  store_rows<L>(dq + q_off, acc, q0, S, ty, tx);
 }
 
 template <typename Kern>
@@ -349,18 +525,26 @@ cudaError_t allow_smem(Kern kern, size_t bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// Own rows a CTA: K3 128 (512 threads, 128 registers a thread); K2 128
+// at D = 64, 96 at D = 128 (384 threads, so 168 registers a thread: dK
+// and dV take 64 of them, and at 128 rows the products spilled).
+constexpr int DQ_ROWS = 128;
+template <int D>
+constexpr int DKDV_ROWS = D == 64 ? 128 : 96;
+
 template <int D>
 cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dk, void* dv, int B, int H, int Hkv, int S,
                         int Tn, int masked, int shift, float scale,
                         cudaStream_t st) {
-  const size_t smem = sizeof(float) * Smem<D>::floats;
-  auto kern = flash_bwd_dkdv_kernel<D>;
-  cudaError_t err = allow_smem(kern, smem);
+  constexpr int ROWS = DKDV_ROWS<D>;
+  using L = F32Bwd<D, ROWS, 2>;
+  auto kern = flash_bwd_dkdv_kernel<D, ROWS>;
+  cudaError_t err = allow_smem(kern, L::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((Tn + BK - 1) / BK, B * Hkv);
-  kern<<<grid, THREADS, smem, st>>>(
+  dim3 grid(B * Hkv, (Tn + ROWS - 1) / ROWS);
+  kern<<<grid, L::THREADS, L::SMEM, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -374,12 +558,12 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int B, int H, int Hkv, int S, int Tn,
                       int masked, int shift, float scale, cudaStream_t st) {
-  const size_t smem = sizeof(float) * Smem<D>::floats;
-  auto kern = flash_bwd_dq_kernel<D>;
-  cudaError_t err = allow_smem(kern, smem);
+  using L = F32Bwd<D, DQ_ROWS, 1>;
+  auto kern = flash_bwd_dq_kernel<D, DQ_ROWS>;
+  cudaError_t err = allow_smem(kern, L::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + BQ - 1) / BQ, B * H);
-  kern<<<grid, THREADS, smem, st>>>(
+  dim3 grid(B * H, (S + DQ_ROWS - 1) / DQ_ROWS);
+  kern<<<grid, L::THREADS, L::SMEM, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -398,7 +582,6 @@ constexpr int WG_ROWS = 128;  // a CTA's own rows: K2's K/V, K3's Q
 constexpr int WG_STEP = 64;   // the rows a ring stage streams
 constexpr int WG_STAGES = 4;
 constexpr int BOX_COLS = 64;  // a TMA box row: one 128-byte swizzle line
-constexpr float LOG2E = 1.4426950408889634f;  // exp(x) = exp2(x * LOG2E)
 
 // Shared memory of K2 and K3 (byte offsets from a 1024-byte aligned
 // base): the CTA's two resident tiles (K and V, or Q and dO; WG_ROWS
@@ -883,8 +1066,8 @@ bool bad_shape(int B, int H, int Hkv, int S, int T) {
 
 // dk, dv (B, H_kv, T, D) in the input dtype.  lse and delta are f32
 // (B, H, S); q and dout (B, H, S, D); k and v (B, H_kv, T, D).  bf16
-// runs the tensor-core kernel, f32 the scalar one; pointers must be
-// 16-byte aligned (the wrapper checks).
+// runs the tensor-core kernel, f32 the register-tiled FFMA one; pointers
+// must be 16-byte aligned (the wrapper checks).
 extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, void* dk, void* dv, int B,
@@ -909,7 +1092,7 @@ extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v,
 }
 
 // dq (B, H, S, D) in the input dtype; bf16 runs the tensor-core kernel,
-// f32 the scalar one, as flash_bwd_dkdv.
+// f32 the register-tiled FFMA one, as flash_bwd_dkdv.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int B, int H,

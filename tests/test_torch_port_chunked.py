@@ -341,14 +341,17 @@ class TestChunkedFaults:
         warm_p, long_p = _prompt(37, 30), _prompt(38, 30)
 
         def scenario(S, make):
-            engine = make(**CHUNKED, n_slots=2, tick_timeout=0.3,
+            # Budget and hang three times the first margins (0.3 s,
+            # 0.8 s): under the 6-worker tier-1 load a clean tick has
+            # outlived 0.3 s.
+            engine = make(**CHUNKED, n_slots=2, tick_timeout=0.9,
                           watchdog_interval=0.02, stall_grace=10.0)
             inj = engine.engine_cfg.faults
             engine.warmup((3,))
             run(engine, [engine.submit(warm_p, max_new_tokens=2)])
             warmed = counters(engine)
             inj.add(S.FaultSpec(site="prefill_chunk", kind="hang",
-                                delay=0.8,
+                                delay=2.4,
                                 skip=inj.visits("prefill_chunk") + 1))
             engine.start()
             try:

@@ -91,6 +91,12 @@ def _shift(mask, S, T):
 EDGE_CASES = ([(S, S, "causal") for S in (1, 17, 63, 65, 2047)]
               + [(100, 300, m) for m in ("full", "bottom_right",
                                          "none_visible")])
+# The f32 K2's and K3's own edges: 128 own rows a CTA (K2 keys, K3
+# queries), stages of 64 streamed rows at D = 64 and 32 at D = 128: S or
+# T of 97 and 161 (a second block of 33 rows, a ragged stage) under each
+# mask kind.
+BWD_EDGE_CASES = [(161, 161, "causal"), (97, 161, "bottom_right"),
+                  (161, 97, "full"), (161, 97, "none_visible")]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -248,11 +254,12 @@ def _rel_err(got, want):
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("Hkv", [8, 2], ids=["mha", "gqa"])
 @pytest.mark.parametrize("S,T,mask", [(200, 200, m) for m in (
-    "causal", "full", "shift67")] + EDGE_CASES)
+    "causal", "full", "shift67")] + EDGE_CASES + BWD_EDGE_CASES)
 def test_flash_backward_kernels(dev, dtype, tol, D, Hkv, S, T, mask):
     """K2 and K3 through the autograd Function, with a nonzero lse
     cotangent, against the plain backward on the same forward results
-    (shift 67 leaves rows 0..66 fully masked)."""
+    (shift 67 leaves rows 0..66 fully masked; ``BWD_EDGE_CASES`` cross
+    the f32 kernels' 128-row blocks and their stages)."""
     g = torch.Generator(device=dev).manual_seed(1)
 
     def r(*shape):
@@ -281,8 +288,8 @@ def test_flash_backward_kernels(dev, dtype, tol, D, Hkv, S, T, mask):
     (torch.float32, ("", "", ""))])
 def test_each_dtype_reaches_its_instantiation(dev, dtype, kernels):
     """bf16 runs the wgmma K1, K2 and K3 (``*_kernel_wgmma``), f32 the
-    FFMA ones (``*_kernel``: K1 register-tiled, K2 and K3 scalar): the
-    profiler names the kernels each call launched, the
+    register-tiled FFMA ones (``*_kernel``): the profiler names the
+    kernels each call launched, the
     launch counters grow by one each, and the results match the plain
     versions."""
     from torch.autograd import DeviceType
@@ -1935,28 +1942,83 @@ def test_grouped_matmul_dx_rows_are_invariant(dev, dtype):
                                               out[starts[4]:]]))
 
 
-def test_flash_backward_is_deterministic(dev):
+@pytest.mark.parametrize("dtype,D,S,T,shift", [
+    (torch.bfloat16, 64, 2048, 2048, 0), (torch.float32, 64, 2048, 2048, 0),
+    (torch.float32, 128, 2048, 2048, 0), (torch.float32, 64, 161, 97, -64),
+    (torch.float32, 128, 97, 161, 40)])
+def test_flash_backward_is_deterministic(dev, dtype, D, S, T, shift):
     """K2 and K3 give every element of dk, dv and dq to one CTA, which
     sums it in an order fixed by the shapes (K2 sums a GQA group's query
-    heads inside the CTA; no atomics): at the training shape in bf16,
-    causal, with G = 4, two calls are bit-identical."""
-    B, H, Hkv, S, D = 8, 16, 4, 2048, 64
+    heads inside the CTA; no atomics): with G = 4, two calls are
+    bit-identical, at the training shape (B 8, H 16, causal) in bf16 and
+    f32 at both head dims, and in f32 at the f32 kernels' edges (161 and
+    97 rows: a second 128-row block, ragged stages, shifts that cut
+    them; B 2)."""
+    B, H, Hkv = (8, 16, 4) if S == 2048 else (2, 8, 2)
     g = torch.Generator(device=dev).manual_seed(5)
 
     def r(*shape):
-        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-    q, k, v, do = r(B, H, S, D), r(B, Hkv, S, D), r(B, Hkv, S, D), \
+    q, k, v, do = r(B, H, S, D), r(B, Hkv, T, D), r(B, Hkv, T, D), \
         r(B, H, S, D)
     scale = D ** -0.5
-    o, lse = A._flash_fwd_cuda(q, k, v, 0, scale)
+    o, lse = A._flash_fwd_cuda(q, k, v, shift, scale)
     delta = (do.float() * o.float()).sum(-1)
-    args = (q, k, v, do, lse, delta, 0, scale)
+    args = (q, k, v, do, lse, delta, shift, scale)
     first = (*A._flash_bwd_dkdv_cuda(*args), A._flash_bwd_dq_cuda(*args))
     again = (*A._flash_bwd_dkdv_cuda(*args), A._flash_bwd_dq_cuda(*args))
     torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     for name, a, b in zip(("dk", "dv", "dq"), first, again):
-        assert torch.equal(a.view(torch.int16), b.view(torch.int16)), name
+        assert torch.equal(a.view(bits), b.view(bits)), name
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_f32_rows_are_invariant(dev, D):
+    """An f32 K3 row's dq and an f32 K2 row's dk and dv depend on that
+    row, the rows it sees and their order only (keys ascending; heads,
+    then queries ascending): causal over 300 keys, the first 300 of 400
+    query rows alone equal the same rows of the whole call, the rows
+    from 37 on as a suffix (shift -37) equal them too, and so do the
+    first 240 keys alone and the keys from 37 on (shift 37), each row
+    in another place of its 128-row block; batch 1 alone equals batch 1
+    of a two-batch call."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    q, do = (torch.randn((2, 8, 400, D), generator=g, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn((2, 2, 300, D), generator=g, device=dev)
+            for _ in range(2))
+    scale = D ** -0.5
+    o, lse = A._flash_fwd_cuda(q, k, v, 0, scale)
+    delta = (do * o).sum(-1)
+
+    def dq(rows=slice(None), batch=slice(None), shift=0):
+        qr, dor, lr, dr = (t[batch, :, rows].contiguous()
+                           for t in (q, do, lse, delta))
+        return A._flash_bwd_dq_cuda(qr, k[batch].contiguous(),
+                                    v[batch].contiguous(), dor, lr, dr,
+                                    shift, scale)
+
+    def dkdv(keys=slice(None), batch=slice(None), shift=0):
+        return A._flash_bwd_dkdv_cuda(
+            q[batch].contiguous(), k[batch, :, keys].contiguous(),
+            v[batch, :, keys].contiguous(), do[batch].contiguous(),
+            lse[batch].contiguous(), delta[batch].contiguous(), shift, scale)
+
+    whole_q, whole_kv = dq(), dkdv()
+    pairs = [(whole_q[:, :, :300], dq(slice(0, 300))),
+             (whole_q[:, :, 37:], dq(slice(37, None), shift=-37)),
+             (whole_q[1:], dq(batch=slice(1, None)))]
+    for keys, shift in ((slice(0, 240), 0), (slice(37, None), 37)):
+        for whole, part in zip(whole_kv, dkdv(keys, shift=shift)):
+            pairs.append((whole[:, :, keys], part))
+    for whole, part in zip(whole_kv, dkdv(batch=slice(1, None))):
+        pairs.append((whole[1:], part))
+    torch.cuda.synchronize()
+    for i, (whole, part) in enumerate(pairs):
+        assert torch.equal(whole.contiguous().view(torch.int32),
+                           part.view(torch.int32)), i
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

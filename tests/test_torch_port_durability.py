@@ -60,7 +60,9 @@ def model():
 def _stall(*, hang, tick_timeout, stall_grace, requests, warm):
     """A scenario: a warmed engine under its watchdog, a decode tick
     that hangs ``hang`` seconds two ticks into ``requests``, then one
-    more request once the engine is healthy again."""
+    more request once the engine is healthy again.  The tests' budgets
+    and hangs are three times their first ones: under the 6-worker
+    tier-1 load a clean tick has outlived a 0.3 s budget."""
 
     def scenario(S, make):
         engine = make(n_slots=2, tick_timeout=tick_timeout,
@@ -70,11 +72,15 @@ def _stall(*, hang, tick_timeout, stall_grace, requests, warm):
         warmed = counters(engine)
         inj.add(S.FaultSpec(site="decode_tick", kind="hang", delay=hang,
                             skip=inj.visits("decode_tick") + 2))
+        # The requests are queued before the loop starts, so the hang
+        # finds the same ones in flight at the same tick in either
+        # package (submitted after the start, a late request could miss
+        # the hang, or meet it with fewer tokens, on a loaded host).
+        t0 = time.monotonic()
+        futs = [engine.submit(p, max_new_tokens=n, **kw)
+                for p, n, kw in requests]
         engine.start()
         try:
-            t0 = time.monotonic()
-            futs = [engine.submit(p, max_new_tokens=n, **kw)
-                    for p, n, kw in requests]
             outs = settle(futs)
             early = time.monotonic() - t0 < hang
             # Resolution purges the journal just after it wakes a waiter.
@@ -99,19 +105,19 @@ class TestWatchdog:
         their tokens equal the oracle's."""
         requests = [([11, 12, 13], 8, {}),
                     ([4, 5], 6, dict(temperature=0.9, seed=7))]
-        rec = run_both(model, _stall(hang=0.8, tick_timeout=0.3,
+        rec = run_both(model, _stall(hang=2.4, tick_timeout=0.9,
                                      stall_grace=15.0, requests=requests,
                                      warm=(3, 5, 9)))
-        for (p, n, kw), out in zip(requests, rec["futs"]):
-            assert out == ("ok", oracle(model, p, n, **kw), "length")
-        assert rec["after"] == [("ok", oracle(model, [11, 12], 5),
-                                 "length")]
         st = rec["stats"]
+        for (p, n, kw), out in zip(requests, rec["futs"]):
+            assert out == ("ok", oracle(model, p, n, **kw), "length"), st
+        assert rec["after"] == [("ok", oracle(model, [11, 12], 5),
+                                 "length")], st
         assert (st["engine_failures"], st["engine_restarts"],
-                st["requests_resumed"]) == (1, 1, 2)
+                st["requests_resumed"]) == (1, 1, 2), st
         assert st["state_transitions"] == ["healthy", "failed", "degraded",
-                                           "healthy"]
-        assert rec["healthy"] and st["journal_inflight"] == 0
+                                           "healthy"], st
+        assert rec["healthy"] and st["journal_inflight"] == 0, st
 
     def test_stall_past_grace_hard_fails_bounded(self, model):
         """A hang that outlives budget + grace: every future — in
@@ -120,18 +126,18 @@ class TestWatchdog:
         the tick returns), and the engine recovers to the oracle."""
         requests = [([11, 12, 13], 30, {}), ([14, 15], 30, {}),
                     ([16], 30, dict(temperature=1.0, seed=1))]
-        rec = run_both(model, _stall(hang=1.2, tick_timeout=0.2,
-                                     stall_grace=0.2, requests=requests,
+        rec = run_both(model, _stall(hang=3.6, tick_timeout=0.6,
+                                     stall_grace=0.6, requests=requests,
                                      warm=(3,)))
-        assert [o[:2] for o in rec["futs"]] == \
-            [("err", "EngineStalledError")] * 3
-        assert rec["early"] and rec["purged"]
-        assert rec["after"] == [("ok", oracle(model, [11, 12], 5),
-                                 "length")]
         st = rec["stats"]
+        assert [o[:2] for o in rec["futs"]] == \
+            [("err", "EngineStalledError")] * 3, st
+        assert rec["early"] and rec["purged"], st
+        assert rec["after"] == [("ok", oracle(model, [11, 12], 5),
+                                 "length")], st
         assert (st["engine_failures"], st["engine_restarts"],
-                st["requests_resumed"]) == (1, 1, 0)
-        assert rec["healthy"]
+                st["requests_resumed"]) == (1, 1, 0), st
+        assert rec["healthy"], st
 
 
 class TestJournal:

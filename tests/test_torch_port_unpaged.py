@@ -339,18 +339,25 @@ def test_unpaged_watchdog_stall_resumes(model):
     engine."""
 
     def scenario(S, make):
-        engine = make(n_slots=2, tick_timeout=0.3, watchdog_interval=0.02,
+        # Budget and hang three times the first margins (0.3 s, 0.8 s):
+        # under the 6-worker tier-1 load a clean tick has outlived 0.3 s.
+        engine = make(n_slots=2, tick_timeout=0.9, watchdog_interval=0.02,
                       stall_grace=15.0)
         inj = engine.engine_cfg.faults
-        engine.warmup((3, 5))
+        # Every bucket the prompts and their resumes reach: no compile
+        # may read as a stall.
+        engine.warmup((3, 5, 9))
         warmed = counters(engine)
-        inj.add(S.FaultSpec(site="decode_tick", kind="hang", delay=0.8,
+        inj.add(S.FaultSpec(site="decode_tick", kind="hang", delay=2.4,
                             skip=inj.visits("decode_tick") + 2))
+        # Both requests are queued before the loop starts, so the hang
+        # finds both in flight at the same tick in either package.
+        futs = [engine.submit([11, 12, 13], max_new_tokens=8),
+                engine.submit([4, 5], max_new_tokens=6, temperature=0.9,
+                              seed=7)]
         engine.start()
         try:
-            outs = settle([engine.submit([11, 12, 13], max_new_tokens=8),
-                           engine.submit([4, 5], max_new_tokens=6,
-                                         temperature=0.9, seed=7)])
+            outs = settle(futs)
             healthy = wait_for(lambda: engine.health == "healthy")
         finally:
             engine.stop()
@@ -358,12 +365,13 @@ def test_unpaged_watchdog_stall_resumes(model):
                 "stats": counters(engine, since=warmed)}
 
     rec = run_both(model, scenario, **UNPAGED)
+    st = rec["stats"]
     assert rec["futs"] == [
         ("ok", oracle(model, [11, 12, 13], 8), "length"),
-        ("ok", oracle(model, [4, 5], 6, temperature=0.9, seed=7), "length")]
-    st = rec["stats"]
-    assert (st["engine_restarts"], st["requests_resumed"]) == (1, 2)
-    assert rec["healthy"]
+        ("ok", oracle(model, [4, 5], 6, temperature=0.9, seed=7),
+         "length")], st
+    assert (st["engine_restarts"], st["requests_resumed"]) == (1, 2), st
+    assert rec["healthy"], st
 
 
 @pytest.mark.parametrize("what", ["speculative", "prefill_chunk_tokens",

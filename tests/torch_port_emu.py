@@ -8,9 +8,10 @@ Those files compile ``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu``,
 ``paged_attention.cu`` and ``grouped_matmul.cu`` with g++ against a
 small emulation of what they use (:func:`build`, each file only the
 sources it runs), and hold the kernels (the bf16 K1, K2 and K3 on
-wgmma + TMA, the scalar f32 kernels, K4's split, rows (mma.sync fed by
-TMA) and combine kernels, G1's wgmma + TMA and register-tiled f32
-kernels in both modes, G2's wgmma + TMA and scalar kernels) against
+wgmma + TMA and in f32 register-tiled and fed by cp.async, K4's split,
+rows (mma.sync fed by TMA) and combine kernels, G1's wgmma + TMA and
+register-tiled f32 kernels in both modes, G2's wgmma + TMA and
+register-tiled f32 kernels) against
 their plain versions on seeded inputs (K1 also with its shift read from
 memory; K1, K2 and K3 also bit for bit against themselves in a second
 call; G1 also bit for bit against itself in another batch; G2 also bit
@@ -860,6 +861,17 @@ REPEAT_CASES = [CASES[-1]]
 # queries over 161 keys, shift -128) at D = 128.
 K1_F32_CASES = [(1, 4, 1, 70, 200, 128, -100), (1, 4, 1, 65, 97, 64, 40),
                 (1, 4, 1, 33, 161, 128, -128)]
+# The f32 K2's and K3's own edges (a CTA's 128 own rows: K2's keys,
+# K3's queries; stages of 64 streamed rows at D = 64, of 32 at D = 128):
+# one row with G = 2; G = 4 at D = 128, 63 queries over 161 keys
+# bottom-right (two K2 blocks, the second of 33 keys; two query stages,
+# the second of 31); unmasked G = 2, 161 queries over 97 keys (two K3
+# blocks, a ragged key stage); two batches at D = 128 with a shift of 40
+# (rows 0..39 fully masked); G = 4, S = T = 161 and a shift of 7 that
+# cuts a stage; a shift of -5 at D = 128 with S and T off the stages.
+K23_F32_CASES = [(1, 2, 1, 1, 1, 64, 0), (1, 4, 1, 63, 161, 128, -98),
+                 (1, 4, 2, 161, 97, 64, None), (2, 2, 1, 97, 65, 128, 40),
+                 (1, 4, 1, 161, 161, 64, 7), (1, 2, 1, 65, 63, 128, -5)]
 
 
 # K4 through the same C entry point the wrapper binds, with the pages a

@@ -127,7 +127,7 @@ def run_both(model: Model, scenario, *, shared: bool = False, **kw):
                 return lease(model, _package, **cfg)
             return make_engine(model, _package, **cfg)
         records[package] = scenario(S, make)
-    assert records["port"] == records["jax"]
+    assert records["port"] == records["jax"], records
     return records["port"]
 
 
